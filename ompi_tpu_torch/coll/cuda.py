@@ -1,0 +1,542 @@
+"""coll/cuda — hand-written ring collectives on the device plane.
+
+Port of ``ompi_tpu.coll.pallas`` (priority 60, opt-in with ``--mca
+coll_cuda on``, ``off`` by default like ``coll_pallas``): Allreduce,
+Reduce_scatter_block and Allgather on ``torch.Tensor`` buffers through
+the kernels of :mod:`ompi_tpu_torch.coll.cuda_kernels`, moving data
+through peer-mapped arenas (:class:`Arena`, one per communicator and size
+class — the reduced counterpart of the reference's per-comm
+``coll/xla._Ctx``) on the device the device plane bound.
+
+Selection (``_select``, as coll/pallas.py:210-247):
+
+- ``deterministic='linear'`` runs the rank-order fold (K3), bitwise
+  equal to the host linear fold and to the JAX package's 'linear';
+  ``'ring'`` runs the clockwise ring (bitwise equal to its 'ring');
+- otherwise a forced ``coll_cuda_*_algorithm`` cvar wins, then a
+  ``coll_cuda_switchpoints`` table entry (the reference's JSON format,
+  so a table written for coll/pallas loads unchanged), then the
+  built-in threshold: the bidirectional ring at/above
+  ``coll_cuda_bidir_min_bytes`` (1 MiB), else the ring.
+
+No fallthrough yet: the reference hands unsupported dtypes, ops and
+``'xla'`` decisions to coll/xla. The port has no lower device provider
+in this slice, so those cases (an ``'xla'`` entry of a switchpoint table
+included) count ``coll_cuda_fallthrough`` and raise
+``MPIError(ERR_NOT_SUPPORTED)``; they never stage through the host.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import mmap
+import os
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ompi_tpu_torch import errors, op as op_mod
+from ompi_tpu_torch.coll import cuda_kernels as K
+from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.runtime import device_plane, launcher, rte
+
+_enable_var = cvar.register(
+    "coll_cuda", "off", str,
+    help="Enable the hand-written CUDA ring collectives (priority 60): "
+         "'on' stacks them for every comm the device plane serves; 'off' "
+         "[default] leaves no device provider in this slice.",
+    choices=["off", "on"], level=4)
+
+_default_det = cvar.register(
+    "coll_cuda_deterministic", "", str,
+    help="default determinism mode for device collectives: '' (the "
+         "selection below), 'ring' (fixed ring chunk order), 'linear' "
+         "(exact rank-order fold, bit-identical to the host linear fold)",
+    choices=["", "ring", "linear"], level=4)
+
+_force_allreduce = cvar.register(
+    "coll_cuda_allreduce_algorithm", "", str,
+    help="Force the allreduce variant: ring|bidir|linear. "
+         "Deterministic modes ignore a forced algorithm.",
+    choices=["", "ring", "bidir", "linear"], level=5)
+_force_reduce_scatter = cvar.register(
+    "coll_cuda_reduce_scatter_algorithm", "", str,
+    help="Force the reduce_scatter_block variant: ring|bidir|linear "
+         "(see coll_cuda_allreduce_algorithm).",
+    choices=["", "ring", "bidir", "linear"], level=5)
+_force_allgather = cvar.register(
+    "coll_cuda_allgather_algorithm", "", str,
+    help="Force the allgather variant: ring|bidir (allgather has no "
+         "reduction, so no linear fold).",
+    choices=["", "ring", "bidir"], level=5)
+
+_bidir_min_var = cvar.register(
+    "coll_cuda_bidir_min_bytes", 1 << 20, int,
+    help="Payloads at/above this use the bidirectional ring (half the "
+         "payload each way) when no deterministic mode, forced "
+         "algorithm or switchpoint entry overrides; below it the "
+         "clockwise ring. -1 disables the bidirectional default.",
+    level=5)
+_switch_var = cvar.register(
+    "coll_cuda_switchpoints", "", str,
+    help="Path to a switchpoint table (coll/pallas's JSON format): a "
+         "list of {op, dtype, mesh, log2, algorithm} rules; for each "
+         "(op, dtype, mesh) the rule with the largest log2 <= the "
+         "payload's log2 bucket wins. Empty [default] uses the built-in "
+         "threshold.", level=5)
+
+#: support matrix (coll/pallas.py:122-125)
+_SUPPORTED_DTYPES = frozenset((torch.float32, torch.bfloat16, torch.int32))
+_SUPPORTED_OPS = frozenset(K.OP_CODES)
+
+_BYTES_PVAR = {"ring": "coll_cuda_ring_bytes",
+               "bidir": "coll_cuda_bidir_bytes",
+               "linear": "coll_cuda_linear_bytes"}
+
+_FORCE = {"allreduce": _force_allreduce,
+          "reduce_scatter_block": _force_reduce_scatter,
+          "allgather": _force_allgather}
+
+
+def _det_ok(deterministic: Optional[str]) -> Optional[str]:
+    """Normalize the deterministic mode (slot arg over cvar default)
+    and reject unknown values."""
+    det = deterministic if deterministic is not None else _default_det.get()
+    det = det or None
+    if det not in (None, "ring", "linear"):
+        raise errors.MPIError(
+            errors.ERR_ARG,
+            f"coll_cuda: deterministic={det!r} (expected None, 'ring' or "
+            "'linear' — anything else would void the fixed-reduction-"
+            "order guarantee)")
+    return det
+
+
+def _fallthrough(kind: str, why: str):
+    pvar.record("coll_cuda_fallthrough")
+    raise errors.MPIError(
+        errors.ERR_NOT_SUPPORTED,
+        f"coll_cuda: {kind} {why}; no lower device provider exists in "
+        "this slice of the port (the coll/xla counterpart comes next)")
+
+
+def log2_bucket(nbytes: int) -> int:
+    """log2 size bucket of the switchpoint key (monitoring/algo.py)."""
+    return max(int(nbytes), 1).bit_length() - 1
+
+
+_sw_cache: dict = {}
+
+
+def _switchpoint(kind: str, nbytes: int, dtype: str, mesh_shape) -> str:
+    path = _switch_var.get().strip()
+    if not path:
+        return ""
+    table = _sw_cache.get(path)
+    if table is None:
+        try:
+            with open(path, encoding="utf-8") as f:
+                entries = json.load(f)
+        except (OSError, ValueError) as exc:
+            raise errors.MPIError(
+                errors.ERR_ARG,
+                f"coll_cuda_switchpoints: cannot read {path!r}: {exc}"
+            ) from exc
+        table = {}
+        for e in entries if isinstance(entries, list) else []:
+            key = (str(e.get("op", "")), str(e.get("dtype", "")),
+                   tuple(int(v) for v in e.get("mesh", ())))
+            table.setdefault(key, []).append(
+                (int(e.get("log2", 0)), str(e.get("algorithm", ""))))
+        for rules in table.values():
+            rules.sort()
+        _sw_cache[path] = table
+    best = ""
+    bucket = log2_bucket(nbytes)
+    for lg, alg in table.get((kind, dtype, tuple(mesh_shape)), ()):
+        if bucket < lg:
+            break
+        best = alg
+    return best
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).replace("torch.", "")
+
+
+def _select(kind: str, comm, sendbuf: torch.Tensor, det: Optional[str],
+            chunk_rows: int) -> Optional[str]:
+    """The decision layer: algorithm name, or None for the reference's
+    coll/xla fallthrough (a switchpoint table's 'xla' entry).
+    Deterministic modes pin the matching kernel; otherwise forced cvar >
+    switchpoint table > bidir threshold > ring."""
+    nbytes = sendbuf.numel() * sendbuf.element_size()
+    forced = _FORCE[kind].get()
+    if det == "linear":
+        return "linear" if kind != "allgather" else "ring"
+    if det == "ring":
+        return "ring"
+    if forced:
+        return forced if not (forced == "bidir" and chunk_rows < 2) \
+            else "ring"
+    sw = _switchpoint(kind, nbytes, _dtype_name(sendbuf), (comm.size,))
+    if sw == "xla":
+        return None
+    if sw:
+        return sw if not (sw == "bidir" and chunk_rows < 2) else "ring"
+    bmin = _bidir_min_var.get()
+    if 0 <= bmin <= nbytes and chunk_rows >= 2:
+        return "bidir"
+    return "ring"
+
+
+def _account(sendbuf: torch.Tensor, algo: str) -> None:
+    pvar.record("coll_cuda_launches")
+    pvar.record(_BYTES_PVAR[algo], sendbuf.numel() * sendbuf.element_size())
+
+
+def _check_buf(kind: str, sendbuf) -> None:
+    dev = device_plane.device()
+    if not isinstance(sendbuf, torch.Tensor):
+        raise errors.MPIError(errors.ERR_BUFFER,
+                              f"coll_cuda: {kind} needs a torch.Tensor")
+    if sendbuf.device.type != dev.type or (
+            dev.type == "cuda" and sendbuf.device.index != dev.index):
+        raise errors.MPIError(
+            errors.ERR_BUFFER,
+            f"coll_cuda: {kind} buffer on {sendbuf.device}, but this "
+            f"rank's device plane runs on {dev}")
+    if sendbuf.dtype not in _SUPPORTED_DTYPES:
+        _fallthrough(kind, f"dtype {sendbuf.dtype} is outside "
+                     "float32/bfloat16/int32")
+
+
+def _opn(kind: str, op) -> op_mod.Op:
+    opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
+    if opn is None or opn.name not in _SUPPORTED_OPS:
+        _fallthrough(kind, f"op {getattr(opn, 'name', op)!r} is outside "
+                     "SUM/PROD/MIN/MAX")
+    return opn
+
+
+# ---------------------------------------------------------------------------
+# per-comm state: peer-mapped arenas per size class
+#
+# Each rank allocates its staged input and four carry slots with
+# cudaMalloc (outside PyTorch's caching allocator, whose blocks
+# cudaIpcGetMemHandle cannot export), publishes the IPC handle through
+# the kvstore, and opens every peer's handle; a rank never opens its own
+# (CUDA refuses that within one process). On the CPU platform the same
+# arenas are shared-memory files, with peer views as tensors over each
+# peer's file. Ring hops are ordered by hop counters in a host-shared
+# file per rank and arena: after each step a rank synchronises its
+# stream, publishes its counter, and waits (up to device_plane_timeout)
+# for the ranks the step depends on. Device-side flags would spin through
+# whole time slices when several processes share one card; they are a
+# later change, for one rank per card.
+
+_timeout = cvar.register(
+    "device_plane_timeout", 60, int,
+    help="seconds a rank waits for a peer's hop counter before raising "
+         "MPIError(ERR_INTERN) naming the peer, instead of hanging",
+    level=6)
+
+#: arena sizes are multiples of this (16-byte vector loads, typed views)
+ALIGN = 256
+_FLAG_SLOTS = 8  # int64 counters per rank and arena
+_FLAG_IDX = {1: 0, -1: 1, K.ALL: 2}
+
+
+def align(nbytes: int) -> int:
+    return -(-max(int(nbytes), 1) // ALIGN) * ALIGN
+
+
+class _DevPtr:
+    """A raw device allocation seen through __cuda_array_interface__."""
+
+    def __init__(self, ptr: int, nbytes: int) -> None:
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "strides": None, "version": 3}
+
+
+def _map_file(path: str, nbytes: int, create: bool):
+    fd = os.open(path, os.O_RDWR | (os.O_CREAT | os.O_EXCL if create
+                                    else 0), 0o600)
+    try:
+        if create:
+            os.ftruncate(fd, nbytes)
+        return mmap.mmap(fd, nbytes)
+    finally:
+        os.close(fd)
+
+
+class Arena(K.Ring):
+    """One communicator's symmetric buffers for one size class, mapped
+    on every member: this rank's staged input and slots, every peer's
+    through its peer mapping, and the hop counters."""
+
+    def __init__(self, cid: int, tag: str, rank: int, n: int,
+                 in_bytes: int, slot_bytes: int) -> None:
+        self._maps: List[mmap.mmap] = []
+        self._peer_ptrs: List[int] = []
+        self._own_ptr: Optional[int] = None
+        self._paths: List[str] = []
+        dev = device_plane.device()
+        total = in_bytes + 4 * slot_bytes
+        base = os.path.join(launcher.shm_dir(),
+                            f"{launcher.SHM_PREFIX}{rte.jobid}_c{cid}_"
+                            f"{tag}_r{rank}")
+        flag_path = base + "_flags"
+        self._paths.append(flag_path)
+        self._maps.append(_map_file(flag_path, 8 * _FLAG_SLOTS, True))
+        desc = {"flags": flag_path}
+        if dev.type == "cuda":
+            # builds the kernels on first use: a failed build raises here,
+            # at the same collective call on every rank
+            L = K.lib()
+            K.check(L.otc_set_device(dev.index), "cudaSetDevice")
+            ptr = ctypes.c_void_p()
+            K.check(L.otc_malloc(total, ctypes.byref(ptr)), "arena cudaMalloc")
+            self._own_ptr = ptr.value
+            handle = ctypes.create_string_buffer(L.otc_ipc_handle_size())
+            K.check(L.otc_ipc_get_handle(ptr, handle), "cudaIpcGetMemHandle")
+            desc["handle"] = handle.raw
+            mine = torch.as_tensor(_DevPtr(ptr.value, total))
+        else:
+            self._paths.append(base)
+            self._maps.append(_map_file(base, total, True))
+            desc["path"] = base
+            mine = torch.frombuffer(self._maps[-1], dtype=torch.uint8)
+        key = f"arena:{rte.jobid}:{cid}:{tag}"
+        rte.client().put(f"{key}:{rank}", desc)
+        bufs, flags = [], []
+        for p in range(n):
+            d = desc if p == rank else rte.client().get(f"{key}:{p}")
+            if p == rank:
+                buf = mine
+                fmap = self._maps[0]
+            else:
+                fmap = _map_file(d["flags"], 8 * _FLAG_SLOTS, False)
+                self._maps.append(fmap)
+                if dev.type == "cuda":
+                    pptr = ctypes.c_void_p()
+                    h = ctypes.create_string_buffer(d["handle"],
+                                                    len(d["handle"]))
+                    K.check(K.lib().otc_ipc_open(h, ctypes.byref(pptr)),
+                            f"cudaIpcOpenMemHandle (rank {p})")
+                    self._peer_ptrs.append(pptr.value)
+                    # no device= here: torch would copy a peer card's
+                    # memory over; the view stays on the card that owns it
+                    buf = torch.as_tensor(_DevPtr(pptr.value, total))
+                else:
+                    m = _map_file(d["path"], total, False)
+                    self._maps.append(m)
+                    buf = torch.frombuffer(m, dtype=torch.uint8)
+            bufs.append(buf)
+            flags.append(np.frombuffer(fmap, dtype=np.int64))
+        super().__init__(rank, n, [b[:in_bytes] for b in bufs],
+                         [b[in_bytes:] for b in bufs], slot_bytes)
+        self.flags = flags
+        self.device = dev
+        self.nbytes = total
+        pvar.record("device_plane_arenas")
+
+    # -- the hop-counter protocol -----------------------------------------
+    def run(self, steps) -> None:
+        """Drive one schedule (a cuda_kernels generator): after every
+        step, make it visible to the peers and wait for the ranks the
+        next step depends on."""
+        mine = self.flags[self.rank]
+        for dirs in steps:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self.advance(dirs)
+            for d in dirs:
+                mine[_FLAG_IDX[d]] = self.linear if d == K.ALL \
+                    else self.hops[d]
+            for d in dirs:
+                if d == K.ALL:
+                    for p in range(self.n):
+                        self._wait(p, d, self.linear)
+                else:
+                    for p in {(self.rank - d) % self.n,
+                              (self.rank + d) % self.n}:
+                        self._wait(p, d, self.hops[d])
+
+    def _wait(self, p: int, d, target: int) -> None:
+        f, i = self.flags[p], _FLAG_IDX[d]
+        if f[i] >= target:
+            return
+        t0 = time.monotonic()
+        deadline = t0 + _timeout.get()
+        spins = 0
+        while f[i] < target:
+            spins += 1
+            if spins > 64:
+                time.sleep(0 if spins < 4096 else 1e-4)
+            if time.monotonic() > deadline:
+                raise errors.MPIError(
+                    errors.ERR_INTERN,
+                    f"coll_cuda: comm rank {self.rank} waited "
+                    f"{_timeout.get()}s for comm rank {p} to pass "
+                    f"{'linear' if d == K.ALL else f'direction {d} hop'} "
+                    f"step {target} (it is at {int(f[i])})")
+        pvar.record("device_plane_wait_ns",
+                    int((time.monotonic() - t0) * 1e9))
+
+    # -- teardown (collective: close peers, fence, then free own) --------
+    def close_peers(self) -> None:
+        self.inputs = self.slotbufs = None
+        self.flags = None
+        for ptr in self._peer_ptrs:
+            K.check(K.lib().otc_ipc_close(ctypes.c_void_p(ptr)),
+                    "cudaIpcCloseMemHandle")
+        self._peer_ptrs = []
+
+    def free_own(self) -> None:
+        if self._own_ptr is not None:
+            K.check(K.lib().otc_free(ctypes.c_void_p(self._own_ptr)),
+                    "arena cudaFree")
+            self._own_ptr = None
+        for m in self._maps:
+            try:
+                m.close()
+            except BufferError:
+                pass  # a tensor view still holds it; the OS reclaims it
+        self._maps = []
+        for path in self._paths:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+        self._paths = []
+
+
+def _pow2(nbytes: int) -> int:
+    return 1 << max(12, (max(int(nbytes), 1) - 1).bit_length())
+
+
+def _arena(comm, family: str, nbytes: int) -> Arena:
+    """The comm's arena for this payload's size class (created
+    collectively on first use: every member makes the same call)."""
+    arenas = comm.__dict__.setdefault("_coll_cuda_arenas", {})
+    cap = _pow2(nbytes)
+    key = (family, cap)
+    ep = arenas.get(key)
+    if ep is None:
+        n = comm.size
+        if family == "ag":  # the whole block travels; nothing is staged
+            in_bytes, slot_bytes = ALIGN, cap
+        else:  # staged input + one chunk per slot
+            in_bytes = cap
+            slot_bytes = align(-(-cap // n))
+        ep = arenas[key] = Arena(
+            comm.cid, f"{family}{cap}", comm.rank, n, in_bytes, slot_bytes)
+        pvar.record_hwm("device_plane_arena_bytes",
+                        sum(a.nbytes for a in arenas.values()))
+    return ep
+
+
+def release(comm) -> None:
+    """Unmap a comm's arenas — collective: peers' mappings close before
+    any rank frees the memory behind them."""
+    arenas = comm.__dict__.pop("_coll_cuda_arenas", {})
+    for ep in arenas.values():
+        ep.close_peers()
+    if arenas:
+        rte.fence(f"coll_cuda_release:{comm.cid}")
+    for ep in arenas.values():
+        ep.free_own()
+
+
+# ---------------------------------------------------------------------------
+# slots — the shapes of the reference's coll/pallas slots
+
+
+def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
+                  deterministic: Optional[str] = None):
+    det = _det_ok(deterministic)
+    _check_buf("allreduce", sendbuf)
+    opn = _opn("allreduce", op)
+    m, n = sendbuf.numel(), comm.size
+    if m == 0:
+        return sendbuf.clone()
+    k = K.padded_chunk(m, n)
+    algo = _select("allreduce", comm, sendbuf, det, k)
+    if algo is None:
+        _fallthrough("allreduce", "was sent to coll/xla by a "
+                     "switchpoint")
+    _account(sendbuf, algo)
+    out = torch.empty(n * k, dtype=sendbuf.dtype, device=sendbuf.device)
+    ep = _arena(comm, "rs", n * k * sendbuf.element_size())
+    ep.run(K.allreduce(ep, sendbuf.reshape(-1), opn.name, algo, out))
+    return out[:m].view(sendbuf.shape)
+
+
+def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
+                             deterministic: Optional[str] = None):
+    det = _det_ok(deterministic)
+    _check_buf("reduce_scatter_block", sendbuf)
+    opn = _opn("reduce_scatter_block", op)
+    n = comm.size
+    if sendbuf.dim() < 1 or sendbuf.shape[0] % n:
+        raise errors.MPIError(
+            errors.ERR_COUNT,
+            f"reduce_scatter_block: dim 0 of shape {tuple(sendbuf.shape)} "
+            f"is not divisible by the comm size {n}")
+    rows = sendbuf.shape[0] // n
+    out = torch.empty((rows,) + tuple(sendbuf.shape[1:]),
+                      dtype=sendbuf.dtype, device=sendbuf.device)
+    if sendbuf.numel() == 0:
+        return out
+    algo = _select("reduce_scatter_block", comm, sendbuf, det, rows)
+    if algo is None:
+        _fallthrough("reduce_scatter_block", "was sent to coll/xla by a "
+                     "switchpoint")
+    _account(sendbuf, algo)
+    ep = _arena(comm, "rs", sendbuf.numel() * sendbuf.element_size())
+    ep.run(K.reduce_scatter(ep, sendbuf.reshape(-1), opn.name, algo,
+                            out.numel() // max(rows, 1), out.view(-1)))
+    return out
+
+
+def allgather_dev(comm, sendbuf):
+    _check_buf("allgather", sendbuf)
+    n = comm.size
+    out = torch.empty((n,) + tuple(sendbuf.shape), dtype=sendbuf.dtype,
+                      device=sendbuf.device)
+    if sendbuf.numel() == 0:
+        return out
+    algo = _select("allgather", comm, sendbuf, None, sendbuf.numel())
+    if algo is None:
+        _fallthrough("allgather", "was sent to coll/xla by a "
+                     "switchpoint")
+    _account(sendbuf, algo)
+    ep = _arena(comm, "ag", sendbuf.numel() * sendbuf.element_size())
+    ep.run(K.allgather(ep, sendbuf.reshape(-1), algo, out.view(-1)))
+    return out
+
+
+class CollCuda:
+    """The component coll's comm_select ranks."""
+
+    NAME = "cuda"
+    PRIORITY = 60  # coll/pallas's level, above where coll/xla will sit
+
+    def query(self, comm) -> int:
+        if _enable_var.get() != "on" or comm.size == 1:
+            return -1
+        if not device_plane.active():
+            return -1
+        return self.PRIORITY
+
+    def slots(self, comm):
+        return {
+            "allreduce_dev": allreduce_dev,
+            "allgather_dev": allgather_dev,
+            "reduce_scatter_block_dev": reduce_scatter_block_dev,
+        }

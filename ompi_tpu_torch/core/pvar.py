@@ -1,0 +1,73 @@
+"""Performance variables + software performance counters (SPC).
+
+Reference: opal/mca/base/mca_base_pvar.c (MPI_T performance variables) and
+ompi/runtime/ompi_spc.h:46-153 (SPC_RECORD() in the API layer). A single
+process-wide counter table serves both roles; the MPI_T-style session API
+is :func:`session` / ``read``. The port's own copy: ``WELL_KNOWN`` holds
+only the pvars this package records.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict
+
+_counters: Dict[str, int] = {}
+_watermarks: Dict[str, int] = {}
+_lock = threading.Lock()
+
+WELL_KNOWN = (
+    # coll/cuda (hand-written ring collectives over peer-mapped
+    # arenas): collective calls served, calls that the component could
+    # not serve (raised ERR_NOT_SUPPORTED: no lower device provider
+    # exists yet), and payload bytes per algorithm family
+    "coll_cuda_launches", "coll_cuda_fallthrough",
+    "coll_cuda_ring_bytes", "coll_cuda_bidir_bytes",
+    "coll_cuda_linear_bytes",
+    # device plane transport: arenas mapped (one per comm and size
+    # class), their device bytes (high watermark), and the wall spent
+    # waiting on ring neighbours' hop counters
+    "device_plane_arenas", "device_plane_arena_bytes",
+    "device_plane_wait_ns",
+)
+
+
+def record(name: str, value: int = 1) -> None:
+    """SPC_RECORD equivalent — add to a counter."""
+    with _lock:
+        _counters[name] = _counters.get(name, 0) + value
+
+
+def record_hwm(name: str, value: int) -> None:
+    """High-watermark pvar update."""
+    with _lock:
+        if value > _watermarks.get(name, 0):
+            _watermarks[name] = value
+
+
+def read(name: str) -> int:
+    with _lock:
+        if name in _counters:
+            return _counters[name]
+        return _watermarks.get(name, 0)
+
+
+class session:
+    """MPI_T-style pvar session: delta-reads counters from session start.
+
+    Counter pvars read as deltas; watermark pvars read as the increase over
+    the watermark at session start.
+    """
+
+    def __init__(self) -> None:
+        with _lock:
+            self._base_counters = dict(_counters)
+            self._base_hwm = dict(_watermarks)
+
+    def read(self, name: str) -> int:
+        with _lock:
+            if name in _counters or name in self._base_counters:
+                return _counters.get(name, 0) - \
+                    self._base_counters.get(name, 0)
+            return max(0, _watermarks.get(name, 0) -
+                       self._base_hwm.get(name, 0))

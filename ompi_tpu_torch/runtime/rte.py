@@ -1,0 +1,100 @@
+"""RTE client — the PMIx client equivalent inside each rank.
+
+Reference: ompi/runtime/ompi_rte.c (PMIx_Init at :580, proc naming) and the
+modex macros OPAL_MODEX_SEND/RECV (opal/mca/pmix/pmix-internal.h:230-366).
+Environment contract with the launcher:
+  OMPI_TPU_RANK, OMPI_TPU_SIZE, OMPI_TPU_STORE_ADDR (host:port),
+  OMPI_TPU_JOBID, OMPI_TPU_LOCAL_RANK, OMPI_TPU_LOCAL_SIZE
+Singleton (no launcher): rank 0 of 1 with an in-process store.
+"""
+
+from __future__ import annotations
+
+import atexit
+import os
+import threading
+from typing import Any, Optional
+
+from ompi_tpu_torch.runtime import kvstore
+
+_lock = threading.Lock()
+_client: Optional[kvstore.Client] = None
+_local_store: Optional[kvstore.Store] = None
+_fence_epoch = 0
+
+rank: int = 0
+size: int = 1
+jobid: str = "singleton"
+local_rank: int = 0
+local_size: int = 1
+
+
+def is_launched() -> bool:
+    return "OMPI_TPU_STORE_ADDR" in os.environ
+
+
+def init() -> None:
+    """Connect to the store (or start a singleton one)."""
+    global _client, _local_store, rank, size, jobid, local_rank, local_size
+    with _lock:
+        if _client is not None:
+            return
+        if is_launched():
+            rank = int(os.environ["OMPI_TPU_RANK"])
+            size = int(os.environ["OMPI_TPU_SIZE"])
+            jobid = os.environ.get("OMPI_TPU_JOBID", "job0")
+            local_rank = int(os.environ.get("OMPI_TPU_LOCAL_RANK", rank))
+            local_size = int(os.environ.get("OMPI_TPU_LOCAL_SIZE", size))
+            host, _, port = os.environ["OMPI_TPU_STORE_ADDR"].partition(":")
+            _client = kvstore.Client((host, int(port)))
+        else:
+            rank, size, jobid = 0, 1, f"singleton{os.getpid()}"
+            local_rank, local_size = 0, 1
+            _local_store = kvstore.Store().start()
+            _client = kvstore.Client(_local_store.addr)
+        atexit.register(_shutdown)
+
+
+def _shutdown() -> None:
+    global _client, _local_store
+    if _client is not None:
+        _client.close()
+        _client = None
+    if _local_store is not None:
+        _local_store.stop()
+        _local_store = None
+
+
+def client() -> kvstore.Client:
+    if _client is None:
+        init()
+    assert _client is not None
+    return _client
+
+
+def modex_send(component: str, data: Any) -> None:
+    """Publish this rank's endpoint data (OPAL_MODEX_SEND)."""
+    client().put(f"modex:{jobid}:{component}:{rank}", data)
+
+
+def modex_recv(component: str, peer: int, wait: bool = True) -> Any:
+    """Fetch a peer's endpoint data (OPAL_MODEX_RECV); lazy, blocking."""
+    return client().get(f"modex:{jobid}:{component}:{peer}", wait=wait)
+
+
+def world_ranks() -> range:
+    return range(size)
+
+
+def fence(tag: str = "", timeout: float | None = None) -> None:
+    """World rendezvous (PMIx_Fence). A timeout (shutdown paths only)
+    raises socket.timeout."""
+    global _fence_epoch
+    if size == 1:
+        return
+    with _lock:
+        _fence_epoch += 1
+        epoch = _fence_epoch
+    client().fence(f"fence:{jobid}:{tag}:{epoch}", size, rank,
+                   timeout=timeout)
+
