@@ -5,26 +5,39 @@ a GPU. Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build the ring kernels from ``ompi_tpu_torch/coll/csrc/ring_kernels.cu``
+1. build the kernels from ``ompi_tpu_torch/coll/csrc/ring_kernels.cu``
    with nvcc for sm_90a (into ``build/ompi_tpu_torch/``);
-2. hold every kernel (K1 ring_rs_hop, K2 ring_ag_hop, K3 linear_fold)
-   against its plain PyTorch version on the card, for float32, bfloat16
-   and int32 x SUM/PROD/MIN/MAX, at the main path's shape (a 256 MiB
-   payload over 4 ranks) and at two ragged small shapes (one of them not
-   16-byte aligned) — bitwise; inputs carry NaN and +-0. Then time each
-   kernel (float32 SUM, CUDA events, median of 10) beside its plain
-   version, one PyTorch library call and its bound;
-3. the main path: the launcher runs
-   ``ompi_tpu_torch/examples/device_collectives.py`` with 4 ranks (every
-   rank on this card) and then 3 ranks, ``--mca device_plane on --mca
-   coll_cuda on``: Allreduce float32 at 1 KiB, 1 MiB, 64 MiB and 256 MiB
-   under linear, ring and the default mode, bfloat16 and int32 at 1 MiB,
-   Reduce_scatter_block and Allgather at 64 MiB. Each rank checks its
-   results against plain-version results and reports its kernels'
-   launch counts, which the ranks zero just before the path runs.
+2. hold every kernel against its plain PyTorch version on the card:
+   K1 ring_rs_hop, K2 ring_ag_hop, K3 linear_fold for float32, bfloat16
+   and int32 x SUM/PROD/MIN/MAX at the collectives path's shape (a
+   256 MiB payload over 4 ranks) and at two ragged small shapes (one of
+   them not 16-byte aligned), bitwise, inputs carrying NaN and +-0; K5
+   ring_rs_update_hop for the three dtypes with and without momentum and
+   scaling at the training path's largest chunk (the bucket that holds
+   GPT-2's ln_f, wpe and wte: 9,846,336 elements per rank over 4 ranks)
+   and the ragged shapes, bitwise; K6 block_matmul at GPT-2's MLP
+   up-projection block
+   ((2048, 768) @ (768, 3072)) and ragged and mixed-dtype shapes,
+   |err| <= tol * (|x| @ |w|) with tol 1e-5 float32 and 2e-2 bfloat16,
+   int32 exact. Then time each kernel (CUDA events, median of 10) beside
+   its plain version, one PyTorch library call where one computes the
+   same function, and its bound;
+3. the main paths, each with the kernels' launch counts zeroed by the
+   ranks just before it and read just after: the launcher runs
+   ``ompi_tpu_torch/examples/device_collectives.py`` (Allreduce,
+   Reduce_scatter_block, Allgather; 4 ranks on this card, then 3) and
+   ``ompi_tpu_torch/examples/zero_training.py`` (the ZeRO stage-2 step
+   over GPT-2 small's full-width parameters, unfused and fused, 'linear'
+   and ring, plus allgather_matmul_dev and zero3_gather_matmul_dev; 4
+   ranks with all 12 layers, then 3 ranks with 4), ``--mca device_plane
+   on --mca coll_cuda on``. Each rank checks its results (bitwise where
+   the fold order is fixed, fused == unfused bitwise) and reports its
+   launch counts; every kernel of a path must have launched on it.
 
 Output: one line per measurement with the card's name and power limit,
-then ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
+then ``{"kernels": [...]}`` (K1-K3 launches from the collectives path,
+K5 and K6 from the training path), the card line, and, last,
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -38,10 +51,16 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
 N_RANKS = 4
-MAIN_BYTES = 256 << 20  # the main path's largest Allreduce payload
+MAIN_BYTES = 256 << 20  # the collectives path's largest Allreduce payload
+#: K5: per-rank chunk of the training path's largest bucket (ln_f, wpe and
+#: wte of GPT-2 small, 39,385,344 float32 over 4 ranks)
+WTE_CHUNK = (2 + 1024 + 50257) * 768 // N_RANKS
+MM_SHAPE = (2048, 768, 3072)  # K6: (m, d, f) of one block's product
+SRC = "ompi_tpu_torch/coll/csrc/ring_kernels.cu"
 REPS = 10
-LAUNCH_TIMEOUT = 420  # seconds per launcher job
+LAUNCH_TIMEOUT = 200  # seconds per launcher job (four jobs)
 
 
 def fail(msg: str) -> None:
@@ -75,12 +94,14 @@ def median_ms(fn, torch) -> float:
     return times[len(times) // 2]
 
 
-def make(torch, numel, dtype, seed, dev):
+def make(torch, numel, dtype, seed, dev, traps=True):
     g = torch.Generator(device=dev).manual_seed(seed)
     if dtype == torch.int32:
         return torch.randint(-(1 << 31), (1 << 31) - 1, (numel,),
                              generator=g, device=dev, dtype=torch.int32)
     x = torch.randn(numel, generator=g, device=dev).to(dtype)
+    if not traps:
+        return x
     # the numerical traps: NaN, and both zeros against each other
     x[3 + seed::1009] = float("nan")
     x[5::997] = 0.0
@@ -150,7 +171,11 @@ def kernel_checks(torch, K, dev, card):
           f"float32/bfloat16/int32 x SUM/PROD/MIN/MAX at {MAIN_BYTES} B "
           f"over {n} ranks and two ragged shapes [{card}]", flush=True)
 
-    # timings at the main path's shape, float32 SUM
+    fused_checks(torch, K, dev, card, results)
+
+    # timings at the main paths' shapes: K1-K3 float32 SUM over the
+    # 256 MiB Allreduce, K5 float32 with momentum and scaling at the wte
+    # chunk, K6 float32 (and bfloat16, printed) at the MLP block
     numel = MAIN_BYTES // 4
     chunk = numel // n
     srcs = [make(torch, numel, torch.float32, 20 + p, dev) for p in range(n)]
@@ -161,79 +186,199 @@ def kernel_checks(torch, K, dev, card):
     cb = chunk * 4
     rows = []
 
-    def row(name, src, replaces, ms, plain_ms, lib_ms, nbytes, ops):
-        bound = max(nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S) * 1e3
-        by = "bytes" if nbytes / HBM_BYTES_PER_S >= ops / F32_OPS_PER_S \
-            else "operations"
-        rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": 0,
-                     "max_abs_err": results[name], "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound,
-                     "bound_by": by, "library_ms": lib_ms})
+    def row(name, replaces, ms, plain_ms, lib_ms, nbytes, ops,
+            ops_per_s=F32_OPS_PER_S, record=True, why_no_library=""):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+        bound = max(t_bytes, t_ops) * 1e3
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        if record:
+            rows.append({"name": name, "route": "cuda", "source": SRC,
+                         "replaces": replaces, "launches": 0,
+                         "max_abs_err": results[name], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib_ms})
+        lib = f"library {lib_ms:.4f} ms" if lib_ms is not None else \
+            f"library none: {why_no_library}"
         print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"library {lib_ms:.4f} ms, bound {bound:.4f} ms by {by}) "
-              f"at {nbytes} B moved [{card}]", flush=True)
+              f"{lib}, bound {bound:.4f} ms by {by}) at {nbytes} B moved, "
+              f"{ops} operations [{card}]", flush=True)
 
-    src = "ompi_tpu_torch/coll/csrc/ring_kernels.cu"
     K.reset_launches()
-    row("ring_rs_hop", src, "ompi_tpu/coll/pallas_kernels.py:529",
+    row("ring_rs_hop", "ompi_tpu/coll/pallas_kernels.py:529",
         median_ms(lambda: K.ring_rs_hop(carry, own, dst, "MPI_SUM"), torch),
         median_ms(lambda: K.ring_rs_hop_plain(carry, own, dst, "MPI_SUM"),
                   torch),
         median_ms(lambda: torch.add(carry, own, out=dst), torch),
         3 * cb, chunk)
-    row("ring_ag_hop", src, "ompi_tpu/coll/pallas_kernels.py:565",
+    row("ring_ag_hop", "ompi_tpu/coll/pallas_kernels.py:565",
         median_ms(lambda: K.ring_ag_hop(carry, dst, dst2=dst2), torch),
         median_ms(lambda: K.ring_ag_hop_plain(carry, dst, dst2=dst2),
                   torch),
         median_ms(lambda: torch.stack((carry, carry), out=pair), torch),
         3 * cb, 0)
-    row("linear_fold", src, "ompi_tpu/coll/pallas_kernels.py:389",
+    row("linear_fold", "ompi_tpu/coll/pallas_kernels.py:389",
         median_ms(lambda: K.linear_fold(srcs, fold, "MPI_SUM"), torch),
         median_ms(lambda: K.linear_fold_plain(srcs, fold, "MPI_SUM"), torch),
         median_ms(lambda: torch.sum(torch.stack(srcs), 0), torch),
         (n + 1) * numel * 4, (n - 1) * numel)
     del srcs, carry, own, dst, dst2, pair, fold
+
+    k = WTE_CHUNK
+    a, b, p, v = (make(torch, k, torch.float32, 30 + i, dev, traps=False)
+                  for i in range(4))
+    po, vo = torch.empty_like(p), torch.empty_like(v)
+    c = [K.shard_const(x, torch.float32) for x in (0.01, 0.9, 1 / n)]
+
+    def k5(fn):
+        return lambda: fn(a, b, p, v, po, vo, c[0], c[1], c[2])
+
+    row("ring_rs_update_hop", "ompi_tpu/coll/pallas_kernels.py:601",
+        median_ms(k5(K.ring_rs_update_hop), torch),
+        median_ms(k5(K.ring_rs_update_hop_plain), torch), None,
+        6 * 4 * k, 6 * k,
+        why_no_library="no single PyTorch call reduces two chunks and "
+                       "applies the momentum-SGD update")
+    del a, b, p, v, po, vo
+
+    m, d, f = MM_SHAPE
+    for dtype, rate, record in ((torch.float32, F32_OPS_PER_S, True),
+                                (torch.bfloat16, BF16_OPS_PER_S, False)):
+        x = torch.randn(m, d, device=dev).to(dtype)
+        w = torch.randn(d, f, device=dev).to(dtype)
+        o = torch.empty(m, f, device=dev, dtype=dtype)
+        row("block_matmul" if record else "block_matmul (bfloat16)",
+            "ompi_tpu/coll/pallas_kernels.py:659",
+            median_ms(lambda: K.block_matmul(x, w, o), torch),
+            median_ms(lambda: K.block_matmul_plain(x, w, o), torch),
+            median_ms(lambda: torch.matmul(x, w, out=o), torch),
+            (m * d + d * f + m * f) * x.element_size(), 2 * m * d * f,
+            ops_per_s=rate, record=record)
+        del x, w, o
     torch.cuda.empty_cache()
     return rows
 
 
-def main_path(nranks: int, sizes: str, card: str, root: str):
-    """Phase 3: one launcher job; returns the ranks' summed launches."""
-    out = os.path.join(root, "build", "ompi_tpu_torch", f"smoke_n{nranks}")
+def fused_checks(torch, K, dev, card, results):
+    """Phase 2 for the training path's kernels: K5 bitwise, K6 to its
+    tolerance, each against its plain version on the card."""
+    results["ring_rs_update_hop"] = 0.0
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        for numel, off in ((WTE_CHUNK, 0), (4099, 0), (1027, 1)):
+            a, b, p, v = (make(torch, numel + off, dtype, 40 + i, dev,
+                               traps=False)[off:] for i in range(4))
+            c = [K.shard_const(x, dtype) for x in (0.01, 0.9, 1 / N_RANKS)]
+            for mom in (False, True):
+                for inv in (False, True):
+                    got = [torch.empty_like(p), torch.empty_like(p)]
+                    exp = [torch.empty_like(p), torch.empty_like(p)]
+                    for fn, o in ((K.ring_rs_update_hop, got),
+                                  (K.ring_rs_update_hop_plain, exp)):
+                        fn(a, b, p, v if mom else None, o[0],
+                           o[1] if mom else None, c[0],
+                           c[1] if mom else None, c[2] if inv else None)
+                    for j in range(2 if mom else 1):
+                        ok, err = compare(torch, got[j], exp[j])
+                        if not ok:
+                            fail(f"ring_rs_update_hop != plain ({dtype} "
+                                 f"numel={numel} offset={off} momentum="
+                                 f"{mom} inv={inv}), err {err}")
+                        results["ring_rs_update_hop"] = max(
+                            results["ring_rs_update_hop"], err)
+            torch.cuda.synchronize()
+            del a, b, p, v, got, exp
+    print(f"kernels: K5 bitwise equal to its plain version for "
+          f"float32/bfloat16/int32, with and without momentum and "
+          f"scaling, at {WTE_CHUNK} elements and two ragged shapes "
+          f"[{card}]", flush=True)
+
+    results["block_matmul"] = 0.0
+    g = torch.Generator(device=dev).manual_seed(50)
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    cases = [(MM_SHAPE, dt, dt) for dt in (torch.float32, torch.bfloat16,
+                                             torch.int32)]
+    cases += [((130, 70, 200), dt, dt) for dt in (torch.float32,
+                                                  torch.bfloat16,
+                                                  torch.int32)]
+    cases += [((1, 5, 3), torch.float32, torch.float32),
+              ((33, 65, 17), torch.int32, torch.bfloat16),
+              ((33, 65, 17), torch.float32, torch.bfloat16),
+              ((33, 65, 17), torch.int32, torch.float32)]
+    errs = {}
+    for (m, d, f), xdt, wdt in cases:
+        def operand(shape, dt):
+            if dt == torch.int32:
+                lim = 1 << 31 if xdt == wdt else 50
+                return torch.randint(-lim, lim - 1, shape, generator=g,
+                                     device=dev, dtype=dt)
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        x, w = operand((m, d), xdt), operand((d, f), wdt)
+        dt = torch.promote_types(xdt, wdt)
+        got = torch.empty(m, f, device=dev, dtype=dt)
+        exp = torch.empty_like(got)
+        K.block_matmul(x, w, got)
+        K.block_matmul_plain(x, w, exp)
+        torch.cuda.synchronize()
+        where = f"{tuple(x.shape)} {xdt} @ {tuple(w.shape)} {wdt}"
+        if dt == torch.int32:
+            if not torch.equal(got, exp):
+                fail(f"block_matmul != plain ({where})")
+            continue
+        mag = x.to(dt).float().abs() @ w.to(dt).float().abs()
+        diff = (got.float() - exp.float()).abs()
+        if not bool((diff <= tol[dt] * mag).all()):
+            fail(f"block_matmul != plain beyond {tol[dt]} x (|x| @ |w|) "
+                 f"({where})")
+        err = diff.max().item()
+        errs[str(dt)] = max(errs.get(str(dt), 0.0), err)
+        results["block_matmul"] = max(results["block_matmul"], err)
+        del x, w, got, exp, mag, diff
+    print(f"kernels: K6 within tol x (|x| @ |w|) of its plain version "
+          f"(float32 1e-5, bfloat16 2e-2; max abs err {errs}), int32 "
+          f"exact, at {MM_SHAPE} and ragged and mixed-dtype shapes "
+          f"[{card}]", flush=True)
+
+
+def main_path(example: str, nranks: int, args, card: str, root: str):
+    """Phase 3: one launcher job of an example; returns the ranks'
+    summed launches and rank 0's report."""
+    name = os.path.splitext(example)[0]
+    out = os.path.join(root, "build", "ompi_tpu_torch",
+                       f"smoke_{name}_n{nranks}")
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
            "-n", str(nranks), "--timeout", str(LAUNCH_TIMEOUT),
            "--mca", "device_plane", "on", "--mca", "coll_cuda", "on",
-           os.path.join(root, "ompi_tpu_torch", "examples",
-                        "device_collectives.py"),
-           "--sizes", sizes, "--out", out]
+           os.path.join(root, "ompi_tpu_torch", "examples", example),
+           *args, "--out", out]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
-                          timeout=LAUNCH_TIMEOUT + 60)
+                          timeout=LAUNCH_TIMEOUT + 30)
     wall = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
         print(f"{line} [{card}]", flush=True)
     if proc.returncode != 0:
         sys.stderr.write(proc.stderr[-6000:])
-        fail(f"{nranks}-rank launcher job exited {proc.returncode}")
+        fail(f"{name}: {nranks}-rank launcher job exited {proc.returncode}")
     launches: dict = {}
+    docs = []
     for r in range(nranks):
         with open(os.path.join(out, f"rank{r}.json")) as f:
             doc = json.load(f)
+        docs.append(doc)
         bad = [c for c in doc["cases"] if not c["ok"]]
         if bad:
-            fail(f"rank {r} of {nranks}: mismatches {bad}")
+            fail(f"{name}: rank {r} of {nranks}: mismatches {bad}")
         if not doc["device"].startswith("cuda"):
-            fail(f"rank {r} ran on {doc['device']}")
+            fail(f"{name}: rank {r} ran on {doc['device']}")
         for k, v in doc["launches"].items():
             launches[k] = launches.get(k, 0) + v
     if not launches or min(launches.values()) <= 0:
-        fail(f"{nranks}-rank main path: a kernel never launched: "
+        fail(f"{name} n={nranks}: a kernel of the path never launched: "
              f"{launches}")
-    print(f"main path n={nranks}: {wall:.1f} s wall, kernel launches "
-          f"(all ranks) {launches} [{card}]", flush=True)
-    return launches
+    print(f"main path {name} n={nranks}: {wall:.1f} s wall, kernel "
+          f"launches (all ranks) {launches} [{card}]", flush=True)
+    return launches, docs[0]
 
 
 def main() -> int:
@@ -255,14 +400,28 @@ def main() -> int:
     t0 = time.perf_counter()
     K.build(verbose=True)
     K.lib()
-    print(f"build: ring kernels built for sm_90a in "
+    print(f"build: kernels built for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
+    # the plain and library float32 products run in full float32
+    torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_checks(torch, K, dev, card)
-    launches = main_path(N_RANKS, "1k,1m,64m,256m", card, root)
-    main_path(3, "1k,1m,64m", card, root)
+    coll, _ = main_path("device_collectives.py", N_RANKS,
+                        ["--sizes", "1k,1m,64m,256m"], card, root)
+    main_path("device_collectives.py", 3, ["--sizes", "1k,1m,64m"], card,
+              root)
+    train, doc = main_path("zero_training.py", N_RANKS, [], card, root)
+    if doc["parameters"] != 124_439_808:
+        fail(f"zero_training ran {doc['parameters']} parameters, not "
+             "GPT-2 small's 124,439,808")
+    print(f"training step n={N_RANKS} (rank 0 p50 ms): "
+          + ", ".join(f"{m} {v['p50']:.3f}" for m, v in
+                      doc["step_ms"].items())
+          + f"; allgather_matmul p50 ms {doc['allgather_matmul_ms']} "
+          f"[{card}]", flush=True)
+    main_path("zero_training.py", 3, ["--layers", "4"], card, root)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (coll if r["name"] in coll else train)[r["name"]]
 
     print(json.dumps({"kernels": rows}))
     print(card)

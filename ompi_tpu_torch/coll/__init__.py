@@ -3,11 +3,11 @@
 Reference: ompi/mca/coll/ — coll.h:532-649 (the per-comm function table),
 coll_base_comm_select.c:236-330 (all enabled components stacked in
 ascending priority, each overriding the slots it implements; disqualify on
-priority<0). This slice of the port has one component, ``cuda`` (the
-hand-written ring kernels over the device plane, the counterpart of
-coll/pallas); the host components and the coll/xla counterpart come in
-later slices, so a slot no component provides raises
-``MPIError(ERR_NOT_SUPPORTED)``.
+priority<0). The port has two components so far: ``device`` (priority
+50, the coll/xla counterpart, reduced to the zero/ bucket slots) and
+``cuda`` (priority 60, opt-in: the hand-written ring kernels, the
+counterpart of coll/pallas). The host components come in later slices,
+so a slot no component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.
 """
 
 from __future__ import annotations
@@ -16,13 +16,14 @@ from typing import Dict
 
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.coll.cuda import CollCuda
+from ompi_tpu_torch.coll.device import CollDevice
 from ompi_tpu_torch.core import output
 
 _out = output.stream("coll_base")
 
 #: the components comm_select ranks: each has NAME, query(comm) -> priority
 #: (< 0 disqualifies) and slots(comm) -> {slot name: function}
-COMPONENTS = (CollCuda,)
+COMPONENTS = (CollDevice, CollCuda)
 
 
 class CollTable:

@@ -6,7 +6,12 @@ Reduce_scatter_block and Allgather on ``torch.Tensor`` buffers through
 the kernels of :mod:`ompi_tpu_torch.coll.cuda_kernels`, moving data
 through peer-mapped arenas (:class:`Arena`, one per communicator and size
 class — the reduced counterpart of the reference's per-comm
-``coll/xla._Ctx``) on the device the device plane bound.
+``coll/xla._Ctx``) on the device the device plane bound; and the two
+fused slots coll/pallas exists for (coll/pallas.py:449-690):
+``fused_rs_update_dev`` (the ZeRO reduce-scatter whose last ring hop
+updates the shard, K5) and ``allgather_matmul_dev`` /
+``zero3_gather_matmul_dev`` (the ring allgather whose blocks are
+multiplied as they arrive, K6).
 
 Selection (``_select``, as coll/pallas.py:210-247):
 
@@ -20,10 +25,13 @@ Selection (``_select``, as coll/pallas.py:210-247):
   ``coll_cuda_bidir_min_bytes`` (1 MiB), else the ring.
 
 No fallthrough yet: the reference hands unsupported dtypes, ops and
-``'xla'`` decisions to coll/xla. The port has no lower device provider
-in this slice, so those cases (an ``'xla'`` entry of a switchpoint table
-included) count ``coll_cuda_fallthrough`` and raise
-``MPIError(ERR_NOT_SUPPORTED)``; they never stage through the host.
+``'xla'`` decisions to coll/xla. The port's coll/xla counterpart
+(coll/device) holds only the zero/ bucket slots so far, so those cases
+(an ``'xla'`` entry of a switchpoint table included) count
+``coll_cuda_fallthrough`` and raise ``MPIError(ERR_NOT_SUPPORTED)``;
+they never stage through the host. ``fused_rs_update_dev`` and
+``zero3_gather_matmul_dev`` return None for a case they do not take, as
+the reference's do: their caller then runs its unfused sequence.
 """
 
 from __future__ import annotations
@@ -193,9 +201,13 @@ def _select(kind: str, comm, sendbuf: torch.Tensor, det: Optional[str],
     return "ring"
 
 
-def _account(sendbuf: torch.Tensor, algo: str) -> None:
+def _account_bytes(nbytes: int, algo: str) -> None:
     pvar.record("coll_cuda_launches")
-    pvar.record(_BYTES_PVAR[algo], sendbuf.numel() * sendbuf.element_size())
+    pvar.record(_BYTES_PVAR[algo], nbytes)
+
+
+def _account(sendbuf: torch.Tensor, algo: str) -> None:
+    _account_bytes(sendbuf.numel() * sendbuf.element_size(), algo)
 
 
 def _check_buf(kind: str, sendbuf) -> None:
@@ -521,6 +533,135 @@ def allgather_dev(comm, sendbuf):
     return out
 
 
+# ---------------------------------------------------------------------------
+# fused slots (coll/cuda only: no lower provider has them)
+
+
+def fused_rs_update_dev(comm, grads, pshards, mshards, *, lr: float,
+                        mu: float = 0.0, avg: bool = True,
+                        deterministic: Optional[str] = None):
+    """ZeRO fused reduce-scatter + shard update over the gradient pytree
+    (coll/pallas.py:449-601): per ZeroPlan bucket one clockwise ring whose
+    last hop (K5) updates this rank's parameter shard (and momentum) with
+    the reduced chunk. Returns ``(new_pshards, new_mshards)``, or None
+    (counted in ``coll_cuda_fallthrough``) for a case it does not take,
+    after which ZeroOptimizer runs its unfused step.
+
+    Under ``deterministic='linear'`` the bucket is reduce-scattered by
+    the rank-order fold (K3) and the update runs eagerly, op for op, as
+    the reference does. In the other modes K5 rounds after every op, so
+    the fused step is bitwise equal to the unfused 'ring' step (the
+    reference's fused ring is only within one rounding of its unfused
+    step, since XLA may contract multiply-adds)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    det = _det_ok(deterministic)
+    leaves, _ = zl.tree_flatten(grads)
+    metas = zl._fuse_metas(leaves)
+    plan = pshards.plan
+    if comm.size == 1 or not leaves or metas != tuple(pshards.metas) \
+            or any(getattr(torch, dt) not in _SUPPORTED_DTYPES
+                   for dt in plan.dtypes):
+        pvar.record("coll_cuda_fallthrough")
+        return None
+    for t in leaves:
+        _check_buf("fused_rs_update", t)
+    with_mom = mshards is not None
+    algo = "linear" if det == "linear" else "ring"
+    _account_bytes(plan.nbytes, algo)
+    new_p, new_m = [], []
+    for b, idxs in enumerate(plan.buckets):
+        flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
+        dt = flat.dtype
+        lr_c, mu_c = K.shard_const(lr, dt), K.shard_const(mu, dt)
+        inv = K.shard_const(1.0 / comm.size, dt) if avg else None
+        p0 = pshards.shards[b]
+        v0 = mshards.shards[b] if with_mom else None
+        ep = _arena(comm, "rs", flat.numel() * flat.element_size())
+        if det == "linear":
+            g = torch.empty_like(p0)
+            ep.run(K.reduce_scatter(ep, flat, "MPI_SUM", "linear", 1, g))
+            pn, vn = K.shard_update_plain(g, p0, v0, lr_c, mu_c, inv)
+        else:
+            pn = torch.empty_like(p0)
+            vn = torch.empty_like(v0) if with_mom else None
+            ep.run(K.reduce_scatter_update(
+                ep, flat, p0, v0, lr_c, mu_c if with_mom else None, inv,
+                pn, vn))
+        pvar.record("coll_cuda_fused_launches")
+        new_p.append(pn)
+        new_m.append(vn)
+    ps = zl.ShardedState(plan, pshards.metas, pshards.treedef, new_p,
+                         comm.rank, comm.size)
+    ms = zl.ShardedState(plan, pshards.metas, pshards.treedef, new_m,
+                         comm.rank, comm.size) if with_mom else None
+    return ps, ms
+
+
+def allgather_matmul_dev(comm, x, w):
+    """Tensor-parallel ``allgather(x) @ w`` (coll/pallas.py:604-654): x
+    is this rank's (m, d) row block, w the replicated (d, f) weight;
+    returns the full (n*m, f) product in ``torch.promote_types(x, w)``,
+    each block multiplied (K6) as the clockwise ring (K2) delivers it.
+    Other cases raise ERR_NOT_SUPPORTED (the reference composes coll/xla's
+    allgather with a local matmul; the port has no lower provider for
+    that yet)."""
+    why = None
+    if comm.size == 1:
+        why = "on one rank"
+    elif not (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)
+              and x.dim() == 2 and w.dim() == 2
+              and x.shape[1] == w.shape[0]):
+        why = "needs a 2-D x (m, d) and a 2-D w (d, f)"
+    elif x.dtype not in _SUPPORTED_DTYPES or w.dtype not in _SUPPORTED_DTYPES:
+        why = f"of {x.dtype} @ {w.dtype} is outside float32/bfloat16/int32"
+    if why is not None:
+        _fallthrough("allgather_matmul", why)
+    _check_buf("allgather_matmul", x)
+    _check_buf("allgather_matmul", w)
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x, w = x.to(dt).contiguous(), w.to(dt).contiguous()
+    m, n = x.shape[0], comm.size
+    out = torch.empty((n * m, w.shape[1]), dtype=dt, device=x.device)
+    _account(x, "ring")
+    pvar.record("coll_cuda_fused_launches")
+    if x.numel() == 0:
+        return out.zero_()
+    ep = _arena(comm, "ag", x.numel() * x.element_size())
+    ep.run(K.allgather_matmul(ep, x, w, out))
+    return out
+
+
+def zero3_gather_matmul_dev(comm, state, rhs):
+    """ZeRO stage-3 gather-and-use (coll/pallas.py:657-690): a sharded
+    2-D weight W (a one-bucket, one-leaf ShardedState without pad) times
+    ``rhs``, through :func:`allgather_matmul_dev` on this rank's row
+    block, so W is never gathered whole. A contiguous 1/n slice of a
+    row-major (d, f) flatten with d % n == 0 is rows [r*d/n, (r+1)*d/n).
+    Returns the (d, k) product, or None (counted in
+    ``coll_cuda_fallthrough``) for any other layout."""
+    plan = getattr(state, "plan", None)
+    shards = getattr(state, "shards", None)
+    ok = (comm.size > 1
+          and plan is not None and shards is not None
+          and len(plan.buckets) == 1
+          and len(plan.buckets[0]) == 1
+          and plan.padded[0] == plan.elems[0]
+          and isinstance(rhs, torch.Tensor) and rhs.dim() == 2
+          and rhs.dtype in _SUPPORTED_DTYPES
+          and getattr(torch, plan.dtypes[0]) in _SUPPORTED_DTYPES)
+    if ok:
+        shape = state.metas[plan.buckets[0][0]][0]
+        ok = (len(shape) == 2
+              and int(shape[0]) % comm.size == 0
+              and int(shape[1]) == int(rhs.shape[0]))
+    if not ok:
+        pvar.record("coll_cuda_fallthrough")
+        return None
+    block = shards[0].reshape(int(shape[0]) // comm.size, int(shape[1]))
+    return allgather_matmul_dev(comm, block, rhs)
+
+
 class CollCuda:
     """The component coll's comm_select ranks."""
 
@@ -539,4 +680,8 @@ class CollCuda:
             "allreduce_dev": allreduce_dev,
             "allgather_dev": allgather_dev,
             "reduce_scatter_block_dev": reduce_scatter_block_dev,
+            # the fused compute + communication slots
+            "fused_rs_update_dev": fused_rs_update_dev,
+            "allgather_matmul_dev": allgather_matmul_dev,
+            "zero3_gather_matmul_dev": zero3_gather_matmul_dev,
         }

@@ -1,7 +1,7 @@
 """coll/cuda_kernels — the ring collective kernels and their schedules.
 
-Port of :mod:`ompi_tpu.coll.pallas_kernels` (the reference's K1-K4).
-Three kernels written by hand in CUDA C++ for Hopper
+Port of :mod:`ompi_tpu.coll.pallas_kernels` (the reference's K1-K6).
+Five kernels written by hand in CUDA C++ for Hopper
 (``csrc/ring_kernels.cu``, built with nvcc for ``sm_90a`` into a plain C
 library loaded with ctypes):
 
@@ -10,7 +10,12 @@ library loaded with ctypes):
 - :func:`ring_ag_hop` (K2) — one allgather hop, the neighbour's block
   copied into the own slot and the output;
 - :func:`linear_fold` (K3) — the rank-order fold over every rank's staged
-  input, ``acc = g0; acc = fn(acc, g_i)``.
+  input, ``acc = g0; acc = fn(acc, g_i)``;
+- :func:`ring_rs_update_hop` (K5) — the last reduce-scatter hop fused
+  with the ZeRO shard update (``g *= inv; v' = mu*v + g; p' = p -
+  lr*v'``), rounded op by op so it equals the eager update bitwise;
+- :func:`block_matmul` (K6) — one arrived block of a row-gathered
+  activation times the weight, into the block's rows of the output.
 
 Each has a plain PyTorch version beside it (``*_plain``) doing the same
 steps on the same views. A wrapper takes the plain version only for
@@ -19,15 +24,17 @@ Each wrapper counts its launches in a plain integer attribute,
 ``<wrapper>.launches``.
 
 The schedules (K4: :func:`allreduce`, :func:`reduce_scatter`,
-:func:`allgather`) are generators over a :class:`Ring` — a rank's view of
-the symmetric buffers (every rank's staged input and carry slots). They
+:func:`allgather`; the fused :func:`reduce_scatter_update` and
+:func:`allgather_matmul`) are generators over a :class:`Ring` — a rank's
+view of the symmetric buffers (every rank's staged input and carry
+slots). They
 follow the reference's chunk schedule exactly (carry starts at chunk r-d;
 hop s folds ``fn(carry, own chunk r-(s+2)d)``; allgather hop s delivers
 rank r-(s+1)d's block; the allreduce zero-pads to a multiple of n), so
 'ring' and 'linear' results are bitwise equal to the JAX package's. A
 generator yields after every step that a peer depends on; whoever runs
 it then makes the step visible and waits for the ring neighbours (the
-multi-process transport in :mod:`ompi_tpu_torch.runtime.device_plane`)
+multi-process arena transport of :mod:`ompi_tpu_torch.coll.cuda`)
 or simply steps the other ranks (:func:`run_lockstep`, n ranks in one
 process, as the tests do).
 
@@ -143,6 +150,10 @@ def lib():
         L.otc_rs_hop.argtypes = [i, i, p, p, p, p, i64, p]
         L.otc_ag_hop.argtypes = [p, p, p, i64, p]
         L.otc_linear_fold.argtypes = [i, i, ctypes.POINTER(p), i, p, i64, p]
+        u32 = ctypes.c_uint32
+        L.otc_rs_update_hop.argtypes = [i, i, p, p, p, p, p, p, u32, u32,
+                                        u32, i, i64, p]
+        L.otc_block_matmul.argtypes = [i, p, p, p, i64, i64, i64, p]
         L.otc_set_device.argtypes = [i]
         L.otc_malloc.argtypes = [i64, ctypes.POINTER(p)]
         L.otc_free.argtypes = [p]
@@ -154,6 +165,7 @@ def lib():
         L.otc_error_string.argtypes = [i]
         L.otc_error_string.restype = ctypes.c_char_p
         for fn in (L.otc_rs_hop, L.otc_ag_hop, L.otc_linear_fold,
+                   L.otc_rs_update_hop, L.otc_block_matmul,
                    L.otc_set_device, L.otc_malloc, L.otc_free,
                    L.otc_ipc_get_handle, L.otc_ipc_open, L.otc_ipc_close,
                    L.otc_ipc_handle_size, L.otc_max_peers):
@@ -312,7 +324,157 @@ def linear_fold(srcs: Sequence[torch.Tensor], dst: torch.Tensor,
 
 linear_fold.launches = 0
 
-KERNELS = (ring_rs_hop, ring_ag_hop, linear_fold)
+
+def shard_const(value: float, dtype) -> torch.Tensor:
+    """``value`` cast to a shard's dtype, as a 0-d CPU tensor: the
+    ``jnp.asarray(value, dtype)`` of the reference's update (1/3 rounds
+    to bfloat16; 0.9 truncates to 0 for int32)."""
+    return torch.tensor(value, dtype=dtype)
+
+
+def _const_bits(c: Optional[torch.Tensor]) -> int:
+    if c is None:
+        return 0
+    if c.element_size() == 2:
+        return int(c.view(torch.int16).item()) & 0xFFFF
+    return int(c.view(torch.int32).item()) & 0xFFFFFFFF
+
+
+def shard_update_plain(g, p, v, lr, mu, inv):
+    """The eager ZeRO shard update, one rounded op at a time: ``g *=
+    inv; v' = mu*v + g; p' = p - lr*v'`` (ompi_tpu ZeroOptimizer.step and
+    pallas_kernels.py ``_apply_update`` :120, in their op order). The
+    constants are :func:`shard_const` tensors; v and inv may be None.
+    Returns (p', v'). Never ``add(alpha=)``, ``addcmul`` or ``lerp``:
+    those round once for two ops."""
+    if inv is not None:
+        g = torch.mul(g, inv)
+    vn = None
+    if v is not None:
+        vn = torch.add(torch.mul(mu, v), g)
+        g = vn
+    return torch.sub(p, torch.mul(lr, g)), vn
+
+
+def ring_rs_update_hop_plain(carry, own, p, v, p_out, v_out, lr, mu, inv,
+                             op: str = "MPI_SUM") -> None:
+    pn, vn = shard_update_plain(combine(op, carry, own), p, v, lr, mu, inv)
+    p_out.copy_(pn)
+    if v_out is not None:
+        v_out.copy_(vn)
+
+
+def ring_rs_update_hop(carry: torch.Tensor, own: torch.Tensor,
+                       p: torch.Tensor, v: Optional[torch.Tensor],
+                       p_out: torch.Tensor, v_out: Optional[torch.Tensor],
+                       lr: torch.Tensor, mu: Optional[torch.Tensor],
+                       inv: Optional[torch.Tensor],
+                       op: str = "MPI_SUM") -> None:
+    """K5: ``g = fn(carry, own)``, then the shard update into ``p_out``
+    (and ``v_out`` when the momentum ``v`` is given; ``inv`` None skips
+    the scaling). The constants are 0-d tensors of the shard dtype
+    (:func:`shard_const`); the kernel gets their bit patterns. Outputs
+    must not be inputs. Replaces pallas_kernels.py
+    ``_dma_reduce_scatter_update`` (:601, bodies ``_combine_update_body``
+    :143 and ``_apply_update`` :120)."""
+    if (v is None) != (v_out is None) or (v is not None and mu is None):
+        raise ValueError("ring_rs_update_hop: v, v_out and mu go together")
+    ins = [carry, own, p] + ([v] if v is not None else [])
+    outs = [p_out] + ([v_out] if v_out is not None else [])
+    kind = _check_tensors("ring_rs_update_hop", ins + outs, p.numel())
+    for c in (lr, mu, inv):
+        if c is not None and (c.dim() != 0 or c.dtype != p.dtype):
+            raise ValueError("ring_rs_update_hop: constants must be 0-d "
+                             f"tensors of {p.dtype}")
+    if {o.data_ptr() for o in outs} & {t.data_ptr() for t in ins}:
+        raise ValueError("ring_rs_update_hop: an output is also an input")
+    if kind == "cpu":
+        ring_rs_update_hop_plain(carry, own, p, v, p_out, v_out, lr, mu,
+                                 inv, op)
+        return
+    check(lib().otc_rs_update_hop(
+        DTYPE_CODES[p.dtype], OP_CODES[op], carry.data_ptr(),
+        own.data_ptr(), p.data_ptr(),
+        v.data_ptr() if v is not None else None, p_out.data_ptr(),
+        v_out.data_ptr() if v_out is not None else None,
+        _const_bits(lr), _const_bits(mu), _const_bits(inv),
+        int(inv is not None), p.numel(), _stream_ptr(p_out)),
+        "ring_rs_update_hop launch")
+    ring_rs_update_hop.launches += 1
+
+
+ring_rs_update_hop.launches = 0
+
+
+def _matmul_i32_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` mod 2**32 for int32 operands, exactly (torch.matmul has
+    no int32 path on CUDA): 16-bit halves multiplied in float64, where
+    every partial sum stays below 2**53 for d < 2**20, recombined in
+    int64."""
+    if x.shape[1] >= 1 << 20:
+        raise ValueError("block_matmul: int32 depth of 2**20 or more")
+
+    def halves(t):
+        u = t.long() & 0xFFFFFFFF
+        return (u & 0xFFFF).double(), (u >> 16).double()
+
+    xl, xh = halves(x)
+    wl, wh = halves(w)
+    lo = torch.matmul(xl, wl).long()
+    mid = torch.matmul(xh, wl).long() + torch.matmul(xl, wh).long()
+    r = (lo + ((mid & 0xFFFF) << 16)) & 0xFFFFFFFF
+    return torch.where(r >= 1 << 31, r - (1 << 32), r).int()
+
+
+def block_matmul_plain(x, w, out) -> None:
+    x, w = x.to(out.dtype), w.to(out.dtype)
+    if out.dtype == torch.int32:
+        out.copy_(_matmul_i32_plain(x, w))
+    else:
+        torch.matmul(x, w, out=out)
+
+
+def block_matmul(x: torch.Tensor, w: torch.Tensor,
+                 out: torch.Tensor) -> None:
+    """K6: ``out = x @ w`` for one (m, d) block and the (d, f) weight, in
+    ``out``'s dtype, which must be ``torch.promote_types(x, w)`` (it
+    agrees with ``jnp.result_type`` over float32/bfloat16/int32); mixed
+    operands are cast to it first. float32 and bfloat16 accumulate in
+    float32, int32 wraps. Replaces pallas_kernels.py
+    ``_dma_allgather_matmul`` (:659, body ``_matmul_body`` :112)."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] \
+            or tuple(out.shape) != (x.shape[0], w.shape[1]):
+        raise ValueError(f"block_matmul: shapes {tuple(x.shape)} @ "
+                         f"{tuple(w.shape)} -> {tuple(out.shape)}")
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if out.dtype != dt or dt not in DTYPE_CODES:
+        raise ValueError(f"block_matmul: {x.dtype} @ {w.dtype} -> "
+                         f"{out.dtype} (expected {dt}, one of float32, "
+                         "bfloat16, int32)")
+    kind = out.device.type
+    for t in (x, w, out):
+        if t.device.type != kind:
+            raise ValueError(f"block_matmul: tensors on {out.device} and "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError("block_matmul: non-contiguous operand")
+    if kind == "cpu":
+        block_matmul_plain(x, w, out)
+        return
+    if kind != "cuda":
+        raise ValueError(f"block_matmul: unsupported device {out.device}")
+    x, w = x.to(dt), w.to(dt)
+    check(lib().otc_block_matmul(
+        DTYPE_CODES[dt], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        x.shape[0], x.shape[1], w.shape[1], _stream_ptr(out)),
+        "block_matmul launch")
+    block_matmul.launches += 1
+
+
+block_matmul.launches = 0
+
+KERNELS = (ring_rs_hop, ring_ag_hop, linear_fold, ring_rs_update_hop,
+           block_matmul)
 
 
 def reset_launches() -> None:
@@ -402,9 +564,12 @@ def run_lockstep(rings: Sequence[Ring], gens: Sequence[Iterator]) -> None:
 
 
 def _rs_steps(ep: Ring, dtype, op: str, d: int, k: int, lo: int, w: int,
-              out: Optional[torch.Tensor]) -> Iterator[Tuple]:
+              out: Optional[torch.Tensor], last=None) -> Iterator[Tuple]:
     """Ring reduce-scatter over the staged input's chunks (chunk j =
-    elements [j*k+lo, j*k+lo+w)); the last hop also writes ``out``."""
+    elements [j*k+lo, j*k+lo+w)); the last hop also writes ``out``.
+    ``last(carry, own)``, when given, is the last hop instead (the fused
+    update): it writes no slot, since nothing reads the last hop's slot,
+    and still counts as a hop of direction d."""
     n, r = ep.n, ep.rank
     prev = (r - d) % n
     mine = ep.inputs[r]
@@ -419,19 +584,23 @@ def _rs_steps(ep: Ring, dtype, op: str, d: int, k: int, lo: int, w: int,
     yield (d,)
     for s in range(n - 1):
         h = ep.hops[d]
-        ring_rs_hop(slot(prev, h % 2), own((r - (s + 2) * d) % n),
-                    slot(r, (h + 1) % 2), op,
-                    dst2=out if s == n - 2 else None)
+        carry, chunk = slot(prev, h % 2), own((r - (s + 2) * d) % n)
+        if s == n - 2 and last is not None:
+            last(carry, chunk)
+        else:
+            ring_rs_hop(carry, chunk, slot(r, (h + 1) % 2), op,
+                        dst2=out if s == n - 2 else None)
         yield (d,)
 
 
 def _ag_steps(ep: Ring, dtype, d: int, k: int, lo: int, w: int,
-              out: torch.Tensor,
-              init: Optional[torch.Tensor]) -> Iterator[Tuple]:
+              out: Optional[torch.Tensor], init: Optional[torch.Tensor],
+              arrived=None) -> Iterator[Tuple]:
     """Ring allgather of w-element blocks into ``out`` (block j at
     [j*k+lo, j*k+lo+w)). ``init`` is this rank's block; None continues
     from the block the own current slot already holds (the allreduce's
-    reduce-scatter result)."""
+    reduce-scatter result). ``arrived(block, j)``, when given, takes each
+    arrived block j (in the own slot) in place of the copy into ``out``."""
     n, r = ep.n, ep.rank
     prev = (r - d) % n
 
@@ -443,12 +612,18 @@ def _ag_steps(ep: Ring, dtype, d: int, k: int, lo: int, w: int,
 
     if init is not None:
         slot(r, (ep.hops[d] + 1) % 2).copy_(init)
-        block(r).copy_(init)
+        if arrived is None:
+            block(r).copy_(init)
         yield (d,)
     for s in range(n - 1):
         h = ep.hops[d]
-        ring_ag_hop(slot(prev, h % 2), slot(r, (h + 1) % 2),
-                    dst2=block((r - (s + 1) * d) % n))
+        j = (r - (s + 1) * d) % n
+        mine = slot(r, (h + 1) % 2)
+        if arrived is None:
+            ring_ag_hop(slot(prev, h % 2), mine, dst2=block(j))
+        else:
+            ring_ag_hop(slot(prev, h % 2), mine)
+            arrived(mine, j)
         yield (d,)
 
 
@@ -532,6 +707,43 @@ def allgather(ep: Ring, flat: torch.Tensor, algo: str,
             _ag_steps(ep, flat.dtype, -1, k, h, k - h, out, flat[h:]))
     else:
         yield from _ag_steps(ep, flat.dtype, 1, k, 0, k, out, flat)
+
+
+def reduce_scatter_update(ep: Ring, flat: torch.Tensor, p: torch.Tensor,
+                          v: Optional[torch.Tensor], lr, mu, inv,
+                          p_out: torch.Tensor,
+                          v_out: Optional[torch.Tensor],
+                          op: str = "MPI_SUM") -> Iterator[Tuple]:
+    """The fused ZeRO step of one bucket: the clockwise ring
+    reduce-scatter of the 1-D ``flat`` (n chunks of the shard length),
+    its first n-2 hops K1 and its last K5, which updates this rank's
+    shard ``p`` (and momentum ``v``) into ``p_out`` / ``v_out`` with the
+    reduced chunk (pallas_kernels.py ``ring_reduce_scatter_update``
+    :410, chunk order :425-444). Never bidirectional, as the reference."""
+    k = flat.numel() // ep.n
+    _stage(ep, flat, flat.numel())
+
+    def last(carry, chunk):
+        ring_rs_update_hop(carry, chunk, p, v, p_out, v_out, lr, mu, inv, op)
+
+    yield from _rs_steps(ep, flat.dtype, op, 1, k, 0, k, None, last)
+
+
+def allgather_matmul(ep: Ring, x: torch.Tensor, w: torch.Tensor,
+                     out: torch.Tensor) -> Iterator[Tuple]:
+    """``allgather(x) @ w`` into ``out`` (n*m, f): the own (m, d) block
+    first, then per clockwise hop a K2 copy of the neighbour's block and
+    a K6 product of it into its rank-order rows (pallas_kernels.py
+    ``allgather_matmul`` :478, chunk order :492-503). x and w must have
+    out's dtype already (the slot promotes them once, not per hop)."""
+    m = x.shape[0]
+
+    def multiply(blk, j):
+        block_matmul(blk.view(x.shape), w, out[j * m:(j + 1) * m])
+
+    multiply(x, ep.rank)
+    yield from _ag_steps(ep, x.dtype, 1, x.numel(), 0, x.numel(), None,
+                         x.reshape(-1), arrived=multiply)
 
 
 def ring_order(n: int, c: int, d: int) -> List[int]:

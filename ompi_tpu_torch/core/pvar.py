@@ -24,6 +24,14 @@ WELL_KNOWN = (
     "coll_cuda_launches", "coll_cuda_fallthrough",
     "coll_cuda_ring_bytes", "coll_cuda_bidir_bytes",
     "coll_cuda_linear_bytes",
+    # coll/cuda's fused slots: buckets through fused_rs_update_dev plus
+    # allgather_matmul_dev calls
+    "coll_cuda_fused_launches",
+    # zero/ (coll/device bucket collectives + ZeroOptimizer): per-bucket
+    # reduce-scatters and allgathers, payload and pad bytes per cycle,
+    # allgathers of unchanged (all-frozen) buckets skipped
+    "zero_rs_launches", "zero_ag_launches", "zero_fused_bytes",
+    "zero_pad_bytes", "zero_ag_skipped",
     # device plane transport: arenas mapped (one per comm and size
     # class), their device bytes (high watermark), and the wall spent
     # waiting on ring neighbours' hop counters

@@ -31,6 +31,8 @@ from ompi_tpu_torch import mpi
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.runtime import device_plane
 
+#: the kernels this path runs (the fused ones run in zero_training.py)
+PATH_KERNELS = (K.ring_rs_hop, K.ring_ag_hop, K.linear_fold)
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32}
 #: default-mode tolerance (the fold order is the selection's choice):
@@ -224,7 +226,7 @@ def main(argv=None) -> int:
     record("Allgather", torch.float32, total, "default", t,
            bits_equal(t[0], exp), (n - 1) / n * total)
 
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches = {k.__name__: k.launches for k in PATH_KERNELS}
     if ns.out:
         os.makedirs(ns.out, exist_ok=True)
         with open(os.path.join(ns.out, f"rank{r}.json"), "w") as f:

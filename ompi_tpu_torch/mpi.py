@@ -2,8 +2,9 @@
 
 Reference: ompi/mpi/c/ and the JAX package's ``ompi_tpu.mpi``: Init,
 Finalize, COMM_WORLD/COMM_SELF, the op constants, and the device
-branches of Allreduce, Reduce_scatter_block and Allgather
-(ompi_tpu/mpi.py:712-728, 952-956, 1007-1016). A device buffer is a
+branches of Allreduce, Reduce_scatter_block, Allgather and the zero/
+pair Reduce_scatter_multi / Allgather_multi (ompi_tpu/mpi.py:712-728,
+801-850, 952-956, 1007-1016). A device buffer is a
 ``torch.Tensor`` and the call returns a new tensor; host (numpy) buffers
 need the host collectives of the pml slice and raise
 ``MPIError(ERR_NOT_SUPPORTED)`` here.
@@ -59,6 +60,29 @@ def _Allgather(self, sendbuf, recvbuf=None):
     return _deliver(self.coll.allgather_dev(self, sendbuf), recvbuf)
 
 
+def _Reduce_scatter_multi(self, bufs, op=op_mod.SUM, deterministic=None):
+    """Bucketed reduce-scatter over a pytree of device tensors (the
+    zero/ gradient step): dtype-segregated buckets, each padded to a
+    multiple of the comm size and reduce-scattered once; returns a
+    zero.ShardedState of this rank's 1-D shard per bucket ('linear' stays
+    bit-identical to the per-buffer allreduce fold)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    for leaf in zl.tree_leaves(bufs):
+        _device_or_raise("Reduce_scatter_multi", leaf)
+    return self.coll.reduce_scatter_multi_dev(
+        self, bufs, op, deterministic=deterministic)
+
+
+def _Allgather_multi(self, state):
+    """Rebuild the full pytree from a zero.ShardedState: one allgather
+    per bucket, rank-order concat (= the pack order), pad dropped, leaf
+    shapes restored."""
+    for shard in getattr(state, "shards", None) or ():
+        _device_or_raise("Allgather_multi", shard)
+    return self.coll.allgather_multi_dev(self, state)
+
+
 def _Barrier(self) -> None:
     """World barrier through the runtime's fence (COMM_WORLD only in
     this slice: sub-communicators come with the pml)."""
@@ -74,6 +98,8 @@ def _Barrier(self) -> None:
 for _name, _fn in {"Allreduce": _Allreduce,
                    "Reduce_scatter_block": _Reduce_scatter_block,
                    "Allgather": _Allgather,
+                   "Reduce_scatter_multi": _Reduce_scatter_multi,
+                   "Allgather_multi": _Allgather_multi,
                    "Barrier": _Barrier}.items():
     setattr(Communicator, _name, _fn)
 

@@ -81,8 +81,10 @@ def test_runtime_never_imports_coll(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, ompi_tpu_torch, ompi_tpu_torch.mpi, "
             "ompi_tpu_torch.compat, ompi_tpu_torch.coll.cuda, "
-            "ompi_tpu_torch.runtime.launcher, "
-            "ompi_tpu_torch.examples.device_collectives; "
+            "ompi_tpu_torch.runtime.launcher, ompi_tpu_torch.zero, "
+            "ompi_tpu_torch.coll.device, "
+            "ompi_tpu_torch.examples.device_collectives, "
+            "ompi_tpu_torch.examples.zero_training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu')]; "
             "assert not bad, bad; print('clean')")

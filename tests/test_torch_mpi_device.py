@@ -221,6 +221,9 @@ def test_coll_cuda_off_leaves_no_device_provider(tmp_path):
     from ompi_tpu_torch import errors, mpi
     comm = mpi.Init()
     assert "allreduce_dev" not in comm.coll.providers, comm.coll.providers
+    # the coll/xla counterpart needs no opt-in: it serves the zero/ slots
+    assert comm.coll.providers["reduce_scatter_multi_dev"] == "device"
+    assert "fused_rs_update_dev" not in comm.coll.providers
     try:
         comm.Allreduce(torch.ones(4))
     except errors.MPIError as e:

@@ -1,0 +1,465 @@
+"""The port's ZeRO stage-2 slice (zero/, coll/device, coll/cuda's fused
+slots) against the JAX package.
+
+One job per package and comm size n: the reference runs through
+``tests.harness.run_ranks`` with ``device_plane on``, ``coll_pallas on``
+and a small ``coll_xla_bucket_bytes`` (several buckets); the port through
+``ompi_tpu_torch.runtime.launcher`` with the same settings mapped by
+``compat.mca_from_reference`` plus ``device_plane_platform cpu``. Both
+make the same parameters and per-(rank, step) gradients from a seed with
+numpy (a pytree with keys out of sorted order, a bfloat16 leaf beside
+float32 ones and an odd element count), run ZeroOptimizer two steps with
+momentum in each mode, the frozen-leaf run and the fused matmuls, and
+write every result as ``.npy``.
+
+Tolerances: unfused and fused ``'linear'`` bitwise; the fused default
+within one rounding of the reference's fused default (rtol 1e-6 float32,
+whose fused epilogue may contract a multiply-add; 2e-2 for the bfloat16
+leaf); the port's own fused default bitwise equal to its unfused
+``'ring'`` step; allgather_matmul |err| <= tol * (|x| @ |w|) with tol
+1e-5 float32, 2e-2 bfloat16, int32 exact.
+"""
+
+import json
+import os
+import sys
+import tempfile
+import textwrap
+from types import SimpleNamespace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from ompi_tpu_torch import compat
+from ompi_tpu_torch.runtime import launcher as port_launcher
+from ompi_tpu_torch.zero import layout as zl
+from tests.harness import run_ranks
+from tests.test_torch_coll_cuda_kernels import assert_bits_equal
+
+REF_MCA = {"device_plane": "on", "coll_pallas": "on",
+           "coll_xla_bucket_bytes": "64"}
+PORT_MCA = dict(compat.mca_from_reference(REF_MCA),
+                device_plane_platform="cpu")
+#: (mode, fused, deterministic)
+MODES = [("unfused_linear", False, "linear"),
+         ("fused_linear", True, "linear"),
+         ("unfused_ring", False, "ring"),
+         ("fused_default", True, None)]
+#: matmul cases: (name, x dtype, w dtype)
+MATMULS = [("f32", "float32", "float32"), ("bf16", "bfloat16", "bfloat16"),
+           ("i32", "int32", "int32"), ("i32_bf16", "int32", "bfloat16")]
+
+#: shared verbatim by both rank programs: numpy trees from a seed
+_INPUTS = """
+def make_params():
+    rng = np.random.default_rng(21)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    return {"w": f(5, 7), "b": f(13),
+            "layers": [{"k": f(3, 3), "a": f(11)}, {"k": f(2, 9), "a": f(5)}],
+            "emb": f(17, 4)}
+
+def make_grads(rank, step):
+    rng = np.random.default_rng(1000 + 10 * rank + step)
+    f = lambda *s: (rng.standard_normal(s) * 0.3).astype(np.float32)
+    return {"w": f(5, 7), "b": f(13),
+            "layers": [{"k": f(3, 3), "a": f(11)}, {"k": f(2, 9), "a": f(5)}],
+            "emb": f(17, 4)}
+
+BF16 = ("a",)  # leaves named so are bfloat16
+FROZEN = {"w": False, "b": True,
+          "layers": [{"k": True, "a": False}, {"k": True, "a": True}],
+          "emb": False}
+
+def matmul_inputs(name, xdt, wdt, rank):
+    rng = np.random.default_rng(300 + rank)
+    full = xdt == wdt == "int32"
+    def m(shape, dt, rng):
+        if dt == "int32":
+            lo, hi = (-2**31, 2**31 - 1) if full else (-50, 50)
+            return rng.integers(lo, hi, shape, dtype=np.int64).astype(np.int32)
+        return rng.standard_normal(shape).astype(np.float32)
+    return m((6, 10), xdt, rng), m((10, 4), wdt, np.random.default_rng(7))
+
+def zero3_inputs():
+    rng = np.random.default_rng(9)
+    return (rng.standard_normal((12, 10)).astype(np.float32),
+            rng.standard_normal((10, 3)).astype(np.float32))
+"""
+
+_REF_BODY = """
+import jax, jax.numpy as jnp
+from ompi_tpu.core import pvar
+from ompi_tpu.zero import layout as zl
+from ompi_tpu.zero.optimizer import ZeroOptimizer
+{inputs}
+def to_jax(tree):
+    def leaf(path, a):
+        dt = "bfloat16" if getattr(path[-1], "key", None) in BF16 else a.dtype
+        return jnp.asarray(a).astype(dt)
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+def save(name, a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.view(np.uint16)
+    np.save(f"{out_dir}/ref_{{name}}_r{{rank}}.npy", a)
+
+params = to_jax(make_params())
+plan = zl.plan_for(jax.tree.leaves(params), size)
+if rank == 0:
+    with open(f"{out_dir}/ref_plan.json", "w") as fh:
+        json.dump({{"buckets": plan.buckets, "padded": plan.padded,
+                    "shard_elems": plan.shard_elems,
+                    "dtypes": list(plan.dtypes)}}, fh)
+for mode, fused, det in {modes!r}:
+    opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                        deterministic=det, fused=fused)
+    for step in range(2):
+        out = opt.step(to_jax(make_grads(rank, step)))
+    for i, leaf in enumerate(jax.tree.leaves(out)):
+        save(f"{{mode}}_p{{i}}", leaf)
+    for b, s in enumerate(opt.state.slots["momentum"].shards):
+        save(f"{{mode}}_m{{b}}", s)
+s = pvar.session()
+opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                    deterministic="linear", frozen=FROZEN)
+for step in range(2):
+    out = opt.step(to_jax(make_grads(rank, step)))
+for i, leaf in enumerate(jax.tree.leaves(out)):
+    save(f"frozen_p{{i}}", leaf)
+save("frozen_skipped", np.asarray(s.read("zero_ag_skipped")))
+for name, xdt, wdt in {matmuls!r}:
+    x, w = matmul_inputs(name, xdt, wdt, rank)
+    out = comm.coll.allgather_matmul_dev(
+        comm, jnp.asarray(x).astype(xdt), jnp.asarray(w).astype(wdt))
+    save(f"agmm_{{name}}", out)
+wz, rhs = zero3_inputs()
+st = zl.ShardedState.from_full(comm, {{"w": jnp.asarray(wz)}})
+save("zero3", comm.coll.zero3_gather_matmul_dev(comm, st, jnp.asarray(rhs)))
+"""
+
+_PORT_PROG = """
+import json
+import numpy as np
+import torch
+from ompi_tpu_torch import compat, errors, mpi
+from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.zero import ZeroOptimizer, layout as zl
+comm = mpi.Init()
+rank, size = comm.rank, comm.size
+out_dir = {out_dir!r}
+assert comm.coll.providers["reduce_scatter_multi_dev"] == "device"
+assert comm.coll.providers["fused_rs_update_dev"] == "cuda"
+{inputs}
+def to_torch(tree):
+    def walk(t, key=None):
+        if isinstance(t, dict):
+            return {{k: walk(v, k) for k, v in t.items()}}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        x = compat.tensor_from_numpy(t)
+        return x.to(torch.bfloat16) if key in BF16 else x
+    return walk(tree)
+
+def save(name, t):
+    np.save(f"{{out_dir}}/port_{{name}}_r{{rank}}.npy",
+            compat.tensor_to_numpy(t) if isinstance(t, torch.Tensor)
+            else np.asarray(t))
+
+def expect_error(cls, fn):
+    try:
+        fn()
+    except errors.MPIError as e:
+        assert e.error_class == cls, e
+        return str(e)
+    raise AssertionError("no MPIError raised")
+
+params = to_torch(make_params())
+plan = zl.plan_for(zl.tree_leaves(params), size)
+if rank == 0:
+    with open(f"{{out_dir}}/port_plan.json", "w") as fh:
+        json.dump({{"buckets": plan.buckets, "padded": plan.padded,
+                    "shard_elems": plan.shard_elems,
+                    "dtypes": list(plan.dtypes)}}, fh)
+for mode, fused, det in {modes!r}:
+    opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                        deterministic=det, fused=fused)
+    s = pvar.session()
+    for step in range(2):
+        out = opt.step(to_torch(make_grads(rank, step)))
+    assert s.read("coll_cuda_fused_launches") == (
+        2 * len(plan.buckets) if fused else 0), mode
+    assert s.read("coll_cuda_fallthrough") == 0, mode
+    for i, leaf in enumerate(zl.tree_leaves(out)):
+        save(f"{{mode}}_p{{i}}", leaf)
+    for b, sh in enumerate(opt.state.slots["momentum"].shards):
+        save(f"{{mode}}_m{{b}}", sh)
+s = pvar.session()
+opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                    deterministic="linear", frozen=FROZEN)
+for step in range(2):
+    out = opt.step(to_torch(make_grads(rank, step)))
+for i, leaf in enumerate(zl.tree_leaves(out)):
+    save(f"frozen_p{{i}}", leaf)
+save("frozen_skipped", s.read("zero_ag_skipped"))
+for name, xdt, wdt in {matmuls!r}:
+    x, w = matmul_inputs(name, xdt, wdt, rank)
+    out = comm.coll.allgather_matmul_dev(
+        comm, compat.tensor_from_numpy(x).to(getattr(torch, xdt)),
+        compat.tensor_from_numpy(w).to(getattr(torch, wdt)))
+    save(f"agmm_{{name}}", out)
+wz, rhs = zero3_inputs()
+st = zl.ShardedState.from_full(comm, {{"w": compat.tensor_from_numpy(wz)}})
+save("zero3", comm.coll.zero3_gather_matmul_dev(
+    comm, st, compat.tensor_from_numpy(rhs)))
+
+# the port's stated differences and its erroneous calls, on every rank
+s = pvar.session()
+msg = expect_error(errors.ERR_NOT_SUPPORTED,
+                   lambda: comm.coll.allgather_matmul_dev(
+                       comm, torch.ones(2, 3, dtype=torch.int16),
+                       torch.ones(3, 2, dtype=torch.int16)))
+assert "int16" in msg, msg
+assert s.read("coll_cuda_fallthrough") == 1
+st = zl.ShardedState.from_full(comm, params)
+assert comm.coll.zero3_gather_matmul_dev(comm, st, torch.ones(3, 2)) is None
+assert s.read("coll_cuda_fallthrough") == 2
+for kw in ({{"stage": 1}}, {{"overlap": True}}, {{"error_feedback": "bf16"}}):
+    msg = expect_error(errors.ERR_NOT_SUPPORTED,
+                       lambda: ZeroOptimizer(comm, params, **kw))
+    assert "ROADMAP" in msg, msg
+expect_error(errors.ERR_ARG, lambda: ZeroOptimizer(
+    comm, params, fused=True, frozen=FROZEN))
+expect_error(errors.ERR_NOT_SUPPORTED,
+             lambda: comm.Reduce_scatter_multi([np.ones(4, np.float32)]))
+expect_error(errors.ERR_COUNT, lambda: comm.Allgather_multi(
+    zl.ShardedState(st.plan, st.metas, st.treedef, st.shards[:-1],
+                    rank, size)))
+open(f"{{out_dir}}/port_errors_r{{rank}}.ok", "w").close()
+mpi.Finalize()
+"""
+
+
+def _port_job(src: str, n: int, mca) -> int:
+    with tempfile.NamedTemporaryFile("w", suffix=".py",
+                                     delete=False) as fh:
+        fh.write(textwrap.dedent(src))
+        path = fh.name
+    try:
+        return port_launcher.launch([sys.executable, path], n, mca=mca,
+                                    timeout=180)
+    finally:
+        os.unlink(path)
+
+
+_jobs = {}
+
+
+@pytest.fixture(params=[2, 3], scope="module")
+def results(request, tmp_path_factory):
+    """Run both packages' jobs once per n; returns (n, out_dir)."""
+    n = request.param
+    if n not in _jobs:
+        out = tmp_path_factory.mktemp(f"zero_n{n}")
+        fmt = dict(inputs=_INPUTS, modes=MODES, matmuls=MATMULS,
+                   out_dir=str(out))
+        run_ranks("import json\nout_dir = " + repr(str(out)) + "\n"
+                  + _REF_BODY.format(**fmt), n, mca=REF_MCA, timeout=300)
+        rc = _port_job(_PORT_PROG.format(**fmt), n, PORT_MCA)
+        assert rc == 0, f"port job exited {rc}"
+        _jobs[n] = out
+    return n, _jobs[n]
+
+
+def _pair(out, name, r):
+    return (np.load(out / f"ref_{name}_r{r}.npy"),
+            np.load(out / f"port_{name}_r{r}.npy"))
+
+
+def _count(out, prefix):
+    return len([p for p in os.listdir(out)
+                if p.startswith(f"ref_{prefix}") and p.endswith("_r0.npy")])
+
+
+def _as_float(a):
+    return (a.astype(np.uint32) << 16).view(np.float32) \
+        if a.dtype == np.uint16 else a.astype(np.float64)
+
+
+def test_zero_plan_matches_reference(results):
+    """Same buckets (leaf order = jax's sorted-key flatten), padding,
+    shard lengths and dtype names."""
+    n, out = results
+    ref = json.loads((out / "ref_plan.json").read_text())
+    got = json.loads((out / "port_plan.json").read_text())
+    assert got == ref
+    assert len(ref["buckets"]) > 2 and set(ref["dtypes"]) == {"float32",
+                                                             "bfloat16"}
+
+
+@pytest.mark.parametrize("mode", ["unfused_linear", "fused_linear"])
+def test_linear_step_bitwise_equal_to_reference(results, mode):
+    """Parameters and momentum shards after two momentum steps."""
+    n, out = results
+    for kind in ("p", "m"):
+        for i in range(_count(out, f"{mode}_{kind}")):
+            for r in range(n):
+                ref, got = _pair(out, f"{mode}_{kind}{i}", r)
+                assert_bits_equal(ref, got, f"{mode} {kind}{i} rank {r}")
+
+
+def test_fused_default_within_one_rounding_of_reference(results):
+    n, out = results
+    for kind in ("p", "m"):
+        for i in range(_count(out, f"fused_default_{kind}")):
+            for r in range(n):
+                ref, got = _pair(out, f"fused_default_{kind}{i}", r)
+                tol = 2e-2 if ref.dtype == np.uint16 else 1e-6
+                np.testing.assert_allclose(_as_float(got), _as_float(ref),
+                                           rtol=tol, atol=tol)
+
+
+def test_fused_default_bitwise_equal_to_unfused_ring(results):
+    """K5 rounds after every op: the port's fused step is its unfused
+    'ring' step, bit for bit (the reference only promises one rounding)."""
+    n, out = results
+    for kind in ("p", "m"):
+        for i in range(_count(out, f"fused_default_{kind}")):
+            for r in range(n):
+                a = np.load(out / f"port_fused_default_{kind}{i}_r{r}.npy")
+                b = np.load(out / f"port_unfused_ring_{kind}{i}_r{r}.npy")
+                assert_bits_equal(b, a, f"{kind}{i} rank {r}")
+
+
+def test_frozen_leaves_stay_put(results):
+    """Frozen leaves keep their initial bits, the run matches the
+    reference's bitwise, and the all-frozen buckets' allgathers were
+    skipped as often as the reference skipped them."""
+    n, out = results
+    init = jax.tree.leaves(_load_inputs()["make_params"]())
+    frozen = jax.tree.leaves(_load_inputs()["FROZEN"])
+    for i in range(_count(out, "frozen_p")):
+        for r in range(n):
+            ref, got = _pair(out, f"frozen_p{i}", r)
+            assert_bits_equal(ref, got, f"frozen p{i} rank {r}")
+            if frozen[i] and got.dtype == np.float32:
+                assert_bits_equal(init[i], got, f"frozen leaf {i}")
+    ref, got = _pair(out, "frozen_skipped", 0)
+    assert int(got) == int(ref) > 0
+
+
+@pytest.mark.parametrize("case", MATMULS, ids=lambda c: c[0])
+def test_allgather_matmul_against_reference(results, case):
+    n, out = results
+    name, xdt, wdt = case
+    inp = _load_inputs()
+    xs = [inp["matmul_inputs"](name, xdt, wdt, r)[0] for r in range(n)]
+    w = inp["matmul_inputs"](name, xdt, wdt, 0)[1]
+    mag = np.abs(np.concatenate(xs).astype(np.float64)) @ np.abs(
+        w.astype(np.float64))
+    for r in range(n):
+        ref, got = _pair(out, f"agmm_{name}", r)
+        assert ref.shape == got.shape == (n * 6, 4)
+        assert ref.dtype == got.dtype
+        if ref.dtype == np.int32:
+            np.testing.assert_array_equal(got, ref)
+        else:
+            tol = 2e-2 if ref.dtype == np.uint16 else 1e-5
+            assert (np.abs(_as_float(got) - _as_float(ref))
+                    <= tol * mag + 1e-30).all(), name
+
+
+def test_zero3_gather_matmul_against_reference(results):
+    n, out = results
+    wz, rhs = _load_inputs()["zero3_inputs"]()
+    mag = np.abs(wz.astype(np.float64)) @ np.abs(rhs.astype(np.float64))
+    for r in range(n):
+        ref, got = _pair(out, "zero3", r)
+        assert got.shape == (12, 3)
+        assert (np.abs(got - ref) <= 1e-5 * mag).all()
+
+
+def test_error_paths(results):
+    """int16 allgather_matmul_dev raises ERR_NOT_SUPPORTED and counts
+    coll_cuda_fallthrough (the reference falls through to coll/xla);
+    stage 1 / overlap / error_feedback raise ERR_NOT_SUPPORTED naming the
+    ROADMAP item; host leaves raise; checked inside the port job."""
+    n, out = results
+    for r in range(n):
+        assert (out / f"port_errors_r{r}.ok").exists()
+
+
+# ---------------------------------------------------------------------------
+# single process: the layout and the compat converters
+
+
+def _load_inputs():
+    ns = {"np": np}
+    exec(_INPUTS, ns)
+    return ns
+
+
+def test_tree_flatten_matches_jax_order():
+    tree = {"z": 1, "b": [2, (3, {"y": 4, "x": 5})], "a": None,
+            "m": {"q": 6, "c": [7]}}
+    leaves, treedef = zl.tree_flatten(tree)
+    assert leaves == jax.tree.leaves(tree)
+    back = zl.tree_unflatten(treedef, leaves)
+    assert jax.tree.structure(back) == jax.tree.structure(tree)
+    assert jax.tree.leaves(back) == leaves
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_sharded_state_from_reference(n):
+    """A reference ShardedState carried across equals the port's own
+    from_full of the same parameters (plan and shards, bitwise)."""
+    import jax.numpy as jnp
+    from ompi_tpu.core import cvar as ref_cvar
+    from ompi_tpu.zero import layout as ref_zl
+    from ompi_tpu_torch.core import cvar
+
+    params = _load_inputs()["make_params"]()
+    jparams = jax.tree.map(jnp.asarray, params)
+    jparams["layers"][0]["a"] = jparams["layers"][0]["a"].astype("bfloat16")
+    tparams = compat.tree_from_numpy(jax.tree.map(np.asarray, jparams))
+    assert tparams["layers"][0]["a"].dtype == torch.bfloat16
+    old = ref_cvar.get("coll_xla_bucket_bytes")
+    try:
+        ref_cvar.set("coll_xla_bucket_bytes", 64)
+        cvar.set("coll_device_bucket_bytes", 64)
+        for r in range(n):
+            comm = SimpleNamespace(rank=r, size=n)
+            ref = ref_zl.ShardedState.from_full(comm, jparams)
+            got = compat.sharded_state_from_reference(
+                ref.plan.buckets, ref.metas, [np.asarray(s)
+                                              for s in ref.shards], r, n)
+            own = zl.ShardedState.from_full(comm, tparams)
+            assert got.plan.buckets == own.plan.buckets == ref.plan.buckets
+            assert got.plan.padded == own.plan.padded == ref.plan.padded
+            assert got.metas == own.metas
+            for a, b in zip(got.shards, own.shards):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+    finally:
+        ref_cvar.set("coll_xla_bucket_bytes", old)
+        cvar.set("coll_device_bucket_bytes", 4 << 20)
+
+
+def test_tree_numpy_round_trip_keeps_bfloat16_bits():
+    import ml_dtypes
+
+    tree = {"b": np.arange(5, dtype=np.float32).astype(ml_dtypes.bfloat16),
+            "a": [np.arange(3, dtype=np.int32), (np.ones(2, np.float32),)]}
+    t = compat.tree_from_numpy(tree)
+    assert t["b"].dtype == torch.bfloat16 and t["a"][0].dtype == torch.int32
+    back = compat.tree_to_numpy(t)
+    np.testing.assert_array_equal(back["b"], tree["b"].view(np.uint16))
+    np.testing.assert_array_equal(back["a"][1][0], tree["a"][1][0])
+
+
+def test_mca_maps_bucket_bytes():
+    got = compat.mca_from_reference({"coll_xla_bucket_bytes": "64",
+                                     "coll_xla_deterministic": "ring"})
+    assert got == {"coll_device_bucket_bytes": "64",
+                   "coll_cuda_deterministic": "ring"}
