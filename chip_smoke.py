@@ -5,8 +5,10 @@ a GPU. Run from the repository root on a machine with one CUDA card:
 
 Phases (any failure exits non-zero; nothing is caught and passed over):
 
-1. build the kernels from ``ompi_tpu_torch/coll/csrc/ring_kernels.cu``
-   with nvcc for sm_90a (into ``build/ompi_tpu_torch/``);
+1. build the kernels with nvcc for sm_90a, one nvcc per source started
+   side by side (into ``build/ompi_tpu_torch/``):
+   ``ompi_tpu_torch/coll/csrc/ring_kernels.cu`` (K1-K6) and
+   ``ompi_tpu_torch/osc/csrc/rma_kernels.cu`` (K7-K10);
 2. hold every kernel against its plain PyTorch version on the card:
    K1 ring_rs_hop, K2 ring_ag_hop, K3 linear_fold for float32, bfloat16
    and int32 x SUM/PROD/MIN/MAX at the collectives path's shape (a
@@ -19,9 +21,14 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    up-projection block
    ((2048, 768) @ (768, 3072)) and ragged and mixed-dtype shapes,
    |err| <= tol * (|x| @ |w|) with tol 1e-5 float32 and 2e-2 bfloat16,
-   int32 exact. Then time each kernel (CUDA events, median of 10) beside
-   its plain version, one PyTorch library call where one computes the
-   same function, and its bound;
+   int32 exact; K7 rma_apply, K8 rma_apply_strided, K9 rma_read and K10
+   rma_permute_recv for the three dtypes x put/replace/sum/min/max/prod,
+   bitwise, at the one-sided paths' shapes (the 8192 x 8192 halo tile's
+   self put and its columns at stride 8192, a 128-element row of a
+   2**20 x 128 embedding shard) and a ragged unaligned one, at clamped,
+   wrapped, dropped and filled edges. Then time each kernel (CUDA
+   events, median of 10) beside its plain version, one PyTorch library
+   call where one computes the same function, and its bound;
 3. the main paths, each with the kernels' launch counts zeroed by the
    ranks just before it and read just after: the launcher runs
    ``ompi_tpu_torch/examples/device_collectives.py`` (Allreduce,
@@ -30,14 +37,20 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    over GPT-2 small's full-width parameters, unfused and fused, 'linear'
    and ring, plus allgather_matmul_dev and zero3_gather_matmul_dev; 4
    ranks with all 12 layers, then 3 ranks with 4), ``--mca device_plane
-   on --mca coll_cuda on``. Each rank checks its results (bitwise where
-   the fold order is fixed, fused == unfused bitwise) and reports its
-   launch counts; every kernel of a path must have launched on it.
+   on --mca coll_cuda on``; then, under ``--mca osc_cuda on``,
+   ``halo_exchange.py`` (8192 x 8192 float32 tiles, 3 steps of
+   Put_strided halo columns and a whole-tile self Put; 4 ranks, then 3 at
+   4096 x 4096) and ``embedding_table.py`` (2**20 x 128 float32 shards,
+   512 Get_epoch lookups and 512 Accumulate(SUM) gradient rows per rank;
+   4 ranks, then 3 at 2**18 rows and 128). Each rank checks its results
+   (bitwise where the fold order is fixed, fused == unfused bitwise, the
+   windows against a plain recomputation) and reports its launch
+   counts; every kernel of a path must have launched on it.
 
 Output: one line per measurement with the card's name and power limit,
 then ``{"kernels": [...]}`` (K1-K3 launches from the collectives path,
-K5 and K6 from the training path), the card line, and, last,
-``{"ok": true, "device": {...}}``.
+K5 and K6 from the training path, K7-K10 from the 4-rank one-sided
+paths), the card line, and, last, ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
@@ -59,8 +73,12 @@ MAIN_BYTES = 256 << 20  # the collectives path's largest Allreduce payload
 WTE_CHUNK = (2 + 1024 + 50257) * 768 // N_RANKS
 MM_SHAPE = (2048, 768, 3072)  # K6: (m, d, f) of one block's product
 SRC = "ompi_tpu_torch/coll/csrc/ring_kernels.cu"
+RMA_SRC = "ompi_tpu_torch/osc/csrc/rma_kernels.cu"
+HALO = 8192  # the halo path's tile side (8192 x 8192 float32 per rank)
+EMB_ROWS, EMB_DIM = 1 << 20, 128  # the embedding path's shard per rank
+SECTOR = 32  # bytes: what a strided element costs to read or write
 REPS = 10
-LAUNCH_TIMEOUT = 200  # seconds per launcher job (four jobs)
+LAUNCH_TIMEOUT = 200  # seconds per launcher job (eight jobs)
 
 
 def fail(msg: str) -> None:
@@ -186,22 +204,8 @@ def kernel_checks(torch, K, dev, card):
     cb = chunk * 4
     rows = []
 
-    def row(name, replaces, ms, plain_ms, lib_ms, nbytes, ops,
-            ops_per_s=F32_OPS_PER_S, record=True, why_no_library=""):
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
-        bound = max(t_bytes, t_ops) * 1e3
-        by = "bytes" if t_bytes >= t_ops else "operations"
-        if record:
-            rows.append({"name": name, "route": "cuda", "source": SRC,
-                         "replaces": replaces, "launches": 0,
-                         "max_abs_err": results[name], "ms": ms,
-                         "plain_ms": plain_ms, "bound_ms": bound,
-                         "bound_by": by, "library_ms": lib_ms})
-        lib = f"library {lib_ms:.4f} ms" if lib_ms is not None else \
-            f"library none: {why_no_library}"
-        print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"{lib}, bound {bound:.4f} ms by {by}) at {nbytes} B moved, "
-              f"{ops} operations [{card}]", flush=True)
+    def row(*args, **kw):
+        add_row(rows, results, card, SRC, *args, **kw)
 
     K.reset_launches()
     row("ring_rs_hop", "ompi_tpu/coll/pallas_kernels.py:529",
@@ -256,6 +260,27 @@ def kernel_checks(torch, K, dev, card):
         del x, w, o
     torch.cuda.empty_cache()
     return rows
+
+
+def add_row(rows, results, card, source, name, replaces, ms, plain_ms,
+            lib_ms, nbytes, ops, ops_per_s=F32_OPS_PER_S, record=True,
+            why_no_library=""):
+    """Print one kernel's timing line; with ``record``, add its row to
+    the kernels JSON (launches are filled in from the main paths)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
+    bound = max(t_bytes, t_ops) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    if record:
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": results[name], "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": by, "library_ms": lib_ms})
+    lib = f"library {lib_ms:.4f} ms" if lib_ms is not None else \
+        f"library none: {why_no_library}"
+    print(f"kernel {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
+          f"{lib}, bound {bound:.4f} ms by {by}) at {nbytes} B moved, "
+          f"{ops} operations [{card}]", flush=True)
 
 
 def fused_checks(torch, K, dev, card, results):
@@ -339,16 +364,137 @@ def fused_checks(torch, K, dev, card, results):
           f"[{card}]", flush=True)
 
 
-def main_path(example: str, nranks: int, args, card: str, root: str):
-    """Phase 3: one launcher job of an example; returns the ranks'
-    summed launches and rank 0's report."""
+def rma_checks(torch, O, dev, card):
+    """Phase 2 for the one-sided paths' kernels: K7-K10 bitwise against
+    their plain versions for float32/bfloat16/int32 x every kind, at the
+    paths' shapes (the halo tile's 64M-element self put and its
+    8192-element columns at stride 8192; an embedding row of 128 in a
+    2**20 x 128 shard) and a ragged, unaligned one, at the edge
+    displacements, inputs carrying NaN and +-0; then each kernel timed
+    beside its plain version, its bound and one PyTorch call."""
+    tile, col, emb = HALO ** 2, HALO, EMB_ROWS * EMB_DIM
+    rag, kr = 4099, 1027
+    results = {k.__name__: 0.0 for k in O.KERNELS}
+
+    def check(name, got, want, where):
+        ok, err = compare(torch, got, want)
+        if not ok:
+            fail(f"{name} != plain ({where}), err {err}")
+        results[name] = max(results[name], err)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        big = make(torch, tile, dtype, 60, dev)
+        row_win = make(torch, emb, dtype, 61, dev)
+        ragged = make(torch, rag + 1, dtype, 62, dev)[1:]
+        # (window, payload elements, stride, displacements)
+        cases = [(big, tile, 1, (0, 3, -1)),
+                 (big, col, col, (0, col - 1, tile - 5, -3, -tile - 9)),
+                 (row_win, EMB_DIM, 1, (0, emb - EMB_DIM, emb - 100, -3,
+                                        -emb - 5, 1 << 40)),
+                 (ragged, kr, 1, (0, rag - kr, 4000, -5, -5000)),
+                 (ragged, kr, 2, (0, rag - 2 * kr + 1, 3000, -7))]
+        for w0, k, stride, disps in cases:
+            pay = make(torch, k + 1, dtype, 63, dev)[1:] if w0 is ragged \
+                else make(torch, k, dtype, 64, dev)
+            for d in disps:
+                where = (f"{dtype} window {w0.numel()} payload {k} "
+                         f"stride {stride} disp {d}")
+                for kind in O.KINDS:
+                    got, want = w0.clone(), w0.clone()
+                    O.apply(got, pay, d, kind, stride)
+                    if stride == 1:
+                        O.rma_apply_plain(want, pay, d, kind)
+                    else:
+                        O.rma_apply_strided_plain(want, pay, d, stride,
+                                                  kind)
+                    check("rma_apply" if stride == 1 else
+                          "rma_apply_strided", got, want, f"{where} {kind}")
+                for s in ((stride,) if stride != 1 else (1, -3, 0)):
+                    got = O.rma_read(w0, d, s, torch.empty_like(pay))
+                    want = torch.empty_like(pay)
+                    O.rma_read_plain(w0, d, s, want)
+                    check("rma_read", got, want, f"{where} read stride {s}")
+            for src in (pay, None):
+                got = O.rma_permute_recv(src, torch.empty_like(pay))
+                want = torch.empty_like(pay)
+                O.rma_permute_recv_plain(src, want)
+                check("rma_permute_recv", got, want,
+                      f"{dtype} payload {k} src {src is not None}")
+            torch.cuda.synchronize()
+            del got, want, pay
+        del big, row_win, ragged
+        torch.cuda.empty_cache()
+    print(f"kernels: K7-K10 bitwise equal to their plain versions for "
+          f"float32/bfloat16/int32 x {len(O.KINDS)} kinds at the halo tile "
+          f"({tile} elements, columns of {col} at stride {col}), an "
+          f"embedding row ({EMB_DIM} of {emb}) and ragged unaligned "
+          f"shapes, clamped, wrapped, dropped and filled edges [{card}]",
+          flush=True)
+
+    rows = []
+
+    def row(*args, **kw):
+        add_row(rows, results, card, RMA_SRC, *args, **kw)
+
+    big = make(torch, tile, torch.float32, 70, dev, traps=False)
+    pay = make(torch, tile, torch.float32, 71, dev, traps=False)
+    row("rma_apply", "ompi_tpu/osc/pallas_kernels.py:92",
+        median_ms(lambda: O.rma_apply(big, pay, 0, "put"), torch),
+        median_ms(lambda: O.rma_apply_plain(big, pay, 0, "put"), torch),
+        median_ms(lambda: big[:tile].copy_(pay), torch), 2 * tile * 4, 0)
+    land = torch.empty_like(pay)
+    row("rma_permute_recv", "ompi_tpu/osc/pallas_kernels.py:192",
+        median_ms(lambda: O.rma_permute_recv(pay, land), torch),
+        median_ms(lambda: O.rma_permute_recv_plain(pay, land), torch),
+        median_ms(lambda: land.copy_(pay), torch), 2 * tile * 4, 0)
+    colp = pay[:col].clone()
+    strided = torch.as_strided(big, (col,), (col,), col - 1)
+    row("rma_apply_strided", "ompi_tpu/osc/pallas_kernels.py:111",
+        median_ms(lambda: O.rma_apply_strided(big, colp, col - 1, col,
+                                              "put"), torch),
+        median_ms(lambda: O.rma_apply_strided_plain(big, colp, col - 1, col,
+                                                    "put"), torch),
+        median_ms(lambda: strided.copy_(colp), torch),
+        col * (2 * SECTOR + 4), 0)
+    out = torch.empty(col, device=dev)
+    row("rma_read (strided)", "ompi_tpu/osc/pallas_kernels.py:133",
+        median_ms(lambda: O.rma_read(big, col - 2, col, out), torch),
+        median_ms(lambda: O.rma_read_plain(big, col - 2, col, out), torch),
+        median_ms(lambda: torch.as_strided(big, (col,), (col,),
+                                           col - 2).clone(), torch),
+        col * (SECTOR + 4), 0, record=False)
+    del big, pay, land, colp, strided, out
+    win = make(torch, emb, torch.float32, 72, dev, traps=False)
+    r128 = make(torch, EMB_DIM, torch.float32, 73, dev, traps=False)
+    out = torch.empty_like(r128)
+    d = (EMB_ROWS // 3) * EMB_DIM
+    view = win[d:d + EMB_DIM]
+    row("rma_read", "ompi_tpu/osc/pallas_kernels.py:133",
+        median_ms(lambda: O.rma_read(win, d, 1, out), torch),
+        median_ms(lambda: O.rma_read_plain(win, d, 1, out), torch),
+        median_ms(lambda: view.clone(), torch), 2 * EMB_DIM * 4, 0)
+    row("rma_apply (sum, one row)", "ompi_tpu/osc/pallas_kernels.py:92",
+        median_ms(lambda: O.rma_apply(win, r128, d, "sum"), torch),
+        median_ms(lambda: O.rma_apply_plain(win, r128, d, "sum"), torch),
+        median_ms(lambda: torch.add(view, r128, out=view), torch),
+        3 * EMB_DIM * 4, EMB_DIM, record=False)
+    del win, r128, out, view
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main_path(example: str, nranks: int, args, card: str, root: str,
+              component: str = "coll_cuda"):
+    """Phase 3: one launcher job of an example under ``--mca
+    device_plane on --mca <component> on``; returns the ranks' summed
+    launches and rank 0's report."""
     name = os.path.splitext(example)[0]
     out = os.path.join(root, "build", "ompi_tpu_torch",
                        f"smoke_{name}_n{nranks}")
     shutil.rmtree(out, ignore_errors=True)
     cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
            "-n", str(nranks), "--timeout", str(LAUNCH_TIMEOUT),
-           "--mca", "device_plane", "on", "--mca", "coll_cuda", "on",
+           "--mca", "device_plane", "on", "--mca", component, "on",
            os.path.join(root, "ompi_tpu_torch", "examples", example),
            *args, "--out", out]
     t0 = time.perf_counter()
@@ -381,6 +527,16 @@ def main_path(example: str, nranks: int, args, card: str, root: str):
     return launches, docs[0]
 
 
+def osc_report(name: str, nranks: int, doc, card: str) -> None:
+    """The one-sided path's fence times and rounds (rank 0)."""
+    ms = doc["fence_ms"]
+    ms = ms.items() if isinstance(ms, dict) else enumerate(ms)
+    rounds = doc["rounds"]
+    print(f"one-sided path {name} n={nranks} (rank 0): fence ms "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms)
+          + f"; rounds {rounds} [{card}]", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -389,6 +545,7 @@ def main() -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     try:
         from ompi_tpu_torch.coll import cuda_kernels as K
+        from ompi_tpu_torch.osc import cuda_kernels as O
     except ImportError as exc:
         fail(f"the ompi_tpu_torch package is not beside this script: {exc}")
     card = card_line()
@@ -398,14 +555,19 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)} [{card}]", flush=True)
 
     t0 = time.perf_counter()
-    K.build(verbose=True)
+    with ThreadPoolExecutor(2) as pool:  # one nvcc per source, side by side
+        for job in [pool.submit(K.build, verbose=True),
+                    pool.submit(O.build, verbose=True)]:
+            job.result()
     K.lib()
-    print(f"build: kernels built for sm_90a in "
+    O.lib()
+    print(f"build: {SRC} and {RMA_SRC} built for sm_90a in "
           f"{time.perf_counter() - t0:.1f} s [{card}]", flush=True)
 
     # the plain and library float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
     rows = kernel_checks(torch, K, dev, card)
+    rows += rma_checks(torch, O, dev, card)
     coll, _ = main_path("device_collectives.py", N_RANKS,
                         ["--sizes", "1k,1m,64m,256m"], card, root)
     main_path("device_collectives.py", 3, ["--sizes", "1k,1m,64m"], card,
@@ -420,8 +582,28 @@ def main() -> int:
           + f"; allgather_matmul p50 ms {doc['allgather_matmul_ms']} "
           f"[{card}]", flush=True)
     main_path("zero_training.py", 3, ["--layers", "4"], card, root)
+    halo, doc = main_path("halo_exchange.py", N_RANKS, [], card, root,
+                          "osc_cuda")
+    osc_report("halo_exchange", N_RANKS, doc, card)
+    _, doc = main_path("halo_exchange.py", 3, ["--size", str(HALO // 2)],
+                       card, root, "osc_cuda")
+    osc_report("halo_exchange", 3, doc, card)
+    emb, doc = main_path("embedding_table.py", N_RANKS, [], card, root,
+                         "osc_cuda")
+    osc_report("embedding_table", N_RANKS, doc, card)
+    _, doc = main_path("embedding_table.py", 3,
+                       ["--rows", str(EMB_ROWS // 4), "--batch", "128"],
+                       card, root, "osc_cuda")
+    osc_report("embedding_table", 3, doc, card)
+    osc = {k: halo.get(k, 0) + emb.get(k, 0) for k in {*halo, *emb}}
+    for k in ("rma_apply", "rma_apply_strided", "rma_read",
+              "rma_permute_recv"):
+        if osc.get(k, 0) <= 0:
+            fail(f"{k} never launched on the one-sided paths: {osc}")
     for r in rows:
-        r["launches"] = (coll if r["name"] in coll else train)[r["name"]]
+        name = r["name"]
+        r["launches"] = next(p[name] for p in (coll, train, osc)
+                             if name in p)
 
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -3,11 +3,13 @@
 Reference: ompi/mca/coll/ — coll.h:532-649 (the per-comm function table),
 coll_base_comm_select.c:236-330 (all enabled components stacked in
 ascending priority, each overriding the slots it implements; disqualify on
-priority<0). The port has two components so far: ``device`` (priority
-50, the coll/xla counterpart, reduced to the zero/ bucket slots) and
-``cuda`` (priority 60, opt-in: the hand-written ring kernels, the
-counterpart of coll/pallas). The host components come in later slices,
-so a slot no component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.
+priority<0). The port has three components so far: ``basic`` (priority
+10, every comm: ``allgather_obj`` and ``barrier`` over the runtime
+store), ``device`` (priority 50, the coll/xla counterpart, reduced to the
+zero/ bucket slots) and ``cuda`` (priority 60, opt-in: the hand-written
+ring kernels, the counterpart of coll/pallas). The host collectives come
+in later slices, so a slot no component provides raises
+``MPIError(ERR_NOT_SUPPORTED)``.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 from typing import Dict
 
 from ompi_tpu_torch import errors
+from ompi_tpu_torch.coll.basic import CollBasic
 from ompi_tpu_torch.coll.cuda import CollCuda
 from ompi_tpu_torch.coll.device import CollDevice
 from ompi_tpu_torch.core import output
@@ -23,7 +26,7 @@ _out = output.stream("coll_base")
 
 #: the components comm_select ranks: each has NAME, query(comm) -> priority
 #: (< 0 disqualifies) and slots(comm) -> {slot name: function}
-COMPONENTS = (CollDevice, CollCuda)
+COMPONENTS = (CollBasic, CollDevice, CollCuda)
 
 
 class CollTable:

@@ -237,18 +237,20 @@ def _opn(kind: str, op) -> op_mod.Op:
 # ---------------------------------------------------------------------------
 # per-comm state: peer-mapped arenas per size class
 #
-# Each rank allocates its staged input and four carry slots with
-# cudaMalloc (outside PyTorch's caching allocator, whose blocks
-# cudaIpcGetMemHandle cannot export), publishes the IPC handle through
+# Each rank allocates its staged input and four carry slots (a one-sided
+# window's arena: two round slots and no input) with cudaMalloc (outside
+# PyTorch's caching allocator, whose blocks cudaIpcGetMemHandle cannot
+# export), publishes the IPC handle through
 # the kvstore, and opens every peer's handle; a rank never opens its own
 # (CUDA refuses that within one process). On the CPU platform the same
 # arenas are shared-memory files, with peer views as tensors over each
 # peer's file. Ring hops are ordered by hop counters in a host-shared
 # file per rank and arena: after each step a rank synchronises its
 # stream, publishes its counter, and waits (up to device_plane_timeout)
-# for the ranks the step depends on. Device-side flags would spin through
-# whole time slices when several processes share one card; they are a
-# later change, for one rank per card.
+# for the ranks the step depends on (a one-sided round: its partners,
+# Arena.round). Device-side flags would spin through whole time slices
+# when several processes share one card; they are a later change, for one
+# rank per card.
 
 _timeout = cvar.register(
     "device_plane_timeout", 60, int,
@@ -259,7 +261,12 @@ _timeout = cvar.register(
 #: arena sizes are multiples of this (16-byte vector loads, typed views)
 ALIGN = 256
 _FLAG_SLOTS = 8  # int64 counters per rank and arena
-_FLAG_IDX = {1: 0, -1: 1, K.ALL: 2}
+#: counter index per step kind: ring hops per direction, linear steps, and
+#: the one-sided rounds' staged / landed counts (Arena.round)
+_FLAG_IDX = {1: 0, -1: 1, K.ALL: 2, "staged": 3, "landed": 4}
+_FLAG_WHAT = {1: "direction 1 hop", -1: "direction -1 hop",
+              K.ALL: "linear", "staged": "staged round",
+              "landed": "landed round"}
 
 
 def align(nbytes: int) -> int:
@@ -292,13 +299,16 @@ class Arena(K.Ring):
     through its peer mapping, and the hop counters."""
 
     def __init__(self, cid: int, tag: str, rank: int, n: int,
-                 in_bytes: int, slot_bytes: int) -> None:
+                 in_bytes: int, slot_bytes: int, nslots: int = 4) -> None:
         self._maps: List[mmap.mmap] = []
         self._peer_ptrs: List[int] = []
         self._own_ptr: Optional[int] = None
         self._paths: List[str] = []
+        self.rounds = 0  # one-sided rounds run (Arena.round)
+        # per slot parity: (reader, round) of the last payload staged there
+        self._readers = [(-1, 0), (-1, 0)]
         dev = device_plane.device()
-        total = in_bytes + 4 * slot_bytes
+        total = in_bytes + nslots * slot_bytes
         base = os.path.join(launcher.shm_dir(),
                             f"{launcher.SHM_PREFIX}{rte.jobid}_c{cid}_"
                             f"{tag}_r{rank}")
@@ -364,8 +374,7 @@ class Arena(K.Ring):
         next step depends on."""
         mine = self.flags[self.rank]
         for dirs in steps:
-            if self.device.type == "cuda":
-                torch.cuda.current_stream(self.device).synchronize()
+            self._sync()
             self.advance(dirs)
             for d in dirs:
                 mine[_FLAG_IDX[d]] = self.linear if d == K.ALL \
@@ -378,6 +387,39 @@ class Arena(K.Ring):
                     for p in {(self.rank - d) % self.n,
                               (self.rank + d) % self.n}:
                         self._wait(p, d, self.hops[d])
+
+    def round(self, tgt: int, src: int, stage, land) -> None:
+        """One edge-coloured round of a one-sided fence (osc/cuda's
+        transport; the handshake of the reference's ``dma_permute``, with
+        the round's actual partners only). Round t uses slot t%2 of each
+        rank (direction 1's two slots). This rank stages its payload for
+        ``tgt`` into its own slot (``stage(slot)``, a uint8 view) once the
+        rank that read the slot's last payload has landed it, and lands
+        what ``src`` staged this round (``land(src_slot)``, read through
+        the peer mapping) once src has published it; -1 means no partner.
+        Every member runs every round in the same order (the rounds are
+        derived from the same allgathered descriptors), so the counters
+        and parities agree."""
+        t, par = self.rounds, self.rounds % 2
+        mine = self.flags[self.rank]
+        if tgt >= 0:
+            reader, when = self._readers[par]
+            if reader >= 0:
+                self._wait(reader, "landed", when + 1)
+            stage(self.slot(self.rank, 1, par))
+            self._sync()
+            self._readers[par] = (tgt, t)
+        mine[_FLAG_IDX["staged"]] = t + 1
+        if src >= 0:
+            self._wait(src, "staged", t + 1)
+            land(self.slot(src, 1, par))
+            self._sync()
+        mine[_FLAG_IDX["landed"]] = t + 1
+        self.rounds = t + 1
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
 
     def _wait(self, p: int, d, target: int) -> None:
         f, i = self.flags[p], _FLAG_IDX[d]
@@ -395,8 +437,7 @@ class Arena(K.Ring):
                     errors.ERR_INTERN,
                     f"coll_cuda: comm rank {self.rank} waited "
                     f"{_timeout.get()}s for comm rank {p} to pass "
-                    f"{'linear' if d == K.ALL else f'direction {d} hop'} "
-                    f"step {target} (it is at {int(f[i])})")
+                    f"{_FLAG_WHAT[d]} step {target} (it is at {int(f[i])})")
         pvar.record("device_plane_wait_ns",
                     int((time.monotonic() - t0) * 1e9))
 
@@ -440,14 +481,17 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
     key = (family, cap)
     ep = arenas.get(key)
     if ep is None:
-        n = comm.size
+        n, nslots = comm.size, 4
         if family == "ag":  # the whole block travels; nothing is staged
             in_bytes, slot_bytes = ALIGN, cap
+        elif family == "osc":  # a one-sided round's payload per parity
+            in_bytes, slot_bytes, nslots = 0, cap, 2
         else:  # staged input + one chunk per slot
             in_bytes = cap
             slot_bytes = align(-(-cap // n))
         ep = arenas[key] = Arena(
-            comm.cid, f"{family}{cap}", comm.rank, n, in_bytes, slot_bytes)
+            comm.cid, f"{family}{cap}", comm.rank, n, in_bytes, slot_bytes,
+            nslots)
         pvar.record_hwm("device_plane_arena_bytes",
                         sum(a.nbytes for a in arenas.values()))
     return ep
@@ -460,7 +504,7 @@ def release(comm) -> None:
     for ep in arenas.values():
         ep.close_peers()
     if arenas:
-        rte.fence(f"coll_cuda_release:{comm.cid}")
+        comm.coll.barrier(comm)
     for ep in arenas.values():
         ep.free_own()
 

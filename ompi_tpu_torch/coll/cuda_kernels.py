@@ -66,8 +66,10 @@ OP_CODES = {"MPI_SUM": 0, "MPI_PROD": 1, "MPI_MIN": 2, "MPI_MAX": 3}
 #: marker a schedule yields for a step every rank must pass (linear)
 ALL = "all"
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "ring_kernels.cu")
+_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+_SRC = os.path.join(_CSRC, "ring_kernels.cu")
+#: the header every kernel source includes (part of each library's key)
+HEADERS = (os.path.join(_CSRC, "combine.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -89,12 +91,15 @@ def build_dir() -> str:
     return os.path.join(root, "build", "ompi_tpu_torch")
 
 
-def library_path() -> str:
-    """The built library's path, keyed by the source and flags."""
-    with open(_SRC, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(build_dir(),
-                        f"ring_kernels-{digest.hexdigest()[:12]}.so")
+def library_path(src: str = _SRC) -> str:
+    """The library built from ``src``, keyed by the source, the shared
+    header and the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (src, *HEADERS):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    stem = os.path.splitext(os.path.basename(src))[0]
+    return os.path.join(build_dir(), f"{stem}-{digest.hexdigest()[:12]}.so")
 
 
 def _nvcc() -> str:
@@ -105,18 +110,20 @@ def _nvcc() -> str:
     if os.path.exists(default):
         return default
     raise KernelError("nvcc not found (PATH, /usr/local/cuda/bin): the "
-                      "ring kernels cannot be built")
+                      "kernels cannot be built")
 
 
-def build(verbose: bool = False) -> str:
-    """Build the kernel library from the checkout's source (once per
-    source version: ranks that race here serialize on a lock file and
-    the first one builds). Returns the library path."""
-    path = library_path()
+def build(src: str = _SRC, verbose: bool = False) -> str:
+    """Build one kernel library from the checkout's ``src`` (once per
+    version: ranks that race here serialize on a lock file per source and
+    the first one builds; two sources build side by side). Returns the
+    library path."""
+    path = library_path(src)
     if os.path.exists(path):
         return path
     os.makedirs(build_dir(), exist_ok=True)
-    with open(os.path.join(build_dir(), "build.lock"), "w") as lock:
+    stem = os.path.splitext(os.path.basename(src))[0]
+    with open(os.path.join(build_dir(), f"{stem}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if os.path.exists(path):
             return path
@@ -124,7 +131,7 @@ def build(verbose: bool = False) -> str:
         cmd = [_nvcc(), *NVCC_FLAGS]
         if verbose:
             cmd += ["-Xptxas", "-v"]
-        cmd += ["-o", tmp, _SRC]
+        cmd += ["-o", tmp, src]
         try:
             proc = subprocess.run(cmd, capture_output=True, text=True)
         except OSError as exc:

@@ -68,7 +68,7 @@ def reduce_scatter_multi_dev(comm, bufs, op=op_mod.SUM,
 
     det = _cuda._det_ok(deterministic)
     opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
-    if opn is None:
+    if opn is None or opn.name not in K.OP_CODES:
         raise errors.MPIError(
             errors.ERR_NOT_SUPPORTED,
             f"coll_device: reduce_scatter_multi op {op!r} is outside "

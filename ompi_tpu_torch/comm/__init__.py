@@ -2,9 +2,9 @@
 
 Reference: ompi/group/ and ompi/communicator/, and the JAX package's
 ``ompi_tpu.comm``. A communicator = (Group mapping comm rank -> world
-rank, cid, coll table). This slice builds COMM_WORLD and
-COMM_SELF; dup/split come with the pml slice, which also brings host
-point-to-point and host collectives.
+rank, cid, coll table). The port builds COMM_WORLD and COMM_SELF and
+dups them (a window's private communicator); split comes with the pml
+slice, which also brings host point-to-point and host collectives.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ class Communicator:
         self.cid = cid
         self.name = f"comm#{cid}"
         self.coll = None  # installed by coll.comm_select
+        self._dups = 0  # dups made so far (members dup in the same order)
         from ompi_tpu_torch.coll import comm_select
 
         comm_select(self)
@@ -61,6 +62,20 @@ class Communicator:
 
     def set_name(self, name: str) -> None:
         self.name = name
+
+    def dup(self) -> "Communicator":
+        """MPI_Comm_dup (collective): the same group under a fresh cid.
+        Rank 0 allocates the cid (``rte.next_id``, as the reference's
+        ``alloc_cid``) and publishes it under (parent cid, dup sequence);
+        the other members read it there. No pml is involved."""
+        self._dups += 1
+        key = f"dup:{rte.jobid}:{self.cid}:{self._dups}"
+        if self.rank == 0:
+            cid = 1 + rte.next_id("cid")  # 0 and 1 are WORLD and SELF
+            rte.client().put(key, cid)
+        else:
+            cid = rte.client().get(key)
+        return Communicator(Group(self.group.ranks), cid)
 
     def free(self) -> None:
         """Release the comm's device arenas (collective)."""

@@ -5,7 +5,8 @@ What must match between the two packages for a test to compare like
 with like is the MCA configuration, the data and the parameters.
 
 - :func:`mca_from_reference` maps the reference's MCA settings to the
-  port's names (``coll_pallas*`` -> ``coll_cuda*``,
+  port's names (``coll_pallas*`` -> ``coll_cuda*``, ``osc_pallas*`` ->
+  ``osc_cuda*``,
   ``coll_xla_deterministic`` -> ``coll_cuda_deterministic``,
   ``coll_xla_bucket_bytes`` -> ``coll_device_bucket_bytes``,
   ``device_plane_platform`` tpu -> cuda). Settings of the reference's
@@ -28,7 +29,7 @@ import torch
 
 #: reference settings of the Pallas TPU transport, with no port analog
 _DROPPED = frozenset(("coll_pallas_interpret", "coll_pallas_dma_max_bytes",
-                      "coll_pallas_min_bytes"))
+                      "coll_pallas_min_bytes", "osc_pallas_interpret"))
 
 
 def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:
@@ -38,6 +39,8 @@ def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:
             continue
         if key == "coll_pallas" or key.startswith("coll_pallas_"):
             key = "coll_cuda" + key[len("coll_pallas"):]
+        elif key == "osc_pallas" or key.startswith("osc_pallas_"):
+            key = "osc_cuda" + key[len("osc_pallas"):]
         elif key == "coll_xla_deterministic":
             key = "coll_cuda_deterministic"
         elif key == "coll_xla_bucket_bytes":

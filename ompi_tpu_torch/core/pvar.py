@@ -37,6 +37,13 @@ WELL_KNOWN = (
     # waiting on ring neighbours' hop counters
     "device_plane_arenas", "device_plane_arena_bytes",
     "device_plane_wait_ns",
+    # osc/cuda (device-resident one-sided windows, the osc_pallas_*
+    # twins): windows created; Put/Put_strided, Get/Get_epoch and
+    # Accumulate calls; Fences; edge-coloured rounds run; origin payload
+    # bytes queued; windows and calls refused (ERR_NOT_SUPPORTED)
+    "osc_cuda_windows", "osc_cuda_put", "osc_cuda_get", "osc_cuda_acc",
+    "osc_cuda_fence", "osc_cuda_rounds", "osc_cuda_bytes",
+    "osc_cuda_fallthrough",
 )
 
 

@@ -84,15 +84,9 @@ def _Allgather_multi(self, state):
 
 
 def _Barrier(self) -> None:
-    """World barrier through the runtime's fence (COMM_WORLD only in
-    this slice: sub-communicators come with the pml)."""
-    from ompi_tpu_torch.runtime import rte
-
-    if self.size != rte.size and self.size != 1:
-        raise errors.MPIError(errors.ERR_NOT_SUPPORTED,
-                              "Barrier: only COMM_WORLD/COMM_SELF here")
-    if self.size > 1:
-        rte.fence(f"barrier:{self.cid}")
+    """MPI_Barrier through the comm's table (coll/basic: a store fence
+    keyed by the comm, so a dup'd comm can barrier too)."""
+    self.coll.barrier(self)
 
 
 for _name, _fn in {"Allreduce": _Allreduce,

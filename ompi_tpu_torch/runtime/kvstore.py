@@ -1,9 +1,9 @@
 """Rendezvous TCP key-value store — the PMIx server equivalent.
 
 Reference role: OpenPMIx server inside prterun/prted daemons. Supplies the
-modex (endpoint exchange) and fences (PMIx_Fence). The port's own copy,
-without ID allocation, abort and the fault-tolerance commands (they come
-with the slices that use them).
+modex (endpoint exchange), fences (PMIx_Fence) and ID allocation. The
+port's own copy, without abort and the fault-tolerance commands (they
+come with the slices that use them).
 
 Protocol: length-prefixed pickled tuples, thread-per-connection (the store
 is control plane only — no payload flows through it). SECURITY: pickle
@@ -13,6 +13,7 @@ Commands:
   ("get", key, wait: bool)       -> ("val", value) | ("none",)
   ("fence", tag, nprocs, rank)   -> blocks until nprocs distinct ranks
                                     arrive -> ("ok",)
+  ("inc", key, amount)           -> ("val", new_value)   # atomic counter
 """
 
 from __future__ import annotations
@@ -54,6 +55,7 @@ class Store:
     def __init__(self, host: str = "127.0.0.1", port: int = 0) -> None:
         self._data: Dict[str, Any] = {}
         self._fences: Dict[str, list] = {}  # tag -> [arrived, released]
+        self._counters: Dict[str, int] = {}
         self._cond = threading.Condition()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
@@ -126,6 +128,11 @@ class Store:
                 if entry[1] >= nprocs:
                     self._fences.pop(tag, None)  # last releaser reclaims
                 return ("ok",)
+        if op == "inc":
+            _, key, amount = msg
+            with self._cond:
+                self._counters[key] = self._counters.get(key, 0) + amount
+                return ("val", self._counters[key])
         return ("err", f"unknown op {op!r}")
 
 
@@ -180,6 +187,10 @@ class Client:
         """Blocks until nprocs distinct ranks arrive; a timeout raises
         socket.timeout (shutdown paths that must not hang)."""
         self._rpc("fence", tag, nprocs, rank, timeout=timeout)
+
+    def inc(self, key: str, amount: int = 1) -> int:
+        """Atomic store-side counter: returns the value after adding."""
+        return self._rpc("inc", key, amount)[1]
 
     def close(self) -> None:
         try:

@@ -82,6 +82,13 @@ def modex_recv(component: str, peer: int, wait: bool = True) -> Any:
     return client().get(f"modex:{jobid}:{component}:{peer}", wait=wait)
 
 
+def next_id(space: str) -> int:
+    """Collectively-unique, monotonically increasing ID (CID
+    allocation): a store-side atomic counter per ``space``, as
+    ompi/communicator/comm_cid.c:297-463 allocates through PMIx."""
+    return client().inc(f"id:{jobid}:{space}")
+
+
 def world_ranks() -> range:
     return range(size)
 

@@ -84,7 +84,10 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.runtime.launcher, ompi_tpu_torch.zero, "
             "ompi_tpu_torch.coll.device, "
             "ompi_tpu_torch.examples.device_collectives, "
-            "ompi_tpu_torch.examples.zero_training; "
+            "ompi_tpu_torch.examples.zero_training, ompi_tpu_torch.osc, "
+            "ompi_tpu_torch.osc.cuda, ompi_tpu_torch.coll.basic, "
+            "ompi_tpu_torch.examples.halo_exchange, "
+            "ompi_tpu_torch.examples.embedding_table; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu')]; "
             "assert not bad, bad; print('clean')")

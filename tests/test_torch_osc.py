@@ -1,0 +1,429 @@
+"""The port's fence-epoch one-sided windows (ompi_tpu_torch.osc) against
+the JAX package's.
+
+One job per package and comm size n in {3, 4}: the reference runs through
+``tests.harness.run_ranks`` with ``device_plane on`` and ``osc_pallas on``
+(a ``PallasWindow``, its kernels in interpret mode); the port through
+``ompi_tpu_torch.runtime.launcher`` with the same settings mapped by
+``compat.mca_from_reference`` plus ``device_plane_platform cpu`` (a
+``CudaWindow`` whose kernels take their plain versions on CPU tensors,
+over shared-memory arenas and the same round handshake as the card). Both
+run the same numpy-seeded schedules for float32, bfloat16 and int32:
+rotating-target Puts; Accumulates of every elementwise kind plus a
+same-origin ordered pair onto one location; starts past the end and below
+zero; contiguous and strided Get_epoch (clamp and fill edges). The
+results are compared bitwise (NaN payloads aside), and the
+``osc_cuda_{put,acc,get,rounds,bytes}`` counts must equal the reference's
+``osc_pallas_*``.
+
+The strided halo (``Put_strided``) is held against the reference's host
+``Window`` (ROADMAP queue 3: the reference's device-window halo test is
+flaky on 3 ranks), and K8 itself against the Pallas kernel in
+``test_torch_osc_kernels.py``. Both port examples run at ``--tiny`` inside
+the port job: the halo example against a host-window replay of the
+reference example's schedule, the embedding example against the
+reference example itself. The erroneous-call matrix of
+``tests/test_osc_pallas.py`` is checked in the port job unchanged, with
+``ERR_NOT_SUPPORTED`` plus ``osc_cuda_fallthrough`` for what the port
+cannot serve yet.
+"""
+
+import json
+import os
+import sys
+import tempfile
+import textwrap
+
+import numpy as np
+import pytest
+
+from ompi_tpu_torch import compat
+from ompi_tpu_torch.runtime import launcher as port_launcher
+from tests.harness import run_ranks
+from tests.test_torch_coll_cuda_kernels import assert_bits_equal
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+REF_MCA = {"device_plane": "on", "osc_pallas": "on"}
+PORT_MCA = dict(compat.mca_from_reference(REF_MCA),
+                device_plane_platform="cpu")
+DTYPES = ("float32", "bfloat16", "int32")
+PVARS = ("put", "acc", "get", "rounds", "bytes")
+NGETS = 4
+
+#: shared verbatim by both rank programs: numpy data and the schedules
+_SHARED = """
+import ml_dtypes
+DTYPES = {dtypes!r}
+PVARS = {pvars!r}
+N = 48
+
+def cast(a, dtype):
+    return a.astype(ml_dtypes.bfloat16 if dtype == "bfloat16" else dtype)
+
+def payload(dtype, rng, m):
+    if dtype == "int32":
+        return rng.integers(-2**31, 2**31 - 1, m,
+                            dtype=np.int64).astype(np.int32)
+    a = (rng.standard_normal(m) * 4).astype(np.float32)
+    a[m // 2] = -0.0
+    return cast(a, dtype)
+
+def base_for(dtype, rank):
+    a = payload(dtype, np.random.default_rng(40 + rank), N)
+    if dtype != "int32":
+        a[[5, 21]] = np.nan
+        a[[2, 9]] = 0.0
+        a[[3, 10]] = -0.0
+    return a
+
+def schedule(win, dev, dtype, rank, size, ops):
+    # ops: SUM, MIN, MAX, PROD, REPLACE of the package under test
+    rng = np.random.default_rng(70 + rank)
+    nxt, nx2 = (rank + 1) % size, (rank + 2) % size
+    win.Fence()
+    for k in range(3):  # rotating-target puts
+        win.Put(dev(payload(dtype, rng, 4)), (rank + 1 + k) % size,
+                disp=5 * k)
+    win.Fence()
+    for k, o in enumerate(ops):  # every elementwise kind
+        win.Accumulate(dev(payload(dtype, rng, 3)), nxt, disp=4 * k, op=o)
+    # the same-origin ordered pair onto one location
+    win.Accumulate(dev(payload(dtype, rng, 3)), nxt, disp=30, op=ops[0])
+    win.Accumulate(dev(payload(dtype, rng, 3)), nxt, disp=30, op=ops[3])
+    # a start past the end and one below zero: both land at N - 4
+    win.Put(dev(payload(dtype, rng, 4)), nx2, disp=N - 2)
+    win.Accumulate(dev(payload(dtype, rng, 4)), nx2, disp=-3, op=ops[0])
+    win.Fence()
+    hs = [win.Get_epoch(6, nxt, disp=3),
+          win.Get_epoch(3, nxt, disp=1, stride=9),
+          win.Get_epoch(4, nx2, disp=-3),
+          win.Get_epoch(4, nx2, disp=N - 4, stride=2)]  # two past the end
+    win.Fence()
+    return hs
+
+def halo(win, dev, dtype, rank, size):
+    # a 4 x 12 grid: one Put_strided halo column each way
+    rng = np.random.default_rng(90 + rank)
+    win.Fence()
+    win.Put_strided(dev(payload(dtype, rng, 4)), (rank + 1) % size,
+                    disp=0, stride=12)
+    win.Put_strided(dev(payload(dtype, rng, 4)), (rank - 1) % size,
+                    disp=11, stride=12)
+    win.Fence()
+"""
+
+_REF_BODY = """
+import runpy
+import jax.numpy as jnp
+import ompi_tpu.mpi as M
+from ompi_tpu import op as op_mod, osc
+from ompi_tpu.core import pvar
+{shared}
+OPS = [op_mod.SUM, op_mod.MIN, op_mod.MAX, op_mod.PROD, op_mod.REPLACE]
+
+def save(name, a):
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        a = a.view(np.uint16)
+    np.save(f"{{out_dir}}/ref_{{name}}_r{{rank}}.npy", a)
+
+for dtype in DTYPES:
+    s = pvar.session()
+    base = base_for(dtype, rank)
+    win = osc.win_create(comm, jnp.asarray(base),
+                         disp_unit=base.dtype.itemsize)
+    assert type(win).__name__ == "PallasWindow", type(win)
+    hs = schedule(win, jnp.asarray, dtype, rank, size, OPS)
+    save(f"{{dtype}}_win", win.array)
+    for i, h in enumerate(hs):
+        save(f"{{dtype}}_get{{i}}", h.array)
+    save(f"{{dtype}}_pvars", np.array([s.read(f"osc_pallas_{{k}}")
+                                      for k in PVARS]))
+    win.Free()
+for dtype in ("float32", "int32"):  # the halo, on the host window
+    base = base_for(dtype, rank)
+    wh = osc.Window(comm, base.copy(), disp_unit=base.dtype.itemsize)
+    halo(wh, lambda a: a, dtype, rank, size)
+    save(f"{{dtype}}_halo", wh.base)
+    wh.Free()
+
+# examples/halo_exchange.py's schedule, replayed on the host window
+H, W = 6, 8
+tile = np.random.default_rng(11 + rank).standard_normal((H, W)).astype(
+    np.float32)
+shadow = osc.Window(comm, tile.copy(), disp_unit=4)
+grid = tile.copy()
+for _ in range(3):
+    shadow.Fence()
+    shadow.Put_strided(np.ascontiguousarray(grid[:, W - 2]),
+                       (rank + 1) % size, disp=0, stride=W)
+    shadow.Put_strided(np.ascontiguousarray(grid[:, 1]), (rank - 1) % size,
+                       disp=W - 1, stride=W)
+    shadow.Fence()
+    g = shadow.base.reshape(H, W)
+    grid = g.copy()
+    grid[:, 1:W - 1] = (g[:, :W - 2] + g[:, 1:W - 1] + g[:, 2:]) / np.float32(
+        3.0)
+    shadow.Fence()
+    shadow.Put(grid.reshape(-1), rank, disp=0)
+    shadow.Fence()
+save("halo_example", shadow.base)
+shadow.Free()
+
+# examples/embedding_table.py itself (it checks itself against its host
+# shadow window); its Finalize is the pool's, so it is held off
+fin = M.Finalize
+M.Finalize = lambda: None
+try:
+    g = runpy.run_path({emb!r})
+finally:
+    M.Finalize = fin
+save("emb_rows", g["dev_rows"])
+save("emb_window", g["got"])
+save("emb_pvars", np.array([g["summary"]["osc_pallas_" + k]
+                            for k in ("get", "acc", "rounds", "bytes")]))
+"""
+
+_PORT_PROG = """
+import numpy as np
+import torch
+import ompi_tpu_torch.mpi as M
+from ompi_tpu_torch import compat, errors, mpi, op as op_mod, osc
+from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.examples import embedding_table, halo_exchange
+comm = mpi.Init()
+rank, size = comm.rank, comm.size
+out_dir = {out_dir!r}
+{shared}
+OPS = [op_mod.SUM, op_mod.MIN, op_mod.MAX, op_mod.PROD, op_mod.REPLACE]
+
+def save(name, t):
+    a = compat.tensor_to_numpy(t) if isinstance(t, torch.Tensor) else t
+    np.save(f"{{out_dir}}/port_{{name}}_r{{rank}}.npy", np.asarray(a))
+
+def expect(cls, fn):
+    try:
+        fn()
+    except errors.MPIError as e:
+        assert e.error_class == cls, (cls, e.error_class, str(e))
+        return str(e)
+    raise AssertionError(f"no MPIError {{cls}} raised")
+
+for dtype in DTYPES:
+    s = pvar.session()
+    base = base_for(dtype, rank)
+    win = osc.win_create(comm, compat.tensor_from_numpy(base),
+                         disp_unit=base.dtype.itemsize)
+    assert type(win).__name__ == "CudaWindow", type(win)
+    hs = schedule(win, compat.tensor_from_numpy, dtype, rank, size, OPS)
+    save(f"{{dtype}}_win", win.array)
+    for i, h in enumerate(hs):
+        save(f"{{dtype}}_get{{i}}", h.array)
+    save(f"{{dtype}}_pvars", np.array([s.read(f"osc_cuda_{{k}}")
+                                      for k in PVARS]))
+    assert s.read("osc_cuda_fallthrough") == 0
+    assert torch.equal(compat.tensor_from_numpy(base).view(torch.uint8),
+                       compat.tensor_from_numpy(base_for(dtype, rank)).view(
+                           torch.uint8))
+    win.Free()
+for dtype in ("float32", "int32"):
+    base = base_for(dtype, rank)
+    win = osc.win_create(comm, compat.tensor_from_numpy(base),
+                         disp_unit=base.dtype.itemsize)
+    halo(win, compat.tensor_from_numpy, dtype, rank, size)
+    save(f"{{dtype}}_halo", win.array)
+    win.Free()
+
+# both examples at --tiny, in this job (their Finalize is this job's)
+fin = M.Finalize
+M.Finalize = lambda: None
+try:
+    halo_exchange.main(["--tiny", "--out", f"{{out_dir}}/port_halo"])
+    embedding_table.main(["--tiny", "--out", f"{{out_dir}}/port_emb"])
+finally:
+    M.Finalize = fin
+
+# the reference's erroneous-call matrix (tests/test_osc_pallas.py)
+win = osc.win_create(comm, torch.zeros(4), disp_unit=4)
+for attempt in range(2):  # uncached: raises every call
+    expect(errors.ERR_RMA_SYNC, lambda: win.Put(torch.ones(1), 0))
+    expect(errors.ERR_RMA_SYNC, lambda: win.Unlock((rank + 1) % size))
+    expect(errors.ERR_RMA_SYNC, win.Complete)
+expect(errors.ERR_RMA_SYNC, lambda: win.Get_epoch(1, 0))
+win.Fence()
+for attempt in range(2):
+    expect(errors.ERR_ARG,
+           lambda: win.Accumulate(np.ones(2, np.float64), 0, disp=0))
+for meth, args in (("Rput", (torch.ones(1), 0)),
+                   ("Rget", (np.ones(1, np.float32), 0))):
+    expect(errors.ERR_RMA_SYNC, lambda: getattr(win, meth)(*args))
+expect(errors.ERR_RANK, lambda: win.Put(torch.ones(1), size))
+# what rides the host window's AM service: refused and counted
+s = pvar.session()
+one = np.ones(1, np.float32)
+am = (("Lock", (0,)), ("Lock_all", ()), ("Flush", (0,)), ("Post", ([0],)),
+      ("Start", ([0],)), ("Wait", ()), ("Get", (one, 0)),
+      ("Get_strided", (one, 0, 0, 2)),
+      ("Get_accumulate", (one, one.copy(), 0)),
+      ("Fetch_and_op", (one, one.copy(), 0)),
+      ("Compare_and_swap", (one, one.copy(), one.copy(), 0)))
+for verb, args in am:
+    msg = expect(errors.ERR_NOT_SUPPORTED,
+                 lambda: getattr(win, verb)(*args))
+    assert "queue 1 item 2" in msg, msg
+assert s.read("osc_cuda_fallthrough") == len(am)
+win.Put(torch.ones(1), (rank + 1) % size)
+expect(errors.ERR_RMA_SYNC, win.Free)  # a descriptor is still queued
+win.Fence()
+win.Free()
+wi = osc.win_create(comm, torch.zeros(4, dtype=torch.int32), disp_unit=4)
+wi.Fence()
+s = pvar.session()
+msg = expect(errors.ERR_NOT_SUPPORTED, lambda: wi.Accumulate(
+    torch.ones(2, dtype=torch.int32), 0, op=op_mod.BAND))
+assert "MPI_BAND" in msg, msg
+wi.Fence()
+wi.Free()
+msg = expect(errors.ERR_NOT_SUPPORTED, lambda: osc.win_create(
+    comm, torch.zeros(8, dtype=torch.int16), disp_unit=2))
+assert "int16" in msg, msg
+expect(errors.ERR_NOT_SUPPORTED,
+       lambda: osc.win_create(comm, np.zeros(8, np.float32), disp_unit=4))
+assert s.read("osc_cuda_fallthrough") == 3
+cvar.set("osc_cuda", "off")
+msg = expect(errors.ERR_NOT_SUPPORTED,
+             lambda: osc.win_create(comm, torch.zeros(4), disp_unit=4))
+assert "osc_cuda on" in msg and s.read("osc_cuda_fallthrough") == 3, msg
+cvar.set("osc_cuda", "on")
+open(f"{{out_dir}}/port_errors_r{{rank}}.ok", "w").close()
+mpi.Finalize()
+"""
+
+
+def _port_job(src: str, n: int, mca) -> int:
+    with tempfile.NamedTemporaryFile("w", suffix=".py",
+                                     delete=False) as fh:
+        fh.write(textwrap.dedent(src))
+        path = fh.name
+    try:
+        return port_launcher.launch([sys.executable, path], n, mca=mca,
+                                    timeout=180)
+    finally:
+        os.unlink(path)
+
+
+_jobs = {}
+
+
+@pytest.fixture(params=[3, 4], scope="module")
+def results(request, tmp_path_factory):
+    """Run both packages' jobs once per n; returns (n, out_dir)."""
+    n = request.param
+    if n not in _jobs:
+        out = tmp_path_factory.mktemp(f"osc_n{n}")
+        shared = _SHARED.format(dtypes=DTYPES, pvars=PVARS)
+        emb = os.path.join(ROOT, "examples", "embedding_table.py")
+        run_ranks(f"out_dir = {str(out)!r}\n"
+                  + _REF_BODY.format(shared=shared, emb=emb), n,
+                  mca=REF_MCA, timeout=300)
+        rc = _port_job(_PORT_PROG.format(shared=shared, out_dir=str(out)),
+                       n, PORT_MCA)
+        assert rc == 0, f"port job exited {rc}"
+        _jobs[n] = out
+    return n, _jobs[n]
+
+
+def _pair(out, name, r):
+    return (np.load(out / f"ref_{name}_r{r}.npy"),
+            np.load(out / f"port_{name}_r{r}.npy"))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fence_windows_bitwise_equal_to_reference(results, dtype):
+    """Puts, every accumulate kind, the ordered pair and the clamped
+    starts leave every rank's window bitwise equal to PallasWindow's."""
+    n, out = results
+    for r in range(n):
+        ref, got = _pair(out, f"{dtype}_win", r)
+        assert_bits_equal(ref, got, f"{dtype} window rank {r}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_get_epoch_handles_bitwise_equal_to_reference(results, dtype):
+    """Contiguous, strided, wrapped-and-clamped and filled gets."""
+    n, out = results
+    for r in range(n):
+        for i in range(NGETS):
+            ref, got = _pair(out, f"{dtype}_get{i}", r)
+            assert ref.shape == got.shape
+            assert_bits_equal(ref, got, f"{dtype} get {i} rank {r}")
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_counts_equal_reference(results, dtype):
+    """osc_cuda_{put,acc,get,rounds,bytes} == osc_pallas_* (the same
+    descriptors, grouped and coloured into the same rounds)."""
+    n, out = results
+    for r in range(n):
+        ref, got = _pair(out, f"{dtype}_pvars", r)
+        assert got.tolist() == ref.tolist(), dict(zip(PVARS, zip(ref, got)))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int32"])
+def test_strided_halo_equal_to_host_window(results, dtype):
+    n, out = results
+    for r in range(n):
+        ref, got = _pair(out, f"{dtype}_halo", r)
+        assert_bits_equal(ref, got, f"{dtype} halo rank {r}")
+
+
+def test_halo_example_equal_to_host_window_replay(results):
+    """examples' halo_exchange at --tiny (3 steps of halo columns and a
+    whole-tile self Put) == the JAX package's example schedule on its
+    host window, and its counts are the reference example's."""
+    n, out = results
+    for r in range(n):
+        ref = np.load(out / f"ref_halo_example_r{r}.npy")
+        got = np.load(out / "port_halo" / f"rank{r}_window.npy")
+        assert_bits_equal(ref, got.reshape(-1), f"halo example rank {r}")
+        doc = json.loads((out / "port_halo" / f"rank{r}.json").read_text())
+        assert all(c["ok"] for c in doc["cases"]), doc["cases"]
+        # the reference example prints 9 puts in 9 rounds, 720 bytes
+        assert doc["pvars"] == {"osc_cuda_put": 9, "osc_cuda_fence": 12,
+                                "osc_cuda_rounds": 9, "osc_cuda_bytes": 720}
+
+
+def test_embedding_example_equal_to_reference(results):
+    """examples' embedding_table at --tiny == the JAX package's example:
+    the looked-up rows, the updated shard and the counts."""
+    n, out = results
+    for r in range(n):
+        ref_rows = np.load(out / f"ref_emb_rows_r{r}.npy")
+        got_rows = np.load(out / "port_emb" / f"rank{r}_rows.npy")
+        assert_bits_equal(ref_rows, got_rows, f"lookups rank {r}")
+        ref_win = np.load(out / f"ref_emb_window_r{r}.npy")
+        got_win = np.load(out / "port_emb" / f"rank{r}_window.npy")
+        assert_bits_equal(ref_win, got_win.reshape(-1), f"shard rank {r}")
+        doc = json.loads((out / "port_emb" / f"rank{r}.json").read_text())
+        assert all(c["ok"] for c in doc["cases"]), doc["cases"]
+        ref = np.load(out / f"ref_emb_pvars_r{r}.npy").tolist()
+        assert [doc["pvars"]["osc_cuda_" + k] for k in
+                ("get", "acc", "rounds", "bytes")] == ref
+
+
+def test_error_matrix(results):
+    """ERR_RMA_SYNC (op outside an epoch, Get_epoch outside a fence,
+    Unlock without Lock, Complete without Start, Rput/Rget outside a
+    Lock, Free with queued descriptors), ERR_ARG (operand dtype), ERR_RANK
+    (target), and ERR_NOT_SUPPORTED + osc_cuda_fallthrough for the AM
+    verbs, BAND, an int16 window and a host buffer (osc_cuda off raises
+    without counting) — asserted inside the port job, on every rank."""
+    n, out = results
+    for r in range(n):
+        assert (out / f"port_errors_r{r}.ok").exists()
+
+
+def test_mca_maps_osc_pallas():
+    got = compat.mca_from_reference({"osc_pallas": "on",
+                                     "osc_pallas_interpret": "on"})
+    assert got == {"osc_cuda": "on"}
