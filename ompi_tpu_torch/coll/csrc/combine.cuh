@@ -2,7 +2,8 @@
 // dtype and op codes of the ctypes interface, the elementwise combine with
 // jnp's numerics (see ring_kernels.cu's header), 16-byte vectors and the
 // grid size of a grid-stride loop. Included by coll/csrc/ring_kernels.cu
-// (K1-K6) and osc/csrc/rma_kernels.cu (K7-K10).
+// (K1-K5b), coll/csrc/gemm_kernels.cu (K6) and osc/csrc/rma_kernels.cu
+// (K7-K10).
 
 #pragma once
 

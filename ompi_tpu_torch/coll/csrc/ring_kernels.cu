@@ -24,10 +24,15 @@
 //                       own), then the ZeRO shard update g *= inv;
 //                       v' = mu*v + g; p' = p - lr*v' (v and inv optional),
 //                       so the reduced chunk never reaches memory.
-//   otc_block_matmul  K6 the per-block product of allgather_matmul
-//                       (_dma_allgather_matmul, body _matmul_body): one
-//                       arrived (m, d) block times w (d, f) into the block's
-//                       rank-order rows of the output, so no roll is needed.
+//   otc_linear_fold_update K5b  linear_reduce_scatter_update
+//                       (_fold_slice_update_body, _apply_update): K3's
+//                       rank-order fold of every rank's own slice, then
+//                       K5's update epilogue, in one pass; the folded
+//                       chunk never reaches memory. Nothing in the JAX
+//                       package calls it (its 'linear' fused slot runs K3
+//                       and an eager update), so no path of the port does.
+//
+// K6, the block product of allgather_matmul, lives in gemm_kernels.cu.
 //
 // What bounds them on the H100: HBM bytes. K1 reads 2 and writes 1 (or 2,
 // on the last hop) chunk per hop; K2 reads 1 and writes 2; K3 reads n and
@@ -38,18 +43,7 @@
 // pointer that is not 16-byte aligned) takes the same loop one element at a
 // time. K5 is bound the same way (it reads carry, own, p and v and writes
 // p' and v': six chunks, a handful of flops per element), and takes the
-// same loop.
-//
-// K6 is bound by operations at the main path's shape ((2048, 768) x
-// (768, 3072): 9.7 GFLOP against 41 MB). This first version is a plain
-// shared-memory tiled GEMM on the CUDA cores: 128 x 128 output tiles, a
-// depth of 8 per step, 256 threads each holding an 8 x 8 micro-tile in
-// registers (rows ty + 16i, columns tx + 16j, so a warp's shared-memory
-// reads are broadcasts or consecutive words). Operands are converted to the
-// accumulator type as they enter shared memory: float for float32 and
-// bfloat16 (rounded once, at the store), uint32 for int32 (wrapping). No
-// tensor cores, no TMA, no overlap of the product with the next hop: those
-// are later work.
+// same loop; K5b reads n slices, p and v and writes p' and v'.
 //
 // Numerics (the same as the plain PyTorch versions beside the wrappers, and
 // as jnp's per-op rounding; the elementwise combine lives in combine.cuh,
@@ -65,9 +59,8 @@
 //     cast to the shard's type by the caller (1/3 rounds to bfloat16, and
 //     truncates to 0 for int32, as jnp.asarray(inv, dtype) does), and rounds
 //     after every op exactly like K1's combine, so it equals the eager,
-//     op-by-op update bit for bit;
-//   - K6's sums run in another order than any library GEMM's; float32 and
-//     bfloat16 agree with torch.matmul to a tolerance, int32 exactly.
+//     op-by-op update bit for bit; K5b shares the same epilogue, so it
+//     equals K3 followed by the eager update bit for bit.
 //
 // Every entry point returns a cudaError_t as int: 0 on success, else the
 // error of the call or of the launch (cudaGetLastError()).
@@ -147,6 +140,30 @@ struct Srcs {
     const void* p[OTC_MAX_PEERS];
 };
 
+// element i of the fold (16-byte vector i, and one element i), shared by
+// K3 and K5b
+template <typename T, int OP>
+__device__ __forceinline__ Vec<T> fold_vec(const Srcs& srcs, int n,
+                                           int64_t i) {
+    constexpr int V = 16 / sizeof(T);
+    Vec<T> acc = reinterpret_cast<const Vec<T>*>(srcs.p[0])[i];
+    for (int j = 1; j < n; ++j) {
+        Vec<T> b = reinterpret_cast<const Vec<T>*>(srcs.p[j])[i];
+#pragma unroll
+        for (int e = 0; e < V; ++e)
+            acc.v[e] = Combine<T, OP>::f(acc.v[e], b.v[e]);
+    }
+    return acc;
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ T fold_one(const Srcs& srcs, int n, int64_t i) {
+    T acc = reinterpret_cast<const T*>(srcs.p[0])[i];
+    for (int j = 1; j < n; ++j)
+        acc = Combine<T, OP>::f(acc, reinterpret_cast<const T*>(srcs.p[j])[i]);
+    return acc;
+}
+
 template <typename T, int OP>
 __global__ void fold_kernel(Srcs srcs, int n, T* __restrict__ dst,
                             int64_t count, int64_t nvec) {
@@ -154,30 +171,23 @@ __global__ void fold_kernel(Srcs srcs, int n, T* __restrict__ dst,
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     Vec<T>* dv = reinterpret_cast<Vec<T>*>(dst);
-    for (int64_t i = tid; i < nvec; i += stride) {
-        Vec<T> acc = reinterpret_cast<const Vec<T>*>(srcs.p[0])[i];
-        for (int j = 1; j < n; ++j) {
-            Vec<T> b = reinterpret_cast<const Vec<T>*>(srcs.p[j])[i];
-#pragma unroll
-            for (int e = 0; e < V; ++e)
-                acc.v[e] = Combine<T, OP>::f(acc.v[e], b.v[e]);
-        }
-        dv[i] = acc;
-    }
-    for (int64_t i = nvec * V + tid; i < count; i += stride) {
-        T acc = reinterpret_cast<const T*>(srcs.p[0])[i];
-        for (int j = 1; j < n; ++j)
-            acc = Combine<T, OP>::f(acc, reinterpret_cast<const T*>(srcs.p[j])[i]);
-        dst[i] = acc;
-    }
+    for (int64_t i = tid; i < nvec; i += stride)
+        dv[i] = fold_vec<T, OP>(srcs, n, i);
+    for (int64_t i = nvec * V + tid; i < count; i += stride)
+        dst[i] = fold_one<T, OP>(srcs, n, i);
+}
+
+static bool srcs_aligned16(const Srcs& srcs, int n) {
+    for (int j = 0; j < n; ++j)
+        if (!aligned16(srcs.p[j])) return false;
+    return true;
 }
 
 template <typename T, int OP>
 static void launch_fold(const Srcs& srcs, int n, void* dst, int64_t count,
                         cudaStream_t s) {
     constexpr int V = 16 / sizeof(T);
-    bool vec = aligned16(dst);
-    for (int j = 0; j < n; ++j) vec = vec && aligned16(srcs.p[j]);
+    bool vec = aligned16(dst) && srcs_aligned16(srcs, n);
     int64_t nvec = vec ? count / V : 0;
     fold_kernel<T, OP><<<grid_for(vec ? nvec : count), OTC_THREADS, 0, s>>>(
         srcs, n, (T*)dst, count, nvec);
@@ -235,20 +245,47 @@ template <> struct Arith<int32_t> {
     }
 };
 
-// g = fn(carry, own); g *= inv (has_inv); v' = mu*v + g; g = v' (v given);
-// p' = p - lr*g — the op order of _apply_update and of the eager step
-template <typename T, int OP>
-__device__ __forceinline__ T update_one(T a, T b, T p, const T* v, T vv,
-                                        T* vn, T lr, T mu, T inv,
-                                        int has_inv) {
+// g *= inv (has_inv); v' = mu*v + g; g = v' (v given); p' = p - lr*g —
+// the op order of _apply_update and of the eager step. The epilogue of K5
+// and K5b.
+template <typename T>
+__device__ __forceinline__ T apply_update(T g, T p, const T* v, T vv, T* vn,
+                                          T lr, T mu, T inv, int has_inv) {
     typedef Arith<T> A;
-    T g = Combine<T, OP>::f(a, b);
     if (has_inv) g = A::mul(g, inv);
     if (v != nullptr) {
         g = A::add(A::mul(mu, vv), g);
         *vn = g;
     }
     return A::sub(p, A::mul(lr, g));
+}
+
+// the update of one 16-byte vector i, g given: p_out[i] (and v_out[i])
+template <typename T>
+__device__ __forceinline__ void apply_update_vec(
+    const Vec<T>& g, int64_t i, const T* __restrict__ p,
+    const T* __restrict__ v, T* __restrict__ p_out, T* __restrict__ v_out,
+    T lr, T mu, T inv, int has_inv) {
+    constexpr int V = 16 / sizeof(T);
+    Vec<T> pp = reinterpret_cast<const Vec<T>*>(p)[i], m, pn, vn;
+    if (v != nullptr) m = reinterpret_cast<const Vec<T>*>(v)[i];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+        pn.v[e] = apply_update<T>(g.v[e], pp.v[e], v, m.v[e], &vn.v[e], lr,
+                                  mu, inv, has_inv);
+    reinterpret_cast<Vec<T>*>(p_out)[i] = pn;
+    if (v != nullptr) reinterpret_cast<Vec<T>*>(v_out)[i] = vn;
+}
+
+template <typename T>
+__device__ __forceinline__ void apply_update_one(
+    T g, int64_t i, const T* __restrict__ p, const T* __restrict__ v,
+    T* __restrict__ p_out, T* __restrict__ v_out, T lr, T mu, T inv,
+    int has_inv) {
+    T vn;
+    T vi = v != nullptr ? v[i] : p[i];
+    p_out[i] = apply_update<T>(g, p[i], v, vi, &vn, lr, mu, inv, has_inv);
+    if (v != nullptr) v_out[i] = vn;
 }
 
 template <typename T, int OP>
@@ -268,27 +305,15 @@ __global__ void rs_update_kernel(const T* __restrict__ carry,
     const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     const Vec<T>* cv = reinterpret_cast<const Vec<T>*>(carry);
     const Vec<T>* ov = reinterpret_cast<const Vec<T>*>(own);
-    const Vec<T>* pv = reinterpret_cast<const Vec<T>*>(p);
-    const Vec<T>* vv = reinterpret_cast<const Vec<T>*>(v);
-    Vec<T>* pov = reinterpret_cast<Vec<T>*>(p_out);
-    Vec<T>* vov = reinterpret_cast<Vec<T>*>(v_out);
     for (int64_t i = tid; i < nvec; i += stride) {
-        Vec<T> a = cv[i], b = ov[i], pp = pv[i], m, pn, vn;
-        if (v != nullptr) m = vv[i];
+        Vec<T> a = cv[i], b = ov[i], g;
 #pragma unroll
-        for (int e = 0; e < V; ++e)
-            pn.v[e] = update_one<T, OP>(a.v[e], b.v[e], pp.v[e], v, m.v[e],
-                                        &vn.v[e], lr, mu, inv, has_inv);
-        pov[i] = pn;
-        if (v != nullptr) vov[i] = vn;
+        for (int e = 0; e < V; ++e) g.v[e] = Combine<T, OP>::f(a.v[e], b.v[e]);
+        apply_update_vec<T>(g, i, p, v, p_out, v_out, lr, mu, inv, has_inv);
     }
-    for (int64_t i = nvec * V + tid; i < count; i += stride) {
-        T vn;
-        T vi = v != nullptr ? v[i] : p[i];
-        p_out[i] = update_one<T, OP>(carry[i], own[i], p[i], v, vi, &vn, lr,
-                                     mu, inv, has_inv);
-        if (v != nullptr) v_out[i] = vn;
-    }
+    for (int64_t i = nvec * V + tid; i < count; i += stride)
+        apply_update_one<T>(Combine<T, OP>::f(carry[i], own[i]), i, p, v,
+                            p_out, v_out, lr, mu, inv, has_inv);
 }
 
 template <typename T, int OP>
@@ -309,91 +334,43 @@ static void launch_rs_update(const void* carry, const void* own,
 }
 
 // ---------------------------------------------------------------------------
-// K6: out (m, f) = x (m, d) @ w (d, f), all row-major and of one type
+// K5b: the rank-order fold of every rank's own slice fused with the update
 
-#define MM_TILE 128
-#define MM_DEPTH 8
-#define MM_SUB 8  // micro-tile: MM_SUB x MM_SUB outputs per thread
+template <typename T, int OP>
+__global__ void fold_update_kernel(Srcs srcs, int n,
+                                   const T* __restrict__ p,
+                                   const T* __restrict__ v,
+                                   T* __restrict__ p_out,
+                                   T* __restrict__ v_out, uint32_t lr_bits,
+                                   uint32_t mu_bits, uint32_t inv_bits,
+                                   int has_inv, int64_t count, int64_t nvec) {
+    constexpr int V = 16 / sizeof(T);
+    typedef Arith<T> A;
+    const T lr = A::from_bits(lr_bits), mu = A::from_bits(mu_bits),
+            inv = A::from_bits(inv_bits);
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+    for (int64_t i = tid; i < nvec; i += stride)
+        apply_update_vec<T>(fold_vec<T, OP>(srcs, n, i), i, p, v, p_out,
+                            v_out, lr, mu, inv, has_inv);
+    for (int64_t i = nvec * V + tid; i < count; i += stride)
+        apply_update_one<T>(fold_one<T, OP>(srcs, n, i), i, p, v, p_out,
+                            v_out, lr, mu, inv, has_inv);
+}
 
-template <typename T> struct Acc;
-template <> struct Acc<float> {
-    typedef float type;
-    static __device__ __forceinline__ float in(float x) { return x; }
-    static __device__ __forceinline__ float out(float x) { return x; }
-};
-template <> struct Acc<__nv_bfloat16> {
-    typedef float type;
-    static __device__ __forceinline__ float in(__nv_bfloat16 x) {
-        return __bfloat162float(x);
-    }
-    static __device__ __forceinline__ __nv_bfloat16 out(float x) {
-        return __float2bfloat16_rn(x);
-    }
-};
-template <> struct Acc<int32_t> {
-    typedef uint32_t type;  // wrapping sums of wrapping products
-    static __device__ __forceinline__ uint32_t in(int32_t x) {
-        return (uint32_t)x;
-    }
-    static __device__ __forceinline__ int32_t out(uint32_t x) {
-        return (int32_t)x;
-    }
-};
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
-              T* __restrict__ out, int64_t m, int64_t d, int64_t f) {
-    typedef typename Acc<T>::type A;
-    // +1 column: the transposed store of x's tile hits 32 banks
-    __shared__ A xs[MM_DEPTH][MM_TILE + 1];
-    __shared__ A ws[MM_DEPTH][MM_TILE];
-    const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-    const int64_t row0 = (int64_t)blockIdx.y * MM_TILE;
-    const int64_t col0 = (int64_t)blockIdx.x * MM_TILE;
-    A acc[MM_SUB][MM_SUB];
-#pragma unroll
-    for (int i = 0; i < MM_SUB; ++i)
-#pragma unroll
-        for (int j = 0; j < MM_SUB; ++j) acc[i][j] = A(0);
-    for (int64_t k0 = 0; k0 < d; k0 += MM_DEPTH) {
-        // each of the 256 threads brings 4 of x's 128 x 8 tile and 4 of
-        // w's 8 x 128 tile; outside the matrices it stores zeros
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-            int e = threadIdx.x + 256 * q;
-            int r = e / MM_DEPTH, kk = e % MM_DEPTH;
-            int64_t gr = row0 + r, gk = k0 + kk;
-            xs[kk][r] = (gr < m && gk < d) ? Acc<T>::in(x[gr * d + gk]) : A(0);
-            int kw = e / MM_TILE, c = e % MM_TILE;
-            int64_t gkw = k0 + kw, gc = col0 + c;
-            ws[kw][c] = (gkw < d && gc < f) ? Acc<T>::in(w[gkw * f + gc]) : A(0);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < MM_DEPTH; ++kk) {
-            A a[MM_SUB], b[MM_SUB];
-#pragma unroll
-            for (int i = 0; i < MM_SUB; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-            for (int j = 0; j < MM_SUB; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-            for (int i = 0; i < MM_SUB; ++i)
-#pragma unroll
-                for (int j = 0; j < MM_SUB; ++j) acc[i][j] += a[i] * b[j];
-        }
-        __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < MM_SUB; ++i) {
-        int64_t gr = row0 + ty + 16 * i;
-        if (gr >= m) continue;
-#pragma unroll
-        for (int j = 0; j < MM_SUB; ++j) {
-            int64_t gc = col0 + tx + 16 * j;
-            if (gc < f) out[gr * f + gc] = Acc<T>::out(acc[i][j]);
-        }
-    }
+template <typename T, int OP>
+static void launch_fold_update(const Srcs& srcs, int n, const void* p,
+                               const void* v, void* p_out, void* v_out,
+                               uint32_t lr, uint32_t mu, uint32_t inv,
+                               int has_inv, int64_t count, cudaStream_t s) {
+    constexpr int V = 16 / sizeof(T);
+    bool vec = srcs_aligned16(srcs, n) && aligned16(p) && aligned16(p_out) &&
+               (v == nullptr || (aligned16(v) && aligned16(v_out)));
+    int64_t nvec = vec ? count / V : 0;
+    fold_update_kernel<T, OP>
+        <<<grid_for(vec ? nvec : count), OTC_THREADS, 0, s>>>(
+            srcs, n, (const T*)p, (const T*)v, (T*)p_out, (T*)v_out, lr, mu,
+            inv, has_inv, count, nvec);
 }
 
 // dispatch a templated launcher over (dtype, op); false = unknown pair
@@ -442,12 +419,17 @@ int otc_ag_hop(const void* src, void* dst, void* dst2, int64_t nbytes,
     return (int)cudaGetLastError();
 }
 
+static Srcs make_srcs(const void* const* srcs, int n) {
+    Srcs s;
+    for (int j = 0; j < OTC_MAX_PEERS; ++j) s.p[j] = j < n ? srcs[j] : nullptr;
+    return s;
+}
+
 int otc_linear_fold(int dtype, int op, const void* const* srcs, int n,
                     void* dst, int64_t count, void* stream) {
     if (n < 1 || n > OTC_MAX_PEERS) return (int)cudaErrorInvalidValue;
     if (count <= 0) return 0;
-    Srcs s;
-    for (int j = 0; j < OTC_MAX_PEERS; ++j) s.p[j] = j < n ? srcs[j] : nullptr;
+    Srcs s = make_srcs(srcs, n);
     OTC_DISPATCH(launch_fold, dtype, op, s, n, dst, count,
                  (cudaStream_t)stream);
     return (int)cudaGetLastError();
@@ -465,31 +447,18 @@ int otc_rs_update_hop(int dtype, int op, const void* carry, const void* own,
     return (int)cudaGetLastError();
 }
 
-int otc_block_matmul(int dtype, const void* x, const void* w, void* out,
-                     int64_t m, int64_t d, int64_t f, void* stream) {
-    if (m <= 0 || f <= 0) return 0;
-    if (d < 0 || (f + MM_TILE - 1) / MM_TILE > 0x7fffffff ||
-        (m + MM_TILE - 1) / MM_TILE > 65535)
-        return (int)cudaErrorInvalidValue;
-    dim3 grid((unsigned)((f + MM_TILE - 1) / MM_TILE),
-              (unsigned)((m + MM_TILE - 1) / MM_TILE));
-    cudaStream_t s = (cudaStream_t)stream;
-    switch (dtype) {
-    case DT_F32:
-        matmul_kernel<float><<<grid, 256, 0, s>>>(
-            (const float*)x, (const float*)w, (float*)out, m, d, f);
-        break;
-    case DT_BF16:
-        matmul_kernel<__nv_bfloat16><<<grid, 256, 0, s>>>(
-            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-            (__nv_bfloat16*)out, m, d, f);
-        break;
-    case DT_I32:
-        matmul_kernel<int32_t><<<grid, 256, 0, s>>>(
-            (const int32_t*)x, (const int32_t*)w, (int32_t*)out, m, d, f);
-        break;
-    default: return (int)cudaErrorInvalidValue;
-    }
+int otc_linear_fold_update(int dtype, int op, const void* const* srcs,
+                           int n, const void* p, const void* v, void* p_out,
+                           void* v_out, uint32_t lr_bits, uint32_t mu_bits,
+                           uint32_t inv_bits, int has_inv, int64_t count,
+                           void* stream) {
+    if (n < 1 || n > OTC_MAX_PEERS) return (int)cudaErrorInvalidValue;
+    if (count <= 0) return 0;
+    if ((v == nullptr) != (v_out == nullptr)) return (int)cudaErrorInvalidValue;
+    Srcs s = make_srcs(srcs, n);
+    OTC_DISPATCH(launch_fold_update, dtype, op, s, n, p, v, p_out, v_out,
+                 lr_bits, mu_bits, inv_bits, has_inv, count,
+                 (cudaStream_t)stream);
     return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 """coll/cuda_kernels — the ring collective kernels and their schedules.
 
-Port of :mod:`ompi_tpu.coll.pallas_kernels` (the reference's K1-K6).
-Five kernels written by hand in CUDA C++ for Hopper
-(``csrc/ring_kernels.cu``, built with nvcc for ``sm_90a`` into a plain C
-library loaded with ctypes):
+Port of :mod:`ompi_tpu.coll.pallas_kernels` (the reference's K1-K6 and K5b).
+Kernels written by hand in CUDA C++ for Hopper, built with nvcc for
+``sm_90a`` into plain C libraries loaded with ctypes
+(``csrc/ring_kernels.cu``: K1-K5b; ``csrc/gemm_kernels.cu``: K6):
 
 - :func:`ring_rs_hop` (K1) — one reduce-scatter hop, ``dst = fn(carry,
   own)`` with the carry read from the ring neighbour's arena slot;
@@ -14,8 +14,14 @@ library loaded with ctypes):
 - :func:`ring_rs_update_hop` (K5) — the last reduce-scatter hop fused
   with the ZeRO shard update (``g *= inv; v' = mu*v + g; p' = p -
   lr*v'``), rounded op by op so it equals the eager update bitwise;
+- :func:`linear_fold_update` (K5b) — K3's fold of every rank's own slice
+  fused with K5's update; no entry point of the JAX package calls its
+  reference, so no path of the port does (only the schedule
+  :func:`linear_reduce_scatter_update`);
 - :func:`block_matmul` (K6) — one arrived block of a row-gathered
-  activation times the weight, into the block's rows of the output.
+  activation times the weight, into the block's rows of the output: a
+  ``wgmma`` + TMA kernel for bfloat16, a register-tiled CUDA-core kernel
+  for the rest, chosen by :func:`block_matmul_variant`.
 
 Each has a plain PyTorch version beside it (``*_plain``) doing the same
 steps on the same views. A wrapper takes the plain version only for
@@ -68,6 +74,7 @@ ALL = "all"
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SRC = os.path.join(_CSRC, "ring_kernels.cu")
+GEMM_SRC = os.path.join(_CSRC, "gemm_kernels.cu")
 #: the header every kernel source includes (part of each library's key)
 HEADERS = (os.path.join(_CSRC, "combine.cuh"),)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -160,7 +167,9 @@ def lib():
         u32 = ctypes.c_uint32
         L.otc_rs_update_hop.argtypes = [i, i, p, p, p, p, p, p, u32, u32,
                                         u32, i, i64, p]
-        L.otc_block_matmul.argtypes = [i, p, p, p, i64, i64, i64, p]
+        L.otc_linear_fold_update.argtypes = [i, i, ctypes.POINTER(p), i, p,
+                                             p, p, p, u32, u32, u32, i, i64,
+                                             p]
         L.otc_set_device.argtypes = [i]
         L.otc_malloc.argtypes = [i64, ctypes.POINTER(p)]
         L.otc_free.argtypes = [p]
@@ -172,7 +181,7 @@ def lib():
         L.otc_error_string.argtypes = [i]
         L.otc_error_string.restype = ctypes.c_char_p
         for fn in (L.otc_rs_hop, L.otc_ag_hop, L.otc_linear_fold,
-                   L.otc_rs_update_hop, L.otc_block_matmul,
+                   L.otc_rs_update_hop, L.otc_linear_fold_update,
                    L.otc_set_device, L.otc_malloc, L.otc_free,
                    L.otc_ipc_get_handle, L.otc_ipc_open, L.otc_ipc_close,
                    L.otc_ipc_handle_size, L.otc_max_peers):
@@ -181,11 +190,33 @@ def lib():
     return _lib
 
 
-def check(rc: int, what: str) -> None:
-    """Raise KernelError for a nonzero cudaError_t."""
+_gemm_lib = None
+
+
+def gemm_lib():
+    """The loaded K6 library (built on first use)."""
+    global _gemm_lib
+    if _gemm_lib is None:
+        L = ctypes.CDLL(build(GEMM_SRC))
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        L.otc_wgmma_matmul.argtypes = [p, p, p, i64, i64, i64, i, p]
+        L.otc_simt_matmul.argtypes = [i, p, p, p, p, i64, i64, i64, i64, i,
+                                      p]
+        for fn in (L.otc_wgmma_matmul, L.otc_simt_matmul):
+            fn.restype = ctypes.c_int
+        L.otc_gemm_error_string.argtypes = [i]
+        L.otc_gemm_error_string.restype = ctypes.c_char_p
+        _gemm_lib = L
+    return _gemm_lib
+
+
+def check(rc: int, what: str, error_string=None) -> None:
+    """Raise KernelError for a nonzero cudaError_t (``error_string``: the
+    library's own message function, the ring library's by default)."""
     if rc != 0:
-        msg = lib().otc_error_string(rc).decode(errors="replace")
-        raise KernelError(f"{what}: CUDA error {rc} ({msg})")
+        msg = (error_string or lib().otc_error_string)(rc)
+        raise KernelError(f"{what}: CUDA error {rc} "
+                          f"({msg.decode(errors='replace')})")
 
 
 # ---------------------------------------------------------------------------
@@ -371,6 +402,32 @@ def ring_rs_update_hop_plain(carry, own, p, v, p_out, v_out, lr, mu, inv,
         v_out.copy_(vn)
 
 
+def _check_update(what: str, ins: List[torch.Tensor], p, v, p_out, v_out,
+                  lr, mu, inv) -> str:
+    """The update kernels' (K5, K5b) argument checks; returns the device
+    type. ``ins`` are the operands the update's gradient comes from."""
+    if (v is None) != (v_out is None) or (v is not None and mu is None):
+        raise ValueError(f"{what}: v, v_out and mu go together")
+    ins = ins + [p] + ([v] if v is not None else [])
+    outs = [p_out] + ([v_out] if v_out is not None else [])
+    kind = _check_tensors(what, ins + outs, p.numel())
+    for c in (lr, mu, inv):
+        if c is not None and (c.dim() != 0 or c.dtype != p.dtype):
+            raise ValueError(f"{what}: constants must be 0-d tensors of "
+                             f"{p.dtype}")
+    if {o.data_ptr() for o in outs} & {t.data_ptr() for t in ins}:
+        raise ValueError(f"{what}: an output is also an input")
+    return kind
+
+
+def _update_args(p, v, p_out, v_out, lr, mu, inv) -> tuple:
+    """The ctypes arguments of an update kernel after its gradient's."""
+    return (p.data_ptr(), v.data_ptr() if v is not None else None,
+            p_out.data_ptr(), v_out.data_ptr() if v_out is not None else None,
+            _const_bits(lr), _const_bits(mu), _const_bits(inv),
+            int(inv is not None), p.numel(), _stream_ptr(p_out))
+
+
 def ring_rs_update_hop(carry: torch.Tensor, own: torch.Tensor,
                        p: torch.Tensor, v: Optional[torch.Tensor],
                        p_out: torch.Tensor, v_out: Optional[torch.Tensor],
@@ -384,33 +441,60 @@ def ring_rs_update_hop(carry: torch.Tensor, own: torch.Tensor,
     must not be inputs. Replaces pallas_kernels.py
     ``_dma_reduce_scatter_update`` (:601, bodies ``_combine_update_body``
     :143 and ``_apply_update`` :120)."""
-    if (v is None) != (v_out is None) or (v is not None and mu is None):
-        raise ValueError("ring_rs_update_hop: v, v_out and mu go together")
-    ins = [carry, own, p] + ([v] if v is not None else [])
-    outs = [p_out] + ([v_out] if v_out is not None else [])
-    kind = _check_tensors("ring_rs_update_hop", ins + outs, p.numel())
-    for c in (lr, mu, inv):
-        if c is not None and (c.dim() != 0 or c.dtype != p.dtype):
-            raise ValueError("ring_rs_update_hop: constants must be 0-d "
-                             f"tensors of {p.dtype}")
-    if {o.data_ptr() for o in outs} & {t.data_ptr() for t in ins}:
-        raise ValueError("ring_rs_update_hop: an output is also an input")
-    if kind == "cpu":
+    if _check_update("ring_rs_update_hop", [carry, own], p, v, p_out, v_out,
+                     lr, mu, inv) == "cpu":
         ring_rs_update_hop_plain(carry, own, p, v, p_out, v_out, lr, mu,
                                  inv, op)
         return
     check(lib().otc_rs_update_hop(
         DTYPE_CODES[p.dtype], OP_CODES[op], carry.data_ptr(),
-        own.data_ptr(), p.data_ptr(),
-        v.data_ptr() if v is not None else None, p_out.data_ptr(),
-        v_out.data_ptr() if v_out is not None else None,
-        _const_bits(lr), _const_bits(mu), _const_bits(inv),
-        int(inv is not None), p.numel(), _stream_ptr(p_out)),
+        own.data_ptr(), *_update_args(p, v, p_out, v_out, lr, mu, inv)),
         "ring_rs_update_hop launch")
     ring_rs_update_hop.launches += 1
 
 
 ring_rs_update_hop.launches = 0
+
+
+def linear_fold_update_plain(srcs, p, v, p_out, v_out, lr, mu, inv,
+                             op: str = "MPI_SUM") -> None:
+    g = torch.empty_like(p)
+    linear_fold_plain(srcs, g, op)
+    pn, vn = shard_update_plain(g, p, v, lr, mu, inv)
+    p_out.copy_(pn)
+    if v_out is not None:
+        v_out.copy_(vn)
+
+
+def linear_fold_update(srcs: Sequence[torch.Tensor], p: torch.Tensor,
+                       v: Optional[torch.Tensor], p_out: torch.Tensor,
+                       v_out: Optional[torch.Tensor], lr: torch.Tensor,
+                       mu: Optional[torch.Tensor],
+                       inv: Optional[torch.Tensor],
+                       op: str = "MPI_SUM") -> None:
+    """K5b: ``g = fold(fn, srcs)`` in list (rank) order, then the shard
+    update of :func:`ring_rs_update_hop` into ``p_out`` (and ``v_out``),
+    in one pass; equal bit for bit to K3 followed by
+    :func:`shard_update_plain`. Replaces pallas_kernels.py
+    ``linear_reduce_scatter_update`` (:447, bodies
+    ``_fold_slice_update_body`` :179 and ``_apply_update`` :120)."""
+    if _check_update("linear_fold_update", list(srcs), p, v, p_out, v_out,
+                     lr, mu, inv) == "cpu":
+        linear_fold_update_plain(srcs, p, v, p_out, v_out, lr, mu, inv, op)
+        return
+    L = lib()
+    if len(srcs) > L.otc_max_peers():
+        raise ValueError(f"linear_fold_update: {len(srcs)} sources, at most "
+                         f"{L.otc_max_peers()}")
+    ptrs = (ctypes.c_void_p * len(srcs))(*[t.data_ptr() for t in srcs])
+    check(L.otc_linear_fold_update(
+        DTYPE_CODES[p.dtype], OP_CODES[op], ptrs, len(srcs),
+        *_update_args(p, v, p_out, v_out, lr, mu, inv)),
+        "linear_fold_update launch")
+    linear_fold_update.launches += 1
+
+
+linear_fold_update.launches = 0
 
 
 def _matmul_i32_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -441,14 +525,66 @@ def block_matmul_plain(x, w, out) -> None:
         torch.matmul(x, w, out=out)
 
 
+def block_matmul_variant(x: torch.Tensor, w: torch.Tensor,
+                         out: torch.Tensor) -> str:
+    """Which K6 kernel takes ``out = x @ w`` for these operands, as the
+    kernel gets them (already of ``out``'s dtype): ``"wgmma"`` (TMA and
+    the tensor cores) only for bfloat16 with m, d, f > 0, every base
+    pointer 16-byte aligned and rows of x and w a multiple of 16 bytes
+    (TMA's stride rule: d and f multiples of 8); ``"simt"`` (the
+    register-tiled CUDA-core kernel) for everything else."""
+    m, d = x.shape
+    f = w.shape[1]
+    if not (x.dtype == w.dtype == out.dtype == torch.bfloat16):
+        return "simt"
+    if min(m, d, f) <= 0 or (d * 2) % 16 or (f * 2) % 16:
+        return "simt"
+    if any(t.data_ptr() % 16 for t in (x, w, out)):
+        return "simt"
+    return "wgmma"
+
+
+#: the SIMT kernel's block tile (rows, columns) and depth per stage
+SIMT_TILE, SIMT_DEPTH = 128, 16
+
+
+def simt_splits(m: int, d: int, f: int, sms: int) -> Tuple[int, int]:
+    """``(splits, kchunk)``: how the SIMT kernel cuts K. One slice where
+    its 128 x 128 tiles already give every SM a block; else as many
+    slices as fill the SMs, each a multiple of 16 deep and at least 64
+    (the zero-3 product (192, 3072) @ (3072, 256) has 4 tiles: 32 slices
+    of 96 on 132 SMs). A second pass adds the slices in order."""
+    tiles = -(-m // SIMT_TILE) * -(-f // SIMT_TILE)
+    want = min(sms // max(tiles, 1), d // 64)
+    if tiles >= sms or want <= 1:
+        return 1, max(d, 1)
+    kchunk = -(-d // want)
+    kchunk = -(-kchunk // SIMT_DEPTH) * SIMT_DEPTH
+    return -(-d // kchunk), kchunk
+
+
+_sms = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if i not in _sms:
+        _sms[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _sms[i]
+
+
 def block_matmul(x: torch.Tensor, w: torch.Tensor,
                  out: torch.Tensor) -> None:
     """K6: ``out = x @ w`` for one (m, d) block and the (d, f) weight, in
     ``out``'s dtype, which must be ``torch.promote_types(x, w)`` (it
     agrees with ``jnp.result_type`` over float32/bfloat16/int32); mixed
     operands are cast to it first. float32 and bfloat16 accumulate in
-    float32, int32 wraps. Replaces pallas_kernels.py
-    ``_dma_allgather_matmul`` (:659, body ``_matmul_body`` :112)."""
+    float32, int32 wraps. On CUDA tensors :func:`block_matmul_variant`
+    picks the kernel; each launch counts in ``block_matmul.launches`` and
+    in ``block_matmul.variants[variant]``, and an empty output launches
+    nothing. Replaces pallas_kernels.py ``_dma_allgather_matmul`` (:659,
+    body ``_matmul_body`` :112)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] \
             or tuple(out.shape) != (x.shape[0], w.shape[1]):
         raise ValueError(f"block_matmul: shapes {tuple(x.shape)} @ "
@@ -470,23 +606,46 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor,
         return
     if kind != "cuda":
         raise ValueError(f"block_matmul: unsupported device {out.device}")
-    x, w = x.to(dt), w.to(dt)
-    check(lib().otc_block_matmul(
-        DTYPE_CODES[dt], x.data_ptr(), w.data_ptr(), out.data_ptr(),
-        x.shape[0], x.shape[1], w.shape[1], _stream_ptr(out)),
-        "block_matmul launch")
+    if out.numel() == 0:
+        return
+    if x.dtype != dt:
+        x = x.to(dt)
+    if w.dtype != dt:
+        w = w.to(dt)
+    (m, d), f = x.shape, w.shape[1]
+    variant = block_matmul_variant(x, w, out)
+    G = gemm_lib()
+    if variant == "wgmma":
+        rc = G.otc_wgmma_matmul(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                m, d, f, _sm_count(out.device),
+                                _stream_ptr(out))
+    else:
+        splits, kchunk = simt_splits(m, d, f, _sm_count(out.device))
+        ws = None
+        if splits > 1:  # the slices' partial sums, in the accumulator type
+            ws = torch.empty(splits * m * f, device=out.device,
+                             dtype=torch.int32 if dt == torch.int32
+                             else torch.float32)
+        rc = G.otc_simt_matmul(
+            DTYPE_CODES[dt], x.data_ptr(), w.data_ptr(), out.data_ptr(),
+            ws.data_ptr() if ws is not None else None, m, d, f, kchunk,
+            splits, _stream_ptr(out))
+    check(rc, f"block_matmul ({variant}) launch", G.otc_gemm_error_string)
     block_matmul.launches += 1
+    block_matmul.variants[variant] += 1
 
 
 block_matmul.launches = 0
+block_matmul.variants = {"wgmma": 0, "simt": 0}
 
 KERNELS = (ring_rs_hop, ring_ag_hop, linear_fold, ring_rs_update_hop,
-           block_matmul)
+           linear_fold_update, block_matmul)
 
 
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    block_matmul.variants = dict.fromkeys(block_matmul.variants, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -734,6 +893,29 @@ def reduce_scatter_update(ep: Ring, flat: torch.Tensor, p: torch.Tensor,
         ring_rs_update_hop(carry, chunk, p, v, p_out, v_out, lr, mu, inv, op)
 
     yield from _rs_steps(ep, flat.dtype, op, 1, k, 0, k, None, last)
+
+
+def linear_reduce_scatter_update(ep: Ring, flat: torch.Tensor,
+                                 p: torch.Tensor, v: Optional[torch.Tensor],
+                                 lr, mu, inv, p_out: torch.Tensor,
+                                 v_out: Optional[torch.Tensor],
+                                 op: str = "MPI_SUM") -> Iterator[Tuple]:
+    """The 'linear' fused ZeRO step of one bucket: every rank stages the
+    1-D ``flat`` (n chunks of the shard length), then one K5b folds every
+    rank's own chunk in rank order and updates this rank's shard ``p``
+    (and momentum ``v``) into ``p_out`` / ``v_out`` (pallas_kernels.py
+    ``linear_reduce_scatter_update`` :447). Bitwise equal to the 'linear'
+    reduce_scatter followed by :func:`shard_update_plain`. Nothing calls
+    it on a path: coll/cuda's 'linear' fused slot runs K3 and the eager
+    update, as the reference's does."""
+    n, r = ep.n, ep.rank
+    k = flat.numel() // n
+    _stage(ep, flat, flat.numel())
+    yield (ALL,)  # every rank has staged its input
+    linear_fold_update([_view(ep.inputs[q], flat.dtype, r * k, k)
+                        for q in range(n)], p, v, p_out, v_out, lr, mu, inv,
+                       op)
+    yield (ALL,)  # every rank has read every input: safe to restage
 
 
 def allgather_matmul(ep: Ring, x: torch.Tensor, w: torch.Tensor,

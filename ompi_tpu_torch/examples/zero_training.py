@@ -31,8 +31,9 @@ default (coll/cuda's ``fused_rs_update_dev``: K1 hops + K5). It checks:
   ``zero3_gather_matmul_dev`` of a sharded c_fc.w the same way.
 
 With ``--out DIR`` each rank writes ``DIR/rank<r>.json``: the cases, the
-kernels' launch counts (zeroed just before the path) and the p50 step
-time of each mode. ``--tiny`` shrinks every width (for a CPU rehearsal
+path's kernels' launch counts (zeroed just before the path; K6 also per
+variant, ``block_matmul_wgmma`` and ``block_matmul_simt``) and the p50
+step time of each mode. ``--tiny`` shrinks every width (for a CPU rehearsal
 with ``--mca device_plane_platform cpu``; the chip runs full width).
 """
 
@@ -64,6 +65,9 @@ SAMPLES = ("wte", "h[0].mlp.c_fc.w", "h[0].attn.c_attn.b")
 LR, MOMENTUM = 0.01, 0.9
 ROWS = 2048  # per-rank rows of the K6 activation: 8 x 1024 tokens / 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: the kernels this path runs (K5b has no caller: 'linear' runs K3)
+PATH_KERNELS = (K.ring_rs_hop, K.ring_ag_hop, K.linear_fold,
+                K.ring_rs_update_hop, K.block_matmul)
 
 
 def gpt2_spec(cfg, layers):
@@ -278,7 +282,9 @@ def main(argv=None) -> int:
     case("zero3_gather_matmul c_fc.w", got is not None and within(
         got, torch.matmul(wfc["w"], rhs), mag, TOL[torch.float32]))
 
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches = {k.__name__: k.launches for k in PATH_KERNELS}
+    launches.update({f"block_matmul_{v}": c
+                     for v, c in K.block_matmul.variants.items()})
     if r == 0:
         print(f"[zero_training n={n}] kernel launches (rank 0) {launches}",
               flush=True)

@@ -1,21 +1,25 @@
-"""The port's fused kernels and schedules (K5 reduce_scatter_update, K6
-allgather_matmul) against the JAX package's Pallas kernels.
+"""The port's fused kernels and schedules (K5 reduce_scatter_update, K5b
+linear_reduce_scatter_update, K6 allgather_matmul) against the JAX
+package's Pallas kernels.
 
 Same inputs, made from a seed with numpy, go through
-``pallas_kernels.ring_reduce_scatter_update`` / ``allgather_matmul`` in
-interpret mode under ``shard_map`` over an n-device virtual CPU mesh, and
-through the port's schedules with n ranks stepped in lockstep in one
-process (the kernels' plain versions, since the tensors lie on the CPU).
+``pallas_kernels.ring_reduce_scatter_update`` /
+``linear_reduce_scatter_update`` / ``allgather_matmul`` in interpret mode
+under ``shard_map`` over an n-device virtual CPU mesh, and through the
+port's schedules with n ranks stepped in lockstep in one process (the
+kernels' plain versions, since the tensors lie on the CPU).
 
 Tolerances, with their reasons:
 
-- K5 against the reference: int32 bitwise; float32 within one rounding
-  (rtol 1e-6, atol 1e-6 on values of order 1), because the reference's
-  fused epilogue may contract a multiply-add (pallas_kernels.py:120-130);
-  bfloat16 within 2e-2 (the bfloat16 bound of test_torch_mpi_device.py:
-  XLA may keep float32 between the update's ops).
-- K5 against the port's own unfused step (the K1 ring, then the eager
-  update): bitwise for every dtype.
+- K5 and K5b against the reference: int32 bitwise; float32 within one
+  rounding (rtol 1e-6, atol 1e-6 on values of order 1), because the
+  reference's fused epilogue may contract a multiply-add
+  (pallas_kernels.py:120-130); bfloat16 within 2e-2 (the bfloat16 bound
+  of test_torch_mpi_device.py: XLA may keep float32 between the update's
+  ops).
+- K5 and K5b against the port's own unfused steps (the K1 ring, or the
+  K3 'linear' reduce-scatter, then the eager update): bitwise for every
+  dtype.
 - K6: |got - ref| <= tol * (|x| @ |w|) elementwise, tol 1e-5 for
   float32 and 2e-2 for bfloat16 (sums in another order; bfloat16 rounds
   once at the end on both sides); int32 exact (mod 2**32 in any order).
@@ -68,6 +72,12 @@ def _rand(rng, shape, dtype, full_range=True):
 
 
 _k5_cache = {}
+#: the fused step per fold order: (JAX function, port schedule, the
+#: port's unfused reduce-scatter algorithm)
+FUSED = {"ring": (JK.ring_reduce_scatter_update, K.reduce_scatter_update,
+                  "ring"),
+         "linear": (JK.linear_reduce_scatter_update,
+                    K.linear_reduce_scatter_update, "linear")}
 
 
 def _k5_inputs(n, dtype):
@@ -77,32 +87,33 @@ def _k5_inputs(n, dtype):
     return x, p, v
 
 
-def _k5_reference(n, dtype):
-    """Reference (p', v') per variant, rank by rank (one compile per n
-    and dtype)."""
-    if (n, dtype) in _k5_cache:
-        return _k5_cache[(n, dtype)]
+def _k5_reference(n, dtype, order="ring"):
+    """Reference (p', v') per variant, rank by rank (one compile per n,
+    dtype and fold order)."""
+    if (n, dtype, order) in _k5_cache:
+        return _k5_cache[(n, dtype, order)]
     lr, mu = CONSTS[dtype]
     x, p, v = _k5_inputs(n, dtype)
+    jfn = FUSED[order][0]
 
     def body(x, p, v):
         x, p, v = x[0], p[0], v[0]
         outs = []
         for mom, inv in VARIANTS:
-            pn, vn = JK.ring_reduce_scatter_update(
-                x, "mpi", jnp.add, p, v if mom else None, lr=lr, mu=mu,
-                inv=1.0 / n if inv else None)
+            pn, vn = jfn(x, "mpi", jnp.add, p, v if mom else None, lr=lr,
+                         mu=mu, inv=1.0 / n if inv else None)
             outs += [pn[None], (vn if mom else p)[None]]
         return tuple(outs)
 
     res = [np.asarray(o) for o in _smap(body, n, P("mpi"))(x, p, v)]
-    _k5_cache[(n, dtype)] = (x, p, v, res)
-    return _k5_cache[(n, dtype)]
+    _k5_cache[(n, dtype, order)] = (x, p, v, res)
+    return _k5_cache[(n, dtype, order)]
 
 
-def _k5_port(n, x, p, v, dtype, mom, inv, fused):
-    """(p', v') per rank: the fused schedule, or the K1 ring followed by
-    the eager update."""
+def _k5_port(n, x, p, v, dtype, mom, inv, fused, order="ring"):
+    """(p', v') per rank: the fused schedule of the fold order, or its
+    unfused reduce-scatter (K1 ring or K3 'linear') followed by the eager
+    update."""
     tdt = getattr(torch, dtype)
     lr, mu = CONSTS[dtype]
     xs, ps, vs = ([compat.tensor_from_numpy(np.asarray(a)[r])
@@ -111,17 +122,18 @@ def _k5_port(n, x, p, v, dtype, mom, inv, fused):
          "inv": K.shard_const(1.0 / n, tdt) if inv else None}
     rings = K.Ring.local(n, 4 * n * CHUNK, 4 * CHUNK + 64)
     outs = []
+    _, schedule, algo = FUSED[order]
     if fused:
         pouts = [torch.empty_like(ps[r]) for r in range(n)]
         vouts = [torch.empty_like(vs[r]) if mom else None for r in range(n)]
-        K.run_lockstep(rings, [K.reduce_scatter_update(
+        K.run_lockstep(rings, [schedule(
             rings[r], xs[r], ps[r], vs[r] if mom else None, c["lr"],
             c["mu"] if mom else None, c["inv"], pouts[r], vouts[r])
             for r in range(n)])
         return [(pouts[r], vouts[r] if mom else ps[r]) for r in range(n)]
     gs = [torch.empty_like(ps[r]) for r in range(n)]
     K.run_lockstep(rings, [K.reduce_scatter(rings[r], xs[r], "MPI_SUM",
-                                            "ring", 1, gs[r])
+                                            algo, 1, gs[r])
                            for r in range(n)])
     for r in range(n):
         pn, vn = K.shard_update_plain(gs[r], ps[r], vs[r] if mom else None,
@@ -137,20 +149,16 @@ def _as_float(a):
     return a.astype(np.float64) if a.dtype.kind == "f" else a
 
 
-@pytest.mark.parametrize("variant", VARIANTS,
-                         ids=lambda v: f"mom{int(v[0])}-inv{int(v[1])}")
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
-@pytest.mark.parametrize("n", [2, 3, 4])
-def test_reduce_scatter_update_against_pallas(n, dtype, variant):
+def _check_fused_against_pallas(n, dtype, variant, order):
     mom, inv = variant
-    x, p, v, ref = _k5_reference(n, dtype)
+    x, p, v, ref = _k5_reference(n, dtype, order)
     i = VARIANTS.index(variant)
-    fused = _k5_port(n, x, p, v, dtype, mom, inv, fused=True)
-    unfused = _k5_port(n, x, p, v, dtype, mom, inv, fused=False)
+    fused = _k5_port(n, x, p, v, dtype, mom, inv, True, order)
+    unfused = _k5_port(n, x, p, v, dtype, mom, inv, False, order)
     for r in range(n):
         for j, what in ((0, "p'"), (1, "v'")):
             got = compat.tensor_to_numpy(fused[r][j])
-            # the port's fused step IS its unfused ring step, bit for bit
+            # the port's fused step IS its unfused step, bit for bit
             assert_bits_equal(compat.tensor_to_numpy(unfused[r][j]), got,
                               f"fused vs unfused {what} rank {r}")
             want = ref[2 * i + j][r]
@@ -163,6 +171,43 @@ def test_reduce_scatter_update_against_pallas(n, dtype, variant):
                                               if dtype == "bfloat16"
                                               else want),
                     rtol=tol, atol=tol, err_msg=f"{what} rank {r}")
+
+
+@pytest.mark.parametrize("variant", VARIANTS,
+                         ids=lambda v: f"mom{int(v[0])}-inv{int(v[1])}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_reduce_scatter_update_against_pallas(n, dtype, variant):
+    _check_fused_against_pallas(n, dtype, variant, "ring")
+
+
+@pytest.mark.parametrize("variant", VARIANTS,
+                         ids=lambda v: f"mom{int(v[0])}-inv{int(v[1])}")
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_linear_reduce_scatter_update_against_pallas(n, dtype, variant):
+    """K5b's schedule (its plain version on the CPU) against the
+    reference's linear_reduce_scatter_update in interpret mode, and
+    bitwise against the port's unfused 'linear' step."""
+    _check_fused_against_pallas(n, dtype, variant, "linear")
+
+
+def test_linear_reduce_scatter_update_passes_two_linear_steps():
+    """K5b's schedule stages, passes one ALL step, folds, and passes
+    another, like the 'linear' reduce-scatter; it never touches a ring
+    direction's hop counter."""
+    n = 3
+    rings = K.Ring.local(n, 4 * n * CHUNK, 4 * CHUNK + 64)
+    xs = [torch.arange(n * CHUNK, dtype=torch.float32) + r for r in range(n)]
+    outs = [torch.empty(CHUNK) for _ in range(n)]
+    lr = K.shard_const(1.0, torch.float32)
+    K.run_lockstep(rings, [K.linear_reduce_scatter_update(
+        rings[r], xs[r], torch.zeros(CHUNK), None, lr, None, None, outs[r],
+        None) for r in range(n)])
+    assert [e.linear for e in rings] == [2] * n
+    assert [e.hops for e in rings] == [{1: 0, -1: 0}] * n
+    for r in range(n):
+        assert torch.equal(outs[r], -sum(xs)[r * CHUNK:(r + 1) * CHUNK])
 
 
 def test_reduce_scatter_update_advances_hops_like_the_ring():
@@ -199,6 +244,28 @@ def test_rs_update_hop_checks_operands():
                              K.shard_const(0.1, torch.bfloat16), None, None)
     with pytest.raises(ValueError, match="also an input"):
         K.ring_rs_update_hop(a, a, a, None, a, None, lr, None, None)
+
+
+def test_linear_fold_update_checks_operands_and_counts_nothing_on_cpu():
+    a, b = torch.ones(8), torch.full((8,), 2.0)
+    lr = K.shard_const(0.5, torch.float32)
+    with pytest.raises(ValueError, match="go together"):
+        K.linear_fold_update([a, b], a, a, torch.zeros(8), None, lr, lr,
+                             None)
+    with pytest.raises(ValueError, match="elements"):
+        K.linear_fold_update([a, torch.ones(9)], a, None, torch.zeros(8),
+                             None, lr, None, None)
+    with pytest.raises(ValueError, match="also an input"):
+        K.linear_fold_update([a, b], a, None, b, None, lr, None, None)
+    K.reset_launches()
+    p, v, po, vo = torch.zeros(8), torch.ones(8), torch.empty(8), \
+        torch.empty(8)
+    mu = K.shard_const(0.5, torch.float32)
+    K.linear_fold_update([a, b, b], p, v, po, vo, lr, mu, None)
+    # g = 1 + 2 + 2 = 5; v' = 0.5 * 1 + 5; p' = 0 - 0.5 * 5.5
+    assert torch.equal(vo, torch.full((8,), 5.5))
+    assert torch.equal(po, torch.full((8,), -2.75))
+    assert K.linear_fold_update.launches == 0
 
 
 def test_shard_const_casts_like_jnp():
@@ -309,12 +376,84 @@ def test_block_matmul_checks_and_promotes():
                        torch.empty(2, 2, dtype=torch.int16))
 
 
+def _bf16(*shape):
+    return torch.empty(shape, dtype=torch.bfloat16)
+
+
+#: (x, w, out) maker and the K6 kernel the shape rule must name
+VARIANT_CASES = {
+    "main-path-bf16": (lambda: (_bf16(2048, 768), _bf16(768, 3072),
+                                _bf16(2048, 3072)), "wgmma"),
+    "float32": (lambda: (torch.empty(2048, 768), torch.empty(768, 3072),
+                         torch.empty(2048, 3072)), "simt"),
+    "int32": (lambda: (torch.empty(64, 64, dtype=torch.int32),
+                       torch.empty(64, 64, dtype=torch.int32),
+                       torch.empty(64, 64, dtype=torch.int32)), "simt"),
+    "bf16-d70": (lambda: (_bf16(130, 70), _bf16(70, 200), _bf16(130, 200)),
+                 "simt"),
+    "bf16-offset-2-bytes": (lambda: (_bf16(130 * 72 + 1)[1:].view(130, 72),
+                                     _bf16(72, 200), _bf16(130, 200)),
+                            "simt"),
+    "m0": (lambda: (_bf16(0, 64), _bf16(64, 128), _bf16(0, 128)), "simt"),
+    "bf16-edge-1x64x8": (lambda: (_bf16(1, 64), _bf16(64, 8), _bf16(1, 8)),
+                         "wgmma"),
+}
+
+
+@pytest.mark.parametrize("case", list(VARIANT_CASES))
+def test_block_matmul_variant_rule(case):
+    make, want = VARIANT_CASES[case]
+    x, w, out = make()
+    assert K.block_matmul_variant(x, w, out) == want
+
+
+@pytest.mark.parametrize("pair", [p for p in PAIRS if p[0] != p[1]],
+                         ids=lambda p: f"{p[0]}@{p[1]}")
+def test_block_matmul_mixed_dtypes_on_cpu(pair):
+    """CPU tensors take the plain product (promoted first) and count no
+    launch of either kernel."""
+    rng = np.random.default_rng(9)
+    xdt, wdt = (getattr(torch, t) for t in pair)
+    xn = rng.integers(-3, 4, (M, D)).astype(np.float32)
+    wn = rng.integers(-3, 4, (D, F)).astype(np.float32)
+    x, w = torch.from_numpy(xn).to(xdt), torch.from_numpy(wn).to(wdt)
+    dt = torch.promote_types(xdt, wdt)
+    out = torch.empty(M, F, dtype=dt)
+    K.reset_launches()
+    K.block_matmul(x, w, out)
+    # |sums| <= 63: every product and sum is exact even in bfloat16
+    np.testing.assert_array_equal(out.float().numpy(), xn @ wn)
+    assert K.block_matmul.launches == 0
+    assert K.block_matmul.variants == {"wgmma": 0, "simt": 0}
+
+
+@pytest.mark.parametrize("shape", [(192, 3072, 256), (256, 3072, 256),
+                                   (2048, 768, 3072), (130, 1001, 70),
+                                   (130, 70, 200), (1, 64, 8), (5, 0, 7)])
+def test_simt_splits(shape):
+    """The SIMT kernel splits K only where its tiles leave SMs idle, in
+    slices that are multiples of 16 and cover K exactly."""
+    m, d, f = shape
+    splits, kchunk = K.simt_splits(m, d, f, 132)
+    tiles = -(-m // 128) * -(-f // 128)
+    if splits == 1:
+        assert kchunk >= d and (tiles >= 132 or d < 128)
+    else:
+        assert kchunk % 16 == 0 and kchunk >= 64
+        assert kchunk * (splits - 1) < d <= kchunk * splits
+        assert tiles * splits <= 132
+    if shape == (192, 3072, 256):  # the zero-3 product: 32 slices of 96
+        assert (splits, kchunk) == (32, 96)
+    if shape == (2048, 768, 3072):  # 384 tiles fill the card
+        assert splits == 1
+
+
 @pytest.mark.gpu
 def test_fused_kernels_against_plain_on_card():
-    """On a CUDA card: K5 bitwise against its plain version for every
-    dtype with and without momentum and scaling (aligned and not), and
-    K6 against its plain version (chip_smoke.py does the same at the
-    main path's shapes)."""
+    """On a CUDA card: K5 and K5b bitwise against their plain versions
+    for every dtype with and without momentum and scaling (aligned and
+    not), and K6's two kernels against its plain version (chip_smoke.py
+    does the same at the main path's shapes)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda", 0)
@@ -346,14 +485,24 @@ def test_fused_kernels_against_plain_on_card():
                 if mom:
                     assert_bits_equal(compat.tensor_to_numpy(outs[3]),
                                       compat.tensor_to_numpy(outs[1]))
-    x = torch.randn(130, 70, generator=g, device=dev)
-    w = torch.randn(70, 200, generator=g, device=dev)
-    o1, o2 = torch.empty(130, 200, device=dev), torch.empty(130, 200,
-                                                            device=dev)
-    K.block_matmul(x, w, o1)
-    K.block_matmul_plain(x, w, o2)
-    mag = x.abs() @ w.abs()
-    assert bool(((o1 - o2).abs() <= 1e-5 * mag).all())
+                srcs = [a, b, v]
+                K.linear_fold_update(srcs, p, None, outs[0], None, **{
+                    **args, "mu": None})
+                K.linear_fold_update_plain(srcs, p, None, outs[2], None, **{
+                    **args, "mu": None})
+                torch.cuda.synchronize()
+                assert_bits_equal(compat.tensor_to_numpy(outs[2]),
+                                  compat.tensor_to_numpy(outs[0]))
+    for dt, tol, d in ((torch.float32, 1e-5, 70), (torch.bfloat16, 2e-2, 72),
+                       (torch.bfloat16, 2e-2, 70)):
+        x = torch.randn(130, d, generator=g, device=dev).to(dt)
+        w = torch.randn(d, 200, generator=g, device=dev).to(dt)
+        o1 = torch.empty(130, 200, device=dev, dtype=dt)
+        o2 = torch.empty_like(o1)
+        K.block_matmul(x, w, o1)
+        K.block_matmul_plain(x, w, o2)
+        mag = x.float().abs() @ w.float().abs()
+        assert bool(((o1.float() - o2.float()).abs() <= tol * mag).all())
     xi = torch.randint(-2**31, 2**31 - 1, (130, 70), generator=g,
                        device=dev, dtype=torch.int32)
     wi = torch.randint(-2**31, 2**31 - 1, (70, 200), generator=g,
