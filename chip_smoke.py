@@ -25,16 +25,23 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the shape rule names), at GPT-2's MLP up-projection block ((2048, 768)
    @ (768, 3072)), the zero-3 block ((192, 3072) @ (3072, 256), a K
    split) and ragged, edge and mixed-dtype shapes, |err| <= tol * (|x| @
-   |w|) with tol 1e-5 float32 and 2e-2 bfloat16, int32 exact; K7 rma_apply, K8 rma_apply_strided, K9 rma_read and K10
-   rma_permute_recv for the three dtypes x put/replace/sum/min/max/prod,
-   bitwise, at the one-sided paths' shapes (the 8192 x 8192 halo tile's
-   self put and its columns at stride 8192, a 128-element row of a
-   2**20 x 128 embedding shard) and a ragged unaligned one, at clamped,
-   wrapped, dropped and filled edges. Then time each kernel (CUDA
-   events, median of 10) beside its plain version, one PyTorch library
-   call where one computes the same function, and its bound (K6 also
-   timed as 50 launches queued behind a sleeping kernel, which hides the
-   host's share of a call);
+   |w|) with tol 1e-5 float32 and 2e-2 bfloat16, int32 exact; K7
+   rma_apply, K8 rma_apply_strided (the grouped kernel's batch of one), K9
+   rma_read (likewise) and K10 rma_permute_recv for the three dtypes x
+   put/replace/sum/min/max/prod, bitwise, at the one-sided paths' shapes
+   (the 8192 x 8192 halo tile's self put and its columns at stride 8192, a
+   128-element row of a 2**20 x 128 embedding shard) and a ragged
+   unaligned one, at clamped, wrapped, dropped and filled edges; then the
+   grouped K8 and K9 (rma_apply_strided_batch, rma_read_batch) bitwise
+   against the loops of their single plain versions at the paths' batches
+   (the halo's columns, the embedding update's 2048 rows and 2048
+   lookups: more than one table each) and at the edges (overlapping
+   descriptors, K7 inside a batch, unaligned payloads). Then time each
+   kernel (CUDA events, median of 10) beside its plain version, one
+   PyTorch library call where one computes the same function, and its
+   bound (K6, K8 and K9 also timed as launches queued behind a sleeping
+   kernel, which hides the host's share of a call; K8 and K9 also as the
+   batches of the embedding path, beside index_add_ and index_select);
 3. the main paths, each with the kernels' launch counts zeroed by the
    ranks just before it and read just after: the launcher runs
    ``ompi_tpu_torch/examples/device_collectives.py`` (Allreduce,
@@ -48,7 +55,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Put_strided halo columns and a whole-tile self Put; 4 ranks, then 3 at
    4096 x 4096) and ``embedding_table.py`` (2**20 x 128 float32 shards,
    512 Get_epoch lookups and 512 Accumulate(SUM) gradient rows per rank;
-   4 ranks, then 3 at 2**18 rows and 128). Each rank checks its results
+   4 ranks, then 3 at 2**18 rows and 128), each fence reported with its
+   rounds and the exchanges that moved them. Each rank checks its results
    (bitwise where the fold order is fixed, fused == unfused bitwise, the
    windows against a plain recomputation) and reports its launch
    counts; every kernel of a path must have launched on it, and the
@@ -57,8 +65,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Output: one line per measurement with the card's name and power limit,
 then ``{"kernels": [...]}`` (K1-K3 launches from the collectives path,
-K5 and K6's two kernels from the training path, K7-K10 from the 4-rank
-one-sided paths, K5b with 0 and a note), the card line, and, last,
+K5 and K6's two kernels from the training path, K7, the K8 and K9
+batches and K10 from the 4-rank one-sided paths; K5b and the per-call
+rows of K8 and K9 with 0 and a note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -93,6 +102,12 @@ RMA_SRC = "ompi_tpu_torch/osc/csrc/rma_kernels.cu"
 HALO = 8192  # the halo path's tile side (8192 x 8192 float32 per rank)
 EMB_ROWS, EMB_DIM = 1 << 20, 128  # the embedding path's shard per rank
 SECTOR = 32  # bytes: what a strided element costs to read or write
+#: the embedding path's batches: rank 0's update fence applies 2048
+#: gradient rows (512 from each of 4 ranks); a lookup fence reads 512 rows
+EMB_UPDATES, EMB_LOOKUPS = N_RANKS * 512, 512
+#: the note on the per-call rows of K8 and K9: no path launches them
+ONE_NOTE = ("the batch of one through the grouped kernel; the one-sided "
+            "paths launch the batch (the _batch row)")
 REPS = 10
 LAUNCH_TIMEOUT = 200  # seconds per launcher job (eight jobs)
 
@@ -313,14 +328,20 @@ def kernel_checks(torch, K, dev, card):
 
 def queued_ms(fn, torch, n=50) -> float:
     """Device ms per call of ``fn`` with its launches queued: a sleeping
-    kernel holds the stream while the host enqueues n calls, so the
-    events time the device alone (median of 5)."""
+    kernel holds the stream while the host enqueues n calls (the sleep
+    outlasts four times the host's time for them), so the events time the
+    device alone (median of 5)."""
     fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    cycles = max(50_000_000, int(4 * n * host_s * 2e9))
     times = []
     for _ in range(5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)  # tens of ms at H100 clocks
+        torch.cuda._sleep(cycles)  # tens of ms at H100 clocks, or more
         a.record()
         for _ in range(n):
             fn()
@@ -535,6 +556,7 @@ def rma_checks(torch, O, dev, card):
           f"embedding row ({EMB_DIM} of {emb}) and ragged unaligned "
           f"shapes, clamped, wrapped, dropped and filled edges [{card}]",
           flush=True)
+    rma_batch_checks(torch, O, dev, card, results)
 
     rows = []
 
@@ -554,13 +576,27 @@ def rma_checks(torch, O, dev, card):
         median_ms(lambda: land.copy_(pay), torch), 2 * tile * 4, 0)
     colp = pay[:col].clone()
     strided = torch.as_strided(big, (col,), (col,), col - 1)
+    k8 = lambda: O.rma_apply_strided(big, colp, col - 1, col,  # noqa: E731
+                                     "put")
+    lib8 = lambda: strided.copy_(colp)  # noqa: E731
     row("rma_apply_strided", "ompi_tpu/osc/pallas_kernels.py:111",
-        median_ms(lambda: O.rma_apply_strided(big, colp, col - 1, col,
-                                              "put"), torch),
+        median_ms(k8, torch),
         median_ms(lambda: O.rma_apply_strided_plain(big, colp, col - 1, col,
                                                     "put"), torch),
-        median_ms(lambda: strided.copy_(colp), torch),
-        col * (2 * SECTOR + 4), 0)
+        median_ms(lib8, torch), col * (2 * SECTOR + 4), 0, note=ONE_NOTE)
+    print(f"kernel rma_apply_strided queued (device only): "
+          f"{queued_ms(k8, torch):.4f} ms, strided copy_ "
+          f"{queued_ms(lib8, torch):.4f} ms [{card}]", flush=True)
+    target = O.Target(big)
+    cols = pay[:2 * col].clone()
+    halo = lambda: target.apply(  # noqa: E731
+        [cols], [(0, 0, col, 0, col, "put"), (0, col, col, col - 1, col,
+                                               "put")])
+    print(f"kernel rma_apply_strided_batch (the halo path's two columns, "
+          f"one launch): {median_ms(halo, torch):.4f} ms, queued "
+          f"{queued_ms(halo, torch):.4f} ms, bound "
+          f"{2 * col * (2 * SECTOR + 4) / HBM_BYTES_PER_S * 1e3:.6f} ms "
+          f"[{card}]", flush=True)
     out = torch.empty(col, device=dev)
     row("rma_read (strided)", "ompi_tpu/osc/pallas_kernels.py:133",
         median_ms(lambda: O.rma_read(big, col - 2, col, out), torch),
@@ -568,24 +604,148 @@ def rma_checks(torch, O, dev, card):
         median_ms(lambda: torch.as_strided(big, (col,), (col,),
                                            col - 2).clone(), torch),
         col * (SECTOR + 4), 0, record=False)
-    del big, pay, land, colp, strided, out
+    del big, pay, land, colp, strided, out, target, cols
     win = make(torch, emb, torch.float32, 72, dev, traps=False)
     r128 = make(torch, EMB_DIM, torch.float32, 73, dev, traps=False)
     out = torch.empty_like(r128)
     d = (EMB_ROWS // 3) * EMB_DIM
     view = win[d:d + EMB_DIM]
+    k9 = lambda: O.rma_read(win, d, 1, out)  # noqa: E731
+    lib9 = lambda: view.clone()  # noqa: E731
     row("rma_read", "ompi_tpu/osc/pallas_kernels.py:133",
-        median_ms(lambda: O.rma_read(win, d, 1, out), torch),
+        median_ms(k9, torch),
         median_ms(lambda: O.rma_read_plain(win, d, 1, out), torch),
-        median_ms(lambda: view.clone(), torch), 2 * EMB_DIM * 4, 0)
+        median_ms(lib9, torch), 2 * EMB_DIM * 4, 0, note=ONE_NOTE)
+    print(f"kernel rma_read queued (device only): {queued_ms(k9, torch):.4f}"
+          f" ms, clone() {queued_ms(lib9, torch):.4f} ms [{card}]",
+          flush=True)
     row("rma_apply (sum, one row)", "ompi_tpu/osc/pallas_kernels.py:92",
         median_ms(lambda: O.rma_apply(win, r128, d, "sum"), torch),
         median_ms(lambda: O.rma_apply_plain(win, r128, d, "sum"), torch),
         median_ms(lambda: torch.add(view, r128, out=view), torch),
         3 * EMB_DIM * 4, EMB_DIM, record=False)
-    del win, r128, out, view
+    # the batches at the embedding path's shapes: rank 0's update fence
+    # (2048 distinct rows of 128, SUM) and one lookup fence's reads (512)
+    target = O.Target(win)
+    g = torch.Generator().manual_seed(74)
+    ids = torch.randperm(EMB_ROWS, generator=g)[:EMB_UPDATES]
+    grads = make(torch, EMB_UPDATES * EMB_DIM, torch.float32, 75, dev,
+                 traps=False)
+    upd = [(0, i * EMB_DIM, EMB_DIM, r * EMB_DIM, 1, "sum")
+           for i, r in enumerate(ids.tolist())]
+    w2, g2, idx = win.view(EMB_ROWS, EMB_DIM), grads.view(-1, EMB_DIM), \
+        ids.to(dev)
+    k8b = lambda: target.apply([grads], upd)  # noqa: E731
+    lib8b = lambda: w2.index_add_(0, idx, g2)  # noqa: E731
+    row("rma_apply_strided_batch", "ompi_tpu/osc/pallas_kernels.py:111",
+        median_ms(k8b, torch),
+        median_ms(lambda: O.rma_apply_strided_batch_plain(
+            win, [(grads[o:o + k], dd, s, kind)
+                  for _b, o, k, dd, s, kind in upd]), torch),
+        median_ms(lib8b, torch), 3 * EMB_UPDATES * EMB_DIM * 4,
+        EMB_UPDATES * EMB_DIM)
+    print(f"kernel rma_apply_strided_batch ({EMB_UPDATES} rows of {EMB_DIM}, "
+          f"{-(-EMB_UPDATES // O.TABLE_CAP)} launches) queued (device only):"
+          f" {queued_ms(k8b, torch, 10):.4f} ms, index_add_ "
+          f"{queued_ms(lib8b, torch, 10):.4f} ms [{card}]", flush=True)
+    look = ids[:EMB_LOOKUPS]
+    outb = torch.empty(EMB_LOOKUPS * EMB_DIM, device=dev)
+    reads = [(r * EMB_DIM, 1, EMB_DIM, i * EMB_DIM)
+             for i, r in enumerate(look.tolist())]
+    lidx, o2 = look.to(dev), outb.view(-1, EMB_DIM)
+    k9b = lambda: target.read(reads, outb)  # noqa: E731
+    lib9b = lambda: torch.index_select(w2, 0, lidx, out=o2)  # noqa: E731
+    row("rma_read_batch", "ompi_tpu/osc/pallas_kernels.py:133",
+        median_ms(k9b, torch),
+        median_ms(lambda: O.rma_read_batch_plain(win, reads, outb), torch),
+        median_ms(lib9b, torch), 2 * EMB_LOOKUPS * EMB_DIM * 4, 0)
+    print(f"kernel rma_read_batch ({EMB_LOOKUPS} rows of {EMB_DIM}, one "
+          f"launch) queued (device only): {queued_ms(k9b, torch, 10):.4f} "
+          f"ms, index_select {queued_ms(lib9b, torch, 10):.4f} ms [{card}]",
+          flush=True)
+    del win, r128, out, view, target, grads, w2, g2, idx, outb, o2, lidx
     torch.cuda.empty_cache()
     return rows
+
+
+def rma_batch_checks(torch, O, dev, card, results):
+    """Phase 2 for the grouped K8 and K9: each batch wrapper bitwise
+    against the loop of the single plain versions, for float32, bfloat16
+    and int32 x every kind, at the paths' shapes (the halo path's two
+    columns of an 8192 x 8192 tile; the embedding update's 2048 rows of 128
+    into a 2**20 x 128 shard and 2048 lookups, each more than one table)
+    and at the edges: overlapping descriptors (cut into runs), clamped,
+    dropped, wrapped and filled displacements, a stride past the window,
+    k = 0, unaligned payloads and outputs, and a contiguous descriptor K7
+    takes inside a batch."""
+    tile, col, emb = HALO ** 2, HALO, EMB_ROWS * EMB_DIM
+    kinds = list(O.KINDS)
+    g = torch.Generator().manual_seed(76)
+    ids = torch.randperm(EMB_ROWS, generator=g)[:EMB_UPDATES].tolist()
+    dups = torch.randint(0, 64, (300,), generator=g).tolist()
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        big = make(torch, tile, dtype, 80, dev)
+        shard = make(torch, emb, dtype, 81, dev)
+        pays = make(torch, EMB_UPDATES * EMB_DIM + 1, dtype, 82, dev)
+        cols = pays[1:]  # payloads at an odd offset: no 16-byte vectors
+        wide = make(torch, O.K7_MIN, dtype, 83, dev)
+        halo = [(cols[:col], 0, col, "put"),
+                (cols[col:2 * col], col - 1, col, "sum"),
+                (cols[:col], 0, col, "max"),  # overlaps the first
+                (cols[col:2 * col], tile - 5, col, "min"),  # one lands
+                (cols[:col], -3 * col - 2, col, "prod"),  # drops the first
+                (cols[:7], 5, tile + 1, "sum"),  # a stride past the window
+                (cols[:0], 9, col, "put"),  # k = 0
+                (wide, 3, 1, "replace"),  # K7, inside the batch
+                (cols[:col], 2, col, "sum")]
+        upd = [(pays[i * EMB_DIM:(i + 1) * EMB_DIM], r * EMB_DIM, 1,
+                kinds[i % len(kinds)]) for i, r in enumerate(ids)]
+        edge = [(pays[:EMB_DIM], d, 1, kinds[i % len(kinds)])
+                for i, d in enumerate((emb - 100, -3, -emb - 5, 1 << 40))]
+        dup = [(cols[i * 37:i * 37 + EMB_DIM], r * 61, 1, kinds[i % 6])
+               for i, r in enumerate(dups)]  # rows that overlap: many runs
+        for name, w0, descs in (("halo", big, halo), ("update", shard, upd),
+                                ("edges + overlaps", shard, edge + dup)):
+            got, want = w0.clone(), w0.clone()
+            O.rma_apply_strided_batch(got, descs)
+            O.rma_apply_strided_batch_plain(want, descs)
+            ok, err = compare(torch, got, want)
+            if not ok:
+                fail(f"rma_apply_strided_batch != plain ({dtype} {name}, "
+                     f"{len(descs)} descriptors), err {err}")
+            results["rma_apply_strided_batch"] = max(
+                results["rma_apply_strided_batch"], err)
+            del got, want
+        rows = [(r * EMB_DIM, 1, EMB_DIM) for r in ids]
+        odd = [(emb - 100, 1, EMB_DIM), (-3, 1, 5), (1 << 40, 1, 9),
+               (-emb - 5, 1, 3), (-5, -3, 64), (7, 0, 32), (emb - 10, 3, 40),
+               (-emb - 9, 2, 30), (0, 1, 0), (col - 2, col, 77)]
+        for name, lst in (("rows, then edges", rows + odd),
+                          ("edges, then rows (unaligned)", odd + rows)):
+            descs, at = [], 0
+            for dd, s, k in lst:
+                descs.append((dd, s, k, at))
+                at += k
+            got = torch.zeros(at, dtype=dtype, device=dev)
+            want = torch.zeros(at, dtype=dtype, device=dev)
+            O.rma_read_batch(shard, descs, got)
+            O.rma_read_batch_plain(shard, descs, want)
+            ok, err = compare(torch, got, want)
+            if not ok:
+                fail(f"rma_read_batch != plain ({dtype} {name}, "
+                     f"{len(descs)} descriptors), err {err}")
+            results["rma_read_batch"] = max(results["rma_read_batch"], err)
+            del got, want
+        torch.cuda.synchronize()
+        del big, shard, pays, cols, wide, halo, upd, edge, dup
+        torch.cuda.empty_cache()
+    print(f"kernels: K8 and K9 batches bitwise equal to the loops of their "
+          f"single plain versions for float32/bfloat16/int32 x "
+          f"{len(kinds)} kinds: the halo columns of a {HALO} x {HALO} tile, "
+          f"{EMB_UPDATES} rows and lookups of {EMB_DIM} in a {EMB_ROWS} x "
+          f"{EMB_DIM} shard (tables of {O.TABLE_CAP}), overlapping runs, "
+          f"clamped, dropped, wrapped and filled edges, K7 inside a batch "
+          f"[{card}]", flush=True)
 
 
 def main_path(example: str, nranks: int, args, card: str, root: str,
@@ -633,13 +793,14 @@ def main_path(example: str, nranks: int, args, card: str, root: str,
 
 
 def osc_report(name: str, nranks: int, doc, card: str) -> None:
-    """The one-sided path's fence times and rounds (rank 0)."""
+    """The one-sided path's fence times, the reference's rounds and the
+    exchanges that moved them (rank 0)."""
     ms = doc["fence_ms"]
     ms = ms.items() if isinstance(ms, dict) else enumerate(ms)
-    rounds = doc["rounds"]
     print(f"one-sided path {name} n={nranks} (rank 0): fence ms "
           + ", ".join(f"{k} {v:.3f}" for k, v in ms)
-          + f"; rounds {rounds} [{card}]", flush=True)
+          + f"; rounds {doc['rounds']}; exchanges {doc['exchanges']} "
+          f"[{card}]", flush=True)
 
 
 def main() -> int:
@@ -707,7 +868,7 @@ def main() -> int:
                        card, root, "osc_cuda")
     osc_report("embedding_table", 3, doc, card)
     osc = {k: halo.get(k, 0) + emb.get(k, 0) for k in {*halo, *emb}}
-    for k in ("rma_apply", "rma_apply_strided", "rma_read",
+    for k in ("rma_apply", "rma_apply_strided_batch", "rma_read_batch",
               "rma_permute_recv"):
         if osc.get(k, 0) <= 0:
             fail(f"{k} never launched on the one-sided paths: {osc}")

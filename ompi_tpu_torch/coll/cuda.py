@@ -238,7 +238,7 @@ def _opn(kind: str, op) -> op_mod.Op:
 # per-comm state: peer-mapped arenas per size class
 #
 # Each rank allocates its staged input and four carry slots (a one-sided
-# window's arena: two round slots and no input) with cudaMalloc (outside
+# window's arena: two exchange regions and no input) with cudaMalloc (outside
 # PyTorch's caching allocator, whose blocks cudaIpcGetMemHandle cannot
 # export), publishes the IPC handle through
 # the kvstore, and opens every peer's handle; a rank never opens its own
@@ -247,8 +247,8 @@ def _opn(kind: str, op) -> op_mod.Op:
 # peer's file. Ring hops are ordered by hop counters in a host-shared
 # file per rank and arena: after each step a rank synchronises its
 # stream, publishes its counter, and waits (up to device_plane_timeout)
-# for the ranks the step depends on (a one-sided round: its partners,
-# Arena.round). Device-side flags would spin through whole time slices
+# for the ranks the step depends on (a one-sided exchange: its partners,
+# Arena.exchange). Device-side flags would spin through whole time slices
 # when several processes share one card; they are a later change, for one
 # rank per card.
 
@@ -262,11 +262,11 @@ _timeout = cvar.register(
 ALIGN = 256
 _FLAG_SLOTS = 8  # int64 counters per rank and arena
 #: counter index per step kind: ring hops per direction, linear steps, and
-#: the one-sided rounds' staged / landed counts (Arena.round)
+#: the one-sided exchanges' staged / landed counts (Arena.exchange)
 _FLAG_IDX = {1: 0, -1: 1, K.ALL: 2, "staged": 3, "landed": 4}
 _FLAG_WHAT = {1: "direction 1 hop", -1: "direction -1 hop",
-              K.ALL: "linear", "staged": "staged round",
-              "landed": "landed round"}
+              K.ALL: "linear", "staged": "staged exchange",
+              "landed": "landed exchange"}
 
 
 def align(nbytes: int) -> int:
@@ -304,9 +304,9 @@ class Arena(K.Ring):
         self._peer_ptrs: List[int] = []
         self._own_ptr: Optional[int] = None
         self._paths: List[str] = []
-        self.rounds = 0  # one-sided rounds run (Arena.round)
-        # per slot parity: (reader, round) of the last payload staged there
-        self._readers = [(-1, 0), (-1, 0)]
+        self.exchanges = 0  # one-sided exchanges run (Arena.exchange)
+        # per region parity: (reader, exchange) of its last contents' readers
+        self._readers: List[List[tuple]] = [[], []]
         dev = device_plane.device()
         total = in_bytes + nslots * slot_bytes
         base = os.path.join(launcher.shm_dir(),
@@ -388,34 +388,37 @@ class Arena(K.Ring):
                               (self.rank + d) % self.n}:
                         self._wait(p, d, self.hops[d])
 
-    def round(self, tgt: int, src: int, stage, land) -> None:
-        """One edge-coloured round of a one-sided fence (osc/cuda's
-        transport; the handshake of the reference's ``dma_permute``, with
-        the round's actual partners only). Round t uses slot t%2 of each
-        rank (direction 1's two slots). This rank stages its payload for
-        ``tgt`` into its own slot (``stage(slot)``, a uint8 view) once the
-        rank that read the slot's last payload has landed it, and lands
-        what ``src`` staged this round (``land(src_slot)``, read through
-        the peer mapping) once src has published it; -1 means no partner.
-        Every member runs every round in the same order (the rounds are
-        derived from the same allgathered descriptors), so the counters
-        and parities agree."""
-        t, par = self.rounds, self.rounds % 2
+    def exchange(self, stage, readers, land, sources) -> None:
+        """One exchange of a one-sided fence (osc/cuda's transport: a run
+        of the reference's edge-coloured rounds in one host step, the
+        handshake of its ``dma_permute`` with the run's actual partners
+        only). Exchange t uses region t%2 of each rank (direction 1's two
+        slots). A rank with ``readers`` (the ranks that read its region in
+        this exchange) waits until every rank that read the region's last
+        contents has landed that exchange, fills its region
+        (``stage(region)``, a uint8 view: every payload it sends in the
+        run), synchronises and publishes "staged"; a rank with ``sources``
+        waits for each of them to publish, lands (``land(regions)``, a dict
+        source -> that rank's region, read through the peer mapping),
+        synchronises and publishes "landed". Every member runs every
+        exchange in the same order (the exchanges are derived from the same
+        allgathered descriptors), so the counters and parities agree."""
+        t, par = self.exchanges, self.exchanges % 2
         mine = self.flags[self.rank]
-        if tgt >= 0:
-            reader, when = self._readers[par]
-            if reader >= 0:
+        if readers:
+            for reader, when in self._readers[par]:
                 self._wait(reader, "landed", when + 1)
             stage(self.slot(self.rank, 1, par))
             self._sync()
-            self._readers[par] = (tgt, t)
+            self._readers[par] = [(r, t) for r in readers]
         mine[_FLAG_IDX["staged"]] = t + 1
-        if src >= 0:
-            self._wait(src, "staged", t + 1)
-            land(self.slot(src, 1, par))
+        if sources:
+            for src in sources:
+                self._wait(src, "staged", t + 1)
+            land({src: self.slot(src, 1, par) for src in sources})
             self._sync()
         mine[_FLAG_IDX["landed"]] = t + 1
-        self.rounds = t + 1
+        self.exchanges = t + 1
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -484,7 +487,7 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
         n, nslots = comm.size, 4
         if family == "ag":  # the whole block travels; nothing is staged
             in_bytes, slot_bytes = ALIGN, cap
-        elif family == "osc":  # a one-sided round's payload per parity
+        elif family == "osc":  # a one-sided exchange's payloads per parity
             in_bytes, slot_bytes, nslots = 0, cap, 2
         else:  # staged input + one chunk per slot
             in_bytes = cap

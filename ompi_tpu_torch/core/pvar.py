@@ -39,11 +39,12 @@ WELL_KNOWN = (
     "device_plane_wait_ns",
     # osc/cuda (device-resident one-sided windows, the osc_pallas_*
     # twins): windows created; Put/Put_strided, Get/Get_epoch and
-    # Accumulate calls; Fences; edge-coloured rounds run; origin payload
-    # bytes queued; windows and calls refused (ERR_NOT_SUPPORTED)
+    # Accumulate calls; Fences; edge-coloured rounds (the reference's);
+    # exchanges run (the host steps that move them); origin payload bytes
+    # queued; windows and calls refused (ERR_NOT_SUPPORTED)
     "osc_cuda_windows", "osc_cuda_put", "osc_cuda_get", "osc_cuda_acc",
-    "osc_cuda_fence", "osc_cuda_rounds", "osc_cuda_bytes",
-    "osc_cuda_fallthrough",
+    "osc_cuda_fence", "osc_cuda_rounds", "osc_cuda_exchanges",
+    "osc_cuda_bytes", "osc_cuda_fallthrough",
 )
 
 

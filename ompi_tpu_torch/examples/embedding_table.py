@@ -11,18 +11,22 @@ embedding width, MLPerf DLRM-DCNv2). As the JAX package's
 ``examples/embedding_table.py`` does it:
 
 1. lookup: one fence epoch of ``--batch`` ``Get_epoch`` row reads per
-   rank, of global rows drawn from a seed every rank shares (K9 at the
-   owner, K10 at the reader);
+   rank, of global rows drawn from a seed every rank shares (one K9 batch
+   at each owner stages every row it serves, one K10 pull per owner at
+   the reader);
 2. update: one fence epoch of ``--batch`` ``Accumulate(SUM)`` gradient
-   rows per rank into rank-disjoint global rows ``rank + size * i``
-   (K10, then K7 at the owner), so no row receives two updates.
+   rows per rank into rank-disjoint global rows ``rank + size * i``, so
+   no row receives two updates (K8's grouped kernel at the owner, reading
+   the rows straight from the senders' arena regions: at full size all
+   rows land on rank 0, 2048 rounds moved in one exchange).
 
 Each rank checks its lookups and its final shard bitwise against a plain
 recomputation (the owners' rows regenerated from the seed; the shard
 plus the gradients that land on it, added in torch on the same device),
-and reports each fence's time and rounds. With ``--out DIR`` each rank
-writes ``DIR/rank<r>.json`` (cases, the kernels' launch counts, zeroed
-just before the path, fence ms, rounds, pvars). ``--tiny`` runs the JAX
+and reports each fence's time, the reference's rounds and the exchanges
+that moved them. With ``--out DIR`` each rank writes ``DIR/rank<r>.json``
+(cases, the kernels' launch counts, zeroed just before the path, fence
+ms, rounds, exchanges, pvars). ``--tiny`` runs the JAX
 package's example's own 16 x 8 shards, 6 lookups and 6 updates, made
 from the same numpy seeds, and with ``--out`` also saves each rank's
 lookups and final shard as ``rank<r>_rows.npy`` / ``rank<r>_window.npy``
@@ -47,7 +51,8 @@ from ompi_tpu_torch.osc.cuda import CudaWindow
 from ompi_tpu_torch.runtime import device_plane
 
 #: the kernels this path runs
-PATH_KERNELS = (O.rma_apply, O.rma_read, O.rma_permute_recv)
+PATH_KERNELS = (O.rma_apply_strided_batch, O.rma_read_batch,
+                O.rma_permute_recv)
 PVARS = ("osc_cuda_get", "osc_cuda_acc", "osc_cuda_fence",
          "osc_cuda_rounds", "osc_cuda_bytes")
 TINY = (16, 8, 6)  # rows per shard, dim, lookups: the reference example's
@@ -138,16 +143,17 @@ def main(argv=None) -> int:
     grads = table.grads(r)
     O.reset_launches()
     s = pvar.session()
-    fence_ms, rounds = {}, {}
+    fence_ms, rounds, exchanges = {}, {}, {}
 
     def fence(name):
-        r0 = s.read("osc_cuda_rounds")
+        r0, x0 = s.read("osc_cuda_rounds"), s.read("osc_cuda_exchanges")
         sync()
         t0 = time.perf_counter()
         win.Fence()
         sync()
         fence_ms[name] = (time.perf_counter() - t0) * 1e3
         rounds[name] = s.read("osc_cuda_rounds") - r0
+        exchanges[name] = s.read("osc_cuda_exchanges") - x0
 
     # -- lookup: one fence epoch, one Get_epoch per row ------------------
     win.Fence()
@@ -190,15 +196,16 @@ def main(argv=None) -> int:
         print(f"[embedding_table n={n}] {rows} x {dim} float32 shard per "
               f"rank, {batch} lookups + {batch} gradient rows per rank: "
               f"fence ms {({k: round(v, 3) for k, v in fence_ms.items()})}, "
-              f"rounds {rounds}; kernel launches (rank 0) {launches}",
-              flush=True)
+              f"rounds {rounds}, exchanges {exchanges}; kernel launches "
+              f"(rank 0) {launches}", flush=True)
     if ns.out:
         os.makedirs(ns.out, exist_ok=True)
         with open(os.path.join(ns.out, f"rank{r}.json"), "w") as f:
             json.dump({"rank": r, "size": n, "device": str(dev),
                        "shard": [rows, dim], "batch": batch,
                        "launches": launches, "fence_ms": fence_ms,
-                       "rounds": rounds, "pvars": pv, "cases": cases}, f)
+                       "rounds": rounds, "exchanges": exchanges,
+                       "pvars": pv, "cases": cases}, f)
         if ns.tiny:
             np.save(os.path.join(ns.out, f"rank{r}_rows.npy"),
                     got_rows.cpu().numpy())
@@ -207,7 +214,7 @@ def main(argv=None) -> int:
     win.Free()
     bad = [c for c in cases if not c["ok"]]
     assert not bad, f"rank {r}: failed checks: {bad}"
-    # K7 runs only at the owners of updated rows (rank 0 at full size):
+    # K8 runs only at the owners of updated rows (rank 0 at full size):
     # whether each kernel ran on the path is read from all ranks' counts
     mpi.Finalize()
     return 0

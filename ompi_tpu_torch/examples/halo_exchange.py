@@ -12,19 +12,21 @@ are owned. Each of ``--steps`` steps, as the JAX package's
 ``examples/halo_exchange.py`` does it:
 
 1. one fence epoch with two ``Put_strided`` halo columns (H elements at
-   stride W: K8 at the target): my rightmost owned column into my right
-   neighbour's left ghost, my leftmost owned column into my left
-   neighbour's right ghost;
+   stride W): my rightmost owned column into my right neighbour's left
+   ghost, my leftmost owned column into my left neighbour's right ghost.
+   Both columns a rank receives land in one exchange and one launch of
+   K8's grouped kernel, read straight from the senders' arena regions;
 2. the interior relaxes, ``(left + centre + right) / 3`` (plain torch);
-3. one fence epoch with a self ``Put`` of the relaxed tile (K7), so the
-   window carries the next step.
+3. one fence epoch with a self ``Put`` of the relaxed tile (K7: 2**20
+   elements or more), so the window carries the next step.
 
 Each rank then checks its window bitwise against a plain recomputation
 of the same schedule (every rank's tile regenerated from the seed, the
 halos copied and the tiles relaxed in torch on the same device), and
-reports the fence times and rounds. With ``--out DIR`` each rank writes
-``DIR/rank<r>.json`` (cases, the kernels' launch counts, zeroed just
-before the path, fence ms, rounds, pvars). ``--tiny`` runs the JAX
+reports the fence times, the reference's rounds and the exchanges that
+moved them. With ``--out DIR`` each rank writes ``DIR/rank<r>.json``
+(cases, the kernels' launch counts, zeroed just before the path, fence
+ms, rounds, exchanges, pvars). ``--tiny`` runs the JAX
 package's example's own 6 x 8 tiles, made from the same numpy seeds, and
 with ``--out`` also saves each final window as ``rank<r>_window.npy`` (the
 tests compare it with the JAX package's). Tiles otherwise come from
@@ -48,7 +50,7 @@ from ompi_tpu_torch.osc.cuda import CudaWindow
 from ompi_tpu_torch.runtime import device_plane
 
 #: the kernels this path runs
-PATH_KERNELS = (O.rma_apply, O.rma_apply_strided, O.rma_permute_recv)
+PATH_KERNELS = (O.rma_apply, O.rma_apply_strided_batch)
 PVARS = ("osc_cuda_put", "osc_cuda_fence", "osc_cuda_rounds",
          "osc_cuda_bytes")
 
@@ -115,16 +117,17 @@ def main(argv=None) -> int:
     assert isinstance(win, CudaWindow), type(win).__name__
     O.reset_launches()
     s = pvar.session()
-    fence_ms, rounds = [], []
+    fence_ms, rounds, exchanges = [], [], []
 
     def fence():
-        r0 = s.read("osc_cuda_rounds")
+        r0, x0 = s.read("osc_cuda_rounds"), s.read("osc_cuda_exchanges")
         sync()
         t0 = time.perf_counter()
         win.Fence()
         sync()
         fence_ms.append((time.perf_counter() - t0) * 1e3)
         rounds.append(s.read("osc_cuda_rounds") - r0)
+        exchanges.append(s.read("osc_cuda_exchanges") - x0)
 
     grid = tile
     for _ in range(ns.steps):  # the reference example's fences, one by one
@@ -161,15 +164,17 @@ def main(argv=None) -> int:
     if r == 0:
         print(f"[halo_exchange n={n}] {h} x {w} float32 tile per rank, "
               f"{ns.steps} steps: fence ms (halo, tile) "
-              f"{[round(x, 3) for x in fence_ms]}, rounds {rounds}; "
-              f"kernel launches (rank 0) {launches}", flush=True)
+              f"{[round(x, 3) for x in fence_ms]}, rounds {rounds}, "
+              f"exchanges {exchanges}; kernel launches (rank 0) "
+              f"{launches}", flush=True)
     if ns.out:
         os.makedirs(ns.out, exist_ok=True)
         with open(os.path.join(ns.out, f"rank{r}.json"), "w") as f:
             json.dump({"rank": r, "size": n, "device": str(dev),
                        "grid": [h, w], "steps": ns.steps,
                        "launches": launches, "fence_ms": fence_ms,
-                       "rounds": rounds, "pvars": pv, "cases": cases}, f)
+                       "rounds": rounds, "exchanges": exchanges,
+                       "pvars": pv, "cases": cases}, f)
         if ns.tiny:
             np.save(os.path.join(ns.out, f"rank{r}_window.npy"),
                     win.array.cpu().numpy())

@@ -5,16 +5,28 @@ epoch: ``win_create`` -> ``Fence`` -> ``Put`` / ``Put_strided`` /
 ``Accumulate`` / ``Get_epoch`` -> ``Fence``. The window is a tensor on
 the rank's device, and every window mutation and read runs as one of the
 kernels K7-K10 (:mod:`ompi_tpu_torch.osc.cuda_kernels`). Origin calls
-queue descriptors; the closing Fence runs one metadata allgather,
-groups the epoch's transfers by element count (sorted), colours each
-group first-fit into partial matchings, and moves each round through the
-window comm's peer-mapped arena (``coll.cuda.Arena.round``): the origin
-stages its payload in its own slot (a ``copy_`` for a put, K9 for a get,
-read at the target), the receiver pulls it through the peer pointer
-(K10) and, for a put, applies it to its window (K7, or K8 when strided).
-The round order is the reference's exactly, so same-origin accumulates
-to one location apply in descriptor order and the windows end bitwise
-equal to the JAX package's.
+queue descriptors; the closing Fence runs one metadata allgather, groups
+the epoch's transfers by element count (sorted) and colours each group
+first-fit into partial matchings: the reference's rounds, in its order.
+Where the reference moves each round as one step, the port cuts the
+rounds, in order, into exchanges (:func:`plan_exchanges`: as many
+consecutive rounds as keep every rank's staged bytes within
+:data:`EXCHANGE_BYTES`) and moves each exchange through the window
+comm's peer-mapped arena in one host step (``coll.cuda.Arena.exchange``):
+
+- puts: the origin stages every payload it sends in the exchange in its
+  own region, grouped by target, in round order (one ``torch.cat``); the
+  target applies what it receives in exactly the reference's round order,
+  reading each payload straight from its source's region: K8's grouped
+  kernel over runs of disjoint descriptors, K7 for contiguous ones of
+  2**20 elements or more;
+- gets: the target stages every row it serves, grouped by origin, with one
+  K9 batch; the origin pulls each source's block with one K10 launch into
+  a fresh landing tensor, and each ``GetHandle.array`` is a view of it.
+
+So same-location accumulates apply in the reference's round order and the
+windows end bitwise equal to the JAX package's; ``osc_cuda_rounds`` counts
+the reference's rounds and ``osc_cuda_exchanges`` the host steps run.
 
 Epoch discipline is enforced as the reference enforces it: an op outside
 any epoch, ``Get_epoch`` outside a fence, ``Unlock`` without ``Lock``,
@@ -37,15 +49,16 @@ Where the port differs from the reference:
   in ``base``'s shape (valid at epoch boundaries);
 - a queued origin tensor is kept by reference, not cloned: MPI forbids
   changing an origin buffer before the closing fence;
-- a ``GetHandle.array`` is a fresh device tensor, never a view of an
-  arena slot, since the next round reuses the slot;
+- a ``GetHandle.array`` is a view of the exchange's fresh landing tensor,
+  never of an arena region, which the next exchange reuses;
 - a target rank outside the window raises ``ERR_RANK`` at the call
   (the reference queues it).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from collections import deque
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +79,12 @@ _enable_var = cvar.register(
          "the peer-mapped arenas); 'off' [default] leaves win_create "
          "without a window (the host window comes with the pml).",
     choices=["off", "on"], level=4)
+#: bytes a rank may stage for one exchange of a fence (a run of the
+#: reference's coloured rounds moved in one host step); a round whose
+#: payload is larger runs alone. The embedding path's fences (256 KiB a
+#: rank) and the halo columns (64 KiB) each fit one exchange; the halo
+#: tile's 256 MiB put runs alone.
+EXCHANGE_BYTES = 64 << 20
 
 #: the kernels' support matrix
 _SUPPORTED_DTYPES = frozenset((torch.float32, torch.bfloat16, torch.int32))
@@ -88,8 +107,8 @@ def _fallthrough(what: str, reason: str) -> None:
 class CudaWindow(Window):
     """Device-resident MPI window: the authoritative buffer is a flat
     tensor on the rank's device (``.array`` views it in ``base``'s
-    shape); all target-side RMA runs as kernels; fence epochs run as
-    edge-coloured rounds over the window comm's arenas.
+    shape); all target-side RMA runs as kernels; a fence epoch runs its
+    edge-coloured rounds as exchanges over the window comm's arenas.
 
     Created by ``osc.win_create`` under ``--mca osc_cuda on`` (see
     :func:`maybe_window`), or directly with :func:`win_create_cuda`."""
@@ -104,6 +123,7 @@ class CudaWindow(Window):
         # kind, stride), gets (handle, target, disp, nelems, stride)
         self._fput: List[Tuple] = []
         self._fget: List[Tuple] = []
+        self._target = O.Target(self._win)  # the launch record, checked once
         super().__init__(comm, self._win, disp_unit)
         pvar.record("osc_cuda_windows")
 
@@ -188,7 +208,8 @@ class CudaWindow(Window):
                   stride: int = 1) -> GetHandle:
         """Device-resident Get: records a descriptor; the handle's
         ``.array`` is filled at the closing Fence, fetched over the same
-        coloured rounds as puts (data flows target -> origin)."""
+        coloured rounds and exchanges as puts (data flows target ->
+        origin)."""
         pvar.record("osc_cuda_get")
         if not self._fence_open:
             raise errors.MPIError(
@@ -263,8 +284,8 @@ class CudaWindow(Window):
     # -- synchronization ------------------------------------------------
     def Fence(self) -> None:
         """Active-target fence: run this epoch's queued descriptors as
-        coloured rounds, then barrier. The first Fence opens the epoch
-        chain (nothing queued by definition)."""
+        coloured rounds, moved in exchanges, then barrier. The first Fence
+        opens the epoch chain (nothing queued by definition)."""
         pvar.record("osc_cuda_fence")
         if self._fence_open:
             self._flush_fence()
@@ -293,22 +314,23 @@ class CudaWindow(Window):
             for rnd in _color(group):
                 yield n, rnd
 
-    def _transport(self, nelems: int, tgt: int, src: int, stage,
-                   land) -> None:
-        """One round through the window comm's arena for this payload
-        size: ``stage(slot)`` fills this rank's slot for ``tgt``,
-        ``land(src_slot)`` takes what ``src`` staged (typed views of
-        ``nelems`` elements); -1 means no partner."""
-        pvar.record("osc_cuda_rounds")
-        dt = self._win.dtype
-        ep = _coll_cuda._arena(self.comm, "osc",
-                               nelems * self._win.element_size())
-        ep.round(tgt, src, lambda s: stage(s.view(dt)[:nelems]),
-                 lambda s: land(s.view(dt)[:nelems]))
+    def _exchanges(self, edges):
+        """The reference's rounds of these edges, in its order, cut into
+        exchanges: yields each exchange's edges (round order) with their
+        :func:`exchange_layout`."""
+        rounds = [rnd for _n, rnd in self._rounds(edges)]
+        pvar.record("osc_cuda_rounds", len(rounds))
+        es = self._win.element_size()
+        cuts = plan_exchanges([[(e[0], e[3] * es) for e in rnd]
+                               for rnd in rounds], EXCHANGE_BYTES)
+        for a, b in cuts:
+            pvar.record("osc_cuda_exchanges")
+            run = [e for rnd in rounds[a:b] for e in rnd]
+            yield run, exchange_layout(run, self.comm.size)
 
-    def _landing(self, nelems: int) -> torch.Tensor:
-        return torch.empty(nelems, dtype=self._win.dtype,
-                           device=self._win.device)
+    def _arena(self, totals: List[int]):
+        return _coll_cuda._arena(self.comm, "osc",
+                                 max(totals) * self._win.element_size())
 
     def _flush_fence(self) -> None:
         put_desc = [(t, d, a.numel(), k, s) for t, d, a, k, s in self._fput]
@@ -329,59 +351,117 @@ class CudaWindow(Window):
         self._fget = []
 
     def _run_fence_puts(self, puts) -> None:
-        mine = list(self._fput)
-        for nelems, rnd in self._rounds(puts):
-            payload: Optional[torch.Tensor] = None
-            my_in: Optional[Tuple[int, str, int]] = None
-            tgt = src = -1
-            for s, d, disp, _n, kind, stride in rnd:
-                if s == self.rank:
-                    # pop MY first queued op matching the descriptor
-                    tgt = d
-                    for i, (t, dd, a, k, st) in enumerate(mine):
-                        if (t, dd, a.numel(), k, st) == (
-                                d, disp, nelems, kind, stride):
-                            payload = mine.pop(i)[2]
-                            break
-                if d == self.rank:
-                    src, my_in = s, (disp, kind, stride)
+        me, dt = self.rank, self._win.dtype
+        queued: Dict[tuple, deque] = {}
+        for t, dd, a, k, st in self._fput:
+            queued.setdefault((t, dd, a.numel(), k, st), deque()).append(a)
+        for run, (offs, totals, _blocks) in self._exchanges(puts):
+            # pop MY first queued op matching each descriptor, round order
+            mine = {j: queued[(d, disp, n, kind, stride)].popleft()
+                    for j, (s, d, disp, n, kind, stride) in enumerate(run)
+                    if s == me}
+            sent = sorted(mine, key=offs.__getitem__)  # region order
+            incoming = [j for j, e in enumerate(run) if e[1] == me]
+            srcs = sorted({run[j][0] for j in incoming})
 
-            def stage(slot):
-                slot.copy_(payload)
+            def stage(region):
+                _stage(region.view(dt), [mine[j] for j in sent])
 
-            def land(peer):
-                landing = O.rma_permute_recv(peer, self._landing(nelems))
-                O.apply(self._win, landing, my_in[0], my_in[1], my_in[2])
+            def land(regions):
+                bases = [regions[p].view(dt) for p in srcs]
+                at = {p: i for i, p in enumerate(srcs)}
+                self._target.apply(bases, [
+                    (at[run[j][0]], offs[j], run[j][3], run[j][2],
+                     run[j][5], run[j][4]) for j in incoming])
 
-            self._transport(nelems, tgt, src, stage, land)
+            self._arena(totals).exchange(stage, {run[j][1] for j in sent},
+                                         land, srcs)
 
     def _run_fence_gets(self, gets) -> None:
         # data flows target -> origin: edges (src=target, dst=origin)
-        holders = list(self._fget)
+        me, dt = self.rank, self._win.dtype
+        holders: Dict[tuple, deque] = {}
+        for h, t, d, n, st in self._fget:
+            holders.setdefault((t, d, n, st), deque()).append(h)
         edges = [(t, o, d, n, s) for o, t, d, n, s in gets]
-        for nelems, rnd in self._rounds(edges):
-            serve: Optional[Tuple[int, int]] = None
-            my_in: Optional[Tuple[int, int, int]] = None
-            tgt = src = -1
-            for s, d, disp, _n, stride in rnd:
-                if s == self.rank:  # I am the target: kernel-read
-                    tgt, serve = d, (disp, stride)
-                if d == self.rank:
-                    src, my_in = s, (s, disp, stride)
+        for run, (offs, totals, blocks) in self._exchanges(edges):
+            served = sorted((j for j, e in enumerate(run) if e[0] == me),
+                            key=offs.__getitem__)
+            srcs = sorted({e[0] for e in run if e[1] == me})
+            # my incoming blocks, one after another in source order
+            at, n_in = {}, 0
+            for p in srcs:
+                at[p] = n_in - blocks[(p, me)][0]
+                n_in += blocks[(p, me)][1]
 
-            def stage(slot):
-                O.rma_read(self._win, serve[0], serve[1], slot)
+            def stage(region):  # I am the target: every row I serve
+                self._target.read([(run[j][2], run[j][4], run[j][3], offs[j])
+                                   for j in served], region.view(dt))
 
-            def land(peer):
-                got = O.rma_permute_recv(peer, self._landing(nelems))
-                for i, (h, t, d, n, st) in enumerate(holders):
-                    if h.array is None and (t, d, n, st) == (
-                            my_in[0], my_in[1], nelems, my_in[2]):
-                        h.array = got
-                        holders.pop(i)
-                        break
+            def land(regions):
+                got = torch.empty(n_in, dtype=dt, device=self._win.device)
+                for p in srcs:
+                    start, n = blocks[(p, me)]
+                    O.rma_permute_recv(regions[p].view(dt)[start:start + n],
+                                       got[at[p] + start:at[p] + start + n])
+                for j, (s, o, disp, n, stride) in enumerate(run):
+                    if o == me:  # the first open handle of this read
+                        h = holders[(s, disp, n, stride)].popleft()
+                        h.array = got[at[s] + offs[j]:at[s] + offs[j] + n]
 
-            self._transport(nelems, tgt, src, stage, land)
+            self._arena(totals).exchange(stage, {run[j][1] for j in served},
+                                         land, srcs)
+
+
+def _stage(region: torch.Tensor, payloads: List[torch.Tensor]) -> None:
+    """Lay payloads end to end at the start of a typed region: one
+    ``torch.cat`` when they all lie on the region's device, else a copy
+    each (a host operand on a card's window)."""
+    n = sum(p.numel() for p in payloads)
+    if all(p.device == region.device for p in payloads):
+        torch.cat(payloads, out=region[:n])
+        return
+    at = 0
+    for p in payloads:
+        region[at:at + p.numel()].copy_(p)
+        at += p.numel()
+
+
+def plan_exchanges(rounds, budget: int) -> List[Tuple[int, int]]:
+    """Cut consecutive rounds into exchanges: ``rounds[i]`` lists the
+    ``(rank, bytes)`` each rank stages in round i. An exchange is as long
+    as keeps every rank's staged bytes within ``budget``, and holds at
+    least one round (a round above the budget runs alone). Returns
+    ``(start, stop)`` round indices; every rank computes the same cuts
+    from the same allgathered descriptors."""
+    cuts, start, staged = [], 0, {}
+    for i, rnd in enumerate(rounds):
+        if i > start and any(staged.get(p, 0) + b > budget for p, b in rnd):
+            cuts.append((start, i))
+            start, staged = i, {}
+        for p, b in rnd:
+            staged[p] = staged.get(p, 0) + b
+    if rounds:
+        cuts.append((start, len(rounds)))
+    return cuts
+
+
+def exchange_layout(run, n: int):
+    """Where each payload of an exchange lies in its source's region:
+    ``run`` holds the exchange's edges ``(src, dst, disp, nelems, ...)`` in
+    round order. A source lays its payloads end to end, grouped by
+    destination in rank order and in round order within. Returns (element
+    offset of each edge, elements each rank stages, ``{(src, dst):
+    (start, elements)}`` of each source's block for each destination)."""
+    offs, totals, blocks = [0] * len(run), [0] * n, {}
+    for j in sorted(range(len(run)), key=lambda j: (run[j][0], run[j][1],
+                                                     j)):
+        s, d, nel = run[j][0], run[j][1], run[j][3]
+        offs[j] = totals[s]
+        start, cnt = blocks.get((s, d), (totals[s], 0))
+        blocks[(s, d)] = (start, cnt + nel)
+        totals[s] += nel
+    return offs, totals, blocks
 
 
 def _window_ok(base, disp_unit: int) -> bool:

@@ -28,18 +28,30 @@ def _color(edges) -> List[list]:
     """Greedy partition of directed edges ``(src, dst, ...)`` into partial
     matchings (unique src and unique dst per round), first fit in edge
     order — each round is one valid permutation. The order decides the
-    order of same-location accumulates, so it is the reference's exactly."""
-    remaining = list(edges)
-    rounds = []
-    while remaining:
-        used_s, used_d, rnd, rest = set(), set(), [], []
-        for e in remaining:
-            if e[0] in used_s or e[1] in used_d:
-                rest.append(e)
-            else:
-                used_s.add(e[0])
-                used_d.add(e[1])
-                rnd.append(e)
-        rounds.append(rnd)
-        remaining = rest
+    order of same-location accumulates, so it is the reference's exactly:
+    its passes (each pass takes, in order, every remaining edge whose src
+    and dst the pass has not used yet) give every edge the smallest round
+    that neither its src nor its dst uses among earlier edges, which is
+    what this computes in one pass, with a per-endpoint floor below which
+    every round is taken (the 2048 updates of one owner take 2048 rounds:
+    the reference's passes cost quadratic time there)."""
+    used: dict = {}  # ("s", src) / ("d", dst) -> rounds it takes
+    floor: dict = {}  # the same keys -> every round below is taken
+    rounds: List[list] = []
+    for e in edges:
+        ks, kd = ("s", e[0]), ("d", e[1])
+        us, ud = used.setdefault(ks, set()), used.setdefault(kd, set())
+        c = max(floor.get(ks, 0), floor.get(kd, 0))
+        while c in us or c in ud:
+            c += 1
+        us.add(c)
+        ud.add(c)
+        for k, u in ((ks, us), (kd, ud)):
+            f = floor.get(k, 0)
+            while f in u:
+                f += 1
+            floor[k] = f
+        if c == len(rounds):
+            rounds.append([])
+        rounds[c].append(e)
     return rounds

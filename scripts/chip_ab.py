@@ -15,7 +15,8 @@ Prints one line per run: the ZeRO step p50 per mode and the
 ``allgather_matmul_dev`` p50 per dtype (rank 0, ``zero_training.py``),
 the halo path's fences after the first pair (``halo_exchange.py``) and
 the embedding path's lookup and update fences (``embedding_table.py``),
-each with the card's name and power limit; ``--out`` also gets the
+with their rounds and exchanges, each with the card's name and power
+limit; ``--out`` also gets the
 numbers as JSON. ``--cpu`` rehearses the same runs at tiny widths on the
 CPU (no times worth reading).
 """
@@ -91,6 +92,12 @@ def summary(docs) -> dict:
         "halo_fence_ms": halo["fence_ms"][2::2],
         "tile_fence_ms": halo["fence_ms"][3::2],
         "embedding_fence_ms": emb["fence_ms"],
+        # rounds and exchanges per fence (a parent tree may predate the
+        # exchanges: one host step per round)
+        "halo_rounds": halo["rounds"][2:],
+        "halo_exchanges": halo.get("exchanges", halo["rounds"])[2:],
+        "embedding_rounds": emb["rounds"],
+        "embedding_exchanges": emb.get("exchanges", emb["rounds"]),
     }
 
 

@@ -11,8 +11,11 @@ over shared-memory arenas and the same round handshake as the card). Both
 run the same numpy-seeded schedules for float32, bfloat16 and int32:
 rotating-target Puts; Accumulates of every elementwise kind plus a
 same-origin ordered pair onto one location; starts past the end and below
-zero; contiguous and strided Get_epoch (clamp and fill edges). The
-results are compared bitwise (NaN payloads aside), and the
+zero; contiguous and strided Get_epoch (clamp and fill edges); SUM
+accumulates that overlap across origins and repeat from one origin, then
+a fence that mixes puts and gets (in the port once with one exchange per
+fence phase and once with one exchange per round). The results are
+compared bitwise (NaN payloads aside), and the
 ``osc_cuda_{put,acc,get,rounds,bytes}`` counts must equal the reference's
 ``osc_pallas_*``.
 
@@ -101,6 +104,26 @@ def schedule(win, dev, dtype, rank, size, ops):
     win.Fence()
     return hs
 
+def overlap(win, dev, dtype, rank, size, ops):
+    # SUM accumulates onto the same elements from every origin, repeated
+    # from each, in two size groups; then one fence mixing puts and gets
+    rng = np.random.default_rng(110 + rank)
+    win.Fence()
+    for k in range(3):
+        win.Accumulate(dev(payload(dtype, rng, 6)), 0, disp=4, op=ops[0])
+    win.Accumulate(dev(payload(dtype, rng, 6)), (rank + 1) % size, disp=6,
+                   op=ops[0])
+    win.Accumulate(dev(payload(dtype, rng, 3)), 0, disp=5, op=ops[0])
+    win.Fence()
+    win.Put(dev(payload(dtype, rng, 4)), (rank + 1) % size, disp=20)
+    win.Accumulate(dev(payload(dtype, rng, 4)), (rank + 2) % size, disp=21,
+                   op=ops[0])
+    hs = [win.Get_epoch(8, (rank + 1) % size, disp=18),
+          win.Get_epoch(4, (rank + 2) % size, disp=19, stride=2),
+          win.Get_epoch(6, 0, disp=4)]
+    win.Fence()
+    return hs
+
 def halo(win, dev, dtype, rank, size):
     # a 4 x 12 grid: one Put_strided halo column each way
     rng = np.random.default_rng(90 + rank)
@@ -139,6 +162,17 @@ for dtype in DTYPES:
         save(f"{{dtype}}_get{{i}}", h.array)
     save(f"{{dtype}}_pvars", np.array([s.read(f"osc_pallas_{{k}}")
                                       for k in PVARS]))
+    win.Free()
+for dtype in DTYPES:  # overlapping accumulates, a mixed fence
+    s = pvar.session()
+    base = base_for(dtype, rank)
+    win = osc.win_create(comm, jnp.asarray(base),
+                         disp_unit=base.dtype.itemsize)
+    hs = overlap(win, jnp.asarray, dtype, rank, size, OPS)
+    save(f"{{dtype}}_ovl_win", win.array)
+    for i, h in enumerate(hs):
+        save(f"{{dtype}}_ovl_get{{i}}", h.array)
+    save(f"{{dtype}}_ovl_rounds", np.array([s.read("osc_pallas_rounds")]))
     win.Free()
 for dtype in ("float32", "int32"):  # the halo, on the host window
     base = base_for(dtype, rank)
@@ -191,6 +225,7 @@ import ompi_tpu_torch.mpi as M
 from ompi_tpu_torch import compat, errors, mpi, op as op_mod, osc
 from ompi_tpu_torch.core import cvar, pvar
 from ompi_tpu_torch.examples import embedding_table, halo_exchange
+from ompi_tpu_torch.osc import cuda as osc_cuda
 comm = mpi.Init()
 rank, size = comm.rank, comm.size
 out_dir = {out_dir!r}
@@ -226,6 +261,24 @@ for dtype in DTYPES:
                        compat.tensor_from_numpy(base_for(dtype, rank)).view(
                            torch.uint8))
     win.Free()
+# the overlap schedule with one exchange per fence phase, then with a
+# budget that gives every round its own exchange (regions reused)
+exchange_bytes = osc_cuda.EXCHANGE_BYTES
+for dtype in DTYPES:
+    for tag, budget in (("ovl", exchange_bytes), ("ovl1", 1)):
+        osc_cuda.EXCHANGE_BYTES = budget
+        s = pvar.session()
+        base = base_for(dtype, rank)
+        win = osc.win_create(comm, compat.tensor_from_numpy(base),
+                             disp_unit=base.dtype.itemsize)
+        hs = overlap(win, compat.tensor_from_numpy, dtype, rank, size, OPS)
+        save(f"{{dtype}}_{{tag}}_win", win.array)
+        for i, h in enumerate(hs):
+            save(f"{{dtype}}_{{tag}}_get{{i}}", h.array)
+        save(f"{{dtype}}_{{tag}}_counts", np.array(
+            [s.read("osc_cuda_rounds"), s.read("osc_cuda_exchanges")]))
+        win.Free()
+osc_cuda.EXCHANGE_BYTES = exchange_bytes
 for dtype in ("float32", "int32"):
     base = base_for(dtype, rank)
     win = osc.win_create(comm, compat.tensor_from_numpy(base),
@@ -367,6 +420,33 @@ def test_counts_equal_reference(results, dtype):
     for r in range(n):
         ref, got = _pair(out, f"{dtype}_pvars", r)
         assert got.tolist() == ref.tolist(), dict(zip(PVARS, zip(ref, got)))
+
+
+@pytest.mark.parametrize("tag", ["ovl", "ovl1"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_overlapping_accumulates_bitwise_equal_to_reference(results, dtype,
+                                                            tag):
+    """SUM accumulates onto one location from every origin and repeated
+    from each (bfloat16 rounds after every add, so only the reference's
+    round order gives its bits), then a fence mixing puts and gets: the
+    windows and handles bitwise equal to PallasWindow's, with one exchange
+    per fence phase ("ovl") and with one per round ("ovl1")."""
+    n, out = results
+    for r in range(n):
+        ref = np.load(out / f"ref_{dtype}_ovl_win_r{r}.npy")
+        got = np.load(out / f"port_{dtype}_{tag}_win_r{r}.npy")
+        assert_bits_equal(ref, got, f"{dtype} {tag} window rank {r}")
+        for i in range(3):
+            ref = np.load(out / f"ref_{dtype}_ovl_get{i}_r{r}.npy")
+            got = np.load(out / f"port_{dtype}_{tag}_get{i}_r{r}.npy")
+            assert ref.shape == got.shape
+            assert_bits_equal(ref, got, f"{dtype} {tag} get {i} rank {r}")
+        rounds = int(np.load(out / f"ref_{dtype}_ovl_rounds_r{r}.npy")[0])
+        got_rounds, exchanges = np.load(
+            out / f"port_{dtype}_{tag}_counts_r{r}.npy").tolist()
+        assert got_rounds == rounds
+        # three fence phases: the accumulates, the puts, the gets
+        assert exchanges == (3 if tag == "ovl" else rounds)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int32"])
