@@ -11,12 +11,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``ompi_tpu_torch/coll/csrc/gemm_kernels.cu`` (K6) and
    ``ompi_tpu_torch/osc/csrc/rma_kernels.cu`` (K7-K10);
 2. hold every kernel against its plain PyTorch version on the card:
-   K1 ring_rs_hop, K2 ring_ag_hop, K3 linear_fold for float32, bfloat16
-   and int32 x SUM/PROD/MIN/MAX at the collectives path's shape (a
-   256 MiB payload over 4 ranks) and at two ragged small shapes (one of
-   them not 16-byte aligned), bitwise, inputs carrying NaN and +-0; K5
-   ring_rs_update_hop for the three dtypes with and without momentum and
-   scaling at the training path's largest chunk (the bucket that holds
+   first K1 ring_rs_hop and K7 rma_apply, the kernels on the streaming
+   engine (``ompi_tpu_torch/coll/csrc/stream.cuh``), for the three dtypes
+   x every op with every output poisoned, at the paths' shapes and the
+   engine's edges (tile boundaries, alignments; see
+   :func:`engine_checks`); then K2 ring_ag_hop and K3 linear_fold for
+   float32, bfloat16 and int32 x SUM/PROD/MIN/MAX at the collectives
+   path's shape (a 256 MiB payload over 4 ranks) and at two ragged small
+   shapes (one of them not 16-byte aligned), bitwise, inputs carrying NaN
+   and +-0; K5 ring_rs_update_hop for the three dtypes with and without
+   momentum and scaling at the training path's largest chunk (the bucket that holds
    GPT-2's ln_f, wpe and wte: 9,846,336 elements per rank over 4 ranks)
    and the ragged shapes, bitwise; K5b linear_fold_update (on no path:
    the JAX package never calls its reference) the same way, over 4
@@ -39,8 +43,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    descriptors, K7 inside a batch, unaligned payloads). Then time each
    kernel (CUDA events, median of 10) beside its plain version, one
    PyTorch library call where one computes the same function, and its
-   bound (K6, K8 and K9 also timed as launches queued behind a sleeping
-   kernel, which hides the host's share of a call; K8 and K9 also as the
+   bound (K1, K6, K7, K8 and K9 also timed as launches queued behind a
+   sleeping kernel, which hides the host's share of a call, K1 and K7
+   with their rate and share of the bound; K8 and K9 also as the
    batches of the embedding path, beside index_add_ and index_select);
 3. the main paths, each with the kernels' launch counts zeroed by the
    ranks just before it and read just after: the launcher runs
@@ -102,6 +107,11 @@ RMA_SRC = "ompi_tpu_torch/osc/csrc/rma_kernels.cu"
 HALO = 8192  # the halo path's tile side (8192 x 8192 float32 per rank)
 EMB_ROWS, EMB_DIM = 1 << 20, 128  # the embedding path's shard per rank
 SECTOR = 32  # bytes: what a strided element costs to read or write
+#: the streaming engine's tile (stream.cuh, K1 and K7): the bytes of one
+#: input a block takes, 256 threads x 4 vectors of 16 bytes; bodies below
+#: STREAM_SMALL take one vector a thread (4 KiB tiles)
+STREAM_TILE, STREAM_SMALL = 16384, 1 << 20
+POISON = 0xA5  # every byte of an output before a bitwise check
 #: the embedding path's batches: rank 0's update fence applies 2048
 #: gradient rows (512 from each of 4 ranks); a lookup fence reads 512 rows
 EMB_UPDATES, EMB_LOOKUPS = N_RANKS * 512, 512
@@ -174,28 +184,21 @@ def compare(torch, got, exp):
     return eq, float((got.long() - exp.long()).abs().max().item())
 
 
-def kernel_checks(torch, K, dev, card):
-    """Phase 2: every kernel against its plain version, then timings."""
+def kernel_checks(torch, K, dev, card, engine):
+    """Phase 2: every ring kernel against its plain version (K1's checks
+    are ``engine``, from :func:`engine_checks`), then timings."""
     n = N_RANKS
-    results = {"ring_rs_hop": 0.0, "ring_ag_hop": 0.0, "linear_fold": 0.0}
+    results = {"ring_rs_hop": engine["ring_rs_hop"], "ring_ag_hop": 0.0,
+               "linear_fold": 0.0}
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
         main = MAIN_BYTES // torch.empty(0, dtype=dtype).element_size()
         for numel, off in ((main, 0), (4099, 0), (1027, 1)):
             chunk = numel // n if numel == main else numel
             srcs = [make(torch, numel + off, dtype, 10 + p, dev)[off:]
                     for p in range(n)]
-            a, b = srcs[0][:chunk], srcs[1][:chunk]
+            a = srcs[0][:chunk]
             for op in K.OP_CODES:
                 where = f"{dtype} {op} numel={numel} offset={off}"
-                d1, d2 = torch.empty_like(a), torch.empty_like(a)
-                p1 = torch.empty_like(a)
-                K.ring_rs_hop(a, b, d1, op, dst2=d2)
-                K.ring_rs_hop_plain(a, b, p1, op)
-                for got in (d1, d2):
-                    ok, err = compare(torch, got, p1)
-                    if not ok:
-                        fail(f"ring_rs_hop != plain ({where}), err {err}")
-                    results["ring_rs_hop"] = max(results["ring_rs_hop"], err)
                 f1 = torch.empty_like(srcs[0])
                 fp = torch.empty_like(srcs[0])
                 K.linear_fold(srcs, f1, op)
@@ -215,8 +218,8 @@ def kernel_checks(torch, K, dev, card):
                          f"offset={off}), err {err}")
                 results["ring_ag_hop"] = max(results["ring_ag_hop"], err)
             torch.cuda.synchronize()
-            del srcs, a, b, d1, d2, p1, f1, fp, g1, g2, q1, q2
-    print(f"kernels: K1-K3 bitwise equal to their plain versions for "
+            del srcs, a, f1, fp, g1, g2, q1, q2
+    print(f"kernels: K2 and K3 bitwise equal to their plain versions for "
           f"float32/bfloat16/int32 x SUM/PROD/MIN/MAX at {MAIN_BYTES} B "
           f"over {n} ranks and two ragged shapes [{card}]", flush=True)
 
@@ -239,12 +242,15 @@ def kernel_checks(torch, K, dev, card):
         add_row(rows, results, card, SRC, *args, **kw)
 
     K.reset_launches()
+    k1 = lambda: K.ring_rs_hop(carry, own, dst, "MPI_SUM")  # noqa: E731
+    lib1 = lambda: torch.add(carry, own, out=dst)  # noqa: E731
     row("ring_rs_hop", "ompi_tpu/coll/pallas_kernels.py:529",
-        median_ms(lambda: K.ring_rs_hop(carry, own, dst, "MPI_SUM"), torch),
+        median_ms(k1, torch),
         median_ms(lambda: K.ring_rs_hop_plain(carry, own, dst, "MPI_SUM"),
                   torch),
-        median_ms(lambda: torch.add(carry, own, out=dst), torch),
-        3 * cb, chunk)
+        median_ms(lib1, torch), 3 * cb, chunk)
+    device_line("ring_rs_hop", k1, "torch.add(out=)", lib1, 3 * cb, torch,
+                card)
     row("ring_ag_hop", "ompi_tpu/coll/pallas_kernels.py:565",
         median_ms(lambda: K.ring_ag_hop(carry, dst, dst2=dst2), torch),
         median_ms(lambda: K.ring_ag_hop_plain(carry, dst, dst2=dst2),
@@ -350,6 +356,117 @@ def queued_ms(fn, torch, n=50) -> float:
         times.append(a.elapsed_time(b) / n)
     times.sort()
     return times[len(times) // 2]
+
+
+def device_line(name, fn, lib_name, lib, nbytes, torch, card) -> None:
+    """Print a kernel's and its library call's device-only time
+    (:func:`queued_ms`) with the rate and the share of the HBM bound."""
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    ms, lib_ms = queued_ms(fn, torch), queued_ms(lib, torch)
+    print(f"kernel {name} queued (device only): {ms:.4f} ms, "
+          f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.0%} of its bound; "
+          f"{lib_name} {lib_ms:.4f} ms, {nbytes / lib_ms / 1e9:.3f} TB/s "
+          f"[{card}]", flush=True)
+
+
+def poisoned(torch, numel, dtype, off, dev):
+    """An output of numel elements at element offset ``off`` of a fresh
+    allocation, every byte POISON: a stale or missing write shows."""
+    t = torch.empty(numel + off, dtype=dtype, device=dev)[off:]
+    t.view(torch.uint8).fill_(POISON)
+    return t
+
+
+def engine_checks(torch, K, O, dev, card):
+    """Phase 2 for the kernels on the streaming engine (``stream.cuh``):
+    K1 ring_rs_hop and K7 rma_apply bitwise against their plain versions
+    for float32/bfloat16/int32 x every op (K7: put, replace, sum, prod,
+    min, max), inputs carrying NaN and +-0, every output poisoned first (a
+    put's window too). Shapes: the paths' (K1's 64 MiB, 256 KiB and 256 B
+    chunks, each with and without dst2; K7's 2**26-element tile put and a
+    128-element row) and the engine's edges: a span shorter than one
+    tile, spans ending at a tile boundary, one vector past it and one
+    element past that, both sides of the small-span switch; operands 16-byte but not 128-byte aligned, one
+    element off 16 bytes on every operand (a head of elements before the
+    bulk body) and on some (no body: the element loop); K7 at a clamped,
+    unaligned start on the tile. Returns the max abs errors."""
+    err = {"ring_rs_hop": 0.0, "rma_apply": 0.0}
+
+    def check(name, got, want, where):
+        ok, e = compare(torch, got, want)
+        if not ok:
+            fail(f"{name} != plain on the engine ({where}), err {e}")
+        err[name] = max(err[name], e)
+
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        es = torch.empty(0, dtype=dtype).element_size()
+        vec = 16 // es
+        chunk = MAIN_BYTES // N_RANKS // es
+        # (elements, element offsets of carry, own and the outputs)
+        spans = [(chunk, (0, 0, 0)), (chunk + vec, (0, 0, 0)),
+                 (chunk + vec + 1, (0, 0, 0)), ((1 << 18) // es, (0, 0, 0)),
+                 (256 // es, (0, 0, 0)),
+                 ((STREAM_TILE - 16) // es, (0, 0, 0)),
+                 ((STREAM_SMALL - 16) // es, (0, 0, 0)),
+                 (STREAM_SMALL // es, (0, 0, 0)),
+                 ((1 << 20) // es + vec + 1, (vec, vec, vec)),
+                 ((1 << 20) // es + vec + 1, (1, 1, 1)),
+                 ((1 << 20) // es + vec + 1, (1, 1, 0)),
+                 (4099, (1, 0, 1))]
+        for numel, (oa, ob, od) in spans:
+            a = make(torch, numel + oa, dtype, 90, dev)[oa:]
+            b = make(torch, numel + ob, dtype, 91, dev)[ob:]
+            for op in K.OP_CODES:
+                want = torch.empty_like(a)
+                K.ring_rs_hop_plain(a, b, want, op)
+                for two in (False, True):
+                    d = poisoned(torch, numel, dtype, od, dev)
+                    d2 = poisoned(torch, numel, dtype, od, dev) if two \
+                        else None
+                    K.ring_rs_hop(a, b, d, op, dst2=d2)
+                    where = (f"{dtype} {op} {numel} elements, offsets "
+                             f"{(oa, ob, od)}, dst2 {two}")
+                    for got in (d, d2) if two else (d,):
+                        check("ring_rs_hop", got, want, where)
+            torch.cuda.synchronize()
+            del a, b, want, d, d2
+        tile = HALO ** 2
+        big, whole = (1 << 25) // es, (1 << 24) // es  # 32 and 16 MiB
+        # (window elements, payload elements, payload offset, disp)
+        applies = [(tile, tile, 0, 0), (1 << 20, EMB_DIM, 0, 1000 * EMB_DIM),
+                   (tile, tile - 3, 0, 5),  # clamped to 3: the element loop
+                   (tile, tile - 3, 3, 5),  # both off: a head, then bulk
+                   (big, (STREAM_TILE - 16) // es, 0, 0),
+                   (big, whole, 0, vec),  # 16-byte, not 128-byte aligned
+                   (big, whole + vec, 0, 0), (big, whole + vec + 1, 0, 0)]
+        for size, k, po, d in applies:
+            base = make(torch, size, dtype, 92, dev)
+            pay = make(torch, k + po, dtype, 93, dev)[po:]
+            for kind in O.KINDS:
+                w0 = base
+                if kind in ("put", "replace"):
+                    w0 = poisoned(torch, size, dtype, 0, dev)
+                got, want = w0.clone(), w0.clone()
+                O.rma_apply(got, pay, d, kind)
+                O.rma_apply_plain(want, pay, d, kind)
+                check("rma_apply", got, want,
+                      f"{dtype} {kind} window {size} payload {k} at offset "
+                      f"{po}, disp {d}")
+                del got, want, w0
+            torch.cuda.synchronize()
+            del base, pay
+        torch.cuda.empty_cache()
+    print(f"kernels: K1 and K7 on the streaming engine bitwise equal to "
+          f"their plain versions for float32/bfloat16/int32 x every op, "
+          f"outputs poisoned, at the paths' shapes (64 MiB, 256 KiB, 256 B "
+          f"chunks with and without dst2; the {HALO} x {HALO} tile, a "
+          f"{EMB_DIM}-element row) and the engine's edges (below a "
+          f"{STREAM_TILE}-byte tile, at a tile boundary, a vector and an "
+          f"element past it, both sides of {STREAM_SMALL} B; 16-byte but "
+          f"not 128-byte aligned, a peeled head, mixed offsets, a clamped "
+          f"unaligned start) [{card}]",
+          flush=True)
+    return err
 
 
 def add_row(rows, results, card, source, name, replaces, ms, plain_ms,
@@ -490,17 +607,19 @@ def fused_checks(torch, K, dev, card, results):
           f"shapes [{card}]", flush=True)
 
 
-def rma_checks(torch, O, dev, card):
+def rma_checks(torch, O, dev, card, engine):
     """Phase 2 for the one-sided paths' kernels: K7-K10 bitwise against
     their plain versions for float32/bfloat16/int32 x every kind, at the
     paths' shapes (the halo tile's 64M-element self put and its
     8192-element columns at stride 8192; an embedding row of 128 in a
     2**20 x 128 shard) and a ragged, unaligned one, at the edge
-    displacements, inputs carrying NaN and +-0; then each kernel timed
+    displacements, inputs carrying NaN and +-0 (K7's engine edges are
+    ``engine``, from :func:`engine_checks`); then each kernel timed
     beside its plain version, its bound and one PyTorch call."""
     tile, col, emb = HALO ** 2, HALO, EMB_ROWS * EMB_DIM
     rag, kr = 4099, 1027
     results = {k.__name__: 0.0 for k in O.KERNELS}
+    results["rma_apply"] = engine["rma_apply"]
 
     def check(name, got, want, where):
         ok, err = compare(torch, got, want)
@@ -565,10 +684,13 @@ def rma_checks(torch, O, dev, card):
 
     big = make(torch, tile, torch.float32, 70, dev, traps=False)
     pay = make(torch, tile, torch.float32, 71, dev, traps=False)
+    k7 = lambda: O.rma_apply(big, pay, 0, "put")  # noqa: E731
+    lib7 = lambda: big[:tile].copy_(pay)  # noqa: E731
     row("rma_apply", "ompi_tpu/osc/pallas_kernels.py:92",
-        median_ms(lambda: O.rma_apply(big, pay, 0, "put"), torch),
+        median_ms(k7, torch),
         median_ms(lambda: O.rma_apply_plain(big, pay, 0, "put"), torch),
-        median_ms(lambda: big[:tile].copy_(pay), torch), 2 * tile * 4, 0)
+        median_ms(lib7, torch), 2 * tile * 4, 0)
+    device_line("rma_apply", k7, "copy_", lib7, 2 * tile * 4, torch, card)
     land = torch.empty_like(pay)
     row("rma_permute_recv", "ompi_tpu/osc/pallas_kernels.py:192",
         median_ms(lambda: O.rma_permute_recv(pay, land), torch),
@@ -834,8 +956,9 @@ def main() -> int:
 
     # the plain and library float32 products run in full float32
     torch.backends.cuda.matmul.allow_tf32 = False
-    rows = kernel_checks(torch, K, dev, card)
-    rows += rma_checks(torch, O, dev, card)
+    engine = engine_checks(torch, K, O, dev, card)
+    rows = kernel_checks(torch, K, dev, card, engine)
+    rows += rma_checks(torch, O, dev, card, engine)
     coll, _ = main_path("device_collectives.py", N_RANKS,
                         ["--sizes", "1k,1m,64m,256m"], card, root)
     main_path("device_collectives.py", 3, ["--sizes", "1k,1m,64m"], card,

@@ -35,15 +35,22 @@
 // K6, the block product of allgather_matmul, lives in gemm_kernels.cu.
 //
 // What bounds them on the H100: HBM bytes. K1 reads 2 and writes 1 (or 2,
-// on the last hop) chunk per hop; K2 reads 1 and writes 2; K3 reads n and
-// writes 1 slice. None does enough arithmetic to matter. This first version
-// is plain: a grid-stride loop of coalesced 16-byte loads and stores (one
-// uint4 per thread per step, neighbouring threads on neighbouring addresses),
-// no shared-memory tiling, no asynchronous copies; a ragged tail (or a
-// pointer that is not 16-byte aligned) takes the same loop one element at a
-// time. K5 is bound the same way (it reads carry, own, p and v and writes
-// p' and v': six chunks, a handful of flops per element), and takes the
-// same loop; K5b reads n slices, p and v and writes p' and v'.
+// on the last hop) chunk per hop: 3 or 4 chunks; K2 reads 1 and writes 2;
+// K3 reads n and writes 1 slice. None does enough arithmetic to matter.
+// K1 runs on the streaming engine of stream.cuh: one block per 16 KiB tile
+// of carry and of own, each thread issuing its four 16-byte loads of both
+// before it combines, streaming cache hints, the grid the tile count (one
+// vector a thread below 1 MiB). The first port's grid-stride loop held one
+// vector of each per thread per trip on a grid capped at 132 x 16 blocks,
+// and took 0.0714 ms on the device at a 64 MiB chunk (84% of the bound);
+// the engine takes 0.0687 (87%), as torch.add does (PERF.md). The
+// engine's head and tail element loops take a ragged end or pointers one
+// element off 16 bytes, in the same launch. K2, K3 and K5 keep the first
+// port's plain loop: a grid-stride loop of coalesced 16-byte loads and
+// stores (one uint4 per thread per step), a ragged tail (or a pointer
+// that is not 16-byte aligned) one element at a time. K5 reads carry, own,
+// p and v and writes p' and v': six chunks, a handful of flops per
+// element; K5b reads n slices, p and v and writes p' and v'.
 //
 // Numerics (the same as the plain PyTorch versions beside the wrappers, and
 // as jnp's per-op rounding; the elementwise combine lives in combine.cuh,
@@ -65,49 +72,12 @@
 // Every entry point returns a cudaError_t as int: 0 on success, else the
 // error of the call or of the launch (cudaGetLastError()).
 
-#include "combine.cuh"
+#include "stream.cuh"
 
 #define OTC_MAX_PEERS 64
 
-// ---------------------------------------------------------------------------
-// K1: dst = fn(carry, own) (and dst2, the output, on a ring's last hop)
-
-template <typename T, int OP>
-__global__ void rs_hop_kernel(const T* __restrict__ carry,
-                              const T* __restrict__ own,
-                              T* __restrict__ dst, T* __restrict__ dst2,
-                              int64_t count, int64_t nvec) {
-    constexpr int V = 16 / sizeof(T);
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const Vec<T>* cv = reinterpret_cast<const Vec<T>*>(carry);
-    const Vec<T>* ov = reinterpret_cast<const Vec<T>*>(own);
-    Vec<T>* dv = reinterpret_cast<Vec<T>*>(dst);
-    Vec<T>* d2v = reinterpret_cast<Vec<T>*>(dst2);
-    for (int64_t i = tid; i < nvec; i += stride) {
-        Vec<T> a = cv[i], b = ov[i], r;
-#pragma unroll
-        for (int e = 0; e < V; ++e) r.v[e] = Combine<T, OP>::f(a.v[e], b.v[e]);
-        dv[i] = r;
-        if (dst2 != nullptr) d2v[i] = r;
-    }
-    for (int64_t i = nvec * V + tid; i < count; i += stride) {
-        T r = Combine<T, OP>::f(carry[i], own[i]);
-        dst[i] = r;
-        if (dst2 != nullptr) dst2[i] = r;
-    }
-}
-
-template <typename T, int OP>
-static void launch_rs(const void* carry, const void* own, void* dst,
-                      void* dst2, int64_t count, cudaStream_t s) {
-    constexpr int V = 16 / sizeof(T);
-    bool vec = aligned16(carry) && aligned16(own) && aligned16(dst) &&
-               (dst2 == nullptr || aligned16(dst2));
-    int64_t nvec = vec ? count / V : 0;
-    rs_hop_kernel<T, OP><<<grid_for(vec ? nvec : count), OTC_THREADS, 0, s>>>(
-        (const T*)carry, (const T*)own, (T*)dst, (T*)dst2, count, nvec);
-}
+// K1, dst = fn(carry, own) (and dst2, the output, on a ring's last hop), is
+// stream.cuh's stream_launch<T, OP>(carry, own, dst, dst2, count, stream).
 
 // ---------------------------------------------------------------------------
 // K2: dst = src (and dst2, the output position)
@@ -402,9 +372,10 @@ extern "C" {
 int otc_rs_hop(int dtype, int op, const void* carry, const void* own,
                void* dst, void* dst2, int64_t count, void* stream) {
     if (count <= 0) return 0;
-    OTC_DISPATCH(launch_rs, dtype, op, carry, own, dst, dst2, count,
+    int rc = 0;
+    OTC_DISPATCH(rc = stream_launch, dtype, op, carry, own, dst, dst2, count,
                  (cudaStream_t)stream);
-    return (int)cudaGetLastError();
+    return rc;
 }
 
 int otc_ag_hop(const void* src, void* dst, void* dst2, int64_t nbytes,

@@ -75,8 +75,9 @@ ALL = "all"
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _SRC = os.path.join(_CSRC, "ring_kernels.cu")
 GEMM_SRC = os.path.join(_CSRC, "gemm_kernels.cu")
-#: the header every kernel source includes (part of each library's key)
-HEADERS = (os.path.join(_CSRC, "combine.cuh"),)
+#: the headers the kernel sources include (part of each library's key)
+HEADERS = (os.path.join(_CSRC, "combine.cuh"),
+           os.path.join(_CSRC, "stream.cuh"))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -43,13 +43,22 @@
 // What bounds them on the H100. K7, K10 and a contiguous K9 are bound by
 // HBM bytes (K7 reads the payload and writes the slice, 2k elements for
 // REPLACE and 3k with the read of the slice for a fold; K9 and K10 read and
-// write k each): a grid-stride loop of 16-byte loads and stores where both
-// pointers are 16-byte aligned, else one element at a time. A strided K8 or
-// K9 touches one element every s, a 32-byte sector each. But at the paths'
-// shapes (an 8192-element halo column, one 128-float embedding row) a call
-// moves kilobytes: its bound is well under a microsecond, and what the call
-// costs is the launch and the host's wrapper around it, once per
-// descriptor. The grouped design attacks that: the one-sided fence hands
+// write k each). K7 runs on the streaming engine of coll/csrc/stream.cuh,
+// the window slice as the first input and the output (a put never reads
+// it): one block per 16 KiB tile, each thread issuing its four 16-byte
+// loads before it stores, streaming cache hints, the grid the tile count.
+// On the halo tile's 256 MiB put the first port's grid-stride loop (one
+// vector per thread per trip, 132 x 16 blocks at most) took 0.1908 ms on
+// the device (84% of the bound), the engine 0.1813 (88%; copy_ 0.1797,
+// PERF.md). Where the window slice and the payload do not share one
+// offset modulo 16 (a clamped start) the engine's element loop takes the
+// span. K10 keeps the first port's loop: 16-byte loads and stores where
+// both pointers are 16-byte aligned, else one element at a time. A
+// strided K8 or K9 touches one element every s, a 32-byte sector each. But
+// at the paths' shapes (an 8192-element halo column, one 128-float
+// embedding row) a call moves kilobytes: its bound is well under a
+// microsecond, and what the call costs is the launch and the host's
+// wrapper around it, once per descriptor. The grouped design attacks that: the one-sided fence hands
 // the kernels every descriptor of an exchange (a run of coloured rounds,
 // coll/cuda.py Arena.exchange) at once, and one launch serves the whole
 // table. The table travels by value in the kernel's parameter block
@@ -72,10 +81,7 @@
 // Every entry point returns a cudaError_t as int: 0 on success, else the
 // error of the call or of the launch (cudaGetLastError()).
 
-#include "../../coll/csrc/combine.cuh"
-
-// put and replace: the payload overwrites the window's elements
-#define OP_REPLACE 4
+#include "../../coll/csrc/stream.cuh"
 
 // a batch's tile: one 16-byte vector per thread of a contiguous
 // descriptor, one element per thread of a strided one (each a sector of
@@ -122,15 +128,6 @@ template <typename D, int CAP> struct Table {
 static_assert(sizeof(Table<ReadDesc, ORM_TABLE_MAX>) + 32 <= 32764,
               "a full table and the other parameters fit one launch");
 
-template <typename T, int OP>
-__device__ __forceinline__ T apply_one(T cur, T payload) {
-    if constexpr (OP == OP_REPLACE) {
-        return payload;
-    } else {
-        return Combine<T, OP>::f(cur, payload);
-    }
-}
-
 template <typename T> struct Bits;
 template <> struct Bits<float> {
     static __device__ __forceinline__ float of(uint32_t b) {
@@ -162,42 +159,9 @@ static inline int64_t start(int64_t size, int64_t k, int64_t d) {
     return d;
 }
 
-// ---------------------------------------------------------------------------
-// K7: win[i] = C(win[i], pay[i]) for i < k (win already at the clamped start)
-
-template <typename T, int OP>
-__global__ void apply_kernel(T* __restrict__ win, const T* __restrict__ pay,
-                             int64_t k, int64_t nvec) {
-    constexpr int V = 16 / sizeof(T);
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    Vec<T>* wv = reinterpret_cast<Vec<T>*>(win);
-    const Vec<T>* pv = reinterpret_cast<const Vec<T>*>(pay);
-    for (int64_t i = tid; i < nvec; i += stride) {
-        Vec<T> p = pv[i];
-        if (OP == OP_REPLACE) {
-            wv[i] = p;
-        } else {
-            Vec<T> c = wv[i];
-#pragma unroll
-            for (int e = 0; e < V; ++e)
-                c.v[e] = apply_one<T, OP>(c.v[e], p.v[e]);
-            wv[i] = c;
-        }
-    }
-    for (int64_t i = nvec * V + tid; i < k; i += stride)
-        win[i] = apply_one<T, OP>(win[i], pay[i]);
-}
-
-template <typename T, int OP>
-static void launch_apply(void* win, const void* pay, int64_t k,
-                         cudaStream_t s) {
-    constexpr int V = 16 / sizeof(T);
-    bool vec = aligned16(win) && aligned16(pay);
-    int64_t nvec = vec ? k / V : 0;
-    apply_kernel<T, OP><<<grid_for(vec ? nvec : k), OTC_THREADS, 0, s>>>(
-        (T*)win, (const T*)pay, k, nvec);
-}
+// K7, win[i] = C(win[i], pay[i]) for i < k (win already at the clamped
+// start), is stream.cuh's stream_launch<T, OP>(win, pay, win, nullptr, k,
+// stream): the fold's output aliases its first input.
 
 // ---------------------------------------------------------------------------
 // the tile scheduler: the descriptor whose tiles hold tile t (the last one
@@ -443,8 +407,10 @@ int orm_apply(int dtype, int op, void* win, int64_t size, const void* pay,
     if (k <= 0) return 0;
     if (k > size) return (int)cudaErrorInvalidValue;
     void* at = (char*)win + start(size, k, d) * esize(dtype);
-    ORM_DISPATCH(launch_apply, dtype, op, at, pay, k, (cudaStream_t)stream);
-    return (int)cudaGetLastError();
+    int rc = 0;
+    ORM_DISPATCH(rc = stream_launch, dtype, op, at, pay, at, nullptr, k,
+                 (cudaStream_t)stream);
+    return rc;
 }
 
 // descs: n host descriptors (their tile0 is ignored); 0 < n <= ORM_TABLE_MAX

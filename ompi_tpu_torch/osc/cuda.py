@@ -52,7 +52,12 @@ Where the port differs from the reference:
 - a ``GetHandle.array`` is a view of the exchange's fresh landing tensor,
   never of an arena region, which the next exchange reuses;
 - a target rank outside the window raises ``ERR_RANK`` at the call
-  (the reference queues it).
+  (the reference queues it);
+- a contiguous ``Put`` / ``Accumulate`` / ``Get_epoch`` (and a
+  ``Put_strided`` of stride 1, which the target applies as one) of more
+  elements than the target's window raises ``ERR_ARG`` at the call, from
+  ``peer_info``, so nothing is queued that the target cannot apply (the
+  reference queues it too); a strided put still drops what falls outside.
 """
 
 from __future__ import annotations
@@ -165,6 +170,17 @@ class CudaWindow(Window):
                 torch.bfloat16).reshape(-1)
         return torch.from_numpy(a.copy()).reshape(-1)
 
+    def _check_fits(self, what: str, k: int, target: int) -> None:
+        """Raise ``MPIError(ERR_ARG)`` for a contiguous transfer of more
+        elements than ``target``'s window holds (every rank's window has
+        this window's dtype)."""
+        size = self.peer_info[target][0] // self._win.element_size()
+        if k > size:
+            raise errors.MPIError(
+                errors.ERR_ARG,
+                f"{what} of {k} elements on {self.name}: rank {target}'s "
+                f"window holds {size}")
+
     @staticmethod
     def _acc_kind(op) -> str:
         name = getattr(op, "name", op)  # op_mod.Op -> "MPI_SUM"
@@ -180,17 +196,22 @@ class CudaWindow(Window):
         pvar.record("osc_cuda_put")
         self._epoch_for(target)
         self._check_target(target)
-        self._queue_put(self._payload(buf, "Put"), target, disp, "put", 1)
+        data = self._payload(buf, "Put")
+        self._check_fits("Put", data.numel(), target)
+        self._queue_put(data, target, disp, "put", 1)
 
     def Put_strided(self, buf, target: int, disp: int = 0,
                     stride: int = 1) -> None:
         """Elements of buf land at disp, disp+stride, ... (the halo
-        column); those past either end of the window are dropped."""
+        column); those past either end of the window are dropped (stride
+        1 is a contiguous Put)."""
         pvar.record("osc_cuda_put")
         self._epoch_for(target)
         self._check_target(target)
-        self._queue_put(self._payload(buf, "Put"), target, disp, "put",
-                        stride)
+        data = self._payload(buf, "Put")
+        if stride == 1:
+            self._check_fits("Put_strided", data.numel(), target)
+        self._queue_put(data, target, disp, "put", stride)
 
     def Accumulate(self, buf, target: int, disp: int = 0,
                    op: op_mod.Op = op_mod.SUM) -> None:
@@ -202,6 +223,7 @@ class CudaWindow(Window):
             _fallthrough("Accumulate", f"op {getattr(op, 'name', op)!r} "
                          "is not elementwise")
         self._check_target(target)
+        self._check_fits("Accumulate", data.numel(), target)
         self._queue_put(data, target, disp, kind, 1)
 
     def Get_epoch(self, nelems: int, target: int, disp: int = 0,
@@ -216,6 +238,8 @@ class CudaWindow(Window):
                 errors.ERR_RMA_SYNC,
                 f"Get_epoch on {self.name} outside a fence epoch")
         self._check_target(target)
+        if stride == 1:
+            self._check_fits("Get_epoch", int(nelems), target)
         h = GetHandle()
         self._fget.append((h, int(target), int(disp), int(nelems),
                            int(stride)))

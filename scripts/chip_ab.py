@@ -1,6 +1,6 @@
 """chip_ab.py — the PyTorch port's main paths on two trees, in turns.
 
-Runs the 4-rank training, halo and embedding paths of
+Runs the 4-rank collectives, training, halo and embedding paths of
 ``ompi_tpu_torch/examples/`` (as ``chip_smoke.py`` runs them) from two
 checkouts — a parent tree and this one — in the order parent, change,
 change, parent, so that two versions are compared inside one call on one
@@ -11,7 +11,9 @@ card::
     git archive <parent> | tar -x -C build/parent
     python3 scripts/chip_ab.py --parent build/parent [--out DIR]
 
-Prints one line per run: the ZeRO step p50 per mode and the
+Prints one line per run: the float32 Allreduce p50 per size and mode,
+the Reduce_scatter_block and Allgather p50s (``device_collectives.py``,
+5 calls each), the ZeRO step p50 per mode and the
 ``allgather_matmul_dev`` p50 per dtype (rank 0, ``zero_training.py``),
 the halo path's fences after the first pair (``halo_exchange.py``) and
 the embedding path's lookup and update fences (``embedding_table.py``),
@@ -35,7 +37,10 @@ import tempfile
 N_RANKS = 4
 JOB_TIMEOUT = 300  # seconds per launcher job
 #: (example, its arguments at full size, at --cpu, the component to enable)
-JOBS = (("zero_training.py", [], ["--tiny", "--layers", "2"], "coll_cuda"),
+JOBS = (("device_collectives.py", ["--iters", "5"],
+         ["--sizes", "1k,64k", "--dtype-bytes", "4k", "--rsag-bytes", "12k",
+          "--iters", "2"], "coll_cuda"),
+        ("zero_training.py", [], ["--tiny", "--layers", "2"], "coll_cuda"),
         ("halo_exchange.py", [], ["--tiny"], "osc_cuda"),
         ("embedding_table.py", [], ["--tiny"], "osc_cuda"))
 
@@ -84,8 +89,11 @@ def run_job(tree: str, example: str, args, component: str,
 
 
 def summary(docs) -> dict:
-    zero, halo, emb = docs
+    coll, zero, halo, emb = docs
     return {
+        "collectives_p50_ms": {
+            f"{c['kind']} {c['bytes']} {c['mode']}": c["p50_ms"]
+            for c in coll["cases"] if c["dtype"] == "float32"},
         "step_p50_ms": {m: v["p50"] for m, v in zero["step_ms"].items()},
         "allgather_matmul_p50_ms": zero["allgather_matmul_ms"],
         # the first halo and tile fences map the arenas: steady ones only

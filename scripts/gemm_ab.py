@@ -40,8 +40,8 @@ def variant(stages: int) -> str:
         raise SystemExit(f"{K.GEMM_SRC}: no '{LINE}' to vary")
     out = os.path.join(K.build_dir(), "gemm_ab")
     os.makedirs(out, exist_ok=True)
-    shutil.copy(os.path.join(os.path.dirname(K.GEMM_SRC), "combine.cuh"),
-                out)
+    for header in K.HEADERS:
+        shutil.copy(header, out)
     path = os.path.join(out, f"gemm_s{stages}.cu")
     with open(path, "w") as f:
         f.write(src.replace(LINE, f"#define WG_STAGES {stages}"))

@@ -104,7 +104,8 @@ def variant() -> str:
     os.makedirs(out, exist_ok=True)
     inc = os.path.join(K.build_dir(), "rma_ab", "coll", "csrc")
     os.makedirs(inc, exist_ok=True)
-    shutil.copy(K.HEADERS[0], inc)
+    for header in K.HEADERS:
+        shutil.copy(header, inc)
     path = os.path.join(out, "rma_kernels_copied.cu")
     with open(path, "w") as f:
         f.write(src + COPY_ENTRY)

@@ -311,6 +311,20 @@ for meth, args in (("Rput", (torch.ones(1), 0)),
                    ("Rget", (np.ones(1, np.float32), 0))):
     expect(errors.ERR_RMA_SYNC, lambda: getattr(win, meth)(*args))
 expect(errors.ERR_RANK, lambda: win.Put(torch.ones(1), size))
+# a contiguous RMA larger than the target's 4-element window raises ERR_ARG
+# at the origin and queues nothing; a strided put still drops what falls
+# outside, and the fence that closes the epoch completes
+nxt = (rank + 1) % size
+for attempt in range(2):
+    expect(errors.ERR_ARG, lambda: win.Put(torch.ones(5), nxt))
+    expect(errors.ERR_ARG,
+           lambda: win.Put_strided(torch.ones(5), nxt, disp=0, stride=1))
+    expect(errors.ERR_ARG, lambda: win.Accumulate(torch.ones(5), nxt))
+    expect(errors.ERR_ARG, lambda: win.Get_epoch(5, nxt))
+win.Put_strided(torch.full((5,), 2.0), nxt, disp=1, stride=2)
+win.Fence()
+assert win.array.tolist() == [0.0, 2.0, 0.0, 2.0], win.array.tolist()
+open(f"{{out_dir}}/port_fits_r{{rank}}.ok", "w").close()
 # what rides the host window's AM service: refused and counted
 s = pvar.session()
 one = np.ones(1, np.float32)
@@ -501,6 +515,17 @@ def test_error_matrix(results):
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
+
+
+def test_oversized_rma_raises_at_origin(results):
+    """A Put, Put_strided of stride 1, Accumulate or Get_epoch of more
+    elements than the target's window raises ERR_ARG at the call on every
+    rank (nothing reaches the target, which would fail mid-exchange), and
+    the next fence completes with the strided put that fits in part —
+    asserted inside the port job."""
+    n, out = results
+    for r in range(n):
+        assert (out / f"port_fits_r{r}.ok").exists()
 
 
 def test_mca_maps_osc_pallas():
