@@ -1,24 +1,36 @@
 // stream.cuh — the streaming engine of ompi_tpu_torch's HBM-bound
-// elementwise kernels, and Hopper's shared-memory barrier (mbarrier) and
-// bulk asynchronous copy helpers. Included by coll/csrc/ring_kernels.cu
-// (K1 otc_rs_hop), osc/csrc/rma_kernels.cu (K7 orm_apply, and apply_one for
-// K8) and coll/csrc/gemm_kernels.cu (K6's TMA ring waits on the mbarriers).
+// elementwise kernels, and Hopper's shared-memory barrier (mbarrier)
+// helpers. Included by coll/csrc/ring_kernels.cu (K1 otc_rs_hop),
+// osc/csrc/rma_kernels.cu (K7 orm_apply, and apply_one for K8) and
+// coll/csrc/gemm_kernels.cu (K6's TMA ring waits on the mbarriers).
 //
 // The engine maps out[i] = C(a[i], b[i]) over a span of count elements,
 // with C the Combine<T, OP> of combine.cuh (so NaN, -0/+0, bfloat16
 // rounding and int32 wrap-around are K1's) or, for OP_REPLACE, b[i] (a put:
-// a is never read). out may alias a (an in-place fold); a second output
-// out2 (nullptr: none) receives the same values.
+// a is never read). out may alias a (an in-place fold: each element is
+// loaded and stored by one thread); a second output out2 (nullptr: none)
+// receives the same values.
 //
-// Two designs, chosen at build time by OTC_STREAM_DESIGN and timed side
-// by side by scripts/stream_ab.py: 1, bulk asynchronous copies through a
-// ring of shared memory on a persistent grid; 2 (the default), the
-// register-pipelined loop.
+// What bounds it on the H100: HBM bytes (each input read once, each output
+// written once; the combine is a handful of operations per 16 bytes). The
+// design keeps enough bytes in flight to approach HBM's rate: a block owns
+// one tile of STREAM_THREADS x STREAM_UNROLL 16-byte vectors of every input
+// (16 KiB each), each thread issues all of its STREAM_UNROLL loads of every
+// input before it combines any, loads and stores take the streaming cache
+// hints (__ldcs / __stcs: the bytes are touched once), and the grid is the
+// tile count. The first port's grid-stride loop (one vector of each input
+// per thread per trip, a grid capped at 132 x 16 blocks) reached 84-86% of
+// the bound on the device; this design 87-90%, as torch.add and copy_ do
+// (PERF.md, scripts/stream_ab.py). A design that streamed tiles through
+// shared memory with bulk asynchronous copies (cp.async.bulk, mbarriers, a
+// persistent grid) was built and timed beside it, and lost to both
+// (76-85%).
 //
 // A span cuts into a head of elements up to the first 16-byte boundary, a
-// body of 16-byte vectors and a tail of elements. When the pointers do not
-// share one offset modulo 16 (a clamped window start against an aligned
-// payload) there is no body: the element loop takes the whole span.
+// body of 16-byte vectors and a tail of elements, all in one launch. When
+// the pointers do not share one offset modulo 16 (a clamped window start
+// against an aligned payload) there is no body: the element loop takes the
+// whole span.
 
 #pragma once
 
@@ -26,7 +38,6 @@
 
 // put and replace: the payload overwrites the current value
 #define OP_REPLACE 4
-#define OTC_MAX_DEVICES 64
 
 template <typename T, int OP>
 __device__ __forceinline__ T apply_one(T cur, T payload) {
@@ -48,7 +59,7 @@ __device__ __forceinline__ Vec<T> apply_vec(const Vec<T>& cur,
 }
 
 // ---------------------------------------------------------------------------
-// mbarriers and bulk asynchronous copies (sm_90)
+// mbarriers (sm_90)
 
 static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return (uint32_t)__cvta_generic_to_shared(p);
@@ -85,52 +96,19 @@ static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
     } while (!done);
 }
 
-// bytes (a multiple of 16, both addresses 16-byte aligned) from global
-// into shared memory, completing on bar
-static __device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                                 uint32_t bytes,
-                                                 uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(smem_u32(dst)), "l"((uint64_t)src), "r"(bytes),
-           "r"(smem_u32(bar))
-        : "memory");
-}
-
-// bytes from shared into global memory, in the thread's open bulk group
-static __device__ __forceinline__ void bulk_store(void* dst, const void* src,
-                                                  uint32_t bytes) {
-    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], "
-                 "%2;\n"
-                 :: "l"((uint64_t)dst), "r"(smem_u32(src)), "r"(bytes)
-                 : "memory");
-}
-
-static __device__ __forceinline__ void bulk_commit() {
-    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// until at most N of the thread's bulk groups still read shared memory
-template <int N>
-static __device__ __forceinline__ void bulk_wait_read() {
-    asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
-}
-
-// until every bulk group of the thread has completed its writes
-static __device__ __forceinline__ void bulk_wait_all() {
-    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-// order this thread's shared-memory writes before later bulk copies
-static __device__ __forceinline__ void fence_proxy_async() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
 // ---------------------------------------------------------------------------
 // the engine
 
 #define STREAM_THREADS 256
+// 16-byte vectors of each input a thread loads: 2, 4 and 8 take the same
+// time from 1 MiB up; 8 loses at 1 MiB and 256 KiB (too few blocks)
+#define STREAM_UNROLL 4
+// a body of fewer bytes takes one vector per thread: its tiles are then
+// 4 KiB, so a 256 KiB chunk (the 1 MiB Allreduce's) spreads over 256
+// blocks, not 64, and takes 0.0023 ms on the device instead of 0.0026
+// (scripts/stream_ab.py, NVIDIA H100 80GB HBM3, 700 W); from 1 MiB up the
+// two take the same time
+#define STREAM_SMALL (1 << 20)
 
 struct StreamSpan {
     const void* a;  // the current value / carry (unread by OP_REPLACE)
@@ -158,12 +136,6 @@ static StreamSpan stream_span(const void* a, const void* b, void* out,
     return s;
 }
 
-template <typename T>
-__device__ __forceinline__ const T* body_of(const void* p,
-                                            const StreamSpan& s) {
-    return static_cast<const T*>(p) + s.head;
-}
-
 // the head and the tail, one element per thread, grid-stride
 template <typename T, int OP>
 __device__ __forceinline__ void stream_elems(const StreamSpan& s) {
@@ -183,250 +155,17 @@ __device__ __forceinline__ void stream_elems(const StreamSpan& s) {
     for (int64_t i = tail + tid; i < s.count; i += stride) one(i);
 }
 
-#ifndef OTC_STREAM_DESIGN
-#define OTC_STREAM_DESIGN 2
-#endif
-
-#if OTC_STREAM_DESIGN == 1
-// ---------------------------------------------------------------------------
-// design A: bulk asynchronous copies through a ring of shared memory.
-// A persistent grid (as many blocks as fit on the SMs, each walking tiles
-// blockIdx.x, blockIdx.x + gridDim.x, ...); per block a ring of
-// STREAM_STAGES stages, each one tile of every input. One thread keeps
-// STREAM_STAGES - STREAM_STORES tiles of loads in flight (cp.async.bulk,
-// completing on the stage's mbarrier); the block combines a landed tile in
-// place in shared memory, fences it for the async proxy, and the thread
-// stores it with one bulk copy per output. A stage is reloaded only after
-// its last store has read it (wait_group.read). A put's tile never enters
-// registers: bulk load, then bulk store.
-
-#ifndef STREAM_TILE
-#define STREAM_TILE 16384  // bytes of one input's tile at most
-#endif
-#ifndef STREAM_STAGES
-#define STREAM_STAGES 4
-#endif
-#define STREAM_TILE_MIN 1024  // a small span's tiles shrink to this
-#ifndef STREAM_STORES
-#define STREAM_STORES 1  // tiles whose bulk stores may still read a stage
-#endif
-#ifndef STREAM_BULK_MIN
-#define STREAM_BULK_MIN 0  // bodies of fewer bytes take the vector loop
-#endif
-
-template <int OP>
-__host__ __device__ constexpr int stream_inputs() {
-    return OP == OP_REPLACE ? 1 : 2;
-}
-
-template <int OP>
-__host__ __device__ constexpr int stream_smem() {
-    return STREAM_STAGES * stream_inputs<OP>() * STREAM_TILE +
-           STREAM_STAGES * 8;
-}
-
-template <typename T, int OP>
-__device__ __forceinline__ void stream_bulk(const uint8_t* a,
-                                            const uint8_t* b, uint8_t* out,
-                                            uint8_t* out2, int64_t nbytes,
-                                            int tile) {
-    constexpr int NIN = stream_inputs<OP>();
-    extern __shared__ __align__(128) uint8_t stream_smem_raw[];
-    uint64_t* bars = reinterpret_cast<uint64_t*>(
-        stream_smem_raw + STREAM_STAGES * NIN * STREAM_TILE);
-    const int64_t tiles = (nbytes + tile - 1) / tile;
-    if ((int64_t)blockIdx.x >= tiles) return;
-    const int64_t mine = (tiles - 1 - blockIdx.x) / gridDim.x + 1;
-    const bool lead = threadIdx.x == 0;
-
-    auto at = [&](int64_t k) {
-        return ((int64_t)blockIdx.x + k * gridDim.x) * tile;
-    };
-    auto len = [&](int64_t off) {
-        return (uint32_t)(nbytes - off < tile ? nbytes - off : tile);
-    };
-    auto stage = [&](int64_t k) {
-        return stream_smem_raw + (k % STREAM_STAGES) * NIN * STREAM_TILE;
-    };
-    auto load = [&](int64_t k) {
-        const int64_t off = at(k);
-        const uint32_t n = len(off);
-        uint8_t* st = stage(k);
-        uint64_t* bar = &bars[k % STREAM_STAGES];
-        mbar_expect_tx(bar, NIN * n);
-        if (NIN == 2) {
-            bulk_load(st, a + off, n, bar);
-            bulk_load(st + STREAM_TILE, b + off, n, bar);
-        } else {
-            bulk_load(st, b + off, n, bar);
-        }
-    };
-
-    if (lead) {
-        for (int s = 0; s < STREAM_STAGES; ++s) mbar_init(&bars[s], 1);
-        asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-        for (int64_t k = 0; k < STREAM_STAGES - STREAM_STORES && k < mine;
-             ++k)
-            load(k);
-    }
-    __syncthreads();
-    if (NIN == 1 && !lead) return;  // a put: the lead thread alone
-    for (int64_t k = 0; k < mine; ++k) {
-        const int64_t off = at(k);
-        const uint32_t n = len(off);
-        uint8_t* st = stage(k);
-        mbar_wait(&bars[k % STREAM_STAGES], (uint32_t)(k / STREAM_STAGES) & 1);
-        if (NIN == 2) {
-            Vec<T>* x = reinterpret_cast<Vec<T>*>(st);
-            const Vec<T>* y = reinterpret_cast<const Vec<T>*>(st + STREAM_TILE);
-            for (uint32_t j = threadIdx.x; j < n / 16; j += STREAM_THREADS)
-                x[j] = apply_vec<T, OP>(x[j], y[j]);
-        }
-        fence_proxy_async();
-        if (NIN == 2) __syncthreads();
-        if (lead) {
-            bulk_store(out + off, st, n);
-            if (out2 != nullptr) bulk_store(out2 + off, st, n);
-            bulk_commit();
-            // tile k + L (L = STAGES - STORES) takes the stage of tile
-            // k - STORES once that tile's stores have read it (the
-            // STORES newer tiles' stores may still be reading)
-            constexpr int L = STREAM_STAGES - STREAM_STORES;
-            if (k + L < mine) {
-                bulk_wait_read<STREAM_STORES>();
-                load(k + L);
-            }
-        }
-    }
-    if (lead) bulk_wait_all();
-}
-
-// the body as a grid-stride loop of 16-byte vectors (a small span)
-template <typename T, int OP>
-__device__ __forceinline__ void stream_vectors(const StreamSpan& s) {
-    const Vec<T>* a = reinterpret_cast<const Vec<T>*>(body_of<T>(s.a, s));
-    const Vec<T>* b = reinterpret_cast<const Vec<T>*>(body_of<T>(s.b, s));
-    Vec<T>* out = reinterpret_cast<Vec<T>*>(static_cast<T*>(s.out) + s.head);
-    Vec<T>* out2 = s.out2 == nullptr ? nullptr : reinterpret_cast<Vec<T>*>(
-        static_cast<T*>(s.out2) + s.head);
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-         i < s.nvec; i += stride) {
-        const Vec<T> r = apply_vec<T, OP>(OP == OP_REPLACE ? b[i] : a[i], b[i]);
-        out[i] = r;
-        if (out2 != nullptr) out2[i] = r;
-    }
-}
-
-template <typename T, int OP>
-__global__ void __launch_bounds__(STREAM_THREADS)
-stream_kernel(const StreamSpan s, int tile) {
-    stream_elems<T, OP>(s);
-    if (tile == 0) {
-        stream_vectors<T, OP>(s);
-        return;
-    }
-    stream_bulk<T, OP>(
-        reinterpret_cast<const uint8_t*>(body_of<T>(s.a, s)),
-        reinterpret_cast<const uint8_t*>(body_of<T>(s.b, s)),
-        reinterpret_cast<uint8_t*>(static_cast<T*>(s.out) + s.head),
-        s.out2 == nullptr ? nullptr
-                          : reinterpret_cast<uint8_t*>(static_cast<T*>(s.out2) +
-                                                       s.head),
-        s.nvec * 16, tile);
-}
-
-// blocks of the persistent grid on the current device (the SMs times the
-// instance's occupancy), found once per instance and device; the instance's
-// dynamic shared memory above 48 KiB is allowed at the same time
-template <typename T, int OP>
-static cudaError_t stream_blocks(int* blocks) {
-    static int cached[OTC_MAX_DEVICES];
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return e;
-    if (dev >= 0 && dev < OTC_MAX_DEVICES && cached[dev] > 0) {
-        *blocks = cached[dev];
-        return cudaSuccess;
-    }
-    e = cudaFuncSetAttribute(stream_kernel<T, OP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             stream_smem<OP>());
-    if (e != cudaSuccess) return e;
-    int per_sm = 0, sms = 0;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, stream_kernel<T, OP>, STREAM_THREADS, stream_smem<OP>());
-    if (e != cudaSuccess) return e;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    *blocks = per_sm * sms;
-    if (dev >= 0 && dev < OTC_MAX_DEVICES) cached[dev] = *blocks;
-    return cudaSuccess;
-}
-
-template <typename T, int OP>
-static int stream_launch(const void* a, const void* b, void* out, void* out2,
-                         int64_t count, cudaStream_t st) {
-    const StreamSpan s = stream_span<T, OP>(a, b, out, out2, count);
-    const int64_t nbytes = s.nvec * 16;
-    if (nbytes == 0 || nbytes < STREAM_BULK_MIN) {
-        const int64_t items = nbytes ? s.nvec : count;
-        stream_kernel<T, OP><<<grid_for(items), STREAM_THREADS, 0, st>>>(s, 0);
-        return (int)cudaGetLastError();
-    }
-    int blocks = 0;
-    cudaError_t e = stream_blocks<T, OP>(&blocks);
-    if (e != cudaSuccess) return (int)e;
-    // tiles of STREAM_TILE bytes, or smaller ones (down to STREAM_TILE_MIN)
-    // that give every block of the grid one
-    int64_t tile = (nbytes + blocks - 1) / blocks;
-    tile = (tile + 15) / 16 * 16;
-    if (tile < STREAM_TILE_MIN) tile = STREAM_TILE_MIN;
-    if (tile > STREAM_TILE) tile = STREAM_TILE;
-    const int64_t tiles = (nbytes + tile - 1) / tile;
-    stream_kernel<T, OP><<<tiles < blocks ? (int)tiles : blocks,
-                           STREAM_THREADS, stream_smem<OP>(), st>>>(
-        s, (int)tile);
-    return (int)cudaGetLastError();
-}
-
-#else
-// ---------------------------------------------------------------------------
-// design B: the register-pipelined loop. A block owns one tile of
-// STREAM_THREADS * STREAM_UNROLL 16-byte vectors; each thread loads its
-// STREAM_UNROLL vectors of every input (streaming loads, __ldcs) before it
-// combines any, then stores them (__stcs). The grid is the tile count.
-
-#ifndef STREAM_UNROLL
-#define STREAM_UNROLL 4
-#endif
-#ifndef STREAM_HINTS
-#define STREAM_HINTS 1  // 0: default caching for loads and stores
-#endif
-#ifndef STREAM_SMALL
-#define STREAM_SMALL 0  // bodies of fewer bytes: one vector per thread
-#endif
-
 template <typename T>
 __device__ __forceinline__ Vec<T> ld_stream(const Vec<T>* p) {
-#if STREAM_HINTS
     const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p));
     Vec<T> r;
     *reinterpret_cast<uint4*>(&r) = u;
     return r;
-#else
-    return *p;
-#endif
 }
 
 template <typename T>
 __device__ __forceinline__ void st_stream(Vec<T>* p, const Vec<T>& v) {
-#if STREAM_HINTS
     __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&v));
-#else
-    *p = v;
-#endif
 }
 
 // per: the vectors each thread takes in this launch, 1..STREAM_UNROLL
@@ -435,8 +174,10 @@ __global__ void __launch_bounds__(STREAM_THREADS)
 stream_kernel(const StreamSpan s, int per) {
     constexpr int U = STREAM_UNROLL;
     stream_elems<T, OP>(s);
-    const Vec<T>* a = reinterpret_cast<const Vec<T>*>(body_of<T>(s.a, s));
-    const Vec<T>* b = reinterpret_cast<const Vec<T>*>(body_of<T>(s.b, s));
+    const Vec<T>* a =
+        reinterpret_cast<const Vec<T>*>(static_cast<const T*>(s.a) + s.head);
+    const Vec<T>* b =
+        reinterpret_cast<const Vec<T>*>(static_cast<const T*>(s.b) + s.head);
     Vec<T>* out = reinterpret_cast<Vec<T>*>(static_cast<T*>(s.out) + s.head);
     Vec<T>* out2 = s.out2 == nullptr ? nullptr : reinterpret_cast<Vec<T>*>(
         static_cast<T*>(s.out2) + s.head);
@@ -463,6 +204,8 @@ stream_kernel(const StreamSpan s, int per) {
     }
 }
 
+// out = C(a, b) (and out2) over count elements, launched on st; returns a
+// cudaError_t as int
 template <typename T, int OP>
 static int stream_launch(const void* a, const void* b, void* out, void* out2,
                          int64_t count, cudaStream_t st) {
@@ -474,4 +217,3 @@ static int stream_launch(const void* a, const void* b, void* out, void* out2,
     stream_kernel<T, OP><<<(int)grid, STREAM_THREADS, 0, st>>>(s, per);
     return (int)cudaGetLastError();
 }
-#endif
