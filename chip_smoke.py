@@ -332,28 +332,33 @@ def kernel_checks(torch, K, dev, card, engine):
     return rows
 
 
-def queued_ms(fn, torch, n=50) -> float:
+def queued_ms(fn, torch, n=50, host_ms=None) -> float:
     """Device ms per call of ``fn`` with its launches queued: a sleeping
     kernel holds the stream while the host enqueues n calls (the sleep
     outlasts four times the host's time for them), so the events time the
-    device alone (median of 5)."""
+    device alone (median of 5). A list ``host_ms`` receives the median
+    host ms of enqueueing one call, which nothing on the card waits on."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     host_s = time.perf_counter() - t0
     cycles = max(50_000_000, int(4 * n * host_s * 2e9))
-    times = []
+    times, hosts = [], []
     for _ in range(5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(cycles)  # tens of ms at H100 clocks, or more
         a.record()
+        t0 = time.perf_counter()
         for _ in range(n):
             fn()
+        hosts.append((time.perf_counter() - t0) * 1e3 / n)
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
+    if host_ms is not None:
+        host_ms.append(sorted(hosts)[len(hosts) // 2])
     times.sort()
     return times[len(times) // 2]
 

@@ -57,7 +57,7 @@
 // error of the call or of the launch (cudaGetLastError()); a tensor map
 // that cannot be encoded returns OTC_ERR_TENSOR_MAP.
 
-#include "stream.cuh"  // combine.cuh, the mbarrier helpers
+#include "combine.cuh"
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 
@@ -118,6 +118,41 @@ constexpr int WG_B_BYTES = WG_BK * WG_BN * 2;   // 16 KiB
 constexpr int WG_STAGE_BYTES = WG_A_BYTES + WG_B_BYTES;
 // + 1 KiB to align the ring to the 128-byte swizzle's 1024-byte period
 constexpr int WG_SMEM = WG_STAGES * WG_STAGE_BYTES + 1024;
+
+static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
+    return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+static __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+static __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+                 :: "r"(smem_u32(bar)) : "memory");
+}
+
+// wait until the barrier's phase differs from ``parity``
+static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
+                                                 uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}\n"
+            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    } while (!done);
+}
 
 // box (c0 innermost, c1) of the map into shared memory, completing on bar
 static __device__ __forceinline__ void tma_load(void* dst,

@@ -42,10 +42,10 @@
 // before it combines, streaming cache hints, the grid the tile count (one
 // vector a thread below 1 MiB). The first port's grid-stride loop held one
 // vector of each per thread per trip on a grid capped at 132 x 16 blocks,
-// and took 0.0714 ms on the device at a 64 MiB chunk (84% of the bound);
-// the engine takes 0.0687 (87%), as torch.add does (PERF.md). The
-// engine's head and tail element loops take a ragged end or pointers one
-// element off 16 bytes, in the same launch. K2, K3 and K5 keep the first
+// and reached 84% of the bound on the device at a 64 MiB chunk; the engine
+// reaches 87%, as torch.add does (PERF.md section 6, scripts/stream_ab.py).
+// The engine's head and tail element loops take a ragged end or pointers
+// one element off 16 bytes, in the same launch. K2, K3 and K5 keep the first
 // port's plain loop: a grid-stride loop of coalesced 16-byte loads and
 // stores (one uint4 per thread per step), a ragged tail (or a pointer
 // that is not 16-byte aligned) one element at a time. K5 reads carry, own,

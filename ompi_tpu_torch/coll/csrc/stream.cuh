@@ -1,8 +1,7 @@
 // stream.cuh — the streaming engine of ompi_tpu_torch's HBM-bound
-// elementwise kernels, and Hopper's shared-memory barrier (mbarrier)
-// helpers. Included by coll/csrc/ring_kernels.cu (K1 otc_rs_hop),
-// osc/csrc/rma_kernels.cu (K7 orm_apply, and apply_one for K8) and
-// coll/csrc/gemm_kernels.cu (K6's TMA ring waits on the mbarriers).
+// elementwise kernels. Included by coll/csrc/ring_kernels.cu (K1
+// otc_rs_hop) and osc/csrc/rma_kernels.cu (K7 orm_apply, and apply_one for
+// K8).
 //
 // The engine maps out[i] = C(a[i], b[i]) over a span of count elements,
 // with C the Combine<T, OP> of combine.cuh (so NaN, -0/+0, bfloat16
@@ -57,47 +56,6 @@ __device__ __forceinline__ Vec<T> apply_vec(const Vec<T>& cur,
         r.v[e] = apply_one<T, OP>(cur.v[e], payload.v[e]);
     return r;
 }
-
-// ---------------------------------------------------------------------------
-// mbarriers (sm_90)
-
-static __device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-static __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-static __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-static __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                 :: "r"(smem_u32(bar)) : "memory");
-}
-
-// wait until the barrier's phase differs from ``parity``
-static __device__ __forceinline__ void mbar_wait(uint64_t* bar,
-                                                 uint32_t parity) {
-    uint32_t done;
-    do {
-        asm volatile(
-            "{\n"
-            ".reg .pred p;\n"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-            "selp.u32 %0, 1, 0, p;\n"
-            "}\n"
-            : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-    } while (!done);
-}
-
-// ---------------------------------------------------------------------------
-// the engine
 
 #define STREAM_THREADS 256
 // 16-byte vectors of each input a thread loads: 2, 4 and 8 take the same

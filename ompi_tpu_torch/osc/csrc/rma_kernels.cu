@@ -48,9 +48,9 @@
 // it): one block per 16 KiB tile, each thread issuing its four 16-byte
 // loads before it stores, streaming cache hints, the grid the tile count.
 // On the halo tile's 256 MiB put the first port's grid-stride loop (one
-// vector per thread per trip, 132 x 16 blocks at most) took 0.1908 ms on
-// the device (84% of the bound), the engine 0.1813 (88%; copy_ 0.1797,
-// PERF.md). Where the window slice and the payload do not share one
+// vector per thread per trip, 132 x 16 blocks at most) reached 84% of the
+// bound on the device, the engine 88%, as copy_ does (PERF.md section 6,
+// scripts/stream_ab.py). Where the window slice and the payload do not share one
 // offset modulo 16 (a clamped start) the engine's element loop takes the
 // span. K10 keeps the first port's loop: 16-byte loads and stores where
 // both pointers are 16-byte aligned, else one element at a time. A
