@@ -23,15 +23,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    momentum and scaling at the training path's largest chunk (the bucket that holds
    GPT-2's ln_f, wpe and wte: 9,846,336 elements per rank over 4 ranks)
    and the ragged shapes, bitwise; K5b linear_fold_update (on no path:
-   the JAX package never calls its reference) the same way, over 4
-   ranks' slices; K6 block_matmul, both kernels (``wgmma`` for aligned
-   bfloat16, ``simt`` for the rest, each case checked to take the kernel
-   the shape rule names), at GPT-2's MLP up-projection block ((2048, 768)
-   @ (768, 3072)), the zero-3 block ((192, 3072) @ (3072, 256), a K
-   split) and ragged, edge and mixed-dtype shapes, |err| <= tol * (|x| @
-   |w|) with tol 1e-5 float32 and 2e-2 bfloat16, int32 exact; K7
+   the JAX package never calls its reference) the same way with outputs
+   poisoned, over n = 1, 2, 3, 4 slices (one group of sources) and 5
+   and 9 (two and three groups), also at a peeled head, a body past
+   1 MiB and operands with no shared 16-byte offset; K6 block_matmul,
+   both kernels (``wgmma`` for aligned bfloat16, ``simt`` for the rest,
+   each case checked to take the kernel the shape rule names), at
+   GPT-2's MLP up-projection block ((2048, 768) @ (768, 3072)), the
+   zero-3 block ((192, 3072) @ (3072, 256), a K split) and ragged, edge
+   and mixed-dtype shapes, |err| <= tol * (|x| @ |w|) with tol 1e-5
+   float32 and 2e-2 bfloat16, int32 exact; K7
    rma_apply, K8 rma_apply_strided (the grouped kernel's batch of one), K9
-   rma_read (likewise) and K10 rma_permute_recv for the three dtypes x
+   rma_read (likewise) and K10 rma_permute_recv (likewise, outputs
+   poisoned) for the three dtypes x
    put/replace/sum/min/max/prod, bitwise, at the one-sided paths' shapes
    (the 8192 x 8192 halo tile's self put and its columns at stride 8192, a
    128-element row of a 2**20 x 128 embedding shard) and a ragged
@@ -40,13 +44,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    against the loops of their single plain versions at the paths' batches
    (the halo's columns, the embedding update's 2048 rows and 2048
    lookups: more than one table each) and at the edges (overlapping
-   descriptors, K7 inside a batch, unaligned payloads). Then time each
-   kernel (CUDA events, median of 10) beside its plain version, one
+   descriptors, K7 inside a batch, unaligned payloads), and the grouped
+   K10 (rma_permute_recv_batch) against the loop of its single plain
+   pulls, outputs poisoned (see :func:`permute_batch_checks`). Then time
+   each kernel (CUDA events, median of 10) beside its plain version, one
    PyTorch library call where one computes the same function, and its
-   bound (K1, K6, K7, K8 and K9 also timed as launches queued behind a
-   sleeping kernel, which hides the host's share of a call, K1 and K7
-   with their rate and share of the bound; K8 and K9 also as the
-   batches of the embedding path, beside index_add_ and index_select);
+   bound, and each also as launches queued behind a sleeping kernel,
+   which hides the host's share of a call (the row's ``device_ms``; the
+   HBM-bound ones with their rate and share of the bound; K5b also in
+   bfloat16 and int32; K8, K9 and K10 also as the batches of the
+   embedding path, beside index_add_, index_select and torch.cat);
 3. the main paths, each with the kernels' launch counts zeroed by the
    ranks just before it and read just after: the launcher runs
    ``ompi_tpu_torch/examples/device_collectives.py`` (Allreduce,
@@ -66,13 +73,15 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    windows against a plain recomputation) and reports its launch
    counts; every kernel of a path must have launched on it, and the
    4-rank training path's K6 launches must split 48 ``wgmma`` (bfloat16
-   allgather_matmul) and 64 ``simt`` (float32, and the zero-3 product).
+   allgather_matmul) and 64 ``simt`` (float32, and the zero-3 product),
+   and the 4-rank embedding lookup must launch the grouped K10 once per
+   reader and exchange.
 
 Output: one line per measurement with the card's name and power limit,
 then ``{"kernels": [...]}`` (K1-K3 launches from the collectives path,
-K5 and K6's two kernels from the training path, K7, the K8 and K9
-batches and K10 from the 4-rank one-sided paths; K5b and the per-call
-rows of K8 and K9 with 0 and a note), the card line, and, last,
+K5 and K6's two kernels from the training path, K7 and the K8, K9 and
+K10 batches from the 4-rank one-sided paths; K5b and the per-call rows
+of K8, K9 and K10 with 0 and a note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -112,12 +121,21 @@ SECTOR = 32  # bytes: what a strided element costs to read or write
 #: STREAM_SMALL take one vector a thread (4 KiB tiles)
 STREAM_TILE, STREAM_SMALL = 16384, 1 << 20
 POISON = 0xA5  # every byte of an output before a bitwise check
+#: K5b's source counts held against the plain version: one group of
+#: sources with every load in flight (n <= FOLD_GROUP, the paths' 3 and 4
+#: among them), then two and three groups
+FOLD_GROUP = 4
+FOLD_NS = (1, 2, 3, 4, 5, 9)
 #: the embedding path's batches: rank 0's update fence applies 2048
 #: gradient rows (512 from each of 4 ranks); a lookup fence reads 512 rows
 EMB_UPDATES, EMB_LOOKUPS = N_RANKS * 512, 512
 #: the note on the per-call rows of K8 and K9: no path launches them
 ONE_NOTE = ("the batch of one through the grouped kernel; the one-sided "
             "paths launch the batch (the _batch row)")
+#: the note on K10's per-call row
+K10_NOTE = ("the batch of one through the grouped kernel; the embedding "
+            "lookup launches the batch, one per reader and exchange (the "
+            "_batch row)")
 REPS = 10
 LAUNCH_TIMEOUT = 200  # seconds per launcher job (eight jobs)
 
@@ -175,6 +193,8 @@ def bits(torch, t):
 def compare(torch, got, exp):
     """(bitwise equal, max |got - exp| over non-NaN entries)."""
     eq = torch.equal(bits(torch, got), bits(torch, exp))
+    if got.numel() == 0:
+        return eq, 0.0
     if got.is_floating_point():
         both = ~(torch.isnan(got) | torch.isnan(exp))
         err = (got[both].float() - exp[both].float()).abs().max().item() \
@@ -248,20 +268,26 @@ def kernel_checks(torch, K, dev, card, engine):
         median_ms(k1, torch),
         median_ms(lambda: K.ring_rs_hop_plain(carry, own, dst, "MPI_SUM"),
                   torch),
-        median_ms(lib1, torch), 3 * cb, chunk)
-    device_line("ring_rs_hop", k1, "torch.add(out=)", lib1, 3 * cb, torch,
-                card)
+        median_ms(lib1, torch), 3 * cb, chunk,
+        device_ms=device_line("ring_rs_hop", k1, "torch.add(out=)", lib1,
+                              3 * cb, torch, card))
+    k2 = lambda: K.ring_ag_hop(carry, dst, dst2=dst2)  # noqa: E731
+    lib2 = lambda: torch.stack((carry, carry), out=pair)  # noqa: E731
     row("ring_ag_hop", "ompi_tpu/coll/pallas_kernels.py:565",
-        median_ms(lambda: K.ring_ag_hop(carry, dst, dst2=dst2), torch),
+        median_ms(k2, torch),
         median_ms(lambda: K.ring_ag_hop_plain(carry, dst, dst2=dst2),
                   torch),
-        median_ms(lambda: torch.stack((carry, carry), out=pair), torch),
-        3 * cb, 0)
+        median_ms(lib2, torch), 3 * cb, 0,
+        device_ms=device_line("ring_ag_hop", k2, "torch.stack(out=)", lib2,
+                              3 * cb, torch, card))
+    k3 = lambda: K.linear_fold(srcs, fold, "MPI_SUM")  # noqa: E731
+    lib3 = lambda: torch.sum(torch.stack(srcs), 0)  # noqa: E731
     row("linear_fold", "ompi_tpu/coll/pallas_kernels.py:389",
-        median_ms(lambda: K.linear_fold(srcs, fold, "MPI_SUM"), torch),
+        median_ms(k3, torch),
         median_ms(lambda: K.linear_fold_plain(srcs, fold, "MPI_SUM"), torch),
-        median_ms(lambda: torch.sum(torch.stack(srcs), 0), torch),
-        (n + 1) * numel * 4, (n - 1) * numel)
+        median_ms(lib3, torch), (n + 1) * numel * 4, (n - 1) * numel,
+        device_ms=device_line("linear_fold", k3, "torch.stack().sum(0)",
+                              lib3, (n + 1) * numel * 4, torch, card))
     del srcs, carry, own, dst, dst2, pair, fold
 
     k = WTE_CHUNK
@@ -273,12 +299,14 @@ def kernel_checks(torch, K, dev, card, engine):
     def k5(fn):
         return lambda: fn(a, b, p, v, po, vo, c[0], c[1], c[2])
 
+    no_lib5 = ("no single PyTorch call reduces two chunks and applies the "
+               "momentum-SGD update")
     row("ring_rs_update_hop", "ompi_tpu/coll/pallas_kernels.py:601",
         median_ms(k5(K.ring_rs_update_hop), torch),
         median_ms(k5(K.ring_rs_update_hop_plain), torch), None,
-        6 * 4 * k, 6 * k,
-        why_no_library="no single PyTorch call reduces two chunks and "
-                       "applies the momentum-SGD update")
+        6 * 4 * k, 6 * k, why_no_library=no_lib5,
+        device_ms=device_line("ring_rs_update_hop", k5(K.ring_rs_update_hop),
+                              no_lib5, None, 6 * 4 * k, torch, card))
     del a, b, p, v, po, vo
 
     srcs = [make(torch, k, torch.float32, 34 + i, dev, traps=False)
@@ -289,16 +317,31 @@ def kernel_checks(torch, K, dev, card, engine):
     def k5b(fn):
         return lambda: fn(srcs, p, v, po, vo, c[0], c[1], c[2])
 
+    no_lib5b = ("no single PyTorch call folds n slices and applies the "
+                "momentum-SGD update")
     row("linear_fold_update", "ompi_tpu/coll/pallas_kernels.py:447",
         median_ms(k5b(K.linear_fold_update), torch),
         median_ms(k5b(K.linear_fold_update_plain), torch), None,
-        (n + 4) * 4 * k, (n + 4) * k,
-        why_no_library="no single PyTorch call folds n slices and applies "
-                       "the momentum-SGD update",
+        (n + 4) * 4 * k, (n + 4) * k, why_no_library=no_lib5b,
         note="no path runs it: nothing in the JAX package calls "
              "linear_reduce_scatter_update (the 'linear' fused slot runs "
-             "K3 and the eager update)")
+             "K3 and the eager update)",
+        device_ms=device_line("linear_fold_update",
+                              k5b(K.linear_fold_update), no_lib5b, None,
+                              (n + 4) * 4 * k, torch, card))
     del srcs, p, v, po, vo
+    # K5b's rate in the other dtypes (n = 4, momentum and scaling)
+    for dtype in (torch.bfloat16, torch.int32):
+        es = torch.empty(0, dtype=dtype).element_size()
+        srcs = [make(torch, k, dtype, 34 + i, dev, traps=False)
+                for i in range(n)]
+        p, v = srcs[0].clone(), srcs[1].clone()
+        po, vo = torch.empty_like(p), torch.empty_like(v)
+        cd = [K.shard_const(x, dtype) for x in (0.01, 0.9, 1 / n)]
+        device_line(f"linear_fold_update {str(dtype).split('.')[-1]}",
+                    lambda: K.linear_fold_update(srcs, p, v, po, vo, *cd),
+                    no_lib5b, None, (n + 4) * es * k, torch, card)
+        del srcs, p, v, po, vo
 
     def gemm(*args, **kw):
         add_row(rows, results, card, GEMM_SRC, *args, **kw)
@@ -318,14 +361,15 @@ def kernel_checks(torch, K, dev, card, engine):
             fail(f"{name}: the shape rule picks another kernel")
         kern = lambda: K.block_matmul(x, w, o)  # noqa: E731
         lib = lambda: torch.matmul(x, w, out=o)  # noqa: E731
+        dev_ms = queued_ms(kern, torch)
         gemm(name, "ompi_tpu/coll/pallas_kernels.py:659",
              median_ms(kern, torch),
              median_ms(lambda: K.block_matmul_plain(x, w, o), torch),
              median_ms(lib, torch),
              (m * d + d * f + m * f) * x.element_size(), 2 * m * d * f,
-             ops_per_s=rate, record=record)
+             ops_per_s=rate, record=record, device_ms=dev_ms)
         print(f"kernel {name} queued (50 launches behind a sleeping "
-              f"kernel): {queued_ms(kern, torch):.4f} ms, torch.matmul "
+              f"kernel): {dev_ms:.4f} ms, torch.matmul "
               f"{queued_ms(lib, torch):.4f} ms [{card}]", flush=True)
         del x, w, o
     torch.cuda.empty_cache()
@@ -363,15 +407,20 @@ def queued_ms(fn, torch, n=50, host_ms=None) -> float:
     return times[len(times) // 2]
 
 
-def device_line(name, fn, lib_name, lib, nbytes, torch, card) -> None:
-    """Print a kernel's and its library call's device-only time
-    (:func:`queued_ms`) with the rate and the share of the HBM bound."""
+def device_line(name, fn, lib_name, lib, nbytes, torch, card) -> float:
+    """Print a kernel's and its library call's (None: none) device-only
+    time (:func:`queued_ms`) with the rate and the share of the HBM bound;
+    returns the kernel's."""
     bound = nbytes / HBM_BYTES_PER_S * 1e3
-    ms, lib_ms = queued_ms(fn, torch), queued_ms(lib, torch)
+    ms = queued_ms(fn, torch)
+    lib_ms = queued_ms(lib, torch) if lib is not None else None
+    lib_part = f"{lib_name} {lib_ms:.4f} ms, " \
+        f"{nbytes / lib_ms / 1e9:.3f} TB/s" if lib is not None else \
+        f"library none ({lib_name})"
     print(f"kernel {name} queued (device only): {ms:.4f} ms, "
           f"{nbytes / ms / 1e9:.3f} TB/s, {bound / ms:.0%} of its bound; "
-          f"{lib_name} {lib_ms:.4f} ms, {nbytes / lib_ms / 1e9:.3f} TB/s "
-          f"[{card}]", flush=True)
+          f"{lib_part} [{card}]", flush=True)
+    return ms
 
 
 def poisoned(torch, numel, dtype, off, dev):
@@ -476,10 +525,12 @@ def engine_checks(torch, K, O, dev, card):
 
 def add_row(rows, results, card, source, name, replaces, ms, plain_ms,
             lib_ms, nbytes, ops, ops_per_s=F32_OPS_PER_S, record=True,
-            why_no_library="", note=""):
+            why_no_library="", note="", device_ms=None):
     """Print one kernel's timing line; with ``record``, add its row to
     the kernels JSON (launches are filled in from the main paths; a row
-    with a ``note`` is of a kernel no path runs, and keeps 0)."""
+    with a ``note`` is of a kernel no path runs, and keeps 0;
+    ``device_ms``, where measured, is its time queued behind a sleeping
+    kernel)."""
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / ops_per_s
     bound = max(t_bytes, t_ops) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
@@ -489,6 +540,8 @@ def add_row(rows, results, card, source, name, replaces, ms, plain_ms,
                      "max_abs_err": results[name], "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": by, "library_ms": lib_ms})
+        if device_ms is not None:
+            rows[-1]["device_ms"] = device_ms
         if note:
             rows[-1]["note"] = note
     lib = f"library {lib_ms:.4f} ms" if lib_ms is not None else \
@@ -504,42 +557,67 @@ def fused_checks(torch, K, dev, card, results):
     card."""
     for name in ("ring_rs_update_hop", "linear_fold_update"):
         results[name] = 0.0
+
+    def held(name, got, exp, mom, where):
+        for j in range(2 if mom else 1):
+            ok, err = compare(torch, got[j], exp[j])
+            if not ok:
+                fail(f"{name} != plain ({where} momentum={mom}), err {err}")
+            results[name] = max(results[name], err)
+
     n = N_RANKS
     for dtype in (torch.float32, torch.bfloat16, torch.int32):
-        for numel, off in ((WTE_CHUNK, 0), (4099, 0), (1027, 1)):
-            a, b, p, v = (make(torch, numel + off, dtype, 40 + i, dev,
-                               traps=False)[off:] for i in range(4))
-            srcs = [a, b] + [make(torch, numel + off, dtype, 44 + i, dev,
-                                  traps=False)[off:] for i in range(n - 2)]
-            c = [K.shard_const(x, dtype) for x in (0.01, 0.9, 1 / n)]
+        es = torch.empty(0, dtype=dtype).element_size()
+        c = [K.shard_const(x, dtype) for x in (0.01, 0.9, 1 / n)]
+        # (elements, element offsets of the sources, of p / v, of the outputs)
+        shapes = [(WTE_CHUNK, (0, 0, 0)), (4099, (0, 0, 0)),
+                  (1027, (1, 1, 1)),  # a peeled head, then the body
+                  (STREAM_SMALL // es + 3, (1, 1, 1)),  # a body past 1 MiB
+                  (1027, (1, 0, 1))]  # no shared offset: the element loop
+        for numel, (os_, op_, oo) in shapes:
+            a, b, p, v = (make(torch, numel + op_, dtype, 40 + i, dev,
+                               traps=False)[op_:] for i in range(4))
+            srcs = [make(torch, numel + os_, dtype, 44 + i, dev,
+                         traps=False)[os_:] for i in range(max(FOLD_NS))]
             for mom in (False, True):
                 for inv in (False, True):
                     args = (p, v if mom else None)
                     consts = (c[0], c[1] if mom else None,
                               c[2] if inv else None)
-                    for name, kern, plain, ins in (
-                            ("ring_rs_update_hop", K.ring_rs_update_hop,
-                             K.ring_rs_update_hop_plain, (a, b)),
-                            ("linear_fold_update", K.linear_fold_update,
-                             K.linear_fold_update_plain, (srcs,))):
+                    where = (f"{dtype} numel={numel} offsets "
+                             f"{(os_, op_, oo)} inv={inv}")
+                    if os_ == op_:  # K5's shapes: fresh outputs
                         got = [torch.empty_like(p), torch.empty_like(p)]
                         exp = [torch.empty_like(p), torch.empty_like(p)]
-                        for fn, o in ((kern, got), (plain, exp)):
-                            fn(*ins, *args, o[0], o[1] if mom else None,
-                               *consts)
-                        for j in range(2 if mom else 1):
-                            ok, err = compare(torch, got[j], exp[j])
-                            if not ok:
-                                fail(f"{name} != plain ({dtype} numel="
-                                     f"{numel} offset={off} momentum={mom} "
-                                     f"inv={inv}), err {err}")
-                            results[name] = max(results[name], err)
+                        K.ring_rs_update_hop(a, b, *args, got[0],
+                                             got[1] if mom else None,
+                                             *consts)
+                        K.ring_rs_update_hop_plain(a, b, *args, exp[0],
+                                                   exp[1] if mom else None,
+                                                   *consts)
+                        held("ring_rs_update_hop", got, exp, mom, where)
+                    for k in FOLD_NS:
+                        got = [poisoned(torch, numel, dtype, oo, dev)
+                               for _ in range(2)]
+                        exp = [torch.empty_like(p), torch.empty_like(p)]
+                        K.linear_fold_update(srcs[:k], *args, got[0],
+                                             got[1] if mom else None,
+                                             *consts)
+                        K.linear_fold_update_plain(srcs[:k], *args, exp[0],
+                                                   exp[1] if mom else None,
+                                                   *consts)
+                        held("linear_fold_update", got, exp, mom,
+                             f"{where} n={k}")
             torch.cuda.synchronize()
             del a, b, p, v, srcs, got, exp
-    print(f"kernels: K5 and K5b bitwise equal to their plain versions for "
-          f"float32/bfloat16/int32, with and without momentum and "
-          f"scaling, at {WTE_CHUNK} elements ({n} ranks' slices for K5b) "
-          f"and two ragged shapes [{card}]", flush=True)
+    print(f"kernels: K5 bitwise equal to its plain version for "
+          f"float32/bfloat16/int32, with and without momentum and scaling, "
+          f"at {WTE_CHUNK} elements and a ragged shape; K5b the same, "
+          f"outputs poisoned, over n = {', '.join(map(str, FOLD_NS))} "
+          f"slices (groups of {FOLD_GROUP} sources, every load of a group "
+          f"in flight) at {WTE_CHUNK} elements, ragged shapes, a peeled "
+          f"head, a body past {STREAM_SMALL} B and no shared 16-byte "
+          f"offset [{card}]", flush=True)
 
     results["block_matmul_wgmma"] = results["block_matmul_simt"] = 0.0
     g = torch.Generator(device=dev).manual_seed(50)
@@ -665,7 +743,8 @@ def rma_checks(torch, O, dev, card, engine):
                     O.rma_read_plain(w0, d, s, want)
                     check("rma_read", got, want, f"{where} read stride {s}")
             for src in (pay, None):
-                got = O.rma_permute_recv(src, torch.empty_like(pay))
+                got = O.rma_permute_recv(src, poisoned(torch, k, dtype, 0,
+                                                       dev))
                 want = torch.empty_like(pay)
                 O.rma_permute_recv_plain(src, want)
                 check("rma_permute_recv", got, want,
@@ -681,6 +760,7 @@ def rma_checks(torch, O, dev, card, engine):
           f"shapes, clamped, wrapped, dropped and filled edges [{card}]",
           flush=True)
     rma_batch_checks(torch, O, dev, card, results)
+    permute_batch_checks(torch, O, dev, card, results)
 
     rows = []
 
@@ -694,25 +774,51 @@ def rma_checks(torch, O, dev, card, engine):
     row("rma_apply", "ompi_tpu/osc/pallas_kernels.py:92",
         median_ms(k7, torch),
         median_ms(lambda: O.rma_apply_plain(big, pay, 0, "put"), torch),
-        median_ms(lib7, torch), 2 * tile * 4, 0)
-    device_line("rma_apply", k7, "copy_", lib7, 2 * tile * 4, torch, card)
+        median_ms(lib7, torch), 2 * tile * 4, 0,
+        device_ms=device_line("rma_apply", k7, "copy_", lib7, 2 * tile * 4,
+                              torch, card))
     land = torch.empty_like(pay)
+    k10 = lambda: O.rma_permute_recv(pay, land)  # noqa: E731
+    lib10 = lambda: land.copy_(pay)  # noqa: E731
     row("rma_permute_recv", "ompi_tpu/osc/pallas_kernels.py:192",
-        median_ms(lambda: O.rma_permute_recv(pay, land), torch),
+        median_ms(k10, torch),
         median_ms(lambda: O.rma_permute_recv_plain(pay, land), torch),
-        median_ms(lambda: land.copy_(pay), torch), 2 * tile * 4, 0)
+        median_ms(lib10, torch), 2 * tile * 4, 0, note=K10_NOTE,
+        device_ms=device_line("rma_permute_recv", k10, "copy_", lib10,
+                              2 * tile * 4, torch, card))
+    # the 4-rank embedding lookup's exchange at one reader: a block of
+    # EMB_LOOKUPS / N_RANKS rows from each owner's staged region, landed
+    # end to end in one tensor (one grouped launch)
+    per_src = EMB_LOOKUPS // N_RANKS * EMB_DIM
+    staged = [pay[q * 2 * per_src:q * 2 * per_src + per_src]
+              for q in range(N_RANKS)]
+    got = land[:N_RANKS * per_src]
+    pulls = [(staged[q], got[q * per_src:(q + 1) * per_src])
+             for q in range(N_RANKS)]
+    k10b = lambda: O.rma_permute_recv_batch(pulls)  # noqa: E731
+    lib10b = lambda: torch.cat(staged, out=got)  # noqa: E731
+    nb = 2 * N_RANKS * per_src * 4
+    row("rma_permute_recv_batch", "ompi_tpu/osc/pallas_kernels.py:192",
+        median_ms(k10b, torch),
+        median_ms(lambda: O.rma_permute_recv_batch_plain(pulls), torch),
+        median_ms(lib10b, torch), nb, 0,
+        device_ms=device_line("rma_permute_recv_batch", k10b,
+                              "torch.cat(out=)", lib10b, nb, torch, card))
+    del staged, got, pulls
     colp = pay[:col].clone()
     strided = torch.as_strided(big, (col,), (col,), col - 1)
     k8 = lambda: O.rma_apply_strided(big, colp, col - 1, col,  # noqa: E731
                                      "put")
     lib8 = lambda: strided.copy_(colp)  # noqa: E731
+    dev_ms = queued_ms(k8, torch)
     row("rma_apply_strided", "ompi_tpu/osc/pallas_kernels.py:111",
         median_ms(k8, torch),
         median_ms(lambda: O.rma_apply_strided_plain(big, colp, col - 1, col,
                                                     "put"), torch),
-        median_ms(lib8, torch), col * (2 * SECTOR + 4), 0, note=ONE_NOTE)
+        median_ms(lib8, torch), col * (2 * SECTOR + 4), 0, note=ONE_NOTE,
+        device_ms=dev_ms)
     print(f"kernel rma_apply_strided queued (device only): "
-          f"{queued_ms(k8, torch):.4f} ms, strided copy_ "
+          f"{dev_ms:.4f} ms, strided copy_ "
           f"{queued_ms(lib8, torch):.4f} ms [{card}]", flush=True)
     target = O.Target(big)
     cols = pay[:2 * col].clone()
@@ -739,11 +845,13 @@ def rma_checks(torch, O, dev, card, engine):
     view = win[d:d + EMB_DIM]
     k9 = lambda: O.rma_read(win, d, 1, out)  # noqa: E731
     lib9 = lambda: view.clone()  # noqa: E731
+    dev_ms = queued_ms(k9, torch)
     row("rma_read", "ompi_tpu/osc/pallas_kernels.py:133",
         median_ms(k9, torch),
         median_ms(lambda: O.rma_read_plain(win, d, 1, out), torch),
-        median_ms(lib9, torch), 2 * EMB_DIM * 4, 0, note=ONE_NOTE)
-    print(f"kernel rma_read queued (device only): {queued_ms(k9, torch):.4f}"
+        median_ms(lib9, torch), 2 * EMB_DIM * 4, 0, note=ONE_NOTE,
+        device_ms=dev_ms)
+    print(f"kernel rma_read queued (device only): {dev_ms:.4f}"
           f" ms, clone() {queued_ms(lib9, torch):.4f} ms [{card}]",
           flush=True)
     row("rma_apply (sum, one row)", "ompi_tpu/osc/pallas_kernels.py:92",
@@ -764,16 +872,17 @@ def rma_checks(torch, O, dev, card, engine):
         ids.to(dev)
     k8b = lambda: target.apply([grads], upd)  # noqa: E731
     lib8b = lambda: w2.index_add_(0, idx, g2)  # noqa: E731
+    dev_ms = queued_ms(k8b, torch, 10)
     row("rma_apply_strided_batch", "ompi_tpu/osc/pallas_kernels.py:111",
         median_ms(k8b, torch),
         median_ms(lambda: O.rma_apply_strided_batch_plain(
             win, [(grads[o:o + k], dd, s, kind)
                   for _b, o, k, dd, s, kind in upd]), torch),
         median_ms(lib8b, torch), 3 * EMB_UPDATES * EMB_DIM * 4,
-        EMB_UPDATES * EMB_DIM)
+        EMB_UPDATES * EMB_DIM, device_ms=dev_ms)
     print(f"kernel rma_apply_strided_batch ({EMB_UPDATES} rows of {EMB_DIM}, "
           f"{-(-EMB_UPDATES // O.TABLE_CAP)} launches) queued (device only):"
-          f" {queued_ms(k8b, torch, 10):.4f} ms, index_add_ "
+          f" {dev_ms:.4f} ms, index_add_ "
           f"{queued_ms(lib8b, torch, 10):.4f} ms [{card}]", flush=True)
     look = ids[:EMB_LOOKUPS]
     outb = torch.empty(EMB_LOOKUPS * EMB_DIM, device=dev)
@@ -782,12 +891,14 @@ def rma_checks(torch, O, dev, card, engine):
     lidx, o2 = look.to(dev), outb.view(-1, EMB_DIM)
     k9b = lambda: target.read(reads, outb)  # noqa: E731
     lib9b = lambda: torch.index_select(w2, 0, lidx, out=o2)  # noqa: E731
+    dev_ms = queued_ms(k9b, torch, 10)
     row("rma_read_batch", "ompi_tpu/osc/pallas_kernels.py:133",
         median_ms(k9b, torch),
         median_ms(lambda: O.rma_read_batch_plain(win, reads, outb), torch),
-        median_ms(lib9b, torch), 2 * EMB_LOOKUPS * EMB_DIM * 4, 0)
+        median_ms(lib9b, torch), 2 * EMB_LOOKUPS * EMB_DIM * 4, 0,
+        device_ms=dev_ms)
     print(f"kernel rma_read_batch ({EMB_LOOKUPS} rows of {EMB_DIM}, one "
-          f"launch) queued (device only): {queued_ms(k9b, torch, 10):.4f} "
+          f"launch) queued (device only): {dev_ms:.4f} "
           f"ms, index_select {queued_ms(lib9b, torch, 10):.4f} ms [{card}]",
           flush=True)
     del win, r128, out, view, target, grads, w2, g2, idx, outb, o2, lidx
@@ -873,6 +984,86 @@ def rma_batch_checks(torch, O, dev, card, results):
           f"{EMB_DIM} shard (tables of {O.TABLE_CAP}), overlapping runs, "
           f"clamped, dropped, wrapped and filled edges, K7 inside a batch "
           f"[{card}]", flush=True)
+
+
+def permute_batch_checks(torch, O, dev, card, results):
+    """Phase 2 for the grouped K10 (rma_permute_recv_batch): every table
+    bitwise against the loop of the single plain pulls, outputs poisoned,
+    for float32, bfloat16 and int32: the 4-rank embedding lookup's
+    exchange at one reader (a block from each owner's staged region,
+    landed end to end), null sources (zeros) among real ones, spans whose
+    source and output share no 16-byte offset (the element loop; one past
+    STREAM_SMALL), odd lengths, zero-length spans, a table of more spans
+    than one launch takes, and payloads carrying signalling-NaN, quiet-NaN
+    and -0 bits."""
+    per_src = EMB_LOOKUPS // N_RANKS * EMB_DIM
+    for dtype in (torch.float32, torch.bfloat16, torch.int32):
+        es = torch.empty(0, dtype=dtype).element_size()
+        big = STREAM_SMALL // es + 5  # a span of four vectors a thread
+        region = make(torch, 4 * big + 2 * N_RANKS * per_src + 16384, dtype,
+                      77, dev)
+        b = bits(torch, region)
+        if dtype != torch.int32:  # signalling NaN and -0 bit patterns
+            # (signalling NaN, the same with the sign bit, -0) as the
+            # signed integers of their bits
+            snan, nsnan, neg0 = (0x7F81, -0x7F, -(1 << 15)) if es == 2 \
+                else (0x7F800001, -0x7FFFFF, -(1 << 31))
+            b[11::257] = snan
+            b[13::263] = neg0
+            b[17::269] = nsnan
+
+        def span(at, k):
+            if at + k > region.numel():
+                fail(f"K10 check span [{at}, {at + k}) past its region")
+            return region[at:at + k]
+
+        tables = {
+            "lookup exchange": [(span(q * 2 * per_src, per_src), per_src, 0)
+                                for q in range(N_RANKS)],
+            "null sources": [(span(8, 4099), 4099, 0), (None, 77, 0),
+                             (span(40, 128), 128, 4), (None, big, 1),
+                             (span(3 * big, 33), 33, 0)],
+            "no shared offset": [(span(1, 4099), 4099, 0),
+                                 (span(3, big), big, 2),
+                                 (span(2, 64), 64, 3)],
+            "odd lengths": [(span(5 + 2 * k, k), k, k % 3)
+                            for k in (1, 3, 7, 129, 4099, big)],
+            "zero-length spans": [(span(0, 0), 0, 0), (span(16, 200), 200, 0),
+                                  (None, 0, 0), (span(9, 0), 0, 1)],
+            "more than one launch": [
+                (None if j % 7 == 3 else span(97 * j, 61 + j), 61 + j, j % 4)
+                for j in range(2 * O.COPY_CAP + 22)]}
+        for name, spans in tables.items():
+            if name == "lookup exchange":  # one landing tensor, end to end
+                land = poisoned(torch, N_RANKS * per_src, dtype, 0, dev)
+                pairs = [(src, land[q * per_src:(q + 1) * per_src])
+                         for q, (src, _k, _o) in enumerate(spans)]
+            else:
+                pairs = [(src, poisoned(torch, k, dtype, off, dev))
+                         for src, k, off in spans]
+            want = []
+            for src, out in pairs:
+                w = torch.empty_like(out)
+                O.rma_permute_recv_plain(src, w)
+                want.append(w)
+            O.rma_permute_recv_batch(pairs)
+            for j, ((src, got), w) in enumerate(zip(pairs, want)):
+                ok, err = compare(torch, got, w)
+                if not ok:
+                    fail(f"rma_permute_recv_batch != the single plain pulls "
+                         f"({dtype} {name}, span {j} of {len(pairs)}), err "
+                         f"{err}")
+                results["rma_permute_recv_batch"] = max(
+                    results["rma_permute_recv_batch"], err)
+        torch.cuda.synchronize()
+        del region, b, tables, pairs, want
+    print(f"kernels: K10's grouped launch bitwise equal to the loop of its "
+          f"single plain pulls for float32/bfloat16/int32, outputs "
+          f"poisoned: the lookup exchange ({N_RANKS} blocks of {per_src} "
+          f"elements), null sources, spans with no shared 16-byte offset, "
+          f"odd lengths, zero-length spans, {2 * O.COPY_CAP + 22} spans "
+          f"(tables of {O.COPY_CAP}), signalling-NaN and -0 bits [{card}]",
+          flush=True)
 
 
 def main_path(example: str, nranks: int, args, card: str, root: str,
@@ -988,18 +1179,28 @@ def main() -> int:
     _, doc = main_path("halo_exchange.py", 3, ["--size", str(HALO // 2)],
                        card, root, "osc_cuda")
     osc_report("halo_exchange", 3, doc, card)
-    emb, doc = main_path("embedding_table.py", N_RANKS, [], card, root,
-                         "osc_cuda")
-    osc_report("embedding_table", N_RANKS, doc, card)
+    emb, emb_doc = main_path("embedding_table.py", N_RANKS, [], card, root,
+                             "osc_cuda")
+    osc_report("embedding_table", N_RANKS, emb_doc, card)
     _, doc = main_path("embedding_table.py", 3,
                        ["--rows", str(EMB_ROWS // 4), "--batch", "128"],
                        card, root, "osc_cuda")
     osc_report("embedding_table", 3, doc, card)
     osc = {k: halo.get(k, 0) + emb.get(k, 0) for k in {*halo, *emb}}
     for k in ("rma_apply", "rma_apply_strided_batch", "rma_read_batch",
-              "rma_permute_recv"):
+              "rma_permute_recv_batch"):
         if osc.get(k, 0) <= 0:
             fail(f"{k} never launched on the one-sided paths: {osc}")
+    # one grouped K10 launch per reader and lookup exchange (every reader
+    # reads rows of every owner, at most COPY_CAP of them)
+    want = N_RANKS * emb_doc["exchanges"]["lookup"]
+    if emb["rma_permute_recv_batch"] != want:
+        fail(f"the 4-rank lookup launched K10 {emb['rma_permute_recv_batch']}"
+             f" times, not once per reader and exchange ({want})")
+    print(f"K10 on the 4-rank embedding lookup: {want} launches, one per "
+          f"reader and exchange ({N_RANKS} readers x "
+          f"{emb_doc['exchanges']['lookup']} exchange), each landing every "
+          f"owner's block [{card}]", flush=True)
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = next(p[r["name"]] for p in (coll, train, osc)

@@ -50,7 +50,26 @@
 // stores (one uint4 per thread per step), a ragged tail (or a pointer
 // that is not 16-byte aligned) one element at a time. K5 reads carry, own,
 // p and v and writes p' and v': six chunks, a handful of flops per
-// element; K5b reads n slices, p and v and writes p' and v'.
+// element. K5b reads n slices, p and v and writes p' and v': (n + 4)
+// chunks with momentum. In the first port's loop (K3's fold_vec, whose
+// per-source loop runs over a runtime n) each thread had one source's
+// vector in flight at a time, behind a loop-carried combine: 87-90% of
+// the bound on the device in float32 and 81-82% in bfloat16 at n = 4
+// (the 48% once written for it was per call, mostly the wrapper's host
+// time). It now runs on the engine's tiles: one block per tile of 256
+// vectors, each thread issuing the streaming loads of its vector of every
+// source, of p and of v before the first combine (88-91% in float32,
+// 84-87% in bfloat16: PERF.md section 6). Loads in flight take registers
+// in proportion to n, so the sources fold in groups of OTC_FOLD_GROUP (4:
+// the whole fold of the paths' 3- and 4-rank communicators), each group's
+// loads in flight before its combines (kernels of their own for n = 3 and
+// 4 were no faster: PERF.md section 6). One vector a thread: two and four
+// took the same time in float32 and lost in bfloat16, which widens each
+// element to float to combine it, for two to four times the registers
+// (PERF.md section 6). The fold keeps rank order (acc = g0; acc = fn(acc,
+// g_j)) and the epilogue is K5's apply_update, so K5b stays bitwise equal
+// to K3 and the eager update. The head, tail and unaligned spans take K3's
+// fold_one.
 //
 // Numerics (the same as the plain PyTorch versions beside the wrappers, and
 // as jnp's per-op rounding; the elementwise combine lives in combine.cuh,
@@ -304,43 +323,115 @@ static void launch_rs_update(const void* carry, const void* own,
 }
 
 // ---------------------------------------------------------------------------
-// K5b: the rank-order fold of every rank's own slice fused with the update
+// K5b: the rank-order fold of every rank's own slice fused with the update,
+// on the streaming engine's tiles: one block per tile of STREAM_THREADS
+// 16-byte vectors, each thread issuing the loads of its vector of every
+// source of a group, of p and of v before it combines any
+
+// sources in flight at once: a larger n folds in groups of this many, each
+// group's loads in flight before its combines
+#define OTC_FOLD_GROUP 4
+
+// vector i of the sources j0 .. j0 + OTC_FOLD_GROUP - 1 below n, every load
+// issued before any is used (predicated: with a break, ptxas put
+// bfloat16's vectors in a local frame)
+template <typename T>
+__device__ __forceinline__ void load_group(const Srcs& srcs, int n, int j0,
+                                           int64_t head, int64_t i,
+                                           Vec<T> (&x)[OTC_FOLD_GROUP]) {
+#pragma unroll
+    for (int j = 0; j < OTC_FOLD_GROUP; ++j)
+        if (j0 + j < n)
+            x[j] = ld_stream(reinterpret_cast<const Vec<T>*>(
+                                 static_cast<const T*>(srcs.p[j0 + j]) +
+                                 head) +
+                             i);
+}
+
+// acc = fn(acc, x[j]) in rank order for the group's sources below n, from
+// x[FIRST] on
+template <typename T, int OP, int FIRST>
+__device__ __forceinline__ void fold_group(int n, int j0,
+                                           const Vec<T> (&x)[OTC_FOLD_GROUP],
+                                           Vec<T>& acc) {
+#pragma unroll
+    for (int j = FIRST; j < OTC_FOLD_GROUP; ++j)
+        if (j0 + j < n) {
+#pragma unroll
+            for (int e = 0; e < 16 / (int)sizeof(T); ++e)
+                acc.v[e] = Combine<T, OP>::f(acc.v[e], x[j].v[e]);
+        }
+}
 
 template <typename T, int OP>
-__global__ void fold_update_kernel(Srcs srcs, int n,
-                                   const T* __restrict__ p,
-                                   const T* __restrict__ v,
-                                   T* __restrict__ p_out,
-                                   T* __restrict__ v_out, uint32_t lr_bits,
-                                   uint32_t mu_bits, uint32_t inv_bits,
-                                   int has_inv, int64_t count, int64_t nvec) {
+__global__ void __launch_bounds__(STREAM_THREADS)
+fold_update_kernel(const __grid_constant__ Srcs srcs, int n,
+                   const T* __restrict__ p, const T* __restrict__ v,
+                   T* __restrict__ p_out, T* __restrict__ v_out,
+                   uint32_t lr_bits, uint32_t mu_bits, uint32_t inv_bits,
+                   int has_inv, int64_t count, int64_t head, int64_t nvec) {
     constexpr int V = 16 / sizeof(T);
     typedef Arith<T> A;
     const T lr = A::from_bits(lr_bits), mu = A::from_bits(mu_bits),
             inv = A::from_bits(inv_bits);
+    // the head and the tail (or, with no body, every element), grid-stride
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    for (int64_t i = tid; i < nvec; i += stride)
-        apply_update_vec<T>(fold_vec<T, OP>(srcs, n, i), i, p, v, p_out,
-                            v_out, lr, mu, inv, has_inv);
-    for (int64_t i = nvec * V + tid; i < count; i += stride)
+    for (int64_t i = tid; i < head; i += stride)
         apply_update_one<T>(fold_one<T, OP>(srcs, n, i), i, p, v, p_out,
                             v_out, lr, mu, inv, has_inv);
+    for (int64_t i = head + nvec * V + tid; i < count; i += stride)
+        apply_update_one<T>(fold_one<T, OP>(srcs, n, i), i, p, v, p_out,
+                            v_out, lr, mu, inv, has_inv);
+    const int64_t i = tid;  // this thread's vector of the body
+    if (i >= nvec) return;
+    Vec<T> pp = ld_stream(reinterpret_cast<const Vec<T>*>(p + head) + i), mm;
+    if (v != nullptr)
+        mm = ld_stream(reinterpret_cast<const Vec<T>*>(v + head) + i);
+    Vec<T> x[OTC_FOLD_GROUP];
+    load_group<T>(srcs, n, 0, head, i, x);
+    Vec<T> acc = x[0];  // n >= 1
+    fold_group<T, OP, 1>(n, 0, x, acc);
+    for (int j0 = OTC_FOLD_GROUP; j0 < n; j0 += OTC_FOLD_GROUP) {
+        load_group<T>(srcs, n, j0, head, i, x);
+        fold_group<T, OP, 0>(n, j0, x, acc);
+    }
+    Vec<T> pn, vn;
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+        pn.v[e] = apply_update<T>(acc.v[e], pp.v[e], v, mm.v[e], &vn.v[e], lr,
+                                  mu, inv, has_inv);
+    st_stream(reinterpret_cast<Vec<T>*>(p_out + head) + i, pn);
+    if (v != nullptr)
+        st_stream(reinterpret_cast<Vec<T>*>(v_out + head) + i, vn);
 }
 
 template <typename T, int OP>
-static void launch_fold_update(const Srcs& srcs, int n, const void* p,
-                               const void* v, void* p_out, void* v_out,
-                               uint32_t lr, uint32_t mu, uint32_t inv,
-                               int has_inv, int64_t count, cudaStream_t s) {
-    constexpr int V = 16 / sizeof(T);
-    bool vec = srcs_aligned16(srcs, n) && aligned16(p) && aligned16(p_out) &&
-               (v == nullptr || (aligned16(v) && aligned16(v_out)));
-    int64_t nvec = vec ? count / V : 0;
-    fold_update_kernel<T, OP>
-        <<<grid_for(vec ? nvec : count), OTC_THREADS, 0, s>>>(
-            srcs, n, (const T*)p, (const T*)v, (T*)p_out, (T*)v_out, lr, mu,
-            inv, has_inv, count, nvec);
+static int launch_fold_update(const Srcs& srcs, int n, const void* p,
+                              const void* v, void* p_out, void* v_out,
+                              uint32_t lr, uint32_t mu, uint32_t inv,
+                              int has_inv, int64_t count, cudaStream_t s) {
+    // the engine's cut: a head of elements up to the first 16-byte boundary
+    // and a body of vectors when every operand shares one offset modulo 16,
+    // else no body (the element loop takes the span)
+    const uintptr_t m = (uintptr_t)p_out & 15;
+    bool one = ((uintptr_t)p & 15) == m && m % sizeof(T) == 0 &&
+               (v == nullptr || (((uintptr_t)v & 15) == m &&
+                                 ((uintptr_t)v_out & 15) == m));
+    for (int j = 0; j < n; ++j) one = one && ((uintptr_t)srcs.p[j] & 15) == m;
+    int64_t head = count, nvec = 0;
+    if (one) {
+        head = (int64_t)((16 - m) & 15) / (int64_t)sizeof(T);
+        if (head > count) head = count;
+        nvec = (count - head) * (int64_t)sizeof(T) / 16;
+    }
+    const int64_t grid =
+        nvec ? (nvec + STREAM_THREADS - 1) / STREAM_THREADS : grid_for(count);
+    if (grid > 0x7fffffff) return (int)cudaErrorInvalidValue;
+    fold_update_kernel<T, OP><<<(int)grid, STREAM_THREADS, 0, s>>>(
+        srcs, n, (const T*)p, (const T*)v, (T*)p_out, (T*)v_out, lr, mu, inv,
+        has_inv, count, head, nvec);
+    return (int)cudaGetLastError();
 }
 
 // dispatch a templated launcher over (dtype, op); false = unknown pair
@@ -427,10 +518,11 @@ int otc_linear_fold_update(int dtype, int op, const void* const* srcs,
     if (count <= 0) return 0;
     if ((v == nullptr) != (v_out == nullptr)) return (int)cudaErrorInvalidValue;
     Srcs s = make_srcs(srcs, n);
-    OTC_DISPATCH(launch_fold_update, dtype, op, s, n, p, v, p_out, v_out,
+    int rc = 0;
+    OTC_DISPATCH(rc = launch_fold_update, dtype, op, s, n, p, v, p_out, v_out,
                  lr_bits, mu_bits, inv_bits, has_inv, count,
                  (cudaStream_t)stream);
-    return (int)cudaGetLastError();
+    return rc;
 }
 
 int otc_max_peers(void) { return OTC_MAX_PEERS; }

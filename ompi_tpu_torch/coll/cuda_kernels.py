@@ -69,6 +69,8 @@ import torch
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 OP_CODES = {"MPI_SUM": 0, "MPI_PROD": 1, "MPI_MIN": 2, "MPI_MAX": 3}
 
+#: the most sources K3 and K5b fold (OTC_MAX_PEERS in ring_kernels.cu)
+MAX_PEERS = 64
 #: marker a schedule yields for a step every rank must pass (linear)
 ALL = "all"
 
@@ -187,6 +189,9 @@ def lib():
                    L.otc_ipc_get_handle, L.otc_ipc_open, L.otc_ipc_close,
                    L.otc_ipc_handle_size, L.otc_max_peers):
             fn.restype = ctypes.c_int
+        if L.otc_max_peers() != MAX_PEERS:
+            raise KernelError(f"ring_kernels.cu folds {L.otc_max_peers()} "
+                              f"sources at most, not {MAX_PEERS}")
         _lib = L
     return _lib
 
@@ -349,10 +354,10 @@ def linear_fold(srcs: Sequence[torch.Tensor], dst: torch.Tensor,
     if _check_tensors("linear_fold", [dst, *srcs], dst.numel()) == "cpu":
         linear_fold_plain(srcs, dst, op)
         return
-    L = lib()
-    if len(srcs) > L.otc_max_peers():
+    if len(srcs) > MAX_PEERS:
         raise ValueError(f"linear_fold: {len(srcs)} sources, at most "
-                         f"{L.otc_max_peers()}")
+                         f"{MAX_PEERS}")
+    L = lib()
     ptrs = (ctypes.c_void_p * len(srcs))(*[s.data_ptr() for s in srcs])
     check(L.otc_linear_fold(
         DTYPE_CODES[dst.dtype], OP_CODES[op], ptrs, len(srcs),
@@ -483,10 +488,10 @@ def linear_fold_update(srcs: Sequence[torch.Tensor], p: torch.Tensor,
                      lr, mu, inv) == "cpu":
         linear_fold_update_plain(srcs, p, v, p_out, v_out, lr, mu, inv, op)
         return
-    L = lib()
-    if len(srcs) > L.otc_max_peers():
+    if len(srcs) > MAX_PEERS:
         raise ValueError(f"linear_fold_update: {len(srcs)} sources, at most "
-                         f"{L.otc_max_peers()}")
+                         f"{MAX_PEERS}")
+    L = lib()
     ptrs = (ctypes.c_void_p * len(srcs))(*[t.data_ptr() for t in srcs])
     check(L.otc_linear_fold_update(
         DTYPE_CODES[p.dtype], OP_CODES[op], ptrs, len(srcs),

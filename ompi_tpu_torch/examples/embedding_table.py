@@ -12,8 +12,8 @@ embedding width, MLPerf DLRM-DCNv2). As the JAX package's
 
 1. lookup: one fence epoch of ``--batch`` ``Get_epoch`` row reads per
    rank, of global rows drawn from a seed every rank shares (one K9 batch
-   at each owner stages every row it serves, one K10 pull per owner at
-   the reader);
+   at each owner stages every row it serves, one grouped K10 launch at
+   the reader pulls every owner's block);
 2. update: one fence epoch of ``--batch`` ``Accumulate(SUM)`` gradient
    rows per rank into rank-disjoint global rows ``rank + size * i``, so
    no row receives two updates (K8's grouped kernel at the owner, reading
@@ -52,7 +52,7 @@ from ompi_tpu_torch.runtime import device_plane
 
 #: the kernels this path runs
 PATH_KERNELS = (O.rma_apply_strided_batch, O.rma_read_batch,
-                O.rma_permute_recv)
+                O.rma_permute_recv_batch)
 PVARS = ("osc_cuda_get", "osc_cuda_acc", "osc_cuda_fence",
          "osc_cuda_rounds", "osc_cuda_bytes")
 TINY = (16, 8, 6)  # rows per shard, dim, lookups: the reference example's

@@ -28,12 +28,15 @@
 //                          fill mode: an index in [-size, 0) counts from the
 //                          end, one outside [-size, size) reads the fill value
 //                          (NaN for float32 and bfloat16, INT_MIN for int32).
-//   orm_permute_recv   K10 dma_permute's receive side: copy a block a source
-//                          rank staged in its own arena region, read through
-//                          the peer pointer, into the landing tensor; zeros
-//                          when there is no source (the -1 sentinel). A pull,
-//                          as K2 pulls; the handshake with the partners is the
+//   orm_permute_recv_batch  K10 dma_permute's receive side, grouped: one
+//                          launch over a table of spans {src or null, dst,
+//                          count}, each copying a block a source rank staged
+//                          in its own arena region, read through the peer
+//                          pointer, into its landing tensor; zeros when there
+//                          is no source (the -1 sentinel). A pull, as K2
+//                          pulls; the handshake with the partners is the
 //                          host's (coll/cuda.py Arena.exchange).
+//                          orm_permute_recv is its batch of one.
 //
 // C is C(current, payload): REPLACE (put and replace) returns the payload,
 // SUM / PROD / MIN / MAX are the Combine of combine.cuh with the operand
@@ -52,8 +55,15 @@
 // bound on the device, the engine 88%, as copy_ does (PERF.md section 6,
 // scripts/stream_ab.py). Where the window slice and the payload do not share one
 // offset modulo 16 (a clamped start) the engine's element loop takes the
-// span. K10 keeps the first port's loop: 16-byte loads and stores where
-// both pointers are 16-byte aligned, else one element at a time. A
+// span. K10 is a copy bound the same way (k elements read, k written; k
+// written for zeros), and runs the same engine: one launch over a table
+// of spans, each with the engine's head, body and tail (stream_span, on
+// the host), one block per tile, a block finding its span from the
+// per-span first tiles by binary search; a span of 1 MiB or more takes
+// four vectors a thread, a smaller one one (STREAM_SMALL). The first
+// port's grid-stride loop lost to copy_ on the 256 MiB block, and the
+// one-sided fence launched it once per source rank and reader (16 times
+// on the 4-rank embedding lookup): now once per reader and exchange. A
 // strided K8 or K9 touches one element every s, a 32-byte sector each. But
 // at the paths' shapes (an 8192-element halo column, one 128-float
 // embedding row) a call moves kilobytes: its bound is well under a
@@ -354,31 +364,104 @@ static int read_batch(const void* win, int64_t size, void* out,
 }
 
 // ---------------------------------------------------------------------------
-// K10: copy nbytes from src to dst, or zeros when src is null (the -1
-// sentinel)
+// K10, grouped: one launch copies a table of spans {src or null, dst,
+// count}, each on the streaming engine's OP_REPLACE mode (which never reads
+// its first input; a null src stores zeros). The copy moves bits, so T is
+// the unsigned integer of the element's size: NaN payloads, signalling
+// ones included, and -0 land unchanged.
 
-__global__ void copy_bytes_kernel(const uint8_t* __restrict__ src,
-                                  uint8_t* __restrict__ dst, int64_t nbytes,
-                                  int64_t nvec) {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    const uint4* sv = reinterpret_cast<const uint4*>(src);
-    uint4* dv = reinterpret_cast<uint4*>(dst);
-    const uint4 zero = make_uint4(0, 0, 0, 0);
-    for (int64_t i = tid; i < nvec; i += stride)
-        dv[i] = src != nullptr ? sv[i] : zero;
-    for (int64_t i = nvec * 16 + tid; i < nbytes; i += stride)
-        dst[i] = src != nullptr ? src[i] : (uint8_t)0;
+// the largest table one launch takes (at least OTC_MAX_PEERS, a source per
+// rank of a communicator); the wrapper cuts a longer list
+#define ORM_COPY_MAX 64
+
+// one span as the host hands it over
+struct CopyDesc {
+    const void* src;  // nullptr: zeros (the -1 sentinel)
+    void* dst;
+    int64_t count;    // elements
+};
+
+// one span of a launch: the engine's cut (stream_span) and its tiles
+struct CopySpan {
+    const void* src;
+    void* dst;
+    int64_t count;
+    int64_t head;   // elements before the body (count: no body)
+    int64_t nvec;   // 16-byte vectors in the body
+    int32_t per;    // vectors (elements, with no body) a thread takes
+    int32_t tile0;  // the span's first tile
+};
+
+static_assert(sizeof(CopyDesc) == 24, "CopyDesc is 24 bytes");
+static_assert(sizeof(CopySpan) == 48, "CopySpan is 48 bytes");
+
+template <int CAP> struct CopyTable {
+    int32_t n;      // spans
+    int32_t tiles;  // tiles over all of them
+    CopySpan span[CAP];
+};
+
+// one block per tile: the block finds its span, then copies one tile of
+// its body (the span's first tile also its head and tail) or, for a span
+// with no body, one tile of its elements
+template <typename T, int CAP>
+__global__ void __launch_bounds__(STREAM_THREADS)
+copy_batch_kernel(const __grid_constant__ CopyTable<CAP> tab) {
+    const int t = blockIdx.x;
+    const CopySpan& c = tab.span[find_desc(tab.span, tab.n, t)];
+    const StreamSpan s = {nullptr, c.src, c.dst, nullptr, c.count, c.head,
+                          c.nvec};
+    const int64_t lt = t - c.tile0;
+    if (c.nvec == 0) {
+        stream_elem_tile<T, OP_REPLACE>(s, lt, c.per);
+        return;
+    }
+    if (lt == 0) stream_edges<T, OP_REPLACE>(s);
+    stream_tile<T, OP_REPLACE>(s, lt, c.per);
 }
 
-static int copy_bytes(const void* src, void* dst, int64_t nbytes,
-                      cudaStream_t s) {
-    if (nbytes <= 0) return 0;
-    bool vec = (src == nullptr || aligned16(src)) && aligned16(dst);
-    int64_t nvec = vec ? nbytes / 16 : 0;
-    copy_bytes_kernel<<<grid_for(vec ? nvec : nbytes), OTC_THREADS, 0, s>>>(
-        (const uint8_t*)src, (uint8_t*)dst, nbytes, nvec);
+template <typename T, int CAP>
+static int launch_copy_batch(const CopyDesc* descs, int n, cudaStream_t st) {
+    CopyTable<CAP> tab;
+    int64_t tiles = 0;
+    int m = 0;
+    for (int i = 0; i < n; ++i) {
+        const CopyDesc& d = descs[i];
+        if (d.count < 0) return (int)cudaErrorInvalidValue;
+        if (d.count == 0) continue;  // owns no tile
+        // a null src reads nothing: only dst's offset decides the body
+        const StreamSpan s = stream_span<T, OP_REPLACE>(
+            nullptr, d.src != nullptr ? d.src : d.dst, d.dst, nullptr,
+            d.count);
+        const int per = stream_per<T>(s);
+        tab.span[m] = {d.src, d.dst, d.count, s.head, s.nvec, per,
+                       (int32_t)tiles};
+        tiles += stream_tiles(s, per);
+        if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+        ++m;
+    }
+    if (m == 0) return 0;
+    tab.n = m;
+    tab.tiles = (int32_t)tiles;
+    copy_batch_kernel<T, CAP><<<(int)tiles, STREAM_THREADS, 0, st>>>(tab);
     return (int)cudaGetLastError();
+}
+
+template <typename T>
+static int copy_batch(const CopyDesc* descs, int n, cudaStream_t st) {
+    if (n <= 1) return launch_copy_batch<T, 1>(descs, n, st);
+    if (n <= 16) return launch_copy_batch<T, 16>(descs, n, st);
+    return launch_copy_batch<T, ORM_COPY_MAX>(descs, n, st);
+}
+
+static int copy_batch_dtype(int dtype, const CopyDesc* descs, int n,
+                            cudaStream_t st) {
+    switch (dtype) {
+    case DT_F32:
+    case DT_I32: return copy_batch<uint32_t>(descs, n, st);
+    case DT_BF16: return copy_batch<uint16_t>(descs, n, st);
+    default: return (int)cudaErrorInvalidValue;
+    }
 }
 
 // dispatch a templated launcher over (dtype, op incl. REPLACE)
@@ -441,10 +524,22 @@ int orm_read_batch(int dtype, const void* win, int64_t size, void* out,
     }
 }
 
-int orm_permute_recv(const void* src, void* out, int64_t nbytes,
+// K10, the batch of one: count elements of dtype from src (or zeros) to dst
+int orm_permute_recv(int dtype, const void* src, void* dst, int64_t count,
                      void* stream) {
-    return copy_bytes(src, out, nbytes, (cudaStream_t)stream);
+    const CopyDesc d = {src, dst, count};
+    return copy_batch_dtype(dtype, &d, 1, (cudaStream_t)stream);
 }
+
+// K10, grouped: descs holds n CopyDesc; 0 < n <= ORM_COPY_MAX
+int orm_permute_recv_batch(int dtype, const void* descs, int n,
+                           void* stream) {
+    if (n <= 0 || n > ORM_COPY_MAX) return (int)cudaErrorInvalidValue;
+    return copy_batch_dtype(dtype, (const CopyDesc*)descs, n,
+                            (cudaStream_t)stream);
+}
+
+int orm_copy_max(void) { return ORM_COPY_MAX; }
 
 int orm_table_max(void) { return ORM_TABLE_MAX; }
 

@@ -21,8 +21,9 @@ comm's peer-mapped arena in one host step (``coll.cuda.Arena.exchange``):
   kernel over runs of disjoint descriptors, K7 for contiguous ones of
   2**20 elements or more;
 - gets: the target stages every row it serves, grouped by origin, with one
-  K9 batch; the origin pulls each source's block with one K10 launch into
-  a fresh landing tensor, and each ``GetHandle.array`` is a view of it.
+  K9 batch; the origin pulls every source's block into a fresh landing
+  tensor with one grouped K10 launch, and each ``GetHandle.array`` is a
+  view of it.
 
 So same-location accumulates apply in the reference's round order and the
 windows end bitwise equal to the JAX package's; ``osc_cuda_rounds`` counts
@@ -424,10 +425,12 @@ class CudaWindow(Window):
 
             def land(regions):
                 got = torch.empty(n_in, dtype=dt, device=self._win.device)
+                pulls = []  # every source's block: one grouped K10 launch
                 for p in srcs:
                     start, n = blocks[(p, me)]
-                    O.rma_permute_recv(regions[p].view(dt)[start:start + n],
-                                       got[at[p] + start:at[p] + start + n])
+                    pulls.append((regions[p].view(dt)[start:start + n],
+                                  got[at[p] + start:at[p] + start + n]))
+                O.rma_permute_recv_batch(pulls)
                 for j, (s, o, disp, n, stride) in enumerate(run):
                     if o == me:  # the first open handle of this read
                         h = holders[(s, disp, n, stride)].popleft()

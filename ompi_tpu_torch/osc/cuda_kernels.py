@@ -26,9 +26,11 @@ build`):
   mode: an index in ``[-size, 0)`` counts from the end, one outside
   ``[-size, size)`` reads NaN (float32, bfloat16) or INT_MIN (int32).
   :func:`rma_read` is its batch of one;
-- :func:`rma_permute_recv` (K10) — a block a source rank staged in its
-  arena region, copied through the peer pointer into the landing tensor,
-  or zeros when there is no source.
+- :func:`rma_permute_recv_batch` (K10, grouped) — the blocks source
+  ranks staged in their arena regions, each copied through the peer
+  pointer into its landing tensor, or zeros where there is no source: one
+  launch per table of at most :data:`COPY_CAP` spans (every source of an
+  exchange). :func:`rma_permute_recv` is its batch of one.
 
 ``C(current, payload)`` is ``payload`` for the kinds ``put`` and
 ``replace``, and for ``sum``, ``prod``, ``min`` and ``max`` the ring
@@ -83,6 +85,9 @@ K7_MIN = 1 << 20
 #: table travels in the kernel's parameter block, at most 32,764 bytes)
 TABLE_CAP = 1016
 _I32_MAX = (1 << 31) - 1
+#: spans per launch of K10's batch (ORM_COPY_MAX in rma_kernels.cu: at
+#: least a source per rank of the largest communicator, OTC_MAX_PEERS)
+COPY_CAP = 64
 
 #: the kernels' descriptor layouts (ApplyDesc, ReadDesc: 32 bytes each)
 _APPLY_DESC = np.dtype([("pay", "<u8"), ("d", "<i8"), ("k", "<i4"),
@@ -91,6 +96,8 @@ _READ_DESC = np.dtype([("d", "<i8"), ("s", "<i8"), ("out", "<i8"),
                        ("k", "<i4"), ("tile0", "<i4")])
 _ONE_APPLY = struct.Struct("<Qqiiii")
 _ONE_READ = struct.Struct("<qqqii")
+#: K10's span as the host hands it over (CopyDesc: src or 0, dst, count)
+_COPY_DESC = "QQq"
 
 
 def build(verbose: bool = False) -> str:
@@ -110,16 +117,21 @@ def lib():
         L.orm_apply.argtypes = [i, i, p, i64, p, i64, i64, p]
         L.orm_apply_strided_batch.argtypes = [i, p, p, i, p]
         L.orm_read_batch.argtypes = [i, p, i64, p, ctypes.c_uint32, p, i, p]
-        L.orm_permute_recv.argtypes = [p, p, i64, p]
+        L.orm_permute_recv.argtypes = [i, p, p, i64, p]
+        L.orm_permute_recv_batch.argtypes = [i, ctypes.c_char_p, i, p]
         L.orm_table_max.argtypes = []
+        L.orm_copy_max.argtypes = []
         L.orm_error_string.argtypes = [i]
         L.orm_error_string.restype = ctypes.c_char_p
         for fn in (L.orm_apply, L.orm_apply_strided_batch, L.orm_read_batch,
-                   L.orm_permute_recv, L.orm_table_max):
+                   L.orm_permute_recv, L.orm_permute_recv_batch,
+                   L.orm_table_max, L.orm_copy_max):
             fn.restype = ctypes.c_int
-        if L.orm_table_max() != TABLE_CAP:
-            raise K.KernelError(f"rma_kernels.cu takes {L.orm_table_max()} "
-                                f"descriptors per launch, not {TABLE_CAP}")
+        if L.orm_table_max() != TABLE_CAP or L.orm_copy_max() != COPY_CAP:
+            raise K.KernelError(
+                f"rma_kernels.cu takes {L.orm_table_max()} descriptors and "
+                f"{L.orm_copy_max()} spans per launch, not {TABLE_CAP} and "
+                f"{COPY_CAP}")
         _lib = L
     return _lib
 
@@ -543,44 +555,112 @@ def rma_permute_recv_plain(src: Optional[torch.Tensor], out) -> None:
         out.copy_(src)
 
 
-def rma_permute_recv(src: Optional[torch.Tensor],
-                     out: torch.Tensor) -> torch.Tensor:
-    """K10: ``out = src`` — a block a source rank staged in its own arena
-    region, read through the peer pointer — or zeros when there is no
-    source (``src`` None, the reference's -1); returns ``out``. Replaces
-    osc/pallas_kernels.py ``dma_permute`` (:192, call :247), whose partner
-    handshake is the host's here (``coll.cuda.Arena.exchange``). Bound:
-    bytes, k elements read and k written."""
-    if out.dim() != 1 or not out.is_contiguous() \
-            or out.dtype not in K.DTYPE_CODES \
-            or out.device.type not in ("cpu", "cuda"):
-        raise ValueError("rma_permute_recv: out must be a 1-D contiguous "
-                         "float32, bfloat16 or int32 tensor")
+def _check_land(what: str, src: Optional[torch.Tensor],
+                out: torch.Tensor) -> bool:
+    """K10's operand checks; returns whether out lies on a card."""
+    cuda = out.is_cuda
+    if out.dtype not in K.DTYPE_CODES or out.dim() != 1 \
+            or not out.is_contiguous() or not (cuda or out.is_cpu):
+        raise ValueError(f"{what}: out must be a 1-D contiguous float32, "
+                         "bfloat16 or int32 tensor")
     # src may lie on a peer's card: only the device type must match
     if src is not None and (
-            src.numel() != out.numel() or src.dtype != out.dtype
-            or not src.is_contiguous()
-            or src.device.type != out.device.type):
-        raise ValueError(f"rma_permute_recv: source {tuple(src.shape)} "
-                         f"{src.dtype} on {src.device} does not match out "
+            src.dtype != out.dtype or src.numel() != out.numel()
+            or not (src.is_cuda if cuda else src.is_cpu)
+            or not src.is_contiguous()):
+        raise ValueError(f"{what}: source {tuple(src.shape)} {src.dtype} on "
+                         f"{src.device} does not match out "
                          f"{tuple(out.shape)} {out.dtype} on {out.device}")
-    if out.device.type == "cpu":
+    return cuda
+
+
+def rma_permute_recv(src: Optional[torch.Tensor],
+                     out: torch.Tensor) -> torch.Tensor:
+    """K10, the batch of one: ``out = src`` — a block a source rank staged
+    in its own arena region, read through the peer pointer — or zeros
+    when there is no source (``src`` None, the reference's -1); returns
+    ``out``. Replaces osc/pallas_kernels.py ``dma_permute`` (:192, call
+    :247), whose partner handshake is the host's here
+    (``coll.cuda.Arena.exchange``). Bound: bytes, k elements read and k
+    written (k written for zeros)."""
+    if not _check_land("rma_permute_recv", src, out):
         rma_permute_recv_plain(src, out)
         return out
-    if out.numel() == 0:
-        return out
-    _check_rc(lib().orm_permute_recv(
-        src.data_ptr() if src is not None else None, out.data_ptr(),
-        out.numel() * out.element_size(), _stream(out)),
-        "rma_permute_recv launch")
-    rma_permute_recv.launches += 1
+    k = out.numel()
+    if k:
+        rc = lib().orm_permute_recv(
+            K.DTYPE_CODES[out.dtype], src.data_ptr() if src is not None
+            else None, out.data_ptr(), k,
+            torch._C._cuda_getCurrentRawStream(out.get_device()))
+        if rc:
+            _check_rc(rc, "rma_permute_recv launch")
+        rma_permute_recv.launches += 1
     return out
 
 
 rma_permute_recv.launches = 0
 
+
+def rma_permute_recv_batch_plain(pairs) -> None:
+    """The loop of the single plain versions, in order."""
+    for src, out in pairs:
+        rma_permute_recv_plain(src, out)
+
+
+def copy_tables(pairs, cap: int = COPY_CAP) -> List[Tuple[bytes, int]]:
+    """K10's launches for ``pairs`` — ``(src or None, out)``, each checked,
+    every ``out`` of one dtype on one device — as packed tables of at most
+    ``cap`` spans ``(src pointer or 0, out pointer, elements)`` (the
+    kernel's CopyDesc) with their span counts, in order; a table whose
+    every span is empty is dropped (it launches nothing)."""
+    flat: list = []
+    if pairs:
+        dt, dev = pairs[0][1].dtype, pairs[0][1].get_device()
+    for src, out in pairs:  # one pass: the checks and the spans
+        _check_land("rma_permute_recv_batch", src, out)
+        if out.dtype != dt or out.get_device() != dev:
+            raise ValueError(f"rma_permute_recv_batch: outputs {dt} on "
+                             f"{pairs[0][1].device} and {out.dtype} on "
+                             f"{out.device}")
+        flat += (0 if src is None else src.data_ptr(), out.data_ptr(),
+                 out.numel())
+    tables = []
+    for c in range(0, len(flat), 3 * cap):
+        part = flat[c:c + 3 * cap]
+        if any(part[2::3]):
+            n = len(part) // 3
+            tables.append((struct.pack(f"<{_COPY_DESC * n}", *part), n))
+    return tables
+
+
+def rma_permute_recv_batch(pairs: Sequence[Tuple[Optional[torch.Tensor],
+                                                 torch.Tensor]]) -> None:
+    """K10, grouped: for every ``(src, out)`` of ``pairs``, ``out = src``
+    (a source rank's staged block, read through the peer pointer) or
+    zeros where ``src`` is None, in one launch per table of at most
+    :data:`COPY_CAP` spans (:func:`copy_tables`). Every ``out`` has one
+    dtype and lies on one device; the outputs must not overlap. Replaces
+    osc/pallas_kernels.py ``dma_permute`` (:192, call :247) for every
+    source of an exchange. Bound: bytes, every element read once and
+    written once (written only, for zeros)."""
+    tables = copy_tables(pairs)
+    if not pairs or not pairs[0][1].is_cuda:
+        rma_permute_recv_batch_plain(pairs)
+        return
+    out0 = pairs[0][1]
+    L, code = lib(), K.DTYPE_CODES[out0.dtype]
+    st = torch._C._cuda_getCurrentRawStream(out0.get_device())
+    for tab, n in tables:
+        rc = L.orm_permute_recv_batch(code, tab, n, st)
+        if rc:
+            _check_rc(rc, "rma_permute_recv_batch launch")
+        rma_permute_recv_batch.launches += 1
+
+
+rma_permute_recv_batch.launches = 0
+
 KERNELS = (rma_apply, rma_apply_strided, rma_apply_strided_batch, rma_read,
-           rma_read_batch, rma_permute_recv)
+           rma_read_batch, rma_permute_recv, rma_permute_recv_batch)
 
 
 def reset_launches() -> None:

@@ -1,18 +1,21 @@
-"""stream_ab.py — K1 (``otc_rs_hop``) and K7 (``orm_apply``) of several
-trees, in turns, beside the port's wrapper and the PyTorch call for the
-same function.
+"""stream_ab.py — the HBM-bound kernels of several trees, in turns,
+beside the port's wrapper and the PyTorch call for the same function: K1
+(``otc_rs_hop``) and K7 (``orm_apply``) on the streaming engine, K10
+(``orm_permute_recv``, and its grouped launch ``orm_permute_recv_batch``)
+and K5b (``otc_linear_fold_update``).
 
 Each ``--build LABEL=DIR`` compiles ``ring_kernels.cu`` and
 ``rma_kernels.cu`` of the tree at DIR (``.`` is this checkout; a parent
 unpacked with ``git archive <commit> | tar -x -C build/parent``) into
 ``build/stream_ab/`` — one nvcc per source, side by side, with
-``-Xptxas -v`` (each K1 / K7 kernel's registers, spills and shared memory
-are printed) — and calls its C entry point through ctypes. ``wrapper`` is
-this checkout's ``ring_rs_hop`` / ``rma_apply``, the call the paths make.
-Every build and the wrapper are held bitwise against the plain versions at
-every shape first (float32 SUM and put, outputs poisoned; one that does
-not build or disagrees is reported and left out); then each case is timed
-per call (CUDA events around one call, median of 10:
+``-Xptxas -v`` (each kernel's registers, spills and shared memory are
+printed) — and calls its C entry points through ctypes. ``wrapper`` is
+this checkout's ``ring_rs_hop`` / ``rma_apply`` /
+``rma_permute_recv(_batch)`` / ``linear_fold_update``, the call the paths
+make. Every build and the wrapper are held bitwise against
+the plain versions at every shape first (outputs poisoned; one that does
+not build or disagrees is reported and left out); then each case is
+timed per call (CUDA events around one call, median of 10:
 ``chip_smoke.median_ms``), on the device alone and on the host alone
 (launches queued behind a sleeping kernel: ``chip_smoke.queued_ms``; the
 host time is the enqueueing of one call), all in turns, forward then
@@ -20,16 +23,21 @@ backward, ``--rounds`` times. Run from the repository root on a machine
 with a CUDA card::
 
     python3 scripts/stream_ab.py --build old=build/parent --build new=. \\
-        [--rounds 4] [--out chiprun_out/stream_ab]
+        [--rounds 4] [--only K5b,K10] [--out DIR]
 
-Shapes (float32): K1 SUM at the collectives path's chunks (64 MiB, with
+Shapes: K1 float32 SUM at the collectives path's chunks (64 MiB, with
 and without ``dst2``, the last hop's second output; 16 MiB; 1 MiB, a ZeRO
-bucket's; 256 KiB and 256 B, of the 1 MiB and 1 KiB Allreduce); K7 put
-and SUM at the halo tile (2**26 floats), SUM of one 128-float row of a
-2**20 x 128 embedding shard. Prints a table per case (median over rounds
-[min-max] of the per-call and device times, the host time, achieved TB/s
-on the device, share of the bound at 3.35 TB/s) with the card's name and
-power limit, and writes every sample to ``<out>/samples.json``.
+bucket's; 256 KiB and 256 B, of the 1 MiB and 1 KiB Allreduce); K7 float32
+put and SUM at the halo tile (2**26 floats), SUM of one 128-float row of a
+2**20 x 128 embedding shard; K10 the 2**26-float block (beside ``copy_``)
+and the 4-rank embedding lookup's exchange at one reader (4 blocks of 128
+rows of 128 floats, beside ``torch.cat(out=)``); K5b at the training
+path's largest chunk (9,846,336 elements), momentum and scaling, float32
+and bfloat16 over 4 and 3 slices, int32 over 4. Prints a table per case
+(median over rounds [min-max] of the per-call and device times, the host
+time, achieved TB/s on the device, share of the bound at 3.35 TB/s) with
+the card's name and power limit, and writes every sample to
+``<out>/samples.json``.
 """
 
 from __future__ import annotations
@@ -54,7 +62,9 @@ from ompi_tpu_torch.osc import cuda_kernels as O  # noqa: E402
 SOURCES = {"ring": "ompi_tpu_torch/coll/csrc/ring_kernels.cu",
            "rma": "ompi_tpu_torch/osc/csrc/rma_kernels.cu"}
 #: -Xptxas -v lines are kept for entry functions whose name holds one
-KERNEL_WORDS = ("rs_hop", "apply_kernel", "stream")
+KERNEL_WORDS = ("rs_hop", "apply_kernel", "stream", "copy", "fold_update")
+#: K5b's chunk: the training path's largest bucket over 4 ranks
+WTE_CHUNK = S.WTE_CHUNK
 POISON = 0x5A  # every byte of an output before a check
 
 
@@ -89,20 +99,30 @@ def ptxas_lines(text: str):
     return keep
 
 
-def load(paths: dict):
-    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+def load(paths: dict) -> dict:
+    """A build's C entry points: K1, K7, K10 (single and grouped) and
+    K5b."""
+    p, i, i64, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+        ctypes.c_uint32
     ring = ctypes.CDLL(paths["ring"][0])
     ring.otc_rs_hop.argtypes = [i, i, p, p, p, p, i64, p]
+    ring.otc_linear_fold_update.argtypes = [i, i, ctypes.POINTER(p), i, p,
+                                            p, p, p, u32, u32, u32, i, i64,
+                                            p]
     rma = ctypes.CDLL(paths["rma"][0])
     rma.orm_apply.argtypes = [i, i, p, i64, p, i64, i64, p]
-    return ring.otc_rs_hop, rma.orm_apply
+    rma.orm_permute_recv.argtypes = [i, p, p, i64, p]
+    rma.orm_permute_recv_batch.argtypes = [i, ctypes.c_char_p, i, p]
+    return {"K1": ring.otc_rs_hop, "K7": rma.orm_apply,
+            "K5b": ring.otc_linear_fold_update, "K10": rma.orm_permute_recv,
+            "K10 batch": rma.orm_permute_recv_batch}
 
 
 def cases(dev):
-    """(name, bytes moved, {build: fn} maker, the wrapper's call, the
-    library call or None, outputs to poison and compare with their plain
-    results, a fold's input to restore) for every shape; buffers made
-    here."""
+    """(name, bytes moved, maker of a build's call from its entry points,
+    the wrapper's call, the library call or None, outputs to poison and
+    compare with their plain results, a fold's input to restore) for
+    every shape; buffers made here."""
     f32 = torch.float32
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     out = []
@@ -118,7 +138,8 @@ def cases(dev):
         torch.add(a, b, out=want)
         outs = [d, d2] if two else [d]
 
-        def k1(fn, a=a, b=b, d=d, d2=d2, two=two, n=numel):
+        def k1(fns, a=a, b=b, d=d, d2=d2, two=two, n=numel):
+            fn = fns["K1"]
             return lambda: check_rc(fn(0, 0, a.data_ptr(), b.data_ptr(),
                                        d.data_ptr(),
                                        d2.data_ptr() if two else None, n,
@@ -144,7 +165,8 @@ def cases(dev):
         snap = view.clone()
         want = pay.clone() if op == 4 else torch.add(snap, p)
 
-        def k7(fn, w=w, p=p, op=op, d=d, k=k):
+        def k7(fns, w=w, p=p, op=op, d=d, k=k):
+            fn = fns["K7"]
             return lambda: check_rc(fn(0, op, w.data_ptr(), w.numel(),
                                        p.data_ptr(), k, d, stream))
 
@@ -155,6 +177,73 @@ def cases(dev):
         # a put's window is poisoned first; a fold's is its own input
         out.append((label, (2 if op == 4 else 3) * k * 4, k7, wrap, lib,
                     [(view, want)], snap if op != 4 else None))
+    out += k10_cases(dev, stream, pay)
+    out += k5b_cases(dev, stream)
+    return out
+
+
+def k10_cases(dev, stream, pay):
+    """K10 at the 2**26-float block and at the 4-rank lookup's exchange."""
+    land = torch.empty_like(pay)
+
+    def single(fns):
+        fn = fns["K10"]
+        return lambda: check_rc(fn(0, pay.data_ptr(), land.data_ptr(),
+                                   pay.numel(), stream))
+
+    out = [("K10 2**26", 2 * pay.numel() * 4, single,
+            lambda: O.rma_permute_recv(pay, land),
+            lambda: land.copy_(pay), [(land, pay.clone())], None)]
+    per = 128 * 128
+    staged = [pay[q * 2 * per:q * 2 * per + per] for q in range(4)]
+    got = land[:4 * per]
+    pulls = [(staged[q], got[q * per:(q + 1) * per]) for q in range(4)]
+
+    def batch(fns):
+        fn = fns["K10 batch"]
+        (tab, n), = O.copy_tables(pulls)
+        return lambda: check_rc(fn(0, tab, n, stream))
+
+    out.append(("K10 lookup 4x64KiB", 2 * 4 * per * 4, batch,
+                lambda: O.rma_permute_recv_batch(pulls),
+                lambda: torch.cat(staged, out=got),
+                [(got, torch.cat(staged))], None))
+    return out
+
+
+def k5b_cases(dev, stream):
+    """K5b at the training chunk, momentum and scaling: float32 and
+    bfloat16 over 4 and 3 slices, int32 over 4."""
+    out = []
+    k = WTE_CHUNK
+    for label, dtype, n in (("K5b f32 n=4", torch.float32, 4),
+                            ("K5b f32 n=3", torch.float32, 3),
+                            ("K5b bf16 n=4", torch.bfloat16, 4),
+                            ("K5b bf16 n=3", torch.bfloat16, 3),
+                            ("K5b i32 n=4", torch.int32, 4)):
+        srcs = [S.make(torch, k, dtype, 30 + j, dev, traps=False)
+                for j in range(n)]
+        p = S.make(torch, k, dtype, 40, dev, traps=False)
+        v = S.make(torch, k, dtype, 41, dev, traps=False)
+        po, vo = torch.empty_like(p), torch.empty_like(v)
+        c = [K.shard_const(x, dtype) for x in (0.01, 0.9, 1 / n)]
+        wp, wv = torch.empty_like(p), torch.empty_like(v)
+        K.linear_fold_update_plain(srcs, p, v, wp, wv, *c)
+        code = K.DTYPE_CODES[dtype]
+        bits = [K._const_bits(x) for x in c]
+
+        def k5b(fns, srcs=srcs, p=p, v=v, po=po, vo=vo, code=code,
+                bits=bits, n=n):
+            fn = fns["K5b"]
+            ptrs = (ctypes.c_void_p * n)(*[t.data_ptr() for t in srcs])
+            return lambda: check_rc(fn(code, 0, ptrs, n, p.data_ptr(),
+                                       v.data_ptr(), po.data_ptr(),
+                                       vo.data_ptr(), *bits, 1, k, stream))
+
+        wrap = (lambda srcs=srcs, p=p, v=v, po=po, vo=vo, c=c:
+                K.linear_fold_update(srcs, p, v, po, vo, *c))
+        out.append((label, (n + 4) * k * p.element_size(), k5b, wrap, None,
+                    [(po, wp), (vo, wv)], None))
     return out
 
 
@@ -194,6 +283,8 @@ def main(argv=None) -> int:
     ap.add_argument("--build", action="append", required=True,
                     help="LABEL=DIR")
     ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--only", default="",
+                    help="comma-separated case prefixes (K1,K7,K10,K5b)")
     ap.add_argument("--out", default=os.path.join(ROOT, "chiprun_out",
                                                   "stream_ab"))
     ns = ap.parse_args(argv)
@@ -225,8 +316,9 @@ def main(argv=None) -> int:
                 print(f"ptxas {label} {kind}: {line}", flush=True)
     samples = {}
     for name, nbytes, maker, wrap, lib, outs, restore in cases(dev):
-        made = {lb: maker(fns[lb][0 if name.startswith("K1") else 1])
-                for lb in fns}
+        if ns.only and not name.startswith(tuple(ns.only.split(","))):
+            continue
+        made = {lb: maker(fns[lb]) for lb in fns}
         made["wrapper"] = wrap
         calls = {}
         for lb, fn in made.items():  # one that computes wrong is untimed
@@ -260,8 +352,8 @@ def main(argv=None) -> int:
                   f"{h[2]:.4f}], {nbytes / q[0] / 1e9:.3f} TB/s, "
                   f"{bound / q[0]:.0%} of bound", flush=True)
     with open(os.path.join(ns.out, "samples.json"), "w") as f:
-        json.dump({"card": card, "builds": [f"{lb}={tree}"
-                                            for lb, tree in specs],
+        json.dump({"card": card, "builds": [
+            f"{lb}={tree}" for lb, tree in specs],
                    "rounds": ns.rounds, "cases": samples}, f, indent=1)
     print(f"stream_ab: {len(samples)} cases x {len(fns) + 2} in "
           f"{ns.rounds} rounds [{card}]", flush=True)

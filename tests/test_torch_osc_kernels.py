@@ -11,8 +11,11 @@ start in [-size, 0) counts from the end and is then clamped into
 [0, size-k] (K7, contiguous K9); strided applies drop what falls outside
 the window (K8); strided reads count [-size, 0) from the end and fill
 NaN / INT_MIN outside [-size, size) (K9). K10's plain version runs a
-coloured round over in-process arena slots.
+coloured round over in-process arena slots, and its grouped wrapper equals
+the loop of single pulls bitwise.
 """
+
+import struct
 
 import jax.numpy as jnp
 import numpy as np
@@ -147,6 +150,111 @@ def test_permute_recv_round_over_local_slots(n):
         assert torch.equal(got.view(torch.int32), want.view(torch.int32)), r
 
 
+def _pairs(dtype, seed, lengths, null_every=3):
+    """(src or None, out) pairs: seeded sources (NaN, -0, a signalling
+    NaN in float types), every ``null_every``-th without one, outputs
+    filled with a poison pattern."""
+    rng = np.random.default_rng(seed)
+    tdt = getattr(torch, dtype)
+    pairs = []
+    for j, k in enumerate(lengths):
+        src = None
+        if j % null_every != null_every - 1:
+            if dtype == "int32":
+                src = torch.from_numpy(rng.integers(
+                    -2**31, 2**31 - 1, k, dtype=np.int64).astype(np.int32))
+            else:
+                x = rng.standard_normal(k).astype(np.float32)
+                x[::7] = np.nan
+                x[1::5] = -0.0
+                src = compat.tensor_from_numpy(
+                    np.asarray(jnp.asarray(x).astype(dtype)))
+                if k > 2:  # a signalling NaN's bits
+                    src.view(torch.int16 if dtype == "bfloat16"
+                             else torch.int32)[2] = \
+                        0x7F81 if dtype == "bfloat16" else 0x7F800001
+        out = torch.empty(k, dtype=tdt)
+        out.view(torch.uint8).fill_(0xA5)
+        pairs.append((src, out))
+    return pairs
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_permute_recv_batch_equals_loop_of_single_pulls(dtype):
+    """K10, grouped: the batch (its plain version on the CPU) lands
+    exactly the bits the loop of single plain pulls lands, null sources
+    (zeros) and empty spans included, across more spans than one launch
+    takes."""
+    lengths = [5, 0, 128, 1, 3, 77, 4099] * 11  # 77 spans > COPY_CAP
+    pairs = _pairs(dtype, 8, lengths)
+    want = [(s, torch.empty_like(o)) for s, o in pairs]
+    for (s, o), (_, w) in zip(pairs, want):
+        w.copy_(o)
+    O.rma_permute_recv_batch(pairs)
+    O.rma_permute_recv_batch_plain(want)
+    for j, ((s, got), (_, w)) in enumerate(zip(pairs, want)):
+        single = torch.empty_like(got)
+        O.rma_permute_recv_plain(s, single)
+        assert_bits_equal(compat.tensor_to_numpy(single),
+                          compat.tensor_to_numpy(got), f"span {j}")
+        assert_bits_equal(compat.tensor_to_numpy(w),
+                          compat.tensor_to_numpy(got), f"span {j}")
+        if s is None:
+            assert not got.view(torch.uint8).any(), j
+
+
+def test_permute_recv_batch_tables():
+    """The host side of K10's grouped launch: tables of at most
+    COPY_CAP 24-byte spans (src pointer or 0, out pointer, elements) in
+    order; a table of empty spans launches nothing."""
+    pairs = _pairs("float32", 9, [3, 0, 9] * 50)  # 150 spans
+    tables = O.copy_tables(pairs)
+    assert [n for _t, n in tables] == [O.COPY_CAP, O.COPY_CAP,
+                                       150 - 2 * O.COPY_CAP]
+    spans = [row for tab, n in tables
+             for row in struct.iter_unpack("<QQq", tab)]
+    assert spans == [(0 if s is None else s.data_ptr(), o.data_ptr(),
+                      o.numel()) for s, o in pairs]
+    empty = _pairs("int32", 10, [0] * 70 + [2])
+    assert [n for _t, n in O.copy_tables(empty)] == [71 - O.COPY_CAP]
+    assert O.copy_tables(empty[:O.COPY_CAP]) == []
+    assert O.copy_tables([]) == []
+
+
+def test_permute_recv_batch_checks_operands():
+    """The batch's argument checks: a source of another dtype or length
+    than its output, outputs of two dtypes, tensors on other devices."""
+    f, i = torch.zeros(4), torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="does not match"):
+        O.rma_permute_recv_batch([(torch.zeros(4), torch.empty(4)),
+                                  (i, torch.empty(4))])
+    with pytest.raises(ValueError, match="does not match"):
+        O.rma_permute_recv_batch([(torch.zeros(3), torch.empty(4))])
+    with pytest.raises(ValueError, match="outputs"):
+        O.rma_permute_recv_batch([(f, torch.empty(4)),
+                                  (i, torch.empty(4, dtype=torch.int32))])
+    with pytest.raises(ValueError, match="does not match"):
+        O.rma_permute_recv_batch([(torch.zeros(4, device="meta"),
+                                   torch.empty(4))])
+    with pytest.raises(ValueError, match="1-D contiguous"):
+        O.rma_permute_recv_batch([(None, torch.empty(4, device="meta"))])
+    with pytest.raises(ValueError, match="1-D contiguous"):
+        O.rma_permute_recv_batch([(None, torch.empty(4, 2)[:, 0])])
+    with pytest.raises(ValueError, match="1-D contiguous"):
+        O.rma_permute_recv_batch([(None, torch.empty(4, dtype=torch.int16))])
+
+
+def test_permute_recv_batch_cpu_counts_no_launch():
+    """CPU tensors take the plain version and count no launch."""
+    O.reset_launches()
+    pairs = _pairs("bfloat16", 11, [7, 0, 130])
+    O.rma_permute_recv_batch(pairs)
+    O.rma_permute_recv_batch([])
+    assert O.rma_permute_recv_batch.launches == 0
+    assert [k.launches for k in O.KERNELS] == [0] * len(O.KERNELS)
+    assert O.rma_permute_recv_batch in O.KERNELS
+
+
 def test_cpu_tensors_take_the_plain_version():
     """CPU tensors compute the plain versions and count no launch."""
     O.reset_launches()
@@ -221,3 +329,11 @@ def test_kernels_bitwise_equal_to_plain_on_card():
             O.rma_permute_recv_plain(src, want)
             assert_bits_equal(compat.tensor_to_numpy(want),
                               compat.tensor_to_numpy(got), "permute")
+        pairs = [(None if s is None else s.to(dev), o.to(dev))
+                 for s, o in _pairs(dtype, 12, [5, 0, 128, 77, 4099] * 15)]
+        want = [(s, o.clone()) for s, o in pairs]
+        O.rma_permute_recv_batch(pairs)
+        O.rma_permute_recv_batch_plain(want)
+        for (_s, got), (_, w) in zip(pairs, want):
+            assert_bits_equal(compat.tensor_to_numpy(w.cpu()),
+                              compat.tensor_to_numpy(got.cpu()), "batch")
