@@ -19,9 +19,13 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    float32, bfloat16 and int32 x SUM/PROD/MIN/MAX at the collectives
    path's shape (a 256 MiB payload over 4 ranks) and at two ragged small
    shapes (one of them not 16-byte aligned), bitwise, inputs carrying NaN
-   and +-0; K5 ring_rs_update_hop for the three dtypes with and without
-   momentum and scaling at the training path's largest chunk (the bucket that holds
-   GPT-2's ln_f, wpe and wte: 9,846,336 elements per rank over 4 ranks)
+   and +-0, and K2 also for float16, bool and uint8 (coll/device's pull
+   schedule copies any dtype) at the 1 MiB block each pull copies on the
+   ops path (a rank's whole payload) and at odd, unaligned lengths,
+   outputs poisoned; K5 ring_rs_update_hop for the three dtypes with and
+   without momentum and scaling at the training path's largest chunk (the
+   bucket that holds GPT-2's ln_f, wpe and wte: 9,846,336 elements per
+   rank over 4 ranks)
    and the ragged shapes, bitwise; K5b linear_fold_update (on no path:
    the JAX package never calls its reference) the same way with outputs
    poisoned, over n = 1, 2, 3, 4 slices (one group of sources) and 5
@@ -57,7 +61,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 3. the main paths, each with the kernels' launch counts zeroed by the
    ranks just before it and read just after: the launcher runs
    ``ompi_tpu_torch/examples/device_collectives.py`` (Allreduce,
-   Reduce_scatter_block, Allgather; 4 ranks on this card, then 3) and
+   Reduce_scatter_block, Allgather, and on 4 ranks the ops outside the
+   kernels, which coll/cuda hands to coll/device; 4 ranks on this card,
+   then 3), then the same example under ``--mca device_plane on`` alone,
+   so coll/device (the coll/xla counterpart) serves every slot: on 4
+   ranks the three reductions at 1 MiB and 64 MiB float32 in every mode
+   (K1-K3), Bcast float32 1 MiB from roots 0 and 3, Alltoall int32 at 1
+   MiB and 64 MiB (K2's pull schedule), float16 SUM, int32 BXOR and bool
+   LAND in every mode (K2, then the fold) and every slot on COMM_SELF;
+   on 8 ranks (BASELINE config 2) Bcast float32 1 MiB from roots 0 and 7;
+   and
    ``ompi_tpu_torch/examples/zero_training.py`` (the ZeRO stage-2 step
    over GPT-2 small's full-width parameters, unfused and fused, 'linear'
    and ring, plus allgather_matmul_dev and zero3_gather_matmul_dev; 4
@@ -71,13 +84,16 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    rounds and the exchanges that moved them. Each rank checks its results
    (bitwise where the fold order is fixed, fused == unfused bitwise, the
    windows against a plain recomputation) and reports its launch
-   counts; every kernel of a path must have launched on it, and the
+   counts; every kernel of a path must have launched on it (on the
+   coll/device jobs K2, and K1 and K3 where the kernels' reductions
+   ran: the 8-rank Bcast needs K2 alone), and the
    4-rank training path's K6 launches must split 48 ``wgmma`` (bfloat16
    allgather_matmul) and 64 ``simt`` (float32, and the zero-3 product),
    and the 4-rank embedding lookup must launch the grouped K10 once per
    reader and exchange.
 
-Output: one line per measurement with the card's name and power limit,
+Output: one line per measurement with the card's name and power limit
+(the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches from the collectives path,
 K5 and K6's two kernels from the training path, K7 and the K8, K9 and
 K10 batches from the 4-rank one-sided paths; K5b and the per-call rows
@@ -100,6 +116,9 @@ F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12  # H100 SXM bfloat16 tensor cores, dense
 N_RANKS = 4
 MAIN_BYTES = 256 << 20  # the collectives path's largest Allreduce payload
+#: each rank's payload of the ops outside the kernels (float16 SUM, int32
+#: BXOR, bool LAND): the example's ``--ops-bytes``, passed to every job
+OPS_BYTES = 1 << 20
 #: K5: per-rank chunk of the training path's largest bucket (ln_f, wpe and
 #: wte of GPT-2 small, 39,385,344 float32 over 4 ranks)
 WTE_CHUNK = (2 + 1024 + 50257) * 768 // N_RANKS
@@ -137,7 +156,8 @@ K10_NOTE = ("the batch of one through the grouped kernel; the embedding "
             "lookup launches the batch, one per reader and exchange (the "
             "_batch row)")
 REPS = 10
-LAUNCH_TIMEOUT = 200  # seconds per launcher job (eight jobs)
+LAUNCH_TIMEOUT = 200  # seconds per launcher job (ten jobs)
+BCAST_RANKS = 8  # BASELINE config 2's rank count, all on this card
 
 
 def fail(msg: str) -> None:
@@ -239,9 +259,29 @@ def kernel_checks(torch, K, dev, card, engine):
                 results["ring_ag_hop"] = max(results["ring_ag_hop"], err)
             torch.cuda.synchronize()
             del srcs, a, f1, fp, g1, g2, q1, q2
+    # K2 copies bytes: the dtypes coll/device's pull schedule gives it, at
+    # the block each pull copies on the ops path (a rank's whole
+    # OPS_BYTES payload), and ragged, unaligned blocks of 1-byte elements
+    for dtype in (torch.float16, torch.bool, torch.uint8):
+        block = OPS_BYTES // torch.empty(0, dtype=dtype).element_size()
+        for numel, off in ((block, 0), (4099, 1), (1027, 3)):
+            a = make(torch, numel + off, torch.float32, 40, dev,
+                     traps=False)
+            a = (a > 0 if dtype == torch.bool else a.to(dtype))[off:]
+            g1 = poisoned(torch, numel, dtype, off, dev)
+            g2 = poisoned(torch, numel, dtype, 0, dev)
+            K.ring_ag_hop(a, g1, dst2=g2)
+            for got in (g1, g2):
+                if not torch.equal(got.view(torch.uint8),
+                                   a.view(torch.uint8)):
+                    fail(f"ring_ag_hop != plain ({dtype} numel={numel} "
+                         f"offset={off})")
+    torch.cuda.synchronize()
     print(f"kernels: K2 and K3 bitwise equal to their plain versions for "
           f"float32/bfloat16/int32 x SUM/PROD/MIN/MAX at {MAIN_BYTES} B "
-          f"over {n} ranks and two ragged shapes [{card}]", flush=True)
+          f"over {n} ranks and two ragged shapes; K2 also for float16, "
+          f"bool and uint8 at the ops path's {OPS_BYTES} B block and at "
+          f"odd, unaligned lengths, outputs poisoned [{card}]", flush=True)
 
     fused_checks(torch, K, dev, card, results)
 
@@ -1067,17 +1107,20 @@ def permute_batch_checks(torch, O, dev, card, results):
 
 
 def main_path(example: str, nranks: int, args, card: str, root: str,
-              component: str = "coll_cuda"):
+              component: str | None = "coll_cuda"):
     """Phase 3: one launcher job of an example under ``--mca
-    device_plane on --mca <component> on``; returns the ranks' summed
-    launches and rank 0's report."""
+    device_plane on --mca <component> on`` (None: the device plane
+    alone, so coll/device serves); returns the ranks' summed launches
+    and rank 0's report. Every kernel a rank reports must have launched,
+    or, where its report names them (``required``), those."""
     name = os.path.splitext(example)[0]
     out = os.path.join(root, "build", "ompi_tpu_torch",
-                       f"smoke_{name}_n{nranks}")
+                       f"smoke_{name}_{component or 'device'}_n{nranks}")
     shutil.rmtree(out, ignore_errors=True)
+    mca = ["--mca", component, "on"] if component else []
     cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
            "-n", str(nranks), "--timeout", str(LAUNCH_TIMEOUT),
-           "--mca", "device_plane", "on", "--mca", component, "on",
+           "--mca", "device_plane", "on", *mca,
            os.path.join(root, "ompi_tpu_torch", "examples", example),
            *args, "--out", out]
     t0 = time.perf_counter()
@@ -1102,11 +1145,13 @@ def main_path(example: str, nranks: int, args, card: str, root: str,
             fail(f"{name}: rank {r} ran on {doc['device']}")
         for k, v in doc["launches"].items():
             launches[k] = launches.get(k, 0) + v
-    if not launches or min(launches.values()) <= 0:
+    need = docs[0].get("required", list(launches))
+    if not need or any(launches.get(k, 0) <= 0 for k in need):
         fail(f"{name} n={nranks}: a kernel of the path never launched: "
-             f"{launches}")
-    print(f"main path {name} n={nranks}: {wall:.1f} s wall, kernel "
-          f"launches (all ranks) {launches} [{card}]", flush=True)
+             f"{launches} (required {need})")
+    print(f"main path {name} n={nranks} {component or 'device plane alone'}"
+          f": {wall:.1f} s wall, kernel launches (all ranks) {launches}, "
+          f"required {need} [{card}]", flush=True)
     return launches, docs[0]
 
 
@@ -1156,9 +1201,23 @@ def main() -> int:
     rows = kernel_checks(torch, K, dev, card, engine)
     rows += rma_checks(torch, O, dev, card, engine)
     coll, _ = main_path("device_collectives.py", N_RANKS,
-                        ["--sizes", "1k,1m,64m,256m"], card, root)
-    main_path("device_collectives.py", 3, ["--sizes", "1k,1m,64m"], card,
+                        ["--sizes", "1k,1m,64m,256m",
+                         "--kinds", "allreduce,rsag,ops",
+                         "--ops-bytes", str(OPS_BYTES)], card, root)
+    main_path("device_collectives.py", 3,
+              ["--sizes", "1k,1m,64m", "--kinds", "allreduce,rsag"], card,
               root)
+    # coll/device alone (no coll_cuda): BASELINE's Bcast (config 2, 1 MiB
+    # float32 on 8 ranks) and Alltoall (config 5, int32), the three
+    # reductions in every mode, the ops outside the kernels and COMM_SELF
+    _, doc = main_path("device_collectives.py", N_RANKS,
+                         ["--sizes", "1m,64m", "--rsag-bytes", "1m,64m",
+                          "--alltoall-bytes", "1m,64m",
+                          "--ops-bytes", str(OPS_BYTES)], card, root, None)
+    if doc["provider"] != "device":
+        fail(f"the device-plane-only job was served by {doc['provider']}")
+    main_path("device_collectives.py", BCAST_RANKS, ["--kinds", "bcast"],
+              card, root, None)
     train, doc = main_path("zero_training.py", N_RANKS, [], card, root)
     if doc["parameters"] != 124_439_808:
         fail(f"zero_training ran {doc['parameters']} parameters, not "

@@ -5,11 +5,13 @@ coll_base_comm_select.c:236-330 (all enabled components stacked in
 ascending priority, each overriding the slots it implements; disqualify on
 priority<0). The port has three components so far: ``basic`` (priority
 10, every comm: ``allgather_obj`` and ``barrier`` over the runtime
-store), ``device`` (priority 50, the coll/xla counterpart, reduced to the
-zero/ bucket slots) and ``cuda`` (priority 60, opt-in: the hand-written
-ring kernels, the counterpart of coll/pallas). The host collectives come
-in later slices, so a slot no component provides raises
-``MPIError(ERR_NOT_SUPPORTED)``.
+store), ``device`` (priority 50, the coll/xla counterpart: Allreduce,
+Reduce_scatter_block, Allgather, Bcast, Alltoall and the zero/ bucket
+slots, on every comm the device plane serves and on every one-rank
+comm) and ``cuda`` (priority 60, opt-in: the hand-written ring kernels,
+the counterpart of coll/pallas, falling through to ``device`` for what
+they do not take). The host collectives come in later slices, so a slot
+no component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.
 """
 
 from __future__ import annotations
@@ -45,9 +47,9 @@ class CollTable:
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
                 f"no coll component provides '{name}' on this "
-                "communicator (device collectives need --mca device_plane "
-                "on --mca coll_cuda on and more than one rank; host "
-                "collectives come with the pml slice)") from None
+                "communicator (device collectives on more than one rank "
+                "need --mca device_plane on; host collectives come with "
+                "the pml slice)") from None
 
 
 def comm_select(comm) -> None:

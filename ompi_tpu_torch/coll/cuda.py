@@ -17,21 +17,27 @@ Selection (``_select``, as coll/pallas.py:210-247):
 
 - ``deterministic='linear'`` runs the rank-order fold (K3), bitwise
   equal to the host linear fold and to the JAX package's 'linear';
-  ``'ring'`` runs the clockwise ring (bitwise equal to its 'ring');
+  ``'ring'`` runs the clockwise ring (bitwise equal to its 'ring'). The
+  default mode is coll/device's ``coll_device_deterministic``, as
+  coll/pallas reads coll/xla's ``coll_xla_deterministic``;
 - otherwise a forced ``coll_cuda_*_algorithm`` cvar wins, then a
   ``coll_cuda_switchpoints`` table entry (the reference's JSON format,
   so a table written for coll/pallas loads unchanged), then the
   built-in threshold: the bidirectional ring at/above
   ``coll_cuda_bidir_min_bytes`` (1 MiB), else the ring.
 
-No fallthrough yet: the reference hands unsupported dtypes, ops and
-``'xla'`` decisions to coll/xla. The port's coll/xla counterpart
-(coll/device) holds only the zero/ bucket slots so far, so those cases
-(an ``'xla'`` entry of a switchpoint table included) count
-``coll_cuda_fallthrough`` and raise ``MPIError(ERR_NOT_SUPPORTED)``;
-they never stage through the host. ``fused_rs_update_dev`` and
-``zero3_gather_matmul_dev`` return None for a case they do not take, as
-the reference's do: their caller then runs its unfused sequence.
+What the kernels do not take falls through to coll/device (the
+coll/xla counterpart, one level down), as coll/pallas falls through to
+coll/xla (coll/pallas.py:165-167): a dtype outside float32 / bfloat16 /
+int32, an op outside SUM / PROD / MIN / MAX, a forced
+``coll_cuda_*_algorithm`` of ``'xla'`` and a switchpoint table's
+``'xla'`` entry count ``coll_cuda_fallthrough`` and call coll/device's
+slot with the same arguments. ``allgather_matmul_dev``'s other cases
+compose coll/device's allgather with a local product (``jnp.dot``'s
+contraction, as the reference composes coll/xla's allgather with it).
+``fused_rs_update_dev`` and ``zero3_gather_matmul_dev`` return None for
+a case they do not take, as the reference's do: their caller then runs
+its unfused sequence.
 """
 
 from __future__ import annotations
@@ -58,28 +64,22 @@ _enable_var = cvar.register(
          "[default] leaves no device provider in this slice.",
     choices=["off", "on"], level=4)
 
-_default_det = cvar.register(
-    "coll_cuda_deterministic", "", str,
-    help="default determinism mode for device collectives: '' (the "
-         "selection below), 'ring' (fixed ring chunk order), 'linear' "
-         "(exact rank-order fold, bit-identical to the host linear fold)",
-    choices=["", "ring", "linear"], level=4)
-
 _force_allreduce = cvar.register(
     "coll_cuda_allreduce_algorithm", "", str,
-    help="Force the allreduce variant: ring|bidir|linear. "
-         "Deterministic modes ignore a forced algorithm.",
-    choices=["", "ring", "bidir", "linear"], level=5)
+    help="Force the allreduce variant: ring|bidir|linear|xla ('xla' "
+         "falls through to coll/device). Deterministic modes ignore a "
+         "forced ring, bidir or linear.",
+    choices=["", "ring", "bidir", "linear", "xla"], level=5)
 _force_reduce_scatter = cvar.register(
     "coll_cuda_reduce_scatter_algorithm", "", str,
-    help="Force the reduce_scatter_block variant: ring|bidir|linear "
+    help="Force the reduce_scatter_block variant: ring|bidir|linear|xla "
          "(see coll_cuda_allreduce_algorithm).",
-    choices=["", "ring", "bidir", "linear"], level=5)
+    choices=["", "ring", "bidir", "linear", "xla"], level=5)
 _force_allgather = cvar.register(
     "coll_cuda_allgather_algorithm", "", str,
-    help="Force the allgather variant: ring|bidir (allgather has no "
+    help="Force the allgather variant: ring|bidir|xla (allgather has no "
          "reduction, so no linear fold).",
-    choices=["", "ring", "bidir"], level=5)
+    choices=["", "ring", "bidir", "xla"], level=5)
 
 _bidir_min_var = cvar.register(
     "coll_cuda_bidir_min_bytes", 1 << 20, int,
@@ -110,9 +110,13 @@ _FORCE = {"allreduce": _force_allreduce,
 
 
 def _det_ok(deterministic: Optional[str]) -> Optional[str]:
-    """Normalize the deterministic mode (slot arg over cvar default)
-    and reject unknown values."""
-    det = deterministic if deterministic is not None else _default_det.get()
+    """Normalize the deterministic mode (slot arg over coll/device's
+    ``coll_device_deterministic``, the one default both components read,
+    as coll/pallas reads coll/xla's) and reject unknown values."""
+    from ompi_tpu_torch.coll import device
+
+    det = deterministic if deterministic is not None \
+        else device._default_det.get()
     det = det or None
     if det not in (None, "ring", "linear"):
         raise errors.MPIError(
@@ -123,12 +127,13 @@ def _det_ok(deterministic: Optional[str]) -> Optional[str]:
     return det
 
 
-def _fallthrough(kind: str, why: str):
+def _fallthrough(slot: str, *args, **kw):
+    """Count the case and hand it to coll/device's ``slot`` (a reduction
+    passes the mode resolved here, so both components fold alike)."""
+    from ompi_tpu_torch.coll import device
+
     pvar.record("coll_cuda_fallthrough")
-    raise errors.MPIError(
-        errors.ERR_NOT_SUPPORTED,
-        f"coll_cuda: {kind} {why}; no lower device provider exists in "
-        "this slice of the port (the coll/xla counterpart comes next)")
+    return getattr(device, slot)(*args, **kw)
 
 
 def log2_bucket(nbytes: int) -> int:
@@ -177,12 +182,14 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 def _select(kind: str, comm, sendbuf: torch.Tensor, det: Optional[str],
             chunk_rows: int) -> Optional[str]:
-    """The decision layer: algorithm name, or None for the reference's
-    coll/xla fallthrough (a switchpoint table's 'xla' entry).
+    """The decision layer: algorithm name, or None to fall through to
+    coll/device (a forced 'xla', or a switchpoint table's 'xla' entry).
     Deterministic modes pin the matching kernel; otherwise forced cvar >
     switchpoint table > bidir threshold > ring."""
     nbytes = sendbuf.numel() * sendbuf.element_size()
     forced = _FORCE[kind].get()
+    if forced == "xla":
+        return None
     if det == "linear":
         return "linear" if kind != "allgather" else "ring"
     if det == "ring":
@@ -210,7 +217,9 @@ def _account(sendbuf: torch.Tensor, algo: str) -> None:
     _account_bytes(sendbuf.numel() * sendbuf.element_size(), algo)
 
 
-def _check_buf(kind: str, sendbuf) -> None:
+def _check_buf(kind: str, sendbuf) -> bool:
+    """A tensor on this rank's device; True when the kernels take its
+    dtype."""
     dev = device_plane.device()
     if not isinstance(sendbuf, torch.Tensor):
         raise errors.MPIError(errors.ERR_BUFFER,
@@ -221,17 +230,13 @@ def _check_buf(kind: str, sendbuf) -> None:
             errors.ERR_BUFFER,
             f"coll_cuda: {kind} buffer on {sendbuf.device}, but this "
             f"rank's device plane runs on {dev}")
-    if sendbuf.dtype not in _SUPPORTED_DTYPES:
-        _fallthrough(kind, f"dtype {sendbuf.dtype} is outside "
-                     "float32/bfloat16/int32")
+    return sendbuf.dtype in _SUPPORTED_DTYPES
 
 
-def _opn(kind: str, op) -> op_mod.Op:
+def _opn(op) -> Optional[op_mod.Op]:
+    """The op, or None when the kernels do not take it."""
     opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
-    if opn is None or opn.name not in _SUPPORTED_OPS:
-        _fallthrough(kind, f"op {getattr(opn, 'name', op)!r} is outside "
-                     "SUM/PROD/MIN/MAX")
-    return opn
+    return opn if opn is not None and opn.name in _SUPPORTED_OPS else None
 
 
 # ---------------------------------------------------------------------------
@@ -487,6 +492,8 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
         n, nslots = comm.size, 4
         if family == "ag":  # the whole block travels; nothing is staged
             in_bytes, slot_bytes = ALIGN, cap
+        elif family == "pull":  # staged input only (coll/device's pulls)
+            in_bytes, slot_bytes, nslots = cap, 0, 0
         elif family == "osc":  # a one-sided exchange's payloads per parity
             in_bytes, slot_bytes, nslots = 0, cap, 2
         else:  # staged input + one chunk per slot
@@ -519,16 +526,18 @@ def release(comm) -> None:
 def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
                   deterministic: Optional[str] = None):
     det = _det_ok(deterministic)
-    _check_buf("allreduce", sendbuf)
-    opn = _opn("allreduce", op)
+    opn = _opn(op)
+    algo = None
+    if _check_buf("allreduce", sendbuf) and opn is not None:
+        algo = _select("allreduce", comm, sendbuf, det,
+                       K.padded_chunk(sendbuf.numel(), comm.size))
+    if algo is None:
+        return _fallthrough("allreduce_dev", comm, sendbuf, op,
+                            det or "")
     m, n = sendbuf.numel(), comm.size
     if m == 0:
         return sendbuf.clone()
     k = K.padded_chunk(m, n)
-    algo = _select("allreduce", comm, sendbuf, det, k)
-    if algo is None:
-        _fallthrough("allreduce", "was sent to coll/xla by a "
-                     "switchpoint")
     _account(sendbuf, algo)
     out = torch.empty(n * k, dtype=sendbuf.dtype, device=sendbuf.device)
     ep = _arena(comm, "rs", n * k * sendbuf.element_size())
@@ -539,23 +548,25 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
 def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
                              deterministic: Optional[str] = None):
     det = _det_ok(deterministic)
-    _check_buf("reduce_scatter_block", sendbuf)
-    opn = _opn("reduce_scatter_block", op)
+    opn = _opn(op)
     n = comm.size
+    if not _check_buf("reduce_scatter_block", sendbuf) or opn is None:
+        return _fallthrough("reduce_scatter_block_dev", comm, sendbuf, op,
+                            det or "")
     if sendbuf.dim() < 1 or sendbuf.shape[0] % n:
         raise errors.MPIError(
             errors.ERR_COUNT,
             f"reduce_scatter_block: dim 0 of shape {tuple(sendbuf.shape)} "
             f"is not divisible by the comm size {n}")
     rows = sendbuf.shape[0] // n
+    algo = _select("reduce_scatter_block", comm, sendbuf, det, rows)
+    if algo is None:
+        return _fallthrough("reduce_scatter_block_dev", comm, sendbuf, op,
+                            det or "")
     out = torch.empty((rows,) + tuple(sendbuf.shape[1:]),
                       dtype=sendbuf.dtype, device=sendbuf.device)
     if sendbuf.numel() == 0:
         return out
-    algo = _select("reduce_scatter_block", comm, sendbuf, det, rows)
-    if algo is None:
-        _fallthrough("reduce_scatter_block", "was sent to coll/xla by a "
-                     "switchpoint")
     _account(sendbuf, algo)
     ep = _arena(comm, "rs", sendbuf.numel() * sendbuf.element_size())
     ep.run(K.reduce_scatter(ep, sendbuf.reshape(-1), opn.name, algo,
@@ -564,16 +575,15 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
 
 
 def allgather_dev(comm, sendbuf):
-    _check_buf("allgather", sendbuf)
     n = comm.size
+    algo = _select("allgather", comm, sendbuf, None, sendbuf.numel()) \
+        if _check_buf("allgather", sendbuf) else None
+    if algo is None:
+        return _fallthrough("allgather_dev", comm, sendbuf)
     out = torch.empty((n,) + tuple(sendbuf.shape), dtype=sendbuf.dtype,
                       device=sendbuf.device)
     if sendbuf.numel() == 0:
         return out
-    algo = _select("allgather", comm, sendbuf, None, sendbuf.numel())
-    if algo is None:
-        _fallthrough("allgather", "was sent to coll/xla by a "
-                     "switchpoint")
     _account(sendbuf, algo)
     ep = _arena(comm, "ag", sendbuf.numel() * sendbuf.element_size())
     ep.run(K.allgather(ep, sendbuf.reshape(-1), algo, out.view(-1)))
@@ -650,20 +660,17 @@ def allgather_matmul_dev(comm, x, w):
     is this rank's (m, d) row block, w the replicated (d, f) weight;
     returns the full (n*m, f) product in ``torch.promote_types(x, w)``,
     each block multiplied (K6) as the clockwise ring (K2) delivers it.
-    Other cases raise ERR_NOT_SUPPORTED (the reference composes coll/xla's
-    allgather with a local matmul; the port has no lower provider for
-    that yet)."""
-    why = None
-    if comm.size == 1:
-        why = "on one rank"
-    elif not (isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)
-              and x.dim() == 2 and w.dim() == 2
-              and x.shape[1] == w.shape[0]):
-        why = "needs a 2-D x (m, d) and a 2-D w (d, f)"
-    elif x.dtype not in _SUPPORTED_DTYPES or w.dtype not in _SUPPORTED_DTYPES:
-        why = f"of {x.dtype} @ {w.dtype} is outside float32/bfloat16/int32"
-    if why is not None:
-        _fallthrough("allgather_matmul", why)
+    Every other case (one rank, shapes other than 2-D, dtypes outside
+    the kernels') counts ``coll_cuda_fallthrough`` and composes
+    coll/device's allgather with a local product (coll/pallas.py:
+    630-642)."""
+    ok = (comm.size > 1
+          and isinstance(x, torch.Tensor) and isinstance(w, torch.Tensor)
+          and x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0]
+          and x.dtype in _SUPPORTED_DTYPES and w.dtype in _SUPPORTED_DTYPES)
+    if not ok:
+        pvar.record("coll_cuda_fallthrough")
+        return _gather_matmul(comm, x, w)
     _check_buf("allgather_matmul", x)
     _check_buf("allgather_matmul", w)
     dt = torch.promote_types(x.dtype, w.dtype)
@@ -677,6 +684,26 @@ def allgather_matmul_dev(comm, x, w):
     ep = _arena(comm, "ag", x.numel() * x.element_size())
     ep.run(K.allgather_matmul(ep, x, w, out))
     return out
+
+
+def _gather_matmul(comm, x, w):
+    """coll/device's allgather of x, its blocks stacked along dim 0, then
+    ``jnp.dot``'s product with w (the last axis of the gathered x against
+    w's second to last) in ``torch.promote_types(x, w)``: the plain
+    product the JAX package also leaves outside any kernel. On the card,
+    torch's products take floating types only."""
+    from ompi_tpu_torch.coll import device
+
+    full = device.allgather_dev(comm, x)
+    full = full.reshape((comm.size * x.shape[0],) + tuple(x.shape[1:]))
+    dt = torch.promote_types(x.dtype, w.dtype)
+    if full.device.type == "cuda" and not dt.is_floating_point:
+        raise errors.MPIError(
+            errors.ERR_NOT_SUPPORTED,
+            f"coll_cuda: allgather_matmul of {x.dtype} @ {w.dtype} outside "
+            f"the kernels: torch's products take no {dt} on the card")
+    return torch.tensordot(full.to(dt), w.to(dt),
+                           dims=([full.dim() - 1], [max(w.dim() - 2, 0)]))
 
 
 def zero3_gather_matmul_dev(comm, state, rhs):
@@ -713,7 +740,7 @@ class CollCuda:
     """The component coll's comm_select ranks."""
 
     NAME = "cuda"
-    PRIORITY = 60  # coll/pallas's level, above where coll/xla will sit
+    PRIORITY = 60  # coll/pallas's level, above coll/device's 50
 
     def query(self, comm) -> int:
         if _enable_var.get() != "on" or comm.size == 1:

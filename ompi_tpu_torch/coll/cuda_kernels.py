@@ -8,7 +8,7 @@ Kernels written by hand in CUDA C++ for Hopper, built with nvcc for
 - :func:`ring_rs_hop` (K1) — one reduce-scatter hop, ``dst = fn(carry,
   own)`` with the carry read from the ring neighbour's arena slot;
 - :func:`ring_ag_hop` (K2) — one allgather hop, the neighbour's block
-  copied into the own slot and the output;
+  copied into the own slot and the output (a byte copy, so any dtype);
 - :func:`linear_fold` (K3) — the rank-order fold over every rank's staged
   input, ``acc = g0; acc = fn(acc, g_i)``;
 - :func:`ring_rs_update_hop` (K5) — the last reduce-scatter hop fused
@@ -31,7 +31,10 @@ Each wrapper counts its launches in a plain integer attribute,
 
 The schedules (K4: :func:`allreduce`, :func:`reduce_scatter`,
 :func:`allgather`; the fused :func:`reduce_scatter_update` and
-:func:`allgather_matmul`) are generators over a :class:`Ring` — a rank's
+:func:`allgather_matmul`; and the pull schedules of coll/device,
+:func:`bcast`, :func:`alltoall` and :func:`gather`: every rank stages its
+input, then K2 copies from the staged inputs) are generators over a
+:class:`Ring` — a rank's
 view of the symmetric buffers (every rank's staged input and carry
 slots). They
 follow the reference's chunk schedule exactly (carry starts at chunk r-d;
@@ -320,19 +323,41 @@ def ring_ag_hop_plain(src, dst, dst2=None) -> None:
         dst2.copy_(src)
 
 
+def _check_copy(what: str, tensors: Sequence[torch.Tensor]) -> str:
+    """K2's argument checks: it copies bytes, so any dtype, the same for
+    every operand (the plain version's copy then moves the same bits),
+    and the same byte count; returns the device type."""
+    kind, nbytes = tensors[0].device.type, tensors[0].nbytes
+    for t in tensors:
+        if t.device.type != kind:
+            raise ValueError(f"{what}: tensors on {tensors[0].device} and "
+                             f"{t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: non-contiguous operand")
+        if t.dtype != tensors[0].dtype:
+            raise ValueError(f"{what}: mixed dtypes {tensors[0].dtype} "
+                             f"and {t.dtype}")
+        if t.nbytes != nbytes:
+            raise ValueError(f"{what}: operand of {t.nbytes} bytes, "
+                             f"expected {nbytes}")
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {tensors[0].device}")
+    return kind
+
+
 def ring_ag_hop(src: torch.Tensor, dst: torch.Tensor,
                 dst2: Optional[torch.Tensor] = None) -> None:
     """K2: ``dst = src`` (and ``dst2``, the block's place in the
-    output). Replaces pallas_kernels.py ``_dma_allgather`` (:565)."""
+    output), a byte copy of any dtype. Replaces pallas_kernels.py
+    ``_dma_allgather`` (:565)."""
     ops = [src, dst] + ([dst2] if dst2 is not None else [])
-    if _check_tensors("ring_ag_hop", ops, dst.numel()) == "cpu":
+    if _check_copy("ring_ag_hop", ops) == "cpu":
         ring_ag_hop_plain(src, dst, dst2)
         return
     check(lib().otc_ag_hop(
         src.data_ptr(), dst.data_ptr(),
         dst2.data_ptr() if dst2 is not None else None,
-        dst.numel() * dst.element_size(), _stream_ptr(dst)),
-        "ring_ag_hop launch")
+        dst.nbytes, _stream_ptr(dst)), "ring_ag_hop launch")
     ring_ag_hop.launches += 1
 
 
@@ -805,6 +830,52 @@ def _fold_steps(ep: Ring, dtype, op: str, off: int, m: int,
     linear_fold([_view(ep.inputs[p], dtype, off, m) for p in range(ep.n)],
                 out, op)
     yield (ALL,)  # every rank has read every input: safe to restage
+
+
+def _pull_steps(ep: Ring, flat: Optional[torch.Tensor],
+                copies) -> Iterator[Tuple]:
+    """The pull schedule: stage ``flat`` (None: this rank sends nothing),
+    let every rank stage, then K2-copy each ``(source view, destination)``
+    of ``copies`` (views of the ranks' staged inputs), and let every
+    rank finish reading before any restages."""
+    if flat is not None:
+        _stage(ep, flat, flat.numel())
+    yield (ALL,)  # every rank has staged what it sends
+    for src, dst in copies:
+        ring_ag_hop(src, dst)
+    yield (ALL,)  # every rank has read every input: safe to restage
+
+
+def bcast(ep: Ring, flat: torch.Tensor, root: int,
+          out: torch.Tensor) -> Iterator[Tuple]:
+    """Broadcast of the root's 1-D ``flat`` into every rank's ``out``: the
+    root stages it, every rank copies it (one K2); ``flat`` of the other
+    ranks is only read for its dtype and length. The counterpart of
+    coll/xla's ``_bcast_body`` (all_gather, then the root's block)."""
+    src = _view(ep.inputs[root], flat.dtype, 0, flat.numel())
+    return _pull_steps(ep, flat if ep.rank == root else None, [(src, out)])
+
+
+def alltoall(ep: Ring, flat: torch.Tensor,
+             out: torch.Tensor) -> Iterator[Tuple]:
+    """All-to-all of the 1-D ``flat`` (n blocks): block p of ``out`` is
+    block ``rank`` of rank p's input (n K2 copies), as ``lax.all_to_all``
+    with split and concat on dim 0."""
+    n, r = ep.n, ep.rank
+    b = flat.numel() // n
+    return _pull_steps(ep, flat, [
+        (_view(ep.inputs[p], flat.dtype, r * b, b), out[p * b:(p + 1) * b])
+        for p in range(n)])
+
+
+def gather(ep: Ring, flat: torch.Tensor,
+           out: torch.Tensor) -> Iterator[Tuple]:
+    """Gather of every rank's 1-D ``flat`` (m elements) into ``out`` (n*m,
+    rank p's block at p*m): n K2 copies, as ``lax.all_gather``."""
+    m = flat.numel()
+    return _pull_steps(ep, flat, [
+        (_view(ep.inputs[p], flat.dtype, 0, m), out[p * m:(p + 1) * m])
+        for p in range(ep.n)])
 
 
 def _stage(ep: Ring, flat: torch.Tensor, total: int) -> None:

@@ -7,7 +7,8 @@ with like is the MCA configuration, the data and the parameters.
 - :func:`mca_from_reference` maps the reference's MCA settings to the
   port's names (``coll_pallas*`` -> ``coll_cuda*``, ``osc_pallas*`` ->
   ``osc_cuda*``,
-  ``coll_xla_deterministic`` -> ``coll_cuda_deterministic``,
+  ``coll_xla_deterministic`` -> ``coll_device_deterministic`` (the one
+  default mode, which coll/cuda reads as coll/pallas reads coll/xla's),
   ``coll_xla_bucket_bytes`` -> ``coll_device_bucket_bytes``,
   ``device_plane_platform`` tpu -> cuda). Settings of the reference's
   TPU transport that have no counterpart are dropped; anything else
@@ -42,7 +43,7 @@ def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:
         elif key == "osc_pallas" or key.startswith("osc_pallas_"):
             key = "osc_cuda" + key[len("osc_pallas"):]
         elif key == "coll_xla_deterministic":
-            key = "coll_cuda_deterministic"
+            key = "coll_device_deterministic"
         elif key == "coll_xla_bucket_bytes":
             key = "coll_device_bucket_bytes"
         elif key == "device_plane_platform":

@@ -18,15 +18,19 @@ _lock = threading.Lock()
 
 WELL_KNOWN = (
     # coll/cuda (hand-written ring collectives over peer-mapped
-    # arenas): collective calls served, calls that the component could
-    # not serve (raised ERR_NOT_SUPPORTED: no lower device provider
-    # exists yet), and payload bytes per algorithm family
+    # arenas): collective calls served, calls handed to coll/device (or,
+    # from the fused slots, back to their caller's unfused sequence),
+    # and payload bytes per algorithm family
     "coll_cuda_launches", "coll_cuda_fallthrough",
     "coll_cuda_ring_bytes", "coll_cuda_bidir_bytes",
     "coll_cuda_linear_bytes",
     # coll/cuda's fused slots: buckets through fused_rs_update_dev plus
     # allgather_matmul_dev calls
     "coll_cuda_fused_launches",
+    # coll/device (the coll/xla counterpart, coll_xla_device's twin):
+    # calls its Allreduce / Reduce_scatter_block / Allgather / Bcast /
+    # Alltoall slots served, one-rank comms included
+    "coll_device_launches",
     # zero/ (coll/device bucket collectives + ZeroOptimizer): per-bucket
     # reduce-scatters and allgathers, payload and pad bytes per cycle,
     # allgathers of unchanged (all-frozen) buckets skipped

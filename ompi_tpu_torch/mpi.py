@@ -1,13 +1,14 @@
 """The public MPI-style API of the port (this slice's part of it).
 
 Reference: ompi/mpi/c/ and the JAX package's ``ompi_tpu.mpi``: Init,
-Finalize, COMM_WORLD/COMM_SELF, the op constants, and the device
-branches of Allreduce, Reduce_scatter_block, Allgather and the zero/
-pair Reduce_scatter_multi / Allgather_multi (ompi_tpu/mpi.py:712-728,
-801-850, 952-956, 1007-1016). A device buffer is a
-``torch.Tensor`` and the call returns a new tensor; host (numpy) buffers
-need the host collectives of the pml slice and raise
-``MPIError(ERR_NOT_SUPPORTED)`` here.
+Finalize, COMM_WORLD/COMM_SELF, the op constants, Barrier, and the
+device branches of Allreduce, Reduce_scatter_block, Allgather, Bcast,
+Alltoall and the zero/ pair Reduce_scatter_multi / Allgather_multi
+(ompi_tpu/mpi.py:673-680, 712-728, 801-850, 952-956, 975-979,
+1007-1016). A device buffer is a ``torch.Tensor`` and the call returns a
+new tensor; host (numpy) buffers need the host collectives of the pml
+slice and raise ``MPIError(ERR_NOT_SUPPORTED)`` here, as do derived
+datatypes (``datatype/``, ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -60,6 +61,22 @@ def _Allgather(self, sendbuf, recvbuf=None):
     return _deliver(self.coll.allgather_dev(self, sendbuf), recvbuf)
 
 
+def _Bcast(self, buf, root: int = 0):
+    """Returns the root's buf on every rank; the other ranks' buf gives
+    the shape and dtype and receives a copy of the result too (MPI's
+    in-place receive). A root outside [0, size) raises ERR_ROOT."""
+    _device_or_raise("Bcast", buf)
+    out = self.coll.bcast_dev(self, buf, root)
+    return _deliver(out, buf if self.rank != root else None)
+
+
+def _Alltoall(self, sendbuf, recvbuf=None):
+    """dim 0 of sendbuf splits into size blocks; block p of the result
+    is block ``rank`` of rank p's sendbuf (the MoE dispatch pattern)."""
+    _device_or_raise("Alltoall", sendbuf)
+    return _deliver(self.coll.alltoall_dev(self, sendbuf), recvbuf)
+
+
 def _Reduce_scatter_multi(self, bufs, op=op_mod.SUM, deterministic=None):
     """Bucketed reduce-scatter over a pytree of device tensors (the
     zero/ gradient step): dtype-segregated buckets, each padded to a
@@ -92,6 +109,8 @@ def _Barrier(self) -> None:
 for _name, _fn in {"Allreduce": _Allreduce,
                    "Reduce_scatter_block": _Reduce_scatter_block,
                    "Allgather": _Allgather,
+                   "Bcast": _Bcast,
+                   "Alltoall": _Alltoall,
                    "Reduce_scatter_multi": _Reduce_scatter_multi,
                    "Allgather_multi": _Allgather_multi,
                    "Barrier": _Barrier}.items():

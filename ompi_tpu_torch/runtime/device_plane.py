@@ -36,8 +36,9 @@ _out = output.stream("device_plane")
 _enabled = cvar.register(
     "device_plane", "off", str,
     help="device plane: 'on' binds every rank to a device at MPI_Init so "
-         "device-buffer (torch.Tensor) collectives run on it (coll/cuda); "
-         "'off' [default] leaves no device collectives",
+         "device-buffer (torch.Tensor) collectives run on it (coll/device, "
+         "and coll/cuda where enabled); 'off' [default] leaves them to "
+         "one-rank comms, which need no plane",
     choices=["on", "off"], level=3)
 
 _platform = cvar.register(

@@ -46,11 +46,18 @@ def test_forced_algorithm_cvar():
             "ring"  # deterministic modes ignore a forced ring/bidir/linear
         cvar.set("coll_cuda_allreduce_algorithm", "bidir")
         assert cc._select("allreduce", COMM, _t(4096), None, 1) == "ring"
-        # no lower provider exists, so no cvar setting can pick one
+        # 'xla' falls through to coll/device, deterministic modes included
+        # (coll/pallas.py:220-221), for every kind
+        for kind in ("allreduce", "reduce_scatter_block", "allgather"):
+            cvar.set(f"coll_cuda_{kind.split('_block')[0]}_algorithm",
+                     "xla")
+            for det in (None, "ring", "linear"):
+                assert cc._select(kind, COMM, _t(4096), det, 256) is None
         with pytest.raises(ValueError):
-            cvar.set("coll_cuda_allreduce_algorithm", "xla")
+            cvar.set("coll_cuda_allreduce_algorithm", "nccl")
     finally:
-        cvar.set("coll_cuda_allreduce_algorithm", "")
+        for kind in ("allreduce", "reduce_scatter", "allgather"):
+            cvar.set(f"coll_cuda_{kind}_algorithm", "")
 
 
 def test_switchpoint_table_loads_the_reference_format(tmp_path):
@@ -99,8 +106,25 @@ def test_mca_from_reference():
         "device_plane_platform": "tpu", "btl": "self,sm"})
     assert got == {"device_plane": "on", "coll_cuda": "on",
                    "coll_cuda_bidir_min_bytes": "4096",
-                   "coll_cuda_deterministic": "linear",
+                   "coll_device_deterministic": "linear",
                    "device_plane_platform": "cuda", "btl": "self,sm"}
+
+
+@pytest.mark.parametrize("mode", ["", "ring", "linear"])
+def test_mca_maps_xla_deterministic_to_device(mode):
+    """coll_xla_deterministic sets coll/xla's default, which coll/pallas
+    reads too: it maps to coll_device_deterministic alone, and both of
+    the port's components resolve that one mode."""
+    from ompi_tpu_torch.coll import device
+
+    got = compat.mca_from_reference({"coll_xla_deterministic": mode})
+    assert got == {"coll_device_deterministic": mode}
+    assert cvar.get("coll_cuda_deterministic") is None  # no second cvar
+    try:
+        cvar.set("coll_device_deterministic", mode)
+        assert device._det_ok(None) == cc._det_ok(None) == (mode or None)
+    finally:
+        cvar.set("coll_device_deterministic", "")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "int32", "bfloat16"])

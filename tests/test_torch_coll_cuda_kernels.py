@@ -113,9 +113,10 @@ def assert_bits_equal(ref, got, what=""):
     if ref.dtype == np.uint16:
         rf = (ref.astype(np.uint32) << 16).view(np.float32)
         gf = (got.astype(np.uint32) << 16).view(np.float32)
-    elif ref.dtype == np.float32:
+    elif ref.dtype in (np.float32, np.float16):
         rf, gf = ref, got
-        ref, got = ref.view(np.uint32), got.view(np.uint32)
+        u = np.uint32 if ref.dtype == np.float32 else np.uint16
+        ref, got = ref.view(u), got.view(u)
     else:
         np.testing.assert_array_equal(ref, got, err_msg=what)
         return
@@ -142,6 +143,77 @@ def test_schedules_bitwise_equal_to_pallas_kernels(n, dtype, op):
                 t = t[:M]  # the pad is sliced off by the caller
             assert_bits_equal(ref[i][r], compat.tensor_to_numpy(t),
                               f"{name} rank {r}")
+
+
+def _jax_pull(n, x, root):
+    from ompi_tpu.parallel import collectives as C
+
+    mesh = Mesh(np.array(jax.devices()[:n]), ("mpi",))
+
+    def body(a):
+        a = a[0]
+        outs = (C.bcast(a, "mpi", root), C.alltoall(a, "mpi"),
+                jax.lax.all_gather(a, "mpi"))
+        return tuple(o[None] for o in outs)
+
+    f = jax.jit(jaxcompat.shard_map(body, mesh=mesh, in_specs=P("mpi"),
+                                    out_specs=P("mpi"), check_vma=False))
+    return [np.asarray(o) for o in f(x)]
+
+
+@pytest.mark.parametrize("dtype", ["float16", "bool", "int32", "bfloat16"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_pull_schedules_bitwise_equal_to_lax(n, dtype):
+    """coll/device's pull schedules in lockstep (stage, then K2 copies
+    from the staged inputs), twice over the same rings so the second call
+    restages what the first read: bcast from rank n-1 (coll/xla's
+    all_gather + index), alltoall and gather, against lax on the virtual
+    mesh, rank by rank."""
+    rng = np.random.default_rng(40 + n)
+    h = rng.standard_normal((n, 2 * n * 3)).astype(np.float32)
+    jx = jnp.asarray(h > 0 if dtype == "bool" else h * 100).astype(dtype)
+    ref = _jax_pull(n, jx, n - 1)
+    xs = [compat.tensor_from_numpy(np.asarray(jx)[r]) for r in range(n)]
+    m = xs[0].numel()
+    rings = K.Ring.local(n, 4 * m + 64, 0)
+    for _ in range(2):
+        outs = {name: [torch.empty(size, dtype=xs[0].dtype)
+                       for _ in range(n)]
+                for name, size in (("bcast", m), ("alltoall", m),
+                                   ("gather", n * m))}
+        K.run_lockstep(rings, [K.bcast(rings[r], xs[r], n - 1,
+                                       outs["bcast"][r]) for r in range(n)])
+        K.run_lockstep(rings, [K.alltoall(rings[r], xs[r],
+                                          outs["alltoall"][r])
+                               for r in range(n)])
+        K.run_lockstep(rings, [K.gather(rings[r], xs[r], outs["gather"][r])
+                               for r in range(n)])
+        for i, name in enumerate(("bcast", "alltoall", "gather")):
+            for r in range(n):
+                assert_bits_equal(
+                    ref[i][r].reshape(-1),
+                    compat.tensor_to_numpy(outs[name][r]),
+                    f"{name} rank {r}")
+    assert [ring.linear for ring in rings] == [12] * n
+
+
+def test_ring_ag_hop_copies_any_dtype():
+    """K2 copies bytes: float16 and bool through the plain version on the
+    CPU (no launch); an operand of another byte count or dtype is
+    refused."""
+    K.reset_launches()
+    for src in (torch.arange(9, dtype=torch.float16) - 4.5,
+                torch.arange(9) % 3 == 0):
+        dst, dst2 = torch.empty_like(src), torch.empty_like(src)
+        K.ring_ag_hop(src, dst, dst2=dst2)
+        assert torch.equal(dst, src) and torch.equal(dst2, src)
+    assert K.ring_ag_hop.launches == 0
+    with pytest.raises(ValueError, match="bytes"):
+        K.ring_ag_hop(torch.zeros(8, dtype=torch.bool),
+                      torch.zeros(9, dtype=torch.bool))
+    with pytest.raises(ValueError, match="mixed dtypes"):
+        K.ring_ag_hop(torch.zeros(8, dtype=torch.float16),
+                      torch.zeros(8, dtype=torch.bfloat16))
 
 
 @pytest.mark.parametrize("op", list(JNP_OPS))
@@ -242,4 +314,10 @@ def test_kernels_bitwise_equal_to_plain_on_card():
                                   compat.tensor_to_numpy(d), op)
             K.ring_ag_hop(srcs[2], d)
             assert torch.equal(d, srcs[2])
+    for dtype in (torch.float16, torch.bool):  # K2 copies any dtype
+        src = torch.randn(1027, generator=g, device=dev)[1:]
+        src = src > 0 if dtype == torch.bool else src.to(dtype)
+        dst = torch.empty_like(src)
+        K.ring_ag_hop(src, dst)
+        assert torch.equal(dst.view(torch.uint8), src.view(torch.uint8))
 

@@ -51,6 +51,12 @@ CASES = [
     ("rs_i32_min_ring", "rs", "int32", "MIN", "ring"),
     ("ag_f32", "ag", "float32", None, None),
     ("ag_bf16", "ag", "bfloat16", None, None),
+    # outside the kernels: coll/pallas falls through to coll/xla, coll/cuda
+    # to coll/device
+    ("ar_f16_sum_linear", "ar", "float16", "SUM", "linear"),
+    ("ar_f16_sum_ring", "ar", "float16", "SUM", "ring"),
+    ("rs_f16_max_ring", "rs", "float16", "MAX", "ring"),
+    ("ag_f16", "ag", "float16", None, None),
 ]
 
 #: input maker shared verbatim by both rank programs
@@ -117,6 +123,24 @@ def expect_error(cls, fn):
         assert e.error_class == cls, e
         return str(e)
     raise AssertionError("no MPIError raised")
+
+# a dtype outside the kernels and a forced 'xla' return coll/device's
+# result and count the fallthrough
+from ompi_tpu_torch.coll import device
+from ompi_tpu_torch.core import cvar
+s = pvar.session()
+x = torch.arange(8, dtype=torch.float16) * (rank + 1)
+assert torch.equal(comm.Allreduce(x, deterministic="ring"),
+                   device.allreduce_dev(comm, x, deterministic="ring"))
+assert s.read("coll_cuda_fallthrough") == 1
+cvar.set("coll_cuda_allreduce_algorithm", "xla")
+x = torch.arange(8, dtype=torch.float32) + rank
+got = comm.Allreduce(x, deterministic="linear")
+cvar.set("coll_cuda_allreduce_algorithm", "")
+assert torch.equal(got, device.allreduce_dev(comm, x,
+                                             deterministic="linear"))
+assert s.read("coll_cuda_fallthrough") == 2
+assert s.read("coll_cuda_launches") == 0
 
 s = pvar.session()
 msg = expect_error(errors.ERR_NOT_SUPPORTED,
@@ -207,34 +231,108 @@ def test_allgather_exact(results):
 
 
 def test_error_paths(results):
-    """Unsupported dtype -> ERR_NOT_SUPPORTED + coll_cuda_fallthrough;
-    indivisible Reduce_scatter_block -> ERR_COUNT; host buffer ->
-    ERR_NOT_SUPPORTED (asserted inside the port job, on every rank)."""
+    """float16 and a forced 'xla' fall through to coll/device (its result,
+    counted in coll_cuda_fallthrough); float64 falls through and raises
+    ERR_NOT_SUPPORTED; indivisible Reduce_scatter_block -> ERR_COUNT;
+    host buffer -> ERR_NOT_SUPPORTED (asserted inside the port job, on
+    every rank)."""
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
 
 
-def test_coll_cuda_off_leaves_no_device_provider(tmp_path):
+def test_coll_cuda_off_leaves_device_serving(tmp_path):
+    """Without coll_cuda the coll/xla counterpart (no opt-in) serves every
+    device slot it has; the fused slots stay coll/cuda's alone."""
     rc = _port_job(f"""
     import torch
-    from ompi_tpu_torch import errors, mpi
+    from ompi_tpu_torch import mpi
     comm = mpi.Init()
-    assert "allreduce_dev" not in comm.coll.providers, comm.coll.providers
-    # the coll/xla counterpart needs no opt-in: it serves the zero/ slots
-    assert comm.coll.providers["reduce_scatter_multi_dev"] == "device"
+    for slot in ("allreduce_dev", "reduce_scatter_block_dev",
+                 "allgather_dev", "bcast_dev", "alltoall_dev",
+                 "reduce_scatter_multi_dev"):
+        assert comm.coll.providers[slot] == "device", comm.coll.providers
     assert "fused_rs_update_dev" not in comm.coll.providers
-    try:
-        comm.Allreduce(torch.ones(4))
-    except errors.MPIError as e:
-        assert e.error_class == errors.ERR_NOT_SUPPORTED, e
-    else:
-        raise AssertionError("Allreduce without a provider did not raise")
+    x = torch.arange(4, dtype=torch.float32) * (comm.rank + 1)
+    for det in ("linear", "ring", None):
+        out = comm.Allreduce(x, deterministic=det)
+        assert torch.equal(out, torch.arange(4.0) * 3), (det, out)
     open("{tmp_path}/r%d.ok" % comm.rank, "w").close()
     mpi.Finalize()
     """, 2, {"device_plane": "on", "device_plane_platform": "cpu"})
     assert rc == 0
     assert sorted(os.listdir(tmp_path)) == ["r0.ok", "r1.ok"]
+
+
+@pytest.mark.parametrize("mode", ["linear", "ring"])
+def test_one_determinism_cvar_drives_both_components(tmp_path, mode):
+    """``coll_device_deterministic`` alone (as coll_xla_deterministic
+    alone drives coll/xla and coll/pallas) sets the mode coll/cuda runs,
+    the mode it hands coll/device on a fallthrough, and the mode of the
+    zero/ slots: a forced 'xla' Allreduce equals coll/cuda's own, a
+    float16 Allreduce folds in the cvar's order, and ZeroOptimizer's
+    fused step equals its unfused step. Three ranks, so the ring's order
+    and the rank order give different bits (checked)."""
+    rc = _port_job(f"""
+    import numpy as np
+    import torch
+    from ompi_tpu_torch import mpi
+    from ompi_tpu_torch.coll import device
+    from ompi_tpu_torch.core import cvar, pvar
+    from ompi_tpu_torch.zero import ZeroOptimizer, layout as zl
+    comm = mpi.Init()
+    rank, mode = comm.rank, {mode!r}
+    other = "ring" if mode == "linear" else "linear"
+
+    def inp(seed, dtype, n=257):
+        rng = np.random.default_rng(seed)
+        h = rng.standard_normal(n) * 10.0 ** rng.integers(-3, 3, n)
+        return torch.from_numpy(h.astype(np.float32)).to(dtype)
+
+    s = pvar.session()
+    x = inp(10 + rank, torch.float32)
+    ref = comm.Allreduce(x)
+    assert s.read("coll_cuda_fallthrough") == 0
+    assert torch.equal(ref, comm.Allreduce(x, deterministic=mode))
+    assert not torch.equal(ref, comm.Allreduce(x, deterministic=other))
+    cvar.set("coll_cuda_allreduce_algorithm", "xla")
+    try:
+        got = comm.Allreduce(x)
+    finally:
+        cvar.set("coll_cuda_allreduce_algorithm", "")
+    assert s.read("coll_cuda_fallthrough") == 1
+    assert torch.equal(got, ref), mode
+
+    h = inp(20 + rank, torch.float16)
+    got = comm.Allreduce(h)
+    assert s.read("coll_cuda_fallthrough") == 2
+    assert torch.equal(got, device.allreduce_dev(comm, h, deterministic=mode))
+    assert not torch.equal(got, device.allreduce_dev(comm, h,
+                                                     deterministic=other))
+
+    params = {{"w": inp(1, torch.float32, 35).view(5, 7),
+               "b": inp(2, torch.float32, 13)}}
+    def run(fused, det=None):
+        opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                            deterministic=det, fused=fused)
+        s = pvar.session()
+        for step in range(2):
+            out = opt.step({{"w": inp(100 + 10 * rank + step, torch.float32,
+                                     35).view(5, 7),
+                             "b": inp(200 + 10 * rank + step, torch.float32,
+                                      13)}})
+        assert (s.read("coll_cuda_fused_launches") > 0) == fused
+        return zl.tree_leaves(out)
+    unfused, fused = run(False), run(True)
+    assert all(torch.equal(a, b) for a, b in zip(unfused, fused)), mode
+    assert not all(torch.equal(a, b)
+                   for a, b in zip(unfused, run(False, other)))
+    open("{tmp_path}/r%d.ok" % rank, "w").close()
+    mpi.Finalize()
+    """, 3, {"device_plane": "on", "device_plane_platform": "cpu",
+             "coll_cuda": "on", "coll_device_deterministic": mode})
+    assert rc == 0
+    assert sorted(os.listdir(tmp_path)) == ["r0.ok", "r1.ok", "r2.ok"]
 
 
 def test_cuda_platform_without_gpu_fails_init_on_every_rank(tmp_path):

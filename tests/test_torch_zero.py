@@ -217,11 +217,13 @@ save("zero3", comm.coll.zero3_gather_matmul_dev(
 
 # the port's stated differences and its erroneous calls, on every rank
 s = pvar.session()
-msg = expect_error(errors.ERR_NOT_SUPPORTED,
-                   lambda: comm.coll.allgather_matmul_dev(
-                       comm, torch.ones(2, 3, dtype=torch.int16),
-                       torch.ones(3, 2, dtype=torch.int16)))
-assert "int16" in msg, msg
+# int16 is outside the kernels: coll/device's allgather, then the plain
+# product (the reference composes coll/xla's allgather with jnp.dot)
+xi = torch.arange(6, dtype=torch.int16).reshape(2, 3) - 2
+wi = torch.arange(6, dtype=torch.int16).reshape(3, 2) * 3 - 7
+got = comm.coll.allgather_matmul_dev(comm, xi + rank, wi)
+full = torch.cat([xi + p for p in range(size)])
+assert got.dtype == torch.int16 and torch.equal(got, full @ wi), got
 assert s.read("coll_cuda_fallthrough") == 1
 st = zl.ShardedState.from_full(comm, params)
 assert comm.coll.zero3_gather_matmul_dev(comm, st, torch.ones(3, 2)) is None
@@ -382,10 +384,11 @@ def test_zero3_gather_matmul_against_reference(results):
 
 
 def test_error_paths(results):
-    """int16 allgather_matmul_dev raises ERR_NOT_SUPPORTED and counts
-    coll_cuda_fallthrough (the reference falls through to coll/xla);
-    stage 1 / overlap / error_feedback raise ERR_NOT_SUPPORTED naming the
-    ROADMAP item; host leaves raise; checked inside the port job."""
+    """int16 allgather_matmul_dev returns the composed allgather + plain
+    product and counts coll_cuda_fallthrough (as the reference falls
+    through to coll/xla); stage 1 / overlap / error_feedback raise
+    ERR_NOT_SUPPORTED naming the ROADMAP item; host leaves raise; checked
+    inside the port job."""
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
@@ -462,4 +465,4 @@ def test_mca_maps_bucket_bytes():
     got = compat.mca_from_reference({"coll_xla_bucket_bytes": "64",
                                      "coll_xla_deterministic": "ring"})
     assert got == {"coll_device_bucket_bytes": "64",
-                   "coll_cuda_deterministic": "ring"}
+                   "coll_device_deterministic": "ring"}
