@@ -70,20 +70,38 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    MiB and 64 MiB (K2's pull schedule), float16 SUM, int32 BXOR and bool
    LAND in every mode (K2, then the fold) and every slot on COMM_SELF;
    on 8 ranks (BASELINE config 2) Bcast float32 1 MiB from roots 0 and 7;
-   and
-   ``ompi_tpu_torch/examples/zero_training.py`` (the ZeRO stage-2 step
-   over GPT-2 small's full-width parameters, unfused and fused, 'linear'
-   and ring, plus allgather_matmul_dev and zero3_gather_matmul_dev; 4
-   ranks with all 12 layers, then 3 ranks with 4), ``--mca device_plane
-   on --mca coll_cuda on``; then, under ``--mca osc_cuda on``,
+   then the rest of coll/device's slot table, a 4-rank job per family
+   (:data:`REST_JOBS`): ``rooted`` (Reduce float32 64 MiB SUM to root 0
+   in the three modes — '' takes the rooted schedule, K1's reduce-scatter
+   then the root's K2 pull — and bfloat16 64 MiB MAX, the binomial tree;
+   Gather float32 16 MiB a rank to root 3; Scatter float32 64 MiB from
+   root 0; bitwise, None off the root, and a non-root's peak of allocated
+   device bytes below n x the payload), ``vcoll`` (Allgatherv, Gatherv
+   and Scatterv int32 and Reduce_scatter float32 64 MiB with skewed
+   seeded counts; Alltoallv int32 in BASELINE config 5's pattern, 4096
+   tokens of 4096 lanes a rank, with max_count and with the count round)
+   and ``scan,barrier,nonblocking,persistent,self`` (Scan / Exscan
+   float32 SUM and int32 MAX at 1 MiB; the device Barrier's p50; every
+   ``I*`` call and Ibarrier under ``wait_all``, each equal to its
+   blocking call, then Iallreduce 64 MiB + wait; each ``*_init`` started
+   3 times on refilled buffers, then Allreduce_init 64 MiB's start +
+   wait; every slot on COMM_SELF); and
+   ``ompi_tpu_torch/examples/zero_training.py`` (the ZeRO step over
+   GPT-2 small's full-width parameters: stage 2 unfused and fused,
+   'linear' and ring, and stage 1 (Allreduce_multi) 'linear' and 'ring',
+   plus Allreduce_multi against the per-leaf loop, allgather_matmul_dev
+   and zero3_gather_matmul_dev; 4 ranks with all 12 layers, then 3 ranks
+   with 4), ``--mca device_plane on --mca coll_cuda on``; then, under
+   ``--mca osc_cuda on``,
    ``halo_exchange.py`` (8192 x 8192 float32 tiles, 3 steps of
    Put_strided halo columns and a whole-tile self Put; 4 ranks, then 3 at
    4096 x 4096) and ``embedding_table.py`` (2**20 x 128 float32 shards,
    512 Get_epoch lookups and 512 Accumulate(SUM) gradient rows per rank;
    4 ranks, then 3 at 2**18 rows and 128), each fence reported with its
    rounds and the exchanges that moved them. Each rank checks its results
-   (bitwise where the fold order is fixed, fused == unfused bitwise, the
-   windows against a plain recomputation) and reports its launch
+   (bitwise where the fold order is fixed, fused == unfused and stage-1
+   'linear' == stage-2 'linear' bitwise, the windows against a plain
+   recomputation) and reports its launch
    counts; every kernel of a path must have launched on it (on the
    coll/device jobs K2, and K1 and K3 where the kernels' reductions
    ran: the 8-rank Bcast needs K2 alone), and the
@@ -94,7 +112,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
-then ``{"kernels": [...]}`` (K1-K3 launches from the collectives path,
+then ``{"kernels": [...]}`` (K1-K3 launches summed over every
+collectives job, coll/cuda's and coll/device's,
 K5 and K6's two kernels from the training path, K7 and the K8, K9 and
 K10 batches from the 4-rank one-sided paths; K5b and the per-call rows
 of K8, K9 and K10 with 0 and a note), the card line, and, last,
@@ -156,8 +175,19 @@ K10_NOTE = ("the batch of one through the grouped kernel; the embedding "
             "lookup launches the batch, one per reader and exchange (the "
             "_batch row)")
 REPS = 10
-LAUNCH_TIMEOUT = 200  # seconds per launcher job (ten jobs)
+LAUNCH_TIMEOUT = 200  # seconds per launcher job (thirteen jobs)
 BCAST_RANKS = 8  # BASELINE config 2's rank count, all on this card
+#: the coll/device jobs of the rest of coll/xla's slot table: (--kinds,
+#: sizes); 64 MiB payloads (float32 Reduce / Scatter / Reduce_scatter,
+#: int32 v-collectives), BASELINE config 5's Alltoallv (4096 tokens of 4096
+#: int32 lanes a rank), Scan / Exscan at 1 MiB
+REST_JOBS = (
+    ("rooted", ["--rooted-bytes", "64m", "--gather-bytes", "16m"]),
+    ("vcoll", ["--vcoll-bytes", "64m", "--vcoll-lanes", "1024",
+               "--a2av-tokens", "4096", "--a2av-lanes", "4096"]),
+    ("scan,barrier,nonblocking,persistent,self",
+     ["--scan-bytes", "1m", "--rooted-bytes", "64m",
+      "--ops-bytes", str(OPS_BYTES)]))
 
 
 def fail(msg: str) -> None:
@@ -1200,24 +1230,34 @@ def main() -> int:
     engine = engine_checks(torch, K, O, dev, card)
     rows = kernel_checks(torch, K, dev, card, engine)
     rows += rma_checks(torch, O, dev, card, engine)
-    coll, _ = main_path("device_collectives.py", N_RANKS,
-                        ["--sizes", "1k,1m,64m,256m",
-                         "--kinds", "allreduce,rsag,ops",
-                         "--ops-bytes", str(OPS_BYTES)], card, root)
-    main_path("device_collectives.py", 3,
-              ["--sizes", "1k,1m,64m", "--kinds", "allreduce,rsag"], card,
-              root)
+    # K1-K3's launches: summed over every collectives job
+    coll: dict = {}
+
+    def collectives(nranks, args, component="coll_cuda"):
+        got, doc = main_path("device_collectives.py", nranks, args, card,
+                             root, component)
+        for k, v in got.items():
+            coll[k] = coll.get(k, 0) + v
+        if component is None and doc["provider"] != "device":
+            fail(f"the device-plane-only job was served by "
+                 f"{doc['provider']}")
+        return got
+
+    collectives(N_RANKS, ["--sizes", "1k,1m,64m,256m",
+                          "--kinds", "allreduce,rsag,ops",
+                          "--ops-bytes", str(OPS_BYTES)])
+    collectives(3, ["--sizes", "1k,1m,64m", "--kinds", "allreduce,rsag"])
     # coll/device alone (no coll_cuda): BASELINE's Bcast (config 2, 1 MiB
     # float32 on 8 ranks) and Alltoall (config 5, int32), the three
-    # reductions in every mode, the ops outside the kernels and COMM_SELF
-    _, doc = main_path("device_collectives.py", N_RANKS,
-                         ["--sizes", "1m,64m", "--rsag-bytes", "1m,64m",
+    # reductions in every mode, the ops outside the kernels and every slot
+    # on COMM_SELF; then the rest of its slot table, a job per family
+    collectives(N_RANKS, ["--kinds", "allreduce,rsag,bcast,alltoall,ops,self",
+                          "--sizes", "1m,64m", "--rsag-bytes", "1m,64m",
                           "--alltoall-bytes", "1m,64m",
-                          "--ops-bytes", str(OPS_BYTES)], card, root, None)
-    if doc["provider"] != "device":
-        fail(f"the device-plane-only job was served by {doc['provider']}")
-    main_path("device_collectives.py", BCAST_RANKS, ["--kinds", "bcast"],
-              card, root, None)
+                          "--ops-bytes", str(OPS_BYTES)], None)
+    collectives(BCAST_RANKS, ["--kinds", "bcast"], None)
+    for kinds, args in REST_JOBS:
+        collectives(N_RANKS, ["--kinds", kinds, *args], None)
     train, doc = main_path("zero_training.py", N_RANKS, [], card, root)
     if doc["parameters"] != 124_439_808:
         fail(f"zero_training ran {doc['parameters']} parameters, not "
@@ -1264,6 +1304,8 @@ def main() -> int:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = next(p[r["name"]] for p in (coll, train, osc)
                                  if r["name"] in p)
+    print(f"K1-K3 launches over the collectives jobs (all ranks): "
+          f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(card)

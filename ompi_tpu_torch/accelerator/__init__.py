@@ -3,10 +3,11 @@
 Reference: opal/mca/accelerator/ (accelerator.h:668-711: check_addr,
 device info, synchronize, ...) and ``ompi_tpu.accelerator``. In the port
 a device buffer is a ``torch.Tensor`` and a host buffer is numpy — the
-split the JAX package draws between ``jax.Array`` and numpy. This slice
+split the JAX package draws between ``jax.Array`` and numpy. The port
 carries what it uses: the buffer predicate, device info and
 synchronisation, from the ``cuda`` component when a GPU is usable and the
-``null`` component otherwise.
+``null`` component otherwise, and the event its device requests record
+(:mod:`.stream`).
 """
 
 from __future__ import annotations

@@ -4,11 +4,11 @@ Reference: ompi/mca/coll/ — coll.h:532-649 (the per-comm function table),
 coll_base_comm_select.c:236-330 (all enabled components stacked in
 ascending priority, each overriding the slots it implements; disqualify on
 priority<0). The port has three components so far: ``basic`` (priority
-10, every comm: ``allgather_obj`` and ``barrier`` over the runtime
-store), ``device`` (priority 50, the coll/xla counterpart: Allreduce,
-Reduce_scatter_block, Allgather, Bcast, Alltoall and the zero/ bucket
-slots, on every comm the device plane serves and on every one-rank
-comm) and ``cuda`` (priority 60, opt-in: the hand-written ring kernels,
+10, every comm: ``allgather_obj``, ``bcast_obj`` and ``barrier`` over
+the runtime store), ``device`` (priority 50, the coll/xla counterpart:
+its fixed device slot table, blocking, nonblocking and persistent, on
+every comm the device plane serves and on every one-rank comm) and
+``cuda`` (priority 60, opt-in: the hand-written ring kernels,
 the counterpart of coll/pallas, falling through to ``device`` for what
 they do not take). The host collectives come in later slices, so a slot
 no component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.

@@ -1,11 +1,13 @@
-"""coll/basic — object allgather and barrier over the runtime store.
+"""coll/basic — object allgather, broadcast and barrier over the runtime
+store.
 
 The reduced counterpart of ``ompi_tpu.coll.basic`` (the lowest priority,
 stacked for every communicator, size 1 included): ``allgather_obj`` and
 ``barrier``, which the one-sided windows need (``osc``: peer info at
-creation, descriptors at every fence). The reference runs them over the
-pml's object channel (coll/basic.py:386 gathers to rank 0 and
-broadcasts; :109 is the linear barrier). The port has no pml yet, so
+creation, descriptors at every fence), and ``bcast_obj``, coll/device's
+scatter metadata round. The reference runs them over the pml's object
+channel (coll/basic.py:386 gathers to rank 0 and broadcasts; :109 is the
+linear barrier). The port has no pml yet, so
 they go through the rendezvous store, keyed by (jobid, cid, per-comm
 sequence): every member calls a comm's collectives in the same order, so
 the sequence agrees, and two comms (a window's private dup and its
@@ -37,6 +39,19 @@ def allgather_obj(comm, obj) -> List[Any]:
             for p in range(comm.size)]
 
 
+def bcast_obj(comm, obj, root: int = 0):
+    """The root's ``obj`` (picklable) on every member; the others pass
+    anything (None)."""
+    if comm.size == 1:
+        return obj
+    key = _key(comm, "bcast_obj")
+    store = rte.client()
+    if comm.rank == root:
+        store.put(key, obj)
+        return obj
+    return store.get(key)
+
+
 def barrier(comm) -> None:
     """Returns once every member has entered (a store fence)."""
     if comm.size > 1:
@@ -53,4 +68,5 @@ class CollBasic:
         return self.PRIORITY
 
     def slots(self, comm):
-        return {"allgather_obj": allgather_obj, "barrier": barrier}
+        return {"allgather_obj": allgather_obj, "bcast_obj": bcast_obj,
+                "barrier": barrier}

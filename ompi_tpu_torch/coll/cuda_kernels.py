@@ -31,9 +31,12 @@ Each wrapper counts its launches in a plain integer attribute,
 
 The schedules (K4: :func:`allreduce`, :func:`reduce_scatter`,
 :func:`allgather`; the fused :func:`reduce_scatter_update` and
-:func:`allgather_matmul`; and the pull schedules of coll/device,
-:func:`bcast`, :func:`alltoall` and :func:`gather`: every rank stages its
-input, then K2 copies from the staged inputs) are generators over a
+:func:`allgather_matmul`; the pull schedules of coll/device,
+:func:`bcast`, :func:`alltoall`, :func:`gather`, :func:`ragged` and its
+rooted forms :func:`gather_to_root` and :func:`scatter_from_root`: every
+rank stages its input, then K2 copies from the staged inputs; and
+coll/device's :func:`binomial_reduce` and :func:`prefix`) are generators
+over a
 :class:`Ring` — a rank's
 view of the symmetric buffers (every rank's staged input and carry
 slots). They
@@ -832,14 +835,14 @@ def _fold_steps(ep: Ring, dtype, op: str, off: int, m: int,
     yield (ALL,)  # every rank has read every input: safe to restage
 
 
-def _pull_steps(ep: Ring, flat: Optional[torch.Tensor],
-                copies) -> Iterator[Tuple]:
-    """The pull schedule: stage ``flat`` (None: this rank sends nothing),
+def _pull_steps(ep: Ring, pieces, copies) -> Iterator[Tuple]:
+    """The pull schedule: stage each ``(1-D tensor, element offset)`` of
+    ``pieces`` into the own staged input (none: this rank sends nothing),
     let every rank stage, then K2-copy each ``(source view, destination)``
     of ``copies`` (views of the ranks' staged inputs), and let every
     rank finish reading before any restages."""
-    if flat is not None:
-        _stage(ep, flat, flat.numel())
+    for t, off in pieces:
+        _view(ep.inputs[ep.rank], t.dtype, off, t.numel()).copy_(t)
     yield (ALL,)  # every rank has staged what it sends
     for src, dst in copies:
         ring_ag_hop(src, dst)
@@ -853,7 +856,8 @@ def bcast(ep: Ring, flat: torch.Tensor, root: int,
     ranks is only read for its dtype and length. The counterpart of
     coll/xla's ``_bcast_body`` (all_gather, then the root's block)."""
     src = _view(ep.inputs[root], flat.dtype, 0, flat.numel())
-    return _pull_steps(ep, flat if ep.rank == root else None, [(src, out)])
+    return _pull_steps(ep, [(flat, 0)] if ep.rank == root else [],
+                       [(src, out)])
 
 
 def alltoall(ep: Ring, flat: torch.Tensor,
@@ -863,7 +867,7 @@ def alltoall(ep: Ring, flat: torch.Tensor,
     with split and concat on dim 0."""
     n, r = ep.n, ep.rank
     b = flat.numel() // n
-    return _pull_steps(ep, flat, [
+    return _pull_steps(ep, [(flat, 0)], [
         (_view(ep.inputs[p], flat.dtype, r * b, b), out[p * b:(p + 1) * b])
         for p in range(n)])
 
@@ -873,9 +877,106 @@ def gather(ep: Ring, flat: torch.Tensor,
     """Gather of every rank's 1-D ``flat`` (m elements) into ``out`` (n*m,
     rank p's block at p*m): n K2 copies, as ``lax.all_gather``."""
     m = flat.numel()
-    return _pull_steps(ep, flat, [
+    return _pull_steps(ep, [(flat, 0)], [
         (_view(ep.inputs[p], flat.dtype, 0, m), out[p * m:(p + 1) * m])
         for p in range(ep.n)])
+
+
+def ragged(ep: Ring, dtype, pieces, spans,
+           out: Optional[torch.Tensor]) -> Iterator[Tuple]:
+    """The pull schedule with per-peer offsets and lengths (coll/device's
+    v-variants and rooted copies): stage ``pieces`` as
+    :func:`_pull_steps` does, then copy each span ``(peer, src, count,
+    dst)`` (elements of ``dtype``) from that peer's staged input at
+    ``src`` into ``out[dst:dst + count]`` with one K2; empty spans copy
+    nothing, and a rank with no spans (``out`` None) only stages."""
+    return _pull_steps(ep, pieces, [
+        (_view(ep.inputs[p], dtype, src, c), out[dst:dst + c])
+        for p, src, c, dst in spans if c])
+
+
+def gather_to_root(ep: Ring, flat: torch.Tensor, root: int,
+                   out: Optional[torch.Tensor]) -> Iterator[Tuple]:
+    """Rooted gather of every rank's 1-D ``flat`` (m elements): every rank
+    stages, the root alone copies rank p's block into ``out[p*m:(p+1)*m]``
+    (n K2 copies); the others pass ``out`` None and allocate nothing."""
+    m = flat.numel()
+    spans = [(p, 0, m, p * m) for p in range(ep.n)] if ep.rank == root \
+        else []
+    return ragged(ep, flat.dtype, [(flat, 0)], spans, out)
+
+
+def scatter_from_root(ep: Ring, flat: Optional[torch.Tensor], root: int,
+                      out: torch.Tensor) -> Iterator[Tuple]:
+    """Scatter of the root's 1-D ``flat`` (n blocks of ``out.numel()``):
+    the root stages it, rank r copies block r into ``out`` (one K2); the
+    other ranks pass ``flat`` None."""
+    b = out.numel()
+    return ragged(ep, out.dtype, [(flat, 0)] if ep.rank == root else [],
+                  [(root, ep.rank * b, b, 0)], out)
+
+
+def binomial_rounds(n: int, root: int) -> List[Tuple[Tuple[int, int], ...]]:
+    """The binomial tree's rounds of (sender, receiver) pairs, as the
+    reference builds them (coll/xla.py ``_reduce_binomial``): in round
+    ``mask`` (1, 2, 4, ...) the vrank v = (rank - root) % n with v % 2mask
+    == mask sends to vrank v - mask. Each rank sends once, after its
+    last receive."""
+    rounds, mask = [], 1
+    while mask < n:
+        pairs = tuple(((v + root) % n, (v - mask + root) % n)
+                      for v in range(n) if v % (2 * mask) == mask)
+        if pairs:
+            rounds.append(pairs)
+        mask <<= 1
+    return rounds
+
+
+def binomial_reduce(ep: Ring, flat: torch.Tensor, combine, root: int,
+                    out: Optional[torch.Tensor]) -> Iterator[Tuple]:
+    """Binomial reduction of every rank's 1-D ``flat`` to ``out`` on the
+    root (None elsewhere): per round of :func:`binomial_rounds` the
+    senders stage their partial, every rank passes one step, and each
+    receiver folds ``combine(cur, got, dst)`` (its partial first, the
+    sender's staged partial second: the reference's operand order) into
+    a buffer of its own, the root's last into ``out``; a last step lets
+    every receiver finish reading. ceil(log2 n) + 1 steps on every rank;
+    a non-root holds at most two ``flat``-sized partials."""
+    r, m = ep.rank, flat.numel()
+    rounds = binomial_rounds(ep.n, root)
+    cur, bufs = flat, []
+    for t, pairs in enumerate(rounds):
+        if any(s == r for s, _ in pairs):
+            _stage(ep, cur, m)
+        yield (ALL,)  # this round's senders have staged
+        src = next((s for s, d in pairs if d == r), None)
+        if src is not None:
+            if t == len(rounds) - 1:  # only the root receives last
+                dst = out
+            else:  # the two partials ping-pong
+                dst = next((b for b in bufs if b is not cur), None)
+                if dst is None:
+                    dst = flat.new_empty(m)
+                    bufs.append(dst)
+            combine(cur, _view(ep.inputs[src], flat.dtype, 0, m), dst)
+            cur = dst
+    yield (ALL,)  # every receiver has read: safe to restage
+
+
+def prefix(ep: Ring, flat: torch.Tensor, op: str, rows: int,
+           out: torch.Tensor) -> Iterator[Tuple]:
+    """Scan / Exscan of every rank's 1-D ``flat``: every rank stages, then
+    this rank folds the staged inputs of ranks 0..rows-1 in rank order
+    into ``out`` (K3; one row: a K2 copy; none: nothing)."""
+    _stage(ep, flat, flat.numel())
+    yield (ALL,)  # every rank has staged its input
+    srcs = [_view(ep.inputs[p], flat.dtype, 0, flat.numel())
+            for p in range(rows)]
+    if rows == 1:
+        ring_ag_hop(srcs[0], out)
+    elif rows > 1:
+        linear_fold(srcs, out, op)
+    yield (ALL,)  # every rank has read every input: safe to restage
 
 
 def _stage(ep: Ring, flat: torch.Tensor, total: int) -> None:
@@ -920,12 +1021,14 @@ def allreduce(ep: Ring, flat: torch.Tensor, op: str, algo: str,
 
 def reduce_scatter(ep: Ring, flat: torch.Tensor, op: str, algo: str,
                    row: int, out: torch.Tensor) -> Iterator[Tuple]:
-    """Reduce-scatter of the 1-D ``flat`` (n chunks of rows of ``row``
-    elements) into ``out`` (one chunk). bidir sends the front half of
-    each chunk's rows clockwise and the back half counterclockwise."""
+    """Reduce-scatter of the 1-D ``flat`` (n chunks of ``out.numel()``
+    elements, rows of ``row``; a shorter ``flat`` is zero-padded to n
+    chunks as it is staged) into ``out`` (one chunk). bidir sends the
+    front half of each chunk's rows clockwise and the back half
+    counterclockwise."""
     n, r = ep.n, ep.rank
-    k = flat.numel() // n
-    _stage(ep, flat, flat.numel())
+    k = out.numel()
+    _stage(ep, flat, n * k)
     if algo == "linear":
         yield from _fold_steps(ep, flat.dtype, op, r * k, k, out)
     elif algo == "bidir":

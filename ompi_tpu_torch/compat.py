@@ -9,10 +9,16 @@ with like is the MCA configuration, the data and the parameters.
   ``osc_cuda*``,
   ``coll_xla_deterministic`` -> ``coll_device_deterministic`` (the one
   default mode, which coll/cuda reads as coll/pallas reads coll/xla's),
-  ``coll_xla_bucket_bytes`` -> ``coll_device_bucket_bytes``,
-  ``device_plane_platform`` tpu -> cuda). Settings of the reference's
-  TPU transport that have no counterpart are dropped; anything else
-  passes through unchanged.
+  and likewise ``coll_xla_{bucket_bytes, rooted_threshold_bytes}`` ->
+  ``coll_device_*`` (same defaults), ``device_plane_platform`` tpu ->
+  cuda). Settings with no counterpart are dropped: the Pallas TPU
+  transport's; ``coll_xla_alltoallv_pad_factor`` (coll/device's
+  Alltoallv pads nothing, so there is no blowup for it to bound);
+  ``coll_xla_scatter_meta_cache`` (coll/device always caches the
+  scatter metadata round, the reference's default) and
+  ``coll_xla_a2av_meta_cache`` (coll/device runs Alltoallv's count
+  round at every call, the reference's default; ``max_count`` skips
+  it). Anything else passes through unchanged.
 - :func:`tensor_from_numpy` / :func:`tensor_to_numpy` convert buffers,
   carrying bfloat16 through its uint16 bit pattern (numpy has no
   bfloat16 of its own); :func:`tree_from_numpy` / :func:`tree_to_numpy`
@@ -28,9 +34,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-#: reference settings of the Pallas TPU transport, with no port analog
+#: reference settings with no port analog
 _DROPPED = frozenset(("coll_pallas_interpret", "coll_pallas_dma_max_bytes",
-                      "coll_pallas_min_bytes", "osc_pallas_interpret"))
+                      "coll_pallas_min_bytes", "osc_pallas_interpret",
+                      "coll_xla_alltoallv_pad_factor",
+                      "coll_xla_scatter_meta_cache",
+                      "coll_xla_a2av_meta_cache"))
+#: coll/xla settings coll/device keeps under its own prefix
+_XLA_TO_DEVICE = frozenset(("deterministic", "bucket_bytes",
+                            "rooted_threshold_bytes"))
 
 
 def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:
@@ -42,10 +54,9 @@ def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:
             key = "coll_cuda" + key[len("coll_pallas"):]
         elif key == "osc_pallas" or key.startswith("osc_pallas_"):
             key = "osc_cuda" + key[len("osc_pallas"):]
-        elif key == "coll_xla_deterministic":
-            key = "coll_device_deterministic"
-        elif key == "coll_xla_bucket_bytes":
-            key = "coll_device_bucket_bytes"
+        elif key.startswith("coll_xla_") \
+                and key[len("coll_xla_"):] in _XLA_TO_DEVICE:
+            key = "coll_device_" + key[len("coll_xla_"):]
         elif key == "device_plane_platform":
             val = {"tpu": "cuda"}.get(val, val)
         out[key] = val

@@ -28,9 +28,10 @@ WELL_KNOWN = (
     # allgather_matmul_dev calls
     "coll_cuda_fused_launches",
     # coll/device (the coll/xla counterpart, coll_xla_device's twin):
-    # calls its Allreduce / Reduce_scatter_block / Allgather / Bcast /
-    # Alltoall slots served, one-rank comms included
-    "coll_device_launches",
+    # calls its slots served (every blocking call, nonblocking call and
+    # persistent start, one-rank comms included); Allreduce_multi payload
+    # bytes (coll_xla_fused_bytes)
+    "coll_device_launches", "coll_device_fused_bytes",
     # zero/ (coll/device bucket collectives + ZeroOptimizer): per-bucket
     # reduce-scatters and allgathers, payload and pad bytes per cycle,
     # allgathers of unchanged (all-frozen) buckets skipped

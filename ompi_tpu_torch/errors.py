@@ -11,6 +11,7 @@ from __future__ import annotations
 ERR_BUFFER = 1
 ERR_COUNT = 2
 ERR_RANK = 6
+ERR_REQUEST = 7
 ERR_ROOT = 8
 ERR_OP = 10
 ERR_ARG = 13

@@ -1,5 +1,5 @@
-"""The ZeRO stage-2 training step at GPT-2-small width, checked and timed:
-the port's training slice.
+"""The ZeRO training step (stages 2 and 1) at GPT-2-small width, checked
+and timed: the port's training slice.
 
 Run under the launcher, one rank per process::
 
@@ -15,12 +15,18 @@ downloaded: values come from ``--seed``, and each rank makes the
 gradients of step s from (seed, rank, s), leaf by leaf, on its device.
 
 From the same parameters it runs ``--steps`` steps of
-``ZeroOptimizer(comm, params, lr, momentum, deterministic, fused)`` in
-four modes: unfused 'linear', fused 'linear', unfused 'ring' and fused
-default (coll/cuda's ``fused_rs_update_dev``: K1 hops + K5). It checks:
+``ZeroOptimizer(comm, params, lr, momentum, stage, deterministic, fused)``
+in six modes: stage 2 unfused 'linear', fused 'linear', unfused 'ring' and
+fused default (coll/cuda's ``fused_rs_update_dev``: K1 hops + K5), and
+stage 1 (``Allreduce_multi`` of the gradients, then the local shard)
+'linear' and 'ring'. It checks:
 
-- fused == unfused bitwise in both modes, for the gathered parameters
-  and the momentum shards;
+- fused == unfused bitwise in both modes, and stage-1 'linear' ==
+  stage-2 unfused 'linear' bitwise (both fold each element in rank
+  order), for the gathered parameters and the momentum shards;
+- ``Allreduce_multi`` under 'linear' == the per-leaf ``Allreduce`` loop
+  bitwise, for the gradients of wte, h[0].mlp.c_fc.w and
+  h[0].attn.c_attn.b;
 - for wte, h[0].mlp.c_fc.w and h[0].attn.c_attn.b, the 'linear' result
   equals a plain recomputation (every rank's seeded gradients summed in
   rank order, then the update), bitwise;
@@ -56,11 +62,13 @@ from ompi_tpu_torch.zero import ZeroOptimizer, layout as zl
 GPT2 = {"n_embd": 768, "n_layer": 12, "n_positions": 1024,
         "vocab_size": 50257}
 TINY = {"n_embd": 48, "n_layer": 12, "n_positions": 64, "vocab_size": 503}
-#: (name, fused, deterministic)
-MODES = (("unfused-linear", False, "linear"),
-         ("fused-linear", True, "linear"),
-         ("unfused-ring", False, "ring"),
-         ("fused-default", True, None))
+#: (name, ZeRO stage, fused, deterministic)
+MODES = (("unfused-linear", 2, False, "linear"),
+         ("fused-linear", 2, True, "linear"),
+         ("unfused-ring", 2, False, "ring"),
+         ("fused-default", 2, True, None),
+         ("stage1-linear", 1, False, "linear"),
+         ("stage1-ring", 1, False, "ring"))
 SAMPLES = ("wte", "h[0].mlp.c_fc.w", "h[0].attn.c_attn.b")
 LR, MOMENTUM = 0.01, 0.9
 ROWS = 2048  # per-rank rows of the K6 activation: 8 x 1024 tokens / 4
@@ -181,9 +189,9 @@ def main(argv=None) -> int:
             print(f"[zero_training n={n}] {name}: "
                   f"{'ok' if ok else 'MISMATCH'} {info or ''}", flush=True)
 
-    for mode, fused, det in MODES:
+    for mode, stage, fused, det in MODES:
         opt = ZeroOptimizer(comm, params, lr=LR, momentum=MOMENTUM,
-                            deterministic=det, fused=fused)
+                            stage=stage, deterministic=det, fused=fused)
         s = pvar.session()
         ts, out = [], None
         prof = contextlib.nullcontext()
@@ -226,7 +234,8 @@ def main(argv=None) -> int:
         del opt, out
 
     for a, b in (("unfused-linear", "fused-linear"),
-                 ("unfused-ring", "fused-default")):
+                 ("unfused-ring", "fused-default"),
+                 ("unfused-linear", "stage1-linear")):
         pa, ma = results[a]
         pb, mb = results[b]
         case(f"{b} == {a} (parameters)",
@@ -248,6 +257,16 @@ def main(argv=None) -> int:
             p, v = K.shard_update_plain(g, p, v, c[0], c[1], c[2])
         case(f"linear {name} == plain recomputation", bits_equal(pl[i], p))
     del results
+
+    # Allreduce_multi's buckets against the per-leaf loop, 'linear'
+    sample = [grad_leaf(shapes, dev, ns.seed, r, 0, names.index(name))
+              for name in SAMPLES]
+    fusedl = comm.Allreduce_multi(sample, deterministic="linear")
+    case("Allreduce_multi 'linear' == the per-leaf Allreduce loop "
+         f"({', '.join(SAMPLES)})", all(
+             bits_equal(f, comm.Allreduce(g, deterministic="linear"))
+             for f, g in zip(fusedl, sample)))
+    del sample, fusedl
 
     # K6: allgather_matmul at the MLP up-projection, and the zero-3 use
     e = cfg["n_embd"]

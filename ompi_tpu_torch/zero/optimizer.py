@@ -1,18 +1,20 @@
 """zero/optimizer — sharded-state SGD(+momentum) over the zero collectives.
 
-Port of :mod:`ompi_tpu.zero.optimizer`, stage 2 (Rajbhandari et al.,
-SC'20): gradients are reduce-scattered (``Comm.Reduce_scatter_multi``,
-one collective per dtype bucket), each rank updates only its parameter
-shard and its momentum shard, and ``Comm.Allgather_multi`` rebuilds the
-replicated parameters. ``fused=True`` routes the reduce-scatter and the
-update through coll/cuda's ``fused_rs_update_dev`` (K5), bitwise equal
-to the unfused step in every mode.
+Port of :mod:`ompi_tpu.zero.optimizer` (Rajbhandari et al., SC'20).
+Stage 2: gradients are reduce-scattered (``Comm.Reduce_scatter_multi``,
+one collective per dtype bucket); stage 1: they are allreduced whole
+(``Comm.Allreduce_multi``) and each rank slices its shard. Either way
+each rank updates only its parameter shard and its momentum shard, and
+``Comm.Allgather_multi`` rebuilds the replicated parameters.
+``fused=True`` (stage 2) routes the reduce-scatter and the update
+through coll/cuda's ``fused_rs_update_dev`` (K5), bitwise equal to the
+unfused step in every mode.
 
 Not in this slice, and raising ``MPIError(ERR_NOT_SUPPORTED)`` rather
-than running something else: ``stage=1`` (needs ``Allreduce_multi``),
-``overlap=True`` (needs the partitioned ``Preduce_scatter_init``) and
-``error_feedback`` (needs ``zero/layout.ErrorFeedback`` and its wire
-formats); ROADMAP queue 1 names the slices that bring them.
+than running something else: ``overlap=True`` (needs the partitioned
+``Preduce_scatter_init``) and ``error_feedback`` (needs
+``zero/layout.ErrorFeedback`` and its wire formats); ROADMAP queue 1
+names the slices that bring them.
 """
 
 from __future__ import annotations
@@ -51,11 +53,13 @@ class ZeroShardedState:
 
 
 class ZeroOptimizer:
-    """SGD(+momentum) with ZeRO stage-2 sharded state over a comm.
+    """SGD(+momentum) with ZeRO stage-1 or stage-2 sharded state over a
+    comm.
 
-    ``step(grads)`` runs one reduce-scatter -> shard update -> allgather
-    cycle and returns the new replicated parameter pytree (grads must
-    match the template's structure, shapes and dtypes).
+    ``step(grads)`` runs one gradient reduction (stage 2: reduce-scatter;
+    stage 1: allreduce, then the local shard) -> shard update ->
+    allgather cycle and returns the new replicated parameter pytree
+    (grads must match the template's structure, shapes and dtypes).
 
     - ``grad_average=True`` divides the reduced gradient shard by the
       comm size; False keeps the MPI SUM.
@@ -106,12 +110,6 @@ class ZeroOptimizer:
                 errors.ERR_ARG,
                 "ZeroOptimizer: frozen leaves require the unfused step "
                 "(the fused kernel updates whole buckets)")
-        if stage == 1:
-            raise errors.MPIError(
-                errors.ERR_NOT_SUPPORTED,
-                "ZeroOptimizer: stage=1 allreduces full gradients through "
-                "Allreduce_multi, which comes with the rest of the device "
-                "collective plane (ROADMAP queue 1, item 3)")
         if overlap:
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
@@ -124,6 +122,7 @@ class ZeroOptimizer:
                 "zero/layout.ErrorFeedback and the compressed wire "
                 "formats of the hierarchy slice (ROADMAP queue 1, item 6)")
         self._comm = comm
+        self._stage = stage
         self._lr = float(lr)
         self._mu = float(momentum)
         self._det = deterministic
@@ -172,8 +171,7 @@ class ZeroOptimizer:
         # constants cast to the shard dtype, one rounded op at a time:
         # the op sequence of cuda_kernels.shard_update_plain, which the
         # fused path runs
-        g = self._comm.Reduce_scatter_multi(
-            self._mask_frozen(grads), op_mod.SUM, deterministic=self._det)
+        g = self._grad_shards(self._mask_frozen(grads))
         if self._avg:
             inv = 1.0 / self._comm.size
             g = g.map(lambda s: torch.mul(s, K.shard_const(inv, s.dtype)))
@@ -190,6 +188,18 @@ class ZeroOptimizer:
             g, where=self._bucket_live)
         self.state.params = self._pshards
         return self._gather_params()
+
+    def _grad_shards(self, grads) -> _layout.ShardedState:
+        """This rank's reduced gradient shards: stage 1 allreduces the
+        whole gradients and slices the shards locally (the parameters'
+        plan), stage 2 reduce-scatters them."""
+        if self._stage == 1:
+            full = self._comm.Allreduce_multi(
+                grads, op_mod.SUM, deterministic=self._det)
+            return _layout.ShardedState.from_full(
+                self._comm, full, plan=self._pshards.plan)
+        return self._comm.Reduce_scatter_multi(
+            grads, op_mod.SUM, deterministic=self._det)
 
     def _mask_frozen(self, grads):
         """Zero the gradients of frozen leaves (p - lr*0 == p bitwise)."""

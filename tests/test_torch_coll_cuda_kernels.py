@@ -197,6 +197,129 @@ def test_pull_schedules_bitwise_equal_to_lax(n, dtype):
     assert [ring.linear for ring in rings] == [12] * n
 
 
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_rooted_and_ragged_pulls_in_lockstep(n):
+    """coll/device's rooted and ragged pull schedules in lockstep, twice
+    over the same rings: gather_to_root (the root alone copies),
+    scatter_from_root (the root alone stages), and ragged pulls at
+    per-peer offsets in the Allgatherv and Alltoallv layouts (empty
+    blocks included), against numpy."""
+    rng = np.random.default_rng(60 + n)
+    counts = [int(c) for c in rng.integers(0, 4, n)]
+    counts[-1] = 0
+    mat = rng.integers(0, 4, (n, n))  # mat[p][q]: elements p sends q
+    xs = [torch.from_numpy(rng.integers(-99, 99, 40).astype(np.int32))
+          for _ in range(n)]
+    rings = K.Ring.local(n, 4 * 40 + 64, 0)
+    root = n - 1
+    for _ in range(2):
+        gat = [torch.full((n * 5,), -1, dtype=torch.int32) if r == root
+               else None for r in range(n)]
+        K.run_lockstep(rings, [K.gather_to_root(rings[r], xs[r][:5], root,
+                                                gat[r]) for r in range(n)])
+        assert torch.equal(gat[root], torch.cat([x[:5] for x in xs]))
+        sca = [torch.empty(4, dtype=torch.int32) for _ in range(n)]
+        K.run_lockstep(rings, [K.scatter_from_root(
+            rings[r], xs[r][:4 * n] if r == root else None, root, sca[r])
+            for r in range(n)])
+        for r in range(n):
+            assert torch.equal(sca[r], xs[root][4 * r:4 * r + 4])
+        offs = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        agv = [torch.empty(sum(counts), dtype=torch.int32)
+               for _ in range(n)]
+        K.run_lockstep(rings, [K.ragged(
+            rings[r], torch.int32, [(xs[r][:counts[r]], 0)],
+            [(p, 0, counts[p], int(offs[p])) for p in range(n)], agv[r])
+            for r in range(n)])
+        want = torch.cat([xs[p][:counts[p]] for p in range(n)])
+        assert all(torch.equal(a, want) for a in agv)
+        a2v = [torch.empty(int(mat[:, r].sum()), dtype=torch.int32)
+               for r in range(n)]
+        soff = [np.concatenate([[0], np.cumsum(row)[:-1]]) for row in mat]
+        roff = [np.concatenate([[0], np.cumsum(mat[:, r])[:-1]])
+                for r in range(n)]
+        K.run_lockstep(rings, [K.ragged(
+            rings[r], torch.int32, [(xs[r][:int(mat[r].sum())], 0)],
+            [(p, int(soff[p][r]), int(mat[p][r]), int(roff[r][p]))
+             for p in range(n)], a2v[r]) for r in range(n)])
+        for r in range(n):
+            want = torch.cat([xs[p][int(soff[p][r]):int(soff[p][r])
+                                    + int(mat[p][r])] for p in range(n)])
+            assert torch.equal(a2v[r], want), r
+    assert [ring.linear for ring in rings] == [16] * n
+
+
+def _binomial_oracle(xs, fn, root):
+    """The reference's tree written out over numpy (coll/xla.py
+    ``_reduce_binomial``): in round mask the vrank v with v % 2mask ==
+    mask sends to v - mask, which folds fn(its partial, the sent one)."""
+    n = len(xs)
+    acc = [jnp.asarray(x) for x in xs]
+    mask = 1
+    while mask < n:
+        sent = {(v - mask + root) % n: acc[(v + root) % n]
+                for v in range(n) if v % (2 * mask) == mask}
+        for d, got in sent.items():
+            acc[d] = fn(acc[d], got)
+        mask <<= 1
+    return np.asarray(acc[root])
+
+
+@pytest.mark.parametrize("op", list(JNP_OPS))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "int32"])
+@pytest.mark.parametrize("n", [2, 3, 5])
+def test_binomial_reduce_in_lockstep(n, dtype, op):
+    """binomial_reduce with K1 as the combine, every root, in lockstep:
+    the reference's rounds and operand order, bitwise (NaN and -0
+    included); ceil(log2 n) + 1 steps on every rank, None off the root."""
+    x = jnp.asarray(_inputs(n, dtype)[:n]).astype(dtype)
+    xs = [compat.tensor_from_numpy(np.asarray(x)[r]) for r in range(n)]
+    rounds = K.binomial_rounds(n, 0)
+    assert len(rounds) == (n - 1).bit_length()
+    assert sorted(s for pairs in rounds for s, _ in pairs) == \
+        list(range(1, n))  # every non-root sends once
+    rings = K.Ring.local(n, 4 * M + 64, 0)
+    for root in range(n):
+        outs = [torch.empty(M, dtype=xs[0].dtype) if r == root else None
+                for r in range(n)]
+        K.run_lockstep(rings, [K.binomial_reduce(
+            rings[r], xs[r], lambda c, g, d: K.ring_rs_hop(c, g, d, op),
+            root, outs[r]) for r in range(n)])
+        want = _binomial_oracle([np.asarray(x)[r] for r in range(n)],
+                                JNP_OPS[op], root)
+        assert_bits_equal(want, compat.tensor_to_numpy(outs[root]),
+                          f"root {root}")
+    assert [ring.linear for ring in rings] == \
+        [n * (len(rounds) + 1)] * n
+
+
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_prefix_in_lockstep(n):
+    """prefix over the staged inputs, every row count 0..n: K3 over the
+    leading rows in rank order (one row: K2's copy; none: nothing
+    written), bitwise against jnp's fold for float32 / bfloat16 / int32 x
+    SUM / PROD / MIN / MAX."""
+    rings = K.Ring.local(n, 4 * M + 64, 0)
+    for dtype in ("float32", "bfloat16", "int32"):
+        x = np.asarray(jnp.asarray(_inputs(n, dtype)[:n]).astype(dtype))
+        xs = [compat.tensor_from_numpy(x[r]) for r in range(n)]
+        for op, fn in JNP_OPS.items():
+            for rows in range(n + 1):
+                outs = [torch.zeros(M, dtype=xs[0].dtype) for _ in range(n)]
+                K.run_lockstep(rings, [K.prefix(rings[r], xs[r], op, rows,
+                                                outs[r]) for r in range(n)])
+                if rows == 0:
+                    assert not any(o.any() for o in outs)
+                    continue
+                acc = jnp.asarray(x[0])
+                for p in range(1, rows):
+                    acc = fn(acc, jnp.asarray(x[p]))
+                for r in range(n):
+                    assert_bits_equal(np.asarray(acc),
+                                      compat.tensor_to_numpy(outs[r]),
+                                      f"{dtype} {op} rows {rows}")
+
+
 def test_ring_ag_hop_copies_any_dtype():
     """K2 copies bytes: float16 and bool through the plain version on the
     CPU (no launch); an operand of another byte count or dtype is

@@ -1,5 +1,6 @@
-"""The port's ZeRO stage-2 slice (zero/, coll/device, coll/cuda's fused
-slots) against the JAX package.
+"""The port's ZeRO slice (zero/, stage 2 and stage 1, coll/device's bucket
+slots and Allreduce_multi, coll/cuda's fused slots) against the JAX
+package.
 
 One job per package and comm size n: the reference runs through
 ``tests.harness.run_ranks`` with ``device_plane on``, ``coll_pallas on``
@@ -9,10 +10,13 @@ and a small ``coll_xla_bucket_bytes`` (several buckets); the port through
 make the same parameters and per-(rank, step) gradients from a seed with
 numpy (a pytree with keys out of sorted order, a bfloat16 leaf beside
 float32 ones and an odd element count), run ZeroOptimizer two steps with
-momentum in each mode, the frozen-leaf run and the fused matmuls, and
-write every result as ``.npy``.
+momentum in each mode (stage 1 in 'linear' and 'ring' too), the
+frozen-leaf run, Allreduce_multi of the gradients in each mode and the
+fused matmuls, and write every result as ``.npy``.
 
-Tolerances: unfused and fused ``'linear'`` bitwise; the fused default
+Tolerances: unfused and fused ``'linear'``, stage 1 and
+``Allreduce_multi`` in ``'linear'`` and ``'ring'`` bitwise (and stage 1
+``'linear'`` bitwise equal to the port's stage 2); the fused default
 within one rounding of the reference's fused default (rtol 1e-6 float32,
 whose fused epilogue may contract a multiply-add; 2e-2 for the bfloat16
 leaf); the port's own fused default bitwise equal to its unfused
@@ -47,6 +51,10 @@ MODES = [("unfused_linear", False, "linear"),
          ("fused_linear", True, "linear"),
          ("unfused_ring", False, "ring"),
          ("fused_default", True, None)]
+#: ZeRO stage 1 (Allreduce_multi, then the local shard): (mode, det)
+STAGE1 = [("stage1_linear", "linear"), ("stage1_ring", "ring")]
+#: Allreduce_multi of the step-0 gradients: (mode, deterministic)
+ARM = [("linear", "linear"), ("ring", "ring"), ("default", None)]
 #: matmul cases: (name, x dtype, w dtype)
 MATMULS = [("f32", "float32", "float32"), ("bf16", "bfloat16", "bfloat16"),
            ("i32", "int32", "int32"), ("i32_bf16", "int32", "bfloat16")]
@@ -122,6 +130,20 @@ for mode, fused, det in {modes!r}:
         save(f"{{mode}}_p{{i}}", leaf)
     for b, s in enumerate(opt.state.slots["momentum"].shards):
         save(f"{{mode}}_m{{b}}", s)
+for mode, det in {stage1!r}:
+    opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9, stage=1,
+                        deterministic=det)
+    for step in range(2):
+        out = opt.step(to_jax(make_grads(rank, step)))
+    for i, leaf in enumerate(jax.tree.leaves(out)):
+        save(f"{{mode}}_p{{i}}", leaf)
+    for b, s in enumerate(opt.state.slots["momentum"].shards):
+        save(f"{{mode}}_m{{b}}", s)
+for mode, det in {arm!r}:
+    out = comm.Allreduce_multi(to_jax(make_grads(rank, 0)),
+                               deterministic=det)
+    for i, leaf in enumerate(jax.tree.leaves(out)):
+        save(f"arm_{{mode}}_{{i}}", leaf)
 s = pvar.session()
 opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
                     deterministic="linear", frozen=FROZEN)
@@ -196,6 +218,24 @@ for mode, fused, det in {modes!r}:
         save(f"{{mode}}_p{{i}}", leaf)
     for b, sh in enumerate(opt.state.slots["momentum"].shards):
         save(f"{{mode}}_m{{b}}", sh)
+for mode, det in {stage1!r}:
+    opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9, stage=1,
+                        deterministic=det)
+    s = pvar.session()
+    for step in range(2):
+        out = opt.step(to_torch(make_grads(rank, step)))
+    # stage 1 allreduces whole buckets; it reduce-scatters nothing
+    assert s.read("coll_device_fused_bytes") > 0, mode
+    assert s.read("zero_rs_launches") == 0, mode
+    for i, leaf in enumerate(zl.tree_leaves(out)):
+        save(f"{{mode}}_p{{i}}", leaf)
+    for b, sh in enumerate(opt.state.slots["momentum"].shards):
+        save(f"{{mode}}_m{{b}}", sh)
+for mode, det in {arm!r}:
+    out = comm.Allreduce_multi(to_torch(make_grads(rank, 0)),
+                               deterministic=det)
+    for i, leaf in enumerate(zl.tree_leaves(out)):
+        save(f"arm_{{mode}}_{{i}}", leaf)
 s = pvar.session()
 opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
                     deterministic="linear", frozen=FROZEN)
@@ -228,7 +268,7 @@ assert s.read("coll_cuda_fallthrough") == 1
 st = zl.ShardedState.from_full(comm, params)
 assert comm.coll.zero3_gather_matmul_dev(comm, st, torch.ones(3, 2)) is None
 assert s.read("coll_cuda_fallthrough") == 2
-for kw in ({{"stage": 1}}, {{"overlap": True}}, {{"error_feedback": "bf16"}}):
+for kw in ({{"overlap": True}}, {{"error_feedback": "bf16"}}):
     msg = expect_error(errors.ERR_NOT_SUPPORTED,
                        lambda: ZeroOptimizer(comm, params, **kw))
     assert "ROADMAP" in msg, msg
@@ -266,7 +306,7 @@ def results(request, tmp_path_factory):
     if n not in _jobs:
         out = tmp_path_factory.mktemp(f"zero_n{n}")
         fmt = dict(inputs=_INPUTS, modes=MODES, matmuls=MATMULS,
-                   out_dir=str(out))
+                   stage1=STAGE1, arm=ARM, out_dir=str(out))
         run_ranks("import json\nout_dir = " + repr(str(out)) + "\n"
                   + _REF_BODY.format(**fmt), n, mca=REF_MCA, timeout=300)
         rc = _port_job(_PORT_PROG.format(**fmt), n, PORT_MCA)
@@ -310,6 +350,52 @@ def test_linear_step_bitwise_equal_to_reference(results, mode):
             for r in range(n):
                 ref, got = _pair(out, f"{mode}_{kind}{i}", r)
                 assert_bits_equal(ref, got, f"{mode} {kind}{i} rank {r}")
+
+
+@pytest.mark.parametrize("mode", [m for m, _ in STAGE1])
+def test_stage1_bitwise_equal_to_reference(results, mode):
+    """ZeRO stage 1 (Allreduce_multi, then the local shard) under
+    'linear' and 'ring': parameters and momentum shards after two steps,
+    bitwise equal to the reference's stage 1."""
+    n, out = results
+    for kind in ("p", "m"):
+        assert _count(out, f"{mode}_{kind}")
+        for i in range(_count(out, f"{mode}_{kind}")):
+            for r in range(n):
+                ref, got = _pair(out, f"{mode}_{kind}{i}", r)
+                assert_bits_equal(ref, got, f"{mode} {kind}{i} rank {r}")
+
+
+def test_stage1_linear_bitwise_equal_to_stage2_linear(results):
+    """Both fold each element in rank order: the port's stage-1 'linear'
+    step equals its unfused stage-2 'linear' step bit for bit."""
+    n, out = results
+    for kind in ("p", "m"):
+        for i in range(_count(out, f"unfused_linear_{kind}")):
+            for r in range(n):
+                a = np.load(out / f"port_stage1_linear_{kind}{i}_r{r}.npy")
+                b = np.load(out / f"port_unfused_linear_{kind}{i}_r{r}.npy")
+                assert_bits_equal(b, a, f"{kind}{i} rank {r}")
+
+
+@pytest.mark.parametrize("mode", [m for m, _ in ARM])
+def test_allreduce_multi_against_reference(results, mode):
+    """Allreduce_multi over the gradient pytree (several buckets of
+    coll_xla_bucket_bytes, odd lengths): 'linear' and 'ring' bitwise
+    equal to coll/xla's, '' within one rounding (rtol 1e-5 float32, 2e-2
+    bfloat16)."""
+    n, out = results
+    count = _count(out, f"arm_{mode}_")
+    assert count == len(jax.tree.leaves(_load_inputs()["make_grads"](0, 0)))
+    for i in range(count):
+        for r in range(n):
+            ref, got = _pair(out, f"arm_{mode}_{i}", r)
+            if mode != "default":
+                assert_bits_equal(ref, got, f"arm {mode} {i} rank {r}")
+                continue
+            tol = 2e-2 if ref.dtype == np.uint16 else 1e-5
+            np.testing.assert_allclose(_as_float(got), _as_float(ref),
+                                       rtol=tol, atol=tol)
 
 
 def test_fused_default_within_one_rounding_of_reference(results):
@@ -386,7 +472,7 @@ def test_zero3_gather_matmul_against_reference(results):
 def test_error_paths(results):
     """int16 allgather_matmul_dev returns the composed allgather + plain
     product and counts coll_cuda_fallthrough (as the reference falls
-    through to coll/xla); stage 1 / overlap / error_feedback raise
+    through to coll/xla); overlap / error_feedback raise
     ERR_NOT_SUPPORTED naming the ROADMAP item; host leaves raise; checked
     inside the port job."""
     n, out = results
