@@ -108,7 +108,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    4-rank training path's K6 launches must split 48 ``wgmma`` (bfloat16
    allgather_matmul) and 64 ``simt`` (float32, and the zero-3 product),
    and the 4-rank embedding lookup must launch the grouped K10 once per
-   reader and exchange.
+   reader and exchange;
+4. the host plane (ob1 over self + sm + cma, no kernel of its own; see
+   :func:`host_plane_phase`): the sm ring's C code built (the phase
+   fails if it does not build, or if a rank of the p2p jobs ran the
+   Python ring); ``hello.py`` and ``ring.py`` on 4 ranks,
+   their stdout against the expected text; ``p2p_bandwidth.py`` on 2
+   ranks (float32 CUDA tensors from a seeded generator, ping-pong p50 of
+   10 round trips at 4 KiB, 1 MiB, 64 MiB and 256 MiB at the default
+   chunk and 64 MiB as one chunk, every echo bitwise on the card; the
+   stages' rates at the same sizes: a pinned D2H and H2D ``copy_`` and a
+   host numpy ping-pong through the same pml; bfloat16 and int32 at
+   1 MiB and a ragged 3 MiB + 4 B float32 message, bitwise) and its
+   4-rank ``Sendrecv`` ring of 64 MiB CUDA tensors, bitwise; a CUDA
+   tensor refused with ERR_ARG by ``comm.Send`` / ``Isend`` / ``Recv`` /
+   ``Irecv`` on a one-rank job whose platform is the CPU; and
+   the embedding path's fences with coll/basic's object collectives on
+   the store (``scripts/store_obj_channel.py``, the transport before
+   they moved onto the pml) and on the pml, in turns.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
@@ -1137,21 +1154,24 @@ def permute_batch_checks(torch, O, dev, card, results):
 
 
 def main_path(example: str, nranks: int, args, card: str, root: str,
-              component: str | None = "coll_cuda"):
+              component: str | None = "coll_cuda", via: str | None = None):
     """Phase 3: one launcher job of an example under ``--mca
     device_plane on --mca <component> on`` (None: the device plane
     alone, so coll/device serves); returns the ranks' summed launches
     and rank 0's report. Every kernel a rank reports must have launched,
-    or, where its report names them (``required``), those."""
+    or, where its report names them (``required``), those. ``via``: a
+    rank program under ``scripts/`` that runs the example's ``main``."""
     name = os.path.splitext(example)[0]
     out = os.path.join(root, "build", "ompi_tpu_torch",
-                       f"smoke_{name}_{component or 'device'}_n{nranks}")
+                       f"smoke_{name}_{component or 'device'}_n{nranks}"
+                       + (f"_{via}" if via else ""))
     shutil.rmtree(out, ignore_errors=True)
     mca = ["--mca", component, "on"] if component else []
     cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
            "-n", str(nranks), "--timeout", str(LAUNCH_TIMEOUT),
            "--mca", "device_plane", "on", *mca,
-           os.path.join(root, "ompi_tpu_torch", "examples", example),
+           *([os.path.join(root, "scripts", f"{via}.py"), name] if via else
+             [os.path.join(root, "ompi_tpu_torch", "examples", example)]),
            *args, "--out", out]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -1180,7 +1200,7 @@ def main_path(example: str, nranks: int, args, card: str, root: str,
         fail(f"{name} n={nranks}: a kernel of the path never launched: "
              f"{launches} (required {need})")
     print(f"main path {name} n={nranks} {component or 'device plane alone'}"
-          f": {wall:.1f} s wall, kernel launches (all ranks) {launches}, "
+          f"{' via ' + via if via else ''}: {wall:.1f} s wall, kernel launches (all ranks) {launches}, "
           f"required {need} [{card}]", flush=True)
     return launches, docs[0]
 
@@ -1194,6 +1214,132 @@ def osc_report(name: str, nranks: int, doc, card: str) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in ms)
           + f"; rounds {doc['rounds']}; exchanges {doc['exchanges']} "
           f"[{card}]", flush=True)
+
+
+#: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
+RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
+              "Process 0 sent to 1"]
+             + [f"Process 0 decremented value: {v}" for v in range(9, -1, -1)]
+             + [f"Process {r} exiting" for r in range(4)])
+P2P_TIMEOUT = 300  # seconds per host-plane launcher job
+
+
+def launch_text(root: str, nranks: int, prog: str, args=(), mca=()):
+    """One launcher job's stdout lines (no device plane). The ranks
+    run block-buffered, so each writes its lines at exit in one piece:
+    unbuffered ranks sharing the pipe can split a line."""
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher", "-n",
+           str(nranks), "--timeout", str(P2P_TIMEOUT), *mca,
+           os.path.join(root, "ompi_tpu_torch", "examples", prog), *args]
+    env = dict(os.environ)
+    env.pop("PYTHONUNBUFFERED", None)
+    proc = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                          text=True, timeout=P2P_TIMEOUT + 30)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"{prog} on {nranks} ranks exited {proc.returncode}")
+    return proc.stdout.splitlines()
+
+
+def host_plane_phase(torch, card: str, root: str, emb_doc) -> None:
+    """Phase 4: the host plane and device-tensor point-to-point."""
+    import socket
+
+    from ompi_tpu_torch import errors, mpi
+    from ompi_tpu_torch.core import cvar, native
+    from ompi_tpu_torch.runtime import device_plane
+
+    # the sm btl's C ring builds here, before the ranks look for it; a
+    # failed build would leave them on the Python ring
+    if native.lib() is None:
+        fail(f"the sm ring's C code ({native.SRC}) did not build or load")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        ring, hello = ex.map(lambda prog: launch_text(root, 4, prog),
+                             ("ring.py", "hello.py"))
+    zero = [ln for ln in ring if ln.startswith("Process 0")]
+    if sorted(ring) != sorted(RING_TEXT) or zero != [
+            ln for ln in RING_TEXT if ln.startswith("Process 0")]:
+        fail(f"ring.py printed {ring}, not {RING_TEXT}")
+    host = socket.gethostname()
+    want = [f"Hello, world, I am {r} of 4 ({host})" for r in range(4)]
+    if sorted(hello) != want:
+        fail(f"hello.py printed {hello}, not {want}")
+    print(f"host plane: ring.py and hello.py on 4 ranks print the expected "
+          f"{len(ring)} + {len(hello)} lines ({time.perf_counter() - t0:.1f}"
+          f" s wall) [{card}]", flush=True)
+
+    out = os.path.join(root, "build", "ompi_tpu_torch", "smoke_p2p")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    launch_text(root, 2, "p2p_bandwidth.py", ["--out", out])
+    with open(os.path.join(out, "p2p.json")) as f:
+        doc = json.load(f)
+    if not doc["ok"] or not doc["device"].startswith("cuda"):
+        fail(f"p2p_bandwidth: {doc}")
+    if doc["sm_ring"] != ["c", "c"]:
+        fail(f"p2p_bandwidth ran the sm rings {doc['sm_ring']}, not the C "
+             "ring on both ranks")
+    print(f"p2p: the sm btl ran the C ring ({native.SRC.split(os.sep)[-1]})"
+          f" on ranks {doc['sm_ring']} [{card}]", flush=True)
+    for c in doc["pingpong"]:
+        print(f"p2p n=2 float32 {c['bytes']} B, chunk {c['chunk_bytes']} B: "
+              f"round trip p50 {c['rt_p50_ms']:.4f} ms over {c['iters']}, "
+              f"one way {c['oneway_ms']:.4f} ms = {c['oneway_gbps']:.3f} "
+              f"GB/s, echoes bitwise {c['ok']} [{card}]", flush=True)
+    for c in doc["stages"]:
+        print(f"p2p stages {c['bytes']} B (p50): pinned D2H copy_ "
+              f"{c['d2h_ms']:.4f} ms = {c['d2h_gbps']:.3f} GB/s, pinned H2D "
+              f"copy_ {c['h2d_ms']:.4f} ms = {c['h2d_gbps']:.3f} GB/s, host "
+              f"numpy one way through the pml {c['host_oneway_ms']:.4f} ms = "
+              f"{c['host_oneway_gbps']:.3f} GB/s [{card}]", flush=True)
+    print("p2p dtypes n=2: " + ", ".join(
+        f"{c['name']} {c['bytes']} B bitwise {c['ok']}" for c in doc["dtypes"])
+        + f" ({time.perf_counter() - t0:.1f} s wall) [{card}]", flush=True)
+    ring = json.loads(launch_text(root, 4, "p2p_bandwidth.py",
+                                  ["--ring-bytes", "64m", "--iters", "3"])[-1])
+    r = ring["ring"]
+    if not ring["ok"] or ring["sm_ring"] != ["c"] * 4:
+        fail(f"the 4-rank Sendrecv ring: {ring}")
+    print(f"p2p Sendrecv ring n=4 of {r['bytes']} B float32 CUDA tensors: "
+          f"p50 {r['p50_ms']:.4f} ms, bitwise on every rank [{card}]",
+          flush=True)
+
+    # a one-rank job in this process on the CPU platform: every entry
+    # point refuses a CUDA tensor
+    assert device_plane.platform() == "cuda"
+    cvar.set("device_plane_platform", "cpu")
+    comm = mpi.Init()
+    t = torch.ones(4, device="cuda")
+    try:
+        for name, call in (("Send", lambda: comm.Send(t, dest=0)),
+                           ("Isend", lambda: comm.Isend(t, dest=0)),
+                           ("Recv", lambda: comm.Recv(t, source=0)),
+                           ("Irecv", lambda: comm.Irecv(t, source=0))):
+            try:
+                call()
+                fail(f"comm.{name} of a CUDA tensor on a CPU-platform rank "
+                     "was not refused")
+            except errors.MPIError as e:
+                if e.error_class != errors.ERR_ARG:
+                    raise
+    finally:
+        mpi.Finalize()
+        cvar.set("device_plane_platform", "cuda")
+    print(f"p2p: comm.Send / Isend / Recv / Irecv of a CUDA tensor on a "
+          f"CPU-platform rank raise ERR_ARG [{card}]", flush=True)
+
+    # the embedding fences, coll/basic on the store vs on the pml, in turns
+    # (the pml run of phase 3 first)
+    fences = {"store": [], "pml": [emb_doc["fence_ms"]]}
+    for via in ("store_obj_channel", None, "store_obj_channel"):
+        _, doc = main_path("embedding_table.py", N_RANKS, [], card, root,
+                           "osc_cuda", via=via)
+        fences["pml" if via is None else "store"].append(doc["fence_ms"])
+    print("embedding fences n=4 (rank 0 ms; turns pml, store, pml, store): "
+          + "; ".join(f"{k} object channel update {[f['update'] for f in v]}"
+                      f" lookup {[f['lookup'] for f in v]}"
+                      for k, v in fences.items()) + f" [{card}]", flush=True)
 
 
 def main() -> int:
@@ -1306,6 +1452,7 @@ def main() -> int:
                                  if r["name"] in p)
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
+    host_plane_phase(torch, card, root, emb_doc)
 
     print(json.dumps({"kernels": rows}))
     print(card)

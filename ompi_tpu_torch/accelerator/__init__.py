@@ -1,13 +1,22 @@
 """Accelerator framework — device buffer integration.
 
 Reference: opal/mca/accelerator/ (accelerator.h:668-711: check_addr,
-device info, synchronize, ...) and ``ompi_tpu.accelerator``. In the port
-a device buffer is a ``torch.Tensor`` and a host buffer is numpy — the
-split the JAX package draws between ``jax.Array`` and numpy. The port
-carries what it uses: the buffer predicate, device info and
-synchronisation, from the ``cuda`` component when a GPU is usable and the
-``null`` component otherwise, and the event its device requests record
-(:mod:`.stream`).
+memcpy / memcpy_async, device info, synchronize, ...) and
+``ompi_tpu.accelerator`` (to_device / copy_async,
+``__init__.py:60-75``). In the port a device buffer is a
+``torch.Tensor`` and a host buffer is numpy — the split the JAX package
+draws between ``jax.Array`` and numpy. The ``cuda`` component serves
+CUDA tensors when a GPU is usable; this base component (the reference's
+``null``) serves CPU tensors, the device buffers of the CPU platform, with
+copies that complete before they return.
+
+The staging entries that device-tensor point-to-point uses
+(``pml/accel_p2p``): :meth:`Accelerator.host_buffer` (a host chunk
+buffer, pinned for CUDA), :meth:`Accelerator.copy_async` (device to
+host into such a buffer, returning a :class:`.stream.CopyEvent`) and
+:meth:`Accelerator.to_device` (host to device from one, returning an
+:class:`.stream.Event`). There is no synchronous device-to-host copy:
+staging goes through these alone.
 """
 
 from __future__ import annotations
@@ -16,9 +25,12 @@ from typing import Optional
 
 import torch
 
+from ompi_tpu_torch.accelerator import stream
+
 
 class Accelerator:
-    """The module interface, reduced to this slice's entries."""
+    """The module interface, reduced to the port's entries; this base
+    class serves CPU tensors."""
 
     NAME = "null"
 
@@ -35,8 +47,32 @@ class Accelerator:
     def synchronize(self) -> None:
         pass
 
+    # -- staging (reference: memcpy, memcpy_async) ------------------------
+    def host_buffer(self, nbytes: int, device) -> torch.Tensor:
+        """A uint8 host buffer that copies to and from ``device`` stage
+        through."""
+        return torch.empty(nbytes, dtype=torch.uint8)
+
+    def copy_async(self, src: torch.Tensor,
+                   host: torch.Tensor) -> stream.CopyEvent:
+        """Copy the uint8 tensor ``src`` into ``host[:src.numel()]``;
+        the event's ``wait()`` returns the host bytes as numpy."""
+        host[:src.numel()].copy_(src)
+        return stream.CopyEvent(src.device, host, src.numel())
+
+    def to_device(self, host: torch.Tensor,
+                  dst: torch.Tensor) -> stream.Event:
+        """Copy ``host[:dst.numel()]`` into the uint8 tensor ``dst``."""
+        dst.copy_(host[:dst.numel()])
+        return stream.Event(dst.device)
+
+    def begin_staging(self, device) -> None:
+        """Order the staging streams after the work queued so far on
+        ``device``'s current stream (nothing to order on the CPU)."""
+
 
 _current: Optional[Accelerator] = None
+_host = Accelerator()
 
 
 def current() -> Accelerator:
@@ -48,8 +84,14 @@ def current() -> Accelerator:
 
             _current = CudaAccelerator()
         else:
-            _current = Accelerator()
+            _current = _host
     return _current
+
+
+def for_device(device) -> Accelerator:
+    """The component that stages tensors of ``device``: cuda for a CUDA
+    device, null for the CPU."""
+    return current() if torch.device(device).type == "cuda" else _host
 
 
 def is_device_buffer(buf) -> bool:

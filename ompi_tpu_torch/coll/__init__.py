@@ -4,14 +4,15 @@ Reference: ompi/mca/coll/ — coll.h:532-649 (the per-comm function table),
 coll_base_comm_select.c:236-330 (all enabled components stacked in
 ascending priority, each overriding the slots it implements; disqualify on
 priority<0). The port has three components so far: ``basic`` (priority
-10, every comm: ``allgather_obj``, ``bcast_obj`` and ``barrier`` over
-the runtime store), ``device`` (priority 50, the coll/xla counterpart:
+10, every comm: the object collectives and the barrier over the pml's
+object channel), ``device`` (priority 50, the coll/xla counterpart:
 its fixed device slot table, blocking, nonblocking and persistent, on
 every comm the device plane serves and on every one-rank comm) and
 ``cuda`` (priority 60, opt-in: the hand-written ring kernels,
 the counterpart of coll/pallas, falling through to ``device`` for what
-they do not take). The host collectives come in later slices, so a slot
-no component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.
+they do not take). The host-buffer collectives come with coll/basic's
+algorithms and coll/tuned (ROADMAP queue 1 item 4), so a slot no
+component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.
 """
 
 from __future__ import annotations
@@ -37,6 +38,13 @@ class CollTable:
     def __init__(self) -> None:
         self.fns: Dict[str, callable] = {}
         self.providers: Dict[str, str] = {}
+        self.seq = 0
+
+    def next_tag(self) -> int:
+        """The pml tag of the comm's next collective (every member calls
+        a comm's collectives in the same order)."""
+        self.seq += 1
+        return self.seq & 0x3FFFFFFF
 
     def __getattr__(self, name):
         if name.startswith("_"):  # copy/pickle probes stay AttributeErrors
@@ -48,8 +56,9 @@ class CollTable:
                 errors.ERR_NOT_SUPPORTED,
                 f"no coll component provides '{name}' on this "
                 "communicator (device collectives on more than one rank "
-                "need --mca device_plane on; host collectives come with "
-                "the pml slice)") from None
+                "need --mca device_plane on; host-buffer collectives come "
+                "with coll/basic's algorithms and coll/tuned, ROADMAP "
+                "queue 1 item 4)") from None
 
 
 def comm_select(comm) -> None:

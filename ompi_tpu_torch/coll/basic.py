@@ -1,61 +1,124 @@
-"""coll/basic — object allgather, broadcast and barrier over the runtime
-store.
+"""coll/basic — the linear object collectives and barrier over the pml.
 
 The reduced counterpart of ``ompi_tpu.coll.basic`` (the lowest priority,
-stacked for every communicator, size 1 included): ``allgather_obj`` and
-``barrier``, which the one-sided windows need (``osc``: peer info at
-creation, descriptors at every fence), and ``bcast_obj``, coll/device's
-scatter metadata round. The reference runs them over the pml's object
-channel (coll/basic.py:386 gathers to rank 0 and broadcasts; :109 is the
-linear barrier). The port has no pml yet, so
-they go through the rendezvous store, keyed by (jobid, cid, per-comm
-sequence): every member calls a comm's collectives in the same order, so
-the sequence agrees, and two comms (a window's private dup and its
-parent, or two windows' dups) never read each other's keys. The pml
-slice swaps the transport.
+stacked for every communicator, size 1 included): the object
+collectives of the lower-case API (``bcast_obj``, ``gather_obj``,
+``scatter_obj``, ``allgather_obj``, ``alltoall_obj``, ``allreduce_obj``)
+and the linear ``barrier``, each as the reference runs it: pickled
+objects over ob1's object channel on the communicator's collective
+context (coll/basic.py:353-410; the barrier gathers a token to rank 0
+and releases, :109). Each call takes the next tag of the comm's table,
+so every member must call a comm's collectives in the same order (MPI's
+rule). The one-sided windows (peer info at creation, descriptors at
+every fence) and coll/device's scatter metadata round ride these.
+
+The host-buffer algorithms (numpy Allreduce and the rest) come with
+coll/basic's remaining slots and coll/tuned (ROADMAP queue 1 item 4).
 """
 
 from __future__ import annotations
 
-from typing import Any, List
+from typing import Any, List, Optional
 
-from ompi_tpu_torch.runtime import rte
+import numpy as np
 
-
-def _key(comm, what: str) -> str:
-    seq = comm.__dict__.get("_coll_basic_seq", 0) + 1
-    comm._coll_basic_seq = seq
-    return f"{what}:{rte.jobid}:{comm.cid}:{seq}"
+from ompi_tpu_torch import pml
+from ompi_tpu_torch.core import pvar
 
 
-def allgather_obj(comm, obj) -> List[Any]:
-    """Every member's ``obj`` (picklable), in comm rank order."""
-    if comm.size == 1:
-        return [obj]
-    key = _key(comm, "allgather_obj")
-    store = rte.client()
-    store.put(f"{key}:{comm.rank}", obj)
-    return [obj if p == comm.rank else store.get(f"{key}:{p}")
-            for p in range(comm.size)]
+def _send_obj(comm, obj, dst, tag):
+    pml.current().send_obj(comm, obj, dst, tag, collective=True)
+
+
+def _recv_obj(comm, src, tag):
+    return pml.current().recv_obj(comm, src, tag, collective=True)
+
+
+def barrier(comm) -> None:
+    """Linear barrier: a token from every rank to rank 0, then one back
+    (coll_basic_barrier.c)."""
+    pvar.record("barrier")
+    tag = comm.coll.next_tag()
+    p = pml.current()
+    token = np.zeros(1, dtype=np.uint8)
+    if comm.rank == 0:
+        for r in range(1, comm.size):
+            p.recv(comm, token, 1, None, r, tag, collective=True)
+        for r in range(1, comm.size):
+            p.send(comm, token, 1, None, r, tag, collective=True)
+    elif comm.size > 1:
+        p.send(comm, token, 1, None, 0, tag, collective=True)
+        p.recv(comm, token, 1, None, 0, tag, collective=True)
 
 
 def bcast_obj(comm, obj, root: int = 0):
     """The root's ``obj`` (picklable) on every member; the others pass
     anything (None)."""
-    if comm.size == 1:
-        return obj
-    key = _key(comm, "bcast_obj")
-    store = rte.client()
+    tag = comm.coll.next_tag()
     if comm.rank == root:
-        store.put(key, obj)
+        for r in range(comm.size):
+            if r != root:
+                _send_obj(comm, obj, r, tag)
         return obj
-    return store.get(key)
+    return _recv_obj(comm, root, tag)
 
 
-def barrier(comm) -> None:
-    """Returns once every member has entered (a store fence)."""
-    if comm.size > 1:
-        rte.client().fence(_key(comm, "barrier"), comm.size, comm.rank)
+def gather_obj(comm, obj, root: int = 0) -> Optional[List[Any]]:
+    """Every member's ``obj`` on the root in comm rank order, None
+    elsewhere."""
+    tag = comm.coll.next_tag()
+    if comm.rank == root:
+        out: List[Any] = [None] * comm.size
+        out[root] = obj
+        for r in range(comm.size):
+            if r != root:
+                out[r] = _recv_obj(comm, r, tag)
+        return out
+    _send_obj(comm, obj, root, tag)
+    return None
+
+
+def scatter_obj(comm, objs, root: int = 0):
+    """``objs[r]`` of the root on rank r."""
+    tag = comm.coll.next_tag()
+    if comm.rank == root:
+        for r in range(comm.size):
+            if r != root:
+                _send_obj(comm, objs[r], r, tag)
+        return objs[root]
+    return _recv_obj(comm, root, tag)
+
+
+def allgather_obj(comm, obj) -> List[Any]:
+    """Every member's ``obj`` in comm rank order (a gather to rank 0,
+    then its broadcast, coll/basic.py:386)."""
+    return bcast_obj(comm, gather_obj(comm, obj, 0), 0)
+
+
+def alltoall_obj(comm, objs) -> List[Any]:
+    """``objs[r]`` goes to rank r; returns what each rank sent here."""
+    tag = comm.coll.next_tag()
+    me = comm.rank
+    p = pml.current()
+    out: List[Any] = [None] * comm.size
+    out[me] = objs[me]
+    sreqs = [p.isend_obj(comm, objs[r], r, tag, collective=True)
+             for r in range(comm.size) if r != me]
+    for r in range(comm.size):
+        if r != me:
+            out[r] = _recv_obj(comm, r, tag)
+    for q in sreqs:
+        q.wait()
+    return out
+
+
+def allreduce_obj(comm, obj, fn):
+    """Every member's ``obj`` folded in rank order with ``fn``."""
+    vals = allgather_obj(comm, obj)
+    acc = vals[0]
+    for v in vals[1:]:
+        acc = fn(acc, v)
+    return acc
 
 
 class CollBasic:
@@ -68,5 +131,8 @@ class CollBasic:
         return self.PRIORITY
 
     def slots(self, comm):
-        return {"allgather_obj": allgather_obj, "bcast_obj": bcast_obj,
-                "barrier": barrier}
+        return {"barrier": barrier, "bcast_obj": bcast_obj,
+                "gather_obj": gather_obj, "scatter_obj": scatter_obj,
+                "allgather_obj": allgather_obj,
+                "alltoall_obj": alltoall_obj,
+                "allreduce_obj": allreduce_obj}

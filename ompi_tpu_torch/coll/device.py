@@ -77,7 +77,7 @@ returns its input there; a torch tensor is mutable, a jax array is not.
 
 Still ``MPIError(ERR_NOT_SUPPORTED)``: ops that are not traceable
 (MINLOC, MAXLOC, REPLACE, NO_OP; the reference stages them through the
-host plane, ROADMAP queue 1 item 2) and dtypes a jax array does not hold
+host collectives, ROADMAP queue 1 item 4) and dtypes a jax array does not hold
 with 64-bit mode off (float64, int64, uint64, complex), which the
 reference only meets as host buffers.
 """
@@ -165,7 +165,7 @@ def _check_buf(kind: str, comm, t) -> None:
             errors.ERR_NOT_SUPPORTED,
             f"coll_device: {kind} of {t.dtype}, which a jax array does not "
             "hold with 64-bit mode off: the reference meets it only as a "
-            "host buffer (the host plane, ROADMAP queue 1 item 2)")
+            "host buffer (the host collectives, ROADMAP queue 1 item 4)")
 
 
 def _check_leaf(kind: str, comm, t) -> None:
@@ -219,8 +219,8 @@ def _opn(kind: str, op, dtype) -> op_mod.Op:
         raise errors.MPIError(
             errors.ERR_NOT_SUPPORTED,
             f"coll_device: {kind} op {getattr(opn, 'name', op)!r} is not "
-            "traceable: the reference stages it through the host plane "
-            "(ROADMAP queue 1 item 2)")
+            "traceable: the reference stages it through the host "
+            "collectives (ROADMAP queue 1 item 4)")
     if opn.name in _BITWISE and dtype.is_floating_point:
         raise errors.MPIError(
             errors.ERR_OP,

@@ -50,6 +50,20 @@ WELL_KNOWN = (
     "osc_cuda_windows", "osc_cuda_put", "osc_cuda_get", "osc_cuda_acc",
     "osc_cuda_fence", "osc_cuda_rounds", "osc_cuda_exchanges",
     "osc_cuda_bytes", "osc_cuda_fallthrough",
+    # pml/ob1 (the reference's names): sends and receives posted, eager
+    # and rendezvous sends (streamed, or offered for single copy), RNDV
+    # fragments, arrivals that found no posted receive or came out of
+    # sequence, probes that matched; the linear barrier's calls
+    "isend", "irecv", "eager", "rndv", "rndv_sc", "rndv_frag",
+    "unexpected", "out_of_sequence", "matched_probes", "barrier",
+    # the MPI point-to-point entries (Send / send)
+    "send",
+    # btl/sm and btl/tcp payload bytes; mpool's receive bounce pool
+    "bytes_sent", "bytes_received", "mpool_hits", "mpool_misses",
+    # smsc/cma: single-copy pulls and their bytes
+    "smsc_single_copies", "smsc_bytes",
+    # pml/accel_p2p: device-tensor sends and receives
+    "accel_p2p_send", "accel_p2p_recv",
 )
 
 

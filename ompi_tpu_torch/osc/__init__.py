@@ -2,9 +2,9 @@
 
 Reference: ompi/mca/osc/ and the JAX package's ``ompi_tpu.osc``, whose
 host :class:`Window` runs every window through an active-message (AM)
-service on a private duplicated communicator over the pml. The port has
-no pml yet (ROADMAP queue 1, item 2), so this module carries the
-``Window`` base without that service: the private dup communicator, the
+service on a private duplicated communicator over the pml. The port's
+pml has landed, but not that service (ROADMAP queue 1 item 7), so this
+module carries the ``Window`` base without it: the private dup communicator, the
 ``peer_info`` allgather, ``name``, ``disp_unit``, ``_check_target``, the
 ``LOCK_*`` constants and the :func:`win_create` entry point. Every verb
 that rides the AM service (passive target, PSCW, the synchronous Get,
@@ -24,8 +24,8 @@ LOCK_EXCLUSIVE = "exclusive"
 LOCK_SHARED = "shared"
 
 #: where the host window and its active-message service come from
-AM_ITEM = ("ROADMAP queue 1 item 2 (the host plane: the pml, and with it "
-           "the host window's active-message service)")
+AM_ITEM = ("ROADMAP queue 1 item 7 (the host window's active-message "
+           "service over the pml)")
 
 #: the synchronisation verbs of the host window's active-message service
 #: (a subclass serves or refuses the data verbs itself)

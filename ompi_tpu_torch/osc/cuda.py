@@ -39,8 +39,8 @@ window's active-message plane (PSCW, passive target, the synchronous
 Get, Get_accumulate, Fetch_and_op, Compare_and_swap) and what it falls
 through to the host for (a window the kernels do not take, a
 non-elementwise Accumulate) counts ``osc_cuda_fallthrough`` and raises
-``ERR_NOT_SUPPORTED``: there is no host window to fall to before the pml
-slice (ROADMAP queue 1, item 2).
+``ERR_NOT_SUPPORTED``: there is no host window to fall to before the
+host window's active-message service (ROADMAP queue 1 item 7).
 
 Where the port differs from the reference:
 

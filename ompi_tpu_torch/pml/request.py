@@ -1,29 +1,33 @@
 """Requests — completion objects for nonblocking operations.
 
-The port's reduced copy of ``ompi_tpu.pml.request`` (reference:
-ompi/request/, req_test.c / req_wait.c): ``Status``, the request id
-counter and the plural wait / test helpers, which is what coll/device's
-``DeviceRequest`` and ``PersistentDeviceRequest`` use. The host
-``Request`` and its progress engine come with the pml slice (ROADMAP
-queue 1 item 2); until then nothing here drives progress, so the plural
-helpers poll each request's ``completed``, which a device request
-answers live from its event.
+The port's copy of ``ompi_tpu.pml.request`` (reference: ompi/request/,
+request.h:451-470 wait via ompi_wait_sync_t; req_test.c / req_wait.c):
+``Status``, the host :class:`Request` whose completion is a flag the
+progress engine flips, :class:`GeneralizedRequest`,
+:class:`CompletedRequest`, and the plural wait / test helpers. Waits
+spin :mod:`ompi_tpu_torch.core.progress`; the device requests of
+coll/device answer ``completed`` live from their event, so the plural
+helpers serve both kinds. Datatypes are the predefined ones
+(``get_count`` / ``get_elements`` divide by the element size).
 """
 
 from __future__ import annotations
 
 import itertools
-import time
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence
+
+from ompi_tpu_torch import errors
+from ompi_tpu_torch.core import progress
 
 ANY_SOURCE = -1
 ANY_TAG = -1
+PROC_NULL = -2
 
 _req_ids = itertools.count(1)
 
 
 class Status:
-    """MPI_Status."""
+    """MPI_Status; ``count`` is in bytes."""
 
     __slots__ = ("source", "tag", "error", "count", "cancelled")
 
@@ -34,33 +38,157 @@ class Status:
         self.count = 0
         self.cancelled = False
 
+    def get_count(self, datatype=None) -> int:
+        if datatype is None or datatype.size == 0:
+            return self.count
+        return self.count // datatype.size
+
+    def get_elements(self, datatype=None) -> int:
+        """MPI_Get_elements: whole predefined elements received."""
+        return self.get_count(datatype)
+
+    def set_elements(self, datatype, count: int) -> None:
+        """MPI_Status_set_elements (generalized requests' query_fn)."""
+        size = 1 if datatype is None or datatype.size == 0 \
+            else datatype.size
+        self.count = int(count) * size
+
+    def set_cancelled(self, flag: bool) -> None:
+        """MPI_Status_set_cancelled."""
+        self.cancelled = bool(flag)
+
+    def is_cancelled(self) -> bool:
+        """MPI_Test_cancelled."""
+        return self.cancelled
+
+    Set_elements = set_elements
+    Set_cancelled = set_cancelled
+    Is_cancelled = is_cancelled
+
     def __repr__(self) -> str:
         return (f"Status(source={self.source}, tag={self.tag}, "
                 f"count={self.count})")
 
 
-def _wait_until(pred, timeout: Optional[float] = None) -> bool:
-    """Poll ``pred`` (spinning, then yielding the CPU) until it holds or
-    ``timeout`` seconds pass; returns whether it held."""
-    deadline = None if timeout is None else time.monotonic() + timeout
-    spins = 0
-    while not pred():
-        if deadline is not None and time.monotonic() > deadline:
-            return False
-        spins += 1
-        if spins > 64:
-            time.sleep(0 if spins < 4096 else 1e-4)
-    return True
+class Request:
+    """Base host request; subclasses fill in _cancel / start."""
+
+    def __init__(self) -> None:
+        self.id = next(_req_ids)
+        self.completed = False
+        self.status = Status()
+        self.persistent = False
+        self._obj: Any = None  # the object of an object receive
+
+    def complete(self, error: int = 0) -> None:
+        self.status.error = error
+        self.completed = True
+
+    def test(self) -> bool:
+        if not self.completed:
+            progress.progress()
+        return self.completed
+
+    def wait(self, timeout: Optional[float] = None) -> Status:
+        """Spin progress until complete; a request that completed in
+        error raises its class here (nonblocking errors surface at
+        completion, as the reference's errhandler dispatch does with the
+        default ERRORS_ARE_FATAL-as-exception handler)."""
+        progress.wait_until(lambda: self.completed, timeout=timeout)
+        if not self.completed:
+            raise TimeoutError(f"request {self.id} did not complete")
+        if self.status.error:
+            errors.raise_mpi_error(self.status.error)
+        return self.status
+
+    def cancel(self) -> None:
+        self._cancel()
+
+    def _cancel(self) -> None:  # best effort; receives only
+        pass
+
+    def retrieve_status(self) -> Status:
+        """The Status as handed out at completion (generalized requests
+        run their query_fn here)."""
+        return self.status
+
+    def start(self) -> None:  # persistent requests override
+        raise RuntimeError("not a persistent request")
+
+    def free(self) -> None:
+        pass
+
+
+class GeneralizedRequest(Request):
+    """MPI_Grequest_start (reference: ompi/request/grequest.c): the app
+    calls :meth:`complete` (MPI_Grequest_complete); query_fn fills the
+    Status when it is first retrieved, free_fn runs at free,
+    cancel_fn(completed) at cancel."""
+
+    def __init__(self, query_fn=None, free_fn=None,
+                 cancel_fn=None) -> None:
+        super().__init__()
+        self._query_fn = query_fn
+        self._free_fn = free_fn
+        self._cancel_fn = cancel_fn
+        self._queried = False
+
+    def _maybe_query(self) -> None:
+        if self.completed and not self._queried:
+            self._queried = True
+            if self._query_fn is not None:
+                self._query_fn(self.status)
+
+    def retrieve_status(self) -> Status:
+        self._maybe_query()
+        return self.status
+
+    def test(self) -> bool:
+        done = super().test()
+        if done:
+            self._maybe_query()
+        return done
+
+    def wait(self, timeout=None):
+        st = super().wait(timeout)
+        self._maybe_query()
+        return st
+
+    def _cancel(self) -> None:
+        """Informs the app (cancel_fn) but does not complete: completion
+        always comes from the app's Grequest_complete."""
+        if self._cancel_fn is not None:
+            self._cancel_fn(self.completed)
+        if not self.completed:
+            self.status.cancelled = True
+
+    def free(self) -> None:
+        if self._free_fn is not None:
+            fn, self._free_fn = self._free_fn, None
+            fn()
+
+
+class CompletedRequest(Request):
+    """An immediately complete request (PROC_NULL operations)."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        self.complete()
+
+
+REQUEST_NULL = CompletedRequest()
 
 
 def wait_all(reqs: Sequence, timeout: Optional[float] = None) -> List[Status]:
-    if not _wait_until(lambda: all(r.completed for r in reqs), timeout):
+    progress.wait_until(lambda: all(r.completed for r in reqs),
+                        timeout=timeout)
+    if not all(r.completed for r in reqs):
         raise TimeoutError("waitall timed out")
     return [r.retrieve_status() for r in reqs]
 
 
 def wait_any(reqs: Sequence) -> int:
-    _wait_until(lambda: any(r.completed for r in reqs))
+    progress.wait_until(lambda: any(r.completed for r in reqs))
     for i, r in enumerate(reqs):
         if r.completed:
             r.retrieve_status()
@@ -69,7 +197,7 @@ def wait_any(reqs: Sequence) -> int:
 
 
 def wait_some(reqs: Sequence) -> List[int]:
-    _wait_until(lambda: any(r.completed for r in reqs))
+    progress.wait_until(lambda: any(r.completed for r in reqs))
     done = [i for i, r in enumerate(reqs) if r.completed]
     for i in done:
         reqs[i].retrieve_status()
@@ -77,6 +205,7 @@ def wait_some(reqs: Sequence) -> List[int]:
 
 
 def test_all(reqs: Sequence) -> bool:
+    progress.progress()
     if all(r.completed for r in reqs):
         for r in reqs:
             r.retrieve_status()
@@ -85,6 +214,7 @@ def test_all(reqs: Sequence) -> bool:
 
 
 def test_any(reqs: Sequence) -> Optional[int]:
+    progress.progress()
     for i, r in enumerate(reqs):
         if r.completed:
             r.retrieve_status()

@@ -31,7 +31,8 @@ from typing import Dict, List, Optional, Sequence
 
 from ompi_tpu_torch.runtime import kvstore
 
-#: prefix of every job-scoped shared-memory file (arenas, hop counters)
+#: prefix of every job-scoped shared-memory file (arenas, hop counters,
+#: btl/sm rings)
 SHM_PREFIX = "ompi_tpu_torch_"
 
 

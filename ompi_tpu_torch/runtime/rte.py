@@ -33,6 +33,15 @@ def is_launched() -> bool:
     return "OMPI_TPU_STORE_ADDR" in os.environ
 
 
+def hostname() -> str:
+    """This rank's node name: the one source of node identity for every
+    locality decision (btl/sm qualification, MPI_Comm_split_type,
+    MPI_Get_processor_name). ``OMPI_TPU_HOSTNAME`` overrides it."""
+    import socket
+
+    return os.environ.get("OMPI_TPU_HOSTNAME") or socket.gethostname()
+
+
 def init() -> None:
     """Connect to the store (or start a singleton one)."""
     global _client, _local_store, rank, size, jobid, local_rank, local_size

@@ -1,11 +1,12 @@
 """Instance state — the MPI init engine.
 
 Reference: ompi/instance/instance.c (ompi_mpi_instance_init_common:360)
-and the JAX package's ``ompi_tpu.runtime.state``. In this slice the
-instance brings up three things — the rte, the accelerator and the
-device plane — and the world model adds COMM_WORLD/COMM_SELF. The prof,
-ingest, pml, monitoring, tune, trace, telemetry, skew and check planes
-attach in their own slices.
+and the JAX package's ``ompi_tpu.runtime.state``. The instance brings
+up the rte, the accelerator, the device plane and the pml (ob1 over its
+btls; ompi_tpu/runtime/state.py:97-99), and the world model adds
+COMM_WORLD/COMM_SELF; finalize tears the pml down after the last fence
+(:266-268). The prof, ingest, monitoring, tune, trace, telemetry, skew
+and check planes attach in their own slices.
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ _out = output.stream("runtime")
 def init_instance() -> None:
     """rte, then the accelerator, then the device plane (collective
     over the world; raises MPIError(ERR_INTERN) on every rank when any
-    rank cannot bring its device up)."""
+    rank cannot bring its device up), then the pml (collective: btl/sm
+    fences while it maps its rings)."""
     rte.init()
     _out.verbose(2, "rte up: rank %d/%d job %s",
                  rte.rank, rte.size, rte.jobid)
@@ -38,6 +40,9 @@ def init_instance() -> None:
 
     if device_plane.requested():
         device_plane.init_plane()
+    from ompi_tpu_torch import pml
+
+    pml.select()
 
 
 def init():
@@ -71,7 +76,8 @@ def comm_self():
 
 def finalize() -> None:
     """MPI_Finalize: release the comms' device arenas (collective),
-    then a last fence so no rank tears down while a peer still reads."""
+    then a last fence so no rank tears down while a peer still reads,
+    then the pml and its transports."""
     global _finalized, _initialized, _world, _self_comm
     with _lock:
         if _finalized or not _initialized:
@@ -83,8 +89,10 @@ def finalize() -> None:
                 c.free()
             rte.fence("finalize", timeout=30.0)
         finally:
+            from ompi_tpu_torch import pml
             from ompi_tpu_torch.runtime import device_plane
 
+            pml.finalize()
             device_plane.shutdown()
             _initialized = False
             _world = None

@@ -87,7 +87,14 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.examples.zero_training, ompi_tpu_torch.osc, "
             "ompi_tpu_torch.osc.cuda, ompi_tpu_torch.coll.basic, "
             "ompi_tpu_torch.examples.halo_exchange, "
-            "ompi_tpu_torch.examples.embedding_table; "
+            "ompi_tpu_torch.examples.embedding_table, "
+            "ompi_tpu_torch.btl, ompi_tpu_torch.btl.sm, "
+            "ompi_tpu_torch.btl.tcp, ompi_tpu_torch.pml.ob1, "
+            "ompi_tpu_torch.pml.accel_p2p, "
+            "ompi_tpu_torch.datatype, ompi_tpu_torch.smsc, "
+            "ompi_tpu_torch.info, ompi_tpu_torch.attr, "
+            "ompi_tpu_torch.util.net, ompi_tpu_torch.core.native, "
+            "ompi_tpu_torch.examples.p2p_bandwidth; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu')]; "
             "assert not bad, bad; print('clean')")
@@ -96,3 +103,29 @@ def test_importing_the_port_loads_no_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "clean"
+
+
+def test_host_plane_modules_are_scanned():
+    """The host plane's modules are in the scan above."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("btl/base.py", "btl/self_btl.py", "btl/sm.py", "btl/tcp.py",
+                "pml/ob1.py", "pml/accel_p2p.py", "pml/request.py",
+                "datatype/convertor.py", "smsc.py", "info.py", "attr.py",
+                "util/net.py", "core/progress.py", "core/native.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+def test_sm_ring_code_is_the_ports_own():
+    """btl/sm's C ring is built from the port's own source under
+    ``btl/csrc/``, never from a path into the repo's root ``csrc/``."""
+    from ompi_tpu_torch.core import native
+
+    src = os.path.relpath(native.SRC, ROOT)
+    assert src == os.path.join("ompi_tpu_torch", "btl", "csrc", "sm_ring.c")
+    with open(native.SRC, encoding="utf-8") as f:
+        code = f.read()
+    for sym in ("otr_ring_push", "otr_ring_pop", "otr_ring_readable"):
+        assert sym in code, sym
+    for path in _port_files():
+        with open(path, encoding="utf-8") as f:
+            assert "ompitpu_core" not in f.read(), path

@@ -345,7 +345,7 @@ am = (("Lock", (0,)), ("Lock_all", ()), ("Flush", (0,)), ("Post", ([0],)),
 for verb, args in am:
     msg = expect(errors.ERR_NOT_SUPPORTED,
                  lambda: getattr(win, verb)(*args))
-    assert "queue 1 item 2" in msg, msg
+    assert "queue 1 item 7" in msg, msg
 assert s.read("osc_cuda_fallthrough") == len(am)
 win.Put(torch.ones(1), (rank + 1) % size)
 expect(errors.ERR_RMA_SYNC, win.Free)  # a descriptor is still queued
