@@ -70,6 +70,24 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    MiB and 64 MiB (K2's pull schedule), float16 SUM, int32 BXOR and bool
    LAND in every mode (K2, then the fold) and every slot on COMM_SELF;
    on 8 ranks (BASELINE config 2) Bcast float32 1 MiB from roots 0 and 7;
+   the host collectives beside them (the example's ``host`` and
+   ``staged`` families; see :func:`host_collectives_report`): on the
+   4-rank coll/device job, numpy float32 SUM Allreduce through
+   coll/tuned at 1 KiB, 1 MiB, 64 MiB and 256 MiB under its default
+   decision (BASELINE config 3's host baseline), each beside coll/device's
+   CUDA-tensor Allreduce of the same size, and at 1 MiB under each forced
+   algorithm (``recursivedoubling``, ``ring``, ``rabenseifner``,
+   ``basic``) in float32 and int32 (int32 exact and float32 ``basic``
+   bitwise against a numpy rank-order fold, the other float32 algorithms
+   within the example's ``HOST_RTOL`` of 1e-5 of the magnitudes), then
+   the staged calls: a float64 Allreduce of 64 MiB, REPLACE and
+   ``op.create`` Allreduces of 1 MiB and one float64 Iallreduce, CUDA
+   tensors that coll/device hands to coll/accelerator, each bitwise equal
+   to the same host collective on numpy copies, on the rank's own card,
+   with ``coll_accelerator_staged`` equal to the staged calls; on the
+   8-rank Bcast job, numpy float32 Bcast of 1 MiB from roots 0 and 7
+   under coll/tuned's binomial (the default at 1 MiB) and forced
+   ``linear``, bitwise, beside coll/device's (config 2's host baseline);
    then the rest of coll/device's slot table, a 4-rank job per family
    (:data:`REST_JOBS`): ``rooted`` (Reduce float32 64 MiB SUM to root 0
    in the three modes — '' takes the rooted schedule, K1's reduce-scatter
@@ -104,7 +122,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    recomputation) and reports its launch
    counts; every kernel of a path must have launched on it (on the
    coll/device jobs K2, and K1 and K3 where the kernels' reductions
-   ran: the 8-rank Bcast needs K2 alone), and the
+   ran: the 8-rank Bcast needs K2 alone), no call of a kernel job may
+   have staged through the host (``coll_accelerator_staged`` 0 on every
+   rank, outside the ``staged`` family), and the
    4-rank training path's K6 launches must split 48 ``wgmma`` (bfloat16
    allgather_matmul) and 64 ``simt`` (float32, and the zero-3 product),
    and the 4-rank embedding lookup must launch the grouped K10 once per
@@ -122,10 +142,7 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1 MiB and a ragged 3 MiB + 4 B float32 message, bitwise) and its
    4-rank ``Sendrecv`` ring of 64 MiB CUDA tensors, bitwise; a CUDA
    tensor refused with ERR_ARG by ``comm.Send`` / ``Isend`` / ``Recv`` /
-   ``Irecv`` on a one-rank job whose platform is the CPU; and
-   the embedding path's fences with coll/basic's object collectives on
-   the store (``scripts/store_obj_channel.py``, the transport before
-   they moved onto the pml) and on the pml, in turns.
+   ``Irecv`` on a one-rank job whose platform is the CPU.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
@@ -192,6 +209,8 @@ K10_NOTE = ("the batch of one through the grouped kernel; the embedding "
             "lookup launches the batch, one per reader and exchange (the "
             "_batch row)")
 REPS = 10
+#: BASELINE config 3's Allreduce sizes, for the host baseline (4 ranks)
+HOST_SIZES = "1k,1m,64m,256m"
 LAUNCH_TIMEOUT = 200  # seconds per launcher job (thirteen jobs)
 BCAST_RANKS = 8  # BASELINE config 2's rank count, all on this card
 #: the coll/device jobs of the rest of coll/xla's slot table: (--kinds,
@@ -1154,24 +1173,22 @@ def permute_batch_checks(torch, O, dev, card, results):
 
 
 def main_path(example: str, nranks: int, args, card: str, root: str,
-              component: str | None = "coll_cuda", via: str | None = None):
+              component: str | None = "coll_cuda"):
     """Phase 3: one launcher job of an example under ``--mca
     device_plane on --mca <component> on`` (None: the device plane
     alone, so coll/device serves); returns the ranks' summed launches
     and rank 0's report. Every kernel a rank reports must have launched,
-    or, where its report names them (``required``), those. ``via``: a
-    rank program under ``scripts/`` that runs the example's ``main``."""
+    or, where its report names them (``required``), those. No rank may
+    have staged a call through the host (``coll_accelerator_staged``)."""
     name = os.path.splitext(example)[0]
     out = os.path.join(root, "build", "ompi_tpu_torch",
-                       f"smoke_{name}_{component or 'device'}_n{nranks}"
-                       + (f"_{via}" if via else ""))
+                       f"smoke_{name}_{component or 'device'}_n{nranks}")
     shutil.rmtree(out, ignore_errors=True)
     mca = ["--mca", component, "on"] if component else []
     cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
            "-n", str(nranks), "--timeout", str(LAUNCH_TIMEOUT),
            "--mca", "device_plane", "on", *mca,
-           *([os.path.join(root, "scripts", f"{via}.py"), name] if via else
-             [os.path.join(root, "ompi_tpu_torch", "examples", example)]),
+           os.path.join(root, "ompi_tpu_torch", "examples", example),
            *args, "--out", out]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
@@ -1193,6 +1210,10 @@ def main_path(example: str, nranks: int, args, card: str, root: str,
             fail(f"{name}: rank {r} of {nranks}: mismatches {bad}")
         if not doc["device"].startswith("cuda"):
             fail(f"{name}: rank {r} ran on {doc['device']}")
+        if doc["coll_accelerator_staged"] != 0:
+            fail(f"{name}: rank {r} of {nranks} staged "
+                 f"{doc['coll_accelerator_staged']} calls through the host "
+                 "on a kernel path")
         for k, v in doc["launches"].items():
             launches[k] = launches.get(k, 0) + v
     need = docs[0].get("required", list(launches))
@@ -1200,9 +1221,64 @@ def main_path(example: str, nranks: int, args, card: str, root: str,
         fail(f"{name} n={nranks}: a kernel of the path never launched: "
              f"{launches} (required {need})")
     print(f"main path {name} n={nranks} {component or 'device plane alone'}"
-          f"{' via ' + via if via else ''}: {wall:.1f} s wall, kernel launches (all ranks) {launches}, "
+          f": {wall:.1f} s wall, kernel launches (all ranks) {launches}, "
           f"required {need} [{card}]", flush=True)
     return launches, docs[0]
+
+
+def host_collectives_report(doc4, doc8, card: str) -> None:
+    """The host baselines beside coll/device's calls of the same size
+    (rank 0's p50): BASELINE config 3's 4-rank Allreduce sweep under
+    coll/tuned's default decision and each forced algorithm at 1 MiB,
+    config 2's 8-rank Bcast, and the staged calls. Every case must be
+    there (the ranks checked each one's result)."""
+    def cases(doc, kind, mode=None):
+        return [c for c in doc["cases"] if c["kind"] == kind
+                and (mode is None or c.get("mode") == mode)]
+
+    sizes = [int(t.rstrip("km")) << {"k": 10, "m": 20}[t[-1]]
+             for t in HOST_SIZES.split(",")]
+    host = {c["bytes"]: c for c in cases(doc4, "host Allreduce",
+                                         "tuned default")
+            if c["dtype"] == "float32"}
+    dev = {c["bytes"]: c for c in cases(doc4,
+                                        "device Allreduce beside host")}
+    if not all(b in host and b in dev for b in sizes):
+        fail(f"the host Allreduce sweep lacks sizes: host {sorted(host)}, "
+             f"device {sorted(dev)}")
+    for b in sizes:
+        h, d = host[b], dev[b]
+        print(f"config 3 host baseline n={N_RANKS} float32 SUM Allreduce "
+              f"{b} B: coll/tuned default p50 {h['p50_ms']:.4f} ms (bus "
+              f"{h['busbw_GBps']:.3f} GB/s), coll/device CUDA tensor p50 "
+              f"{d['p50_ms']:.4f} ms (bus {d['busbw_GBps']:.3f} GB/s), "
+              f"host/device {h['p50_ms'] / d['p50_ms']:.2f}x [{card}]",
+              flush=True)
+    forced = cases(doc4, "host Allreduce by algorithm")
+    if len(forced) != 10:
+        fail(f"the forced-algorithm host Allreduces: {forced}")
+    print(f"config 3 host Allreduce n={N_RANKS} 1 MiB by coll/tuned "
+          "algorithm (p50 ms): " + ", ".join(
+              f"{c['dtype']} {c['mode'][len('tuned '):]} {c['p50_ms']:.4f}"
+              for c in forced) + f" [{card}]", flush=True)
+    for root in (0, BCAST_RANKS - 1):
+        got = {c["mode"]: c for c in cases(doc8, f"host Bcast root={root}")}
+        dv = cases(doc8, f"device Bcast root={root} beside host")
+        if set(got) != {"tuned default", "tuned linear"} or len(dv) != 1:
+            fail(f"the 8-rank host Bcast from root {root}: {got}, {dv}")
+        print(f"config 2 host baseline n={BCAST_RANKS} float32 Bcast 1 MiB "
+              f"root {root}: coll/tuned binomial p50 "
+              f"{got['tuned default']['p50_ms']:.4f} ms, linear "
+              f"{got['tuned linear']['p50_ms']:.4f} ms, coll/device CUDA "
+              f"tensor {dv[0]['p50_ms']:.4f} ms [{card}]", flush=True)
+    staged = [c for c in doc4["cases"] if c["kind"].startswith("staged")
+              or c["kind"].startswith("coll_accelerator_staged")]
+    if len(staged) != 5:
+        fail(f"the staged calls: {staged}")
+    print("staged through coll/accelerator n=4 (rank 0): " + ", ".join(
+        f"{c['kind']} {c['bytes']} B p50 {c['p50_ms']:.4f} ms"
+        if "p50_ms" in c else c["kind"] for c in staged) + f" [{card}]",
+          flush=True)
 
 
 def osc_report(name: str, nranks: int, doc, card: str) -> None:
@@ -1241,7 +1317,7 @@ def launch_text(root: str, nranks: int, prog: str, args=(), mca=()):
     return proc.stdout.splitlines()
 
 
-def host_plane_phase(torch, card: str, root: str, emb_doc) -> None:
+def host_plane_phase(torch, card: str, root: str) -> None:
     """Phase 4: the host plane and device-tensor point-to-point."""
     import socket
 
@@ -1329,18 +1405,6 @@ def host_plane_phase(torch, card: str, root: str, emb_doc) -> None:
     print(f"p2p: comm.Send / Isend / Recv / Irecv of a CUDA tensor on a "
           f"CPU-platform rank raise ERR_ARG [{card}]", flush=True)
 
-    # the embedding fences, coll/basic on the store vs on the pml, in turns
-    # (the pml run of phase 3 first)
-    fences = {"store": [], "pml": [emb_doc["fence_ms"]]}
-    for via in ("store_obj_channel", None, "store_obj_channel"):
-        _, doc = main_path("embedding_table.py", N_RANKS, [], card, root,
-                           "osc_cuda", via=via)
-        fences["pml" if via is None else "store"].append(doc["fence_ms"])
-    print("embedding fences n=4 (rank 0 ms; turns pml, store, pml, store): "
-          + "; ".join(f"{k} object channel update {[f['update'] for f in v]}"
-                      f" lookup {[f['lookup'] for f in v]}"
-                      for k, v in fences.items()) + f" [{card}]", flush=True)
-
 
 def main() -> int:
     import torch
@@ -1387,7 +1451,7 @@ def main() -> int:
         if component is None and doc["provider"] != "device":
             fail(f"the device-plane-only job was served by "
                  f"{doc['provider']}")
-        return got
+        return doc
 
     collectives(N_RANKS, ["--sizes", "1k,1m,64m,256m",
                           "--kinds", "allreduce,rsag,ops",
@@ -1396,12 +1460,20 @@ def main() -> int:
     # coll/device alone (no coll_cuda): BASELINE's Bcast (config 2, 1 MiB
     # float32 on 8 ranks) and Alltoall (config 5, int32), the three
     # reductions in every mode, the ops outside the kernels and every slot
-    # on COMM_SELF; then the rest of its slot table, a job per family
-    collectives(N_RANKS, ["--kinds", "allreduce,rsag,bcast,alltoall,ops,self",
-                          "--sizes", "1m,64m", "--rsag-bytes", "1m,64m",
-                          "--alltoall-bytes", "1m,64m",
-                          "--ops-bytes", str(OPS_BYTES)], None)
-    collectives(BCAST_RANKS, ["--kinds", "bcast"], None)
+    # on COMM_SELF, and beside them the host collectives (BASELINE config
+    # 3's host baseline and the staged calls on 4 ranks, config 2's on 8);
+    # then the rest of its slot table, a job per family
+    doc4 = collectives(N_RANKS, [
+        "--kinds", "allreduce,rsag,bcast,alltoall,ops,self,host,staged",
+        "--sizes", "1m,64m", "--rsag-bytes", "1m,64m",
+        "--alltoall-bytes", "1m,64m", "--ops-bytes", str(OPS_BYTES),
+        "--host-sizes", HOST_SIZES, "--host-forced-bytes", "1m",
+        "--host-bcast-bytes", "1m", "--staged-bytes", "64m",
+        "--staged-op-bytes", "1m"], None)
+    doc8 = collectives(BCAST_RANKS, [
+        "--kinds", "bcast,host", "--host-sizes", "",
+        "--host-forced-bytes", "", "--host-bcast-bytes", "1m"], None)
+    host_collectives_report(doc4, doc8, card)
     for kinds, args in REST_JOBS:
         collectives(N_RANKS, ["--kinds", kinds, *args], None)
     train, doc = main_path("zero_training.py", N_RANKS, [], card, root)
@@ -1452,7 +1524,7 @@ def main() -> int:
                                  if r["name"] in p)
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
-    host_plane_phase(torch, card, root, emb_doc)
+    host_plane_phase(torch, card, root)
 
     print(json.dumps({"kernels": rows}))
     print(card)

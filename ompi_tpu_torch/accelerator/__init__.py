@@ -23,6 +23,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ompi_tpu_torch.accelerator import stream
@@ -30,7 +31,9 @@ from ompi_tpu_torch.accelerator import stream
 
 class Accelerator:
     """The module interface, reduced to the port's entries; this base
-    class serves CPU tensors."""
+    class serves CPU tensors. Its copies are numpy's: a torch copy of a
+    CPU tensor past its grain size wakes the intra-op thread pool, which
+    ranks sharing the cores oversubscribe."""
 
     NAME = "null"
 
@@ -57,13 +60,14 @@ class Accelerator:
                    host: torch.Tensor) -> stream.CopyEvent:
         """Copy the uint8 tensor ``src`` into ``host[:src.numel()]``;
         the event's ``wait()`` returns the host bytes as numpy."""
-        host[:src.numel()].copy_(src)
-        return stream.CopyEvent(src.device, host, src.numel())
+        n = src.numel()
+        np.copyto(host[:n].numpy(), src.detach().numpy())
+        return stream.CopyEvent(src.device, host, n)
 
     def to_device(self, host: torch.Tensor,
                   dst: torch.Tensor) -> stream.Event:
         """Copy ``host[:dst.numel()]`` into the uint8 tensor ``dst``."""
-        dst.copy_(host[:dst.numel()])
+        np.copyto(dst.detach().numpy(), host[:dst.numel()].numpy())
         return stream.Event(dst.device)
 
     def begin_staging(self, device) -> None:

@@ -3,16 +3,31 @@
 Reference: ompi/mca/coll/ — coll.h:532-649 (the per-comm function table),
 coll_base_comm_select.c:236-330 (all enabled components stacked in
 ascending priority, each overriding the slots it implements; disqualify on
-priority<0). The port has three components so far: ``basic`` (priority
-10, every comm: the object collectives and the barrier over the pml's
-object channel), ``device`` (priority 50, the coll/xla counterpart:
-its fixed device slot table, blocking, nonblocking and persistent, on
-every comm the device plane serves and on every one-rank comm) and
-``cuda`` (priority 60, opt-in: the hand-written ring kernels,
-the counterpart of coll/pallas, falling through to ``device`` for what
-they do not take). The host-buffer collectives come with coll/basic's
-algorithms and coll/tuned (ROADMAP queue 1 item 4), so a slot no
-component provides raises ``MPIError(ERR_NOT_SUPPORTED)``.
+priority<0), and ``ompi_tpu.coll``. The port's components:
+
+- ``basic`` (10, every comm): the linear host algorithms, the object
+  collectives and the barrier over the pml;
+- ``libnbc`` (20): the host ``I*`` and ``*_init`` forms as progressed
+  schedules;
+- ``tuned`` (30, comms of two ranks or more): the decision rules over
+  the base algorithm library (``coll/base_algos.py``);
+- ``accelerator`` (40, every comm): device tensors staged through the
+  host slots, for the comms the device plane does not serve and for
+  what coll/device hands it;
+- ``device`` (50): the coll/xla counterpart, its fixed device slot
+  table, on every comm the device plane serves and on every one-rank
+  comm;
+- ``cuda`` (60, opt-in): the hand-written ring kernels, the
+  counterpart of coll/pallas, falling through to ``device``;
+- ``adapt`` (opt-in, ``coll_adapt_priority``): segmented ibcast /
+  ireduce;
+- ``sync`` (90, with ``coll_sync_barrier_before``): no slot of its own;
+  its ``post_stack`` wraps the stacked host slots.
+
+Collective traffic runs in the communicator's collective context with a
+per-comm tag sequence (:meth:`CollTable.next_tag`), so user p2p never
+interferes. A slot no component provides raises
+``MPIError(ERR_NOT_SUPPORTED)``.
 """
 
 from __future__ import annotations
@@ -20,16 +35,35 @@ from __future__ import annotations
 from typing import Dict
 
 from ompi_tpu_torch import errors
+from ompi_tpu_torch.coll.accelerator import CollAccelerator
+from ompi_tpu_torch.coll.adapt import CollAdapt
 from ompi_tpu_torch.coll.basic import CollBasic
 from ompi_tpu_torch.coll.cuda import CollCuda
 from ompi_tpu_torch.coll.device import CollDevice
+from ompi_tpu_torch.coll.libnbc import CollLibnbc
+from ompi_tpu_torch.coll.sync import CollSync
+from ompi_tpu_torch.coll.tuned import CollTuned
 from ompi_tpu_torch.core import output
 
 _out = output.stream("coll_base")
 
 #: the components comm_select ranks: each has NAME, query(comm) -> priority
-#: (< 0 disqualifies) and slots(comm) -> {slot name: function}
-COMPONENTS = (CollBasic, CollDevice, CollCuda)
+#: (< 0 disqualifies) and slots(comm) -> {slot name: function}; one may
+#: have post_stack(comm, table), run once every component has stacked
+COMPONENTS = (CollBasic, CollLibnbc, CollTuned, CollAccelerator,
+              CollDevice, CollCuda, CollAdapt, CollSync)
+
+#: the blocking and object host slots (coll.h's function-pointer members,
+#: ompi_tpu/coll/__init__.py:32-64), the ones coll/sync wraps beside the
+#: ``i*`` forms
+SLOTS = (
+    "barrier", "bcast", "reduce", "allreduce", "gather", "gatherv",
+    "scatter", "scatterv", "allgather", "allgatherv", "alltoall",
+    "alltoallv", "reduce_scatter", "reduce_scatter_block", "scan",
+    "exscan", "reduce_local",
+    "bcast_obj", "gather_obj", "scatter_obj", "allgather_obj",
+    "alltoall_obj", "allreduce_obj",
+)
 
 
 class CollTable:
@@ -55,15 +89,15 @@ class CollTable:
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
                 f"no coll component provides '{name}' on this "
-                "communicator (device collectives on more than one rank "
-                "need --mca device_plane on; host-buffer collectives come "
-                "with coll/basic's algorithms and coll/tuned, ROADMAP "
-                "queue 1 item 4)") from None
+                "communicator (the neighbourhood collectives come with "
+                "topo/, ROADMAP queue 1 item 4f)") from None
 
 
 def comm_select(comm) -> None:
-    """Stack all qualifying components in ascending priority
-    (higher priority installs last, overriding lower)."""
+    """Stack all qualifying components in ascending priority (higher
+    priority installs last, overriding lower), then run their
+    ``post_stack`` hooks over the finished table (coll/sync's
+    interposition, ompi_tpu/coll/__init__.py:137-143)."""
     table = CollTable()
     ranked = []
     for comp in (cls() for cls in COMPONENTS):
@@ -75,6 +109,10 @@ def comm_select(comm) -> None:
         for slot, fn in comp.slots(comm).items():
             table.fns[slot] = fn
             table.providers[slot] = comp.NAME
+    for _, comp in ranked:
+        hook = getattr(comp, "post_stack", None)
+        if hook is not None:
+            hook(comm, table)
     comm.coll = table
     _out.verbose(5, "comm %s coll table: %s", getattr(comm, "name", "?"),
                  table.providers)

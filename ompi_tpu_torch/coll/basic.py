@@ -1,19 +1,32 @@
-"""coll/basic — the linear object collectives and barrier over the pml.
+"""coll/basic — the linear algorithms over the pml.
 
-The reduced counterpart of ``ompi_tpu.coll.basic`` (the lowest priority,
-stacked for every communicator, size 1 included): the object
-collectives of the lower-case API (``bcast_obj``, ``gather_obj``,
-``scatter_obj``, ``allgather_obj``, ``alltoall_obj``, ``allreduce_obj``)
-and the linear ``barrier``, each as the reference runs it: pickled
-objects over ob1's object channel on the communicator's collective
-context (coll/basic.py:353-410; the barrier gathers a token to rank 0
-and releases, :109). Each call takes the next tag of the comm's table,
-so every member must call a comm's collectives in the same order (MPI's
-rule). The one-sided windows (peer info at creation, descriptors at
-every fence) and coll/device's scatter metadata round ride these.
+The port's copy of ``ompi_tpu.coll.basic`` (coll/basic.py:80-410; the
+lowest priority, stacked for every communicator, size 1 included): the
+naive linear algorithms every other component is held against, each
+folding in rank order, so a float reduction's bits are fixed:
 
-The host-buffer algorithms (numpy Allreduce and the rest) come with
-coll/basic's remaining slots and coll/tuned (ROADMAP queue 1 item 4).
+- ``barrier`` (a token from every rank to rank 0, then one back,
+  :109), ``bcast`` (the root sends to every rank), ``reduce`` (the
+  root folds the contributions in ascending rank order, :134) and
+  ``allreduce`` (reduce to 0, then bcast);
+- ``gather`` / ``gatherv`` / ``scatter`` / ``scatterv`` (the root posts
+  one receive or send per rank), ``allgather`` (gather + bcast),
+  ``allgatherv``, ``alltoall`` (every send and receive posted at once)
+  and ``alltoallv``;
+- ``reduce_scatter_block`` / ``reduce_scatter`` (reduce at 0, then
+  scatter(v)), ``scan`` / ``exscan`` (a chain in rank order) and
+  ``reduce_local``;
+- the object collectives of the lower-case API (``bcast_obj``,
+  ``gather_obj``, ``scatter_obj``, ``allgather_obj``, ``alltoall_obj``,
+  ``allreduce_obj``): pickled objects over ob1's object channel.
+
+Buffers are numpy (or any object with the buffer protocol), moved as
+``count`` elements of ``dtype`` (None: the buffer's own element type);
+``IN_PLACE`` as the send buffer takes the receive buffer's contents.
+Everything runs on the communicator's collective context, and each call
+takes the next tag of the comm's table, so every member must call a
+comm's collectives in the same order (MPI's rule). The neighbourhood
+slots (:425-559) come with ``topo/`` (ROADMAP queue 1 item 4f).
 """
 
 from __future__ import annotations
@@ -22,8 +35,36 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from ompi_tpu_torch import op as op_mod
 from ompi_tpu_torch import pml
 from ompi_tpu_torch.core import pvar
+
+IN_PLACE = "MPI_IN_PLACE"
+
+
+def _tag(comm) -> int:
+    return comm.coll.next_tag()
+
+
+# -- p2p building blocks (always the collective context) -------------------
+
+def _send(comm, buf, count, dtype, dst, tag):
+    pml.current().send(comm, buf, count, dtype, dst, tag, collective=True)
+
+
+def _recv(comm, buf, count, dtype, src, tag):
+    return pml.current().recv(comm, buf, count, dtype, src, tag,
+                              collective=True)
+
+
+def _isend(comm, buf, count, dtype, dst, tag):
+    return pml.current().isend(comm, buf, count, dtype, dst, tag,
+                               collective=True)
+
+
+def _irecv(comm, buf, count, dtype, src, tag):
+    return pml.current().irecv(comm, buf, count, dtype, src, tag,
+                               collective=True)
 
 
 def _send_obj(comm, obj, dst, tag):
@@ -34,27 +75,254 @@ def _recv_obj(comm, src, tag):
     return pml.current().recv_obj(comm, src, tag, collective=True)
 
 
+# -- collectives ------------------------------------------------------------
+
 def barrier(comm) -> None:
     """Linear barrier: a token from every rank to rank 0, then one back
     (coll_basic_barrier.c)."""
     pvar.record("barrier")
-    tag = comm.coll.next_tag()
-    p = pml.current()
+    tag = _tag(comm)
     token = np.zeros(1, dtype=np.uint8)
     if comm.rank == 0:
         for r in range(1, comm.size):
-            p.recv(comm, token, 1, None, r, tag, collective=True)
+            _recv(comm, token, 1, None, r, tag)
         for r in range(1, comm.size):
-            p.send(comm, token, 1, None, r, tag, collective=True)
+            _send(comm, token, 1, None, r, tag)
     elif comm.size > 1:
-        p.send(comm, token, 1, None, 0, tag, collective=True)
-        p.recv(comm, token, 1, None, 0, tag, collective=True)
+        _send(comm, token, 1, None, 0, tag)
+        _recv(comm, token, 1, None, 0, tag)
 
+
+def bcast_linear(comm, buf, count, dtype, root: int) -> None:
+    pvar.record("bcast")
+    tag = _tag(comm)
+    if comm.rank == root:
+        reqs = [_isend(comm, buf, count, dtype, r, tag)
+                for r in range(comm.size) if r != root]
+        for q in reqs:
+            q.wait()
+    else:
+        _recv(comm, buf, count, dtype, root, tag)
+
+
+def reduce_linear(comm, sendbuf, recvbuf, count, dtype, op, root: int):
+    """The rank-order fold at the root (coll_basic_reduce.c): the
+    receives arrive in ascending rank order, so the root folds as they
+    come, ``acc = op(acc, contribution)``."""
+    pvar.record("reduce")
+    tag = _tag(comm)
+    sb = np.asarray(recvbuf if sendbuf is IN_PLACE else sendbuf)
+    if comm.rank == root:
+        tmp = np.empty_like(sb)
+        result = None
+        for r in range(comm.size):
+            if r == root:
+                contrib = sb
+            else:
+                _recv(comm, tmp, count, dtype, r, tag)
+                contrib = tmp
+            result = contrib.copy() if result is None \
+                else op.np_fn(result, contrib)
+        np.copyto(np.asarray(recvbuf), result, casting="same_kind")
+    else:
+        _send(comm, sb, count, dtype, root, tag)
+
+
+def allreduce_reduce_bcast(comm, sendbuf, recvbuf, count, dtype, op):
+    pvar.record("allreduce")
+    reduce_linear(comm, sendbuf, recvbuf, count, dtype, op, 0)
+    bcast_linear(comm, recvbuf, count, dtype, 0)
+
+
+def gather_linear(comm, sendbuf, recvbuf, count, dtype, root: int):
+    """``recvbuf`` on the root holds ``size * count`` elements."""
+    pvar.record("gather")
+    tag = _tag(comm)
+    sb = np.asarray(sendbuf)
+    if comm.rank == root:
+        rb = np.asarray(recvbuf).reshape(comm.size, -1)
+        rb[root][:] = sb.reshape(-1)
+        reqs = [_irecv(comm, rb[r], count, dtype, r, tag)
+                for r in range(comm.size) if r != root]
+        for q in reqs:
+            q.wait()
+    else:
+        _send(comm, sb, count, dtype, root, tag)
+
+
+def gatherv_linear(comm, sendbuf, recvbuf, counts, displs, dtype,
+                   root: int):
+    pvar.record("gather")
+    tag = _tag(comm)
+    sb = np.asarray(sendbuf)
+    if comm.rank == root:
+        rb = np.asarray(recvbuf).reshape(-1)
+        rb[displs[root]:displs[root] + counts[root]] = sb.reshape(-1)
+        reqs = [_irecv(comm, rb[displs[r]:displs[r] + counts[r]],
+                       counts[r], dtype, r, tag)
+                for r in range(comm.size) if r != root]
+        for q in reqs:
+            q.wait()
+    else:
+        _send(comm, sb, len(sb.reshape(-1)), dtype, root, tag)
+
+
+def scatter_linear(comm, sendbuf, recvbuf, count, dtype, root: int):
+    pvar.record("scatter")
+    tag = _tag(comm)
+    rb = np.asarray(recvbuf)
+    if comm.rank == root:
+        sb = np.asarray(sendbuf).reshape(comm.size, -1)
+        reqs = [_isend(comm, sb[r], count, dtype, r, tag)
+                for r in range(comm.size) if r != root]
+        rb.reshape(-1)[:] = sb[root]
+        for q in reqs:
+            q.wait()
+    else:
+        _recv(comm, rb, count, dtype, root, tag)
+
+
+def scatterv_linear(comm, sendbuf, recvbuf, counts, displs, dtype,
+                    root: int):
+    pvar.record("scatter")
+    tag = _tag(comm)
+    rb = np.asarray(recvbuf)
+    if comm.rank == root:
+        sb = np.asarray(sendbuf).reshape(-1)
+        reqs = []
+        for r in range(comm.size):
+            view = sb[displs[r]:displs[r] + counts[r]]
+            if r == root:
+                rb.reshape(-1)[:counts[r]] = view
+            else:
+                reqs.append(_isend(comm, view.copy(), counts[r], dtype,
+                                   r, tag))
+        for q in reqs:
+            q.wait()
+    else:
+        _recv(comm, rb, len(rb.reshape(-1)), dtype, root, tag)
+
+
+def allgather_gather_bcast(comm, sendbuf, recvbuf, count, dtype):
+    pvar.record("allgather")
+    gather_linear(comm, sendbuf, recvbuf, count, dtype, 0)
+    bcast_linear(comm, recvbuf, count * comm.size, dtype, 0)
+
+
+def allgatherv_linear(comm, sendbuf, recvbuf, counts, displs, dtype):
+    pvar.record("allgather")
+    gatherv_linear(comm, sendbuf, recvbuf, counts, displs, dtype, 0)
+    total = max(displs[r] + counts[r] for r in range(comm.size))
+    bcast_linear(comm, np.asarray(recvbuf).reshape(-1)[:total], total,
+                 dtype, 0)
+
+
+def alltoall_pairwise_isend(comm, sendbuf, recvbuf, count, dtype):
+    """Every send and receive posted at once (coll_basic_alltoall)."""
+    pvar.record("alltoall")
+    tag = _tag(comm)
+    sb = np.asarray(sendbuf).reshape(comm.size, -1)
+    rb = np.asarray(recvbuf).reshape(comm.size, -1)
+    rb[comm.rank][:] = sb[comm.rank]
+    rreqs = [_irecv(comm, rb[r], count, dtype, r, tag)
+             for r in range(comm.size) if r != comm.rank]
+    sreqs = [_isend(comm, sb[r], count, dtype, r, tag)
+             for r in range(comm.size) if r != comm.rank]
+    for q in rreqs + sreqs:
+        q.wait()
+
+
+def alltoallv_linear(comm, sendbuf, recvbuf, scounts, sdispls,
+                     rcounts, rdispls, dtype):
+    pvar.record("alltoall")
+    tag = _tag(comm)
+    sb = np.asarray(sendbuf).reshape(-1)
+    rb = np.asarray(recvbuf).reshape(-1)
+    me = comm.rank
+    rb[rdispls[me]:rdispls[me] + rcounts[me]] = \
+        sb[sdispls[me]:sdispls[me] + scounts[me]]
+    rreqs = [_irecv(comm, rb[rdispls[r]:rdispls[r] + rcounts[r]],
+                    rcounts[r], dtype, r, tag)
+             for r in range(comm.size) if r != me]
+    sreqs = [_isend(comm, sb[sdispls[r]:sdispls[r] + scounts[r]].copy(),
+                    scounts[r], dtype, r, tag)
+             for r in range(comm.size) if r != me]
+    for q in rreqs + sreqs:
+        q.wait()
+
+
+def reduce_scatter_block_basic(comm, sendbuf, recvbuf, count, dtype, op):
+    """Reduce at 0, then scatter (coll_basic_reduce_scatter_block.c)."""
+    pvar.record("reduce_scatter")
+    sb = np.asarray(sendbuf)
+    total = np.empty_like(sb) if comm.rank == 0 else sb
+    reduce_linear(comm, sb, total, count * comm.size, dtype, op, 0)
+    scatter_linear(comm, total if comm.rank == 0 else None, recvbuf,
+                   count, dtype, 0)
+
+
+def packed_displs(counts) -> list:
+    """The MPI default displacements: ``counts`` packed end to end."""
+    displs, o = [], 0
+    for c in counts:
+        displs.append(o)
+        o += int(c)
+    return displs
+
+
+def reduce_scatter_basic(comm, sendbuf, recvbuf, counts, dtype, op):
+    """MPI_Reduce_scatter with per-rank counts: reduce, then scatterv."""
+    pvar.record("reduce_scatter")
+    sb = np.asarray(sendbuf)
+    total = np.empty_like(sb) if comm.rank == 0 else sb
+    reduce_linear(comm, sb, total, int(sum(counts)), dtype, op, 0)
+    scatterv_linear(comm, total if comm.rank == 0 else None, recvbuf,
+                    counts, packed_displs(counts), dtype, 0)
+
+
+def scan_linear(comm, sendbuf, recvbuf, count, dtype, op):
+    """MPI_Scan: the inclusive prefix, a chain in rank order."""
+    pvar.record("scan")
+    tag = _tag(comm)
+    sb = np.asarray(recvbuf if sendbuf is IN_PLACE else sendbuf)
+    rb = np.asarray(recvbuf)
+    if comm.rank == 0:
+        np.copyto(rb, sb, casting="same_kind")
+    else:
+        prev = np.empty_like(rb)
+        _recv(comm, prev, count, dtype, comm.rank - 1, tag)
+        np.copyto(rb, op.np_fn(prev, sb), casting="same_kind")
+    if comm.rank + 1 < comm.size:
+        _send(comm, rb, count, dtype, comm.rank + 1, tag)
+
+
+def exscan_linear(comm, sendbuf, recvbuf, count, dtype, op):
+    """MPI_Exscan: rank 0's recvbuf is left as it was (MPI leaves it
+    undefined)."""
+    pvar.record("exscan")
+    tag = _tag(comm)
+    # in place, the receive overwrites recvbuf: keep its contribution
+    sb = np.asarray(recvbuf).copy() if sendbuf is IN_PLACE \
+        else np.asarray(sendbuf)
+    rb = np.asarray(recvbuf)
+    if comm.rank > 0:
+        _recv(comm, rb, count, dtype, comm.rank - 1, tag)
+    if comm.rank + 1 < comm.size:
+        nxt = sb if comm.rank == 0 else op.np_fn(rb, sb)
+        _send(comm, np.ascontiguousarray(nxt), count, dtype,
+              comm.rank + 1, tag)
+
+
+def reduce_local(comm, inbuf, inoutbuf, count, dtype, op):
+    op_mod.reduce_local(np.asarray(inbuf), np.asarray(inoutbuf), op)
+
+
+# -- the object collectives -------------------------------------------------
 
 def bcast_obj(comm, obj, root: int = 0):
     """The root's ``obj`` (picklable) on every member; the others pass
     anything (None)."""
-    tag = comm.coll.next_tag()
+    tag = _tag(comm)
     if comm.rank == root:
         for r in range(comm.size):
             if r != root:
@@ -66,7 +334,7 @@ def bcast_obj(comm, obj, root: int = 0):
 def gather_obj(comm, obj, root: int = 0) -> Optional[List[Any]]:
     """Every member's ``obj`` on the root in comm rank order, None
     elsewhere."""
-    tag = comm.coll.next_tag()
+    tag = _tag(comm)
     if comm.rank == root:
         out: List[Any] = [None] * comm.size
         out[root] = obj
@@ -80,7 +348,7 @@ def gather_obj(comm, obj, root: int = 0) -> Optional[List[Any]]:
 
 def scatter_obj(comm, objs, root: int = 0):
     """``objs[r]`` of the root on rank r."""
-    tag = comm.coll.next_tag()
+    tag = _tag(comm)
     if comm.rank == root:
         for r in range(comm.size):
             if r != root:
@@ -97,7 +365,7 @@ def allgather_obj(comm, obj) -> List[Any]:
 
 def alltoall_obj(comm, objs) -> List[Any]:
     """``objs[r]`` goes to rank r; returns what each rank sent here."""
-    tag = comm.coll.next_tag()
+    tag = _tag(comm)
     me = comm.rank
     p = pml.current()
     out: List[Any] = [None] * comm.size
@@ -125,14 +393,34 @@ class CollBasic:
     """The component comm_select ranks."""
 
     NAME = "basic"
-    PRIORITY = 10  # the reference's basic level: below every device provider
+    PRIORITY = 10  # the reference's basic level: below every other
 
     def query(self, comm) -> int:
         return self.PRIORITY
 
     def slots(self, comm):
-        return {"barrier": barrier, "bcast_obj": bcast_obj,
-                "gather_obj": gather_obj, "scatter_obj": scatter_obj,
-                "allgather_obj": allgather_obj,
-                "alltoall_obj": alltoall_obj,
-                "allreduce_obj": allreduce_obj}
+        return {
+            "barrier": barrier,
+            "bcast": bcast_linear,
+            "reduce": reduce_linear,
+            "allreduce": allreduce_reduce_bcast,
+            "gather": gather_linear,
+            "gatherv": gatherv_linear,
+            "scatter": scatter_linear,
+            "scatterv": scatterv_linear,
+            "allgather": allgather_gather_bcast,
+            "allgatherv": allgatherv_linear,
+            "alltoall": alltoall_pairwise_isend,
+            "alltoallv": alltoallv_linear,
+            "reduce_scatter": reduce_scatter_basic,
+            "reduce_scatter_block": reduce_scatter_block_basic,
+            "scan": scan_linear,
+            "exscan": exscan_linear,
+            "reduce_local": reduce_local,
+            "bcast_obj": bcast_obj,
+            "gather_obj": gather_obj,
+            "scatter_obj": scatter_obj,
+            "allgather_obj": allgather_obj,
+            "alltoall_obj": alltoall_obj,
+            "allreduce_obj": allreduce_obj,
+        }

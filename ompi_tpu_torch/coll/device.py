@@ -75,11 +75,18 @@ A one-rank comm needs no device plane: every slot returns a new tensor
 zeros) on the tensor's own device and touches no arena. The reference
 returns its input there; a torch tensor is mutable, a jax array is not.
 
-Still ``MPIError(ERR_NOT_SUPPORTED)``: ops that are not traceable
-(MINLOC, MAXLOC, REPLACE, NO_OP; the reference stages them through the
-host collectives, ROADMAP queue 1 item 4) and dtypes a jax array does not hold
-with 64-bit mode off (float64, int64, uint64, complex), which the
-reference only meets as host buffers.
+The reference's fallthrough (coll/xla.py:401-410 ``_op_ok`` and its
+call sites): a call whose op coll/xla would not trace (REPLACE, NO_OP, a
+user op of ``op.create``), or whose tensor has a dtype a jax array does
+not hold with 64-bit mode off (float64, int64, uint64, complex), goes to
+the coll/accelerator function of the same signature (:func:`_stages`),
+which stages it through the host collectives; its nonblocking and
+persistent forms run that function. The decision is made from the op and
+the dtype alone, before anything launches; a kernel that fails to build
+or launch raises, and nothing stages on error. MINLOC and MAXLOC raise
+``MPIError(ERR_OP)``: their (val, loc) records fit no torch dtype.
+Scatter's non-roots learn the dtype from ``like`` or the metadata round
+first, so every rank takes the same path.
 """
 from __future__ import annotations
 
@@ -144,9 +151,34 @@ _HOST_ONLY = frozenset((torch.float64, torch.int64, torch.uint64,
                         torch.complex32, torch.complex64, torch.complex128))
 
 
-def _check_buf(kind: str, comm, t) -> None:
+def _stages(op, *tensors) -> bool:
+    """True when the call goes to coll/accelerator's staging (coll/xla.py
+    ``_op_ok``): an op coll/xla does not trace, or a dtype of
+    :data:`_HOST_ONLY`. MINLOC and MAXLOC raise ERR_OP."""
+    from ompi_tpu_torch.coll import accelerator
+
+    if op is not None:
+        opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
+        if opn is not None:
+            accelerator.check_op("coll_device", opn)
+        if opn is None or opn.name not in _FOLD:
+            return True
+    return any(isinstance(t, torch.Tensor) and t.dtype in _HOST_ONLY
+               for t in tensors)
+
+
+def _stage(slot: str, *args, **kwargs):
+    """The coll/accelerator function of the same signature (coll/xla's
+    ``staging.<slot>``)."""
+    from ompi_tpu_torch.coll import accelerator
+
+    return getattr(accelerator, slot)(*args, **kwargs)
+
+
+def _check_buf(kind: str, comm, t, any_dtype: bool = False) -> None:
     """A tensor on this rank's device (any device on a one-rank comm,
-    which needs no plane) of a dtype the device path holds."""
+    which needs no plane) of a dtype the device path holds (any dtype
+    where the caller stages the others itself)."""
     if not isinstance(t, torch.Tensor):
         raise errors.MPIError(
             errors.ERR_BUFFER,
@@ -160,12 +192,12 @@ def _check_buf(kind: str, comm, t) -> None:
                 errors.ERR_BUFFER,
                 f"coll_device: {kind} buffer on {t.device} is not on this "
                 f"rank's device {dev}")
-    if t.dtype in _HOST_ONLY:
+    if t.dtype in _HOST_ONLY and not any_dtype:
         raise errors.MPIError(
             errors.ERR_NOT_SUPPORTED,
             f"coll_device: {kind} of {t.dtype}, which a jax array does not "
-            "hold with 64-bit mode off: the reference meets it only as a "
-            "host buffer (the host collectives, ROADMAP queue 1 item 4)")
+            "hold with 64-bit mode off: the slots that have a "
+            "coll/accelerator counterpart stage it; this one has none")
 
 
 def _check_leaf(kind: str, comm, t) -> None:
@@ -213,14 +245,14 @@ _BITWISE = frozenset(("MPI_BAND", "MPI_BOR", "MPI_BXOR"))
 
 
 def _opn(kind: str, op, dtype) -> op_mod.Op:
-    """The op, if coll/xla would trace it for this dtype."""
+    """The op, which coll/xla would trace (:func:`_stages` has sent the
+    others to coll/accelerator), if it takes this dtype."""
     opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
     if opn is None or opn.name not in _FOLD:
         raise errors.MPIError(
             errors.ERR_NOT_SUPPORTED,
             f"coll_device: {kind} op {getattr(opn, 'name', op)!r} is not "
-            "traceable: the reference stages it through the host "
-            "collectives (ROADMAP queue 1 item 4)")
+            "traceable and this slot has no staged counterpart")
     if opn.name in _BITWISE and dtype.is_floating_point:
         raise errors.MPIError(
             errors.ERR_OP,
@@ -376,6 +408,9 @@ def _reduce_scatter_run(comm, m: int, dtype, opn: op_mod.Op, det):
 
 def _allreduce_prep(comm, sendbuf, op=op_mod.SUM,
                     deterministic: Optional[str] = None):
+    if _stages(op, sendbuf):
+        return lambda: _stage("allreduce_dev", comm, sendbuf, op,
+                              deterministic)
     det = _det_ok(deterministic)
     _check_buf("allreduce", comm, sendbuf)
     opn = _opn("allreduce", op, sendbuf.dtype)
@@ -393,6 +428,9 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
 
 def _reduce_scatter_block_prep(comm, sendbuf, op=op_mod.SUM,
                                deterministic: Optional[str] = None):
+    if _stages(op, sendbuf):
+        return lambda: _stage("reduce_scatter_block_dev", comm, sendbuf, op,
+                              deterministic)
     det = _det_ok(deterministic)
     _check_buf("reduce_scatter_block", comm, sendbuf)
     opn = _opn("reduce_scatter_block", op, sendbuf.dtype)
@@ -418,6 +456,8 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
 
 
 def _allgather_prep(comm, sendbuf):
+    if _stages(None, sendbuf):
+        return lambda: _stage("allgather_dev", comm, sendbuf)
     _check_buf("allgather", comm, sendbuf)
     n = comm.size
     if n == 1:
@@ -440,6 +480,8 @@ def allgather_dev(comm, sendbuf):
 
 
 def _bcast_prep(comm, buf, root: int = 0):
+    if _stages(None, buf):
+        return lambda: _stage("bcast_dev", comm, buf, root)
     _check_buf("bcast", comm, buf)
     _check_root("bcast", comm, root)
     if comm.size == 1 or buf.numel() == 0:
@@ -460,6 +502,8 @@ def bcast_dev(comm, buf, root: int = 0):
 
 
 def _alltoall_prep(comm, sendbuf):
+    if _stages(None, sendbuf):
+        return lambda: _stage("alltoall_dev", comm, sendbuf)
     _check_buf("alltoall", comm, sendbuf)
     n = comm.size
     if n > 1 and (sendbuf.dim() < 1 or sendbuf.shape[0] % n):
@@ -512,6 +556,8 @@ def reduce_dev(comm, sendbuf, op=op_mod.SUM, root: int = 0,
     ops) or the fold. A non-root allocates O(bytes) either way
     (``_last_rooted_plan``)."""
     global _last_rooted_plan
+    if _stages(op, sendbuf):
+        return _stage("reduce_dev", comm, sendbuf, op, root, deterministic)
     det = _det_ok(deterministic)
     _check_buf("reduce", comm, sendbuf)
     opn = _opn("reduce", op, sendbuf.dtype)
@@ -560,6 +606,8 @@ def gather_dev(comm, sendbuf, root: int = 0):
     every rank stages and the root alone pulls (K2), so a non-root
     allocates nothing."""
     global _last_rooted_plan
+    if _stages(None, sendbuf):
+        return _stage("gather_dev", comm, sendbuf, root)
     _check_buf("gather", comm, sendbuf)
     _check_root("gather", comm, root)
     n, r = comm.size, comm.rank
@@ -612,14 +660,14 @@ def _scatter_shape(kind, comm, sendbuf, root, like, rest_only: bool):
     a non-root's ``like`` template (its receive buffer), or the metadata
     round. ``rest_only``: the trailing dims alone (scatterv)."""
     if comm.rank == root:
-        _check_buf(kind, comm, sendbuf)
+        _check_buf(kind, comm, sendbuf, any_dtype=True)
         shape = tuple(sendbuf.shape[1:] if rest_only else sendbuf.shape)
         if like is None:
             _scatter_meta(comm, (kind, root), root,
                           (shape, _dtype_name(sendbuf.dtype)))
         return shape, sendbuf.dtype
     if like is not None:
-        _check_buf(kind, comm, like)
+        _check_buf(kind, comm, like, any_dtype=True)
         rest = tuple(like.shape[1:])
         return (rest if rest_only else
                 (comm.size * like.shape[0],) + rest), like.dtype
@@ -636,10 +684,14 @@ def scatter_dev(comm, sendbuf, root: int = 0, like=None):
     _check_root("scatter", comm, root)
     n = comm.size
     if n == 1:
+        if _stages(None, sendbuf):
+            return _stage("scatter_dev", comm, sendbuf, root, like)
         _check_buf("scatter", comm, sendbuf)
         return sendbuf.clone()
     shape, dtype = _scatter_shape("scatter", comm, sendbuf, root, like,
                                   False)
+    if dtype in _HOST_ONLY:  # every rank knows it now
+        return _stage("scatter_dev", comm, sendbuf, root, like)
     if len(shape) < 1 or shape[0] % n:
         raise errors.MPIError(
             errors.ERR_COUNT,
@@ -665,11 +717,15 @@ def scatterv_dev(comm, sendbuf, counts, root: int = 0, like=None):
     _check_root("scatterv", comm, root)
     n, r = comm.size, comm.rank
     if n == 1:
+        if _stages(None, sendbuf):
+            return _stage("scatterv_dev", comm, sendbuf, counts, root, like)
         _check_buf("scatterv", comm, sendbuf)
         return sendbuf.clone()
     counts = _counts(counts, "scatterv", n)
     rest, dtype = _scatter_shape("scatterv", comm, sendbuf, root, like,
                                  True)
+    if dtype in _HOST_ONLY:  # every rank knows it now
+        return _stage("scatterv_dev", comm, sendbuf, counts, root, like)
     total, row = sum(counts), _row_elems(rest)
     if r == root and (sendbuf.dim() < 1 or sendbuf.shape[0] < total):
         raise errors.MPIError(
@@ -704,6 +760,8 @@ def allgatherv_dev(comm, sendbuf, counts):
     """MPI_Allgatherv (coll/xla.py:1021-1054): the packed ``(sum(counts),
     *rest)``; every rank stages its block unpadded and pulls each rank's
     ``counts[p]`` rows into their place (K2)."""
+    if _stages(None, sendbuf):
+        return _stage("allgatherv_dev", comm, sendbuf, counts)
     if comm.size == 1:
         _check_buf("allgatherv", comm, sendbuf)
         return sendbuf.clone()
@@ -724,6 +782,8 @@ def gatherv_dev(comm, sendbuf, counts, root: int = 0):
     reference runs the allgatherv and drops it on the non-roots (same
     bits), the port allocates nothing there."""
     _check_root("gatherv", comm, root)
+    if _stages(None, sendbuf):
+        return _stage("gatherv_dev", comm, sendbuf, counts, root)
     if comm.size == 1:
         _check_buf("gatherv", comm, sendbuf)
         return sendbuf.clone()
@@ -773,6 +833,9 @@ def alltoallv_dev(comm, sendbuf, scounts, rcounts, max_count=None):
       no padding there is no blowup to bound: the reference's
       ``coll_xla_alltoallv_pad_factor`` and its fallback to host staging
       have no counterpart."""
+    if _stages(None, sendbuf):
+        return _stage("alltoallv_dev", comm, sendbuf, scounts, rcounts,
+                      max_count)
     _check_buf("alltoallv", comm, sendbuf)
     n, r = comm.size, comm.rank
     if n == 1:
@@ -815,6 +878,9 @@ def reduce_scatter_dev(comm, sendbuf, counts, op=op_mod.SUM,
                        deterministic: Optional[str] = None):
     """MPI_Reduce_scatter (coll/xla.py:1160-1185): the allreduce, then
     this rank's ``counts[rank]`` rows (a copy)."""
+    if _stages(op, sendbuf):
+        return _stage("reduce_scatter_dev", comm, sendbuf, counts, op,
+                      deterministic)
     _check_buf("reduce_scatter", comm, sendbuf)
     _opn("reduce_scatter", op, sendbuf.dtype)
     counts = _counts(counts, "reduce_scatter", comm.size)
@@ -836,6 +902,8 @@ def _prefix(kind: str, comm, sendbuf, op, deterministic, exclusive: bool):
     kernels' dtypes and ops fold with K3 straight from the staged
     inputs; others pull the rows (K2) and fold; one row is a copy, and
     exscan's rank 0 gets zeros."""
+    if _stages(op, sendbuf):
+        return _stage(kind + "_dev", comm, sendbuf, op, deterministic)
     _det_ok(deterministic)
     _check_buf(kind, comm, sendbuf)
     opn = _opn(kind, op, sendbuf.dtype)
@@ -886,8 +954,11 @@ def _allreduce_multi_prep(comm, bufs, op=op_mod.SUM,
     new pytree."""
     from ompi_tpu_torch.zero import layout as zl
 
-    det = _det_ok(deterministic)
     leaves, treedef = zl.tree_flatten(bufs)
+    if _stages(op, *leaves):
+        return lambda: _stage("allreduce_multi_dev", comm, bufs, op,
+                              deterministic)
+    det = _det_ok(deterministic)
     for t in leaves:
         _check_buf("allreduce_multi", comm, t)
     opn = None
@@ -939,6 +1010,9 @@ def reduce_scatter_multi_dev(comm, bufs, op=op_mod.SUM,
     per-buffer allreduce fold."""
     from ompi_tpu_torch.zero import layout as zl
 
+    if _stages(op, *zl.tree_leaves(bufs)):
+        return _stage("reduce_scatter_multi_dev", comm, bufs, op,
+                      deterministic)
     det = _det_ok(deterministic)
     opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
     if opn is None or opn.name not in K.OP_CODES:
@@ -1021,6 +1095,8 @@ def allgather_multi_dev(comm, state):
     from ompi_tpu_torch.zero import layout as zl
 
     _zero_state_check(comm, state)
+    if _stages(None, *state.shards):
+        return _stage("allgather_multi_dev", comm, state)
     if not state.shards:
         return zl.tree_unflatten(state.treedef, [])
     if comm.size == 1:

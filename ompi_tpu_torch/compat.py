@@ -18,7 +18,10 @@ with like is the MCA configuration, the data and the parameters.
   scatter metadata round, the reference's default) and
   ``coll_xla_a2av_meta_cache`` (coll/device runs Alltoallv's count
   round at every call, the reference's default; ``max_count`` skips
-  it). Anything else passes through unchanged.
+  it). Anything else passes through unchanged: the host collectives'
+  ``coll_tuned_*`` (the forced algorithms and the switchpoints),
+  ``coll_sync_*`` and ``coll_adapt_*`` cvars among them, which the port
+  registers under the reference's names.
 - :func:`tensor_from_numpy` / :func:`tensor_to_numpy` convert buffers,
   carrying bfloat16 through its uint16 bit pattern (numpy has no
   bfloat16 of its own); :func:`tree_from_numpy` / :func:`tree_to_numpy`

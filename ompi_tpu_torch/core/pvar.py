@@ -64,6 +64,15 @@ WELL_KNOWN = (
     "smsc_single_copies", "smsc_bytes",
     # pml/accel_p2p: device-tensor sends and receives
     "accel_p2p_send", "accel_p2p_recv",
+    # the host collectives (coll/basic, base_algos, coll/tuned; the
+    # reference's names): calls per collective family
+    "bcast", "reduce", "allreduce", "gather", "scatter", "allgather",
+    "alltoall", "reduce_scatter", "scan", "exscan",
+    # coll/accelerator: device-tensor calls staged through the host
+    # collectives; coll/sync: barriers injected; coll/adapt: segmented
+    # ibcast / ireduce calls
+    "coll_accelerator_staged", "sync_injected_barriers", "adapt_ibcast",
+    "adapt_ireduce",
 )
 
 

@@ -2,9 +2,11 @@
 
 The port's reduction of ``ompi_tpu.datatype.datatype`` (reference:
 ompi/datatype/ompi_datatype_internal.h, the predefined types) to the
-contiguous, predefined types: ``BYTE``, the numeric types and
-``from_numpy_dtype``. A predefined type is one contiguous span of
-``size`` bytes. Derived types (vector, indexed, struct, subarray, ...)
+contiguous, predefined types: ``BYTE``, the numeric types, the
+MINLOC / MAXLOC pair types (``FLOAT_INT``, ``DOUBLE_INT``, ``LONG_INT``,
+``TWOINT``, ``SHORT_INT``: structured numpy dtypes of a ``val`` and an
+int32 ``loc`` field, packed) and ``from_numpy_dtype``. A predefined type
+is one contiguous span of ``size`` bytes. Derived types (vector, indexed, struct, subarray, ...)
 and their span tables come with the datatype engine in ROADMAP queue 1
 item 4; their constructors raise ``MPIError(ERR_NOT_SUPPORTED)``.
 """
@@ -82,11 +84,23 @@ BOOL = _predef(np.bool_, "MPI_C_BOOL")
 COMPLEX64 = _predef(np.complex64, "MPI_C_FLOAT_COMPLEX")
 COMPLEX128 = _predef(np.complex128, "MPI_C_DOUBLE_COMPLEX")
 
+# the MINLOC / MAXLOC pair types (MPI-3.1 5.9.4) as numpy struct dtypes
+FLOAT_INT = _predef([("val", np.float32), ("loc", np.int32)],
+                    "MPI_FLOAT_INT")
+DOUBLE_INT = _predef([("val", np.float64), ("loc", np.int32)],
+                     "MPI_DOUBLE_INT")
+LONG_INT = _predef([("val", np.int64), ("loc", np.int32)], "MPI_LONG_INT")
+TWOINT = _predef([("val", np.int32), ("loc", np.int32)], "MPI_2INT")
+SHORT_INT = _predef([("val", np.int16), ("loc", np.int32)],
+                    "MPI_SHORT_INT")
+#: the pair types, which only MINLOC and MAXLOC combine
+PAIR_TYPES = (FLOAT_INT, DOUBLE_INT, LONG_INT, TWOINT, SHORT_INT)
+
 PREDEFINED = {
     d.name: d for d in (
         BYTE, PACKED, CHAR, INT8, UINT8, INT16, UINT16, INT32, UINT32,
         INT64, UINT64, FLOAT, DOUBLE, FLOAT16, BFLOAT16, BOOL, COMPLEX64,
-        COMPLEX128)
+        COMPLEX128, *PAIR_TYPES)
 }
 
 _NP_CACHE: Dict[str, Datatype] = {}

@@ -32,8 +32,24 @@ the count round), ``scan`` (Scan / Exscan float32 SUM and int32 MAX),
 call and Ibarrier, completed by ``wait_all``, each equal to its blocking
 call bitwise; then Iallreduce + wait at ``--rooted-bytes``),
 ``persistent`` (each ``*_init`` started 3 times, its buffers refilled
-before each start; then Allreduce_init's start + wait timed) and
-``self`` (every slot on COMM_SELF). It checks every result against the
+before each start; then Allreduce_init's start + wait timed), ``self``
+(every slot on COMM_SELF), ``host`` (numpy buffers through the host
+collectives, coll/tuned: float32 SUM Allreduce at each
+``--host-sizes`` under the default decision, each beside the same
+call on a CUDA tensor (the device path); float32 and int32 under each
+forced algorithm at ``--host-forced-bytes``; float32 Bcast of
+``--host-bcast-bytes`` from root 0 and n-1 under the default decision
+(binomial) and forced ``linear``, beside the device Bcast; int32 exact
+and float32 ``basic`` bitwise against a numpy rank-order fold, the other
+float32 algorithms within ``HOST_RTOL``) and ``staged`` (tensors that
+coll/device hands to coll/accelerator: float64 Allreduce at
+``--staged-bytes``, REPLACE and an ``op.create`` user op at
+``--staged-op-bytes``, one staged Iallreduce; each bitwise equal to the
+same host collective on numpy copies, on the rank's own device, and
+``coll_accelerator_staged`` equal to the staged calls made). ``staged``
+runs last: the ``coll_accelerator_staged`` count before it (every other
+family: nothing may stage there) is reported beside the kernels'
+launches. ``host`` and ``staged`` run only when ``--kinds`` names them. It checks every result against the
 result it computes on its own device from all ranks' regenerated
 inputs: bitwise under ``linear`` and ``ring`` (whose fold orders are
 known: rank order, and ranks c+1, ..., c+n for chunk c; the rooted SUM's
@@ -52,18 +68,27 @@ import json
 import os
 import time
 
+import numpy as np
 import torch
 
 from ompi_tpu_torch import mpi, op as op_mod
 from ompi_tpu_torch.coll import cuda_kernels as K
-from ompi_tpu_torch.core import cvar
+from ompi_tpu_torch.core import cvar, pvar
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import device_plane
 
 #: the kernels this path runs (the fused ones run in zero_training.py)
 PATH_KERNELS = (K.ring_rs_hop, K.ring_ag_hop, K.linear_fold)
-KINDS = ("allreduce", "rsag", "bcast", "alltoall", "ops", "rooted",
-         "vcoll", "scan", "barrier", "nonblocking", "persistent", "self")
+#: the device families, the default of --kinds
+DEVICE_KINDS = ("allreduce", "rsag", "bcast", "alltoall", "ops", "rooted",
+                "vcoll", "scan", "barrier", "nonblocking", "persistent",
+                "self")
+KINDS = DEVICE_KINDS + ("host", "staged")
+#: coll/tuned's forced allreduce algorithms (coll_tuned_allreduce_algorithm)
+HOST_ALGOS = ("recursivedoubling", "ring", "rabenseifner", "basic")
+#: tolerance of a float32 host allreduce whose fold order is not the
+#: rank order: relative to the sum of magnitudes, per element
+HOST_RTOL = 1e-5
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "int32": torch.int32}
 #: default-mode tolerance (the fold order is the selection's choice):
@@ -175,7 +200,7 @@ def _elems(nbytes, dtype, multiple=1):
 
 def _sizes(spec: str):
     out = []
-    for tok in spec.split(","):
+    for tok in filter(None, spec.split(",")):
         tok = tok.strip().lower()
         mult = {"k": 1 << 10, "m": 1 << 20, "g": 1 << 30}.get(tok[-1:], 1)
         out.append(int(tok.rstrip("kmg")) * mult)
@@ -470,11 +495,163 @@ def run_rest(comm, ns, kinds, dev, prof, record, check) -> None:
             req.free()
 
 
+def host_input(seed: int, rank: int, numel: int, dtype) -> np.ndarray:
+    """A rank's numpy input, from ``(seed, rank)``."""
+    g = np.random.default_rng(seed * 1000003 + rank)
+    if dtype == np.int32:
+        return g.integers(-(1 << 31), (1 << 31) - 1, numel, dtype=np.int32)
+    return (g.random(numel, dtype=np.float32) - 0.5).astype(dtype)
+
+
+def run_host(comm, ns, dev, prof, record) -> None:
+    """The ``host`` family: numpy buffers through coll/tuned, each case
+    beside the device path's call of the same size."""
+    n, r = comm.size, comm.rank
+    cpu = torch.device("cpu")
+
+    def fold(xs):  # the rank-order numpy fold (coll/basic's order)
+        acc = xs[0].copy()
+        for x in xs[1:]:
+            acc = acc + x
+        return acc
+
+    def host_allreduce(x):
+        out = np.empty_like(x)
+        comm.Allreduce(x, out)
+        return out
+
+    def ok_f32(got, xs, exp, bitwise):
+        if bitwise:
+            return np.array_equal(got.view(np.uint32), exp.view(np.uint32))
+        mag = sum(np.abs(x) for x in xs)
+        return bool((np.abs(got - exp) <= HOST_RTOL * mag + 1e-30).all())
+
+    for nbytes in _sizes(ns.host_sizes):
+        numel = nbytes // 4
+        x = host_input(ns.seed + 6, r, numel, np.float32)
+        t = timed(comm, lambda: host_allreduce(x), ns.iters, cpu)
+        xs = [host_input(ns.seed + 6, p, numel, np.float32)
+              for p in range(n)]
+        exp = fold(xs)
+        record("host Allreduce", torch.float32, nbytes, "tuned default",
+               t, ok_f32(t[0], xs, exp, False), 2 * (n - 1) / n * nbytes)
+        xd = torch.from_numpy(x).to(dev)
+        t = timed(comm, lambda: comm.Allreduce(xd), ns.iters, dev, prof)
+        record("device Allreduce beside host", torch.float32, nbytes,
+               "default", t, ok_f32(t[0].cpu().numpy(), xs, exp, False),
+               2 * (n - 1) / n * nbytes)
+        del xs, exp, xd
+    for nbytes in _sizes(ns.host_forced_bytes):
+        numel = nbytes // 4
+        for dtype in (np.float32, np.int32):
+            xs = [host_input(ns.seed + 7, p, numel, dtype)
+                  for p in range(n)]
+            exp = fold(xs)
+            for algo in HOST_ALGOS + ("",):
+                cvar.set("coll_tuned_allreduce_algorithm", algo)
+                t = timed(comm, lambda: host_allreduce(xs[r]), ns.iters,
+                          cpu)
+                ok = np.array_equal(t[0], exp) if dtype == np.int32 else \
+                    ok_f32(t[0], xs, exp, algo == "basic")
+                record("host Allreduce by algorithm",
+                       torch.int32 if dtype == np.int32 else torch.float32,
+                       nbytes,
+                       f"tuned {algo or 'default'}", t, ok,
+                       2 * (n - 1) / n * nbytes)
+            cvar.set("coll_tuned_allreduce_algorithm", "")
+    for nbytes in _sizes(ns.host_bcast_bytes):
+        numel = nbytes // 4
+        for root in sorted({0, n - 1}):
+            src = host_input(ns.seed + 8, root, numel, np.float32)
+            buf = src.copy() if r == root else np.zeros_like(src)
+
+            def bcast():
+                comm.Bcast(buf, root=root)
+                return buf
+            for algo in _host_algos(ns.host_bcast_algos):
+                cvar.set("coll_tuned_bcast_algorithm", algo)
+                if r != root:
+                    buf[:] = 0
+                t = timed(comm, bcast, ns.iters, cpu)
+                record(f"host Bcast root={root}", torch.float32, nbytes,
+                       f"tuned {algo or 'default'}", t,
+                       np.array_equal(buf.view(np.uint32),
+                                      src.view(np.uint32)), nbytes)
+            cvar.set("coll_tuned_bcast_algorithm", "")
+            sd = torch.from_numpy(src).to(dev)
+            bd = sd if r == root else torch.zeros_like(sd)
+            t = timed(comm, lambda: comm.Bcast(bd, root=root), ns.iters,
+                      dev, prof)
+            record(f"device Bcast root={root} beside host", torch.float32,
+                   nbytes, "default", t, bits_equal(t[0], sd), nbytes)
+    for nbytes in _sizes(ns.host_allgather_bytes):
+        numel = max(1, nbytes // 4 // n)
+        xs = [host_input(ns.seed + 11, p, numel, np.int32) for p in range(n)]
+        out = np.empty(numel * n, np.int32)
+        for algo in ("ring", "bruck", "recursivedoubling", "basic", ""):
+            cvar.set("coll_tuned_allgather_algorithm", algo)
+            t = timed(comm, lambda: comm.Allgather(xs[r], out) or out,
+                      ns.iters, cpu)
+            record("host Allgather by algorithm", torch.int32,
+                   numel * n * 4, f"tuned {algo or 'default'}", t,
+                   np.array_equal(out, np.concatenate(xs)),
+                   (n - 1) / n * numel * n * 4)
+        cvar.set("coll_tuned_allgather_algorithm", "")
+
+
+def _host_algos(spec: str):
+    """A comma list of forced-algorithm names; ``default`` is coll/tuned's
+    own decision (the cvar's empty value)."""
+    return ["" if a == "default" else a for a in spec.split(",") if a]
+
+
+def run_staged(comm, ns, dev, prof, record, check) -> None:
+    """The ``staged`` family: tensors that coll/device hands to
+    coll/accelerator, each result bitwise the same host collective's on
+    numpy copies and on this rank's device."""
+    n, r = comm.size, comm.rank
+    s = pvar.session()
+    calls = 0
+    user = op_mod.create(lambda a, b: a * 0.5 + b, commute=False)
+    cases = (("float64", np.float64, _sizes(ns.staged_bytes)[0], mpi.SUM),
+             ("REPLACE", np.float32, _sizes(ns.staged_op_bytes)[0],
+              mpi.REPLACE),
+             ("op.create", np.float32, _sizes(ns.staged_op_bytes)[0], user))
+    for name, dtype, nbytes, op in cases:
+        x = host_input(ns.seed + 9, r, nbytes // np.dtype(dtype).itemsize,
+                       dtype)
+        xd = torch.from_numpy(x).to(dev)
+        t = timed(comm, lambda: comm.Allreduce(xd, op=op), ns.iters, dev,
+                  prof)
+        calls += 1 + ns.iters
+        want = np.empty_like(x)
+        comm.Allreduce(x, want, op=op)
+        got = t[0].cpu().numpy()
+        record(f"staged Allreduce {name}", xd.dtype, nbytes, "staged", t,
+               t[0].device == dev and np.array_equal(
+                   got.view(np.uint8), want.view(np.uint8)),
+               2 * (n - 1) / n * nbytes)
+    x = host_input(ns.seed + 10, r, _sizes(ns.staged_op_bytes)[0] // 8,
+                   np.float64)
+    req = comm.Iallreduce(torch.from_numpy(x).to(dev))
+    mpi.wait_all([req])
+    calls += 1
+    want = np.empty_like(x)
+    comm.Allreduce(x, want)
+    check("staged Iallreduce float64", req.array.device == dev
+          and np.array_equal(req.array.cpu().numpy().view(np.uint8),
+                             want.view(np.uint8)))
+    got = s.read("coll_accelerator_staged")
+    check(f"coll_accelerator_staged {got} == {calls} staged calls",
+          got == calls)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kinds", default=",".join(KINDS),
-                    help="families to run, of " + ", ".join(KINDS))
+    ap.add_argument("--kinds", default=",".join(DEVICE_KINDS),
+                    help="families to run, of " + ", ".join(KINDS)
+                    + " (default: all but host and staged)")
     ap.add_argument("--sizes", default="1k,1m,64m,256m",
                     help="float32 Allreduce payloads in bytes (k/m/g)")
     ap.add_argument("--dtype-bytes", default="1m",
@@ -504,6 +681,25 @@ def main(argv=None) -> int:
                     help="int32 lanes per Alltoallv token")
     ap.add_argument("--scan-bytes", default="1m",
                     help="Scan / Exscan payload")
+    ap.add_argument("--host-sizes", default="1k,1m,64m,256m",
+                    help="float32 host Allreduce payloads (coll/tuned's "
+                         "default decision, beside the device path)")
+    ap.add_argument("--host-forced-bytes", default="1m",
+                    help="payload of the forced-algorithm host Allreduces")
+    ap.add_argument("--host-bcast-bytes", default="1m",
+                    help="float32 host Bcast payloads")
+    ap.add_argument("--host-bcast-algos", default="default,linear",
+                    help="coll_tuned_bcast_algorithm values to time the host "
+                         "Bcast under ('default': coll/tuned's decision)")
+    ap.add_argument("--host-allgather-bytes", default="",
+                    help="int32 host Allgather totals, each under every "
+                         "forced coll_tuned_allgather_algorithm (none by "
+                         "default)")
+    ap.add_argument("--staged-bytes", default="64m",
+                    help="float64 staged Allreduce payload")
+    ap.add_argument("--staged-op-bytes", default="1m",
+                    help="payload of the REPLACE, op.create and Iallreduce "
+                         "staged calls")
     ap.add_argument("--iters", type=int, default=3)
     ap.add_argument("--out", default="")
     ap.add_argument("--profile", action="store_true",
@@ -627,6 +823,8 @@ def main(argv=None) -> int:
                torch.equal(t[0], exp), (n - 1) / n * numel * 4)
 
     run_rest(comm, ns, kinds, dev, prof, record, check)
+    if "host" in kinds:
+        run_host(comm, ns, dev, prof, record)
 
     if "self" in kinds:  # every slot on a one-rank comm: a new tensor
         one = mpi.COMM_SELF
@@ -668,22 +866,33 @@ def main(argv=None) -> int:
         one.Barrier(device=True)
 
     launches = {k.__name__: k.launches for k in PATH_KERNELS}
+    # every family before staged: nothing may stage there
+    staged_before = pvar.read("coll_accelerator_staged")
+    if "staged" in kinds:
+        run_staged(comm, ns, dev, prof, record, check)
     # K2 moves every byte of a multi-rank case; K1 and K3 run the
-    # reductions the kernels take (float32 / bfloat16 / int32 SUM)
-    required = ["ring_ag_hop"] if set(kinds) - {"self", "barrier"} else []
+    # reductions the kernels take (float32 / bfloat16 / int32 SUM); the
+    # host family's device Allreduce is the default mode's ring (K1, K2)
+    kernel_kinds = set(kinds) - {"self", "barrier", "staged"}
+    required = ["ring_ag_hop"] if kernel_kinds else []
     if {"allreduce", "rsag", "rooted", "vcoll", "nonblocking",
             "persistent"} & set(kinds):
         required += ["ring_rs_hop", "linear_fold"]
     elif {"scan", "barrier"} & set(kinds):
         required += ["linear_fold"]
+    elif "host" in kinds and ns.host_sizes:
+        required += ["ring_rs_hop"]
     if ns.out:
         os.makedirs(ns.out, exist_ok=True)
         with open(os.path.join(ns.out, f"rank{r}.json"), "w") as f:
             json.dump({"rank": r, "size": n, "device": str(dev),
                        "provider": provider, "launches": launches,
-                       "required": required, "cases": cases}, f)
+                       "required": required, "cases": cases,
+                       "coll_accelerator_staged": staged_before}, f)
     bad = [c for c in cases if not c["ok"]]
     assert not bad, f"rank {r}: mismatching results: {bad}"
+    assert staged_before == 0, \
+        f"rank {r}: {staged_before} calls staged outside the staged family"
     # the plain versions (CPU tensors) launch nothing; on the card every
     # kernel the run needs must have run
     assert dev.type != "cuda" or all(launches[k] > 0 for k in required), \

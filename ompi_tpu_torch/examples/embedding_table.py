@@ -205,7 +205,10 @@ def main(argv=None) -> int:
                        "shard": [rows, dim], "batch": batch,
                        "launches": launches, "fence_ms": fence_ms,
                        "rounds": rounds, "exchanges": exchanges,
-                       "pvars": pv, "cases": cases}, f)
+                       "pvars": pv, "cases": cases,
+                       # nothing on this path may stage through the host
+                       "coll_accelerator_staged":
+                           pvar.read("coll_accelerator_staged")}, f)
         if ns.tiny:
             np.save(os.path.join(ns.out, f"rank{r}_rows.npy"),
                     got_rows.cpu().numpy())

@@ -315,7 +315,10 @@ def main(argv=None) -> int:
                        "buckets": len(plan.buckets),
                        "pad_bytes": plan.pad_bytes, "launches": launches,
                        "step_ms": step_ms, "device_ms": device_ms,
-                       "allgather_matmul_ms": agmm_ms, "cases": cases}, f)
+                       "allgather_matmul_ms": agmm_ms, "cases": cases,
+                       # nothing on this path may stage through the host
+                       "coll_accelerator_staged":
+                           pvar.read("coll_accelerator_staged")}, f)
     bad = [c for c in cases if not c["ok"]]
     assert not bad, f"rank {r}: failed checks: {bad}"
     # on the card every kernel of the path must have run

@@ -5,8 +5,9 @@ surface follows the mpi4py convention: lower-case methods move pickled
 Python objects, capitalised methods move buffers. A host buffer is numpy
 (or any object with the buffer protocol), given as ``array``,
 ``(array, count)`` or ``(array, count, Datatype)`` with a predefined
-Datatype (derived datatypes raise ``MPIError(ERR_NOT_SUPPORTED)``, ROADMAP
-queue 1 item 4); a device buffer is a ``torch.Tensor``.
+Datatype, the MINLOC / MAXLOC pair types among them (derived datatypes
+raise ``MPIError(ERR_NOT_SUPPORTED)``, ROADMAP queue 1 item 4c); a device
+buffer is a ``torch.Tensor``.
 
 Point-to-point (ompi_tpu/mpi.py:69-660): Send / Recv / Isend / Irecv /
 Ssend / Issend / Rsend / Bsend (with Buffer_attach / Buffer_detach) /
@@ -23,21 +24,29 @@ it, and an Irecv request's ``.array`` is that tensor. A CUDA tensor on a
 rank whose device is the CPU, or on another card than the rank's, raises
 ``MPIError(ERR_ARG)``.
 
-Collectives (ompi_tpu/mpi.py:663-1320) take device buffers: Allreduce,
-Reduce, Reduce_scatter_block, Reduce_scatter, Allgather, Allgatherv,
-Gather, Gatherv, Scatter, Scatterv, Bcast, Alltoall, Alltoallv, Scan,
-Exscan, Allreduce_multi and the zero/ pair Reduce_scatter_multi /
-Allgather_multi; their nonblocking forms (``I*``, Ibarrier) and the
-persistent Allreduce_init, Bcast_init, Allgather_init, Alltoall_init,
-Reduce_scatter_block_init and Allreduce_multi_init. A blocking call
-returns a new tensor (a rooted call's non-roots get None) and a recvbuf
-tensor, where given, receives a copy; a request's ``.array`` holds its
-result and writes no recvbuf (as the reference's device branch). Host
-(numpy) buffers to a collective raise ``MPIError(ERR_NOT_SUPPORTED)``:
-the host collectives come with coll/basic's algorithms and coll/tuned
-(ROADMAP queue 1 item 4), as does the host Ibarrier. Barrier is
-coll/basic's linear barrier over the pml (or, with ``device=True``, the
-device plane's).
+Collectives (ompi_tpu/mpi.py:663-1320): Barrier, Bcast, Reduce,
+Allreduce, Gather(v), Scatter(v), Allgather(v), Alltoall(v),
+Reduce_scatter(_block), Scan, Exscan and Allreduce_multi; their
+nonblocking forms (``I*``, Ibarrier) and the persistent Barrier_init,
+Bcast_init, Allreduce_init, Reduce_init, Gather_init, Scatter_init,
+Allgather_init, Alltoall_init and Reduce_scatter_block_init; the zero/
+pair Reduce_scatter_multi / Allgather_multi and Allreduce_multi_init
+take tensors only; :func:`Reduce_local` and :func:`Op_create`.
+
+- Host buffers go to the comm's host slots (coll/tuned, coll/basic,
+  coll/libnbc): the call fills ``recvbuf`` in place and returns None (a
+  request, for the ``I*`` and ``*_init`` forms), as the reference does.
+  ``IN_PLACE`` as the send buffer takes ``recvbuf``'s contents
+  (Allreduce, Reduce, Scan, Exscan, Allgather(v) and their ``I*``
+  forms).
+- A tensor goes to the ``*_dev`` slots (coll/cuda, coll/device, or
+  coll/accelerator's staging): a blocking call returns a new tensor (a
+  rooted call's non-roots get None) and a recvbuf tensor, where given,
+  receives a copy; a request's ``.array`` holds its result and writes no
+  recvbuf (as the reference's device branch).
+
+Barrier is the host barrier (coll/tuned's) over the pml, or with
+``device=True`` the device plane's.
 """
 
 from __future__ import annotations
@@ -48,7 +57,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ompi_tpu_torch import accelerator, errors, op as op_mod, pml
+from ompi_tpu_torch import errors, op as op_mod, pml
+from ompi_tpu_torch.coll.basic import IN_PLACE, packed_displs
 from ompi_tpu_torch.comm import Communicator, Group, UNDEFINED  # noqa: F401
 from ompi_tpu_torch.core import pvar
 from ompi_tpu_torch.datatype import Datatype, PREDEFINED, dtype_of
@@ -60,19 +70,20 @@ from ompi_tpu_torch.pml.request import (  # noqa: F401  (re-exports)
 )
 
 SUM, PROD, MIN, MAX = op_mod.SUM, op_mod.PROD, op_mod.MIN, op_mod.MAX
+LAND, LOR, BAND, BOR = op_mod.LAND, op_mod.LOR, op_mod.BAND, op_mod.BOR
+MINLOC, MAXLOC = op_mod.MINLOC, op_mod.MAXLOC
+REPLACE, NO_OP = op_mod.REPLACE, op_mod.NO_OP
 
-#: where the host-buffer collectives are waiting
-HOST_COLL_ITEM = ("host-buffer collectives come with coll/basic's "
-                  "algorithms and coll/tuned (ROADMAP queue 1 item 4)")
+
+def Op_create(fn, commute: bool = True) -> op_mod.Op:
+    """MPI_Op_create: ``fn(invec, inoutvec)`` returns the elementwise
+    result over numpy arrays. A tensor collective with a user op stages
+    through the host (coll/accelerator)."""
+    return op_mod.create(fn, commute=commute)
 
 
-def _device_or_raise(name: str, buf) -> None:
-    if not accelerator.is_device_buffer(buf):
-        raise errors.MPIError(
-            errors.ERR_NOT_SUPPORTED,
-            f"{name}: host buffer ({type(buf).__name__}); the port's "
-            f"collectives take device (torch.Tensor) buffers — "
-            f"{HOST_COLL_ITEM}")
+def _is_dev(buf) -> bool:
+    return isinstance(buf, torch.Tensor)
 
 
 def _deliver(out, recvbuf):
@@ -84,11 +95,47 @@ def _deliver(out, recvbuf):
     return out
 
 
+def _host_op(op) -> op_mod.Op:
+    """An Op (or a builtin's MPI name) for the host slots."""
+    opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
+    if opn is None:
+        raise errors.MPIError(errors.ERR_OP, f"unknown op {op!r}")
+    return opn
+
+
+def _check_root(comm, root) -> None:
+    if not isinstance(root, numbers.Integral) or not 0 <= root < comm.size:
+        raise errors.MPIError(errors.ERR_ROOT,
+                              f"root {root!r} outside [0, {comm.size})")
+
+
+def _require_recvbuf(recvbuf, what: str):
+    """A host collective needs the caller's recvbuf (recvbuf=None is the
+    tensor form, which returns a new tensor)."""
+    if recvbuf is None:
+        raise errors.MPIError(
+            errors.ERR_BUFFER,
+            f"{what}: a host buffer needs a recvbuf (recvbuf=None is the "
+            "tensor form, which returns a new tensor)")
+    return recvbuf
+
+
+def _in_place_block(rarr, lo: int, n: int):
+    """IN_PLACE for Allgather(v): this rank's block of the receive
+    buffer, copied out as the send buffer."""
+    return np.asarray(rarr).reshape(-1)[lo:lo + n].copy()
+
+
 def _device_tree_or_raise(name: str, bufs) -> None:
     from ompi_tpu_torch.zero import layout as zl
 
     for leaf in zl.tree_leaves(bufs):
-        _device_or_raise(name, leaf)
+        if not _is_dev(leaf):
+            raise errors.MPIError(
+                errors.ERR_NOT_SUPPORTED,
+                f"{name}: a {type(leaf).__name__} leaf; this call takes "
+                "tensors (the reference's host bucket cycle over numpy "
+                "leaves is not ported, ROADMAP queue 1 item 5)")
 
 
 def _packed_displs_or_raise(counts, displs, name: str) -> None:
@@ -97,64 +144,298 @@ def _packed_displs_or_raise(counts, displs, name: str) -> None:
     (ompi_tpu/mpi.py:636-648)."""
     if displs is None:
         return
-    packed, o = [], 0
-    for c in counts:
-        packed.append(o)
-        o += int(c)
-    if [int(d) for d in displs] != packed:
+    if [int(d) for d in displs] != packed_displs(counts):
         raise errors.MPIError(
             errors.ERR_ARG,
             f"{name}: the device path needs the packed send displacements "
-            f"{packed}, got {list(displs)}")
+            f"{packed_displs(counts)}, got {list(displs)}")
 
+
+# -- the blocking collectives ------------------------------------------------
 
 def _Allreduce(self, sendbuf, recvbuf=None, op=op_mod.SUM,
                deterministic=None):
-    """deterministic: None lets the component pick the algorithm;
-    'ring'/'linear' fix the operand order — 'linear' is bit-identical
-    to the host linear fold."""
-    _device_or_raise("Allreduce", sendbuf)
-    return _deliver(self.coll.allreduce_dev(
-        self, sendbuf, op, deterministic=deterministic), recvbuf)
+    """deterministic (tensors): None lets the component pick the
+    algorithm; 'ring'/'linear' fix the operand order — 'linear' is
+    bit-identical to the host linear fold."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.allreduce_dev(
+            self, sendbuf, op, deterministic=deterministic), recvbuf)
+    if sendbuf is IN_PLACE:
+        rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Allreduce"))
+        self.coll.allreduce(self, IN_PLACE, rarr, count, dt, _host_op(op))
+        return None
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Allreduce"))[0]
+    self.coll.allreduce(self, sarr, rarr, count, dt, _host_op(op))
+    return None
+
+
+def _Reduce(self, sendbuf, recvbuf=None, op=op_mod.SUM, root: int = 0,
+            deterministic=None):
+    """Tensors: the reduction on the root, None elsewhere (the root's
+    recvbuf receives a copy). Host: the root's recvbuf is filled."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.reduce_dev(
+            self, sendbuf, op, root, deterministic=deterministic), recvbuf)
+    _check_root(self, root)
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    if sendbuf is IN_PLACE:
+        sarr = IN_PLACE
+        count, dt = _parse_buf(_require_recvbuf(recvbuf, "Reduce"))[1:]
+    else:
+        sarr, count, dt = _parse_buf(sendbuf)
+    self.coll.reduce(self, sarr, rarr, count, dt, _host_op(op), root)
+    return None
 
 
 def _Reduce_scatter_block(self, sendbuf, recvbuf=None, op=op_mod.SUM,
                           deterministic=None):
-    """dim 0 of sendbuf must be divisible by the comm size; returns this
+    """Tensors: dim 0 of sendbuf divides by the comm size; returns this
     rank's (dim0/size, ...) block."""
-    _device_or_raise("Reduce_scatter_block", sendbuf)
-    return _deliver(self.coll.reduce_scatter_block_dev(
-        self, sendbuf, op, deterministic=deterministic), recvbuf)
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.reduce_scatter_block_dev(
+            self, sendbuf, op, deterministic=deterministic), recvbuf)
+    rarr, count, dt = _parse_buf(
+        _require_recvbuf(recvbuf, "Reduce_scatter_block"))
+    self.coll.reduce_scatter_block(self, _parse_buf(sendbuf)[0], rarr,
+                                   count, dt, _host_op(op))
+    return None
+
+
+def _Reduce_scatter(self, sendbuf, recvbuf, counts, op=op_mod.SUM,
+                    deterministic=None):
+    """Tensors: this rank's counts[rank] rows of the reduction."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.reduce_scatter_dev(
+            self, sendbuf, counts, op, deterministic=deterministic),
+            recvbuf)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Reduce_scatter"))[0]
+    self.coll.reduce_scatter(self, _parse_buf(sendbuf)[0], rarr,
+                             [int(c) for c in counts], dtype_of(rarr),
+                             _host_op(op))
+    return None
 
 
 def _Allgather(self, sendbuf, recvbuf=None):
-    """Returns (size, *sendbuf.shape), rank i's block at index i."""
-    _device_or_raise("Allgather", sendbuf)
-    return _deliver(self.coll.allgather_dev(self, sendbuf), recvbuf)
+    """Tensors: returns (size, *sendbuf.shape), rank i's block at i."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.allgather_dev(self, sendbuf), recvbuf)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Allgather"))[0]
+    if sendbuf is IN_PLACE:
+        k = np.asarray(rarr).size // self.size
+        sendbuf = _in_place_block(rarr, self.rank * k, k)
+    sarr, count, dt = _parse_buf(sendbuf)
+    self.coll.allgather(self, sarr, rarr, count, dt)
+    return None
+
+
+def _Allgatherv(self, sendbuf, recvbuf, counts, displs=None):
+    """Tensors: returns the packed (sum(counts), *rest)."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.allgatherv_dev(self, sendbuf, counts),
+                        recvbuf)
+    counts = [int(c) for c in counts]
+    displs = packed_displs(counts) if displs is None \
+        else [int(d) for d in displs]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Allgatherv"))[0]
+    if sendbuf is IN_PLACE:
+        sendbuf = _in_place_block(rarr, displs[self.rank], counts[self.rank])
+    sarr = _parse_buf(sendbuf)[0]
+    self.coll.allgatherv(self, sarr, rarr, counts, displs, dtype_of(sarr))
+    return None
 
 
 def _Bcast(self, buf, root: int = 0):
-    """Returns the root's buf on every rank; the other ranks' buf gives
-    the shape and dtype and receives a copy of the result too (MPI's
-    in-place receive). A root outside [0, size) raises ERR_ROOT."""
-    _device_or_raise("Bcast", buf)
-    out = self.coll.bcast_dev(self, buf, root)
-    return _deliver(out, buf if self.rank != root else None)
+    """Tensors: returns the root's buf on every rank; the other ranks'
+    buf gives the shape and dtype and receives a copy of the result too
+    (MPI's in-place receive). A root outside [0, size) raises ERR_ROOT."""
+    if _is_dev(buf):
+        out = self.coll.bcast_dev(self, buf, root)
+        return _deliver(out, buf if self.rank != root else None)
+    _check_root(self, root)
+    arr, count, dt = _parse_buf(buf)
+    self.coll.bcast(self, arr, count, dt, root)
+    return None
 
 
 def _Alltoall(self, sendbuf, recvbuf=None):
-    """dim 0 of sendbuf splits into size blocks; block p of the result
-    is block ``rank`` of rank p's sendbuf (the MoE dispatch pattern)."""
-    _device_or_raise("Alltoall", sendbuf)
-    return _deliver(self.coll.alltoall_dev(self, sendbuf), recvbuf)
+    """Tensors: dim 0 of sendbuf splits into size blocks; block p of the
+    result is block ``rank`` of rank p's sendbuf (the MoE dispatch
+    pattern)."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.alltoall_dev(self, sendbuf), recvbuf)
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Alltoall"))[0]
+    self.coll.alltoall(self, sarr, rarr, np.asarray(sarr).size // self.size,
+                       dtype_of(sarr))
+    return None
+
+
+def _Alltoallv(self, sendbuf, recvbuf, scounts, rcounts, sdispls=None,
+               rdispls=None, max_count=None):
+    """Tensors: block p of the result is the rcounts[p] rows rank p sends
+    this rank. ``max_count`` (e.g. a fixed MoE expert capacity) skips
+    the count round."""
+    if _is_dev(sendbuf):
+        _packed_displs_or_raise(scounts, sdispls, "Alltoallv")
+        return _deliver(self.coll.alltoallv_dev(
+            self, sendbuf, scounts, rcounts, max_count=max_count), recvbuf)
+    scounts = [int(c) for c in scounts]
+    rcounts = [int(c) for c in rcounts]
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Alltoallv"))[0]
+    self.coll.alltoallv(
+        self, sarr, rarr, scounts,
+        packed_displs(scounts) if sdispls is None else list(sdispls),
+        rcounts, packed_displs(rcounts) if rdispls is None
+        else list(rdispls), dtype_of(sarr))
+    return None
+
+
+def _Gather(self, sendbuf, recvbuf=None, root: int = 0):
+    """Tensors: returns (size, *sendbuf.shape) on the root, None
+    elsewhere."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.gather_dev(self, sendbuf, root), recvbuf)
+    _check_root(self, root)
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    self.coll.gather(self, sarr, rarr, count, dt, root)
+    return None
+
+
+def _Gatherv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0):
+    """Tensors: returns the packed (sum(counts), *rest) on the root, None
+    elsewhere (displs is a host-layout argument: the device result is
+    packed)."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.gatherv_dev(self, sendbuf, counts, root),
+                        recvbuf)
+    _check_root(self, root)
+    counts = [int(c) for c in counts]
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    self.coll.gatherv(self, sarr, rarr, counts,
+                      packed_displs(counts) if displs is None
+                      else list(displs), dtype_of(sarr), root)
+    return None
+
+
+def _Scatter(self, sendbuf, recvbuf=None, root: int = 0,
+             device: bool = False):
+    """Rank r gets chunk r of the root's sendbuf. Tensors: a non-root
+    passes sendbuf None with ``device=True``; its recvbuf, when given,
+    is the shape template (``like``, every rank or none) and receives
+    the chunk."""
+    if device or _is_dev(sendbuf):
+        return _deliver(self.coll.scatter_dev(self, sendbuf, root,
+                                              like=recvbuf), recvbuf)
+    _check_root(self, root)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Scatter"))
+    sarr = None if sendbuf is None else _parse_buf(sendbuf)[0]
+    self.coll.scatter(self, sarr, rarr, count, dt, root)
+    return None
+
+
+def _Scatterv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0,
+              device: bool = False):
+    """Rank r gets counts[r] rows of the root's sendbuf. Tensors: the
+    root's sendbuf is packed; a non-root as for Scatter (recvbuf is the
+    template of the trailing dims and dtype)."""
+    if device or _is_dev(sendbuf):
+        _packed_displs_or_raise(counts, displs, "Scatterv")
+        return _deliver(self.coll.scatterv_dev(self, sendbuf, counts, root,
+                                               like=recvbuf), recvbuf)
+    _check_root(self, root)
+    counts = [int(c) for c in counts]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Scatterv"))[0]
+    sarr = None if sendbuf is None else _parse_buf(sendbuf)[0]
+    self.coll.scatterv(self, sarr, rarr, counts,
+                       packed_displs(counts) if displs is None
+                       else list(displs), dtype_of(rarr), root)
+    return None
+
+
+def _Scan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
+    """The inclusive prefix over ranks 0..rank, folded in rank order."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.scan_dev(self, sendbuf, op), recvbuf)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Scan"))
+    sarr = IN_PLACE if sendbuf is IN_PLACE else _parse_buf(sendbuf)[0]
+    self.coll.scan(self, sarr, rarr, count, dt, _host_op(op))
+    return None
+
+
+def _Exscan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
+    """The exclusive prefix. Tensors: rank 0 gets zeros; host: rank 0's
+    recvbuf is left as it was (MPI leaves it undefined)."""
+    if _is_dev(sendbuf):
+        return _deliver(self.coll.exscan_dev(self, sendbuf, op), recvbuf)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Exscan"))
+    sarr = IN_PLACE if sendbuf is IN_PLACE else _parse_buf(sendbuf)[0]
+    self.coll.exscan(self, sarr, rarr, count, dt, _host_op(op))
+    return None
+
+
+def _Barrier(self, device: bool = False) -> None:
+    """MPI_Barrier through the comm's table: the host barrier over the
+    pml, or with ``device=True`` the device plane's
+    (ompi_tpu/mpi.py:663-670)."""
+    if device:
+        return self.coll.barrier_dev(self)
+    self.coll.barrier(self)
+
+
+def Reduce_local(inbuf, inoutbuf, op=op_mod.SUM) -> None:
+    """MPI_Reduce_local: ``inoutbuf = op(inbuf, inoutbuf)`` in place, on
+    host buffers (``inbuf`` is the left operand)."""
+    iarr, count, _ = _parse_buf(inbuf)
+    oarr, ocount, _ = _parse_buf(inoutbuf)
+    if count != ocount:
+        raise errors.MPIError(
+            errors.ERR_COUNT,
+            f"Reduce_local: {count} elements in, {ocount} in-out")
+    op_mod.reduce_local(np.asarray(iarr).reshape(-1)[:count],
+                        np.asarray(oarr).reshape(-1)[:count], _host_op(op))
+
+
+# -- the multi-buffer collectives (tensors; Allreduce_multi also host) -------
+
+def _Allreduce_multi(self, bufs, op=op_mod.SUM, deterministic=None):
+    """Fused (bucketed) allreduce over a pytree of tensors: dtype buckets
+    of ``coll_device_bucket_bytes``, one allreduce each; returns a new
+    pytree ('linear' is bitwise the per-buffer loop). A list or tuple of
+    numpy arrays runs one host allreduce per buffer and returns new
+    arrays in the same structure."""
+    if isinstance(bufs, (list, tuple)) and bufs and not _is_dev(bufs[0]):
+        outs = []
+        for a in bufs:
+            arr = np.ascontiguousarray(a)
+            out = np.empty_like(arr)
+            self.coll.allreduce(self, arr, out, out.size, dtype_of(arr),
+                                _host_op(op))
+            outs.append(out)
+        return type(bufs)(outs)
+    _device_tree_or_raise("Allreduce_multi", bufs)
+    return self.coll.allreduce_multi_dev(self, bufs, op,
+                                         deterministic=deterministic)
+
+
+def _Allreduce_multi_init(self, bufs, op=op_mod.SUM):
+    """Persistent Allreduce_multi of tensors: planned at init, each
+    start() runs the buckets on the tensors' current contents; req.array
+    holds each cycle's pytree."""
+    _device_tree_or_raise("Allreduce_multi_init", bufs)
+    return self.coll.allreduce_multi_init_dev(self, bufs, op)
 
 
 def _Reduce_scatter_multi(self, bufs, op=op_mod.SUM, deterministic=None):
-    """Bucketed reduce-scatter over a pytree of device tensors (the
-    zero/ gradient step): dtype-segregated buckets, each padded to a
-    multiple of the comm size and reduce-scattered once; returns a
-    zero.ShardedState of this rank's 1-D shard per bucket ('linear' stays
-    bit-identical to the per-buffer allreduce fold)."""
+    """Bucketed reduce-scatter over a pytree of tensors (the zero/
+    gradient step): dtype-segregated buckets, each padded to a multiple
+    of the comm size and reduce-scattered once; returns a
+    zero.ShardedState of this rank's 1-D shard per bucket ('linear'
+    stays bit-identical to the per-buffer allreduce fold)."""
     _device_tree_or_raise("Reduce_scatter_multi", bufs)
     return self.coll.reduce_scatter_multi_dev(
         self, bufs, op, deterministic=deterministic)
@@ -164,201 +445,284 @@ def _Allgather_multi(self, state):
     """Rebuild the full pytree from a zero.ShardedState: one allgather
     per bucket, rank-order concat (= the pack order), pad dropped, leaf
     shapes restored."""
-    for shard in getattr(state, "shards", None) or ():
-        _device_or_raise("Allgather_multi", shard)
+    _device_tree_or_raise("Allgather_multi",
+                          getattr(state, "shards", None) or [])
     return self.coll.allgather_multi_dev(self, state)
 
 
-def _Barrier(self, device: bool = False) -> None:
-    """MPI_Barrier through the comm's table: coll/basic's linear barrier
-    over the pml, or with ``device=True`` coll/device's one-element
-    allreduce on the device plane (ompi_tpu/mpi.py:663-670)."""
-    if device:
-        return self.coll.barrier_dev(self)
-    self.coll.barrier(self)
-
-
-def _Reduce(self, sendbuf, recvbuf=None, op=op_mod.SUM, root: int = 0,
-            deterministic=None):
-    """Returns the reduction on the root, None elsewhere (the root's
-    recvbuf receives a copy)."""
-    _device_or_raise("Reduce", sendbuf)
-    return _deliver(self.coll.reduce_dev(
-        self, sendbuf, op, root, deterministic=deterministic), recvbuf)
-
-
-def _Gather(self, sendbuf, recvbuf=None, root: int = 0):
-    """Returns (size, *sendbuf.shape) on the root, None elsewhere."""
-    _device_or_raise("Gather", sendbuf)
-    return _deliver(self.coll.gather_dev(self, sendbuf, root), recvbuf)
-
-
-def _Gatherv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0):
-    """Returns the packed (sum(counts), *rest) on the root, None
-    elsewhere (displs is a host-layout argument: the device result is
-    packed)."""
-    _device_or_raise("Gatherv", sendbuf)
-    return _deliver(self.coll.gatherv_dev(self, sendbuf, counts, root),
-                    recvbuf)
-
-
-def _Scatter(self, sendbuf, recvbuf=None, root: int = 0,
-             device: bool = False):
-    """Rank r gets chunk r of the root's sendbuf. A non-root passes
-    sendbuf None with ``device=True``; its recvbuf, when given, is the
-    shape template (``like``, every rank or none) and receives the
-    chunk."""
-    if not device or sendbuf is not None:
-        _device_or_raise("Scatter", sendbuf)
-    return _deliver(self.coll.scatter_dev(self, sendbuf, root,
-                                          like=recvbuf), recvbuf)
-
-
-def _Scatterv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0,
-              device: bool = False):
-    """Rank r gets counts[r] rows of the root's packed sendbuf; as
-    Scatter for non-roots (recvbuf is the template of the trailing dims
-    and dtype)."""
-    if not device or sendbuf is not None:
-        _device_or_raise("Scatterv", sendbuf)
-    _packed_displs_or_raise(counts, displs, "Scatterv")
-    return _deliver(self.coll.scatterv_dev(self, sendbuf, counts, root,
-                                           like=recvbuf), recvbuf)
-
-
-def _Allgatherv(self, sendbuf, recvbuf, counts, displs=None):
-    """Returns the packed (sum(counts), *rest)."""
-    _device_or_raise("Allgatherv", sendbuf)
-    return _deliver(self.coll.allgatherv_dev(self, sendbuf, counts),
-                    recvbuf)
-
-
-def _Alltoallv(self, sendbuf, recvbuf, scounts, rcounts, sdispls=None,
-               rdispls=None, max_count=None):
-    """Block p of the result is the rcounts[p] rows rank p sends this
-    rank. ``max_count`` (e.g. a fixed MoE expert capacity) skips the
-    count round."""
-    _device_or_raise("Alltoallv", sendbuf)
-    _packed_displs_or_raise(scounts, sdispls, "Alltoallv")
-    return _deliver(self.coll.alltoallv_dev(
-        self, sendbuf, scounts, rcounts, max_count=max_count), recvbuf)
-
-
-def _Reduce_scatter(self, sendbuf, recvbuf, counts, op=op_mod.SUM,
-                    deterministic=None):
-    """Returns this rank's counts[rank] rows of the reduction."""
-    _device_or_raise("Reduce_scatter", sendbuf)
-    return _deliver(self.coll.reduce_scatter_dev(
-        self, sendbuf, counts, op, deterministic=deterministic), recvbuf)
-
-
-def _Scan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
-    """The inclusive prefix over ranks 0..rank, folded in rank order."""
-    _device_or_raise("Scan", sendbuf)
-    return _deliver(self.coll.scan_dev(self, sendbuf, op), recvbuf)
-
-
-def _Exscan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
-    """The exclusive prefix; rank 0 gets zeros."""
-    _device_or_raise("Exscan", sendbuf)
-    return _deliver(self.coll.exscan_dev(self, sendbuf, op), recvbuf)
-
-
-def _Allreduce_multi(self, bufs, op=op_mod.SUM, deterministic=None):
-    """Fused (bucketed) allreduce over a pytree of device tensors: dtype
-    buckets of ``coll_device_bucket_bytes``, one allreduce each; returns
-    a new pytree ('linear' is bitwise the per-buffer loop)."""
-    _device_tree_or_raise("Allreduce_multi", bufs)
-    return self.coll.allreduce_multi_dev(self, bufs, op,
-                                         deterministic=deterministic)
-
-
-def _Allreduce_multi_init(self, bufs, op=op_mod.SUM):
-    """Persistent Allreduce_multi: planned at init, each start() runs
-    the buckets on the tensors' current contents; req.array holds each
-    cycle's pytree."""
-    _device_tree_or_raise("Allreduce_multi_init", bufs)
-    return self.coll.allreduce_multi_init_dev(self, bufs, op)
-
+# -- the nonblocking collectives (coll/libnbc for host buffers; a tensor's
+# request is coll/device's DeviceRequest, whose .array is the result) ------
 
 def _Ibarrier(self, device: bool = False):
-    """The device barrier's request (``device=True``); the host form
-    needs the nonblocking host collectives (libnbc)."""
-    if not device:
-        raise errors.MPIError(
-            errors.ERR_NOT_SUPPORTED,
-            f"Ibarrier: the host form is libnbc's; {HOST_COLL_ITEM}; "
-            "pass device=True")
-    return self.coll.ibarrier_dev(self)
+    """libnbc's dissemination schedule, or with ``device=True`` the
+    device barrier's request."""
+    if device:
+        return self.coll.ibarrier_dev(self)
+    return self.coll.ibarrier(self)
+
+
+def _Ibcast(self, buf, root: int = 0):
+    if _is_dev(buf):
+        return self.coll.ibcast_dev(self, buf, root)
+    _check_root(self, root)
+    arr, count, dt = _parse_buf(buf)
+    return self.coll.ibcast(self, arr, count, dt, root)
+
+
+def _Iallreduce(self, sendbuf, recvbuf=None, op=op_mod.SUM,
+                deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.iallreduce_dev(self, sendbuf, op,
+                                         deterministic=deterministic)
+    rarr, rcount, rdt = _parse_buf(_require_recvbuf(recvbuf, "Iallreduce"))
+    if sendbuf is IN_PLACE:
+        return self.coll.iallreduce(self, IN_PLACE, rarr, rcount, rdt,
+                                    _host_op(op))
+    sarr, count, dt = _parse_buf(sendbuf)
+    return self.coll.iallreduce(self, sarr, rarr, count, dt, _host_op(op))
+
+
+def _Ireduce(self, sendbuf, recvbuf=None, op=op_mod.SUM, root: int = 0,
+             deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.ireduce_dev(self, sendbuf, op, root,
+                                     deterministic=deterministic)
+    _check_root(self, root)
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    if sendbuf is IN_PLACE:
+        sarr = IN_PLACE
+        count, dt = _parse_buf(_require_recvbuf(recvbuf, "Ireduce"))[1:]
+    else:
+        sarr, count, dt = _parse_buf(sendbuf)
+    return self.coll.ireduce(self, sarr, rarr, count, dt, _host_op(op),
+                             root)
+
+
+def _Igather(self, sendbuf, recvbuf=None, root: int = 0):
+    if _is_dev(sendbuf):
+        return self.coll.igather_dev(self, sendbuf, root)
+    _check_root(self, root)
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    return self.coll.igather(self, sarr, rarr, count, dt, root)
 
 
 def _Iscatter(self, sendbuf, recvbuf=None, root: int = 0,
               device: bool = False):
-    if not device or sendbuf is not None:
-        _device_or_raise("Iscatter", sendbuf)
-    return self.coll.iscatter_dev(self, sendbuf, root, like=recvbuf)
+    if device or _is_dev(sendbuf):
+        return self.coll.iscatter_dev(self, sendbuf, root, like=recvbuf)
+    _check_root(self, root)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Iscatter"))
+    sarr = None if sendbuf is None else _parse_buf(sendbuf)[0]
+    return self.coll.iscatter(self, sarr, rarr, count, dt, root)
+
+
+def _Iallgather(self, sendbuf, recvbuf=None):
+    if _is_dev(sendbuf):
+        return self.coll.iallgather_dev(self, sendbuf)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Iallgather"))[0]
+    if sendbuf is IN_PLACE:
+        return self.coll.iallgather(self, IN_PLACE, rarr,
+                                    np.asarray(rarr).size // self.size,
+                                    dtype_of(rarr))
+    sarr, count, dt = _parse_buf(sendbuf)
+    return self.coll.iallgather(self, sarr, rarr, count, dt)
+
+
+def _Ialltoall(self, sendbuf, recvbuf=None):
+    if _is_dev(sendbuf):
+        return self.coll.ialltoall_dev(self, sendbuf)
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Ialltoall"))[0]
+    return self.coll.ialltoall(self, sarr, rarr,
+                               np.asarray(sarr).size // self.size,
+                               dtype_of(sarr))
 
 
 def _Igatherv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0):
-    _device_or_raise("Igatherv", sendbuf)
-    return self.coll.igatherv_dev(self, sendbuf, counts, root)
+    if _is_dev(sendbuf):
+        return self.coll.igatherv_dev(self, sendbuf, counts, root)
+    _check_root(self, root)
+    counts = [int(c) for c in counts]
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    return self.coll.igatherv(self, sarr, rarr, counts,
+                              packed_displs(counts) if displs is None
+                              else list(displs), dtype_of(sarr), root)
 
 
 def _Iscatterv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0,
                device: bool = False):
-    if not device or sendbuf is not None:
-        _device_or_raise("Iscatterv", sendbuf)
-    _packed_displs_or_raise(counts, displs, "Iscatterv")
-    return self.coll.iscatterv_dev(self, sendbuf, counts, root,
-                                   like=recvbuf)
+    if device or _is_dev(sendbuf):
+        _packed_displs_or_raise(counts, displs, "Iscatterv")
+        return self.coll.iscatterv_dev(self, sendbuf, counts, root,
+                                       like=recvbuf)
+    _check_root(self, root)
+    counts = [int(c) for c in counts]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Iscatterv"))[0]
+    sarr = None if sendbuf is None else _parse_buf(sendbuf)[0]
+    return self.coll.iscatterv(self, sarr, rarr, counts,
+                               packed_displs(counts) if displs is None
+                               else list(displs), dtype_of(rarr), root)
 
 
 def _Iallgatherv(self, sendbuf, recvbuf, counts, displs=None):
-    _device_or_raise("Iallgatherv", sendbuf)
-    return self.coll.iallgatherv_dev(self, sendbuf, counts)
+    if _is_dev(sendbuf):
+        return self.coll.iallgatherv_dev(self, sendbuf, counts)
+    counts = [int(c) for c in counts]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Iallgatherv"))[0]
+    sarr = IN_PLACE if sendbuf is IN_PLACE else _parse_buf(sendbuf)[0]
+    return self.coll.iallgatherv(self, sarr, rarr, counts,
+                                 packed_displs(counts) if displs is None
+                                 else list(displs), dtype_of(rarr))
 
 
 def _Ialltoallv(self, sendbuf, recvbuf, scounts, rcounts, sdispls=None,
                 rdispls=None, max_count=None):
-    _device_or_raise("Ialltoallv", sendbuf)
-    _packed_displs_or_raise(scounts, sdispls, "Ialltoallv")
-    return self.coll.ialltoallv_dev(self, sendbuf, scounts, rcounts,
-                                    max_count=max_count)
+    if _is_dev(sendbuf):
+        _packed_displs_or_raise(scounts, sdispls, "Ialltoallv")
+        return self.coll.ialltoallv_dev(self, sendbuf, scounts, rcounts,
+                                        max_count=max_count)
+    scounts = [int(c) for c in scounts]
+    rcounts = [int(c) for c in rcounts]
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Ialltoallv"))[0]
+    return self.coll.ialltoallv(
+        self, sarr, rarr, scounts,
+        packed_displs(scounts) if sdispls is None else list(sdispls),
+        rcounts, packed_displs(rcounts) if rdispls is None
+        else list(rdispls), dtype_of(sarr))
 
 
-def _request_call(name: str, has_recvbuf: bool):
-    """An I* or *_init call whose arguments after the buffer (and the
-    recvbuf, which a request does not write: its ``.array`` holds the
-    result) are its slot's own: ``name.lower() + '_dev'``."""
-    slot = name.lower() + "_dev"
-    if has_recvbuf:
-        def call(self, sendbuf, recvbuf=None, *args, **kwargs):
-            _device_or_raise(name, sendbuf)
-            return getattr(self.coll, slot)(self, sendbuf, *args, **kwargs)
-    else:
-        def call(self, buf, *args, **kwargs):
-            _device_or_raise(name, buf)
-            return getattr(self.coll, slot)(self, buf, *args, **kwargs)
-    call.__name__ = "_" + name
-    call.__doc__ = (f"{name}: the request of coll/device's ``{slot}`` "
-                    "(a DeviceRequest, or a PersistentDeviceRequest for "
-                    "*_init).")
-    return call
+def _Iscan(self, sendbuf, recvbuf=None, op=op_mod.SUM, deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.iscan_dev(self, sendbuf, op,
+                                   deterministic=deterministic)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Iscan"))
+    sarr = IN_PLACE if sendbuf is IN_PLACE else _parse_buf(sendbuf)[0]
+    return self.coll.iscan(self, sarr, rarr, count, dt, _host_op(op))
 
 
-for _fn in (_Allreduce, _Reduce_scatter_block, _Allgather, _Bcast,
-            _Alltoall, _Reduce_scatter_multi, _Allgather_multi, _Barrier,
-            _Reduce, _Gather, _Gatherv, _Scatter, _Scatterv, _Allgatherv,
-            _Alltoallv, _Reduce_scatter, _Scan, _Exscan, _Allreduce_multi,
-            _Allreduce_multi_init, _Ibarrier, _Iscatter, _Igatherv,
-            _Iscatterv, _Iallgatherv, _Ialltoallv,
-            *(_request_call(name, True) for name in (
-                "Iallreduce", "Ireduce", "Igather", "Iallgather",
-                "Ialltoall", "Iscan", "Iexscan", "Ireduce_scatter_block",
-                "Ireduce_scatter", "Allreduce_init", "Allgather_init",
-                "Alltoall_init", "Reduce_scatter_block_init")),
-            *(_request_call(name, False) for name in ("Ibcast",
-                                                      "Bcast_init"))):
+def _Iexscan(self, sendbuf, recvbuf=None, op=op_mod.SUM,
+             deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.iexscan_dev(self, sendbuf, op,
+                                     deterministic=deterministic)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Iexscan"))
+    sarr = IN_PLACE if sendbuf is IN_PLACE else _parse_buf(sendbuf)[0]
+    return self.coll.iexscan(self, sarr, rarr, count, dt, _host_op(op))
+
+
+def _Ireduce_scatter_block(self, sendbuf, recvbuf=None, op=op_mod.SUM,
+                           deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.ireduce_scatter_block_dev(
+            self, sendbuf, op, deterministic=deterministic)
+    rarr, count, dt = _parse_buf(
+        _require_recvbuf(recvbuf, "Ireduce_scatter_block"))
+    return self.coll.ireduce_scatter_block(
+        self, _parse_buf(sendbuf)[0], rarr, count, dt, _host_op(op))
+
+
+def _Ireduce_scatter(self, sendbuf, recvbuf, counts, op=op_mod.SUM,
+                     deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.ireduce_scatter_dev(self, sendbuf, counts, op,
+                                             deterministic=deterministic)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Ireduce_scatter"))[0]
+    return self.coll.ireduce_scatter(
+        self, _parse_buf(sendbuf)[0], rarr, [int(c) for c in counts],
+        dtype_of(rarr), _host_op(op))
+
+
+# -- MPI-4 persistent collectives (coll/libnbc's *_init for host buffers,
+# coll/device's PersistentDeviceRequest for tensors) -------------------------
+
+def _Barrier_init(self):
+    return self.coll.barrier_init(self)
+
+
+def _Bcast_init(self, buf, root: int = 0):
+    if _is_dev(buf):
+        return self.coll.bcast_init_dev(self, buf, root)
+    _check_root(self, root)
+    arr, count, dt = _parse_buf(buf)
+    return self.coll.bcast_init(self, arr, count, dt, root)
+
+
+def _Allreduce_init(self, sendbuf, recvbuf=None, op=op_mod.SUM,
+                    deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.allreduce_init_dev(self, sendbuf, op,
+                                            deterministic=deterministic)
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Allreduce_init"))[0]
+    return self.coll.allreduce_init(self, sarr, rarr, count, dt,
+                                    _host_op(op))
+
+
+def _Reduce_init(self, sendbuf, recvbuf, op=op_mod.SUM, root: int = 0):
+    _check_root(self, root)
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    return self.coll.reduce_init(self, sarr, rarr, count, dt, _host_op(op),
+                                 root)
+
+
+def _Gather_init(self, sendbuf, recvbuf, root: int = 0):
+    _check_root(self, root)
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = None if recvbuf is None else _parse_buf(recvbuf)[0]
+    return self.coll.gather_init(self, sarr, rarr, count, dt, root)
+
+
+def _Scatter_init(self, sendbuf, recvbuf, root: int = 0):
+    _check_root(self, root)
+    rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Scatter_init"))
+    sarr = None if sendbuf is None else _parse_buf(sendbuf)[0]
+    return self.coll.scatter_init(self, sarr, rarr, count, dt, root)
+
+
+def _Allgather_init(self, sendbuf, recvbuf=None):
+    if _is_dev(sendbuf):
+        return self.coll.allgather_init_dev(self, sendbuf)
+    sarr, count, dt = _parse_buf(sendbuf)
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Allgather_init"))[0]
+    return self.coll.allgather_init(self, sarr, rarr, count, dt)
+
+
+def _Alltoall_init(self, sendbuf, recvbuf=None):
+    if _is_dev(sendbuf):
+        return self.coll.alltoall_init_dev(self, sendbuf)
+    sarr = _parse_buf(sendbuf)[0]
+    rarr = _parse_buf(_require_recvbuf(recvbuf, "Alltoall_init"))[0]
+    return self.coll.alltoall_init(self, sarr, rarr,
+                                   np.asarray(sarr).size // self.size,
+                                   dtype_of(sarr))
+
+
+def _Reduce_scatter_block_init(self, sendbuf, recvbuf=None, op=op_mod.SUM,
+                               deterministic=None):
+    if _is_dev(sendbuf):
+        return self.coll.reduce_scatter_block_init_dev(
+            self, sendbuf, op, deterministic=deterministic)
+    rarr, count, dt = _parse_buf(
+        _require_recvbuf(recvbuf, "Reduce_scatter_block_init"))
+    return self.coll.reduce_scatter_block_init(
+        self, _parse_buf(sendbuf)[0], rarr, count, dt, _host_op(op))
+
+
+for _fn in (_Allreduce, _Reduce, _Reduce_scatter_block, _Reduce_scatter,
+            _Allgather, _Allgatherv, _Bcast, _Alltoall, _Alltoallv, _Gather,
+            _Gatherv, _Scatter, _Scatterv, _Scan, _Exscan, _Barrier,
+            _Allreduce_multi, _Allreduce_multi_init, _Reduce_scatter_multi,
+            _Allgather_multi, _Ibarrier, _Ibcast, _Iallreduce, _Ireduce,
+            _Igather, _Iscatter, _Iallgather, _Ialltoall, _Igatherv,
+            _Iscatterv, _Iallgatherv, _Ialltoallv, _Iscan, _Iexscan,
+            _Ireduce_scatter_block, _Ireduce_scatter, _Barrier_init,
+            _Bcast_init, _Allreduce_init, _Reduce_init, _Gather_init,
+            _Scatter_init, _Allgather_init, _Alltoall_init,
+            _Reduce_scatter_block_init):
     setattr(Communicator, _fn.__name__[1:], _fn)
 
 
@@ -843,24 +1207,11 @@ def _alltoall(self, objs):
     return self.coll.alltoall_obj(self, objs)
 
 
-#: the elementwise numpy function of each builtin op the object
-#: reductions take (the reference's ``Op.np_fn``)
-_NP_FN = {op_mod.SUM: np.add, op_mod.PROD: np.multiply,
-          op_mod.MIN: np.minimum, op_mod.MAX: np.maximum,
-          op_mod.LAND: np.logical_and, op_mod.LOR: np.logical_or,
-          op_mod.LXOR: np.logical_xor, op_mod.BAND: np.bitwise_and,
-          op_mod.BOR: np.bitwise_or, op_mod.BXOR: np.bitwise_xor}
-
-
 def _obj_fn(op):
-    """An op for the object reductions: a callable, a builtin Op (its
-    elementwise numpy function) or None (+)."""
+    """An op for the object reductions: a callable, an Op (its numpy
+    function, as the reference folds) or None (+)."""
     if isinstance(op, op_mod.Op):
-        fn = _NP_FN.get(op)
-        if fn is None:
-            raise errors.MPIError(errors.ERR_OP,
-                                  f"{op.name} on Python objects")
-        return fn
+        return op.np_fn
     return op if callable(op) else (lambda a, b: a + b)
 
 

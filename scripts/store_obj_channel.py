@@ -3,11 +3,11 @@ rendezvous store instead of the pml: the transport coll/basic used before
 it moved onto ob1's object channel, kept here to measure that move.
 
 A rank program for the port's launcher: it replaces ``allgather_obj``,
-``bcast_obj`` and ``barrier`` in coll/basic's slots with store-keyed
-versions ((jobid, cid, per-comm sequence) keys, a store fence for the
-barrier), then runs the example's ``main`` with the remaining arguments.
-``chip_smoke.py`` runs the embedding path under it and without it, in
-turns, and prints both fence times.
+``bcast_obj`` and ``barrier`` in coll/basic's slots (and coll/tuned's
+``barrier``, which stacks above them) with store-keyed versions ((jobid,
+cid, per-comm sequence) keys, a store fence for the barrier), then runs
+the example's ``main`` with the remaining arguments. Run the embedding
+path under it and without it, in turns, to compare the fence times.
 
     python -m ompi_tpu_torch.runtime.launcher -n 4 --mca device_plane on \\
         --mca osc_cuda on scripts/store_obj_channel.py embedding_table \\
@@ -23,7 +23,7 @@ import sys
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-from ompi_tpu_torch.coll import basic  # noqa: E402
+from ompi_tpu_torch.coll import basic, tuned  # noqa: E402
 from ompi_tpu_torch.runtime import rte  # noqa: E402
 
 
@@ -65,8 +65,16 @@ def _slots(self, comm):
     return slots
 
 
+def _tuned_slots(self, comm):
+    slots = _tuned_pml_slots(self, comm)
+    slots["barrier"] = barrier
+    return slots
+
+
 _pml_slots = basic.CollBasic.slots
 basic.CollBasic.slots = _slots
+_tuned_pml_slots = tuned.CollTuned.slots
+tuned.CollTuned.slots = _tuned_slots
 
 if __name__ == "__main__":
     example = importlib.import_module(

@@ -183,6 +183,17 @@ for what, fn in (
         classes[what] = e.error_class
 with open(f"{out_dir}/ref_errors_r{{rank}}.json", "w") as fh:
     json.dump(classes, fh)
+# the calls the port's coll/device stages or hands to the host collectives:
+# a float64 Allreduce (a host buffer here: jax holds no float64) and a
+# host-buffer Alltoall
+x64 = make_input("ar", "float32", rank, size, traps=False).astype(np.float64)
+out = np.empty_like(x64)
+comm.Allreduce(x64, out)
+np.save(f"{out_dir}/ref_lifted_f64_r{{rank}}.npy", out)
+a2a = np.arange(2 * size, dtype=np.int32) + 10 * rank
+out = np.empty_like(a2a)
+comm.Alltoall(a2a, out)
+np.save(f"{out_dir}/ref_lifted_a2a_r{{rank}}.npy", out)
 """
 
 _PORT_PROG = """
@@ -235,19 +246,25 @@ for what, fn in (
     classes[what] = error_class(fn)[0]
 with open(f"{out_dir}/port_errors_r{{rank}}.json", "w") as fh:
     json.dump(classes, fh)
+# float64 goes to coll/accelerator's staging; a host buffer to coll/tuned
+s = pvar.session()
+x64 = make_input("ar", "float32", rank, size, traps=False).astype(np.float64)
+got = comm.Allreduce(torch.from_numpy(x64))
+assert got.dtype == torch.float64 and s.read("coll_accelerator_staged") == 1
+np.save(f"{out_dir}/port_lifted_f64_r{{rank}}.npy", got.numpy())
+a2a = np.arange(2 * size, dtype=np.int32) + 10 * rank
+got = np.empty_like(a2a)
+assert comm.Alltoall(a2a, got) is None
+np.save(f"{out_dir}/port_lifted_a2a_r{{rank}}.npy", got)
 # the port's stated refusals, on every rank
-cls, msg = error_class(lambda: comm.Allreduce(torch.ones(4).double()))
-assert cls == errors.ERR_NOT_SUPPORTED and "float64" in msg, msg
 cls, msg = error_class(lambda: comm.Allreduce(torch.ones(4), op=O.MINLOC))
-assert cls == errors.ERR_NOT_SUPPORTED and "ROADMAP" in msg, msg
+assert cls == errors.ERR_OP and "FLOAT_INT" in msg, msg
 assert error_class(lambda: comm.Bcast(torch.ones(4), root=size))[0] \\
     == errors.ERR_ROOT
 assert error_class(lambda: comm.Allreduce(
     torch.ones(4), deterministic="tree"))[0] == errors.ERR_ARG
 assert error_class(lambda: comm.Allreduce(torch.ones(4), op=O.BXOR))[0] \\
     == errors.ERR_OP
-assert error_class(lambda: comm.Alltoall(np.ones(3, np.float32)))[0] \\
-    == errors.ERR_NOT_SUPPORTED
 # a recvbuf receives the result too
 recv = torch.empty(2 * size, dtype=torch.int32)
 out = comm.Alltoall(torch.arange(2 * size, dtype=torch.int32) + 10 * rank,
@@ -382,15 +399,23 @@ def test_four_ranks_bitwise(tmp_path):
 
 def test_erroneous_calls_on_every_rank(out):
     """An indivisible Alltoall / Reduce_scatter_block raises ERR_COUNT on
-    every rank of both packages; the port's refusals (float64, MINLOC,
-    a root outside the comm, an unknown mode, BXOR on floats, a host
-    buffer) raise their classes on every rank."""
+    every rank of both packages; the port's refusals (MINLOC on a tensor:
+    ERR_OP naming the pair types; a root outside the comm, an unknown
+    mode, BXOR on floats) raise their classes on every rank. What this
+    test once checked as refused is served now, bitwise equal to the
+    reference's host collective: a float64 Allreduce (staged through
+    coll/accelerator, counted in coll_accelerator_staged) and a
+    host-buffer Alltoall (coll/tuned)."""
     for r in range(N):
         ref = json.loads((out / f"ref_errors_r{r}.json").read_text())
         got = json.loads((out / f"port_errors_r{r}.json").read_text())
         assert ref == got == {"alltoall_indivisible": 2,
                               "rsb_indivisible": 2}
         assert (out / f"port_ok_r{r}.ok").exists()
+        for what in ("f64", "a2a"):
+            assert_bits_equal(np.load(out / f"ref_lifted_{what}_r{r}.npy"),
+                              np.load(out / f"port_lifted_{what}_r{r}.npy"),
+                              f"{what} r{r}")
 
 
 _SINGLETON_REF = """

@@ -318,6 +318,15 @@ for i in range(2):
     out = comm.Allreduce_multi({{"a": x, "b": [x[:7] * 3]}})
     S(f"pers_arm{{i}}_0", out["a"])
     S(f"pers_arm{{i}}_1", out["b"][0])
+# what the port's coll/device hands to the host collectives, on host
+# buffers here (jax holds no float64): Scan of float64, Reduce
+x64 = np.arange(5, dtype=np.float64) * 0.1 * (rank + 1)
+out = np.empty_like(x64)
+comm.Scan(x64, out)
+S("lifted_scan_f64", out)
+out = np.zeros(3, np.float32)
+comm.Reduce(np.full(3, rank + 0.5, np.float32), out, root=0)
+S("lifted_reduce_host", out)
 """
 
 _PORT_PROG = """
@@ -453,12 +462,19 @@ for fn in (lambda: comm.Reduce(x, root=size),
            lambda: comm.Scatter(x, root=size),
            lambda: comm.Gatherv(x[:0], None, [0] * size, root=size)):
     assert error_class(fn) == ERR_ROOT
-assert error_class(lambda: comm.Scan(x.double())) == ERR_NOT_SUPPORTED
-assert error_class(lambda: comm.Reduce(np.ones(3, np.float32))) \\
-    == ERR_NOT_SUPPORTED
-assert error_class(lambda: comm.Ibarrier()) == ERR_NOT_SUPPORTED
+# once refused, served now: Scan of float64 stages through
+# coll/accelerator, a host Reduce and the host Ibarrier run coll/tuned and
+# libnbc (the results are compared with the reference's); MINLOC on
+# tensors raises ERR_OP
+from ompi_tpu_torch.errors import ERR_OP
+x64 = np.arange(5, dtype=np.float64) * 0.1 * (rank + 1)
+S("lifted_scan_f64", comm.Scan(torch.from_numpy(x64)))
+out = np.zeros(3, np.float32)
+assert comm.Reduce(np.full(3, rank + 0.5, np.float32), out, root=0) is None
+np.save(f"{{out_dir}}/port_lifted_reduce_host_r{{rank}}.npy", out)
+assert rq.wait_all([comm.Ibarrier()])[0].error == 0
 assert error_class(lambda: comm.Allreduce_multi(
-    [x], op=O.MINLOC)) == ERR_NOT_SUPPORTED
+    [x], op=O.MINLOC)) == ERR_OP
 # rank 0 expects 2 rows from the last rank, which sends it 1: the count
 # round shows the mismatch to every rank, and all raise ERR_COUNT (the
 # reference does not check)
@@ -660,8 +676,12 @@ def test_erroneous_calls_on_every_rank(job):
     a max_count below the counts) and ERR_REQUEST (a start after free) on
     every rank of both packages; ERR_ARG on the root alone when its
     scatter signature changed after the cached round; the port's ERR_ROOT
-    and ERR_NOT_SUPPORTED refusals, and its ERR_COUNT on every rank for
-    Alltoallv rcounts that one rank gets wrong, checked in its job."""
+    refusals, ERR_OP for MINLOC on tensors, and its ERR_COUNT on every
+    rank for Alltoallv rcounts that one rank gets wrong, checked in its
+    job. What this test once checked as refused is served now: a float64
+    Scan (staged through coll/accelerator) and a host Reduce equal the
+    reference's host collectives bitwise, and the host Ibarrier
+    completes."""
     n, _, out = job
     for r in range(n):
         ref = json.loads((out / f"ref_errors_r{r}.json").read_text())
@@ -674,6 +694,11 @@ def test_erroneous_calls_on_every_rank(job):
             want["scatter_signature"] = 13
         assert got["classes"] == want
         assert (out / f"port_ok_r{r}.ok").exists()
+        for what in ("scan_f64", "reduce_host"):
+            ref = np.load(out / f"ref_lifted_{what}_r{r}.npy")
+            got = np.load(out / f"port_lifted_{what}_r{r}.npy")
+            assert ref.dtype == got.dtype and np.array_equal(
+                ref.view(np.uint8), got.view(np.uint8)), (what, r)
 
 
 def test_non_roots_never_allocate_the_n_fold_result(job):

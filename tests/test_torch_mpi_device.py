@@ -92,6 +92,14 @@ for name, kind, dtype, op, det in {cases!r}:
     if dtype == "bfloat16":
         out = out.view(np.uint16)
     np.save(f"{out_dir}/ref_{{name}}_r{{rank}}.npy", out)
+# the port stages a float64 tensor through the host collectives: the
+# reference's host Allreduce of the same values (jax holds no float64)
+out = np.empty(8)
+comm.Allreduce(np.arange(8, dtype=np.float64) * 0.3 * (rank + 1), out)
+np.save(f"{out_dir}/ref_lifted_f64_r{{rank}}.npy", out)
+out = np.empty(4, np.float32)
+comm.Allreduce(np.ones(4, np.float32) * (rank + 1), out)
+np.save(f"{out_dir}/ref_lifted_host_r{{rank}}.npy", out)
 """
 
 _PORT_PROG = """
@@ -143,15 +151,16 @@ assert s.read("coll_cuda_fallthrough") == 2
 assert s.read("coll_cuda_launches") == 0
 
 s = pvar.session()
-msg = expect_error(errors.ERR_NOT_SUPPORTED,
-                   lambda: comm.Allreduce(torch.ones(8, dtype=torch.float64)))
-assert "float64" in msg, msg
+got = comm.Allreduce(torch.arange(8, dtype=torch.float64) * 0.3 * (rank + 1))
+np.save(f"{out_dir}/port_lifted_f64_r{{rank}}.npy", got.numpy())
 assert s.read("coll_cuda_fallthrough") == 1
+assert s.read("coll_accelerator_staged") == 1
 assert s.read("coll_cuda_launches") == 0
 expect_error(errors.ERR_COUNT, lambda: comm.Reduce_scatter_block(
     torch.ones(3 * size + 1, 2)))
-expect_error(errors.ERR_NOT_SUPPORTED,
-             lambda: comm.Allreduce(np.ones(4, np.float32)))
+out = np.empty(4, np.float32)
+assert comm.Allreduce(np.ones(4, np.float32) * (rank + 1), out) is None
+np.save(f"{out_dir}/port_lifted_host_r{{rank}}.npy", out)
 open(f"{out_dir}/port_errors_r{{rank}}.ok", "w").close()
 mpi.Finalize()
 """
@@ -232,13 +241,20 @@ def test_allgather_exact(results):
 
 def test_error_paths(results):
     """float16 and a forced 'xla' fall through to coll/device (its result,
-    counted in coll_cuda_fallthrough); float64 falls through and raises
-    ERR_NOT_SUPPORTED; indivisible Reduce_scatter_block -> ERR_COUNT;
-    host buffer -> ERR_NOT_SUPPORTED (asserted inside the port job, on
-    every rank)."""
+    counted in coll_cuda_fallthrough); indivisible Reduce_scatter_block ->
+    ERR_COUNT (asserted inside the port job, on every rank). Once refused
+    and served now: float64 falls through coll/cuda and coll/device to
+    coll/accelerator's staging (coll_accelerator_staged), and a host
+    buffer runs coll/tuned; both equal the reference's host Allreduce
+    bitwise."""
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
+        for what in ("f64", "host"):
+            ref = np.load(out / f"ref_lifted_{what}_r{r}.npy")
+            got = np.load(out / f"port_lifted_{what}_r{r}.npy")
+            assert ref.dtype == got.dtype and np.array_equal(
+                ref.view(np.uint8), got.view(np.uint8)), (what, r)
 
 
 def test_coll_cuda_off_leaves_device_serving(tmp_path):

@@ -384,8 +384,10 @@ def error_class(fn):
     raise AssertionError("no MPIError raised")
 cls, msg = error_class(lambda: datatype.vector(4, 1, 4, datatype.FLOAT))
 assert cls == errors.ERR_NOT_SUPPORTED and "queue 1 item 4" in msg, msg
-cls, msg = error_class(lambda: comm.Allreduce(np.ones(4, np.float32)))
-assert cls == errors.ERR_NOT_SUPPORTED and "queue 1 item 4" in msg, msg
+# a host-buffer Allreduce, once refused, fills its recvbuf through
+# coll/tuned (its result is compared with the reference's: _LIFTED)
+assert comm.Allreduce(np.ones(4, np.float32), np.zeros(4, np.float32)) \
+    is None
 cls, msg = error_class(lambda: comm.Send((torch.ones(4), 2), dest=0))
 assert cls == errors.ERR_NOT_SUPPORTED, msg
 assert isinstance(comm.Isend(np.ones(2), dest=mpi.PROC_NULL),
@@ -394,6 +396,14 @@ st = comm.Recv(np.zeros(2), source=mpi.PROC_NULL)
 assert st.source == mpi.PROC_NULL
 from ompi_tpu_torch import pml as _pml
 assert _pml.instance() is not None
+"""
+
+#: a call of the host collectives both packages run in every job, compared
+#: bitwise like every other result
+_LIFTED = """
+lifted = np.zeros(4, np.float32)
+comm.Allreduce(np.arange(4, dtype=np.float32) * (rank + 1), lifted)
+save("host_allreduce", lifted)
 """
 
 _PORT_PRELUDE = """
@@ -414,14 +424,15 @@ def _job(tmp, body, n, ref_mca=None):
     ref_mca = dict(ref_mca or {})
     head = dict(out=str(tmp))
     run_ranks(_HEAD.format(pkg="ompi_tpu", who="ref", **head)
-              + body.replace("{pkg}", "ompi_tpu") + _TAIL, n, mca=ref_mca,
+              + body.replace("{pkg}", "ompi_tpu") + _LIFTED + _TAIL, n,
+              mca=ref_mca,
               timeout=240, isolate=True)
     port_mca = dict(compat.mca_from_reference(ref_mca),
                     device_plane_platform="cpu")
     src = (_PORT_PRELUDE + _HEAD.format(pkg="ompi_tpu_torch", who="port",
                                         **head)
-           + body.replace("{pkg}", "ompi_tpu_torch") + _PORT_CHECKS
-           + _TAIL + _PORT_EPILOGUE)
+           + body.replace("{pkg}", "ompi_tpu_torch") + _LIFTED
+           + _PORT_CHECKS + _TAIL + _PORT_EPILOGUE)
     with tempfile.NamedTemporaryFile("w", suffix=".py", delete=False) as fh:
         fh.write(textwrap.dedent(src))
         path = fh.name
