@@ -142,12 +142,31 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    1 MiB and a ragged 3 MiB + 4 B float32 message, bitwise) and its
    4-rank ``Sendrecv`` ring of 64 MiB CUDA tensors, bitwise; a CUDA
    tensor refused with ERR_ARG by ``comm.Send`` / ``Isend`` / ``Recv`` /
-   ``Irecv`` on a one-rank job whose platform is the CPU.
+   ``Irecv`` on a one-rank job whose platform is the CPU;
+5. the datatype engine (no kernel of its own; see
+   :func:`datatype_phase`), before phase 4: in this process, the device
+   convertor's pack and unpack (``datatype.device``: ``index_select`` /
+   ``index_copy_`` over a cached element-index vector) of three layouts on
+   the card, the halo column of an 8192 x 8192 float32 tile
+   (``vector(8192, 1, 8192)``), a strided face of a 512^3 float32 field
+   (``subarray``) and every other 4096-float block of a 256 MiB tensor
+   (``vector(8192, 4096, 8192)``), each bitwise against the host
+   convertor's bytes with the unpack's gaps (a poisoned template) kept,
+   timed (first call and cached p50) beside a strided-view ``copy_`` of
+   the same layout and the bound; then
+   ``ompi_tpu_torch/examples/datatype_exchange.py`` on 4 ranks under
+   ``--mca device_plane on --mca coll_cuda on`` (the halo column by
+   tuple-form Send / Recv of CUDA tensors, ``Allreduce((tile, 1,
+   column))`` under 'linear' and 'ring' and ``Bcast((tile, 1, column))``,
+   each rank bitwise against the host fold, K1-K3 counted; their launches
+   join the collectives jobs') and its ``--hetero`` mode on 2 host ranks
+   with rank 1 big-endian (a struct Send / Recv both ways and an
+   Allreduce).
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
-collectives job, coll/cuda's and coll/device's,
+collectives job, coll/cuda's and coll/device's, and the datatype job,
 K5 and K6's two kernels from the training path, K7 and the K8, K9 and
 K10 batches from the 4-rank one-sided paths; K5b and the per-call rows
 of K8, K9 and K10 with 0 and a note), the card line, and, last,
@@ -1406,6 +1425,122 @@ def host_plane_phase(torch, card: str, root: str) -> None:
           f"CPU-platform rank raise ERR_ARG [{card}]", flush=True)
 
 
+#: the datatype phase's field side (a face of a 512^3 float32 field) and
+#: its block layout (every other 4096-float block of a 256 MiB tensor)
+FIELD, DT_BLOCK = 512, 4096
+
+
+def datatype_layouts(D):
+    """(name, tensor shape, datatype, strided view of the same layout)
+    of the datatype phase's three layouts."""
+    rows = (64 << 20) // (2 * DT_BLOCK)  # 256 MiB of float32, 2 blocks a row
+    return (
+        ("halo column", (HALO, HALO), D.vector(HALO, 1, HALO, D.FLOAT),
+         lambda x: x[:, 0]),
+        ("512^3 field face", (FIELD,) * 3,
+         D.subarray([FIELD] * 3, [FIELD, FIELD, 1], [0, 0, 0], D.FLOAT),
+         lambda x: x[:, :, 0]),
+        ("alternate 4096-float blocks", (rows, 2 * DT_BLOCK),
+         D.vector(rows, DT_BLOCK, 2 * DT_BLOCK, D.FLOAT),
+         lambda x: x[:, :DT_BLOCK]),
+    )
+
+
+def datatype_phase(torch, card: str, root: str) -> dict:
+    """Phase 5: the datatype engine (no kernel of its own: the device
+    convertor gathers with index_select and scatters with index_copy_).
+    In this process, for each layout: ``datatype.device.pack`` and
+    ``unpack`` bitwise against the host convertor's bytes (the scatter
+    into a poisoned template, whose gaps must keep the poison), the
+    pack's first call (the index vector built and sent to the card) and
+    cached p50, the unpack's p50, a strided-view ``copy_`` of the same
+    layout each way, and the bound. Then a 4-rank launcher job of
+    ``examples/datatype_exchange.py`` under coll/cuda (tuple-form halo
+    Send / Recv of CUDA tensors, Allreduce and Bcast of a column, K1-K3
+    counted) and a 2-rank host job with rank 1 big-endian. Returns the
+    4-rank job's K1-K3 launches."""
+    import numpy as np
+
+    from ompi_tpu_torch.datatype import convertor as cv
+    from ompi_tpu_torch.datatype import datatype as D
+    from ompi_tpu_torch.datatype import device as dd
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    for i, (name, shape, dt, view) in enumerate(datatype_layouts(D)):
+        g = torch.Generator(device=dev).manual_seed(41 + i)
+        x = torch.randn(shape, generator=g, device=dev)
+        torch.cuda.synchronize(dev)
+        t1 = time.perf_counter()
+        packed = dd.pack(x, dt, 1)
+        torch.cuda.synchronize(dev)
+        first_ms = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()  # its numpy share: the index vector again
+        dd.element_indices(dt, 1, 4)
+        build_ms = (time.perf_counter() - t1) * 1e3
+        host = x.cpu().numpy()
+        wire = cv.pack(host, dt, 1)
+        if packed.cpu().numpy().tobytes() != wire:
+            fail(f"datatype {name}: the device pack differs from the host "
+                 "convertor's bytes")
+        tpl = torch.empty(shape, device=dev)
+        tpl.view(torch.uint8).fill_(POISON)  # the gaps must keep it
+        want = tpl.cpu().numpy()
+        cv.unpack(wire, want, dt, 1)
+        if dd.unpack(packed, dt, 1, tpl) is not tpl \
+                or tpl.cpu().numpy().tobytes() != want.tobytes():
+            fail(f"datatype {name}: the device unpack differs from the host "
+                 "convertor's (or moved a gap)")
+        del host, want
+        pack_ms = median_ms(lambda: dd.pack(x, dt, 1), torch)
+        unpack_ms = median_ms(lambda: dd.unpack(packed, dt, 1, tpl), torch)
+        v = view(x)
+        out = torch.empty(v.shape, device=dev)
+        vpack_ms = median_ms(lambda: out.copy_(v), torch)
+        if not torch.equal(out.reshape(-1).view(torch.int32),
+                           packed.view(torch.int32)):
+            fail(f"datatype {name}: the strided view is not the type's "
+                 "layout")
+        vt = view(tpl)
+        vunpack_ms = median_ms(lambda: vt.copy_(out), torch)
+        spans = dt.spans
+        touched = int(np.maximum(spans[:, 1], SECTOR).sum())
+        bound_ms = (touched + dt.size) / HBM_BYTES_PER_S * 1e3
+        idx_bytes = 8 * packed.numel()
+        print(f"datatype {name} ({dt.name}, {len(spans)} spans, "
+              f"{packed.numel()} float32 = {dt.size} B packed): device pack "
+              f"first call {first_ms:.4f} ms (index vector of {idx_bytes} B "
+              f"built and copied to the card; building it alone "
+              f"{build_ms:.4f} ms), cached p50 {pack_ms:.4f} ms; "
+              f"unpack p50 {unpack_ms:.4f} ms; strided-view copy_ pack "
+              f"{vpack_ms:.4f} ms, unpack {vunpack_ms:.4f} ms; bound "
+              f"{bound_ms:.4f} ms ({touched} B of the layout, a {SECTOR}-B "
+              f"sector per strided element, + {dt.size} B packed, at 3.35 "
+              f"TB/s); pack and unpack bitwise equal to the host convertor, "
+              f"gaps unchanged [{card}]", flush=True)
+        del x, tpl, packed, out, v, vt
+        torch.cuda.empty_cache()
+    print(f"datatype phase in process: {time.perf_counter() - t0:.1f} s "
+          f"[{card}]", flush=True)
+
+    launches, _ = main_path("datatype_exchange.py", N_RANKS, [], card, root)
+    out = os.path.join(root, "build", "ompi_tpu_torch", "smoke_hetero")
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    launch_text(root, 2, "datatype_exchange.py", ["--hetero", "--out", out])
+    for r in range(2):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            doc = json.load(f)
+        if doc["arch"] != ("big" if r == 1 else "little") or not all(
+                c["ok"] for c in doc["cases"]) or len(doc["cases"]) != 3:
+            fail(f"the heterogeneous host job, rank {r}: {doc}")
+    print(f"datatype heterogeneous host job n=2, rank 1 big-endian: struct "
+          f"Send / Recv both ways and float64 / int32 Allreduce equal to "
+          f"the values sent ({time.perf_counter() - t0:.1f} s wall) "
+          f"[{card}]", flush=True)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1518,6 +1653,9 @@ def main() -> int:
           f"reader and exchange ({N_RANKS} readers x "
           f"{emb_doc['exchanges']['lookup']} exchange), each landing every "
           f"owner's block [{card}]", flush=True)
+    # the datatype job's K1-K3 launches join the collectives jobs'
+    for k, v in datatype_phase(torch, card, root).items():
+        coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = next(p[r["name"]] for p in (coll, train, osc)

@@ -1,11 +1,12 @@
-"""MPI attribute / keyval caching on communicators.
+"""MPI attribute / keyval caching on communicators and datatypes.
 
 The port's reduction of ``ompi_tpu.attr`` (reference:
 ompi/attribute/attribute.c — one keyval space with user copy / delete
 callbacks fired on dup / free, comm_create_keyval.c:47-62 — and
 attribute_predefined.c:119-195, the predefined attributes) to the
-communicator kind, the one object of the port that caches attributes.
-Windows and datatypes gain theirs with their slices.
+"comm" and "type" kinds: each keyval carries its kind, and a keyval of
+one kind used on an object of the other raises ``ERR_KEYVAL``. Windows
+gain theirs with their slice.
 
 Callbacks follow the reference's Pythonic convention:
 ``copy_fn(obj, keyval, extra_state, value) -> new value`` (return
@@ -44,11 +45,13 @@ ERR_LASTCODE = 92
 
 
 class Keyval:
-    __slots__ = ("id", "copy_fn", "delete_fn", "extra_state", "freed")
+    __slots__ = ("id", "kind", "copy_fn", "delete_fn", "extra_state",
+                 "freed")
 
-    def __init__(self, kid: int, copy_fn: Optional[Callable],
+    def __init__(self, kid: int, kind: str, copy_fn: Optional[Callable],
                  delete_fn: Optional[Callable], extra_state: Any) -> None:
         self.id = kid
+        self.kind = kind
         self.copy_fn = copy_fn
         self.delete_fn = delete_fn
         self.extra_state = extra_state
@@ -88,13 +91,15 @@ _PREDEF_IDS = frozenset((TAG_UB, HOST, IO, WTIME_IS_GLOBAL, APPNUM,
                          UNIVERSE_SIZE, LASTUSEDCODE))
 
 
-def create_keyval(copy_fn: Optional[Callable] = None,
+def create_keyval(kind: str, copy_fn: Optional[Callable] = None,
                   delete_fn: Optional[Callable] = None,
                   extra_state: Any = None) -> int:
-    """MPI_Comm_create_keyval."""
+    """MPI_{Comm,Type}_create_keyval (``kind`` "comm" or "type")."""
+    if kind not in ("comm", "type"):
+        raise errors.MPIError(errors.ERR_ARG, f"bad keyval kind {kind}")
     with _lock:
         kid = next(_next_id)
-        _keyvals[kid] = Keyval(kid, copy_fn, delete_fn, extra_state)
+        _keyvals[kid] = Keyval(kid, kind, copy_fn, delete_fn, extra_state)
     return kid
 
 
@@ -119,43 +124,51 @@ def null_copy_fn(obj, keyval, extra_state, value):
     return NO_COPY
 
 
-def _get_kv(kid: int) -> Keyval:
+def _get_kv(kid: int, kind: str) -> Keyval:
     kv = _keyvals.get(kid)
     if kv is None or kv.freed:
         raise errors.MPIError(errors.ERR_KEYVAL, f"invalid keyval {kid}")
+    if kv.kind != kind:
+        raise errors.MPIError(
+            errors.ERR_KEYVAL,
+            f"keyval {kid} is a {kv.kind} keyval, used on a {kind}")
     return kv
 
 
-def _read_only(kid: int) -> None:
-    if kid in _PREDEF_IDS:
+def _read_only(kid: int, kind: str) -> None:
+    if kind == "comm" and kid in _PREDEF_IDS:
         raise errors.MPIError(errors.ERR_KEYVAL,
                               f"predefined attribute {kid} is read-only")
 
 
 class AttrHost:
     """Mixin: the MPI attribute API over the host object's ``attrs``
-    dict (keyval id -> value)."""
+    dict (keyval id -> value). ``_attr_kind`` names the object's keyval
+    kind ("comm" or "type")."""
+
+    __slots__ = ()
+    _attr_kind = "comm"
 
     def Set_attr(self, keyval: int, value) -> None:
-        """MPI_Comm_set_attr: overwriting fires the delete callback on
-        the old value first (MPI-3.1 §6.7.2)."""
-        _read_only(keyval)
-        kv = _get_kv(keyval)
+        """MPI_*_set_attr: overwriting fires the delete callback on the
+        old value first (MPI-3.1 §6.7.2)."""
+        _read_only(keyval, self._attr_kind)
+        kv = _get_kv(keyval, self._attr_kind)
         if keyval in self.attrs and kv.delete_fn is not None:
             kv.delete_fn(self, keyval, self.attrs[keyval], kv.extra_state)
         self.attrs[keyval] = value
 
     def Get_attr(self, keyval: int):
-        """MPI_Comm_get_attr: the value, or None when not set."""
-        if keyval in _PREDEF_IDS:
+        """MPI_*_get_attr: the value, or None when not set."""
+        if self._attr_kind == "comm" and keyval in _PREDEF_IDS:
             return _predef(keyval)[0]
-        _get_kv(keyval)
+        _get_kv(keyval, self._attr_kind)
         return self.attrs.get(keyval)
 
     def Delete_attr(self, keyval: int) -> None:
-        """MPI_Comm_delete_attr: fires the delete callback."""
-        _read_only(keyval)
-        kv = _get_kv(keyval)
+        """MPI_*_delete_attr: fires the delete callback."""
+        _read_only(keyval, self._attr_kind)
+        kv = _get_kv(keyval, self._attr_kind)
         if keyval not in self.attrs:
             raise errors.MPIError(errors.ERR_KEYVAL,
                                   f"attribute {keyval} not set")
@@ -169,7 +182,7 @@ def copy_attrs(old, new) -> None:
     callback; None and NO_COPY drop the attribute."""
     for kid in list(old.attrs):
         kv = _keyvals.get(kid)
-        if kv is None or kv.copy_fn is None:
+        if kv is None or kv.kind != old._attr_kind or kv.copy_fn is None:
             continue
         out = kv.copy_fn(old, kid, kv.extra_state, old.attrs[kid])
         if out is not NO_COPY:
@@ -181,6 +194,8 @@ def delete_attrs(obj) -> None:
     insertion order, once each."""
     for kid in list(obj.attrs):
         kv = _keyvals.get(kid)
+        if kv is not None and kv.kind != obj._attr_kind:
+            continue
         val = obj.attrs.pop(kid)
         if kv is not None and kv.delete_fn is not None:
             kv.delete_fn(obj, kid, val, kv.extra_state)

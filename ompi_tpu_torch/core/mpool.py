@@ -1,16 +1,23 @@
-"""mpool — the receive bounce pool.
+"""mpool — the receive bounce pool and the registration cache.
 
 The port's reduction of ``ompi_tpu.core.mpool`` (reference:
 opal/mca/allocator/bucket, size-class free lists feeding the transports'
-fragment pools) to the :class:`BufferPool` ob1 draws object-message
-scratch from (ob1.py:143, :699). The registration cache (``Rcache``)
-has no caller in the port.
+fragment pools, and opal/mca/rcache, the grdma registration cache) to
+the :class:`BufferPool` ob1 draws object-message scratch from
+(ob1.py:143, :699) and the :class:`Rcache` that holds the datatype
+engine's tiled span tables and device index vectors, keyed by
+:func:`buffer_key`. The reference invalidates a key through its
+memory-release plane (``core/memhooks``, not ported); here each keyed
+object carries one weakref finalizer that invalidates the key in every
+live cache, the same lifetime contract.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import Dict, List
+import weakref
+from collections import OrderedDict
+from typing import Any, Dict, List, Set, Tuple
 
 from ompi_tpu_torch.core import cvar, pvar
 
@@ -19,6 +26,11 @@ _max_cached = cvar.register(
     help="Upper bound on idle bytes retained per BufferPool size "
          "class set (reference: allocator/bucket caps its buckets); "
          "0 disables pooling entirely.", level=7)
+
+_rcache_bytes = cvar.register(
+    "rcache_max_bytes", 256 << 20, int,
+    help="Registration-cache capacity in payload bytes before LRU "
+         "eviction (reference: rcache_grdma size limits).", level=7)
 
 
 def _size_class(n: int) -> int:
@@ -72,3 +84,76 @@ class BufferPool:
 
 #: process-wide pool for transport scratch
 pool = BufferPool()
+
+
+class Rcache:
+    """LRU registration cache (rcache/grdma). Keys come from
+    :func:`buffer_key` (an ``id()`` whose object carries a death hook,
+    so a recycled id never aliases a dead entry). Values carry a byte
+    cost; the total is capped by ``rcache_max_bytes`` with
+    least-recently-used eviction."""
+
+    def __init__(self) -> None:
+        self._map: "OrderedDict[Any, Tuple[Any, int]]" = OrderedDict()
+        self._bytes = 0
+        # reentrant: a death hook can fire from a garbage collection
+        # triggered while this thread is inside insert or lookup
+        self._lock = threading.RLock()
+        _caches.add(self)
+
+    def insert(self, key, value, nbytes: int) -> None:
+        with self._lock:
+            if key in self._map:
+                self._bytes -= self._map.pop(key)[1]
+            self._map[key] = (value, nbytes)
+            self._bytes += nbytes
+            cap = _rcache_bytes.get()
+            while self._bytes > cap and self._map:
+                self._bytes -= self._map.popitem(last=False)[1][1]
+                pvar.record("rcache_evictions")
+
+    def lookup(self, key):
+        with self._lock:
+            hit = self._map.get(key)
+            if hit is None:
+                return None
+            self._map.move_to_end(key)
+        pvar.record("rcache_hits")
+        return hit[0]
+
+    def invalidate(self, key) -> None:
+        with self._lock:
+            hit = self._map.pop(key, None)
+            if hit is not None:
+                self._bytes -= hit[1]
+
+
+#: every live cache, which a keyed object's death invalidates
+_caches: "weakref.WeakSet[Rcache]" = weakref.WeakSet()
+_tracked: Set[int] = set()
+_track_lock = threading.Lock()
+
+
+def _release(key: int) -> None:
+    with _track_lock:
+        _tracked.discard(key)
+    for cache in list(_caches):
+        cache.invalidate(key)
+
+
+def buffer_key(obj, cache: Rcache):
+    """A cache key for ``obj``: its ``id()``, with one death hook per
+    object that drops the key from every cache. None for an object that
+    cannot carry a weak reference (callers then skip caching: a
+    recycled id could alias a dead object's entry)."""
+    key = id(obj)
+    with _track_lock:
+        if key in _tracked:
+            return key
+    try:
+        weakref.finalize(obj, _release, key)
+    except TypeError:
+        return None
+    with _track_lock:
+        _tracked.add(key)
+    return key

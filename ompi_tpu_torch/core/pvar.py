@@ -73,6 +73,9 @@ WELL_KNOWN = (
     # ibcast / ireduce calls
     "coll_accelerator_staged", "sync_injected_barriers", "adapt_ibcast",
     "adapt_ireduce",
+    # core/mpool's registration cache (the datatype engine's span tables
+    # and device index vectors): hits and LRU evictions
+    "rcache_hits", "rcache_evictions",
 )
 
 

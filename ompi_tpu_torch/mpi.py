@@ -4,10 +4,19 @@ Reference: ompi/mpi/c/ and the JAX package's ``ompi_tpu.mpi``. The
 surface follows the mpi4py convention: lower-case methods move pickled
 Python objects, capitalised methods move buffers. A host buffer is numpy
 (or any object with the buffer protocol), given as ``array``,
-``(array, count)`` or ``(array, count, Datatype)`` with a predefined
-Datatype, the MINLOC / MAXLOC pair types among them (derived datatypes
-raise ``MPIError(ERR_NOT_SUPPORTED)``, ROADMAP queue 1 item 4c); a device
-buffer is a ``torch.Tensor``.
+``(array, count)`` or ``(array, count, Datatype)`` with any Datatype,
+predefined (the MINLOC / MAXLOC pair types among them) or derived
+(``datatype.vector``, ``create_struct``, ``subarray``, ...) over a
+C-contiguous array; a non-contiguous numpy array raises
+``MPIError(ERR_BUFFER)`` (describe its layout with a derived type over
+the base array instead). A device buffer is a ``torch.Tensor``, bare or
+as ``(tensor, count[, Datatype])``: that tuple form packs on the
+tensor's own device (``datatype.device``, one gather), moves the packed
+form, and scatters a received result back into the tensor in place (the
+type's gaps keep their values). It works on Send / Isend / Rsend / Recv
+/ Irecv / Sendrecv / Isendrecv / Bcast / Allreduce / Ibcast /
+Iallreduce; any other entry given one raises
+``MPIError(ERR_NOT_SUPPORTED)``.
 
 Point-to-point (ompi_tpu/mpi.py:69-660): Send / Recv / Isend / Irecv /
 Ssend / Issend / Rsend / Bsend (with Buffer_attach / Buffer_detach) /
@@ -20,7 +29,9 @@ tensor given to Send / Isend / Rsend / Recv / Irecv / Sendrecv /
 Isendrecv goes through ``pml/accel_p2p``'s pipelined staging; unlike the
 reference, which returns a new array (jax arrays are immutable), the
 port receives in place: ``Recv`` fills the template tensor and returns
-it, and an Irecv request's ``.array`` is that tensor. A CUDA tensor on a
+it, and an Irecv request's ``.array`` is that tensor. ``Pack`` /
+``Unpack`` / ``Pack_size`` take derived types, and ``Pack_external`` /
+``Unpack_external`` write and read external32. A CUDA tensor on a
 rank whose device is the CPU, or on another card than the rank's, raises
 ``MPIError(ERR_ARG)``.
 
@@ -61,8 +72,9 @@ from ompi_tpu_torch import errors, op as op_mod, pml
 from ompi_tpu_torch.coll.basic import IN_PLACE, packed_displs
 from ompi_tpu_torch.comm import Communicator, Group, UNDEFINED  # noqa: F401
 from ompi_tpu_torch.core import pvar
-from ompi_tpu_torch.datatype import Datatype, PREDEFINED, dtype_of
-from ompi_tpu_torch.datatype.datatype import DERIVED_ITEM
+from ompi_tpu_torch.coll.device import DeviceRequest
+from ompi_tpu_torch.datatype import Datatype, dtype_of
+from ompi_tpu_torch.datatype import device as dtdev
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.pml.request import (  # noqa: F401  (re-exports)
     ANY_SOURCE, ANY_TAG, PROC_NULL, Request, Status, test_all, test_any,
@@ -157,10 +169,17 @@ def _Allreduce(self, sendbuf, recvbuf=None, op=op_mod.SUM,
                deterministic=None):
     """deterministic (tensors): None lets the component pick the
     algorithm; 'ring'/'linear' fix the operand order — 'linear' is
-    bit-identical to the host linear fold."""
-    if _is_dev(sendbuf):
-        return _deliver(self.coll.allreduce_dev(
-            self, sendbuf, op, deterministic=deterministic), recvbuf)
+    bit-identical to the host linear fold. A ``(tensor, count,
+    datatype)`` sendbuf reduces its packed form and scatters the result
+    back into the tensor, which is returned."""
+    d = _parse_dev(sendbuf)
+    if d is not None:
+        arr, count, dt = d
+        out = self.coll.allreduce_dev(self, _dev_pack(arr, count, dt), op,
+                                      deterministic=deterministic)
+        if count is not None:
+            out = dtdev.unpack(out, dt, count, arr)
+        return _deliver(out, recvbuf)
     if sendbuf is IN_PLACE:
         rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Allreduce"))
         self.coll.allreduce(self, IN_PLACE, rarr, count, dt, _host_op(op))
@@ -249,10 +268,19 @@ def _Allgatherv(self, sendbuf, recvbuf, counts, displs=None):
 def _Bcast(self, buf, root: int = 0):
     """Tensors: returns the root's buf on every rank; the other ranks'
     buf gives the shape and dtype and receives a copy of the result too
-    (MPI's in-place receive). A root outside [0, size) raises ERR_ROOT."""
-    if _is_dev(buf):
-        out = self.coll.bcast_dev(self, buf, root)
-        return _deliver(out, buf if self.rank != root else None)
+    (MPI's in-place receive); a ``(tensor, count, datatype)`` buf moves
+    its packed form and the other ranks scatter it into the tensor. A
+    root outside [0, size) raises ERR_ROOT."""
+    d = _parse_dev(buf)
+    if d is not None:
+        arr, count, dt = d
+        if count is None:
+            out = self.coll.bcast_dev(self, arr, root)
+            return _deliver(out, arr if self.rank != root else None)
+        out = self.coll.bcast_dev(self, _dev_send_or_plan(
+            self.rank == root, arr, count, dt), root)
+        return arr if self.rank == root \
+            else dtdev.unpack(out, dt, count, arr)
     _check_root(self, root)
     arr, count, dt = _parse_buf(buf)
     self.coll.bcast(self, arr, count, dt, root)
@@ -462,8 +490,19 @@ def _Ibarrier(self, device: bool = False):
 
 
 def _Ibcast(self, buf, root: int = 0):
-    if _is_dev(buf):
-        return self.coll.ibcast_dev(self, buf, root)
+    """A ``(tensor, count, datatype)`` buf: as Bcast's, and the request's
+    ``.array`` is the tensor once the scatter has run."""
+    d = _parse_dev(buf)
+    if d is not None:
+        arr, count, dt = d
+        if count is None:
+            return self.coll.ibcast_dev(self, arr, root)
+        req = self.coll.ibcast_dev(self, _dev_send_or_plan(
+            self.rank == root, arr, count, dt), root)
+        if self.rank != root:
+            dtdev.unpack(req.array, dt, count, arr)
+        # complete once the scatter queued on arr's device has run
+        return DeviceRequest(arr, arr.device)
     _check_root(self, root)
     arr, count, dt = _parse_buf(buf)
     return self.coll.ibcast(self, arr, count, dt, root)
@@ -471,9 +510,18 @@ def _Ibcast(self, buf, root: int = 0):
 
 def _Iallreduce(self, sendbuf, recvbuf=None, op=op_mod.SUM,
                 deterministic=None):
-    if _is_dev(sendbuf):
-        return self.coll.iallreduce_dev(self, sendbuf, op,
-                                         deterministic=deterministic)
+    """A ``(tensor, count, datatype)`` sendbuf: as Allreduce's, and the
+    request's ``.array`` is the tensor once the scatter has run."""
+    d = _parse_dev(sendbuf)
+    if d is not None:
+        arr, count, dt = d
+        req = self.coll.iallreduce_dev(self, _dev_pack(arr, count, dt), op,
+                                       deterministic=deterministic)
+        if count is None:
+            return req
+        dtdev.unpack(req.array, dt, count, arr)
+        # complete once the scatter queued on arr's device has run
+        return DeviceRequest(arr, arr.device)
     rarr, rcount, rdt = _parse_buf(_require_recvbuf(recvbuf, "Iallreduce"))
     if sendbuf is IN_PLACE:
         return self.coll.iallreduce(self, IN_PLACE, rarr, rcount, rdt,
@@ -730,8 +778,10 @@ for _fn in (_Allreduce, _Reduce, _Reduce_scatter_block, _Reduce_scatter,
 # point-to-point (ompi_tpu/mpi.py:37-660)
 # ---------------------------------------------------------------------------
 
-def _is_dev(buf) -> bool:
-    return isinstance(buf, torch.Tensor)
+#: the entries whose device branch takes a (tensor, count[, datatype])
+DEV_TUPLE_ENTRIES = ("Send", "Isend", "Rsend", "Recv", "Irecv", "Sendrecv",
+                     "Isendrecv", "Bcast", "Allreduce", "Ibcast",
+                     "Iallreduce")
 
 
 def _parse_buf(buf) -> Tuple[Any, int, Optional[Datatype]]:
@@ -741,22 +791,17 @@ def _parse_buf(buf) -> Tuple[Any, int, Optional[Datatype]]:
         if _is_dev(buf[0]):
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
-                "(tensor, count[, datatype]) packs on the device, which "
-                f"the datatype engine does: {DERIVED_ITEM}")
-        if isinstance(buf[0], np.ndarray) \
-                and not buf[0].flags["C_CONTIGUOUS"]:
-            raise errors.MPIError(errors.ERR_BUFFER,
-                                  "a non-contiguous numpy buffer needs a "
-                                  f"derived datatype: {DERIVED_ITEM}")
+                "a (tensor, count[, datatype]) buffer packs on the device "
+                "in " + " / ".join(DEV_TUPLE_ENTRIES) + "; this call has "
+                "no device derived-datatype route")
+        _contiguous_or_raise(buf[0])
         if len(buf) == 2:
             arr, count = buf
             return arr, int(count), dtype_of(arr)
         arr, count, dt = buf
-        if not isinstance(dt, Datatype) \
-                or PREDEFINED.get(dt.name) is not dt \
-                and not dt.name.startswith("MPI_NP_"):
-            raise errors.MPIError(errors.ERR_NOT_SUPPORTED,
-                                  f"datatype {dt!r}: {DERIVED_ITEM}")
+        if not isinstance(dt, Datatype):
+            raise errors.MPIError(errors.ERR_TYPE,
+                                  f"{dt!r} is not a Datatype")
         return arr, int(count), dt
     if _is_dev(buf):
         raise TypeError(
@@ -764,13 +809,67 @@ def _parse_buf(buf) -> Tuple[Any, int, Optional[Datatype]]:
             "device entries are Send / Isend / Rsend / Recv / Irecv / "
             "Sendrecv / Isendrecv and the collectives")
     if isinstance(buf, np.ndarray):
-        if not buf.flags["C_CONTIGUOUS"]:
-            raise errors.MPIError(
-                errors.ERR_BUFFER,
-                "a non-contiguous numpy buffer needs a derived datatype: "
-                f"{DERIVED_ITEM}; pass np.ascontiguousarray(buf)")
+        _contiguous_or_raise(buf)
         return buf, buf.size, dtype_of(buf)
     return buf, memoryview(buf).nbytes, None
+
+
+def _contiguous_or_raise(arr) -> None:
+    """A numpy buffer is read and written through its byte view, which a
+    non-contiguous array does not have."""
+    if isinstance(arr, np.ndarray) and not arr.flags["C_CONTIGUOUS"]:
+        raise errors.MPIError(
+            errors.ERR_BUFFER,
+            "a non-contiguous numpy buffer: describe its layout with a "
+            "derived datatype over the contiguous base array, e.g. "
+            "(base, 1, datatype.vector(...)), or pass "
+            "np.ascontiguousarray(buf)")
+
+
+def _parse_dev(buf):
+    """(tensor, count, datatype) when ``buf`` takes the device branch: a
+    bare tensor (count and datatype None) or a (tensor, count[,
+    datatype]) tuple; None for host buffers. Built by hand, not through
+    _parse_buf, so nothing reads the tensor on the host."""
+    if _is_dev(buf):
+        return buf, None, None
+    if isinstance(buf, tuple) and len(buf) in (2, 3) and _is_dev(buf[0]):
+        dt = buf[2] if len(buf) == 3 else None
+        if dt is not None and not isinstance(dt, Datatype):
+            raise errors.MPIError(errors.ERR_TYPE,
+                                  f"{dt!r} is not a Datatype")
+        return buf[0], int(buf[1]), dt
+    return None
+
+
+def _dev_pack(arr, count, dt):
+    """The send side's device convertor: the packed form (one gather on
+    arr's device) of a tuple form; a bare tensor as it is."""
+    return arr if count is None else dtdev.pack(arr, dt, count)
+
+
+def _dev_packed_like(arr, count, dt):
+    """An empty packed receive tensor of a tuple form, on arr's device."""
+    return torch.zeros(dtdev.packed_elems(dt, count, arr.element_size()),
+                       dtype=arr.dtype, device=arr.device)
+
+
+def _dev_send_or_plan(sending: bool, arr, count, dt):
+    """The packed operand of a rooted tuple-form call: the root's pack,
+    the others' empty receive tensor (no gather of what the call
+    overwrites)."""
+    return _dev_pack(arr, count, dt) if sending \
+        else _dev_packed_like(arr, count, dt)
+
+
+def _dev_recv_plan(arr, count, dt):
+    """(receive tensor, transform) of a device receive: a bare tensor
+    receives in place; a tuple form receives its packed form, which the
+    transform scatters into arr."""
+    if count is None:
+        return arr, None
+    return (_dev_packed_like(arr, count, dt),
+            lambda packed: dtdev.unpack(packed, dt, count, arr))
 
 
 def _check_rank(comm, rank: int) -> None:
@@ -827,20 +926,28 @@ def _Send(self, buf, dest: int, tag: int = 0) -> None:
     ``pml/accel_p2p``."""
     _check_rank(self, dest)
     pvar.record("send")
-    if _is_dev(buf):
+    d = _parse_dev(buf)
+    if d is not None:
         from ompi_tpu_torch.pml import accel_p2p
 
-        return accel_p2p.send_dev(self, buf, dest, tag)
+        arr, count, dt = d
+        accel_p2p.check_tensor(arr, "Send")
+        return accel_p2p.send_dev(self, _dev_pack(arr, count, dt), dest,
+                                  tag)
     arr, count, dt = _parse_buf(buf)
     pml.current().send(self, arr, count, dt, dest, tag)
 
 
 def _Isend(self, buf, dest: int, tag: int = 0) -> Request:
     _check_rank(self, dest)
-    if _is_dev(buf):
+    d = _parse_dev(buf)
+    if d is not None:
         from ompi_tpu_torch.pml import accel_p2p
 
-        return accel_p2p.isend_dev(self, buf, dest, tag)
+        arr, count, dt = d
+        accel_p2p.check_tensor(arr, "Isend")
+        return accel_p2p.isend_dev(self, _dev_pack(arr, count, dt), dest,
+                                   tag)
     arr, count, dt = _parse_buf(buf)
     return pml.current().isend(self, arr, count, dt, dest, tag)
 
@@ -942,13 +1049,12 @@ def _Recv(self, buf, source: int = ANY_SOURCE, tag: int = ANY_TAG,
           status: Optional[Status] = None):
     """A host buffer is filled in place and the Status returned; a
     tensor is received in place through ``pml/accel_p2p`` and returned
-    (the Status goes to ``status``)."""
-    if _is_dev(buf):
-        from ompi_tpu_torch.pml import accel_p2p
-
-        out, st = accel_p2p.recv_dev(self, buf, source, tag)
-        _copy_status(st, status)
-        return out
+    (the Status goes to ``status``); a ``(tensor, count, datatype)``
+    receives its packed form and scatters it into the tensor."""
+    if _parse_dev(buf) is not None:
+        req = _Irecv(self, buf, source, tag)
+        _copy_status(req.wait(), status)
+        return req.array
     arr, count, dt = _parse_buf(buf)
     st = pml.current().recv(self, arr, count, dt, source, tag)
     _copy_status(st, status)
@@ -957,11 +1063,18 @@ def _Recv(self, buf, source: int = ANY_SOURCE, tag: int = ANY_TAG,
 
 def _Irecv(self, buf, source: int = ANY_SOURCE,
            tag: int = ANY_TAG) -> Request:
-    """For a tensor, the request's ``.array`` is ``buf`` once complete."""
-    if _is_dev(buf):
+    """For a tensor (or a tuple form's tensor), the request's ``.array``
+    is that tensor once complete."""
+    d = _parse_dev(buf)
+    if d is not None:
         from ompi_tpu_torch.pml import accel_p2p
 
-        return accel_p2p.irecv_dev(self, buf, source, tag)
+        arr, count, dt = d
+        accel_p2p.check_tensor(arr, "Irecv")
+        if source == PROC_NULL:  # nothing arrives: arr stays as it is
+            return accel_p2p.irecv_dev(self, arr, source, tag)
+        like, tr = _dev_recv_plan(arr, count, dt)
+        return accel_p2p.irecv_dev(self, like, source, tag, transform=tr)
     arr, count, dt = _parse_buf(buf)
     return pml.current().irecv(self, arr, count, dt, source, tag)
 
@@ -1181,6 +1294,14 @@ def _Pack_size(self, count: int, dtype) -> int:
     return count * dt.size
 
 
+# the MPI_Pack family as module functions, as the reference's, with the
+# canonical big-endian external32 representation
+from ompi_tpu_torch.datatype.convertor import (  # noqa: E402,F401
+    pack as Pack, pack_external as Pack_external, unpack as Unpack,
+    unpack_external as Unpack_external,
+)
+
+
 # -- the object collectives (coll/basic over the pml) --
 
 def _barrier(self) -> None:
@@ -1263,13 +1384,24 @@ def Comm_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):
     and free."""
     from ompi_tpu_torch import attr
 
-    return attr.create_keyval(copy_fn, delete_fn, extra_state)
+    return attr.create_keyval("comm", copy_fn, delete_fn, extra_state)
+
+
+def Type_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):
+    """MPI_Type_create_keyval: the same callbacks, on datatypes
+    (``Datatype.dup`` copies, ``Datatype.free`` deletes)."""
+    from ompi_tpu_torch import attr
+
+    return attr.create_keyval("type", copy_fn, delete_fn, extra_state)
 
 
 def Comm_free_keyval(keyval: int) -> int:
     from ompi_tpu_torch import attr
 
     return attr.free_keyval(keyval)
+
+
+Type_free_keyval = Comm_free_keyval
 
 
 def Grequest_start(query_fn=None, free_fn=None, cancel_fn=None):

@@ -48,7 +48,7 @@ import torch
 
 from ompi_tpu_torch import accelerator, errors
 from ompi_tpu_torch.core import cvar, progress, pvar
-from ompi_tpu_torch.datatype import BYTE
+from ompi_tpu_torch.datatype import BFLOAT16, BYTE, from_numpy_dtype
 from ompi_tpu_torch.pml import request as rq
 
 _chunk_var = cvar.register(
@@ -86,6 +86,19 @@ def check_tensor(t: torch.Tensor, what: str) -> None:
             errors.ERR_ARG,
             f"{what}: tensor on {t.device}, but this rank's device is "
             f"{want} (a CUDA tensor is never staged through .cpu())")
+
+
+def _wire_type(dtype: torch.dtype):
+    """The Datatype a chunk of ``dtype`` elements moves as, so that ob1
+    converts it for a peer of another byte order (the reference's chunks
+    are typed host arrays); a dtype numpy lacks and wider than a byte
+    has a hand-stated one (BFLOAT16)."""
+    if dtype == torch.bfloat16:
+        return BFLOAT16
+    try:
+        return from_numpy_dtype(torch.empty(0, dtype=dtype).numpy().dtype)
+    except TypeError:  # the one-byte float8 formats: raw bytes
+        return BYTE
 
 
 def _chunk_bytes(itemsize: int) -> int:
@@ -189,6 +202,7 @@ class _DevISend(_DevP2PRequest):
         self._dest, self._tag = dest, tag
         self._n = buf.numel()
         self._step_bytes = _chunk_bytes(buf.element_size())
+        self._wire = _wire_type(buf.dtype)
         self._flat = _byte_view(buf)  # pins the source until shipped
         super().__init__(comm, buf, ("s", comm.cid, dest, tag))
         # the D2H copies read what the caller's stream wrote before now
@@ -227,7 +241,8 @@ class _DevISend(_DevP2PRequest):
             ev, host = self._copies.popleft()
             data = ev.wait()
             self._inflight.append((pml.current().isend(
-                self._comm, data, data.size, BYTE, self._dest, self._tag),
+                self._comm, data, data.size // self._wire.size, self._wire,
+                self._dest, self._tag),
                 host))
             events += 1
         if not self._issued and self._next == len(self._spans) \
@@ -254,15 +269,20 @@ class _DevISend(_DevP2PRequest):
 
 class _DevIRecv(_DevP2PRequest):
     """Nonblocking device receive into ``buf`` in place (reference
-    ``_DevIRecv``, accel_p2p.py:193-274, which assembles a new array)."""
+    ``_DevIRecv``, accel_p2p.py:193-274, which assembles a new array).
+    ``transform`` (the device convertor's in-place unpack of a derived
+    type) runs on the received tensor at completion, on the caller's
+    stream, and its result is the request's ``.array``."""
 
-    def __init__(self, comm, buf: torch.Tensor, source: int,
-                 tag: int) -> None:
+    def __init__(self, comm, buf: torch.Tensor, source: int, tag: int,
+                 transform=None) -> None:
         pvar.record("accel_p2p_recv")
         self._buf = buf
+        self._transform = transform
         self._want_src, self._want_tag = source, tag
         self._cap = buf.numel() * buf.element_size()
         self._itemsize = buf.element_size()
+        self._wire = _wire_type(buf.dtype)
         # a contiguous template receives in place; another one into a
         # contiguous temporary copied over at the end
         self._dst = _byte_view(buf) if buf.is_contiguous() \
@@ -309,7 +329,8 @@ class _DevIRecv(_DevP2PRequest):
             if host is None:
                 break
             self._posted.append((pml.current().irecv(
-                self._comm, host[:b - a].numpy(), b - a, BYTE,
+                self._comm, host[:b - a].numpy(),
+                (b - a) // self._wire.size, self._wire,
                 self.status.source, self.status.tag), host, a, b))
             self._next += 1
         if self._next == len(self._spans):
@@ -341,7 +362,8 @@ class _DevIRecv(_DevP2PRequest):
             if not self._buf.is_contiguous():
                 self._buf.copy_(self._dst.view(self._buf.dtype)
                                 .view(self._buf.shape))
-        self.array = self._buf
+            self.array = self._buf if self._transform is None \
+                else self._transform(self._buf)
         self._finish()
 
 
@@ -352,15 +374,15 @@ def isend_dev(comm, buf: torch.Tensor, dest: int, tag: int) -> rq.Request:
     return _DevISend(comm, buf, dest, tag)
 
 
-def irecv_dev(comm, buf: torch.Tensor, source: int,
-              tag: int) -> rq.Request:
+def irecv_dev(comm, buf: torch.Tensor, source: int, tag: int,
+              transform=None) -> rq.Request:
     check_tensor(buf, "Irecv")
     if source == rq.PROC_NULL:
         req = rq.CompletedRequest()
         req.status.source, req.status.tag = rq.PROC_NULL, rq.ANY_TAG
         req.array = buf
         return req
-    return _DevIRecv(comm, buf, source, tag)
+    return _DevIRecv(comm, buf, source, tag, transform)
 
 
 def send_dev(comm, buf: torch.Tensor, dest: int, tag: int) -> None:

@@ -15,21 +15,30 @@ wire format:
   SC_FIN:     <B type><Q msgid>
 
 ctx = cid*2 + (0 point-to-point | 1 collective); src is the sender's rank
-in the communicator. A same-host rendezvous offers smsc/cma single copy
-(``HDR_RNDV_SC``): the receiver pulls the payload from the sender's
-address space and answers SC_FIN, or declines with a plain ACK and the
-sender streams fragments. RNDV flow control: at most
-``max(pml_ob1_send_pipeline_depth * frag, pml_ob1_send_window_bytes)``
-bytes un-acknowledged per message.
+in the communicator. A convertor over the message's datatype (derived
+types included) drives the eager, RNDV and FRAG sends. A same-host
+rendezvous offers smsc/cma single copy (``HDR_RNDV_SC``): a contiguous
+layout is exposed in place and a non-contiguous one packed once; the
+receiver pulls the payload from the sender's address space (unpacking a
+non-contiguous layout through its convertor) and answers SC_FIN, or
+declines with a plain ACK and the sender streams fragments. RNDV flow
+control: at most ``max(pml_ob1_send_pipeline_depth * frag,
+pml_ob1_send_window_bytes)`` bytes un-acknowledged per message.
+
+Heterogeneous peers (opal_copy_functions_heterogeneous.c): each rank
+publishes ``arch.advertised()`` in the modex. The wire carries the
+sender's advertised order, so a sender whose advertisement is not its
+native order byteswaps its outgoing bytes, a receiver converts what a
+peer of another order sends, and both round windows to whole elements.
+Single copy turns itself off between peers of different order (a raw
+memory pull would skip the conversion).
 
 Left out of the port's ob1, each in ROADMAP: the peruse, MPI_T event,
 memchecker, trace and flight-recorder call sites (reference
 ob1.py:244-245, :260-267, :289-294, :326-332, :401-416, :484-506,
 :652-672, :792-795, :841-849; queue 1 item 10); the ULFM failure and
 revocation sweeps (``on_fault`` / ``on_revoke`` :904-969 and the failed
-sets behind ``_recv_src_failed`` :431-447; item 9); the heterogeneous
-byte swap (:283-286, :351-356, :704-714, :749-753; item 4): a peer that
-advertises another byte order is refused.
+sets behind ``_recv_src_failed`` :431-447; item 9).
 """
 
 from __future__ import annotations
@@ -40,6 +49,8 @@ import pickle
 import struct
 from collections import deque
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
 
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.btl import base as btl_base
@@ -180,14 +191,15 @@ class Ob1:
         # frames for communicators this rank has not built yet (a peer
         # can finish creating a comm and send before we do)
         self.early_frames: Dict[int, list] = {}
-        self._arch_ok: set = set()
+        self._arch_cache: Dict[int, str] = {}
 
     # -- lifecycle --------------------------------------------------------
     def enable(self) -> None:
-        """Publish the byte order (the arch modex), open the btls and
-        take their frames (collective over the world: btl/sm fences)."""
+        """Publish the advertised byte order (the arch modex), open the
+        btls and take their frames (collective over the world: btl/sm
+        fences)."""
         rte.init()
-        rte.modex_send("arch", arch.native())
+        rte.modex_send("arch", arch.advertised())
         btl_base.set_recv_callback(self._on_frame)
         self.bml = btl_base.Bml()
 
@@ -197,17 +209,13 @@ class Ob1:
             self.bml.finalize()
             self.bml = None
 
-    def _check_peer_arch(self, world_rank: int) -> None:
-        if world_rank in self._arch_ok:
-            return
-        theirs = rte.modex_recv("arch", world_rank)
-        if theirs != arch.native():
-            raise errors.MPIError(
-                errors.ERR_NOT_SUPPORTED,
-                f"rank {world_rank} is {theirs}-endian: heterogeneous "
-                "peers come with the datatype engine (ROADMAP queue 1 "
-                "item 4)")
-        self._arch_ok.add(world_rank)
+    def _peer_arch(self, world_rank: int) -> str:
+        """The byte order a peer advertised in the modex."""
+        a = self._arch_cache.get(world_rank)
+        if a is None:
+            a = self._arch_cache[world_rank] = rte.modex_recv("arch",
+                                                               world_rank)
+        return a
 
     # -- helpers ----------------------------------------------------------
     @staticmethod
@@ -241,7 +249,15 @@ class Ob1:
         if sync:
             flags |= FLAG_SYNC
         dst_world = comm.world_rank(dst)
-        self._check_peer_arch(dst_world)
+        if obj is NO_OBJ:
+            # the wire is in my advertised order: swap whenever that is
+            # not my native order (even towards a peer forced to the same
+            # order, which converts on my advertisement), and round the
+            # windows whenever the orders differ (pickles are
+            # order-independent)
+            mine = arch.advertised()
+            if self._peer_arch(dst_world) != mine or mine != arch.native():
+                conv.set_hetero(swap=mine != arch.native())
         seq = self._next_seq(ctx, dst)
         size = conv.packed_size
         msgid = next(_msg_ids)
@@ -261,7 +277,7 @@ class Ob1:
             if not sync:
                 req.complete()
             return req
-        sc = self._expose_single_copy(req, ep)
+        sc = self._expose_single_copy(req, ep, dst_world)
         if sc is not None:
             hdr = _MATCH.pack(HDR_RNDV_SC, ctx, comm.rank, tag, seq, size,
                               flags, msgid) + sc
@@ -274,19 +290,31 @@ class Ob1:
         ep.send(dst_world, hdr)
         return req
 
-    def _expose_single_copy(self, req: SendRequest, ep) -> Optional[bytes]:
+    def _expose_single_copy(self, req: SendRequest, ep,
+                            dst_world: int) -> Optional[bytes]:
         """Offer smsc/cma single copy for a same-host RNDV: pin a stable
         contiguous byte image of the message and return the (pid, addr)
-        trailer, or None when the peer is not on btl/sm or cma is off.
-        Every buffer is contiguous (the API refuses others), so it is
-        exposed in place; a declined offer streams from it."""
+        trailer, or None when the peer is not on btl/sm, cma is off or
+        the two orders differ (a raw pull would skip the conversion). A
+        contiguous layout is exposed in place; a non-contiguous one is
+        packed once and the convertor rewound, so a declined offer
+        streams."""
         from ompi_tpu_torch import smsc
 
         if ep.NAME != "sm" or not smsc.available():
             return None
-        flat = req.conv._flat(False)
-        req.sc_keep = flat
-        return _SC.pack(os.getpid(), flat.ctypes.data)
+        if (arch.advertised() != arch.native()
+                or self._peer_arch(dst_world) != arch.advertised()):
+            return None
+        conv = req.conv
+        flat = conv._flat(False)
+        if conv.is_contig_layout and flat.flags["C_CONTIGUOUS"]:
+            req.sc_keep = flat
+            return _SC.pack(os.getpid(), flat.ctypes.data)
+        view = np.frombuffer(conv.pack(), dtype=np.uint8)
+        conv.set_position(0)
+        req.sc_keep = view
+        return _SC.pack(os.getpid(), view.ctypes.data)
 
     def send(self, comm, buf, count, dtype, dst: int, tag: int,
              sync: bool = False, collective: bool = False) -> None:
@@ -518,6 +546,15 @@ class Ob1:
             req.conv = Convertor(req.buf, BYTE, size)
         else:
             req.conv = Convertor(req.buf, req.dtype, req.count)
+            if self._peer_arch(src_world) != arch.native():
+                # the wire is the sender's advertised order: convert on
+                # unpack. A layout with no wire pattern errors the
+                # request (raising here would leave the message half
+                # processed and hang the (ctx, src) channel)
+                try:
+                    req.conv.set_hetero(swap=True)
+                except ValueError:
+                    req.status.error = errors.ERR_TYPE
             if size > req.conv.packed_size:
                 req.status.error = errors.ERR_TRUNCATE  # still drains
         if typ == HDR_MATCH:
@@ -545,13 +582,20 @@ class Ob1:
         fragment pump (its convertor was left rewound for this)."""
         from ompi_tpu_torch import smsc
 
-        if not smsc.available():
-            return False
+        if not smsc.available() or req.conv.wire_round:
+            return False  # a peer of another order streams (converted)
         pid, addr = _SC.unpack_from(payload, 0)
         take = min(size, req.conv.packed_size)
-        try:  # straight into the (contiguous) receive buffer
-            smsc.read(pid, addr, memoryview(req.conv._flat(True))[:take])
-            req.conv.set_position(take)
+        try:
+            flat = req.conv._flat(True)
+            if req.conv.is_contig_layout and flat.flags["C_CONTIGUOUS"]:
+                # straight into the receive buffer: the single copy
+                smsc.read(pid, addr, memoryview(flat)[:take])
+                req.conv.set_position(take)
+            else:
+                wire = bytearray(take)
+                smsc.read(pid, addr, memoryview(wire))
+                req.conv.unpack(wire)
         except OSError as exc:
             smsc.disqualify(f"runtime read from pid {pid}: {exc}")
             return False

@@ -7,8 +7,8 @@ progress engine flips, :class:`GeneralizedRequest`,
 :class:`CompletedRequest`, and the plural wait / test helpers. Waits
 spin :mod:`ompi_tpu_torch.core.progress`; the device requests of
 coll/device answer ``completed`` live from their event, so the plural
-helpers serve both kinds. Datatypes are the predefined ones
-(``get_count`` / ``get_elements`` divide by the element size).
+helpers serve both kinds. ``get_elements`` / ``set_elements`` walk a
+derived type's basic-element decomposition (``datatype.element_pattern``).
 """
 
 from __future__ import annotations
@@ -44,14 +44,61 @@ class Status:
         return self.count // datatype.size
 
     def get_elements(self, datatype=None) -> int:
-        """MPI_Get_elements: whole predefined elements received."""
-        return self.get_count(datatype)
+        """MPI_Get_elements (get_elements.c): the complete basic
+        (predefined) elements received, meaningful for a partial receive
+        of a derived type. A complex scalar counts one and padding none;
+        -1 (MPI_UNDEFINED) when the type has no known decomposition."""
+        nbytes = self.count
+        if datatype is None or datatype.size == 0:
+            return nbytes
+        from ompi_tpu_torch.datatype.datatype import element_pattern
+
+        pat = element_pattern(datatype)
+        if pat is None:
+            return -1
+        # the pattern is one inner period of the packed stream: count in
+        # periods, not whole datatypes
+        period = sum(nb for nb, _ in pat)
+        full, rem = divmod(nbytes, period)
+        elems = full * sum(ne for _, ne in pat)
+        for nb, ne in pat:  # rem < period: one partial walk
+            if rem <= 0:
+                break
+            take = min(nb, rem)
+            if take == nb:
+                elems += ne
+            elif ne and nb % ne == 0:  # complete elements of a segment
+                elems += take // (nb // ne)
+            rem -= take
+        return elems
 
     def set_elements(self, datatype, count: int) -> None:
-        """MPI_Status_set_elements (generalized requests' query_fn)."""
-        size = 1 if datatype is None or datatype.size == 0 \
-            else datatype.size
-        self.count = int(count) * size
+        """MPI_Status_set_elements (status_set_elements.c): the byte
+        count that makes a later get_elements return ``count`` basic
+        elements (generalized requests' query_fn)."""
+        count = int(count)
+        if datatype is None or datatype.size == 0:
+            self.count = count
+            return
+        from ompi_tpu_torch.datatype.datatype import element_pattern
+
+        pat = element_pattern(datatype)
+        if pat is None:  # no decomposition: one element, one datatype
+            self.count = count * datatype.size
+            return
+        per_period = sum(ne for _, ne in pat) or 1
+        full, rem = divmod(count, per_period)
+        nbytes = full * sum(nb for nb, _ in pat)
+        for nb, ne in pat:
+            if rem <= 0:
+                break
+            if ne == 0:  # padding crossed on the way to more elements
+                nbytes += nb
+                continue
+            take = min(ne, rem)
+            nbytes += take * (nb // ne)
+            rem -= take
+        self.count = nbytes
 
     def set_cancelled(self, flag: bool) -> None:
         """MPI_Status_set_cancelled."""

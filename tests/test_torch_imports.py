@@ -91,7 +91,8 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.btl, ompi_tpu_torch.btl.sm, "
             "ompi_tpu_torch.btl.tcp, ompi_tpu_torch.pml.ob1, "
             "ompi_tpu_torch.pml.accel_p2p, "
-            "ompi_tpu_torch.datatype, ompi_tpu_torch.smsc, "
+            "ompi_tpu_torch.datatype, ompi_tpu_torch.datatype.device, "
+            "ompi_tpu_torch.examples.datatype_exchange, ompi_tpu_torch.smsc, "
             "ompi_tpu_torch.info, ompi_tpu_torch.attr, "
             "ompi_tpu_torch.util.net, ompi_tpu_torch.core.native, "
             "ompi_tpu_torch.examples.p2p_bandwidth; "

@@ -1,9 +1,10 @@
 """The port's host point-to-point (ob1 over btl/self, sm and tcp, smsc/cma
 single copy) against the JAX package's.
 
-Every case of ``tests/test_p2p.py`` (bind-to-core and derived datatypes
-aside), ``tests/test_rndv_pipeline.py`` and ``tests/test_smsc.py`` runs
-in one rank body that both packages execute: the reference through
+Every case of ``tests/test_p2p.py`` (bind-to-core aside; its derived
+datatype cases run in ``tests/test_torch_datatype_p2p.py``),
+``tests/test_rndv_pipeline.py`` and ``tests/test_smsc.py`` runs in one
+rank body that both packages execute: the reference through
 ``tests.harness.run_ranks`` (isolated, so no pooled process carries its
 pvars or a disqualified cma into another test), the port through its
 launcher with the same settings mapped by ``compat.mca_from_reference``
@@ -382,13 +383,15 @@ def error_class(fn):
     except errors.MPIError as e:
         return e.error_class, str(e)
     raise AssertionError("no MPIError raised")
-cls, msg = error_class(lambda: datatype.vector(4, 1, 4, datatype.FLOAT))
-assert cls == errors.ERR_NOT_SUPPORTED and "queue 1 item 4" in msg, msg
+# a tuple form on an entry outside the device tuple list still raises
+cls, msg = error_class(lambda: comm.Ssend(
+    (torch.ones(4), 1, datatype.vector(2, 1, 2, datatype.FLOAT)), dest=0))
+assert cls == errors.ERR_NOT_SUPPORTED and "Iallreduce" in msg, msg
 # a host-buffer Allreduce, once refused, fills its recvbuf through
 # coll/tuned (its result is compared with the reference's: _LIFTED)
 assert comm.Allreduce(np.ones(4, np.float32), np.zeros(4, np.float32)) \
     is None
-cls, msg = error_class(lambda: comm.Send((torch.ones(4), 2), dest=0))
+cls, msg = error_class(lambda: comm.Gather((torch.ones(4), 2), None))
 assert cls == errors.ERR_NOT_SUPPORTED, msg
 assert isinstance(comm.Isend(np.ones(2), dest=mpi.PROC_NULL),
                   rq.Request)
