@@ -106,10 +106,19 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    wait; every slot on COMM_SELF); and
    ``ompi_tpu_torch/examples/zero_training.py`` (the ZeRO step over
    GPT-2 small's full-width parameters: stage 2 unfused and fused,
-   'linear' and ring, and stage 1 (Allreduce_multi) 'linear' and 'ring',
-   plus Allreduce_multi against the per-leaf loop, allgather_matmul_dev
-   and zero3_gather_matmul_dev; 4 ranks with all 12 layers, then 3 ranks
-   with 4), ``--mca device_plane on --mca coll_cuda on``; then, under
+   'linear' and ring, stage 1 (Allreduce_multi) 'linear' and 'ring', and
+   stage 2 ``overlap=True`` (``Preduce_scatter_init``, the leaves
+   Pready'd last first) 'linear' and 'ring', bitwise equal to unfused;
+   GradientSync (``Pallreduce_init``) 'linear' bitwise equal to
+   Allreduce_multi; ZeRO stage 3 (``Zero3Optimizer``, 15 layers, one
+   persistent allgather each) 'linear' bitwise equal to stage 1 and
+   'ring' within its stated bound of stage 2, every layer's request
+   rebound, its forward pass with no prefetch miss and the residency
+   within the shards plus two layers, and 12 c_fc.w products a pass
+   through K6; plus Allreduce_multi against the per-leaf loop,
+   allgather_matmul_dev and zero3_gather_matmul_dev; 4 ranks with all 12
+   layers, then 3 ranks with 4), ``--mca device_plane on --mca coll_cuda
+   on``; then, under
    ``--mca osc_cuda on``,
    ``halo_exchange.py`` (8192 x 8192 float32 tiles, 3 steps of
    Put_strided halo columns and a whole-tile self Put; 4 ranks, then 3 at
@@ -126,7 +135,8 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    have staged through the host (``coll_accelerator_staged`` 0 on every
    rank, outside the ``staged`` family), and the
    4-rank training path's K6 launches must split 48 ``wgmma`` (bfloat16
-   allgather_matmul) and 64 ``simt`` (float32, and the zero-3 product),
+   allgather_matmul) and 640 ``simt`` (float32, the zero-3 product and
+   stage 3's 3 passes of 12 c_fc.w products),
    and the 4-rank embedding lookup must launch the grouped K10 once per
    reader and exchange;
 4. the host plane (ob1 over self + sm + cma, no kernel of its own; see
@@ -166,8 +176,9 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
-collectives job, coll/cuda's and coll/device's, and the datatype job,
-K5 and K6's two kernels from the training path, K7 and the K8, K9 and
+collectives job, coll/cuda's and coll/device's, the datatype job and the
+training path, K5 and K6's two kernels from the training path, K7 and
+the K8, K9 and
 K10 batches from the 4-rank one-sided paths; K5b and the per-call rows
 of K8, K9 and K10 with 0 and a note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
@@ -197,10 +208,15 @@ WTE_CHUNK = (2 + 1024 + 50257) * 768 // N_RANKS
 MM_SHAPE = (2048, 768, 3072)  # K6: (m, d, f) of one block's product
 #: K6 on the zero-3 path: GPT-2's c_fc.w row block over 4 ranks @ (3072, 256)
 ZERO3_SHAPE = (768 // N_RANKS, 3072, 256)
+#: zero_training.py's stage-3 matmul passes (its ``PASSES``), 12 c_fc.w
+#: products each
+ZERO3_PASSES = 3
 #: the 4-rank training path's K6 launches per kernel (4 blocks per call:
-#: 3 bfloat16 and 3 float32 allgather_matmul calls and 1 zero-3 call a rank)
+#: 3 bfloat16 and 3 float32 allgather_matmul calls, 1 zero-3 call and the
+#: stage-3 optimizer's 12 c_fc.w products a pass, a rank)
 K6_PATH_SPLIT = {"block_matmul_wgmma": 3 * 4 * N_RANKS,
-                 "block_matmul_simt": (3 + 1) * 4 * N_RANKS}
+                 "block_matmul_simt":
+                     (3 + 1 + 12 * ZERO3_PASSES) * 4 * N_RANKS}
 SRC = "ompi_tpu_torch/coll/csrc/ring_kernels.cu"
 GEMM_SRC = "ompi_tpu_torch/coll/csrc/gemm_kernels.cu"
 RMA_SRC = "ompi_tpu_torch/osc/csrc/rma_kernels.cu"
@@ -1620,6 +1636,19 @@ def main() -> int:
                       doc["step_ms"].items())
           + f"; allgather_matmul p50 ms {doc['allgather_matmul_ms']} "
           f"[{card}]", flush=True)
+    z3 = doc["zero3"]
+    if z3["layers"] != 15 or z3["misses"] \
+            or z3["resident_hwm_bytes"] > z3["resident_limit_bytes"]:
+        fail(f"stage 3's forward pass: {z3}")
+    print(f"stage 3 n={N_RANKS} (rank 0): forward pass p50 "
+          f"{z3['forward_p50_ms']:.3f} ms over {z3['layers']} layers, "
+          f"{z3['hits']} prefetch hits, {z3['misses']} misses; residency "
+          f"high watermark {z3['resident_hwm_bytes']} B <= "
+          f"{z3['resident_limit_bytes']} B (shards {z3['shard_bytes']} B "
+          f"+ 2 x {z3['max_layer_bytes']} B), {z3['arenas']} arenas "
+          f"mapped by the rank; c_fc.w matmul pass (12 K6 "
+          f"products) p50 {z3['matmul_pass_p50_ms']:.3f} ms; launches per "
+          f"phase (rank 0) {doc['phase_launches']} [{card}]", flush=True)
     split = {k: train.get(k, 0) for k in K6_PATH_SPLIT}
     if split != K6_PATH_SPLIT:
         fail(f"the training path's K6 launches split {split}, not as "
@@ -1658,8 +1687,8 @@ def main() -> int:
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
-            r["launches"] = next(p[r["name"]] for p in (coll, train, osc)
-                                 if r["name"] in p)
+            r["launches"] = sum(p.get(r["name"], 0)
+                                for p in (coll, train, osc))
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
     host_plane_phase(torch, card, root)

@@ -32,9 +32,13 @@ Where the port differs from the reference:
 - A user op on a bfloat16 tensor raises ``MPIError(ERR_NOT_SUPPORTED)``
   (numpy has no bfloat16 to hand it); REPLACE and NO_OP, which pick an
   operand, move its bits.
-- ``pallreduce_init_dev`` and ``preduce_scatter_init_dev`` raise
-  ``MPIError(ERR_NOT_SUPPORTED)``: they need ``part/`` (ROADMAP queue 1
-  item 5). The neighbourhood slots come with ``topo/`` (item 4f).
+- The neighbourhood slots come with ``topo/`` (ROADMAP queue 1 item 4f).
+
+``pallreduce_init_dev`` and ``preduce_scatter_init_dev`` do the full
+partitioned bookkeeping (``Pready``, double-Pready and unready-wait
+errors) with the reduction deferred to ``wait()``, through coll/device's
+deferred handles over the staged ``allreduce_multi_dev`` /
+``reduce_scatter_multi_dev`` (coll/accelerator.py:375-395).
 """
 
 from __future__ import annotations
@@ -448,14 +452,18 @@ def ibarrier_dev(comm):
     return _device.DeviceRequest(None, torch.device("cpu"))
 
 
-def _needs_part(name: str):
-    def pslot(comm, bufs, *args, **kwargs):
-        raise errors.MPIError(
-            errors.ERR_NOT_SUPPORTED,
-            f"{name}: partitioned collectives come with part/ (ROADMAP "
-            "queue 1 item 5)")
-    pslot.__name__ = name
-    return pslot
+def pallreduce_init_dev(comm, bufs, op=op_mod.SUM, deterministic=None):
+    """The partitioned fused allreduce staged: Pready bookkeeping, the
+    reduction deferred to wait()."""
+    return _device._TrivialPartitionedAllreduce(comm, bufs, op,
+                                                deterministic)
+
+
+def preduce_scatter_init_dev(comm, bufs, op=op_mod.SUM, deterministic=None):
+    """The partitioned zero/ reduce-scatter staged, as
+    :func:`pallreduce_init_dev`."""
+    return _device._TrivialPartitionedReduceScatter(comm, bufs, op,
+                                                    deterministic)
 
 
 #: the blocking staged slots
@@ -483,8 +491,8 @@ _PERSISTENT = {
         ("allgather_init_dev", allgather_dev),
         ("alltoall_init_dev", alltoall_dev),
         ("reduce_scatter_block_init_dev", reduce_scatter_block_dev))},
-    **{name: _needs_part(name) for name in (
-        "pallreduce_init_dev", "preduce_scatter_init_dev")}}
+    "pallreduce_init_dev": pallreduce_init_dev,
+    "preduce_scatter_init_dev": preduce_scatter_init_dev}
 
 
 class CollAccelerator:

@@ -20,11 +20,18 @@ below coll/cuda, no opt-in), with every fixed slot of its table
 - the nonblocking forms (15 ``i*_dev`` and ``ibarrier_dev``,
   :class:`DeviceRequest`) and the persistent ``allreduce_init_dev``,
   ``bcast_init_dev``, ``allgather_init_dev``, ``alltoall_init_dev``,
-  ``reduce_scatter_block_init_dev`` and ``allreduce_multi_init_dev``
-  (:class:`PersistentDeviceRequest`);
+  ``reduce_scatter_block_init_dev``, ``allreduce_multi_init_dev``,
+  ``reduce_scatter_multi_init_dev`` and ``allgather_multi_init_dev``
+  (:class:`PersistentDeviceRequest`; the last one's ``rebind`` swaps a
+  same-plan ShardedState in, ZeRO stage 3's per-step refresh);
 - the zero/ bucket slots (coll/xla.py:1668-1985):
   ``reduce_scatter_multi_dev`` (one reduce-scatter of each padded flat
-  bucket), ``allgather_multi_dev`` and ``allgather_multi_bucket_dev``.
+  bucket), ``allgather_multi_dev`` and ``allgather_multi_bucket_dev``;
+- the partitioned collectives (coll/xla.py:2006-2676):
+  ``pallreduce_init_dev`` and ``preduce_scatter_init_dev``
+  (:class:`PartitionedAllreduceRequest`,
+  :class:`PartitionedReduceScatterRequest`), one partition per pytree
+  leaf, each bucket's schedule run by the ``Pready`` of its last leaf.
 
 Everything runs over coll/cuda's per-comm arenas (the transport
 coll/xla's ``_Ctx`` is to the reference), every byte moved by a
@@ -68,7 +75,11 @@ Where the port does something another way, and why:
   it); a ``counts`` of the wrong length or a buffer too short for its
   counts raises ERR_COUNT.
 - Nonblocking calls run their host steps inside the call
-  (:class:`DeviceRequest`).
+  (:class:`DeviceRequest`), and so does a partitioned bucket's flush
+  inside the ``Pready`` that releases it: the flush counts match the
+  reference's, but its communication does not overlap the caller's work
+  until the schedules wait on the device (ROADMAP queue 2 item 2). Every
+  rank must reach the same flushes in the same order.
 
 A one-rank comm needs no device plane: every slot returns a new tensor
 (a clone; ``allgather_dev`` one with a leading axis of 1; ``exscan_dev``
@@ -1001,6 +1012,67 @@ def allreduce_multi_dev(comm, bufs, op=op_mod.SUM,
 # the zero/ bucket slots (coll/xla.py:1668-1985)
 
 
+def _zero_rs_runs(comm, leaves, plan, opn, det) -> list:
+    """Per bucket of ``plan``: ``run(flat) -> shard``, the padded flat's
+    reduce-scatter (its arena mapped now), None for an empty bucket."""
+    runs = []
+    for b, idxs in enumerate(plan.buckets):
+        if plan.padded[b] == 0:
+            runs.append(None)
+            continue
+        runs.append(_reduce_scatter_run(comm, plan.padded[b],
+                                        leaves[idxs[0]].dtype, opn, det))
+    return runs
+
+
+def _zero_rs_opn(op) -> op_mod.Op:
+    opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
+    if opn is None or opn.name not in K.OP_CODES:
+        raise errors.MPIError(
+            errors.ERR_NOT_SUPPORTED,
+            f"coll_device: reduce_scatter_multi op {op!r} is outside "
+            "SUM/PROD/MIN/MAX")
+    return opn
+
+
+def _reduce_scatter_multi_prep(comm, bufs, op=op_mod.SUM,
+                               deterministic: Optional[str] = None):
+    """Plan the ZeroPlan's buckets and each bucket's reduce-scatter
+    schedule (arenas mapped now); the launcher packs each bucket's
+    current contents, reduce-scatters it and returns this rank's
+    ShardedState. A staged op or dtype, one rank or an empty pytree run
+    the blocking slot at each call (no plan to hold)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    leaves, treedef = zl.tree_flatten(bufs)
+    if _stages(op, *leaves):
+        return lambda: _stage("reduce_scatter_multi_dev", comm, bufs, op,
+                              deterministic)
+    det = _det_ok(deterministic)
+    opn = _zero_rs_opn(op)
+    if comm.size == 1:
+        # reducing over one rank is the identity: a local pack + slice
+        return lambda: zl.ShardedState.from_full(comm, bufs)
+    for t in leaves:
+        _check_leaf("reduce_scatter_multi", comm, t)
+    metas = zl._fuse_metas(leaves)
+    plan = zl.ZeroPlan(metas, int(bucket_var.get()), comm.size)
+    runs = _zero_rs_runs(comm, leaves, plan, opn, det)
+
+    def launch():
+        shards = []
+        for b, idxs in enumerate(plan.buckets):
+            flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
+            shards.append(runs[b](flat) if runs[b] is not None
+                          else flat.new_empty(0))
+            pvar.record("zero_rs_launches")
+        pvar.record("zero_fused_bytes", plan.nbytes)
+        pvar.record("zero_pad_bytes", plan.pad_bytes)
+        return zl.ShardedState(plan, metas, treedef, shards, comm.rank,
+                               comm.size)
+    return launch
+
+
 def reduce_scatter_multi_dev(comm, bufs, op=op_mod.SUM,
                              deterministic: Optional[str] = None):
     """Bucketed reduce-scatter over a pytree of device tensors (the ZeRO
@@ -1008,39 +1080,7 @@ def reduce_scatter_multi_dev(comm, bufs, op=op_mod.SUM,
     multiple of the comm size, one reduce-scatter per bucket, returning
     this rank's ShardedState. ``'linear'`` is bit-identical to the
     per-buffer allreduce fold."""
-    from ompi_tpu_torch.zero import layout as zl
-
-    if _stages(op, *zl.tree_leaves(bufs)):
-        return _stage("reduce_scatter_multi_dev", comm, bufs, op,
-                      deterministic)
-    det = _det_ok(deterministic)
-    opn = op if isinstance(op, op_mod.Op) else op_mod.BUILTIN.get(op)
-    if opn is None or opn.name not in K.OP_CODES:
-        raise errors.MPIError(
-            errors.ERR_NOT_SUPPORTED,
-            f"coll_device: reduce_scatter_multi op {op!r} is outside "
-            "SUM/PROD/MIN/MAX")
-    if comm.size == 1:
-        # reducing over one rank is the identity: a local pack + slice
-        return zl.ShardedState.from_full(comm, bufs)
-    leaves, treedef = zl.tree_flatten(bufs)
-    for t in leaves:
-        _check_leaf("reduce_scatter_multi", comm, t)
-    metas = zl._fuse_metas(leaves)
-    plan = zl.ZeroPlan(metas, int(bucket_var.get()), comm.size)
-    algo = "linear" if det == "linear" else "ring"
-    shards = []
-    for b, idxs in enumerate(plan.buckets):
-        flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
-        out = flat.new_empty(plan.shard_elems[b])
-        ep = _cuda._arena(comm, "rs", flat.numel() * flat.element_size())
-        ep.run(K.reduce_scatter(ep, flat, opn.name, algo, 1, out))
-        shards.append(out)
-        pvar.record("zero_rs_launches")
-    pvar.record("zero_fused_bytes", plan.nbytes)
-    pvar.record("zero_pad_bytes", plan.pad_bytes)
-    return zl.ShardedState(plan, metas, treedef, shards, comm.rank,
-                           comm.size)
+    return _reduce_scatter_multi_prep(comm, bufs, op, deterministic)()
 
 
 def _zero_state_check(comm, state) -> None:
@@ -1088,6 +1128,68 @@ def _gather_bucket(comm, state, b: int):
     return zl.split(full, state.metas, state.plan.buckets[b])
 
 
+def _allgather_multi_prep(comm, state):
+    """Check the state and map each bucket's allgather arena now; the
+    launcher gathers the bound shards into the full pytree. Beside it
+    the two hooks of coll/xla's (coll/xla.py:1864-1920), which
+    :class:`PersistentDeviceRequest` exposes for ZeRO stage 3's stream:
+    ``rebind(new_state)`` swaps in a same-plan state's shards (no new
+    plan, no new arena) and ``release()`` drops the bound shards. One
+    rank, an empty state and staged dtypes gather at each call and have
+    no hooks."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    _zero_state_check(comm, state)
+    if comm.size == 1 or not state.shards or _stages(None, *state.shards):
+        return lambda: allgather_multi_dev(comm, state)
+    plan = state.plan
+    eps = []
+    for b, shard in enumerate(state.shards):
+        _check_leaf("allgather_multi", comm, shard)
+        eps.append(_cuda._arena(comm, "pull", shard.nbytes)
+                   if shard.numel() else None)
+    bound = list(state.shards)
+    n_leaves = sum(len(idxs) for idxs in plan.buckets)
+
+    def launch():
+        if bound[0] is None:
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                "allgather_multi start: operands released — rebind() a "
+                "fresh state first")
+        outs = [None] * n_leaves
+        for b, idxs in enumerate(plan.buckets):
+            full = bound[b].new_empty(plan.padded[b])
+            if eps[b] is not None:
+                eps[b].run(K.gather(eps[b], bound[b], full))
+            for i, leaf in zip(idxs, zl.split(full, state.metas, idxs)):
+                outs[i] = leaf
+            pvar.record("zero_ag_launches")
+        pvar.record("zero_fused_bytes", plan.nbytes)
+        return zl.tree_unflatten(state.treedef, outs)
+
+    def rebind(new_state) -> None:
+        _zero_state_check(comm, new_state)
+        if new_state.plan.buckets != plan.buckets \
+                or new_state.plan.dtypes != plan.dtypes:
+            raise errors.MPIError(
+                errors.ERR_ARG,
+                "allgather_multi rebind: state packed by a different plan "
+                "(the schedules and arenas are per layout; re-init for a "
+                "new bucket layout)")
+        for b, shard in enumerate(new_state.shards):
+            _check_leaf("allgather_multi", comm, shard)
+            bound[b] = shard
+
+    def release() -> None:
+        for b in range(len(bound)):
+            bound[b] = None
+
+    launch.rebind = rebind
+    launch.release = release
+    return launch
+
+
 def allgather_multi_dev(comm, state):
     """Bucketed allgather of a ShardedState back to the full pytree (the
     ZeRO parameter-rebuild step): one allgather per bucket, rank-order
@@ -1102,12 +1204,7 @@ def allgather_multi_dev(comm, state):
     if comm.size == 1:
         # n=1 shards ARE the full padded buckets
         return state.unpack(state.shards)
-    outs = [None] * sum(len(idxs) for idxs in state.plan.buckets)
-    for b, idxs in enumerate(state.plan.buckets):
-        for i, leaf in zip(idxs, _gather_bucket(comm, state, b)):
-            outs[i] = leaf
-    pvar.record("zero_fused_bytes", state.plan.nbytes)
-    return zl.tree_unflatten(state.treedef, outs)
+    return _allgather_multi_prep(comm, state)()
 
 
 def allgather_multi_bucket_dev(comm, state, b: int):
@@ -1140,7 +1237,8 @@ def _event_device(comm, obj) -> torch.device:
         return device_plane.device()
     from ompi_tpu_torch.zero import layout as zl
 
-    ts = [t for t in zl.tree_leaves(obj) if isinstance(t, torch.Tensor)]
+    ts = [t for t in zl.tree_leaves(getattr(obj, "shards", obj))
+          if isinstance(t, torch.Tensor)]
     return ts[0].device if ts else torch.device("cpu")
 
 
@@ -1212,9 +1310,15 @@ class PersistentDeviceRequest:
     schedule once on the bound tensors' current contents (MPI's
     persistent semantics: change the buffer, start again, get the new
     result). An inactive request is complete; a start while a cycle is
-    active, or after :meth:`free`, raises ERR_REQUEST. ``rebind`` raises
-    ERR_NOT_SUPPORTED: no prep of this slice installs the reference's
-    rebind hook (zero-3's, ROADMAP queue 1 item 5)."""
+    active, or after :meth:`free`, raises ERR_REQUEST.
+
+    :meth:`rebind` calls the launcher's ``rebind`` hook where its prep
+    installed one (``allgather_multi_init_dev``'s: ZeRO stage 3 swaps a
+    same-plan state's shards in after each step) and raises
+    ERR_NOT_SUPPORTED where it did not (the other slots read their bound
+    tensors at every start: change them in place). :meth:`discard` drops
+    a finished cycle's result; :meth:`free` also calls the launcher's
+    ``release`` hook."""
 
     def __init__(self, launch, device) -> None:
         self.id = next(rq._req_ids)
@@ -1238,13 +1342,30 @@ class PersistentDeviceRequest:
         self._inner = DeviceRequest(self._launch(), self._device)
 
     def rebind(self, *args, **kwargs) -> None:
+        """Swap the bound operands for same-signature values without a
+        new plan (coll/xla.py:1526-1551). A request without the hook
+        raises ERR_NOT_SUPPORTED whether or not a cycle is active (the
+        reference asks about the cycle first)."""
         if self._launch is None:
             raise errors.MPIError(errors.ERR_REQUEST,
                                   "rebind: persistent request already freed")
-        raise errors.MPIError(
-            errors.ERR_NOT_SUPPORTED,
-            "rebind: this persistent request reads its bound tensors at "
-            "every start — change them in place, or free() and re-init")
+        hook = getattr(self._launch, "rebind", None)
+        if hook is None:
+            raise errors.MPIError(
+                errors.ERR_NOT_SUPPORTED,
+                "rebind: this persistent request reads its bound tensors at "
+                "every start — change them in place, or free() and re-init")
+        if self.active:
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                "rebind: cycle still active — wait() it to completion "
+                "before swapping operands")
+        hook(*args, **kwargs)
+
+    def discard(self) -> None:
+        """Drop the finished cycle's result, so nothing here pins its
+        tensors (stage 3's free-after-use); the request stays usable."""
+        self._inner = None
 
     @property
     def active(self) -> bool:
@@ -1273,8 +1394,382 @@ class PersistentDeviceRequest:
         pass
 
     def free(self) -> None:
+        release = getattr(self._launch, "release", None)
+        if release is not None:
+            release()
         self._launch = None
         self._inner = None
+
+
+# ---------------------------------------------------------------------------
+# the partitioned collectives (coll/xla.py:2006-2676): one partition per
+# pytree leaf, a bucket's collective launched by the Pready of its last leaf
+
+
+class _PartitionedBase:
+    """The MPI-4 partitioned bookkeeping of a pytree request:
+    ``start()`` opens a cycle, ``Pready(i[, value])`` marks leaf i ready
+    (optionally rebinding this cycle's tensor), ``wait()`` closes the
+    cycle and publishes ``.array``. Inactive reads as complete (MPI).
+    Erroneous calls raise: Pready before start or twice in a cycle, a
+    start while a cycle is active, a wait with leaves never made ready
+    (every rank's collective would wait for them), and any call after
+    :meth:`free`."""
+
+    _NAME = ""
+
+    def __init__(self, leaves, treedef) -> None:
+        self.id = next(rq._req_ids)
+        self.status = rq.Status()
+        self.persistent = True
+        self._treedef = treedef
+        self._n = len(leaves)
+        self._bound = list(leaves)
+        self._ready = None  # None: inactive
+        self._n_ready = 0
+        self._arr = None
+        self._freed = False
+
+    @property
+    def active(self) -> bool:
+        return self._ready is not None
+
+    @property
+    def array(self):
+        """The result of the last completed cycle."""
+        return self._arr
+
+    def start(self) -> None:
+        if self._freed:
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                f"{self._NAME} start: request already freed")
+        if self.active:
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                f"{self._NAME} start: previous cycle still active — wait() "
+                "it to completion first (starting an active request is "
+                "erroneous)")
+        self._ready = [False] * self._n
+        self._n_ready = 0
+        self._open()
+
+    def _open(self) -> None:
+        pass
+
+    def Pready(self, idx: int, value=None) -> None:
+        if self._ready is None:
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                f"Pready({idx}): request inactive — call start() before "
+                "marking partitions ready")
+        if not 0 <= idx < self._n:
+            raise errors.MPIError(
+                errors.ERR_ARG,
+                f"Pready({idx}): partition index out of [0,{self._n})")
+        if self._ready[idx]:
+            raise errors.MPIError(
+                errors.ERR_ARG,
+                f"Pready({idx}): partition already marked ready this cycle "
+                "(double-Pready is erroneous)")
+        if value is not None:
+            self._rebind(idx, value)
+        self._ready[idx] = True
+        self._n_ready += 1
+        pvar.record("part_pready")
+        self._arrived(idx)
+
+    def _rebind(self, idx: int, value) -> None:
+        self._bound[idx] = value
+
+    def _arrived(self, idx: int) -> None:
+        pass
+
+    def Pready_range(self, lo: int, hi: int) -> None:
+        for i in range(lo, hi + 1):
+            self.Pready(i)
+
+    def Pready_list(self, idxs) -> None:
+        for i in idxs:
+            self.Pready(i)
+
+    @property
+    def completed(self) -> bool:
+        """Live, for the plural wait / test helpers: an active cycle with
+        unready partitions is incomplete (only wait() raises on it)."""
+        return self._ready is None or self._n_ready == self._n
+
+    def test(self) -> bool:
+        return self.completed
+
+    def wait(self, timeout=None):
+        if self._ready is None:
+            return self.status  # inactive: complete at once
+        if self._n_ready < self._n:
+            missing = [i for i, r in enumerate(self._ready) if not r]
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                f"{self._NAME} wait: partitions {missing} never marked "
+                "ready — the bucket collective cannot launch and the wait "
+                "would deadlock every rank")
+        self._arr = self._finalize()
+        self._ready = None  # the cycle closed: inactive again
+        return self.status
+
+    def retrieve_status(self):
+        # the plural helpers complete a request through completed +
+        # retrieve_status, never wait(): a fully ready cycle closes here
+        if self._ready is not None and self._n_ready == self._n:
+            self.wait()
+        return self.status
+
+    def cancel(self) -> None:  # launched collectives are not cancelable
+        pass
+
+    def free(self) -> None:
+        """Drop the bound tensors and results; a later start raises."""
+        self._freed = True
+        self._bound = [None] * self._n
+        self._ready = None
+        self._arr = None
+
+
+class _BucketedPartitioned(_PartitionedBase):
+    """Init plans the buckets and maps their arenas; the Pready of a
+    bucket's last leaf runs the bucket's schedule at once (its host
+    steps inside the call; an event recorded after the last launch says
+    when the device is done). A value given to Pready must match the
+    bound leaf's shape, dtype and device (``_VALUE_ERROR`` otherwise,
+    the reference's class)."""
+
+    _VALUE_ERROR = errors.ERR_ARG
+
+    def __init__(self, comm, leaves, treedef, buckets) -> None:
+        from ompi_tpu_torch.zero import layout as zl
+
+        super().__init__(leaves, treedef)
+        self._comm = comm
+        self._metas = zl._fuse_metas(leaves)
+        self._devices = [t.device for t in leaves]
+        self._buckets = tuple(buckets)
+        self._leaf_bucket = {i: b for b, idxs in enumerate(self._buckets)
+                             for i in idxs}
+        self._event: Optional[stream.Event] = None
+
+    def _open(self) -> None:
+        self._pending = [len(idxs) for idxs in self._buckets]
+        self._results = [None] * len(self._buckets)
+
+    def _rebind(self, idx: int, value) -> None:
+        from ompi_tpu_torch.zero import layout as zl
+
+        shape, dtype, _nb = self._metas[idx]
+        if not isinstance(value, torch.Tensor) \
+                or tuple(value.shape) != shape \
+                or zl.dtype_name(value.dtype) != dtype \
+                or value.device != self._devices[idx]:
+            raise errors.MPIError(
+                self._VALUE_ERROR,
+                f"Pready({idx}): value {tuple(getattr(value, 'shape', ()))}"
+                f"/{getattr(value, 'dtype', type(value).__name__)} on "
+                f"{getattr(value, 'device', '?')} does not match the bound "
+                f"leaf {shape}/{dtype} on {self._devices[idx]} (the "
+                "schedules are planned per signature; re-init for a new "
+                "one)")
+        self._bound[idx] = value
+
+    def _arrived(self, idx: int) -> None:
+        b = self._leaf_bucket[idx]
+        self._pending[b] -= 1
+        if self._pending[b] == 0:
+            self._results[b] = self._flush(b)
+            self._event = stream.Event(self._devices[idx]).record()
+
+    @property
+    def completed(self) -> bool:
+        if self._ready is None:
+            return True
+        if self._n_ready < self._n:
+            return False
+        return self._event is None or self._event.query()
+
+    def _finalize(self):
+        if self._event is not None:
+            self._event.wait()
+        return self._collect()
+
+    def free(self) -> None:
+        super().free()
+        self._results = []
+
+
+class PartitionedAllreduceRequest(_BucketedPartitioned):
+    """MPI-4 partitioned fused allreduce (``Pallreduce_init``;
+    coll/xla.py:2006-2247): the buckets and schedules of
+    ``allreduce_multi_dev`` (K3 under 'linear', K1 + K2 on the ring), so
+    'linear' and 'ring' are bitwise the unpartitioned call's. A bucket
+    flush counts ``coll_device_launches`` and ``part_bucket_flushes``,
+    and ``part_overlap_flushes`` when later partitions are still
+    pending; ``.array`` is the reduced pytree."""
+
+    _NAME = "Pallreduce"
+
+    def __init__(self, comm, leaves, treedef, opn, det) -> None:
+        from ompi_tpu_torch.zero import layout as zl
+
+        plan = zl._FusePlan(zl._fuse_metas(leaves), int(bucket_var.get()))
+        super().__init__(comm, leaves, treedef, plan.buckets)
+        self.nbytes = plan.nbytes
+        self._runs = []
+        for idxs in plan.buckets:
+            m = sum(leaves[i].numel() for i in idxs)
+            self._runs.append(_allreduce_run(
+                comm, m, leaves[idxs[0]].dtype, opn, det) if m else None)
+
+    def _flush(self, b: int):
+        from ompi_tpu_torch.zero import layout as zl
+
+        flat = zl.pack(self._bound, self._buckets[b], 0)
+        red = self._runs[b](flat) if self._runs[b] is not None \
+            else flat.clone()
+        pvar.record("coll_device_launches")
+        pvar.record("part_bucket_flushes")
+        if self._n_ready < self._n:
+            pvar.record("part_overlap_flushes")
+        return red
+
+    def _collect(self):
+        from ompi_tpu_torch.zero import layout as zl
+
+        outs = [None] * self._n
+        for b, idxs in enumerate(self._buckets):
+            for i, leaf in zip(idxs, zl.split(self._results[b], self._metas,
+                                              idxs)):
+                outs[i] = leaf
+        pvar.record("coll_device_fused_bytes", self.nbytes)
+        return zl.tree_unflatten(self._treedef, outs)
+
+
+class PartitionedReduceScatterRequest(_BucketedPartitioned):
+    """MPI-4 partitioned fused reduce-scatter (``Preduce_scatter_init``;
+    coll/xla.py:2350-2549), the overlapped ZeRO gradient step: the
+    ZeroPlan and schedules of ``reduce_scatter_multi_dev``, so 'linear'
+    and 'ring' are bitwise its result. A flush counts
+    ``zero_rs_launches``, and ``zero_overlap_flushes`` when later
+    partitions are still pending; ``.array`` is the cycle's
+    ShardedState."""
+
+    _NAME = "Preduce_scatter"
+    _VALUE_ERROR = errors.ERR_COUNT
+
+    def __init__(self, comm, leaves, treedef, opn, det) -> None:
+        from ompi_tpu_torch.zero import layout as zl
+
+        metas = zl._fuse_metas(leaves)
+        plan = zl.ZeroPlan(metas, int(bucket_var.get()), comm.size)
+        super().__init__(comm, leaves, treedef, plan.buckets)
+        self._plan = plan
+        self.nbytes = plan.nbytes
+        self._runs = _zero_rs_runs(comm, leaves, plan, opn, det)
+
+    def _flush(self, b: int):
+        from ompi_tpu_torch.zero import layout as zl
+
+        plan = self._plan
+        flat = zl.pack(self._bound, self._buckets[b],
+                       plan.padded[b] - plan.elems[b])
+        shard = self._runs[b](flat) if self._runs[b] is not None \
+            else flat.new_empty(0)
+        pvar.record("zero_rs_launches")
+        if self._n_ready < self._n:
+            pvar.record("zero_overlap_flushes")
+        return shard
+
+    def _collect(self):
+        from ompi_tpu_torch.zero import layout as zl
+
+        pvar.record("zero_fused_bytes", self.nbytes)
+        pvar.record("zero_pad_bytes", self._plan.pad_bytes)
+        return zl.ShardedState(self._plan, self._metas, self._treedef,
+                               list(self._results), self._comm.rank,
+                               self._comm.size)
+
+
+class _TrivialPartitioned(_PartitionedBase):
+    """The gated cases (one rank, a staged op or dtype, an empty pytree;
+    coll/accelerator's staged slots too): the full partitioned
+    bookkeeping, with the collective deferred to wait() through the
+    comm's ``_SLOT``. Correct, no early flush."""
+
+    _SLOT = ""
+
+    def __init__(self, comm, bufs, op, deterministic) -> None:
+        from ompi_tpu_torch.zero import layout as zl
+
+        leaves, treedef = zl.tree_flatten(bufs)
+        super().__init__(leaves, treedef)
+        self._comm = comm
+        self._op = op
+        self._det = deterministic
+
+    def _finalize(self):
+        from ompi_tpu_torch.zero import layout as zl
+
+        tree = zl.tree_unflatten(self._treedef, self._bound)
+        return getattr(self._comm.coll, self._SLOT)(
+            self._comm, tree, self._op, deterministic=self._det)
+
+
+class _TrivialPartitionedAllreduce(_TrivialPartitioned):
+    """Pallreduce's gated handle (coll/xla.py:2250-2332)."""
+
+    _NAME, _SLOT = "Pallreduce", "allreduce_multi_dev"
+
+
+class _TrivialPartitionedReduceScatter(_TrivialPartitioned):
+    """Preduce_scatter's gated handle (coll/xla.py:2552-2655)."""
+
+    _NAME, _SLOT = "Preduce_scatter", "reduce_scatter_multi_dev"
+
+
+def pallreduce_init_dev(comm, bufs, op=op_mod.SUM,
+                        deterministic: Optional[str] = None):
+    """Partitioned fused allreduce init (coll/xla.py:2334-2347): one
+    partition per pytree leaf; each bucket's allreduce runs the moment
+    its last leaf is Pready'd. One rank, a staged op or dtype and an
+    empty pytree take the deferred handle."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    leaves, treedef = zl.tree_flatten(bufs)
+    if _stages(op, *leaves) or comm.size == 1 or not leaves:
+        return _TrivialPartitionedAllreduce(comm, bufs, op, deterministic)
+    det = _det_ok(deterministic)
+    for t in leaves:
+        _check_buf("pallreduce", comm, t)
+    opn = None
+    for dtype in {t.dtype for t in leaves}:
+        opn = _opn("pallreduce", op, dtype)
+    return PartitionedAllreduceRequest(comm, leaves, treedef, opn, det)
+
+
+def preduce_scatter_init_dev(comm, bufs, op=op_mod.SUM,
+                             deterministic: Optional[str] = None):
+    """Partitioned fused reduce-scatter init (coll/xla.py:2658-2675): one
+    partition per pytree leaf; each ZeroPlan bucket's reduce-scatter
+    runs the moment its last leaf is Pready'd; wait() publishes the
+    ShardedState. One rank, a staged op or dtype and an empty pytree take
+    the deferred handle."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    leaves, treedef = zl.tree_flatten(bufs)
+    if _stages(op, *leaves) or comm.size == 1 or not leaves:
+        return _TrivialPartitionedReduceScatter(comm, bufs, op,
+                                                deterministic)
+    det = _det_ok(deterministic)
+    opn = _zero_rs_opn(op)
+    for t in leaves:
+        _check_leaf("preduce_scatter", comm, t)
+    return PartitionedReduceScatterRequest(comm, leaves, treedef, opn, det)
 
 
 def _irequest(fn):
@@ -1318,13 +1813,17 @@ _NONBLOCKING = {"ibarrier_dev": ibarrier_dev, **{
         exscan_dev, allgatherv_dev, gatherv_dev, alltoallv_dev,
         scatterv_dev, reduce_scatter_dev)}}
 #: the persistent slots over their preps (coll/xla.py:1603-1665)
-_PERSISTENT = {name: _pinit(prep, name) for name, prep in (
+_PERSISTENT = {**{name: _pinit(prep, name) for name, prep in (
     ("allreduce_init_dev", _allreduce_prep),
     ("bcast_init_dev", _bcast_prep),
     ("allgather_init_dev", _allgather_prep),
     ("alltoall_init_dev", _alltoall_prep),
     ("reduce_scatter_block_init_dev", _reduce_scatter_block_prep),
-    ("allreduce_multi_init_dev", _allreduce_multi_prep))}
+    ("allreduce_multi_init_dev", _allreduce_multi_prep),
+    ("reduce_scatter_multi_init_dev", _reduce_scatter_multi_prep),
+    ("allgather_multi_init_dev", _allgather_multi_prep))},
+    "pallreduce_init_dev": pallreduce_init_dev,
+    "preduce_scatter_init_dev": preduce_scatter_init_dev}
 
 
 class CollDevice:

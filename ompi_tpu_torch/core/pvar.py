@@ -37,6 +37,21 @@ WELL_KNOWN = (
     # allgathers of unchanged (all-frozen) buckets skipped
     "zero_rs_launches", "zero_ag_launches", "zero_fused_bytes",
     "zero_pad_bytes", "zero_ag_skipped",
+    # ZeroOptimizer(overlap=True): reduce-scatter buckets flushed before
+    # the cycle's final Pready; Zero3Optimizer's stream: fetches that
+    # found their gather started (hits) or not (misses), nanoseconds
+    # waited on a started gather, gathers started, layers released, fused
+    # gather-and-matmul products, and the high watermarks of the shard,
+    # largest-layer and resident parameter bytes
+    "zero_overlap_flushes", "zero_prefetch_hits", "zero_prefetch_misses",
+    "zero_prefetch_late_ns", "zero3_gathers", "zero3_releases",
+    "zero3_fused_matmuls", "zero3_shard_bytes", "zero3_layer_bytes",
+    "zero3_resident_bytes",
+    # part/ (MPI-4 partitioned): Psend / Precv epochs started, partitions
+    # marked ready, successful Parrived probes, Pallreduce buckets flushed
+    # and those flushed before the cycle's final Pready
+    "part_send_start", "part_recv_start", "part_pready", "part_parrived",
+    "part_bucket_flushes", "part_overlap_flushes",
     # device plane transport: arenas mapped (one per comm and size
     # class), their device bytes (high watermark), and the wall spent
     # waiting on ring neighbours' hop counters

@@ -15,32 +15,59 @@ downloaded: values come from ``--seed``, and each rank makes the
 gradients of step s from (seed, rank, s), leaf by leaf, on its device.
 
 From the same parameters it runs ``--steps`` steps of
-``ZeroOptimizer(comm, params, lr, momentum, stage, deterministic, fused)``
-in six modes: stage 2 unfused 'linear', fused 'linear', unfused 'ring' and
-fused default (coll/cuda's ``fused_rs_update_dev``: K1 hops + K5), and
-stage 1 (``Allreduce_multi`` of the gradients, then the local shard)
-'linear' and 'ring'. It checks:
+``ZeroOptimizer(comm, params, lr, momentum, stage, deterministic, fused,
+overlap)`` in eight modes: stage 2 unfused 'linear', fused 'linear',
+unfused 'ring' and fused default (coll/cuda's ``fused_rs_update_dev``: K1
+hops + K5), stage 1 (``Allreduce_multi`` of the gradients, then the local
+shard) 'linear' and 'ring', and stage 2 ``overlap=True`` (one
+``Preduce_scatter_init``, the gradient leaves Pready'd last first with
+each step's values) 'linear' and 'ring'. Then ``GradientSync``
+(``Pallreduce_init``) over the gradient tree in 'linear', the leaves
+pushed last first; ``Zero3Optimizer`` (stage 3) in 'linear' and 'ring'
+over the whole tree (15 layers with 12 blocks: wte, wpe, h[0..11],
+ln_f), one persistent ``Allgather_multi_init`` per layer, and its
+forward pass (``start_pass``, then ``fetch`` / ``release`` of every
+layer, ``prefetch_depth`` 1); and a ``Zero3Optimizer`` over the blocks'
+``h[i].mlp.c_fc.w`` alone (768 x 3072, a layer each), whose
+``matmul(g, rhs)`` of a (3072, 256) float32 ``rhs`` goes through
+``zero3_gather_matmul_dev`` (K6 on this rank's row block). It checks:
 
-- fused == unfused bitwise in both modes, and stage-1 'linear' ==
-  stage-2 unfused 'linear' bitwise (both fold each element in rank
-  order), for the gathered parameters and the momentum shards;
+- fused == unfused and overlap == unfused bitwise in both modes, and
+  stage-1 'linear' == stage-2 unfused 'linear' bitwise (both fold each
+  element in rank order), for the gathered parameters and the momentum
+  shards; each overlap step flushed all buckets but the last before the
+  final Pready (``zero_overlap_flushes``);
 - ``Allreduce_multi`` under 'linear' == the per-leaf ``Allreduce`` loop
   bitwise, for the gradients of wte, h[0].mlp.c_fc.w and
-  h[0].attn.c_attn.b;
+  h[0].attn.c_attn.b, and ``GradientSync`` == ``Allreduce_multi``
+  'linear' bitwise over the whole tree;
 - for wte, h[0].mlp.c_fc.w and h[0].attn.c_attn.b, the 'linear' result
   equals a plain recomputation (every rank's seeded gradients summed in
   rank order, then the update), bitwise;
+- stage 3 'linear' == stage 1 'linear' bitwise (parameters and
+  momentum), stage 3 'ring' within :func:`ring_bound` of stage 2
+  unfused 'ring', every layer's request object the same after the steps
+  (``rebind`` took), no prefetch miss in the forward pass and the
+  residency high watermark (``zero3_resident_bytes``) within the shards
+  plus ``(prefetch_depth + 1)`` times the largest layer;
+- every c_fc product through K6 (``zero3_fused_matmuls`` 12 a pass on 12
+  blocks) within tol x (|W| @ |rhs|) of ``torch.matmul`` of the whole
+  weight, tol 1e-5;
 - ``allgather_matmul_dev`` at GPT-2's MLP up-projection under a
   row-gathered layout (x (2048, 768) per rank, w (768, 3072)), float32
   and bfloat16, against ``torch.matmul`` of the gathered x to
   |err| <= tol * (|x| @ |w|) (tol 1e-5 float32, 2e-2 bfloat16), and
   ``zero3_gather_matmul_dev`` of a sharded c_fc.w the same way.
 
-With ``--out DIR`` each rank writes ``DIR/rank<r>.json``: the cases, the
-path's kernels' launch counts (zeroed just before the path; K6 also per
-variant, ``block_matmul_wgmma`` and ``block_matmul_simt``) and the p50
-step time of each mode. ``--tiny`` shrinks every width (for a CPU rehearsal
-with ``--mca device_plane_platform cpu``; the chip runs full width).
+The kernels' launch counts are zeroed just before each phase and read
+just after, and summed. With ``--out DIR`` each rank writes
+``DIR/rank<r>.json``: the cases, the summed launch counts (K6 also per
+variant, ``block_matmul_wgmma`` and ``block_matmul_simt``), each phase's
+counts, the p50 step time of each mode (the stage-3 modes and the
+GradientSync cycle among them), the forward pass's and the c_fc pass's
+p50 and the residency figures. ``--tiny`` shrinks every width (for a CPU
+rehearsal with ``--mca device_plane_platform cpu``; the chip runs full
+width).
 """
 
 from __future__ import annotations
@@ -57,18 +84,31 @@ from ompi_tpu_torch import mpi
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.core import pvar
 from ompi_tpu_torch.runtime import device_plane
-from ompi_tpu_torch.zero import ZeroOptimizer, layout as zl
+from ompi_tpu_torch.part import GradientSync
+from ompi_tpu_torch.zero import Zero3Optimizer, ZeroOptimizer, layout as zl
 
 GPT2 = {"n_embd": 768, "n_layer": 12, "n_positions": 1024,
         "vocab_size": 50257}
 TINY = {"n_embd": 48, "n_layer": 12, "n_positions": 64, "vocab_size": 503}
-#: (name, ZeRO stage, fused, deterministic)
-MODES = (("unfused-linear", 2, False, "linear"),
-         ("fused-linear", 2, True, "linear"),
-         ("unfused-ring", 2, False, "ring"),
-         ("fused-default", 2, True, None),
-         ("stage1-linear", 1, False, "linear"),
-         ("stage1-ring", 1, False, "ring"))
+#: (name, ZeRO stage, fused, overlap, deterministic)
+MODES = (("unfused-linear", 2, False, False, "linear"),
+         ("fused-linear", 2, True, False, "linear"),
+         ("unfused-ring", 2, False, False, "ring"),
+         ("fused-default", 2, True, False, None),
+         ("stage1-linear", 1, False, False, "linear"),
+         ("stage1-ring", 1, False, False, "ring"),
+         ("overlap-linear", 2, False, True, "linear"),
+         ("overlap-ring", 2, False, True, "ring"))
+#: the modes held bitwise equal: (reference mode, mode)
+BITWISE = (("unfused-linear", "fused-linear"),
+           ("unfused-ring", "fused-default"),
+           ("unfused-linear", "stage1-linear"),
+           ("unfused-linear", "overlap-linear"),
+           ("unfused-ring", "overlap-ring"))
+#: stage 3's modes and the mode each is held against
+ZERO3 = (("zero3-linear", "linear", "stage1-linear"),
+         ("zero3-ring", "ring", "unfused-ring"))
+PASSES = 3  # stage 3's timed forward passes and c_fc matmul passes
 SAMPLES = ("wte", "h[0].mlp.c_fc.w", "h[0].attn.c_attn.b")
 LR, MOMENTUM = 0.01, 0.9
 ROWS = 2048  # per-rank rows of the K6 activation: 8 x 1024 tokens / 4
@@ -141,6 +181,22 @@ def within(got, want, mag, tol) -> bool:
     return bool(((got.float() - want.float()).abs() <= tol * mag).all())
 
 
+def ring_bound(n: int, sum_abs, p, steps: int, lr: float, mu: float):
+    """Elementwise bound on |stage 3 'ring' - stage 2 'ring'| of a
+    parameter after ``steps`` momentum steps. ``sum_abs[t]`` is
+    sum_r |g_r| of step t's gradients. Two ring orders of an n-way sum
+    differ by at most (n - 1) roundings of the running sum, so the
+    averaged gradients differ by at most (n - 1) u sum_r |g_r| / n
+    (u = 2**-24); momentum carries a step's difference with weight up to
+    1 / (1 - mu); every update may round the parameter once more
+    differently (2 u |p|, both sides). The bound takes steps times the
+    carried sum, plus the roundings."""
+    u = 2.0 ** -24
+    carried = sum(lr * (n - 1) * u / n / (1 - mu) * s.double()
+                  for s in sum_abs)
+    return steps * carried + 2 * steps * u * p.double().abs()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -180,8 +236,24 @@ def main(argv=None) -> int:
             for i in range(len(shapes))])
 
     prof_on = ns.profile and r == 0 and dev.type == "cuda"
-    K.reset_launches()
     cases, step_ms, device_ms, results = [], {}, {}, {}
+    launches = {k.__name__: 0 for k in PATH_KERNELS}
+    launches.update({f"block_matmul_{v}": 0
+                     for v in K.block_matmul.variants})
+    phase_launches = {}
+
+    @contextlib.contextmanager
+    def phase(name):
+        """The kernels' launch counts zeroed just before the phase, read
+        just after and summed."""
+        K.reset_launches()
+        yield
+        got = {k.__name__: k.launches for k in PATH_KERNELS}
+        got.update({f"block_matmul_{v}": c
+                    for v, c in K.block_matmul.variants.items()})
+        phase_launches[name] = got
+        for k, v in got.items():
+            launches[k] += v
 
     def case(name, ok, **info):
         cases.append({"name": name, "ok": bool(ok), **info})
@@ -189,9 +261,18 @@ def main(argv=None) -> int:
             print(f"[zero_training n={n}] {name}: "
                   f"{'ok' if ok else 'MISMATCH'} {info or ''}", flush=True)
 
-    for mode, stage, fused, det in MODES:
+    def timed(fn):
+        comm.Barrier()
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    for mode, stage, fused, overlap, det in MODES:
         opt = ZeroOptimizer(comm, params, lr=LR, momentum=MOMENTUM,
-                            stage=stage, deterministic=det, fused=fused)
+                            stage=stage, deterministic=det, fused=fused,
+                            overlap=overlap)
         s = pvar.session()
         ts, out = [], None
         prof = contextlib.nullcontext()
@@ -200,15 +281,11 @@ def main(argv=None) -> int:
 
             prof = profile(activities=[ProfilerActivity.CPU,
                                        ProfilerActivity.CUDA])
-        with prof:
+        with phase(mode), prof:
             for step in range(ns.steps):
                 grads = grads_for(step)
-                comm.Barrier()
-                sync()
-                t0 = time.perf_counter()
-                out = opt.step(grads)
-                sync()
-                ts.append((time.perf_counter() - t0) * 1e3)
+                out, ms = timed(lambda: opt.step(grads))
+                ts.append(ms)
                 del grads
         if prof_on:
             dev_us = sum(getattr(e, "self_device_time_total", 0)
@@ -222,8 +299,15 @@ def main(argv=None) -> int:
         want = len(plan.buckets) * ns.steps if fused else 0
         case(f"{mode} fused launches", fl == want and
              s.read("coll_cuda_fallthrough") == 0, got=fl, want=want)
+        if overlap:
+            # every bucket but the one holding leaf 0 (Pready'd last)
+            # flushed before the cycle's final Pready
+            ov = s.read("zero_overlap_flushes")
+            want = (len(plan.buckets) - 1) * ns.steps
+            case(f"{mode} overlap flushes", ov == want, got=ov, want=want)
+        opt.free()
         results[mode] = (zl.tree_leaves(out),
-                         opt.state.slots["momentum"].shards)
+                         opt.state.slots["momentum"])
         if r == 0:
             dv = f", rank 0 device {device_ms[mode]:.3f} ms/step" \
                 if mode in device_ms else ""
@@ -232,81 +316,238 @@ def main(argv=None) -> int:
                   f"({len(plan.buckets)} buckets, {n_params} parameters)"
                   f"{dv}", flush=True)
         del opt, out
-
-    for a, b in (("unfused-linear", "fused-linear"),
-                 ("unfused-ring", "fused-default"),
-                 ("unfused-linear", "stage1-linear")):
-        pa, ma = results[a]
-        pb, mb = results[b]
-        case(f"{b} == {a} (parameters)",
-             all(bits_equal(x, y) for x, y in zip(pa, pb)))
-        case(f"{b} == {a} (momentum shards)",
-             all(bits_equal(x, y) for x, y in zip(ma, mb)))
+        # compare each pair once both sides ran, then drop what no later
+        # comparison needs (the card holds every rank's copies)
+        for a, b in BITWISE:
+            if mode in (a, b) and a in results and b in results:
+                (pa, ma), (pb, mb) = results[a], results[b]
+                case(f"{b} == {a} (parameters)",
+                     all(bits_equal(x, y) for x, y in zip(pa, pb)))
+                case(f"{b} == {a} (momentum shards)",
+                     all(bits_equal(x, y)
+                         for x, y in zip(ma.shards, mb.shards)))
+        keep = {m for pair in BITWISE for m in pair
+                if any(q not in results for q in pair)}
+        keep |= {"unfused-linear"} | {ref for _, _, ref in ZERO3}
+        for m in [m for m in results if m not in keep]:
+            del results[m]
 
     # the 'linear' trajectory recomputed plainly for a few leaves
     pl, _ = results["unfused-linear"]
-    for name in SAMPLES:
-        i = names.index(name)
-        p = zl.tree_leaves(params)[i]
-        v = torch.zeros_like(p)
-        c = [K.shard_const(x, p.dtype) for x in (LR, MOMENTUM, 1.0 / n)]
-        for step in range(ns.steps):
-            g = grad_leaf(shapes, dev, ns.seed, 0, step, i)
-            for q in range(1, n):
-                g = torch.add(g, grad_leaf(shapes, dev, ns.seed, q, step, i))
-            p, v = K.shard_update_plain(g, p, v, c[0], c[1], c[2])
-        case(f"linear {name} == plain recomputation", bits_equal(pl[i], p))
-    del results
+    with phase("plain recomputation"):
+        for name in SAMPLES:
+            i = names.index(name)
+            p = zl.tree_leaves(params)[i]
+            v = torch.zeros_like(p)
+            c = [K.shard_const(x, p.dtype) for x in (LR, MOMENTUM, 1.0 / n)]
+            for step in range(ns.steps):
+                g = grad_leaf(shapes, dev, ns.seed, 0, step, i)
+                for q in range(1, n):
+                    g = torch.add(g, grad_leaf(shapes, dev, ns.seed, q, step,
+                                               i))
+                p, v = K.shard_update_plain(g, p, v, c[0], c[1], c[2])
+            case(f"linear {name} == plain recomputation",
+                 bits_equal(pl[i], p))
+    del pl
 
     # Allreduce_multi's buckets against the per-leaf loop, 'linear'
-    sample = [grad_leaf(shapes, dev, ns.seed, r, 0, names.index(name))
-              for name in SAMPLES]
-    fusedl = comm.Allreduce_multi(sample, deterministic="linear")
-    case("Allreduce_multi 'linear' == the per-leaf Allreduce loop "
-         f"({', '.join(SAMPLES)})", all(
-             bits_equal(f, comm.Allreduce(g, deterministic="linear"))
-             for f, g in zip(fusedl, sample)))
-    del sample, fusedl
+    with phase("Allreduce_multi"):
+        sample = [grad_leaf(shapes, dev, ns.seed, r, 0, names.index(name))
+                  for name in SAMPLES]
+        fusedl = comm.Allreduce_multi(sample, deterministic="linear")
+        case("Allreduce_multi 'linear' == the per-leaf Allreduce loop "
+             f"({', '.join(SAMPLES)})", all(
+                 bits_equal(f, comm.Allreduce(g, deterministic="linear"))
+                 for f, g in zip(fusedl, sample)))
+        del sample, fusedl
+
+    # GradientSync (Pallreduce_init): the leaves pushed last first, each
+    # step's values, against Allreduce_multi 'linear' of the same tree
+    treedef = zl.tree_flatten(spec)[1]
+    with phase("gradient-sync"):
+        gsync = GradientSync(comm, params, deterministic="linear")
+        s = pvar.session()
+        ts = []
+        for step in range(ns.steps):
+            def cycle():
+                gsync.start()
+                for i in reversed(range(len(shapes))):
+                    gsync.push(i, grad_leaf(shapes, dev, ns.seed, r, step,
+                                            i))
+                return gsync.finish()
+            synced, ms = timed(cycle)
+            ts.append(ms)
+        step_ms["gradient-sync"] = {"p50": sorted(ts)[len(ts) // 2],
+                                    "all": ts}
+        fplan = zl._FusePlan(zl._fuse_metas(zl.tree_leaves(params)),
+                             int(zl.bucket_var.get()))
+        ov, want = s.read("part_overlap_flushes"), \
+            (len(fplan.buckets) - 1) * ns.steps
+        ref = comm.Allreduce_multi(grads_for(ns.steps - 1),
+                                   deterministic="linear")
+        case("GradientSync 'linear' == Allreduce_multi 'linear'",
+             all(bits_equal(a, b) for a, b in zip(
+                 zl.tree_leaves(synced), zl.tree_leaves(ref)))
+             and ov == want, overlap_flushes=ov, want=want,
+             p50_ms=step_ms["gradient-sync"]["p50"])
+        gsync.free()
+        del synced, ref
+
+    # ZeRO stage 3 over the whole tree, in 'linear' and 'ring'
+    zero3 = {}
+    for mode, det, ref_mode in ZERO3:
+        with phase(mode):
+            opt = Zero3Optimizer(comm, params, lr=LR, momentum=MOMENTUM,
+                                 deterministic=det)
+            reqs = list(opt._reqs)
+            ts = []
+            for step in range(ns.steps):
+                grads = grads_for(step)
+                _, ms = timed(lambda: opt.step(grads))
+                ts.append(ms)
+                del grads
+            step_ms[mode] = {"p50": sorted(ts)[len(ts) // 2], "all": ts}
+            case(f"{mode}: every layer's request rebound, not "
+                 "re-initialized", all(a is b for a, b in zip(reqs,
+                                                              opt._reqs)),
+                 layers=opt.plan.n_layers)
+            got = zl.tree_leaves(opt.gathered_params())
+            want, wmom = results[ref_mode]
+            if det == "linear":
+                gm = zl.tree_leaves(opt.gathered_momentum())
+                wm = zl.tree_leaves(comm.Allgather_multi(wmom))
+                case(f"{mode} == {ref_mode} (parameters)",
+                     all(bits_equal(x, y) for x, y in zip(got, want)))
+                case(f"{mode} == {ref_mode} (momentum)",
+                     all(bits_equal(x, y) for x, y in zip(gm, wm)))
+                del gm, wm
+            else:
+                worst = 0.0
+                for i in range(len(shapes)):
+                    sums = []
+                    for step in range(ns.steps):
+                        acc = torch.zeros(shapes[i], device=dev)
+                        for q in range(n):
+                            acc += grad_leaf(shapes, dev, ns.seed, q, step,
+                                             i).abs()
+                        sums.append(acc)
+                    bound = ring_bound(n, sums, want[i], ns.steps, LR,
+                                       MOMENTUM)
+                    diff = (got[i].double() - want[i].double()).abs()
+                    worst = max(worst, float((diff / bound).max()))
+                    del sums, bound, diff
+                case(f"{mode} within ring_bound of {ref_mode} (parameters)",
+                     worst <= 1.0, worst_share_of_bound=worst)
+            del got, want
+            if det == "linear":
+                # the forward pass: every layer fetched and released with
+                # a layer-ahead prefetch
+                s = pvar.session()
+                ts = []
+                for _ in range(PASSES):
+                    def forward():
+                        opt.start_pass()
+                        for g in range(opt.plan.n_layers):
+                            with opt.layer(g):
+                                pass
+                    _, ms = timed(forward)
+                    ts.append(ms)
+                limit = opt.shard_bytes + 2 * max(opt.plan.layer_bytes)
+                hwm = pvar.read("zero3_resident_bytes")
+                zero3 = {"forward_p50_ms": sorted(ts)[len(ts) // 2],
+                         "forward_ms": ts, "layers": opt.plan.n_layers,
+                         "hits": s.read("zero_prefetch_hits"),
+                         "misses": s.read("zero_prefetch_misses"),
+                         "late_ns": s.read("zero_prefetch_late_ns"),
+                         "resident_hwm_bytes": hwm,
+                         "resident_limit_bytes": limit,
+                         "shard_bytes": opt.shard_bytes,
+                         "max_layer_bytes": max(opt.plan.layer_bytes),
+                         # the 15 layers' requests share the comm's
+                         # size-class arenas: mapped by this rank so far
+                         "arenas": pvar.read("device_plane_arenas")}
+                case(f"{mode} forward pass: no prefetch miss, residency "
+                     "within shards + 2 layers", zero3["misses"] == 0
+                     and zero3["hits"] == PASSES * opt.plan.n_layers
+                     and hwm <= limit, **{k: zero3[k] for k in (
+                         "hits", "misses", "resident_hwm_bytes",
+                         "resident_limit_bytes", "forward_p50_ms")})
+            opt.free()
+            del opt
+    del results
+
+    # stage 3's fused product: the blocks' c_fc.w, one layer each,
+    # through K6 on this rank's row block
+    e = cfg["n_embd"]
+    with phase("zero3-matmul"):
+        wtree = {"h": [{"mlp": {"c_fc": {"w": blk["mlp"]["c_fc"]["w"]}}}
+                       for blk in params["h"]]}
+        opt = Zero3Optimizer(comm, wtree, lr=LR)
+        rhs = torch.randn(4 * e, 256, generator=_gen(dev, ns.seed, 6),
+                          device=dev)
+        s = pvar.session()
+        ts, ok = [], True
+        for _ in range(PASSES):
+            outs, ms = timed(lambda: [opt.matmul(g, rhs)
+                                      for g in range(opt.plan.n_layers)])
+            ts.append(ms)
+        for blk, got in zip(params["h"], outs):
+            w = blk["mlp"]["c_fc"]["w"]
+            ok = ok and within(got, torch.matmul(w, rhs),
+                               w.abs() @ rhs.abs(), TOL[torch.float32])
+        fm = s.read("zero3_fused_matmuls")
+        zero3["matmul_pass_p50_ms"] = sorted(ts)[len(ts) // 2]
+        case(f"zero3 matmul of {len(outs)} c_fc.w through K6, "
+             f"{len(outs)} fused a pass", ok
+             and fm == PASSES * ns.layers, fused=fm,
+             p50_ms=zero3["matmul_pass_p50_ms"])
+        opt.free()
+        del opt, outs
 
     # K6: allgather_matmul at the MLP up-projection, and the zero-3 use
-    e = cfg["n_embd"]
     agmm_ms = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        xs = [torch.randn(rows, e, generator=_gen(dev, ns.seed, 2, q),
-                          device=dev).to(dtype) for q in range(n)]
-        w = torch.randn(e, 4 * e, generator=_gen(dev, ns.seed, 3),
-                        device=dev).to(dtype)
-        ts = []
-        for _ in range(3):
-            comm.Barrier()
-            sync()
-            t0 = time.perf_counter()
-            got = comm.coll.allgather_matmul_dev(comm, xs[r], w)
-            sync()
-            ts.append((time.perf_counter() - t0) * 1e3)
-        full = torch.cat(xs)
-        want = torch.matmul(full, w)
-        mag = full.float().abs() @ w.float().abs()
-        agmm_ms[str(dtype).split(".")[-1]] = sorted(ts)[1]
-        case(f"allgather_matmul {tuple(xs[r].shape)} @ {tuple(w.shape)} "
-             f"{dtype}", got.shape == (n * rows, 4 * e)
-             and got.dtype == dtype and within(got, want, mag, TOL[dtype]),
-             p50_ms=agmm_ms[str(dtype).split(".")[-1]])
-        del xs, w, got, full, want, mag
-    wfc = make_tree({"w": torch.Size((e, 4 * e))}, dev, 0.02, ns.seed, 4)
-    rhs = torch.randn(4 * e, 256, generator=_gen(dev, ns.seed, 5), device=dev)
-    st = zl.ShardedState.from_full(comm, wfc)
-    got = comm.coll.zero3_gather_matmul_dev(comm, st, rhs)
-    mag = wfc["w"].abs() @ rhs.abs()
-    case("zero3_gather_matmul c_fc.w", got is not None and within(
-        got, torch.matmul(wfc["w"], rhs), mag, TOL[torch.float32]))
+    with phase("allgather_matmul"):
+        for dtype in (torch.float32, torch.bfloat16):
+            xs = [torch.randn(rows, e, generator=_gen(dev, ns.seed, 2, q),
+                              device=dev).to(dtype) for q in range(n)]
+            w = torch.randn(e, 4 * e, generator=_gen(dev, ns.seed, 3),
+                            device=dev).to(dtype)
+            ts = []
+            for _ in range(3):
+                got, ms = timed(lambda: comm.coll.allgather_matmul_dev(
+                    comm, xs[r], w))
+                ts.append(ms)
+            full = torch.cat(xs)
+            want = torch.matmul(full, w)
+            mag = full.float().abs() @ w.float().abs()
+            agmm_ms[str(dtype).split(".")[-1]] = sorted(ts)[1]
+            case(f"allgather_matmul {tuple(xs[r].shape)} @ "
+                 f"{tuple(w.shape)} {dtype}", got.shape == (n * rows, 4 * e)
+                 and got.dtype == dtype
+                 and within(got, want, mag, TOL[dtype]),
+                 p50_ms=agmm_ms[str(dtype).split(".")[-1]])
+            del xs, w, got, full, want, mag
+        wfc = make_tree({"w": torch.Size((e, 4 * e))}, dev, 0.02, ns.seed,
+                        4)
+        rhs = torch.randn(4 * e, 256, generator=_gen(dev, ns.seed, 5),
+                          device=dev)
+        st = zl.ShardedState.from_full(comm, wfc)
+        got = comm.coll.zero3_gather_matmul_dev(comm, st, rhs)
+        mag = wfc["w"].abs() @ rhs.abs()
+        case("zero3_gather_matmul c_fc.w", got is not None and within(
+            got, torch.matmul(wfc["w"], rhs), mag, TOL[torch.float32]))
 
-    launches = {k.__name__: k.launches for k in PATH_KERNELS}
-    launches.update({f"block_matmul_{v}": c
-                     for v, c in K.block_matmul.variants.items()})
     if r == 0:
         print(f"[zero_training n={n}] kernel launches (rank 0) {launches}",
               flush=True)
+        print(f"[zero_training n={n}] stage 3: forward pass p50 "
+              f"{zero3['forward_p50_ms']:.3f} ms over {zero3['layers']} "
+              f"layers ({zero3['hits']} hits, {zero3['misses']} misses), "
+              f"residency high watermark {zero3['resident_hwm_bytes']} B "
+              f"<= {zero3['resident_limit_bytes']} B (shards "
+              f"{zero3['shard_bytes']} B + 2 x {zero3['max_layer_bytes']} "
+              f"B); c_fc matmul pass p50 {zero3['matmul_pass_p50_ms']:.3f} "
+              "ms", flush=True)
     if ns.out:
         os.makedirs(ns.out, exist_ok=True)
         with open(os.path.join(ns.out, f"rank{r}.json"), "w") as f:
@@ -314,8 +555,10 @@ def main(argv=None) -> int:
                        "layers": ns.layers, "parameters": n_params,
                        "buckets": len(plan.buckets),
                        "pad_bytes": plan.pad_bytes, "launches": launches,
+                       "phase_launches": phase_launches,
                        "step_ms": step_ms, "device_ms": device_ms,
-                       "allgather_matmul_ms": agmm_ms, "cases": cases,
+                       "allgather_matmul_ms": agmm_ms, "zero3": zero3,
+                       "cases": cases,
                        # nothing on this path may stage through the host
                        "coll_accelerator_staged":
                            pvar.read("coll_accelerator_staged")}, f)
@@ -326,7 +569,6 @@ def main(argv=None) -> int:
         f"rank {r}: a kernel of the path never launched: {launches}"
     mpi.Finalize()
     return 0
-
 
 if __name__ == "__main__":
     raise SystemExit(main())

@@ -41,8 +41,17 @@ Reduce_scatter(_block), Scan, Exscan and Allreduce_multi; their
 nonblocking forms (``I*``, Ibarrier) and the persistent Barrier_init,
 Bcast_init, Allreduce_init, Reduce_init, Gather_init, Scatter_init,
 Allgather_init, Alltoall_init and Reduce_scatter_block_init; the zero/
-pair Reduce_scatter_multi / Allgather_multi and Allreduce_multi_init
-take tensors only; :func:`Reduce_local` and :func:`Op_create`.
+pair Reduce_scatter_multi / Allgather_multi (numpy leaves take the host
+bucket cycle, ``zero/layout.host_*``); :func:`Reduce_local` and
+:func:`Op_create`. The persistent Allreduce_multi_init,
+Reduce_scatter_multi_init and Allgather_multi_init (whose request's
+``rebind`` takes a same-plan ShardedState) and the MPI-4 partitioned
+Pallreduce_init / Preduce_scatter_init (one partition per pytree leaf,
+a bucket's collective run by its last leaf's ``Pready``) take tensors
+only: a numpy leaf raises ``MPIError(ERR_BUFFER)`` (the reference:
+TypeError). Psend_init / Precv_init (``part/host``) take numpy buffers,
+and :func:`start_all` starts any mix of persistent and partitioned
+requests, all or nothing.
 
 - Host buffers go to the comm's host slots (coll/tuned, coll/basic,
   coll/libnbc): the call fills ``recvbuf`` in place and returns None (a
@@ -138,16 +147,26 @@ def _in_place_block(rarr, lo: int, n: int):
     return np.asarray(rarr).reshape(-1)[lo:lo + n].copy()
 
 
-def _device_tree_or_raise(name: str, bufs) -> None:
+def _host_tree(bufs) -> bool:
+    """A pytree (or ShardedState) whose first leaf is a numpy array:
+    the host bucket cycle's operand."""
     from ompi_tpu_torch.zero import layout as zl
 
-    for leaf in zl.tree_leaves(bufs):
+    leaves = zl.tree_leaves(getattr(bufs, "shards", bufs))
+    return bool(leaves) and isinstance(leaves[0], np.ndarray)
+
+
+def _device_tree_or_raise(name: str, bufs) -> None:
+    """The persistent and partitioned zero/ entries take tensors only, as
+    the reference's (its host cycle has no persistent form)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    for leaf in zl.tree_leaves(getattr(bufs, "shards", bufs)):
         if not _is_dev(leaf):
             raise errors.MPIError(
-                errors.ERR_NOT_SUPPORTED,
+                errors.ERR_BUFFER,
                 f"{name}: a {type(leaf).__name__} leaf; this call takes "
-                "tensors (the reference's host bucket cycle over numpy "
-                "leaves is not ported, ROADMAP queue 1 item 5)")
+                "tensors (host leaves: the blocking call per step)")
 
 
 def _packed_displs_or_raise(counts, displs, name: str) -> None:
@@ -433,19 +452,22 @@ def Reduce_local(inbuf, inoutbuf, op=op_mod.SUM) -> None:
 def _Allreduce_multi(self, bufs, op=op_mod.SUM, deterministic=None):
     """Fused (bucketed) allreduce over a pytree of tensors: dtype buckets
     of ``coll_device_bucket_bytes``, one allreduce each; returns a new
-    pytree ('linear' is bitwise the per-buffer loop). A list or tuple of
-    numpy arrays runs one host allreduce per buffer and returns new
-    arrays in the same structure."""
-    if isinstance(bufs, (list, tuple)) and bufs and not _is_dev(bufs[0]):
+    pytree ('linear' is bitwise the per-buffer loop). A pytree of numpy
+    arrays runs one host allreduce per buffer and returns new arrays in
+    the same structure."""
+    if _host_tree(bufs):
+        from ompi_tpu_torch.zero import layout as zl
+
+        leaves, treedef = zl.tree_flatten(bufs)
         outs = []
-        for a in bufs:
+        for a in leaves:
             arr = np.ascontiguousarray(a)
             out = np.empty_like(arr)
             self.coll.allreduce(self, arr, out, out.size, dtype_of(arr),
                                 _host_op(op))
             outs.append(out)
-        return type(bufs)(outs)
-    _device_tree_or_raise("Allreduce_multi", bufs)
+        return type(bufs)(outs) if isinstance(bufs, (list, tuple)) \
+            else zl.tree_unflatten(treedef, outs)
     return self.coll.allreduce_multi_dev(self, bufs, op,
                                          deterministic=deterministic)
 
@@ -458,24 +480,74 @@ def _Allreduce_multi_init(self, bufs, op=op_mod.SUM):
     return self.coll.allreduce_multi_init_dev(self, bufs, op)
 
 
+def _Pallreduce_init(self, bufs, op=op_mod.SUM, deterministic=None):
+    """MPI-4 partitioned fused allreduce of tensors: one partition per
+    pytree leaf. start() opens a cycle; Pready(i[, value]) hands over
+    leaf i, optionally with this cycle's tensor, and a bucket's
+    allreduce runs the moment its last leaf is ready (the
+    buckets and schedules of Allreduce_multi: 'linear' stays bitwise);
+    wait() closes the cycle into req.array."""
+    _device_tree_or_raise("Pallreduce_init", bufs)
+    return self.coll.pallreduce_init_dev(self, bufs, op,
+                                         deterministic=deterministic)
+
+
 def _Reduce_scatter_multi(self, bufs, op=op_mod.SUM, deterministic=None):
-    """Bucketed reduce-scatter over a pytree of tensors (the zero/
-    gradient step): dtype-segregated buckets, each padded to a multiple
-    of the comm size and reduce-scattered once; returns a
-    zero.ShardedState of this rank's 1-D shard per bucket ('linear'
-    stays bit-identical to the per-buffer allreduce fold)."""
-    _device_tree_or_raise("Reduce_scatter_multi", bufs)
+    """Bucketed reduce-scatter over a pytree (the zero/ gradient step):
+    dtype-segregated buckets, each padded to a multiple of the comm size
+    and reduce-scattered once; returns a zero.ShardedState of this
+    rank's 1-D shard per bucket ('linear' stays bit-identical to the
+    per-buffer allreduce fold). Numpy leaves run the host bucket cycle
+    (one host allreduce per bucket, numpy shards)."""
+    if _host_tree(bufs):
+        from ompi_tpu_torch.zero import layout as zl
+
+        return zl.host_reduce_scatter_multi(self, bufs, _host_op(op))
     return self.coll.reduce_scatter_multi_dev(
+        self, bufs, op, deterministic=deterministic)
+
+
+def _Reduce_scatter_multi_init(self, bufs, op=op_mod.SUM,
+                               deterministic=None):
+    """Persistent Reduce_scatter_multi of tensors: planned and mapped at
+    init, each start() reduce-scatters the buckets' current contents;
+    req.array holds the cycle's ShardedState."""
+    _device_tree_or_raise("Reduce_scatter_multi_init", bufs)
+    return self.coll.reduce_scatter_multi_init_dev(
         self, bufs, op, deterministic=deterministic)
 
 
 def _Allgather_multi(self, state):
     """Rebuild the full pytree from a zero.ShardedState: one allgather
     per bucket, rank-order concat (= the pack order), pad dropped, leaf
-    shapes restored."""
-    _device_tree_or_raise("Allgather_multi",
-                          getattr(state, "shards", None) or [])
+    shapes restored. Numpy shards gather over the host object channel."""
+    if _host_tree(state):
+        from ompi_tpu_torch.zero import layout as zl
+
+        return zl.host_allgather_multi(self, state)
     return self.coll.allgather_multi_dev(self, state)
+
+
+def _Allgather_multi_init(self, state):
+    """Persistent Allgather_multi of tensor shards: checked and mapped at
+    init, each start() gathers the bound shards; req.array holds the
+    pytree. ``req.rebind(new_state)`` swaps in a same-plan state's shards
+    without a new plan (ZeRO stage 3's per-step refresh);
+    ``req.discard()`` drops a finished cycle's result."""
+    _device_tree_or_raise("Allgather_multi_init", state)
+    return self.coll.allgather_multi_init_dev(self, state)
+
+
+def _Preduce_scatter_init(self, bufs, op=op_mod.SUM, deterministic=None):
+    """MPI-4 partitioned fused reduce-scatter of tensors, the overlapped
+    ZeRO gradient step: one partition per pytree leaf, Pready(i[, value])
+    hands leaf i over and a bucket's reduce-scatter runs the moment its
+    last leaf is ready (zero_overlap_flushes counts the buckets that beat
+    the final Pready); wait() closes the cycle, req.array is the
+    ShardedState (Reduce_scatter_multi's bits)."""
+    _device_tree_or_raise("Preduce_scatter_init", bufs)
+    return self.coll.preduce_scatter_init_dev(
+        self, bufs, op, deterministic=deterministic)
 
 
 # -- the nonblocking collectives (coll/libnbc for host buffers; a tensor's
@@ -764,9 +836,11 @@ for _fn in (_Allreduce, _Reduce, _Reduce_scatter_block, _Reduce_scatter,
             _Allgather, _Allgatherv, _Bcast, _Alltoall, _Alltoallv, _Gather,
             _Gatherv, _Scatter, _Scatterv, _Scan, _Exscan, _Barrier,
             _Allreduce_multi, _Allreduce_multi_init, _Reduce_scatter_multi,
-            _Allgather_multi, _Ibarrier, _Ibcast, _Iallreduce, _Ireduce,
-            _Igather, _Iscatter, _Iallgather, _Ialltoall, _Igatherv,
-            _Iscatterv, _Iallgatherv, _Ialltoallv, _Iscan, _Iexscan,
+            _Allgather_multi, _Pallreduce_init, _Reduce_scatter_multi_init,
+            _Allgather_multi_init, _Preduce_scatter_init, _Ibarrier,
+            _Ibcast, _Iallreduce, _Ireduce, _Igather, _Iscatter,
+            _Iallgather, _Ialltoall, _Igatherv, _Iscatterv, _Iallgatherv,
+            _Ialltoallv, _Iscan, _Iexscan,
             _Ireduce_scatter_block, _Ireduce_scatter, _Barrier_init,
             _Bcast_init, _Allreduce_init, _Reduce_init, _Gather_init,
             _Scatter_init, _Allgather_init, _Alltoall_init,
@@ -1233,20 +1307,27 @@ def _Recv_init(self, buf, source: int = ANY_SOURCE,
 
 
 def start_all(reqs: Sequence[Request]) -> None:
-    """MPI_Startall, all or nothing: a request that is not persistent
-    raises TypeError and one whose last cycle is still active raises
-    ERR_REQUEST, before any request starts."""
+    """MPI_Startall over any mix of persistent and partitioned requests
+    (Send_init / Recv_init, the ``*_init`` collectives, Psend_init /
+    Precv_init, Pallreduce_init, Preduce_scatter_init), all or nothing:
+    the whole set is checked before any request starts. A request that
+    is not startable raises ERR_REQUEST (the reference: TypeError), and
+    so does one whose last cycle is still active (MPI 4.0 §4.2)."""
     for r in reqs:
         if not getattr(r, "persistent", False) \
                 or not callable(getattr(r, "start", None)):
-            raise TypeError(f"start_all: request {getattr(r, 'id', r)!r} "
-                            "is not a persistent request")
+            raise errors.MPIError(
+                errors.ERR_REQUEST,
+                f"start_all: request {getattr(r, 'id', r)!r} is not a "
+                "startable (persistent or partitioned) request (no request "
+                "was started)")
     for r in reqs:
         if getattr(r, "active", False):
             raise errors.MPIError(
                 errors.ERR_REQUEST,
                 f"start_all: request {getattr(r, 'id', '?')} is still "
-                "active (no request was started)")
+                "active — wait/test it to completion before restarting (no "
+                "request was started)")
     for r in reqs:
         r.start()
 
@@ -1375,6 +1456,10 @@ from ompi_tpu_torch.attr import (  # noqa: E402,F401
     UNIVERSE_SIZE, WTIME_IS_GLOBAL, dup_fn, null_copy_fn,
 )
 from ompi_tpu_torch.info import Info  # noqa: E402,F401
+
+# MPI-4 partitioned point-to-point: Psend_init / Precv_init attach at
+# import (ompi/mca/part)
+from ompi_tpu_torch import part as _part  # noqa: E402,F401
 
 
 def Comm_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):

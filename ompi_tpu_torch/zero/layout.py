@@ -1,6 +1,7 @@
 """zero/layout — pad-and-shard bucket layout for sharded data parallel.
 
-Port of :mod:`ompi_tpu.zero.layout` (ZeroPlan, plan_for, ShardedState).
+Port of :mod:`ompi_tpu.zero.layout` (ZeroPlan, plan_for, ShardedState,
+layer_groups and the host bucket cycle).
 The ZeRO cycle (Rajbhandari et al., SC'20) is reduce_scatter(grads) ->
 local shard update -> all_gather(params), so every rank holds O(1/n)
 optimizer state. The layout is the fused allreduce's dtype-segregated
@@ -17,16 +18,23 @@ where jax packs ``[b, layers…, w]``: buckets and shards would then not
 compare with the JAX package's. Metas carry the reference's dtype names
 (``"float32"``, ``"bfloat16"``, ``"int32"``); item sizes come from torch,
 since numpy has no bfloat16.
+
+Numpy leaves take the host bucket cycle (:func:`host_reduce_scatter_multi`,
+:func:`host_allgather_multi`): the same plan over the host collectives,
+with numpy shards. :func:`layer_groups` cuts a pytree into stage 3's
+layers, named in jax's ``keystr`` spelling (:func:`keystr`).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
-from ompi_tpu_torch import errors
+from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll.device import bucket_var
+from ompi_tpu_torch.core import pvar
 
 # ---------------------------------------------------------------------------
 # pytrees of dicts, lists and tuples, flattened in jax's order
@@ -102,6 +110,47 @@ def tree_leaves(tree) -> list:
     return tree_flatten(tree)[0]
 
 
+def tree_flatten_with_path(tree) -> list:
+    """``[(path, leaf), ...]`` in flatten order; a path is a tuple of
+    ``("key", k)`` (a dict key) and ``("seq", i)`` (a list or tuple
+    index) entries, jax's ``DictKey`` and ``SequenceKey``."""
+    out: list = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], path + (("key", k),))
+        elif type(t) in (list, tuple):
+            for i, c in enumerate(t):
+                walk(c, path + (("seq", i),))
+        elif t is not None:
+            out.append((path, t))
+
+    walk(tree, ())
+    return out
+
+
+def keystr(path) -> str:
+    """jax's ``keystr`` spelling of a path: ``['h'][3]['mlp']``."""
+    return "".join(f"[{k!r}]" if kind == "key" else f"[{k}]"
+                   for kind, k in path)
+
+
+def layer_groups(template) -> Tuple[Tuple[str, Tuple[int, ...]], ...]:
+    """Ordered (name, leaf indices) layers of a pytree, the unit of ZeRO
+    stage 3's parameter stream (ompi_tpu/zero/layout.py:89-111). Leaves
+    group by the top component of their key path; where the second
+    component indexes a list or tuple it joins the key, so ``h[0]``,
+    ``h[1]``, ... are layers of their own while ``{"wte": ...}`` stays
+    one. Groups come in order of first appearance in flatten order (the
+    forward pass's). Local and deterministic in the tree's structure."""
+    groups: dict = {}
+    for i, (path, _leaf) in enumerate(tree_flatten_with_path(template)):
+        depth = 2 if len(path) > 1 and path[1][0] == "seq" else 1
+        groups.setdefault(keystr(path[:depth]), []).append(i)
+    return tuple((k, tuple(v)) for k, v in groups.items())
+
+
 # ---------------------------------------------------------------------------
 # the bucket plan
 
@@ -120,9 +169,10 @@ def itemsize(name: str) -> int:
 
 
 def _fuse_metas(leaves) -> tuple:
-    """(shape, dtype name, nbytes) per leaf (coll/xla.py:1274-1277)."""
-    return tuple((tuple(t.shape), dtype_name(t.dtype),
-                  t.numel() * t.element_size()) for t in leaves)
+    """(shape, dtype name, nbytes) per leaf, tensors and numpy arrays
+    alike (coll/xla.py:1274-1277)."""
+    return tuple((tuple(t.shape), dtype_name(t.dtype), int(t.nbytes))
+                 for t in leaves)
 
 
 def _elems_of(shape) -> int:
@@ -210,10 +260,14 @@ def plan_for(leaves, n: int, bucket_bytes: Optional[int] = None
     return ZeroPlan(_fuse_metas(leaves), bb, n)
 
 
-def pack(leaves, idxs, pad: int) -> torch.Tensor:
-    """Bucket ``idxs`` of ``leaves`` as one flat tensor, zero-padded by
-    ``pad`` elements (a view of the leaf when the bucket is one leaf
-    with no pad)."""
+def pack(leaves, idxs, pad: int):
+    """Bucket ``idxs`` of ``leaves`` as one flat tensor (numpy array for
+    numpy leaves), zero-padded by ``pad`` elements (a view of the leaf
+    when the bucket is one leaf with no pad)."""
+    if isinstance(leaves[idxs[0]], np.ndarray):
+        flat = np.concatenate([np.ascontiguousarray(leaves[i]).reshape(-1)
+                               for i in idxs])
+        return np.pad(flat, (0, pad)) if pad else flat
     flat = torch.cat([leaves[i].reshape(-1) for i in idxs]) \
         if len(idxs) > 1 else leaves[idxs[0]].reshape(-1)
     if pad:
@@ -303,6 +357,11 @@ class ShardedState:
                                       for b, v in enumerate(self.versions)])
 
     def zeros_like(self) -> "ShardedState":
+        if self.shards and isinstance(self.shards[0], np.ndarray):
+            shards = [np.zeros((k,), dtype=dt) for k, dt in
+                      zip(self.plan.shard_elems, self.plan.dtypes)]
+            return ShardedState(self.plan, self.metas, self.treedef,
+                                shards, self.rank, self.n)
         dev = self.shards[0].device if self.shards else "cpu"
         shards = [torch.zeros((k,), dtype=torch_dtype(dt), device=dev)
                   for k, dt in zip(self.plan.shard_elems, self.plan.dtypes)]
@@ -316,7 +375,8 @@ class ShardedState:
         collective: every rank holds the full values). The layout is the
         one the collectives use, so shards line up with
         ``Reduce_scatter_multi`` gradients element for element. Each
-        shard is a copy, so the state holds 1/n of the tree."""
+        shard is a copy, so the state holds 1/n of the tree. Numpy
+        leaves give numpy shards (the host cycle's)."""
         leaves, treedef = tree_flatten(tree)
         metas = _fuse_metas(leaves)
         if plan is None:
@@ -326,7 +386,9 @@ class ShardedState:
         for b, idxs in enumerate(plan.buckets):
             flat = pack(leaves, idxs, plan.padded[b] - plan.elems[b])
             k = plan.shard_elems[b]
-            shards.append(flat[rank * k:(rank + 1) * k].clone())
+            shards.append(flat[rank * k:(rank + 1) * k].copy()
+                          if isinstance(flat, np.ndarray)
+                          else flat[rank * k:(rank + 1) * k].clone())
         return cls(plan, metas, treedef, shards, rank, comm.size)
 
     def unpack(self, fulls) -> object:
@@ -338,3 +400,60 @@ class ShardedState:
             for i, leaf in zip(idxs, split(fulls[b], self.metas, idxs)):
                 outs[i] = leaf
         return tree_unflatten(self.treedef, outs)
+
+
+# ---------------------------------------------------------------------------
+# the host bucket cycle (numpy leaves, no device plane needed;
+# ompi_tpu/zero/layout.py:367-435): the same ZeroPlan over the host
+# collectives, one allreduce or allgather per bucket
+
+
+def host_reduce_scatter_multi(comm, bufs, op=op_mod.SUM) -> ShardedState:
+    """Bucketed reduce-scatter of numpy leaves: per bucket one host
+    allreduce of the padded flat concat, then this rank's chunk (a
+    copy). Same ZeroPlan layout and leaf order as the device path."""
+    from ompi_tpu_torch.datatype import dtype_of
+
+    leaves, treedef = tree_flatten(bufs)
+    metas = _fuse_metas(leaves)
+    plan = ZeroPlan(metas, int(bucket_var.get()), comm.size)
+    rank, shards = comm.rank, []
+    for b, idxs in enumerate(plan.buckets):
+        flat = pack(leaves, idxs, plan.padded[b] - plan.elems[b])
+        out = np.empty_like(flat)
+        comm.coll.allreduce(comm, flat, out, out.size, dtype_of(out), op)
+        k = plan.shard_elems[b]
+        shards.append(out[rank * k:(rank + 1) * k].copy())
+        pvar.record("zero_rs_launches")
+    pvar.record("zero_fused_bytes", plan.nbytes)
+    pvar.record("zero_pad_bytes", plan.pad_bytes)
+    return ShardedState(plan, metas, treedef, shards, rank, comm.size)
+
+
+def host_allgather_bucket(comm, state: ShardedState, b: int) -> list:
+    """Gather one bucket of a numpy ShardedState: its member leaves in
+    ``plan.buckets[b]`` order, in their shapes (the optimizer's
+    frozen-bucket skip gathers bucket by bucket)."""
+    plan = state.plan
+    if not 0 <= b < len(plan.buckets):
+        raise errors.MPIError(
+            errors.ERR_COUNT,
+            f"host_allgather_bucket: bucket {b} out of range for a "
+            f"{len(plan.buckets)}-bucket plan")
+    parts = comm.coll.allgather_obj(
+        comm, np.ascontiguousarray(state.shards[b]))
+    pvar.record("zero_ag_launches")
+    return split(np.concatenate(parts), state.metas, plan.buckets[b])
+
+
+def host_allgather_multi(comm, state: ShardedState):
+    """Bucketed allgather of numpy shards back to the full pytree: per
+    bucket one host allgather of the shard, concatenated in rank order
+    (the pack order), unpacked."""
+    fulls = []
+    for shard in state.shards:
+        parts = comm.coll.allgather_obj(comm, np.ascontiguousarray(shard))
+        fulls.append(np.concatenate(parts))
+        pvar.record("zero_ag_launches")
+    pvar.record("zero_fused_bytes", state.plan.nbytes)
+    return state.unpack(fulls)

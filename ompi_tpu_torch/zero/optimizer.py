@@ -8,19 +8,26 @@ each rank updates only its parameter shard and its momentum shard, and
 ``Comm.Allgather_multi`` rebuilds the replicated parameters.
 ``fused=True`` (stage 2) routes the reduce-scatter and the update
 through coll/cuda's ``fused_rs_update_dev`` (K5), bitwise equal to the
-unfused step in every mode.
+unfused step in every mode. ``overlap=True`` (stage 2) binds one
+``Comm.Preduce_scatter_init`` and Preadys each gradient leaf, so a
+bucket's reduce-scatter runs once its last leaf is handed over
+(``zero_overlap_flushes``); the buckets are the unfused step's, so the
+result is its bits. Numpy parameters run the host bucket cycle.
 
-Not in this slice, and raising ``MPIError(ERR_NOT_SUPPORTED)`` rather
-than running something else: ``overlap=True`` (needs the partitioned
-``Preduce_scatter_init``) and ``error_feedback`` (needs
-``zero/layout.ErrorFeedback`` and its wire formats); ROADMAP queue 1
-names the slices that bring them.
+Where the port differs from the reference: ``overlap=True`` Preadys the
+leaves in reverse flatten order, the order a backward pass produces
+them (the reference: flatten order; the results and the flush counts
+are the same). ``error_feedback`` raises ``MPIError(ERR_NOT_SUPPORTED)``
+rather than running something else: it needs
+``zero/layout.ErrorFeedback`` and its wire formats (ROADMAP queue 1
+item 6).
 """
 
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ompi_tpu_torch import errors, op as op_mod
@@ -67,6 +74,10 @@ class ZeroOptimizer:
       comm's ``fused_rs_update_dev`` slot when a component provides it
       (coll/cuda); a case the slot does not take (it returns None) runs
       the unfused step, as in the reference.
+    - ``overlap=True`` (stage 2, not with ``fused``): binds a
+      ``Preduce_scatter_init`` request at construction; each step
+      Preadys the gradient leaves (last leaf first) with their values
+      and waits for the cycle's shards. :meth:`free` frees it.
     - ``frozen`` (optional pytree of bools matching ``params``): True
       marks a leaf that does not train. Its gradients are zeroed before
       the reduce-scatter (so it stays bitwise put inside a mixed bucket),
@@ -110,11 +121,6 @@ class ZeroOptimizer:
                 errors.ERR_ARG,
                 "ZeroOptimizer: frozen leaves require the unfused step "
                 "(the fused kernel updates whole buckets)")
-        if overlap:
-            raise errors.MPIError(
-                errors.ERR_NOT_SUPPORTED,
-                "ZeroOptimizer: overlap needs Preduce_scatter_init from "
-                "part/ (ROADMAP queue 1, item 5)")
         if error_feedback is not None:
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
@@ -136,6 +142,10 @@ class ZeroOptimizer:
             slots["momentum"] = self._pshards.zeros_like()
         self.state = ZeroShardedState(self._pshards, slots)
         self._n_leaves = len(_layout.tree_leaves(params))
+        self._req = None
+        if overlap:
+            self._req = comm.Preduce_scatter_init(
+                params, op_mod.SUM, deterministic=deterministic)
         #: per-bucket "has a trainable member" mask (None: all train)
         self._bucket_live = None
         self._frozen_leaves = None
@@ -174,17 +184,14 @@ class ZeroOptimizer:
         g = self._grad_shards(self._mask_frozen(grads))
         if self._avg:
             inv = 1.0 / self._comm.size
-            g = g.map(lambda s: torch.mul(s, K.shard_const(inv, s.dtype)))
+            g = g.map(lambda s: s * shard_const(inv, s))
         if mom is not None:
-            mom = mom.map(
-                lambda v, gs: torch.add(
-                    torch.mul(K.shard_const(self._mu, v.dtype), v), gs),
-                g, where=self._bucket_live)
+            mom = mom.map(lambda v, gs: shard_const(self._mu, v) * v + gs,
+                          g, where=self._bucket_live)
             self.state.slots["momentum"] = mom
             g = mom
         self._pshards = self._pshards.map(
-            lambda p, gs: torch.sub(
-                p, torch.mul(K.shard_const(self._lr, p.dtype), gs)),
+            lambda p, gs: p - shard_const(self._lr, p) * gs,
             g, where=self._bucket_live)
         self.state.params = self._pshards
         return self._gather_params()
@@ -198,6 +205,18 @@ class ZeroOptimizer:
                 grads, op_mod.SUM, deterministic=self._det)
             return _layout.ShardedState.from_full(
                 self._comm, full, plan=self._pshards.plan)
+        if self._req is not None:
+            leaves = _layout.tree_leaves(grads)
+            if len(leaves) != self._n_leaves:
+                raise errors.MPIError(
+                    errors.ERR_COUNT,
+                    f"ZeroOptimizer.step: {len(leaves)} gradient leaves for "
+                    f"a {self._n_leaves}-leaf template")
+            self._req.start()
+            for i in reversed(range(len(leaves))):  # the backward's order
+                self._req.Pready(i, leaves[i])
+            self._req.wait()
+            return self._req.array
         return self._comm.Reduce_scatter_multi(
             grads, op_mod.SUM, deterministic=self._det)
 
@@ -206,7 +225,8 @@ class ZeroOptimizer:
         if self._frozen_leaves is None:
             return grads
         leaves, treedef = _layout.tree_flatten(grads)
-        leaves = [torch.zeros_like(g) if fr else g
+        leaves = [(np.zeros_like(g) if isinstance(g, np.ndarray)
+                   else torch.zeros_like(g)) if fr else g
                   for g, fr in zip(leaves, self._frozen_leaves)]
         return _layout.tree_unflatten(treedef, leaves)
 
@@ -215,7 +235,12 @@ class ZeroOptimizer:
         buckets whose shard version did not move since the last gather
         reuse the gathered leaves (``zero_ag_skipped`` counts them)."""
         st = self._pshards
-        bucket_dev = self._comm.coll.fns.get("allgather_multi_bucket_dev")
+        if bool(st.shards) and isinstance(st.shards[0], np.ndarray):
+            def bucket_dev(comm, state, b):
+                return _layout.host_allgather_bucket(comm, state, b)
+        else:
+            bucket_dev = self._comm.coll.fns.get(
+                "allgather_multi_bucket_dev")
         if self._bucket_live is None or all(self._bucket_live) \
                 or bucket_dev is None:
             return self._comm.Allgather_multi(st)
@@ -242,3 +267,18 @@ class ZeroOptimizer:
     def params(self):
         """Replicated parameters rebuilt from the current shards."""
         return self._gather_params()
+
+    def free(self) -> None:
+        """Free the overlap mode's partitioned request."""
+        if self._req is not None:
+            self._req.free()
+            self._req = None
+
+
+def shard_const(value: float, shard):
+    """``value`` cast to a shard's dtype, numpy for a numpy shard (the
+    reference's ``np.asarray(value, dtype)``) and a 0-d tensor for a
+    tensor (:func:`cuda_kernels.shard_const`)."""
+    if isinstance(shard, np.ndarray):
+        return np.asarray(value, shard.dtype)
+    return K.shard_const(value, shard.dtype)

@@ -95,7 +95,10 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.examples.datatype_exchange, ompi_tpu_torch.smsc, "
             "ompi_tpu_torch.info, ompi_tpu_torch.attr, "
             "ompi_tpu_torch.util.net, ompi_tpu_torch.core.native, "
-            "ompi_tpu_torch.examples.p2p_bandwidth; "
+            "ompi_tpu_torch.examples.p2p_bandwidth, ompi_tpu_torch.part, "
+            "ompi_tpu_torch.pml.part, ompi_tpu_torch.zero.zero3, "
+            "ompi_tpu_torch.examples.partitioned_gradients, "
+            "ompi_tpu_torch.examples.zero3_params; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu')]; "
             "assert not bad, bad; print('clean')")

@@ -268,14 +268,20 @@ assert s.read("coll_cuda_fallthrough") == 1
 st = zl.ShardedState.from_full(comm, params)
 assert comm.coll.zero3_gather_matmul_dev(comm, st, torch.ones(3, 2)) is None
 assert s.read("coll_cuda_fallthrough") == 2
-for kw in ({{"overlap": True}}, {{"error_feedback": "bf16"}}):
-    msg = expect_error(errors.ERR_NOT_SUPPORTED,
-                       lambda: ZeroOptimizer(comm, params, **kw))
-    assert "ROADMAP" in msg, msg
-expect_error(errors.ERR_ARG, lambda: ZeroOptimizer(
-    comm, params, fused=True, frozen=FROZEN))
-expect_error(errors.ERR_NOT_SUPPORTED,
-             lambda: comm.Reduce_scatter_multi([np.ones(4, np.float32)]))
+msg = expect_error(errors.ERR_NOT_SUPPORTED, lambda: ZeroOptimizer(
+    comm, params, error_feedback="bf16"))
+assert "ROADMAP" in msg, msg
+for kw in ({{"overlap": True, "fused": True}}, {{"fused": True,
+                                                "frozen": FROZEN}}):
+    expect_error(errors.ERR_ARG, lambda: ZeroOptimizer(comm, params, **kw))
+# numpy leaves take the host bucket cycle: this rank's shards of the sums
+hb = [np.arange(9, dtype=np.float32) * (rank + 1), np.ones((3, 2), np.float32)]
+hst = comm.Reduce_scatter_multi(hb)
+sums = [np.arange(9, dtype=np.float32) * sum(range(1, size + 1)),
+        np.full((3, 2), float(size), np.float32)]
+own = zl.ShardedState.from_full(comm, sums, plan=hst.plan)
+assert all(isinstance(a, np.ndarray) and np.array_equal(a, b)
+           for a, b in zip(hst.shards, own.shards))
 expect_error(errors.ERR_COUNT, lambda: comm.Allgather_multi(
     zl.ShardedState(st.plan, st.metas, st.treedef, st.shards[:-1],
                     rank, size)))
@@ -472,9 +478,10 @@ def test_zero3_gather_matmul_against_reference(results):
 def test_error_paths(results):
     """int16 allgather_matmul_dev returns the composed allgather + plain
     product and counts coll_cuda_fallthrough (as the reference falls
-    through to coll/xla); overlap / error_feedback raise
-    ERR_NOT_SUPPORTED naming the ROADMAP item; host leaves raise; checked
-    inside the port job."""
+    through to coll/xla); error_feedback raises ERR_NOT_SUPPORTED naming
+    the ROADMAP item; overlap with fused raises ERR_ARG (the reference's
+    rule); numpy leaves take the host bucket cycle, whose shards equal
+    ShardedState.from_full of the sums; checked inside the port job."""
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
