@@ -171,16 +171,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    each rank bitwise against the host fold, K1-K3 counted; their launches
    join the collectives jobs') and its ``--hetero`` mode on 2 host ranks
    with rank 1 big-endian (a struct Send / Recv both ways and an
-   Allreduce).
+   Allreduce);
+6. PSCW and passive-target epochs on device windows (see
+   :func:`am_phase`), after the one-sided paths of phase 3:
+   ``ompi_tpu_torch/examples/osc_passive.py`` on 4 ranks under ``--mca
+   device_plane on --mca osc_cuda on``, every window a ``CudaWindow`` on
+   the host window's active-message service: the PSCW halo (8192 x 8192
+   float32 tiles, 3 steps of two ``Put_strided`` columns, a row put and a
+   ``Get_strided`` column between ring neighbours, bitwise equal to the
+   same puts and a ``Get_epoch`` in fence epochs on a second window), the
+   passive target on a 2**20 x 128 float32 shard (3 reps of 512
+   Accumulate(SUM) rows under ``Lock_all``, ``Flush_all`` and 512 row
+   Gets, then an exclusive-lock round of puts, bitwise against a numpy
+   replay) and the atomics (64 ``Fetch_and_op`` a rank into rank 0, a
+   permutation of 0..255, a ``Compare_and_swap`` ring, a NO_OP
+   ``Get_accumulate``, a host-assisted BAND ``Accumulate``); the K7 / K8
+   / K9 launches of every part must equal what the ranks derive from
+   their schedules, and each part's epoch times, AM messages and a
+   per-message split of a target's host time are printed.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job and the
 training path, K5 and K6's two kernels from the training path, K7 and
-the K8, K9 and
-K10 batches from the 4-rank one-sided paths; K5b and the per-call rows
-of K8, K9 and K10 with 0 and a note), the card line, and, last,
+the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
+per-call rows of K8 and K9 also from phase 6; K5b and the per-call row
+of K10 with 0 and a note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -236,9 +253,6 @@ FOLD_NS = (1, 2, 3, 4, 5, 9)
 #: the embedding path's batches: rank 0's update fence applies 2048
 #: gradient rows (512 from each of 4 ranks); a lookup fence reads 512 rows
 EMB_UPDATES, EMB_LOOKUPS = N_RANKS * 512, 512
-#: the note on the per-call rows of K8 and K9: no path launches them
-ONE_NOTE = ("the batch of one through the grouped kernel; the one-sided "
-            "paths launch the batch (the _batch row)")
 #: the note on K10's per-call row
 K10_NOTE = ("the batch of one through the grouped kernel; the embedding "
             "lookup launches the batch, one per reader and exchange (the "
@@ -246,7 +260,7 @@ K10_NOTE = ("the batch of one through the grouped kernel; the embedding "
 REPS = 10
 #: BASELINE config 3's Allreduce sizes, for the host baseline (4 ranks)
 HOST_SIZES = "1k,1m,64m,256m"
-LAUNCH_TIMEOUT = 200  # seconds per launcher job (thirteen jobs)
+LAUNCH_TIMEOUT = 200  # seconds per launcher job (fifteen of main_path)
 BCAST_RANKS = 8  # BASELINE config 2's rank count, all on this card
 #: the coll/device jobs of the rest of coll/xla's slot table: (--kinds,
 #: sizes); 64 MiB payloads (float32 Reduce / Scatter / Reduce_scatter,
@@ -855,9 +869,15 @@ def rma_checks(torch, O, dev, card, engine):
         big = make(torch, tile, dtype, 60, dev)
         row_win = make(torch, emb, dtype, 61, dev)
         ragged = make(torch, rag + 1, dtype, 62, dev)[1:]
-        # (window, payload elements, stride, displacements)
+        counter = make(torch, 4, dtype, 65, dev)
+        # (window, payload elements, stride, displacements); the AM
+        # phase's shapes among them: a row's interior into the last row,
+        # a column above the last row, one element of a counter window
         cases = [(big, tile, 1, (0, 3, -1)),
                  (big, col, col, (0, col - 1, tile - 5, -3, -tile - 9)),
+                 (big, col - 2, 1, (tile - col + 1,)),
+                 (big, col - 1, col, (1,)),
+                 (counter, 1, 1, (0, 1, 2, 3)),
                  (row_win, EMB_DIM, 1, (0, emb - EMB_DIM, emb - 100, -3,
                                         -emb - 5, 1 << 40)),
                  (ragged, kr, 1, (0, rag - kr, 4000, -5, -5000)),
@@ -892,13 +912,15 @@ def rma_checks(torch, O, dev, card, engine):
                       f"{dtype} payload {k} src {src is not None}")
             torch.cuda.synchronize()
             del got, want, pay
-        del big, row_win, ragged
+        del big, row_win, ragged, counter
         torch.cuda.empty_cache()
     print(f"kernels: K7-K10 bitwise equal to their plain versions for "
           f"float32/bfloat16/int32 x {len(O.KINDS)} kinds at the halo tile "
-          f"({tile} elements, columns of {col} at stride {col}), an "
-          f"embedding row ({EMB_DIM} of {emb}) and ragged unaligned "
-          f"shapes, clamped, wrapped, dropped and filled edges [{card}]",
+          f"({tile} elements, columns of {col} at stride {col}, a row's "
+          f"{col - 2}-element interior, a column of {col - 1}), an "
+          f"embedding row ({EMB_DIM} of {emb}), one element of a 4-element "
+          f"counter and ragged unaligned shapes, clamped, wrapped, dropped "
+          f"and filled edges [{card}]",
           flush=True)
     rma_batch_checks(torch, O, dev, card, results)
     permute_batch_checks(torch, O, dev, card, results)
@@ -956,7 +978,7 @@ def rma_checks(torch, O, dev, card, engine):
         median_ms(k8, torch),
         median_ms(lambda: O.rma_apply_strided_plain(big, colp, col - 1, col,
                                                     "put"), torch),
-        median_ms(lib8, torch), col * (2 * SECTOR + 4), 0, note=ONE_NOTE,
+        median_ms(lib8, torch), col * (2 * SECTOR + 4), 0,
         device_ms=dev_ms)
     print(f"kernel rma_apply_strided queued (device only): "
           f"{dev_ms:.4f} ms, strided copy_ "
@@ -990,7 +1012,7 @@ def rma_checks(torch, O, dev, card, engine):
     row("rma_read", "ompi_tpu/osc/pallas_kernels.py:133",
         median_ms(k9, torch),
         median_ms(lambda: O.rma_read_plain(win, d, 1, out), torch),
-        median_ms(lib9, torch), 2 * EMB_DIM * 4, 0, note=ONE_NOTE,
+        median_ms(lib9, torch), 2 * EMB_DIM * 4, 0,
         device_ms=dev_ms)
     print(f"kernel rma_read queued (device only): {dev_ms:.4f}"
           f" ms, clone() {queued_ms(lib9, torch):.4f} ms [{card}]",
@@ -1325,6 +1347,72 @@ def osc_report(name: str, nranks: int, doc, card: str) -> None:
           + ", ".join(f"{k} {v:.3f}" for k, v in ms)
           + f"; rounds {doc['rounds']}; exchanges {doc['exchanges']} "
           f"[{card}]", flush=True)
+
+
+#: the AM phase's parts, in the order osc_passive.py runs them
+AM_PARTS = ("pscw halo", "passive embedding", "atomics")
+
+
+def am_phase(card: str, root: str) -> dict:
+    """Phase 6: PSCW and passive-target epochs on device windows
+    (``osc_passive.py`` on 4 ranks under ``--mca osc_cuda on``): the K7 /
+    K8 / K9 launches of every part, summed over the ranks, must equal
+    what the ranks derived from their schedules (each rank asserts its
+    own), and each part's epoch times (rank 0's p50 of 3), AM messages
+    and the per-message split are printed. Returns the launches."""
+    launches, doc = main_path("osc_passive.py", N_RANKS, [], card, root,
+                              "osc_cuda")
+    out = os.path.join(root, "build", "ompi_tpu_torch",
+                       f"smoke_osc_passive_osc_cuda_n{N_RANKS}")
+    docs = []
+    for r in range(N_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    for part in AM_PARTS:
+        got = {k: sum(d["part_launches"][part][k] for d in docs)
+               for k in docs[0]["part_launches"][part]}
+        want = {k: sum(d["part_expected"][part][k] for d in docs)
+                for k in got}
+        if got != want:
+            fail(f"AM phase {part}: launches {got}, scheduled {want}")
+        print(f"AM phase {part} n={N_RANKS}: K7 rma_apply {got['rma_apply']}"
+              f", K8 rma_apply_strided {got['rma_apply_strided']}, K9 "
+              f"rma_read {got['rma_read']} launches (all ranks), as "
+              f"scheduled [{card}]", flush=True)
+    rep = doc["report"]
+
+    def p50(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    h = rep["pscw_halo"]
+    print(f"AM phase PSCW halo n={N_RANKS} {HALO} x {HALO} float32 (rank 0):"
+          f" epoch p50 {p50(h['epoch_ms']):.3f} ms of {h['epoch_ms']}, "
+          f"{h['messages']} AM messages sent a step; the same puts in "
+          f"fence epochs p50 {p50(h['fence_ms']):.3f} ms of {h['fence_ms']}"
+          f" [{card}]", flush=True)
+    e = rep["passive_embedding"]
+    print(f"AM phase passive target n={N_RANKS} {EMB_ROWS} x {EMB_DIM} "
+          f"float32 (rank 0): update epoch (Lock_all, 512 Accumulate rows, "
+          f"Flush_all) p50 {p50(e['update_ms']):.3f} ms of {e['update_ms']}"
+          f", {e['update_messages']} AM messages sent; 512 row Gets p50 "
+          f"{p50(e['lookup_ms']):.3f} ms of {e['lookup_ms']}, "
+          f"{e['lookup_messages']} messages [{card}]", flush=True)
+    sp = rep["split"]
+    print(f"AM phase per-message split at rank 0 (a {EMB_DIM}-float "
+          f"Accumulate row, measured alone): receive and unpickle "
+          f"{sp['receive_unpickle_us']:.2f} us, H2D {sp['h2d_us']:.2f} us, "
+          f"K7 launch {sp['launch_us']:.2f} us; origin D2H "
+          f"{sp['origin_d2h_us']:.2f} us, object send "
+          f"{sp['origin_send_us']:.2f} us; the update epoch "
+          f"{sp['update_epoch_us_per_row']:.2f} us per row sent [{card}]",
+          flush=True)
+    a = rep["atomics"]
+    print(f"AM phase atomics n={N_RANKS} (rank 0): epoch (Lock_all, 64 "
+          f"Fetch_and_op a rank into rank 0, a CAS ring, a NO_OP "
+          f"Get_accumulate, a BAND Accumulate) p50 {p50(a['epoch_ms']):.3f} "
+          f"ms of {a['epoch_ms']}, {a['messages']} AM messages sent "
+          f"[{card}]", flush=True)
+    return launches
 
 
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
@@ -1682,13 +1770,14 @@ def main() -> int:
           f"reader and exchange ({N_RANKS} readers x "
           f"{emb_doc['exchanges']['lookup']} exchange), each landing every "
           f"owner's block [{card}]", flush=True)
+    am = am_phase(card, root)
     # the datatype job's K1-K3 launches join the collectives jobs'
     for k, v in datatype_phase(torch, card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = sum(p.get(r["name"], 0)
-                                for p in (coll, train, osc))
+                                for p in (coll, train, osc, am))
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
     host_plane_phase(torch, card, root)

@@ -4,9 +4,8 @@ The port's reduction of ``ompi_tpu.attr`` (reference:
 ompi/attribute/attribute.c — one keyval space with user copy / delete
 callbacks fired on dup / free, comm_create_keyval.c:47-62 — and
 attribute_predefined.c:119-195, the predefined attributes) to the
-"comm" and "type" kinds: each keyval carries its kind, and a keyval of
-one kind used on an object of the other raises ``ERR_KEYVAL``. Windows
-gain theirs with their slice.
+"comm", "win" and "type" kinds: each keyval carries its kind, and a
+keyval of one kind used on an object of another raises ``ERR_KEYVAL``.
 
 Callbacks follow the reference's Pythonic convention:
 ``copy_fn(obj, keyval, extra_state, value) -> new value`` (return
@@ -37,11 +36,20 @@ WTIME_IS_GLOBAL = 4
 APPNUM = 5
 UNIVERSE_SIZE = 6
 LASTUSEDCODE = 7
+WIN_BASE = 20
+WIN_SIZE = 21
+WIN_DISP_UNIT = 22
+WIN_CREATE_FLAVOR = 23
+WIN_MODEL = 24
 
 #: the tag ceiling (tags are Python ints on the wire; advertise 2^31-1)
 MAX_TAG = (1 << 31) - 1
 #: MPI_ERR_LASTCODE: the port defines no error classes of its own
 ERR_LASTCODE = 92
+#: window models (MPI-3 §11.4): the active-message windows keep a
+#: separate public copy in the model's terms; "unified" would claim more
+WIN_SEPARATE = "separate"
+WIN_FLAVOR_CREATE = "create"
 
 
 class Keyval:
@@ -87,6 +95,24 @@ def _predef(kid: int):
     return None, False
 
 
+def _predef_win(win, kid: int):
+    """(value, found) of a predefined window attribute, answered from
+    the window's own fields."""
+    if kid == WIN_BASE:
+        return win.base, True
+    if kid == WIN_SIZE:
+        return win.peer_info[win.rank][0], True
+    if kid == WIN_DISP_UNIT:
+        return win.disp_unit, True
+    if kid == WIN_CREATE_FLAVOR:
+        return getattr(win, "flavor", WIN_FLAVOR_CREATE), True
+    if kid == WIN_MODEL:
+        return WIN_SEPARATE, True
+    return None, False
+
+
+_PREDEF_WIN_IDS = frozenset((WIN_BASE, WIN_SIZE, WIN_DISP_UNIT,
+                             WIN_CREATE_FLAVOR, WIN_MODEL))
 _PREDEF_IDS = frozenset((TAG_UB, HOST, IO, WTIME_IS_GLOBAL, APPNUM,
                          UNIVERSE_SIZE, LASTUSEDCODE))
 
@@ -94,8 +120,9 @@ _PREDEF_IDS = frozenset((TAG_UB, HOST, IO, WTIME_IS_GLOBAL, APPNUM,
 def create_keyval(kind: str, copy_fn: Optional[Callable] = None,
                   delete_fn: Optional[Callable] = None,
                   extra_state: Any = None) -> int:
-    """MPI_{Comm,Type}_create_keyval (``kind`` "comm" or "type")."""
-    if kind not in ("comm", "type"):
+    """MPI_{Comm,Win,Type}_create_keyval (``kind`` "comm", "win" or
+    "type")."""
+    if kind not in ("comm", "win", "type"):
         raise errors.MPIError(errors.ERR_ARG, f"bad keyval kind {kind}")
     with _lock:
         kid = next(_next_id)
@@ -136,7 +163,8 @@ def _get_kv(kid: int, kind: str) -> Keyval:
 
 
 def _read_only(kid: int, kind: str) -> None:
-    if kind == "comm" and kid in _PREDEF_IDS:
+    if (kind == "comm" and kid in _PREDEF_IDS) or (
+            kind == "win" and kid in _PREDEF_WIN_IDS):
         raise errors.MPIError(errors.ERR_KEYVAL,
                               f"predefined attribute {kid} is read-only")
 
@@ -144,7 +172,7 @@ def _read_only(kid: int, kind: str) -> None:
 class AttrHost:
     """Mixin: the MPI attribute API over the host object's ``attrs``
     dict (keyval id -> value). ``_attr_kind`` names the object's keyval
-    kind ("comm" or "type")."""
+    kind ("comm", "win" or "type")."""
 
     __slots__ = ()
     _attr_kind = "comm"
@@ -162,6 +190,8 @@ class AttrHost:
         """MPI_*_get_attr: the value, or None when not set."""
         if self._attr_kind == "comm" and keyval in _PREDEF_IDS:
             return _predef(keyval)[0]
+        if self._attr_kind == "win" and keyval in _PREDEF_WIN_IDS:
+            return _predef_win(self, keyval)[0]
         _get_kv(keyval, self._attr_kind)
         return self.attrs.get(keyval)
 

@@ -61,10 +61,15 @@ WELL_KNOWN = (
     # twins): windows created; Put/Put_strided, Get/Get_epoch and
     # Accumulate calls; Fences; edge-coloured rounds (the reference's);
     # exchanges run (the host steps that move them); origin payload bytes
-    # queued; windows and calls refused (ERR_NOT_SUPPORTED)
+    # queued; windows left to the host window and ops folded on the host
+    # (host-assisted); calls that rode the active-message plane (PSCW,
+    # passive target, the synchronous gets and atomics)
     "osc_cuda_windows", "osc_cuda_put", "osc_cuda_get", "osc_cuda_acc",
     "osc_cuda_fence", "osc_cuda_rounds", "osc_cuda_exchanges",
-    "osc_cuda_bytes", "osc_cuda_fallthrough",
+    "osc_cuda_bytes", "osc_cuda_fallthrough", "osc_cuda_am_ops",
+    # osc (the host window, the reference's names): Put / Put_strided,
+    # Get / Get_strided and Accumulate calls, Fences
+    "osc_put", "osc_get", "osc_acc", "osc_fence",
     # pml/ob1 (the reference's names): sends and receives posted, eager
     # and rendezvous sends (streamed, or offered for single copy), RNDV
     # fragments, arrivals that found no posted receive or came out of

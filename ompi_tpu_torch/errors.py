@@ -22,6 +22,7 @@ ERR_TRUNCATE = 15
 ERR_OTHER = 16
 ERR_INTERN = 17
 ERR_RMA_SYNC = 44
+ERR_WIN = 45
 ERR_KEYVAL = 48
 ERR_NOT_SUPPORTED = 51
 

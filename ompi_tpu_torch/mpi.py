@@ -1453,7 +1453,8 @@ for _name, _fn in {
 # attributes of attribute_predefined.c:119-195) and Info objects
 from ompi_tpu_torch.attr import (  # noqa: E402,F401
     APPNUM, HOST, IO, KEYVAL_INVALID, LASTUSEDCODE, NO_COPY, TAG_UB,
-    UNIVERSE_SIZE, WTIME_IS_GLOBAL, dup_fn, null_copy_fn,
+    UNIVERSE_SIZE, WIN_BASE, WIN_CREATE_FLAVOR, WIN_DISP_UNIT, WIN_MODEL,
+    WIN_SIZE, WTIME_IS_GLOBAL, dup_fn, null_copy_fn,
 )
 from ompi_tpu_torch.info import Info  # noqa: E402,F401
 
@@ -1472,6 +1473,14 @@ def Comm_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):
     return attr.create_keyval("comm", copy_fn, delete_fn, extra_state)
 
 
+def Win_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):
+    """MPI_Win_create_keyval: the same callbacks, on windows (``Free``
+    deletes, before the window goes)."""
+    from ompi_tpu_torch import attr
+
+    return attr.create_keyval("win", copy_fn, delete_fn, extra_state)
+
+
 def Type_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):
     """MPI_Type_create_keyval: the same callbacks, on datatypes
     (``Datatype.dup`` copies, ``Datatype.free`` deletes)."""
@@ -1486,6 +1495,7 @@ def Comm_free_keyval(keyval: int) -> int:
     return attr.free_keyval(keyval)
 
 
+Win_free_keyval = Comm_free_keyval
 Type_free_keyval = Comm_free_keyval
 
 

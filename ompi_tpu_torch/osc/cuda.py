@@ -1,46 +1,69 @@
-"""osc/cuda — device-resident one-sided windows, fence epochs.
+"""osc/cuda — device-resident one-sided windows.
 
-Port of ``ompi_tpu.osc.pallas`` (``PallasWindow``), reduced to the fence
-epoch: ``win_create`` -> ``Fence`` -> ``Put`` / ``Put_strided`` /
-``Accumulate`` / ``Get_epoch`` -> ``Fence``. The window is a tensor on
-the rank's device, and every window mutation and read runs as one of the
-kernels K7-K10 (:mod:`ompi_tpu_torch.osc.cuda_kernels`). Origin calls
-queue descriptors; the closing Fence runs one metadata allgather, groups
-the epoch's transfers by element count (sorted) and colours each group
-first-fit into partial matchings: the reference's rounds, in its order.
-Where the reference moves each round as one step, the port cuts the
-rounds, in order, into exchanges (:func:`plan_exchanges`: as many
-consecutive rounds as keep every rank's staged bytes within
-:data:`EXCHANGE_BYTES`) and moves each exchange through the window
-comm's peer-mapped arena in one host step (``coll.cuda.Arena.exchange``):
+Port of ``ompi_tpu.osc.pallas`` (``PallasWindow``). The window is a tensor
+on the rank's device, and every window mutation and read runs as one of
+the kernels K7-K10 (:mod:`ompi_tpu_torch.osc.cuda_kernels`). The epochs
+split as the reference splits them:
 
-- puts: the origin stages every payload it sends in the exchange in its
-  own region, grouped by target, in round order (one ``torch.cat``); the
-  target applies what it receives in exactly the reference's round order,
-  reading each payload straight from its source's region: K8's grouped
-  kernel over runs of disjoint descriptors, K7 for contiguous ones of
-  2**20 elements or more;
-- gets: the target stages every row it serves, grouped by origin, with one
-  K9 batch; the origin pulls every source's block into a fresh landing
-  tensor with one grouped K10 launch, and each ``GetHandle.array`` is a
-  view of it.
+- **Fence** (active target, collective): ``Put`` / ``Put_strided`` /
+  elementwise ``Accumulate`` / ``Get_epoch`` queue descriptors; the
+  closing Fence runs one metadata allgather, groups the epoch's transfers
+  by element count (sorted) and colours each group first-fit into partial
+  matchings: the reference's rounds, in its order. Where the reference
+  moves each round as one step, the port cuts the rounds, in order, into
+  exchanges (:func:`plan_exchanges`: as many consecutive rounds as keep
+  every rank's staged bytes within :data:`EXCHANGE_BYTES`) and moves each
+  exchange through the window comm's peer-mapped arena in one host step
+  (``coll.cuda.Arena.exchange``):
 
-So same-location accumulates apply in the reference's round order and the
-windows end bitwise equal to the JAX package's; ``osc_cuda_rounds`` counts
-the reference's rounds and ``osc_cuda_exchanges`` the host steps run.
+  - puts: the origin stages every payload it sends in the exchange in its
+    own region, grouped by target, in round order (one ``torch.cat``);
+    the target applies what it receives in exactly the reference's round
+    order, reading each payload straight from its source's region: K8's
+    grouped kernel over runs of disjoint descriptors, K7 for contiguous
+    ones of 2**20 elements or more;
+  - gets: the target stages every row it serves, grouped by origin, with
+    one K9 batch; the origin pulls every source's block into a fresh
+    landing tensor with one grouped K10 launch, and each
+    ``GetHandle.array`` is a view of it.
 
-Epoch discipline is enforced as the reference enforces it: an op outside
-any epoch, ``Get_epoch`` outside a fence, ``Unlock`` without ``Lock``,
-``Complete`` without ``Start``, ``Rput`` / ``Rget`` outside a Lock, and
-``Free`` with queued descriptors raise ``MPIError(ERR_RMA_SYNC)``; an
-operand whose dtype differs from the window's raises ``ERR_ARG``. Those
-checks come first; then what the reference serves over the host
-window's active-message plane (PSCW, passive target, the synchronous
-Get, Get_accumulate, Fetch_and_op, Compare_and_swap) and what it falls
-through to the host for (a window the kernels do not take, a
-non-elementwise Accumulate) counts ``osc_cuda_fallthrough`` and raises
-``ERR_NOT_SUPPORTED``: there is no host window to fall to before the
-host window's active-message service (ROADMAP queue 1 item 7).
+  So same-location accumulates apply in the reference's round order and
+  the windows end bitwise equal to the JAX package's;
+  ``osc_cuda_rounds`` counts the reference's rounds and
+  ``osc_cuda_exchanges`` the host steps run.
+- **PSCW and passive target** (Post / Start / Complete / Wait, Lock /
+  Unlock / Flush / Lock_all): synchronisation rides the host
+  :class:`~ompi_tpu_torch.osc.Window`'s active-message (AM) service, which
+  this class subclasses: per-peer exposure by post / complete messages,
+  the lock manager, flush acks. Ops to a target under a Lock or a Start
+  ride the AM plane as numpy payloads (a bfloat16 payload as its uint16
+  bits), and the target's data path runs on the card: a put or an
+  elementwise accumulate is K7 (stride 1) or K8 (``Put_strided``); every
+  read (Get, Get_strided, Get_accumulate, Fetch_and_op, the compare of
+  Compare_and_swap) is K9 into a fresh tensor that the reply copies to
+  the host. A valid op the kernels do not fold (BAND, LOR, ...) is
+  host-assisted: a K9 read, the reference's numpy fold ``np_fn(data,
+  cur)``, then a K7 replace; the origin counts it in
+  ``osc_cuda_fallthrough``. Every AM-plane call counts ``osc_cuda_am_ops``.
+  The target launches its applies and reads on one stream the window
+  records at creation, on the window's device; its host reads of window
+  bytes (the reply's copy, CAS's compare) follow them on that stream, and
+  where an epoch closes at the target (Wait, Fence, Sync, the service of
+  Unlock and of a flush) the caller's current stream waits for it
+  (``wait_stream``), so a flush or unlock ack implies every earlier op of
+  that origin is applied for a later Get and for ``win.array``. Rput /
+  Rget are allowed under a Lock only.
+
+Addressing is by element: ``disp`` counts window elements, and operands
+must have the window's dtype. Epoch discipline is enforced as the
+reference enforces it: an op outside any epoch, ``Get_epoch`` outside a
+fence, ``Unlock`` without ``Lock``, ``Complete`` without ``Start``,
+``Rput`` / ``Rget`` outside a Lock, and ``Free`` with queued descriptors
+raise ``MPIError(ERR_RMA_SYNC)``; an operand whose dtype differs from the
+window's raises ``ERR_ARG``. A window the kernels cannot take (another
+dtype, a host buffer on some rank, dtypes that differ across ranks) is
+counted in ``osc_cuda_fallthrough`` at creation, and ``win_create``
+serves the host window.
 
 Where the port differs from the reference:
 
@@ -54,15 +77,23 @@ Where the port differs from the reference:
   never of an arena region, which the next exchange reuses;
 - a target rank outside the window raises ``ERR_RANK`` at the call
   (the reference queues it);
-- a contiguous ``Put`` / ``Accumulate`` / ``Get_epoch`` (and a
-  ``Put_strided`` of stride 1, which the target applies as one) of more
-  elements than the target's window raises ``ERR_ARG`` at the call, from
-  ``peer_info``, so nothing is queued that the target cannot apply (the
-  reference queues it too); a strided put still drops what falls outside.
+- a contiguous ``Put`` / ``Accumulate`` / ``Get_epoch`` / ``Get`` /
+  ``Get_accumulate`` / ``Fetch_and_op`` (and a ``Put_strided`` of stride
+  1, which the target applies as one) of more elements than the target's
+  window raises ``ERR_ARG`` at the call, from ``peer_info``, so nothing
+  reaches the target that it cannot apply (the reference sends it); a
+  strided put still drops what falls outside;
+- a host-assisted fold of bfloat16 (numpy has none) raises
+  ``ERR_NOT_SUPPORTED`` at the call, and one numpy cannot compute for
+  the window's dtype (BAND on float32) raises ``ERR_OP`` at the call (the
+  reference's target fails inside its service loop); ``Fetch_and_op``
+  with such an op counts ``osc_cuda_fallthrough`` too (the reference
+  counts Accumulate and Get_accumulate only).
 """
 
 from __future__ import annotations
 
+import contextlib
 from collections import deque
 from typing import Dict, List, Optional, Tuple
 
@@ -72,7 +103,8 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda as _coll_cuda
 from ompi_tpu_torch.core import cvar, pvar
-from ompi_tpu_torch.osc import AM_ITEM, Window
+from ompi_tpu_torch.osc import (LOCK_EXCLUSIVE, Window, _numel,
+                                _tensor_bits, _wire_dtype, to_wire)
 from ompi_tpu_torch.osc import cuda_kernels as O
 from ompi_tpu_torch.osc.device_epoch import GetHandle, _color
 from ompi_tpu_torch.runtime import device_plane
@@ -81,9 +113,11 @@ _enable_var = cvar.register(
     "osc_cuda", "off", str,
     help="Enable the device-resident one-sided windows (osc/pallas's "
          "counterpart): 'on' serves win_create over a supported device "
-         "tensor with CudaWindow (kernel-applied RMA, fence epochs over "
-         "the peer-mapped arenas); 'off' [default] leaves win_create "
-         "without a window (the host window comes with the pml).",
+         "tensor with CudaWindow (kernel-applied RMA: fence epochs over "
+         "the peer-mapped arenas, PSCW and passive target over the host "
+         "window's active-message service); 'off' [default] serves every "
+         "window with the host window (a tensor staged through a host "
+         "mirror).",
     choices=["off", "on"], level=4)
 #: bytes a rank may stage for one exchange of a fence (a run of the
 #: reference's coloured rounds moved in one host step); a round whose
@@ -100,21 +134,16 @@ def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def _fallthrough(what: str, reason: str) -> None:
-    """Count a case the reference falls through to the host window for,
-    and refuse it: the port has no host window yet."""
-    pvar.record("osc_cuda_fallthrough")
-    raise errors.MPIError(
-        errors.ERR_NOT_SUPPORTED,
-        f"osc_cuda: {what} {reason}; the host window the reference falls "
-        f"through to comes with {AM_ITEM}")
+def _op_name(op) -> str:
+    return str(getattr(op, "name", op))
 
 
 class CudaWindow(Window):
     """Device-resident MPI window: the authoritative buffer is a flat
     tensor on the rank's device (``.array`` views it in ``base``'s
     shape); all target-side RMA runs as kernels; a fence epoch runs its
-    edge-coloured rounds as exchanges over the window comm's arenas.
+    edge-coloured rounds as exchanges over the window comm's arenas, and
+    PSCW and passive-target epochs ride the AM plane.
 
     Created by ``osc.win_create`` under ``--mca osc_cuda on`` (see
     :func:`maybe_window`), or directly with :func:`win_create_cuda`."""
@@ -130,8 +159,17 @@ class CudaWindow(Window):
         self._fput: List[Tuple] = []
         self._fget: List[Tuple] = []
         self._target = O.Target(self._win)  # the launch record, checked once
+        # the stream every apply and read of this window runs on
+        self._stream = torch.cuda.current_stream(self._win.device) \
+            if self._win.is_cuda else None
         super().__init__(comm, self._win, disp_unit)
         pvar.record("osc_cuda_windows")
+
+    def _adopt(self, base):
+        return base  # device-authoritative: no host mirror
+
+    def _nbytes(self) -> int:
+        return self._win.numel() * self._win.element_size()
 
     # -- device state ---------------------------------------------------
     @property
@@ -140,12 +178,45 @@ class CudaWindow(Window):
         window (read it at epoch boundaries)."""
         return self._win.view(self._shape)
 
-    # -- epoch discipline -----------------------------------------------
-    def _epoch_for(self, target: int) -> None:
-        """Raise unless an epoch covers an op to ``target``; with no Lock
-        or Start (they need the AM plane), only an open fence does."""
-        if self._fence_open:
+    def device_array(self) -> torch.Tensor:
+        return self.array
+
+    def _on_stream(self):
+        """The window's stream as the current stream (the CPU has none)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self._stream)
+
+    def _join(self) -> None:
+        """Order the window's stream and the caller's current stream both
+        ways (nothing to do when they are one stream): the caller's
+        earlier work on origin tensors and the window comes before the
+        window's next launches, and the window's launches before the
+        caller's later work."""
+        if self._stream is None:
             return
+        cur = torch.cuda.current_stream(self._win.device)
+        if cur != self._stream:
+            self._stream.wait_stream(cur)
+            cur.wait_stream(self._stream)
+
+    def _publish(self) -> None:
+        if self._stream is None:
+            return
+        cur = torch.cuda.current_stream(self._win.device)
+        if cur != self._stream:
+            cur.wait_stream(self._stream)
+
+    # -- epoch discipline -----------------------------------------------
+    def _epoch_for(self, target: int) -> str:
+        """The epoch covering an op to ``target``: passive lock > PSCW
+        access > open fence; none is erroneous (MPI-3.1 §11.5)."""
+        if target in self._granted:
+            return "lock"
+        if self._access_group is not None and target in self._access_group:
+            return "pscw"
+        if self._fence_open:
+            return "fence"
         raise errors.MPIError(
             errors.ERR_RMA_SYNC,
             f"RMA op on {self.name} outside any epoch: no Fence, Start "
@@ -184,8 +255,33 @@ class CudaWindow(Window):
 
     @staticmethod
     def _acc_kind(op) -> str:
-        name = getattr(op, "name", op)  # op_mod.Op -> "MPI_SUM"
-        return str(name).lower().removeprefix("mpi_")
+        return _op_name(op).lower().removeprefix("mpi_")
+
+    def _check_host_fold(self, op, what: str) -> None:
+        """An op the kernels do not fold is host-assisted at the target
+        (numpy's fold): count it, and refuse at the call what numpy
+        cannot fold in the window's dtype."""
+        name = _op_name(op)
+        if self._acc_kind(op) in O.ELEMENTWISE or name == "MPI_NO_OP":
+            return
+        pvar.record("osc_cuda_fallthrough")
+        if self._win.dtype == torch.bfloat16:
+            raise errors.MPIError(
+                errors.ERR_NOT_SUPPORTED,
+                f"{what}: {name} on {self.name} is host-assisted, and numpy "
+                "has no bfloat16 to fold it in")
+        fn = op_mod.BUILTIN[name].np_fn if name in op_mod.BUILTIN \
+            else None
+        z = np.zeros(1, _wire_dtype(self._win))
+        try:
+            if fn is None:
+                raise TypeError(f"{name} is not a predefined op")
+            fn(z, z)
+        except TypeError as exc:
+            raise errors.MPIError(
+                errors.ERR_OP,
+                f"{what}: {name} is not defined on "
+                f"{_dtype_name(self._win.dtype)} ({exc})") from None
 
     # -- origin API -----------------------------------------------------
     def _queue_put(self, a: torch.Tensor, target: int, disp: int,
@@ -195,11 +291,15 @@ class CudaWindow(Window):
 
     def Put(self, buf, target: int, disp: int = 0) -> None:
         pvar.record("osc_cuda_put")
-        self._epoch_for(target)
+        ep = self._epoch_for(target)
         self._check_target(target)
         data = self._payload(buf, "Put")
         self._check_fits("Put", data.numel(), target)
-        self._queue_put(data, target, disp, "put", 1)
+        if ep == "fence":
+            self._queue_put(data, target, disp, "put", 1)
+            return
+        pvar.record("osc_cuda_am_ops")
+        Window.Put(self, to_wire(data), target, disp)
 
     def Put_strided(self, buf, target: int, disp: int = 0,
                     stride: int = 1) -> None:
@@ -207,32 +307,40 @@ class CudaWindow(Window):
         column); those past either end of the window are dropped (stride
         1 is a contiguous Put)."""
         pvar.record("osc_cuda_put")
-        self._epoch_for(target)
+        ep = self._epoch_for(target)
         self._check_target(target)
         data = self._payload(buf, "Put")
         if stride == 1:
             self._check_fits("Put_strided", data.numel(), target)
-        self._queue_put(data, target, disp, "put", stride)
+        if ep == "fence":
+            self._queue_put(data, target, disp, "put", stride)
+            return
+        pvar.record("osc_cuda_am_ops")
+        Window.Put_strided(self, to_wire(data), target, disp, stride)
 
     def Accumulate(self, buf, target: int, disp: int = 0,
                    op: op_mod.Op = op_mod.SUM) -> None:
         pvar.record("osc_cuda_acc")
-        self._epoch_for(target)
+        ep = self._epoch_for(target)
         kind = self._acc_kind(op)
         data = self._payload(buf, "Accumulate")
-        if kind not in O.ELEMENTWISE:
-            _fallthrough("Accumulate", f"op {getattr(op, 'name', op)!r} "
-                         "is not elementwise")
         self._check_target(target)
         self._check_fits("Accumulate", data.numel(), target)
-        self._queue_put(data, target, disp, kind, 1)
+        self._check_host_fold(op, "Accumulate")
+        if ep == "fence" and kind in O.ELEMENTWISE:
+            self._queue_put(data, target, disp, kind, 1)
+            return
+        # a Lock or Start epoch, or a host-assisted op (in any epoch: the
+        # next Fence flushes it before its descriptors)
+        pvar.record("osc_cuda_am_ops")
+        Window.Accumulate(self, to_wire(data), target, disp, op)
 
     def Get_epoch(self, nelems: int, target: int, disp: int = 0,
                   stride: int = 1) -> GetHandle:
         """Device-resident Get: records a descriptor; the handle's
         ``.array`` is filled at the closing Fence, fetched over the same
         coloured rounds and exchanges as puts (data flows target ->
-        origin)."""
+        origin). Fence epochs only: PSCW and lock epochs use :meth:`Get`."""
         pvar.record("osc_cuda_get")
         if not self._fence_open:
             raise errors.MPIError(
@@ -246,76 +354,124 @@ class CudaWindow(Window):
                            int(stride)))
         return h
 
-    # -- the AM plane's verbs: epoch rules first, then ERR_NOT_SUPPORTED -
-    def _am(self, verb: str) -> None:
-        pvar.record("osc_cuda_fallthrough")
-        super()._am(verb)
-
     def Get(self, buf, target: int, disp: int = 0):
+        """Synchronous Get (the host window's contract): the target reads
+        its window with K9 and the reply rides the AM plane; ``buf`` (a
+        tensor or a numpy array) is filled in place, a tensor is
+        returned. For fence-batched device gets use :meth:`Get_epoch`."""
         pvar.record("osc_cuda_get")
         self._epoch_for(target)
-        self._am("Get")
+        self._check_target(target)
+        self._check_fits("Get", _numel(buf), target)
+        pvar.record("osc_cuda_am_ops")
+        # the internal transport, not the Rget override (which enforces
+        # the passive-target-only rule on user calls)
+        self._rget(buf, target, disp).wait()
+        return buf if isinstance(buf, torch.Tensor) else None
 
     def Get_strided(self, buf, target: int, disp: int = 0,
                     stride: int = 1) -> None:
         pvar.record("osc_cuda_get")
         self._epoch_for(target)
-        self._am("Get_strided")
+        self._check_target(target)
+        if stride == 1:
+            self._check_fits("Get_strided", _numel(buf), target)
+        pvar.record("osc_cuda_am_ops")
+        Window.Get_strided(self, buf, target, disp, stride)
 
     def Get_accumulate(self, origin, result, target: int, disp: int = 0,
                        op: op_mod.Op = op_mod.SUM) -> None:
+        """Atomic fetch-and-accumulate through the AM plane (the target's
+        service loop is the serialisation point): a K9 read of the old
+        slice, then the op applied by K7."""
         self._epoch_for(target)
-        self._am("Get_accumulate")
+        data = self._payload(origin, "Get_accumulate")
+        self._check_target(target)
+        self._check_fits("Get_accumulate", data.numel(), target)
+        self._check_host_fold(op, "Get_accumulate")
+        pvar.record("osc_cuda_am_ops")
+        Window.Get_accumulate(self, to_wire(data), result, target, disp, op)
 
     def Fetch_and_op(self, value, result, target: int, disp: int = 0,
                      op: op_mod.Op = op_mod.SUM) -> None:
         self._epoch_for(target)
-        self._am("Fetch_and_op")
+        data = self._payload(value, "Fetch_and_op")
+        self._check_target(target)
+        self._check_fits("Fetch_and_op", data.numel(), target)
+        self._check_host_fold(op, "Fetch_and_op")
+        pvar.record("osc_cuda_am_ops")
+        Window.Fetch_and_op(self, to_wire(data), result, target, disp, op)
 
     def Compare_and_swap(self, value, compare, result, target: int,
                          disp: int = 0) -> None:
         self._epoch_for(target)
-        self._am("Compare_and_swap")
+        v = self._payload(value, "Compare_and_swap")
+        c = self._payload(compare, "Compare_and_swap")
+        self._check_target(target)
+        pvar.record("osc_cuda_am_ops")
+        Window.Compare_and_swap(self, to_wire(v), to_wire(c), result,
+                                target, disp)
 
-    # No Lock is ever granted and no Start opens an access epoch (both
-    # need the AM plane), so these are always outside their epoch.
     def Rput(self, buf, target: int, disp: int = 0):
         # request-based RMA is passive-target only (MPI-3.1 §11.3.5)
-        raise errors.MPIError(
-            errors.ERR_RMA_SYNC,
-            f"Rput on {self.name}: no passive-target (Lock) epoch covers "
-            f"rank {target}")
+        if target not in self._granted:
+            raise errors.MPIError(
+                errors.ERR_RMA_SYNC,
+                f"Rput on {self.name}: no passive-target (Lock) epoch covers "
+                f"rank {target}")
+        return super().Rput(buf, target, disp)
 
     def Rget(self, buf, target: int, disp: int = 0):
-        raise errors.MPIError(
-            errors.ERR_RMA_SYNC,
-            f"Rget on {self.name}: no passive-target (Lock) epoch covers "
-            f"rank {target}")
-
-    def Unlock(self, target: int) -> None:
-        raise errors.MPIError(
-            errors.ERR_RMA_SYNC,
-            f"Unlock on {self.name}: rank {target} is not locked by this "
-            "origin")
-
-    def Unlock_all(self) -> None:
-        self.Unlock(0)
-
-    def Complete(self) -> None:
-        raise errors.MPIError(
-            errors.ERR_RMA_SYNC,
-            f"Complete on {self.name} without a matching Start")
+        if target not in self._granted:
+            raise errors.MPIError(
+                errors.ERR_RMA_SYNC,
+                f"Rget on {self.name}: no passive-target (Lock) epoch covers "
+                f"rank {target}")
+        self._check_fits("Rget", _numel(buf), target)
+        return super().Rget(buf, target, disp)
 
     # -- synchronization ------------------------------------------------
     def Fence(self) -> None:
-        """Active-target fence: run this epoch's queued descriptors as
-        coloured rounds, moved in exchanges, then barrier. The first Fence
-        opens the epoch chain (nothing queued by definition)."""
+        """Active-target fence: flush the AM-plane ops, run this epoch's
+        queued descriptors as coloured rounds, moved in exchanges, then
+        barrier. The first Fence opens the epoch chain (nothing queued by
+        definition)."""
         pvar.record("osc_cuda_fence")
+        self.Flush_all()
+        self._join()
         if self._fence_open:
-            self._flush_fence()
+            with self._on_stream():
+                self._flush_fence()
+        self._publish()
         self.comm.coll.barrier(self.comm)
         self._fence_open = True
+
+    def Lock(self, target: int, lock_type: str = LOCK_EXCLUSIVE) -> None:
+        self._join()
+        super().Lock(target, lock_type)
+
+    def Unlock(self, target: int) -> None:
+        if target not in self._granted:
+            raise errors.MPIError(
+                errors.ERR_RMA_SYNC,
+                f"Unlock on {self.name}: rank {target} is not locked by this "
+                "origin")
+        super().Unlock(target)
+
+    def Post(self, group_ranks: List[int]) -> None:
+        self._join()
+        super().Post(group_ranks)
+
+    def Start(self, group_ranks: List[int]) -> None:
+        self._join()
+        super().Start(group_ranks)
+
+    def Complete(self) -> None:
+        if self._access_group is None:
+            raise errors.MPIError(
+                errors.ERR_RMA_SYNC,
+                f"Complete on {self.name} without a matching Start")
+        super().Complete()
 
     def Free(self) -> None:
         if self._fput or self._fget:
@@ -325,6 +481,99 @@ class CudaWindow(Window):
                 f"{len(self._fget)} get descriptors still queued — close "
                 "the fence epoch first")
         super().Free()
+
+    # -- target-side data path (kernel applies and reads) ---------------
+    def _from_wire(self, data: np.ndarray) -> torch.Tensor:
+        """An AM payload as a tensor of the window's dtype on its device
+        (a host-to-device copy on the window's stream)."""
+        t = _tensor_bits(np.asarray(data).reshape(-1), self._win.dtype)
+        return t.to(self._win.device) if self._win.is_cuda else t
+
+    def _apply_local(self, data, disp: int, kind: str,
+                     stride: int = 1) -> None:
+        """Apply one landed payload to the window: K7 for stride 1, K8
+        otherwise. The caller holds ``_local_mutex`` (the Accumulate
+        atomicity discipline)."""
+        with self._on_stream():
+            O.apply(self._win, self._from_wire(data), int(disp), kind,
+                    int(stride))
+
+    def _target_view(self, disp: int, count: int, dtstr: str,
+                     stride: int = 1) -> np.ndarray:
+        """K9's read of ``count`` elements at element ``disp`` (and
+        ``stride``) into a fresh tensor, copied to the host on the
+        window's stream after every earlier apply (the reply's payload)."""
+        if count == 0:
+            return to_wire(self._win[:0])
+        with self._on_stream():
+            out = torch.empty(count, dtype=self._win.dtype,
+                              device=self._win.device)
+            return to_wire(O.rma_read(self._win, int(disp), int(stride),
+                                      out))
+
+    def _target_put(self, disp: int, data: np.ndarray) -> None:
+        with self._local_mutex:
+            self._apply_local(data, disp, "put")
+
+    def _target_acc(self, disp: int, opname: str, data: np.ndarray,
+                    locked: bool = False) -> None:
+        ctx = self._local_mutex if not locked else None
+        if ctx:
+            ctx.acquire()
+        try:
+            if opname == "MPI_NO_OP":
+                return
+            kind = "replace" if opname == "MPI_REPLACE" \
+                else self._acc_kind(opname)
+            if kind in O.ELEMENTWISE:
+                self._apply_local(data, disp, kind)
+                return
+            # host-assisted: the op folds on the host (the host window's
+            # operand order, np_fn(data, current)); the result replaces
+            # the slice through K7
+            cur = self._target_view(disp, data.size, data.dtype.str)
+            fn = op_mod.BUILTIN[opname].np_fn
+            self._apply_local(fn(data.reshape(-1).astype(cur.dtype), cur),
+                              disp, "replace")
+        finally:
+            if ctx:
+                ctx.release()
+
+    def _fill(self, buf, data: np.ndarray) -> None:
+        """A reply (the window's dtype, bfloat16 as its bits) into the
+        origin's result buffer, cast to its dtype as the reference's
+        ``astype`` casts."""
+        vals = _tensor_bits(data, self._win.dtype)
+        if isinstance(buf, torch.Tensor):
+            buf.view(-1)[:vals.numel()].copy_(vals)
+            return
+        flat = np.asarray(buf).reshape(-1)
+        if flat.dtype.name == "bfloat16" and \
+                self._win.dtype == torch.bfloat16:
+            flat.view(np.uint16)[:data.size] = data
+            return
+        if self._win.dtype == torch.bfloat16:
+            vals = vals.float()
+        flat[:data.size] = vals.numpy().astype(flat.dtype, copy=False)
+
+    def _handle(self, msg: tuple, src: int) -> None:
+        kind = msg[0]
+        if kind == "puts":  # strided put: K8, not a host view
+            _, disp, stride, data = msg
+            if data.size:
+                with self._local_mutex:
+                    self._apply_local(data, disp, "put", stride)
+            self._send(src, ("ack",))
+        elif kind == "cas":  # K9 read, a host compare, a K7 replace
+            _, req_id, disp, compare, value = msg
+            with self._local_mutex:
+                old = self._target_view(disp, 1, value.dtype.str)
+                if bool(_tensor_bits(old, self._win.dtype)[0]
+                        == _tensor_bits(compare, self._win.dtype)[0]):
+                    self._apply_local(value[:1], disp, "replace")
+            self._send(src, ("get_reply", req_id, old))
+        else:
+            super()._handle(msg, src)
 
     # -- the fence flush ------------------------------------------------
     @staticmethod
@@ -504,20 +753,16 @@ def maybe_window(comm, base, disp_unit: int = 1) -> Optional[CudaWindow]:
     None when the component is off; a :class:`CudaWindow` when every rank
     passes a supported tensor on its device-plane device (agreed by one
     metadata allgather: one dtype on every rank; per-rank sizes are fine);
-    otherwise the fallthrough is counted and ``ERR_NOT_SUPPORTED``
-    raised on every rank."""
+    otherwise the fallthrough is counted and None returned on every rank,
+    so ``win_create`` serves the host window."""
     if _enable_var.get() != "on":
         return None
     ok = _window_ok(base, disp_unit)
     dt = _dtype_name(base.dtype) if isinstance(base, torch.Tensor) else ""
     meta = comm.coll.allgather_obj(comm, (ok, dt))
     if not all(m[0] for m in meta) or len({m[1] for m in meta}) != 1:
-        reasons = sorted({m[1] or "<host buffer>" for m in meta})
-        _fallthrough(
-            "win_create", f"cannot serve this window (dtypes {reasons}; "
-            "supported: float32, bfloat16, int32 tensors on each rank's "
-            "device-plane device, disp_unit 1 or the item size, one dtype "
-            "on every rank)")
+        pvar.record("osc_cuda_fallthrough")
+        return None
     return CudaWindow(comm, base, disp_unit)
 
 

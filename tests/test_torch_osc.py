@@ -26,9 +26,10 @@ flaky on 3 ranks), and K8 itself against the Pallas kernel in
 the port job: the halo example against a host-window replay of the
 reference example's schedule, the embedding example against the
 reference example itself. The erroneous-call matrix of
-``tests/test_osc_pallas.py`` is checked in the port job unchanged, with
-``ERR_NOT_SUPPORTED`` plus ``osc_cuda_fallthrough`` for what the port
-cannot serve yet.
+``tests/test_osc_pallas.py`` is checked in the port job unchanged, and
+then the verbs that ride the active-message plane are served on the same
+window, their results asserted (their parity with the reference is
+``tests/test_torch_osc_passive.py``'s).
 """
 
 import json
@@ -333,42 +334,81 @@ for attempt in range(2):
 win.Put_strided(torch.full((5,), 2.0), nxt, disp=1, stride=2)
 win.Fence()
 save("fits", win.array)
-# what rides the host window's AM service: refused and counted
+# what rides the host window's AM service: served on this window, each
+# result asserted (the window holds 0, 2, 0, 2 after the strided put). A
+# passive-target op lands whenever its target makes progress, a peer's
+# fence barrier included: barriers keep each check before the next
+# epoch's ops
+comm.Barrier()
 s = pvar.session()
+prv = (rank - 1) % size
 one = np.ones(1, np.float32)
-am = (("Lock", (0,)), ("Lock_all", ()), ("Flush", (0,)), ("Post", ([0],)),
-      ("Start", ([0],)), ("Wait", ()), ("Get", (one, 0)),
-      ("Get_strided", (one, 0, 0, 2)),
-      ("Get_accumulate", (one, one.copy(), 0)),
-      ("Fetch_and_op", (one, one.copy(), 0)),
-      ("Compare_and_swap", (one, one.copy(), one.copy(), 0)))
-for verb, args in am:
-    msg = expect(errors.ERR_NOT_SUPPORTED,
-                 lambda: getattr(win, verb)(*args))
-    assert "queue 1 item 7" in msg, msg
-assert s.read("osc_cuda_fallthrough") == len(am)
+got = np.zeros(1, np.float32)
+win.Lock(nxt)
+win.Put(torch.full((1,), 10.0 + rank), nxt, disp=2)
+win.Flush(nxt)
+win.Get(got, nxt, disp=2)
+assert got[0] == 10.0 + rank, got
+win.Unlock(nxt)
+win.Fence()
+assert win.array.tolist() == [0.0, 2.0, 10.0 + prv, 2.0], win.array
+comm.Barrier()
+win.Lock_all()
+old = np.zeros(1, np.float32)
+win.Fetch_and_op(one, old, 0, disp=0)  # every rank adds 1 to rank 0's [0]
+strided = torch.zeros(2)
+win.Get_strided(strided, nxt, disp=1, stride=2)
+assert strided.tolist() == [2.0, 2.0], strided
+win.Flush_all()
+win.Unlock_all()
+win.Fence()
+if rank == 0:
+    assert win.array[0].item() == size, win.array
+ga = np.zeros(1, np.float32)
+res = np.zeros(1, np.float32)
+win.Post([prv])
+win.Start([nxt])
+win.Get_accumulate(np.full(1, 5.0, np.float32), ga, nxt, disp=1)
+assert ga[0] == 2.0, ga
+win.Compare_and_swap(np.full(1, 7.0, np.float32), np.full(1, 7.0, np.float32),
+                     res, nxt, disp=1)
+assert res[0] == 7.0, res  # 2 + 5: equal, so 7 is swapped in (no change)
+win.Complete()
+win.Wait()
+assert win.array[1].item() == 7.0, win.array
+assert s.read("osc_cuda_fallthrough") == 0
+assert s.read("osc_cuda_am_ops") == 6, s.read("osc_cuda_am_ops")
 win.Put(torch.ones(1), (rank + 1) % size)
 expect(errors.ERR_RMA_SYNC, win.Free)  # a descriptor is still queued
 win.Fence()
 win.Free()
-wi = osc.win_create(comm, torch.zeros(4, dtype=torch.int32), disp_unit=4)
+# a non-elementwise op is host-assisted (counted), every other window
+# the kernels do not take falls to the host window (counted)
+base = np.arange(4, dtype=np.int32) + 10 * rank
+wi = osc.win_create(comm, torch.from_numpy(base.copy()), disp_unit=4)
 wi.Fence()
-s = pvar.session()
-msg = expect(errors.ERR_NOT_SUPPORTED, lambda: wi.Accumulate(
-    torch.ones(2, dtype=torch.int32), 0, op=op_mod.BAND))
-assert "MPI_BAND" in msg, msg
+wi.Accumulate(torch.full((2,), 6, dtype=torch.int32), nxt, disp=1,
+              op=op_mod.BAND)
 wi.Fence()
+want = base.copy()
+want[1:3] &= 6
+assert wi.array.tolist() == want.tolist(), (wi.array, want)
 wi.Free()
-msg = expect(errors.ERR_NOT_SUPPORTED, lambda: osc.win_create(
-    comm, torch.zeros(8, dtype=torch.int16), disp_unit=2))
-assert "int16" in msg, msg
-expect(errors.ERR_NOT_SUPPORTED,
-       lambda: osc.win_create(comm, np.zeros(8, np.float32), disp_unit=4))
+w16 = osc.win_create(comm, torch.zeros(8, dtype=torch.int16), disp_unit=2)
+assert type(w16).__name__ == "Window", type(w16)
+w16.Free()
+wn = osc.win_create(comm, np.zeros(8, np.float32), disp_unit=4)
+assert type(wn).__name__ == "Window", type(wn)
+wn.Free()
 assert s.read("osc_cuda_fallthrough") == 3
 cvar.set("osc_cuda", "off")
-msg = expect(errors.ERR_NOT_SUPPORTED,
-             lambda: osc.win_create(comm, torch.zeros(4), disp_unit=4))
-assert "osc_cuda on" in msg and s.read("osc_cuda_fallthrough") == 3, msg
+wt = osc.win_create(comm, torch.zeros(4), disp_unit=4)
+assert type(wt).__name__ == "Window" and s.read("osc_cuda_fallthrough") == 3
+wt.Fence()
+wt.Put(torch.full((2,), 3.0), nxt, disp=1)
+wt.Fence()
+assert wt.device_array().tolist() == [0.0, 3.0, 3.0, 0.0], wt.device_array()
+wt.Free()
 cvar.set("osc_cuda", "on")
 open(f"{{out_dir}}/port_errors_r{{rank}}.ok", "w").close()
 mpi.Finalize()
@@ -517,9 +557,13 @@ def test_error_matrix(results):
     """ERR_RMA_SYNC (op outside an epoch, Get_epoch outside a fence,
     Unlock without Lock, Complete without Start, Rput/Rget outside a
     Lock, Free with queued descriptors), ERR_ARG (operand dtype), ERR_RANK
-    (target), and ERR_NOT_SUPPORTED + osc_cuda_fallthrough for the AM
-    verbs, BAND, an int16 window and a host buffer (osc_cuda off raises
-    without counting) — asserted inside the port job, on every rank."""
+    (target); then the AM verbs served (Lock, Flush, Get, Lock_all,
+    Fetch_and_op, Get_strided, Flush_all, Post / Start, Get_accumulate,
+    Compare_and_swap, Complete / Wait, osc_cuda_am_ops 6), a BAND
+    Accumulate host-assisted and an int16 window and a host buffer served
+    by the host window, each counted in osc_cuda_fallthrough, and with
+    osc_cuda off a CPU tensor staged by the host window without a count —
+    asserted inside the port job, on every rank."""
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
