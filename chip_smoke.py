@@ -188,13 +188,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``Get_accumulate``, a host-assisted BAND ``Accumulate``); the K7 / K8
    / K9 launches of every part must equal what the ranks derive from
    their schedules, and each part's epoch times, AM messages and a
-   per-message split of a target's host time are printed.
+   per-message split of a target's host time are printed;
+7. the device-plane layer and the ops on it (see
+   :func:`context_parallel_phase`): ``ompi_tpu_torch/examples/
+   context_parallel.py`` on 4 ranks under ``--mca device_plane on``
+   (coll/device serves ``parallel/``'s axis collectives): float32
+   Allreduce of 64 MiB a rank over ``sp`` and a 2 x 2 mesh's ``dp`` and
+   ``("dp", "sp")`` in the three modes ('linear' and 'ring' bitwise
+   against the rank-order and ring folds), bfloat16 Reduce_scatter_block,
+   Allgather, Alltoall and Shift of [4, 1024, 7168] and a float32 Scan,
+   bitwise; ring attention and Ulysses at bench.py's attention shape
+   (causal, bfloat16, [4, 256, 56, 128] q, k, v a rank) against ``mha``
+   of the allgathered blocks, and a float32 pass at the reference test's
+   shape; the MoE layer (d_model 7168, d_ff 28672, 8 experts, 2 a rank,
+   capacity factor 1.25, 1024 tokens a rank) against the dense oracle on
+   rank 0; the times of ring attention (and of its compute alone),
+   Ulysses, ``mha`` of the whole
+   sequence (and of ``mha_auto``, PyTorch's SDPA, checked against it),
+   one ``permute_dev`` hop of the (k, v) block, the MoE layer and its two
+   Alltoalls. K1, K2 and K3 must launch in the phase (K2
+   in each of its three parts), and nothing may pass through the host
+   (``coll_accelerator_staged`` and ``accel_p2p_{send,recv}`` 0).
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
-collectives job, coll/cuda's and coll/device's, the datatype job and the
-training path, K5 and K6's two kernels from the training path, K7 and
+collectives job, coll/cuda's and coll/device's, the datatype job, phase
+7 and the training path, K5 and K6's two kernels from the training path, K7 and
 the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6; K5b and the per-call row
 of K10 with 0 and a note), the card line, and, last,
@@ -1349,6 +1369,58 @@ def osc_report(name: str, nranks: int, doc, card: str) -> None:
           f"[{card}]", flush=True)
 
 
+#: phase 7's parts and the kernels each must launch (context_parallel.py)
+CP_PARTS = {"collectives": ("ring_rs_hop", "ring_ag_hop", "linear_fold"),
+            "attention": ("ring_ag_hop",), "moe": ("ring_ag_hop",)}
+
+
+def context_parallel_phase(card: str, root: str) -> dict:
+    """Phase 7: ``context_parallel.py`` on 4 ranks under the device plane
+    alone (coll/device serves the axis collectives). Every rank's checks
+    must hold, each part must have launched its kernels (summed over the
+    ranks), and no rank may have staged a call or sent a point-to-point
+    tensor through the host. Prints rank 0's times; returns the
+    launches."""
+    t0 = time.perf_counter()
+    launches, doc = main_path("context_parallel.py", N_RANKS, [], card,
+                              root, None)
+    out = os.path.join(root, "build", "ompi_tpu_torch",
+                       f"smoke_context_parallel_device_n{N_RANKS}")
+    parts: dict = {}
+    for r in range(N_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            d = json.load(f)
+        if d["accel_p2p_send"] or d["accel_p2p_recv"]:
+            fail(f"context_parallel rank {r} sent tensors point to point "
+                 f"through the host: {d['accel_p2p_send']} sends, "
+                 f"{d['accel_p2p_recv']} receives")
+        for part, got in d["part_launches"].items():
+            acc = parts.setdefault(part, {})
+            for k, v in got.items():
+                acc[k] = acc.get(k, 0) + v
+    missing = [(p, k) for p, ks in CP_PARTS.items() for k in ks
+               if parts.get(p, {}).get(k, 0) <= 0]
+    if missing:
+        fail(f"context_parallel: kernels never launched in a part: "
+             f"{missing} ({parts})")
+    t, m = doc["times"], doc["moe"]
+    print(f"phase 7 context_parallel n={N_RANKS} (rank 0 p50 of "
+          f"{len(t['ring_attention'][1])} ms): ring_attention "
+          f"{t['ring_attention'][0]:.3f} (its compute alone "
+          f"{t['ring_attention_compute'][0]:.3f}), ulysses_attention "
+          f"{t['ulysses_attention'][0]:.3f}, mha whole sequence (rank 0 "
+          f"alone) {t['mha_whole_sequence'][0]:.3f} (mha_auto, PyTorch's "
+          f"SDPA, {t['mha_auto_whole_sequence'][0]:.3f}), permute_dev hop of "
+          f"(k, v) {t['permute_hop_kv_bytes']} B "
+          f"{t['permute_hop_kv'][0]:.3f}, moe_ffn {t['moe_ffn'][0]:.3f}, "
+          f"its two Alltoalls ({m['alltoall_bytes']} B each) "
+          f"{t['moe_alltoalls'][0]:.3f}; moe dropped {m['dropped']} of "
+          f"{m['tokens']} tokens (rank 0), per-expert counts "
+          f"{m['counts']}; launches per part (all ranks) {parts}; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return launches
+
+
 #: the AM phase's parts, in the order osc_passive.py runs them
 AM_PARTS = ("pscw halo", "passive embedding", "atomics")
 
@@ -1771,6 +1843,9 @@ def main() -> int:
           f"{emb_doc['exchanges']['lookup']} exchange), each landing every "
           f"owner's block [{card}]", flush=True)
     am = am_phase(card, root)
+    # phase 7's K1-K3 launches join the collectives jobs'
+    for k, v in context_parallel_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
     # the datatype job's K1-K3 launches join the collectives jobs'
     for k, v in datatype_phase(torch, card, root).items():
         coll[k] = coll.get(k, 0) + v

@@ -494,7 +494,7 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
             in_bytes, slot_bytes = ALIGN, cap
         elif family == "pull":  # staged input only (coll/device's pulls)
             in_bytes, slot_bytes, nslots = cap, 0, 0
-        elif family == "osc":  # a one-sided exchange's payloads per parity
+        elif family in ("osc", "perm"):  # an exchange's payloads per parity
             in_bytes, slot_bytes, nslots = 0, cap, 2
         else:  # staged input + one chunk per slot
             in_bytes = cap

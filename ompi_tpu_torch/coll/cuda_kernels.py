@@ -58,6 +58,10 @@ both neighbours in direction d have finished hop h: the predecessor has
 written what this rank reads, and the successor has read what this rank
 is about to overwrite (the two-sided handshake of the reference's
 ``_neighbor_handshake``).
+
+:func:`permute` (coll/device's ``permute_dev``) is no generator: it gives
+the stage and land steps of one ``Arena.exchange``, whose handshake
+waits for the exchange's actual partners only.
 """
 
 from __future__ import annotations
@@ -914,6 +918,27 @@ def scatter_from_root(ep: Ring, flat: Optional[torch.Tensor], root: int,
     b = out.numel()
     return ragged(ep, out.dtype, [(flat, 0)] if ep.rank == root else [],
                   [(root, ep.rank * b, b, 0)], out)
+
+
+def permute(blocks: Sequence[torch.Tensor], offs: Sequence[int],
+            outs: Sequence[torch.Tensor], src: Optional[int]):
+    """``(stage, land)`` of one ``Arena.exchange`` that moves a
+    permutation's blocks (coll/device's ``permute_dev``, the pull schedule
+    of :func:`alltoall` with one source a rank): ``stage(region)`` copies
+    each 1-D block of ``blocks`` to its byte offset of ``offs`` in the own
+    region; ``land(regions)`` K2-copies each block of source ``src``'s
+    region into the 1-D tensor of ``outs`` at the same offset."""
+    def stage(region):
+        for b, off in zip(blocks, offs):
+            _view(region, b.dtype, off // b.element_size(),
+                  b.numel()).copy_(b)
+
+    def land(regions):
+        reg = regions[src]
+        for o, off in zip(outs, offs):
+            ring_ag_hop(_view(reg, o.dtype, off // o.element_size(),
+                              o.numel()), o)
+    return stage, land
 
 
 def binomial_rounds(n: int, root: int) -> List[Tuple[Tuple[int, int], ...]]:

@@ -15,6 +15,10 @@ below coll/cuda, no opt-in), with every fixed slot of its table
   one metadata round per (comm, root), always cached),
   ``allgatherv_dev``, ``gatherv_dev``, ``alltoallv_dev`` and
   ``reduce_scatter_dev``; ``scan_dev`` / ``exscan_dev``; ``barrier_dev``;
+- ``permute_dev``, ``lax.ppermute`` for :mod:`ompi_tpu_torch.parallel`
+  (an internal slot with no MPI entry point, outside the comm's slot
+  table): one arena exchange, each destination pulling its source's
+  blocks with K2;
 - ``allreduce_multi_dev`` (coll/xla.py:1241-1409): dtype-segregated flat
   buckets of ``coll_device_bucket_bytes``, one allreduce each;
 - the nonblocking forms (15 ``i*_dev`` and ``ibarrier_dev``,
@@ -537,6 +541,52 @@ def alltoall_dev(comm, sendbuf):
     """Dim 0 splits into n blocks; block p of the result is block
     ``rank`` of rank p's input."""
     return _alltoall_prep(comm, sendbuf)()
+
+
+def permute_dev(comm, blocks, perm):
+    """``lax.ppermute`` over the comm (an internal slot of
+    :mod:`ompi_tpu_torch.parallel`, no MPI entry point): ``perm`` holds
+    (source, destination) pairs; each destination gets its source's
+    ``blocks`` (a tensor, or a tuple / list of tensors that move together)
+    and a rank that no pair names as a destination gets zeros. One
+    ``Arena.exchange`` of the comm's ``perm`` arena: every source stages
+    its blocks, and each destination pulls them with K2
+    (:func:`cuda_kernels.permute`). Every member passes the same ``perm``
+    and blocks of the same shapes and dtypes. A byte copy: any dtype,
+    bitwise."""
+    single = isinstance(blocks, torch.Tensor)
+    ts = [blocks] if single else list(blocks)
+    for t in ts:
+        _check_buf("permute", comm, t, any_dtype=True)
+    n, r = comm.size, comm.rank
+    pairs = [(int(s), int(d)) for s, d in perm]
+    srcs, dsts = [s for s, _ in pairs], [d for _, d in pairs]
+    if any(not 0 <= p < n for p in srcs + dsts) or len(set(srcs)) < \
+            len(srcs) or len(set(dsts)) < len(dsts):
+        raise errors.MPIError(
+            errors.ERR_ARG,
+            f"permute: perm {pairs} is not a partial permutation of "
+            f"range({n})")
+    pvar.record("coll_device_launches")
+    src = next((s for s, d in pairs if d == r), None)
+    outs = [torch.zeros_like(t) if src is None else torch.empty_like(t)
+            for t in ts]
+    offs, total = [], 0
+    for t in ts:
+        offs.append(total)
+        total += _cuda.align(t.nbytes)
+    if n == 1:
+        if src is not None:
+            for o, t in zip(outs, ts):
+                o.copy_(t)
+    elif any(t.numel() for t in ts):
+        stage, land = K.permute(
+            [t.reshape(-1) for t in ts], offs,
+            [o.view(-1) for o in outs], src)
+        ep = _cuda._arena(comm, "perm", total)
+        ep.exchange(stage, [d for s, d in pairs if s == r], land,
+                    [] if src is None else [src])
+    return outs[0] if single else type(blocks)(outs)
 
 
 # ---------------------------------------------------------------------------

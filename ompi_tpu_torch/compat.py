@@ -28,6 +28,8 @@ with like is the MCA configuration, the data and the parameters.
   do the same over a pytree of dicts, lists and tuples (a parameter
   tree), and :func:`sharded_state_from_reference` rebuilds a ZeRO
   ShardedState from the reference's plan and shards.
+- :func:`moe_params_from_reference` takes the reference's numpy MoE
+  weights to this rank's share (attention has no parameters).
 """
 
 from __future__ import annotations
@@ -129,3 +131,24 @@ def sharded_state_from_reference(plan_buckets, metas, shards, rank: int,
         ts.append(t.reshape(-1))
     treedef = zl.tree_flatten(list(range(len(metas))))[1]
     return zl.ShardedState(plan, metas, treedef, ts, rank, n)
+
+
+def moe_params_from_reference(wg, w1_all, w2_all, rank: int, n: int,
+                              device="cpu"):
+    """``(wg, w1, w2)`` tensors on ``device`` for rank ``rank`` of an
+    n-rank expert axis from the reference's numpy weights: the router
+    ``wg`` [D, E_total] whole (replicated), and this rank's experts of
+    ``w1_all`` [E_total, D, F] and ``w2_all`` [E_total, F, D], the slice
+    ``P("ep")`` gives it on dim 0."""
+    e_total = np.asarray(w1_all).shape[0]
+    if e_total % n:
+        from ompi_tpu_torch import errors
+
+        raise errors.MPIError(
+            errors.ERR_ARG,
+            f"moe_params_from_reference: {e_total} experts over {n} ranks")
+    e = e_total // n
+    sl = slice(rank * e, (rank + 1) * e)
+    return (tensor_from_numpy(np.asarray(wg), device),
+            tensor_from_numpy(np.asarray(w1_all)[sl], device),
+            tensor_from_numpy(np.asarray(w2_all)[sl], device))

@@ -93,6 +93,9 @@ WELL_KNOWN = (
     # ibcast / ireduce calls
     "coll_accelerator_staged", "sync_injected_barriers", "adapt_ibcast",
     "adapt_ireduce",
+    # ops/moe: routed tokens past the experts' capacity (dropped); the
+    # monitoring plane's per-expert token counts
+    "serve_dropped_tokens", "monitoring_expert_tokens",
     # core/mpool's registration cache (the datatype engine's span tables
     # and device index vectors): hits and LRU evictions
     "rcache_hits", "rcache_evictions",
