@@ -208,13 +208,27 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    one ``permute_dev`` hop of the (k, v) block, the MoE layer and its two
    Alltoalls. K1, K2 and K3 must launch in the phase (K2
    in each of its three parts), and nothing may pass through the host
-   (``coll_accelerator_staged`` and ``accel_p2p_{send,recv}`` 0).
+   (``coll_accelerator_staged`` and ``accel_p2p_{send,recv}`` 0);
+8. the model layer (see :func:`model_phase`): ``ompi_tpu_torch/examples/
+   transformer_training.py`` on 4 ranks under ``--mca device_plane on``:
+   bench.py's d7168/L3 bfloat16 transformer (vocab 32768, 56 heads of
+   128, d_ff 28672, T 1024, B 4, lr 1e-3, seeded weights and tokens drawn
+   on each rank's device) trained on a 2 x 2 ``("tp", "sp")`` mesh, ring
+   attention (one warm step, 3 timed), then the same widths at 4 layers
+   on a ``("pp",)`` mesh of 4, 4 microbatches (one warm step, 2 timed);
+   then, after the job has exited, the oracle in its own process: the
+   port's one-rank ``Axes()`` step of each config on the same seeds,
+   holding the job's first loss and each leaf's gradient at 4096 seeded
+   positions within the example's ``LOSS_RTOL`` / ``GRAD_RTOL``, and
+   timing bench.py's own step. K1 and K2 must launch in the tp x sp part,
+   K2 in the pp part; the step times, tokens/s, TFLOP/s (bench.py's 6 x
+   params x tokens) and every rank's peak memory are printed.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
-collectives job, coll/cuda's and coll/device's, the datatype job, phase
-7 and the training path, K5 and K6's two kernels from the training path, K7 and
+collectives job, coll/cuda's and coll/device's, the datatype job, phases
+7 and 8 and the training path, K5 and K6's two kernels from the training path, K7 and
 the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6; K5b and the per-call row
 of K10 with 0 and a note), the card line, and, last,
@@ -1421,6 +1435,77 @@ def context_parallel_phase(card: str, root: str) -> dict:
     return launches
 
 
+#: phase 8's parts and the kernels each must launch (transformer_training.py)
+MODEL_PARTS = {"tp_sp": ("ring_rs_hop", "ring_ag_hop"),
+               "pp": ("ring_ag_hop",)}
+ORACLE_TIMEOUT = 300  # seconds for phase 8's one-rank oracle
+
+
+def model_phase(card: str, root: str) -> dict:
+    """Phase 8: ``transformer_training.py`` on 4 ranks under the device
+    plane alone, then its one-rank oracle in a process of its own. Every
+    rank's checks must hold, each part must have launched its kernels
+    (summed over the ranks) and the oracle must accept the job's loss and
+    gradients. Prints the parts' and the oracle's times, rates and peak
+    memory; returns the job's launches."""
+    t0 = time.perf_counter()
+    launches, doc = main_path("transformer_training.py", N_RANKS, [], card,
+                              root, None)
+    out = os.path.join(root, "build", "ompi_tpu_torch",
+                       f"smoke_transformer_training_device_n{N_RANKS}")
+    parts: dict = {}
+    peaks: dict = {}
+    for r in range(N_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            d = json.load(f)
+        for part, got in d["parts"].items():
+            acc = parts.setdefault(part, {})
+            for k, v in got["launches"].items():
+                acc[k] = acc.get(k, 0) + v
+            peaks.setdefault(part, []).append(got["peak_bytes"])
+        peaks.setdefault("arenas", []).append(d["arena_bytes"])
+    missing = [(p, k) for p, ks in MODEL_PARTS.items() for k in ks
+               if parts.get(p, {}).get(k, 0) <= 0]
+    if missing:
+        fail(f"transformer_training: kernels never launched in a part: "
+             f"{missing} ({parts})")
+    job_s = time.perf_counter() - t0
+    proc = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch.examples.transformer_training",
+         "--oracle", "--out", out], cwd=root, capture_output=True,
+        text=True, timeout=ORACLE_TIMEOUT)
+    for line in proc.stdout.splitlines():
+        print(f"{line} [{card}]", flush=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"transformer_training: the one-rank oracle exited "
+             f"{proc.returncode} (a loss or gradient outside its bound?)")
+    with open(os.path.join(out, "oracle.json")) as f:
+        oracle = json.load(f)
+    for name, part in doc["parts"].items():
+        o = oracle["parts"][name]
+        gib = [round(b / 2 ** 30, 3) for b in peaks[name]]
+        print(f"phase 8 {name} n={N_RANKS} mesh {part['mesh']} L"
+              f"{part['layers']} ({part['params']} params): rank 0 step p50 "
+              f"{part['p50_ms']:.1f} ms of "
+              f"{[round(v, 1) for v in part['step_ms']]} (warm "
+              f"{part['warm_ms']:.1f}), {part['tokens_per_s']:.1f} tokens/s,"
+              f" {part['tflops']:.2f} TFLOP/s; peak memory per rank {gib} "
+              f"GiB; launches (all ranks) {parts[name]}; one-rank oracle "
+              f"step p50 {o['p50_ms']:.1f} ms of "
+              f"{[round(v, 1) for v in o['step_ms']]} (warm "
+              f"{o['warm_ms']:.1f}), {o['tokens_per_s']:.1f} tokens/s, "
+              f"{o['tflops']:.2f} TFLOP/s, peak "
+              f"{o['peak_bytes'] / 2 ** 30:.3f} GiB; first loss job "
+              f"{part['first_loss']:.6f} oracle {o['first_loss']:.6f} (rel "
+              f"err {o['loss_rel_err']:.2e}), gradients' max rel err "
+              f"{o['grad_rel_err_max']:.2e} [{card}]", flush=True)
+    print(f"phase 8 arenas per rank (the largest comm's, bytes) "
+          f"{peaks['arenas']}; job {job_s:.1f} s, with the oracle "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return launches
+
+
 #: the AM phase's parts, in the order osc_passive.py runs them
 AM_PARTS = ("pscw halo", "passive embedding", "atomics")
 
@@ -1843,8 +1928,10 @@ def main() -> int:
           f"{emb_doc['exchanges']['lookup']} exchange), each landing every "
           f"owner's block [{card}]", flush=True)
     am = am_phase(card, root)
-    # phase 7's K1-K3 launches join the collectives jobs'
+    # phases 7 and 8's K1-K3 launches join the collectives jobs'
     for k, v in context_parallel_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
+    for k, v in model_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     # the datatype job's K1-K3 launches join the collectives jobs'
     for k, v in datatype_phase(torch, card, root).items():

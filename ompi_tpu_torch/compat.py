@@ -29,7 +29,11 @@ with like is the MCA configuration, the data and the parameters.
   tree), and :func:`sharded_state_from_reference` rebuilds a ZeRO
   ShardedState from the reference's plan and shards.
 - :func:`moe_params_from_reference` takes the reference's numpy MoE
-  weights to this rank's share (attention has no parameters).
+  weights to this rank's share (attention has no parameters);
+  :func:`model_config_from_reference` maps a reference transformer
+  ``Config`` (numpy / jnp / ml_dtypes dtypes) to the port's (torch
+  dtypes), and :func:`model_params_from_reference` takes the reference's
+  numpy parameter tree to this rank's local shards by the model's specs.
 """
 
 from __future__ import annotations
@@ -152,3 +156,41 @@ def moe_params_from_reference(wg, w1_all, w2_all, rank: int, n: int,
     return (tensor_from_numpy(np.asarray(wg), device),
             tensor_from_numpy(np.asarray(w1_all)[sl], device),
             tensor_from_numpy(np.asarray(w2_all)[sl], device))
+
+
+def torch_dtype(dt) -> torch.dtype:
+    """The torch dtype of a numpy, jnp or ml_dtypes dtype (or its name)."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    name = dt if isinstance(dt, str) else np.dtype(dt).name
+    return getattr(torch, name)
+
+
+def model_config_from_reference(cfg):
+    """The port's ``models.transformer.Config`` with the reference
+    ``cfg``'s fields, ``dtype`` and ``param_dtype`` as torch dtypes."""
+    import dataclasses
+
+    from ompi_tpu_torch.models import transformer as tfm
+
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    kw["dtype"] = torch_dtype(kw["dtype"])
+    kw["param_dtype"] = torch_dtype(kw["param_dtype"])
+    return tfm.Config(**kw)
+
+
+def model_params_from_reference(params, cfg, ax, mesh, stacked=False):
+    """This rank's local shards (on its device) of the reference's numpy
+    parameter tree, sliced by ``param_specs(cfg, ax)`` on ``mesh``: ep
+    experts, tp columns and rows. ``stacked``: the tree has its layers
+    stacked (the reference's ``pipeline.stack_layers``) and is sliced by
+    ``stacked_param_specs``, dim 0 of the stacked layers over pp.
+    bfloat16 comes through its bit pattern, as in
+    :func:`tree_from_numpy`."""
+    from ompi_tpu_torch.models import pipeline, transformer as tfm
+    from ompi_tpu_torch.parallel.device_comm import local_block
+
+    specs = pipeline.stacked_param_specs(cfg, ax) if stacked \
+        else tfm.param_specs(cfg, ax)
+    return tfm.tree_map(lambda a, spec: local_block(mesh, a, spec),
+                        params, specs)

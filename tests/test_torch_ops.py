@@ -70,6 +70,18 @@ ATTN_CASES = [
     ("ulysses_bf16", "ulysses", True, 5, (2, 32, 4, 16), "bfloat16"),
 ]
 
+#: the backwards: (name, op, causal, seed, (B, T, H, D)), float32, each
+#: against jax.vjp of the reference op on the same cotangent
+GRAD_CASES = [
+    ("ring_noncausal_grad", "ring", False, 0, (2, 16, 2, 8)),
+    ("ring_causal_grad", "ring", True, 0, (2, 16, 2, 8)),
+    ("ulysses_causal_grad", "ulysses", True, 3, (2, 16, 4, 8)),
+]
+
+def cotangent(seed, shape):
+    return np.random.default_rng(seed + 100).standard_normal(shape).astype(
+        np.float32)
+
 def moe_inputs(n):
     rng = np.random.default_rng(2)
     t_local, d, f, e_local = 16, 8, 16, 1
@@ -107,10 +119,35 @@ for name, op, causal, seed, shape, dtype in ATTN_CASES:
     if r == 0:
         np.save(f"{{out_dir}}/{{name}}.npy", got)
 
+def attn_grads(a, b, c, g, op=None, causal=None):
+    a, b, c = (t.requires_grad_() for t in (a, b, c))
+    out = OPS[op](a, b, c, "sp", causal=causal)
+    return torch.autograd.grad(out, (a, b, c), g)
+for name, op, causal, seed, shape in GRAD_CASES:
+    q, k, v = (torch.from_numpy(a) for a in attn_inputs(seed, shape))
+    ct = torch.from_numpy(cotangent(seed, shape))
+    f = dc.run(lambda a, b, c, g: attn_grads(a, b, c, g, op, causal),
+               P(None, "sp"))
+    got = dc.assemble(f(q, k, v, ct), P(None, "sp"))
+    if r == 0:
+        for which, a in zip("qkv", got):
+            np.save(f"{{out_dir}}/{{name}}_{{which}}.npy", a)
+
 x, wg, w1_all, w2_all = moe_inputs(n)
 twg, w1, w2 = compat.moe_params_from_reference(wg, w1_all, w2_all, r, n)
 t_local = x.shape[0] // n
 xl = torch.from_numpy(x[r * t_local:(r + 1) * t_local])
+# the backward: every input's gradient for a seeded cotangent (wg's is
+# this rank's partial, as jax.vjp inside shard_map gives it)
+ins = [t.clone().requires_grad_() for t in (xl, twg, w1, w2)]
+cty = torch.from_numpy(cotangent(2, x.shape)[r * t_local:(r + 1) * t_local])
+with mesh:
+    gx, gwg, gw1, gw2 = torch.autograd.grad(
+        moe.moe_ffn(*ins, "sp"), ins, cty)
+    got = dc.assemble((gx, gwg[None], gw1, gw2), P("sp"))
+if r == 0:
+    for which, a in zip(("x", "wg", "w1", "w2"), got):
+        np.save(f"{{out_dir}}/moe_grad_{{which}}.npy", a)
 s = pvar.session()
 with mesh:
     y = moe.moe_ffn(xl, twg, w1, w2, "sp")
@@ -380,3 +417,66 @@ def test_top1_routing_against_jnp(cap):
         torch.int32
     np.testing.assert_allclose(got.combine.numpy(), np.asarray(ref.combine),
                                atol=1e-6)
+
+
+def _ref_vjp(mesh, fn, ins, ct, in_spec, out_specs):
+    """jax.vjp of ``fn`` inside shard_map: every input's cotangent for
+    ``ct`` (a replicated input's is each device's partial)."""
+    def body(*args):
+        _, vjp = jax.vjp(fn, *args[:-1])
+        return vjp(args[-1])
+    f = jax.jit(jaxcompat.shard_map(
+        body, mesh=mesh, in_specs=in_spec, out_specs=out_specs,
+        check_vma=False))
+    return [np.asarray(a) for a in f(*ins, ct)]
+
+
+#: the backwards against jax.vjp: float32, the summation orders differ
+GRAD_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("name", ["ring_noncausal_grad", "ring_causal_grad",
+                                  "ulysses_causal_grad"])
+def test_context_parallel_backward_matches_vjp(port, mesh, name):
+    """Ring attention (causal and not) and Ulysses: the gradients of q,
+    k and v through the port's autograd (the permute and Alltoall
+    backwards, the masked blocks' where) against jax.vjp of the
+    reference op on the same cotangent, within GRAD_ATOL, and finite."""
+    c = next(c for c in _ns()["GRAD_CASES"] if c[0] == name)
+    _, op, causal, seed, shape = c
+    ns = _ns()
+    q, k, v = ns["attn_inputs"](seed, shape)
+    ct = ns["cotangent"](seed, shape)
+    fn = ref_ring_attention if op == "ring" else ref_ulysses_attention
+    ref = _ref_vjp(mesh, lambda a, b, cc: fn(a, b, cc, "sp", causal=causal),
+                   (q, k, v), ct, (JP(None, "sp"),) * 4,
+                   (JP(None, "sp"),) * 3)
+    for which, r in zip("qkv", ref):
+        got = np.load(port / f"{name}_{which}.npy")
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, r, atol=GRAD_ATOL)
+
+
+def test_moe_ffn_backward_matches_vjp(port, mesh):
+    """moe_ffn's gradients for x, the router wg (each rank's partial:
+    the gate's path through combine), w1 and w2 against jax.vjp of the
+    reference's, within 1e-4."""
+    x, wg, w1, w2 = _ns()["moe_inputs"](N)
+    ct = _ns()["cotangent"](2, x.shape)
+
+    def fn(xx, g, a, b):
+        return rmoe.moe_ffn(xx, g, a, b, "sp")
+
+    def body(xx, g, a, b, c):
+        _, vjp = jax.vjp(fn, xx, g, a, b)
+        gx, gg, ga, gb = vjp(c)
+        return gx, gg[None], ga, gb
+    f = jax.jit(jaxcompat.shard_map(
+        body, mesh=mesh,
+        in_specs=(JP("sp"), JP(), JP("sp"), JP("sp"), JP("sp")),
+        out_specs=(JP("sp"),) * 4, check_vma=False))
+    ref = [np.asarray(a) for a in f(x, wg, w1, w2, ct)]
+    for which, r in zip(("x", "wg", "w1", "w2"), ref):
+        got = np.load(port / f"moe_grad_{which}.npy")
+        assert got.shape == r.shape and np.isfinite(got).all()
+        np.testing.assert_allclose(got, r, atol=1e-4)
