@@ -222,7 +222,26 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    positions within the example's ``LOSS_RTOL`` / ``GRAD_RTOL``, and
    timing bench.py's own step. K1 and K2 must launch in the tp x sp part,
    K2 in the pp part; the step times, tokens/s, TFLOP/s (bench.py's 6 x
-   params x tokens) and every rank's peak memory are printed.
+   params x tokens) and every rank's peak memory are printed;
+9. the device-epoch window (see :func:`device_epoch_phase`), after
+   phase 6: ``ompi_tpu_torch/examples/device_epoch.py`` on 4 ranks under
+   ``--mca device_plane on``, every window a ``DeviceEpochWindow``
+   (``osc.win_create_device``) beside a ``CudaWindow`` over a copy of the
+   same tensor taking the same ops in turns: the embedding epochs (2**20
+   x 128 float32 shards, a warm and 3 timed SUM epochs of 512 ``Get``
+   lookups and 512 ``Accumulate`` rows a rank, half of them on a shared
+   hot set, then a MAX and a REPLACE epoch; every lookup and touched row
+   bitwise against a numpy replay of every rank's ops in the reference's
+   round order), the block epochs (a 2**26-float put to the right
+   neighbour, K7, and a get from the left, K9 and K10; a warm and 3
+   timed) and the IPC hand-off (rank 0 exports a 64 MiB CUDA tensor,
+   rank 1 imports it onto its device, bitwise). Each epoch must equal the
+   CudaWindow's bitwise; K8, K9 and K10 must launch in the embedding part
+   and K7, K9 and K10 in the block part, each (and the CudaWindow's) at
+   the count the ranks derive from the schedules; ``osc_device_epoch_op``
+   must equal the ops queued, with nothing staged and no host-window op;
+   the epoch times beside the CudaWindow's, part 2's rate, the rounds and
+   exchanges, peak memory and arena bytes per rank are printed.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
@@ -230,8 +249,9 @@ then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
 7 and 8 and the training path, K5 and K6's two kernels from the training path, K7 and
 the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
-per-call rows of K8 and K9 also from phase 6; K5b and the per-call row
-of K10 with 0 and a note), the card line, and, last,
+per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
+batches also from phase 9; K5b and the per-call row of K10 with 0 and a
+note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1572,6 +1592,71 @@ def am_phase(card: str, root: str) -> dict:
     return launches
 
 
+#: phase 9's parts and the kernels each must launch (device_epoch.py)
+DE_PARTS = {"embedding": ("rma_apply_strided_batch", "rma_read_batch",
+                          "rma_permute_recv_batch"),
+            "block": ("rma_apply", "rma_read_batch", "rma_permute_recv_batch")}
+
+
+def device_epoch_phase(card: str, root: str) -> dict:
+    """Phase 9: ``device_epoch.py`` on 4 ranks under the device plane
+    alone. Every rank's checks must hold (each epoch bitwise against the
+    CudaWindow's and the numpy replay, the IPC round trip, the pvars, its
+    launches as derived); each part's launches, summed over the ranks,
+    must equal what the ranks derived and include the part's kernels.
+    Prints rank 0's epoch times beside the CudaWindow's, part 2's rate,
+    the rounds and exchanges, and every rank's peak memory and arena
+    bytes; returns the device-epoch windows' launches."""
+    t0 = time.perf_counter()
+    launches, doc = main_path("device_epoch.py", N_RANKS, [], card, root,
+                              None)
+    out = os.path.join(root, "build", "ompi_tpu_torch",
+                       f"smoke_device_epoch_device_n{N_RANKS}")
+    docs = []
+    for r in range(N_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    for part, need in DE_PARTS.items():
+        got, cw, want = ({k: sum(d[key][part][k] for d in docs)
+                          for k in docs[0][key][part]}
+                         for key in ("part_launches", "part_cuda_window",
+                                     "part_expected"))
+        if got != want or cw != want or any(got[k] <= 0 for k in need):
+            fail(f"phase 9 {part}: device-epoch launches {got}, CudaWindow "
+                 f"{cw}, derived {want} (must launch {need})")
+        print(f"phase 9 {part} n={N_RANKS}: launches (all ranks) {got}, "
+              f"as derived, the CudaWindow's the same [{card}]", flush=True)
+    rep = doc["report"]
+    e, b, i = rep["embedding"], rep["block"], rep["ipc"]
+
+    def p50(xs):
+        return sorted(xs)[len(xs) // 2]
+
+    print(f"phase 9 embedding n={N_RANKS} {e['rows']} x {e['dim']} float32 "
+          f"(rank 0): SUM epoch ({e['batch']} Gets + {e['batch']} "
+          f"Accumulate rows a rank) p50 {p50(e['epoch_ms']):.3f} ms of "
+          f"{[round(v, 3) for v in e['epoch_ms']]}, CudaWindow's "
+          f"{p50(e['cuda_window_ms']):.3f} of "
+          f"{[round(v, 3) for v in e['cuda_window_ms']]}; (rounds, "
+          f"exchanges) per epoch {e['rounds_exchanges']} [{card}]",
+          flush=True)
+    print(f"phase 9 block n={N_RANKS} {b['elements']} float32 a rank "
+          f"(rank 0): epoch p50 {p50(b['epoch_ms']):.3f} ms of "
+          f"{[round(v, 3) for v in b['epoch_ms']]}, "
+          f"{b['gbps_per_rank']:.1f} GB/s a rank (a block out, a block "
+          f"in), CudaWindow's {p50(b['cuda_window_ms']):.3f} of "
+          f"{[round(v, 3) for v in b['cuda_window_ms']]}; (rounds, "
+          f"exchanges) {b['rounds_exchanges']} [{card}]", flush=True)
+    print(f"phase 9 IPC {i['bytes']} B: export (rank 0) "
+          f"{i['ms']['export']:.3f} ms, import onto rank 1's card "
+          f"{i['ms']['import']:.3f} ms; peak allocated per rank "
+          f"{[round(d['report']['peak_bytes'] / 2 ** 30, 3) for d in docs]}"
+          f" GiB, device_plane_arena_bytes "
+          f"{[d['report']['arena_bytes'] for d in docs]}; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -1928,6 +2013,7 @@ def main() -> int:
           f"{emb_doc['exchanges']['lookup']} exchange), each landing every "
           f"owner's block [{card}]", flush=True)
     am = am_phase(card, root)
+    de = device_epoch_phase(card, root)
     # phases 7 and 8's K1-K3 launches join the collectives jobs'
     for k, v in context_parallel_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
@@ -1939,7 +2025,7 @@ def main() -> int:
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = sum(p.get(r["name"], 0)
-                                for p in (coll, train, osc, am))
+                                for p in (coll, train, osc, am, de))
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
     host_plane_phase(torch, card, root)

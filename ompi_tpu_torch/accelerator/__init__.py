@@ -74,6 +74,27 @@ class Accelerator:
         """Order the staging streams after the work queued so far on
         ``device``'s current stream (nothing to order on the CPU)."""
 
+    # -- IPC (reference: get / open ipc mem handles) -----------------------
+    def ipc_export(self, buf):
+        """A picklable handle that a same-host process opens with
+        :meth:`ipc_import`: the buffer's bytes snapshotted into a shm file
+        (:mod:`.ipc`); the exporter unlinks it with ``ipc.release``."""
+        from ompi_tpu_torch.accelerator import ipc
+
+        if isinstance(buf, torch.Tensor):
+            return ipc.export_tensor(buf)
+        return ipc.export_array(np.asarray(buf))
+
+    def ipc_import(self, handle, device=None):
+        """The exported buffer without a copy: a read-only numpy view of
+        an exported array, a CPU tensor over a private mapping of an
+        exported tensor."""
+        from ompi_tpu_torch.accelerator import ipc
+
+        if handle.tensor:
+            return ipc.import_tensor(handle)
+        return ipc.import_array(handle)
+
 
 _current: Optional[Accelerator] = None
 _host = Accelerator()

@@ -1,6 +1,8 @@
 """The CUDA accelerator component (the counterpart of the JAX package's
-``accelerator/tpu.py``): device info, synchronisation, and the staging
-copies of device-tensor point-to-point (``tpu.py:162-230``).
+``accelerator/tpu.py``): device info, synchronisation, the staging
+copies of device-tensor point-to-point (``tpu.py:162-230``), and the IPC
+import of an exported tensor onto the card (``tpu.py:367-385``; the
+export is the base component's: one device-to-host copy into the file).
 
 Staging runs on two side streams per device, created at first use and
 kept for the process: one ordered stream for device-to-host copies and
@@ -17,7 +19,7 @@ from typing import Dict, Tuple
 import torch
 
 from ompi_tpu_torch import errors
-from ompi_tpu_torch.accelerator import Accelerator, stream
+from ompi_tpu_torch.accelerator import Accelerator, ipc, stream
 
 
 class CudaAccelerator(Accelerator):
@@ -88,3 +90,14 @@ class CudaAccelerator(Accelerator):
             dst.copy_(host[:dst.numel()], non_blocking=True)
         dst.record_stream(h2d)
         return stream.Event(dst.device).record(h2d)
+
+    def ipc_import(self, handle, device=None):
+        """An exported tensor lands on ``device`` (this process's current
+        card by default) with one host-to-device copy, the reference's
+        staging (``accelerator/ipc.py:1-12``); a CPU ``device`` or an
+        exported array is the null component's import."""
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if device is None else torch.device(device)
+        if not handle.tensor or dev.type != "cuda":
+            return super().ipc_import(handle)
+        return ipc.import_tensor(handle, dev)

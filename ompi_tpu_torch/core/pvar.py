@@ -70,6 +70,14 @@ WELL_KNOWN = (
     # osc (the host window, the reference's names): Put / Put_strided,
     # Get / Get_strided and Accumulate calls, Fences
     "osc_put", "osc_get", "osc_acc", "osc_fence",
+    # osc/device_epoch (the compiled-fence device window, the reference's
+    # names): Put / Accumulate / Get calls queued; ops sent to the host
+    # path (non-elementwise accumulates, passive target, PSCW)
+    "osc_device_epoch_op", "osc_device_fallbacks",
+    # shmem/ (the reference's names): symmetric bytes allocated; puts
+    # (put, put_nbi, iput, the signalled puts' data), gets (get, iget) and
+    # atomics (fetch-ops, compare-and-swap, signal updates)
+    "shmem_alloc_bytes", "shmem_put", "shmem_get", "shmem_atomic",
     # pml/ob1 (the reference's names): sends and receives posted, eager
     # and rendezvous sends (streamed, or offered for single copy), RNDV
     # fragments, arrivals that found no posted receive or came out of

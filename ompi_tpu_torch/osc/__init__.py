@@ -31,12 +31,14 @@ Detach), :class:`SharedWindow` (a /dev/shm segment a rank,
 ``Shared_query``), :func:`win_allocate`, :func:`win_allocate_shared` and
 :func:`win_create_dynamic`.
 
-Not in the port yet, each refused with ``ERR_NOT_SUPPORTED`` naming its
+``win_create_device`` (re-exported from :mod:`.device_epoch`) serves the
+compiled-fence :class:`~ompi_tpu_torch.osc.device_epoch.DeviceEpochWindow`.
+
+Not in the port yet, refused with ``ERR_NOT_SUPPORTED`` naming its
 ROADMAP item: the error-handler and info planes of a window
 (``Set_errhandler``, ``Set_info``, the memory-kinds info; queue 1 item
-4f) and the compiled device-epoch window (``win_create_device``; item 7,
-second half). The monitoring, trace and MPI_T epoch-event call sites
-wait with item 10.
+4f). The monitoring, trace and MPI_T epoch-event call sites wait with
+item 10.
 """
 
 from __future__ import annotations
@@ -59,11 +61,9 @@ _SERVICE_TAG = -64  # on the window's private dup comm
 LOCK_EXCLUSIVE = "exclusive"
 LOCK_SHARED = "shared"
 
-#: the ROADMAP items the refusals name
+#: the ROADMAP item the refusals name
 ERRHANDLER_ITEM = ("ROADMAP queue 1 item 4f (the error-handler and info "
                    "planes)")
-DEVICE_EPOCH_ITEM = ("ROADMAP queue 1 item 7, second half "
-                     "(DeviceEpochWindow, then shmem/)")
 
 #: ops that pick an operand and fold nothing (a bfloat16 operand moves
 #: as its bits)
@@ -854,8 +854,7 @@ def win_allocate(comm, shape, dtype=np.uint8,
     return Window(comm, arr, du, info=info)
 
 
-def win_create_device(comm, base, disp_unit: int = 1, info=None):
-    """MPI_Win_create over the compiled device-epoch window: refused
-    until its slice."""
-    _refuse("win_create_device (the compiled device-epoch window)",
-            DEVICE_EPOCH_ITEM)
+# the compiled-fence device window (active-target fence epochs over
+# CudaWindow's exchanges)
+from ompi_tpu_torch.osc.device_epoch import (  # noqa: E402,F401
+    DeviceEpochWindow, win_create_device)

@@ -30,7 +30,9 @@ split as the reference splits them:
   So same-location accumulates apply in the reference's round order and
   the windows end bitwise equal to the JAX package's;
   ``osc_cuda_rounds`` counts the reference's rounds and
-  ``osc_cuda_exchanges`` the host steps run.
+  ``osc_cuda_exchanges`` the host steps run. The flush is the module's
+  :func:`fence_flush`, which the device-epoch window
+  (``osc/device_epoch.py``) runs too.
 - **PSCW and passive target** (Post / Start / Complete / Wait, Lock /
   Unlock / Flush / Lock_all): synchronisation rides the host
   :class:`~ompi_tpu_torch.osc.Window`'s active-message (AM) service, which
@@ -576,117 +578,145 @@ class CudaWindow(Window):
             super()._handle(msg, src)
 
     # -- the fence flush ------------------------------------------------
-    @staticmethod
-    def _rounds(edges):
-        """Group same-nelems edges (sorted by nelems), colour each group
-        into partial matchings — edges are (src, dst, disp, nelems,
-        ...)."""
-        by_n: dict = {}
-        for e in edges:
-            by_n.setdefault(e[3], []).append(e)
-        for n, group in sorted(by_n.items()):
-            for rnd in _color(group):
-                yield n, rnd
-
-    def _exchanges(self, edges):
-        """The reference's rounds of these edges, in its order, cut into
-        exchanges: yields each exchange's edges (round order) with their
-        :func:`exchange_layout`."""
-        rounds = [rnd for _n, rnd in self._rounds(edges)]
-        pvar.record("osc_cuda_rounds", len(rounds))
-        es = self._win.element_size()
-        cuts = plan_exchanges([[(e[0], e[3] * es) for e in rnd]
-                               for rnd in rounds], EXCHANGE_BYTES)
-        for a, b in cuts:
-            pvar.record("osc_cuda_exchanges")
-            run = [e for rnd in rounds[a:b] for e in rnd]
-            yield run, exchange_layout(run, self.comm.size)
-
-    def _arena(self, totals: List[int]):
-        return _coll_cuda._arena(self.comm, "osc",
-                                 max(totals) * self._win.element_size())
-
     def _flush_fence(self) -> None:
-        put_desc = [(t, d, a.numel(), k, s) for t, d, a, k, s in self._fput]
-        get_desc = [(t, d, n, s) for _h, t, d, n, s in self._fget]
-        all_desc = self.comm.coll.allgather_obj(self.comm,
-                                                (put_desc, get_desc))
-        puts = [(o, t, d, n, k, s)
-                for o, (pd, _) in enumerate(all_desc)
-                for t, d, n, k, s in pd]
-        gets = [(o, t, d, n, s)
-                for o, (_, gd) in enumerate(all_desc)
-                for t, d, n, s in gd]
-        if puts:
-            self._run_fence_puts(puts)
-        if gets:
-            self._run_fence_gets(gets)
+        fence_flush(self.comm, self._target, self._fput, self._fget)
         self._fput = []
         self._fget = []
 
-    def _run_fence_puts(self, puts) -> None:
-        me, dt = self.rank, self._win.dtype
-        queued: Dict[tuple, deque] = {}
-        for t, dd, a, k, st in self._fput:
-            queued.setdefault((t, dd, a.numel(), k, st), deque()).append(a)
-        for run, (offs, totals, _blocks) in self._exchanges(puts):
-            # pop MY first queued op matching each descriptor, round order
-            mine = {j: queued[(d, disp, n, kind, stride)].popleft()
-                    for j, (s, d, disp, n, kind, stride) in enumerate(run)
-                    if s == me}
-            sent = sorted(mine, key=offs.__getitem__)  # region order
-            incoming = [j for j, e in enumerate(run) if e[1] == me]
-            srcs = sorted({run[j][0] for j in incoming})
 
-            def stage(region):
-                _stage(region.view(dt), [mine[j] for j in sent])
+# ---------------------------------------------------------------------------
+# a fence epoch's exchanges, shared by CudaWindow and the device-epoch
+# window (osc/device_epoch.py): the window comm, the window's Target (its
+# flat tensor is ``target.window``) and the epoch's descriptor queues
 
-            def land(regions):
-                bases = [regions[p].view(dt) for p in srcs]
-                at = {p: i for i, p in enumerate(srcs)}
-                self._target.apply(bases, [
-                    (at[run[j][0]], offs[j], run[j][3], run[j][2],
-                     run[j][5], run[j][4]) for j in incoming])
 
-            self._arena(totals).exchange(stage, {run[j][1] for j in sent},
-                                         land, srcs)
+def _rounds(edges):
+    """Group same-nelems edges (sorted by nelems), colour each group into
+    partial matchings — edges are (src, dst, disp, nelems, ...)."""
+    by_n: dict = {}
+    for e in edges:
+        by_n.setdefault(e[3], []).append(e)
+    for n, group in sorted(by_n.items()):
+        for rnd in _color(group):
+            yield n, rnd
 
-    def _run_fence_gets(self, gets) -> None:
-        # data flows target -> origin: edges (src=target, dst=origin)
-        me, dt = self.rank, self._win.dtype
-        holders: Dict[tuple, deque] = {}
-        for h, t, d, n, st in self._fget:
-            holders.setdefault((t, d, n, st), deque()).append(h)
-        edges = [(t, o, d, n, s) for o, t, d, n, s in gets]
-        for run, (offs, totals, blocks) in self._exchanges(edges):
-            served = sorted((j for j, e in enumerate(run) if e[0] == me),
-                            key=offs.__getitem__)
-            srcs = sorted({e[0] for e in run if e[1] == me})
-            # my incoming blocks, one after another in source order
-            at, n_in = {}, 0
+
+def _exchanges(comm, win: torch.Tensor, edges):
+    """The reference's rounds of these edges, in its order, cut into
+    exchanges: yields each exchange's edges (round order) with their
+    :func:`exchange_layout`."""
+    rounds = [rnd for _n, rnd in _rounds(edges)]
+    pvar.record("osc_cuda_rounds", len(rounds))
+    es = win.element_size()
+    cuts = plan_exchanges([[(e[0], e[3] * es) for e in rnd]
+                           for rnd in rounds], EXCHANGE_BYTES)
+    for a, b in cuts:
+        pvar.record("osc_cuda_exchanges")
+        run = [e for rnd in rounds[a:b] for e in rnd]
+        yield run, exchange_layout(run, comm.size)
+
+
+def _arena(comm, win: torch.Tensor, totals: List[int]):
+    return _coll_cuda._arena(comm, "osc", max(totals) * win.element_size())
+
+
+def fence_flush(comm, target: O.Target, fput, fget) -> None:
+    """Run a closing fence's queued descriptors (collective): one
+    metadata allgather of every rank's descriptors, then every put before
+    every get, each as the reference's coloured rounds moved in
+    exchanges. ``fput`` holds this rank's puts ``(target, disp, payload,
+    kind, stride)`` (payloads of the window's dtype), ``fget`` its gets
+    ``(GetHandle, target, disp, nelems, stride)``; the caller empties
+    them."""
+    put_desc = [(t, d, a.numel(), k, s) for t, d, a, k, s in fput]
+    get_desc = [(t, d, n, s) for _h, t, d, n, s in fget]
+    all_desc = comm.coll.allgather_obj(comm, (put_desc, get_desc))
+    puts = [(o, t, d, n, k, s)
+            for o, (pd, _) in enumerate(all_desc)
+            for t, d, n, k, s in pd]
+    gets = [(o, t, d, n, s)
+            for o, (_, gd) in enumerate(all_desc)
+            for t, d, n, s in gd]
+    if puts:
+        _fence_puts(comm, target, fput, puts)
+    if gets:
+        _fence_gets(comm, target, fget, gets)
+
+
+def _fence_puts(comm, target: O.Target, fput, puts) -> None:
+    """Every rank's puts ``(origin, target, disp, nelems, kind, stride)``,
+    in the allgathered order: each origin stages its payloads (``fput``,
+    this rank's queue), each target applies what it receives in round
+    order."""
+    me, win = comm.rank, target.window
+    dt = win.dtype
+    queued: Dict[tuple, deque] = {}
+    for t, dd, a, k, st in fput:
+        queued.setdefault((t, dd, a.numel(), k, st), deque()).append(a)
+    for run, (offs, totals, _blocks) in _exchanges(comm, win, puts):
+        # pop MY first queued op matching each descriptor, round order
+        mine = {j: queued[(d, disp, n, kind, stride)].popleft()
+                for j, (s, d, disp, n, kind, stride) in enumerate(run)
+                if s == me}
+        sent = sorted(mine, key=offs.__getitem__)  # region order
+        incoming = [j for j, e in enumerate(run) if e[1] == me]
+        srcs = sorted({run[j][0] for j in incoming})
+
+        def stage(region):
+            _stage(region.view(dt), [mine[j] for j in sent])
+
+        def land(regions):
+            bases = [regions[p].view(dt) for p in srcs]
+            at = {p: i for i, p in enumerate(srcs)}
+            target.apply(bases, [
+                (at[run[j][0]], offs[j], run[j][3], run[j][2],
+                 run[j][5], run[j][4]) for j in incoming])
+
+        _arena(comm, win, totals).exchange(stage, {run[j][1] for j in sent},
+                                           land, srcs)
+
+
+def _fence_gets(comm, target: O.Target, fget, gets) -> None:
+    """Every rank's gets ``(origin, target, disp, nelems, stride)``: each
+    target stages the rows it serves (one K9 batch), each origin lands
+    every source's block with one grouped K10 launch and fills its
+    handles (``fget``, this rank's queue) in order."""
+    # data flows target -> origin: edges (src=target, dst=origin)
+    me, win = comm.rank, target.window
+    dt = win.dtype
+    holders: Dict[tuple, deque] = {}
+    for h, t, d, n, st in fget:
+        holders.setdefault((t, d, n, st), deque()).append(h)
+    edges = [(t, o, d, n, s) for o, t, d, n, s in gets]
+    for run, (offs, totals, blocks) in _exchanges(comm, win, edges):
+        served = sorted((j for j, e in enumerate(run) if e[0] == me),
+                        key=offs.__getitem__)
+        srcs = sorted({e[0] for e in run if e[1] == me})
+        # my incoming blocks, one after another in source order
+        at, n_in = {}, 0
+        for p in srcs:
+            at[p] = n_in - blocks[(p, me)][0]
+            n_in += blocks[(p, me)][1]
+
+        def stage(region):  # I am the target: every row I serve
+            target.read([(run[j][2], run[j][4], run[j][3], offs[j])
+                         for j in served], region.view(dt))
+
+        def land(regions):
+            got = torch.empty(n_in, dtype=dt, device=win.device)
+            pulls = []  # every source's block: one grouped K10 launch
             for p in srcs:
-                at[p] = n_in - blocks[(p, me)][0]
-                n_in += blocks[(p, me)][1]
+                start, n = blocks[(p, me)]
+                pulls.append((regions[p].view(dt)[start:start + n],
+                              got[at[p] + start:at[p] + start + n]))
+            O.rma_permute_recv_batch(pulls)
+            for j, (s, o, disp, n, stride) in enumerate(run):
+                if o == me:  # the first open handle of this read
+                    h = holders[(s, disp, n, stride)].popleft()
+                    h.array = got[at[s] + offs[j]:at[s] + offs[j] + n]
 
-            def stage(region):  # I am the target: every row I serve
-                self._target.read([(run[j][2], run[j][4], run[j][3], offs[j])
-                                   for j in served], region.view(dt))
-
-            def land(regions):
-                got = torch.empty(n_in, dtype=dt, device=self._win.device)
-                pulls = []  # every source's block: one grouped K10 launch
-                for p in srcs:
-                    start, n = blocks[(p, me)]
-                    pulls.append((regions[p].view(dt)[start:start + n],
-                                  got[at[p] + start:at[p] + start + n]))
-                O.rma_permute_recv_batch(pulls)
-                for j, (s, o, disp, n, stride) in enumerate(run):
-                    if o == me:  # the first open handle of this read
-                        h = holders[(s, disp, n, stride)].popleft()
-                        h.array = got[at[s] + offs[j]:at[s] + offs[j] + n]
-
-            self._arena(totals).exchange(stage, {run[j][1] for j in served},
-                                         land, srcs)
+        _arena(comm, win, totals).exchange(stage, {run[j][1] for j in served},
+                                           land, srcs)
 
 
 def _stage(region: torch.Tensor, payloads: List[torch.Tensor]) -> None:
