@@ -242,13 +242,33 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    must equal the ops queued, with nothing staged and no host-window op;
    the epoch times beside the CudaWindow's, part 2's rate, the rounds and
    exchanges, peak memory and arena bytes per rank are printed.
+10. the hierarchy layer (see :func:`hier_phase`): three 4-rank jobs under
+   ``--mca device_plane on --mca coll_cuda on``, the first two also under
+   ``--mca coll_hier on --mca coll_hier_split 2x2 --mca coll_hier_inner
+   ring``: ``hier_collectives.py`` (float32 SUM Allreduce at 64 KiB, 1
+   MiB, 16 MiB and 256 MiB and bfloat16 at 16 MiB, the split-level
+   schedule in turns with the flat coll/cuda schedule, one warm and 5
+   timed calls of each, within 1e-5 x n x max|x| of a float64 sum;
+   'linear' bitwise the flat 'linear'; Reduce_scatter_block 'linear',
+   Allgather, Bcast from root 3 and Alltoall at 64 MiB bitwise the flat
+   slots; the fused 'linear' multi over GPT-2 small's 148 leaves bitwise
+   the flat fused form; 3 persistent starts; the per-level pvars against
+   the byte model; 'ring' falling through), ``hier_dcn_compress.py`` (the
+   256 MiB Allreduce with ``coll_hier_dcn_dtype`` off, bf16, fp8_e4m3 and
+   fp8_e5m2 in turns: off bitwise before and after, the wire bytes at most
+   1/2 (bf16) and 1/4 (fp8) of the nominal DCN bytes) and
+   ``zero_training.py --error-feedback bf16,fp8_e4m3`` (3 steps each at
+   GPT-2 small's width beside the exact 'linear' step: every loss at
+   most 1e-2 above the exact step's, ``zero_ef_*`` as the plan derives).
+   Each part's K1-K3 launches must equal what the ranks derive from their
+   schedules.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7 and 8 and the training path, K5 and K6's two kernels from the training path, K7 and
-the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
+7, 8 and 10 and the training path, K5 and K6's two kernels from the
+training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
 batches also from phase 9; K5b and the per-call row of K10 with 0 and a
 note), the card line, and, last,
@@ -1283,19 +1303,30 @@ def permute_batch_checks(torch, O, dev, card, results):
           flush=True)
 
 
+def smoke_dir(root: str, example: str, nranks: int,
+              component: str | None = "coll_cuda", tag: str = "") -> str:
+    """Where :func:`main_path` has the ranks of a job write their JSON."""
+    name = os.path.splitext(example)[0]
+    return os.path.join(root, "build", "ompi_tpu_torch",
+                        f"smoke_{name}{tag}_{component or 'device'}_"
+                        f"n{nranks}")
+
+
 def main_path(example: str, nranks: int, args, card: str, root: str,
-              component: str | None = "coll_cuda"):
+              component: str | None = "coll_cuda", extra_mca=(),
+              tag: str = ""):
     """Phase 3: one launcher job of an example under ``--mca
     device_plane on --mca <component> on`` (None: the device plane
-    alone, so coll/device serves); returns the ranks' summed launches
-    and rank 0's report. Every kernel a rank reports must have launched,
-    or, where its report names them (``required``), those. No rank may
-    have staged a call through the host (``coll_accelerator_staged``)."""
+    alone, so coll/device serves) and ``extra_mca``; returns the ranks'
+    summed launches and rank 0's report. Every kernel a rank reports must
+    have launched, or, where its report names them (``required``), those.
+    No rank may have staged a call through the host
+    (``coll_accelerator_staged``)."""
     name = os.path.splitext(example)[0]
-    out = os.path.join(root, "build", "ompi_tpu_torch",
-                       f"smoke_{name}_{component or 'device'}_n{nranks}")
+    out = smoke_dir(root, example, nranks, component, tag)
     shutil.rmtree(out, ignore_errors=True)
-    mca = ["--mca", component, "on"] if component else []
+    mca = (["--mca", component, "on"] if component else []) \
+        + list(extra_mca)
     cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
            "-n", str(nranks), "--timeout", str(LAUNCH_TIMEOUT),
            "--mca", "device_plane", "on", *mca,
@@ -1655,6 +1686,117 @@ def device_epoch_phase(card: str, root: str) -> dict:
           f"{[d['report']['arena_bytes'] for d in docs]}; "
           f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
     return launches
+
+
+#: phase 10's two-level jobs: coll/hier over a forced 2 x 2 grid, its
+#: ICI phases on coll/cuda's ring
+HIER_MCA = ("--mca", "coll_hier", "on", "--mca", "coll_hier_split", "2x2",
+            "--mca", "coll_hier_inner", "ring")
+#: phase 10 part 3's wire formats (zero_training.py --error-feedback)
+EF_WIRES = "bf16,fp8_e4m3"
+
+
+def rank_docs(out: str, nranks: int) -> list:
+    docs = []
+    for r in range(nranks):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            docs.append(json.load(f))
+    return docs
+
+
+def hier_phase(card: str, root: str) -> dict:
+    """Phase 10: the hierarchy layer, three 4-rank jobs under ``--mca
+    device_plane on --mca coll_cuda on`` (parts 1 and 2 also under
+    :data:`HIER_MCA`): ``hier_collectives.py`` (the two-level
+    collectives at full size beside the flat ones), ``hier_dcn_compress.py``
+    (the wire formats at 256 MiB) and ``zero_training.py --error-feedback``
+    (the error-feedback ZeRO step at GPT-2 small's width, flat). Every
+    rank's checks must hold; each part's K1-K3 launches, summed over the
+    ranks, must equal what the ranks derived from their schedules, with K1
+    and K2 launched in part 1 and K3 in its 'linear' calls. Prints rank
+    0's times, the per-level bytes, the wire rows, the EF step times and
+    every rank's peak memory and arena bytes; returns the launches."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    jobs = (("hier_collectives.py", [], HIER_MCA),
+            ("hier_dcn_compress.py", [], HIER_MCA),
+            ("zero_training.py", ["--error-feedback", EF_WIRES], ()))
+    docs = {}
+    for example, args, mca in jobs:
+        got, _ = main_path(example, N_RANKS, args, card, root, "coll_cuda",
+                           mca, tag="_hier")
+        docs[example] = rank_docs(smoke_dir(root, example, N_RANKS,
+                                            tag="_hier"), N_RANKS)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    # part 1: every part's launches as derived, summed over the ranks
+    d1 = docs["hier_collectives.py"]
+    for part in d1[0]["parts"]:
+        got = {k: sum(d["parts"][part]["got"][k] for d in d1)
+               for k in d1[0]["parts"][part]["got"]}
+        want = {k: sum(d["parts"][part]["want"][k] for d in d1)
+                for k in got}
+        if got != want:
+            fail(f"phase 10 hier_collectives {part}: launches {got}, "
+                 f"derived {want}")
+        print(f"phase 10 hier_collectives {part} n={N_RANKS}: launches "
+              f"(all ranks) {got}, as derived [{card}]", flush=True)
+    k1 = sum(d["launches"]["ring_rs_hop"] for d in d1)
+    k2 = sum(d["launches"]["ring_ag_hop"] for d in d1)
+    k3 = sum(d["parts"]["allreduce"]["got"]["linear_fold"] for d in d1)
+    if not (k1 > 0 and k2 > 0 and k3 > 0):
+        fail(f"phase 10 part 1: K1 {k1}, K2 {k2}, K3 in 'linear' {k3}")
+    for label, t in d1[0]["times"].items():
+        if "hier_p50" in t:
+            print(f"phase 10 allreduce {label} n={N_RANKS} 2x2 (rank 0 p50 "
+                  f"of {len(t['hier'])}): two-level {t['hier_p50']:.3f} ms "
+                  f"of {[round(v, 3) for v in t['hier']]}, flat coll/cuda "
+                  f"({t['flat_algo']}) {t['flat_p50']:.3f} ms of "
+                  f"{[round(v, 3) for v in t['flat']]}; per-level bytes ICI "
+                  f"{t['ici_bytes']} DCN {t['dcn_bytes']} [{card}]",
+                  flush=True)
+    m = d1[0]["times"]["allreduce_multi"]
+    print(f"phase 10 allreduce_multi 'linear' n={N_RANKS} over "
+          f"{m['leaves']} leaves ({m['elements']} float32, {m['buckets']} "
+          f"buckets), rank 0: two-level {m['hier_ms']:.3f} ms, flat fused "
+          f"{m['flat_ms']:.3f} ms [{card}]", flush=True)
+    # part 2: the wire rows
+    d2 = docs["hier_dcn_compress.py"]
+    got = {k: sum(d["launches"][k] for d in d2) for k in d2[0]["launches"]}
+    want = {k: sum(d["expected"][k] for d in d2) for k in got}
+    if got != want:
+        fail(f"phase 10 hier_dcn_compress: launches {got}, derived {want}")
+    for wire, row in d2[0]["wires"].items():
+        extra = (f", DCN wire {row['wire_bytes']} of {row['nominal']} B "
+                 f"nominal ({row['ratio']:.4f}), worst element error "
+                 f"{row['worst_eps_units']:.4f} eps of the exact value, max "
+                 f"abs {row['max_abs_err']:.6g}") if "ratio" in row else ""
+        print(f"phase 10 wire {wire} n={N_RANKS} {d2[0]['bytes']} B float32 "
+              f"(rank 0 p50 of {len(row['ms'])}): {row['p50_ms']:.3f} ms of "
+              f"{[round(v, 3) for v in row['ms']]}{extra} [{card}]",
+              flush=True)
+    # part 3: the error-feedback step
+    d3 = docs["zero_training.py"]
+    ef = d3[0]["error_feedback"]
+    for wire in EF_WIRES.split(","):
+        print(f"phase 10 error-feedback {wire} n={N_RANKS} GPT-2 small "
+              f"({d3[0]['parameters']} float32, {d3[0]['buckets']} buckets)"
+              f": step p50 {ef[wire]['p50_ms']:.3f} ms of "
+              f"{[round(v, 3) for v in ef[wire]['ms']]}, exact "
+              f"{ef['exact']['p50_ms']:.3f} ms of "
+              f"{[round(v, 3) for v in ef['exact']['ms']]}; losses "
+              f"{ef[wire]['loss']} vs exact {ef['exact']['loss']}; "
+              f"zero_ef_bytes {ef[wire]['zero_ef_bytes']} [{card}]",
+              flush=True)
+    print(f"phase 10 peak allocated per rank (GiB) part 1 "
+          f"{[round(d['peak_bytes'] / 2 ** 30, 3) for d in d1]}, part 2 "
+          f"{[round(d['peak_bytes'] / 2 ** 30, 3) for d in d2]}; "
+          f"device_plane_arena_bytes part 1 "
+          f"{[d['device_plane_arena_bytes'] for d in d1]}, part 2 "
+          f"{[d['arena_bytes'] for d in d2]}; arena bytes per comm (rank 0) "
+          f"{d1[0]['arena_bytes']}; launches (all ranks) {total}; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return total
 
 
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
@@ -2021,6 +2163,9 @@ def main() -> int:
         coll[k] = coll.get(k, 0) + v
     # the datatype job's K1-K3 launches join the collectives jobs'
     for k, v in datatype_phase(torch, card, root).items():
+        coll[k] = coll.get(k, 0) + v
+    # and so do phase 10's
+    for k, v in hier_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

@@ -19,6 +19,11 @@ priority<0), and ``ompi_tpu.coll``. The port's components:
   comm;
 - ``cuda`` (60, opt-in): the hand-written ring kernels, the
   counterpart of coll/pallas, falling through to ``device``;
+- ``hier`` (70, opt-in): the two-level schedules over a comm's low and
+  up splits, falling through to ``cuda`` or ``device``;
+- ``han`` (``coll_han_priority``, 35; under ``coll_han_split``, on comms
+  of four ranks or more spanning nodes): the two-level host
+  collectives;
 - ``adapt`` (opt-in, ``coll_adapt_priority``): segmented ibcast /
   ireduce;
 - ``sync`` (90, with ``coll_sync_barrier_before``): no slot of its own;
@@ -40,6 +45,8 @@ from ompi_tpu_torch.coll.adapt import CollAdapt
 from ompi_tpu_torch.coll.basic import CollBasic
 from ompi_tpu_torch.coll.cuda import CollCuda
 from ompi_tpu_torch.coll.device import CollDevice
+from ompi_tpu_torch.coll.han import CollHan
+from ompi_tpu_torch.coll.hier import CollHier
 from ompi_tpu_torch.coll.libnbc import CollLibnbc
 from ompi_tpu_torch.coll.sync import CollSync
 from ompi_tpu_torch.coll.tuned import CollTuned
@@ -50,8 +57,8 @@ _out = output.stream("coll_base")
 #: the components comm_select ranks: each has NAME, query(comm) -> priority
 #: (< 0 disqualifies) and slots(comm) -> {slot name: function}; one may
 #: have post_stack(comm, table), run once every component has stacked
-COMPONENTS = (CollBasic, CollLibnbc, CollTuned, CollAccelerator,
-              CollDevice, CollCuda, CollAdapt, CollSync)
+COMPONENTS = (CollBasic, CollLibnbc, CollTuned, CollHan, CollAccelerator,
+              CollDevice, CollCuda, CollHier, CollAdapt, CollSync)
 
 #: the blocking and object host slots (coll.h's function-pointer members,
 #: ompi_tpu/coll/__init__.py:32-64), the ones coll/sync wraps beside the

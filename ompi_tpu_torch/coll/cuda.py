@@ -22,8 +22,10 @@ Selection (``_select``, as coll/pallas.py:210-247):
   coll/pallas reads coll/xla's ``coll_xla_deterministic``;
 - otherwise a forced ``coll_cuda_*_algorithm`` cvar wins, then a
   ``coll_cuda_switchpoints`` table entry (the reference's JSON format,
-  so a table written for coll/pallas loads unchanged), then the
-  built-in threshold: the bidirectional ring at/above
+  so a table written for coll/pallas loads unchanged; a table that does
+  not load counts ``tune_table_errors``, warns once per path and leaves
+  the built-in choice, as coll/pallas's does), then the built-in
+  threshold: the bidirectional ring at/above
   ``coll_cuda_bidir_min_bytes`` (1 MiB), else the ring.
 
 What the kernels do not take falls through to coll/device (the
@@ -55,7 +57,9 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.monitoring.algo import log2_bucket
 from ompi_tpu_torch.runtime import device_plane, launcher, rte
+from ompi_tpu_torch.tune import observe as _tobs
 
 _enable_var = cvar.register(
     "coll_cuda", "off", str,
@@ -136,11 +140,6 @@ def _fallthrough(slot: str, *args, **kw):
     return getattr(device, slot)(*args, **kw)
 
 
-def log2_bucket(nbytes: int) -> int:
-    """log2 size bucket of the switchpoint key (monitoring/algo.py)."""
-    return max(int(nbytes), 1).bit_length() - 1
-
-
 _sw_cache: dict = {}
 
 
@@ -154,10 +153,11 @@ def _switchpoint(kind: str, nbytes: int, dtype: str, mesh_shape) -> str:
             with open(path, encoding="utf-8") as f:
                 entries = json.load(f)
         except (OSError, ValueError) as exc:
-            raise errors.MPIError(
-                errors.ERR_ARG,
-                f"coll_cuda_switchpoints: cannot read {path!r}: {exc}"
-            ) from exc
+            # a fat-fingered table path is a silent perf cliff: warn once
+            # per path, count every attempt, go on with the built-in
+            # thresholds (coll/pallas.py:183-187)
+            _tobs.table_error("coll_cuda_switchpoints", path, exc)
+            entries = []
         table = {}
         for e in entries if isinstance(entries, list) else []:
             key = (str(e.get("op", "")), str(e.get("dtype", "")),

@@ -21,6 +21,12 @@ below coll/cuda, no opt-in), with every fixed slot of its table
   blocks with K2;
 - ``allreduce_multi_dev`` (coll/xla.py:1241-1409): dtype-segregated flat
   buckets of ``coll_device_bucket_bytes``, one allreduce each;
+- the two-level mode (``coll_device_hier``, coll/xla's ``coll_xla_hier``):
+  on a comm whose ranks form N > 1 slices (by node, or N forced),
+  Allreduce with no deterministic mode, Bcast, Alltoall and the fused
+  and partitioned bucket allreduces run
+  :mod:`ompi_tpu_torch.parallel.hierarchical`'s compositions over the
+  comm's ``low`` and ``up`` splits (:func:`grid_of`);
 - the nonblocking forms (15 ``i*_dev`` and ``ibarrier_dev``,
   :class:`DeviceRequest`) and the persistent ``allreduce_init_dev``,
   ``bcast_init_dev``, ``allgather_init_dev``, ``alltoall_init_dev``,
@@ -145,6 +151,59 @@ _rooted_var = cvar.register(
          "alone pull, so a non-root allocates O(bytes), not O(n x bytes). "
          "0 forces the rooted schedules; -1 disables them (coll/xla's "
          "coll_xla_rooted_threshold_bytes).", level=5)
+
+_hier_var = cvar.register(
+    "coll_device_hier", "auto", str,
+    help="two-level execution for comms spanning nodes (coll/han's "
+         "split-level algorithms on the device plane, coll_xla_hier's "
+         "counterpart): 'auto' groups the ranks by node when they are "
+         "node-contiguous, 'off' always flat, an integer N forces N "
+         "equal slices. Allreduce without a deterministic mode, Bcast, "
+         "Alltoall and the fused bucket allreduce then run "
+         "parallel/hierarchical's compositions over the comm's low and "
+         "up splits; deterministic modes stay flat (the split-level fold "
+         "order differs from the rank-order contract).", level=5)
+
+
+def grid_of(comm):
+    """The comm's two-level grid under ``coll_device_hier`` (a
+    ``parallel.hierarchical.Grid``), or None: flat. Decided at the comm's
+    first call that asks and cached on it (coll/xla builds its ``mesh2d``
+    with the comm's context); making the grid is collective (it splits
+    the comm), so every member asks in the same call."""
+    g = comm.__dict__.get("_coll_device_grid")
+    if g is not None:
+        return g or None
+    from ompi_tpu_torch.parallel import hierarchical as H
+
+    n, mode = comm.size, _hier_var.get().strip().lower()
+    d = 0
+    if n > 1 and mode == "auto":
+        d = H.slice_split(H.node_names(comm))
+    elif n > 1 and mode != "off":
+        try:
+            d = int(mode)
+        except ValueError:
+            d = 0
+        d = d if d > 1 and n % d == 0 else 0
+    g = H.grid(comm, d, n // d) if 1 < d < n else False
+    comm._coll_device_grid = g
+    return g or None
+
+
+def _hier_run(comm, opn: op_mod.Op, det):
+    """``run(x)``: the split-level allreduce of ``x`` over the comm's
+    grid (coll/xla.py:427-441), or None when the comm is flat or a
+    deterministic mode is asked for."""
+    if det is not None or comm.size == 1:
+        return None
+    g = grid_of(comm)
+    if g is None:
+        return None
+    from ompi_tpu_torch.parallel import hierarchical as H
+
+    return lambda x: H.allreduce(x, g.low, g.up, opn)
+
 
 def _det_ok(deterministic: Optional[str]) -> Optional[str]:
     """The slot's mode over the cvar default (coll/xla.py ``_det``);
@@ -357,7 +416,12 @@ def _row_elems(shape) -> int:
 
 def _allreduce_run(comm, m: int, dtype, opn: op_mod.Op, det):
     """``run(flat)``: this rank's m-element allreduce of the 1-D ``flat``
-    (n > 1, m > 0); the arena is mapped now."""
+    (n > 1, m > 0); the arena is mapped now. Over a two-level grid
+    (``coll_device_hier``) and with no deterministic mode, the
+    split-level allreduce."""
+    hier = _hier_run(comm, opn, det)
+    if hier is not None:
+        return hier
     n = comm.size
     k = K.padded_chunk(m, n)
     if _kernels_take(dtype, opn):
@@ -432,6 +496,9 @@ def _allreduce_prep(comm, sendbuf, op=op_mod.SUM,
     n, m = comm.size, sendbuf.numel()
     if n == 1 or m == 0:
         return _launcher(sendbuf.clone)
+    hier = _hier_run(comm, opn, det)
+    if hier is not None:  # on the buffer's own shape, as the reference
+        return _launcher(lambda: hier(sendbuf.contiguous()))
     run = _allreduce_run(comm, m, sendbuf.dtype, opn, det)
     return _launcher(lambda: run(sendbuf.reshape(-1)).view(sendbuf.shape))
 
@@ -501,6 +568,13 @@ def _bcast_prep(comm, buf, root: int = 0):
     _check_root("bcast", comm, root)
     if comm.size == 1 or buf.numel() == 0:
         return _launcher(buf.clone)
+    g = grid_of(comm)
+    if g is not None:  # up bcast, then low bcast (coll/xla.py:636-650)
+        from ompi_tpu_torch.parallel import hierarchical as H
+
+        ici = g.n_ici
+        return _launcher(lambda: H.bcast(buf.contiguous(), root // ici,
+                                         root % ici, g.low, g.up))
     ep = _cuda._arena(comm, "pull", buf.nbytes)
 
     def launch():
@@ -528,6 +602,12 @@ def _alltoall_prep(comm, sendbuf):
             f"divisible by the comm size {n}")
     if n == 1 or sendbuf.numel() == 0:
         return _launcher(sendbuf.clone)
+    g = grid_of(comm)
+    if g is not None:  # ICI regroup, then DCN (coll/xla.py:744-757)
+        from ompi_tpu_torch.parallel import hierarchical as H
+
+        return _launcher(lambda: H.alltoall(sendbuf.contiguous(), g.low,
+                                            g.up))
     ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
 
     def launch():

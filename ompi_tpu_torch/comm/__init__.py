@@ -239,12 +239,22 @@ class Communicator(attr_mod.AttrHost):
         return self._derive(Group(group.ranks), cid)
 
     def free(self) -> None:
-        """MPI_Comm_free: attribute delete callbacks, then the device
-        arenas (collective), then the cid leaves the registry."""
+        """MPI_Comm_free: attribute delete callbacks, then the two-level
+        splits (coll/hier's and coll/device's grids: ``low`` then ``up``;
+        coll/han's levels), then the device arenas (collective), then the
+        cid leaves the registry."""
         if self.attrs:
             attr_mod.delete_attrs(self)
         from ompi_tpu_torch.coll import cuda as _coll_cuda
+        from ompi_tpu_torch.parallel import hierarchical as _hier
 
+        self.__dict__.pop("_coll_hier_plan", None)
+        self.__dict__.pop("_coll_device_grid", None)
+        _hier.release(self)
+        levels = self.__dict__.pop("_han_levels", None)
+        if levels is not None:
+            levels.release()
+        self.__dict__.pop("_han_colors", None)
         _coll_cuda.release(self)
         with _comms_lock:
             if _comms.get(self.cid) is self:

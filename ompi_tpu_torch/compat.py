@@ -9,8 +9,9 @@ with like is the MCA configuration, the data and the parameters.
   ``osc_cuda*``,
   ``coll_xla_deterministic`` -> ``coll_device_deterministic`` (the one
   default mode, which coll/cuda reads as coll/pallas reads coll/xla's),
-  and likewise ``coll_xla_{bucket_bytes, rooted_threshold_bytes}`` ->
-  ``coll_device_*`` (same defaults), ``device_plane_platform`` tpu ->
+  and likewise ``coll_xla_{bucket_bytes, rooted_threshold_bytes, hier}``
+  -> ``coll_device_*`` (same defaults; ``coll_device_hier`` groups by
+  node where the reference groups by ``slice_index``), ``device_plane_platform`` tpu ->
   cuda). Settings with no counterpart are dropped: the Pallas TPU
   transport's; ``coll_xla_alltoallv_pad_factor`` (coll/device's
   Alltoallv pads nothing, so there is no blowup for it to bound);
@@ -51,7 +52,7 @@ _DROPPED = frozenset(("coll_pallas_interpret", "coll_pallas_dma_max_bytes",
                       "coll_xla_a2av_meta_cache"))
 #: coll/xla settings coll/device keeps under its own prefix
 _XLA_TO_DEVICE = frozenset(("deterministic", "bucket_bytes",
-                            "rooted_threshold_bytes"))
+                            "rooted_threshold_bytes", "hier"))
 
 
 def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:

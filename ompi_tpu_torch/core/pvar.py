@@ -107,6 +107,20 @@ WELL_KNOWN = (
     # core/mpool's registration cache (the datatype engine's span tables
     # and device index vectors): hits and LRU evictions
     "rcache_hits", "rcache_evictions",
+    # coll/hier (the two-level ICI x DCN schedules): launches, fused
+    # bucket launches, calls handed one priority level down; per-level
+    # send-side bytes (monitoring/algo's models: ICI, nominal DCN, and
+    # what the DCN phase moves under a compressed wire format)
+    "hier_launches", "hier_fused_launches", "hier_fallthrough",
+    "hier_ici_bytes", "hier_dcn_bytes", "hier_dcn_wire_bytes",
+    # coll/han (host two-level compositions): calls per collective
+    "han_allreduce", "han_reduce", "han_bcast", "han_barrier",
+    "han_allgather",
+    # zero/layout.ErrorFeedback: quantise-at-source applications and the
+    # wire bytes of the buckets they quantised
+    "zero_ef_steps", "zero_ef_bytes",
+    # switchpoint-table files that did not load (tune/observe)
+    "tune_table_errors",
 )
 
 

@@ -59,6 +59,10 @@ layer, ``prefetch_depth`` 1); and a ``Zero3Optimizer`` over the blocks'
   |err| <= tol * (|x| @ |w|) (tol 1e-5 float32, 2e-2 bfloat16), and
   ``zero3_gather_matmul_dev`` of a sharded c_fc.w the same way.
 
+``--error-feedback WIRE`` runs, in place of all that, stage 2 unfused
+'linear' with ``error_feedback=WIRE`` beside the same step without it on
+a seeded quadratic loss (:func:`error_feedback_main`).
+
 The kernels' launch counts are zeroed just before each phase and read
 just after, and summed. With ``--out DIR`` each rank writes
 ``DIR/rank<r>.json``: the cases, the summed launch counts (K6 also per
@@ -111,6 +115,10 @@ ZERO3 = (("zero3-linear", "linear", "stage1-linear"),
 PASSES = 3  # stage 3's timed forward passes and c_fc matmul passes
 SAMPLES = ("wte", "h[0].mlp.c_fc.w", "h[0].attn.c_attn.b")
 LR, MOMENTUM = 0.01, 0.9
+#: --error-feedback: the step size on ef_loss, and how far above the
+#: exact step's loss an error-feedback step's may be (the JAX package's
+#: examples/hier_dcn_compress.py bound)
+EF_LR, EF_LOSS_SLACK = 0.5, 1e-2
 ROWS = 2048  # per-rank rows of the K6 activation: 8 x 1024 tokens / 4
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 #: the kernels this path runs (K5b has no caller: 'linear' runs K3)
@@ -208,6 +216,10 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="on a card, rank 0 traces each mode's steps with "
                          "torch.profiler and reports its device ms per step")
+    ap.add_argument("--error-feedback", default="", metavar="WIRE",
+                    help="instead of the modes: stage 2 unfused 'linear' "
+                         "with error_feedback=WIRE (a comma list runs each) "
+                         "beside the same step without it")
     ns = ap.parse_args(argv)
     cfg = TINY if ns.tiny else GPT2
     rows = 64 if ns.tiny else ROWS
@@ -215,6 +227,8 @@ def main(argv=None) -> int:
     comm = mpi.Init()
     n, r = comm.size, comm.rank
     dev = device_plane.device()
+    if ns.error_feedback:
+        return error_feedback_main(comm, ns, cfg, dev)
     assert comm.coll.providers.get("fused_rs_update_dev") == "cuda", \
         comm.coll.providers
     assert comm.coll.providers.get("reduce_scatter_multi_dev") == "device", \
@@ -569,6 +583,140 @@ def main(argv=None) -> int:
         f"rank {r}: a kernel of the path never launched: {launches}"
     mpi.Finalize()
     return 0
+
+def ef_loss(params, target) -> float:
+    """0.5 x the mean squared distance of the parameters to the target,
+    in float64: the loss whose gradient :func:`error_feedback_main`'s
+    ranks feed the optimizer."""
+    tot, cnt = 0.0, 0
+    for p, t in zip(zl.tree_leaves(params), zl.tree_leaves(target)):
+        tot += float(((p.double() - t.double()) ** 2).sum())
+        cnt += p.numel()
+    return 0.5 * tot / cnt
+
+
+def error_feedback_main(comm, ns, cfg, dev) -> int:
+    """``--error-feedback WIRE[,WIRE]``: ZeroOptimizer stage 2 unfused
+    'linear' with ``error_feedback=WIRE`` beside the same step without it
+    (the exact step), ``--steps`` steps each, on the loss :func:`ef_loss`
+    (a seeded target tree): each rank's gradient of a step is the loss's
+    gradient ``p - t`` plus its own seeded noise, so the averaged gradient
+    is the loss's plus the noise's mean. Checks each step's loss is at
+    most ``EF_LOSS_SLACK`` above the exact step's (the JAX package
+    example's bound), and ``zero_ef_steps`` / ``zero_ef_bytes`` equal what
+    the bucket plan derives (every float32 bucket quantised once a step,
+    its elements at the wire's item size); the K1-K3 launches of each run
+    equal the plan's (per step and bucket one K3 fold, then n K2 copies of
+    the allgather)."""
+    from ompi_tpu_torch.examples import kernel_counts as KC
+    from ompi_tpu_torch.parallel import hierarchical as H
+
+    n, r = comm.size, comm.rank
+    counts = KC.Counts(dev)
+    spec = gpt2_spec(cfg, ns.layers)
+    shapes = zl.tree_leaves(spec)
+    params = make_tree(spec, dev, 0.02, ns.seed, 0)
+    target = make_tree(spec, dev, 1.0, ns.seed, 9)
+    plan = zl.plan_for(zl.tree_leaves(params), n)
+    treedef = zl.tree_flatten(spec)[1]
+    cases, report, launches = [], {}, {}
+
+    def case(name, ok, **info):
+        cases.append({"name": name, "ok": bool(ok), **info})
+        if r == 0:
+            print(f"[zero_training n={n}] {name}: "
+                  f"{'ok' if ok else 'MISMATCH'} {info or ''}", flush=True)
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def run(wire):
+        opt = ZeroOptimizer(comm, params, lr=EF_LR, stage=2,
+                            deterministic="linear",
+                            error_feedback=wire or None)
+        cur, losses, ts = params, [], []
+        s = pvar.session()
+        counts.reset()
+        for step in range(ns.steps):
+            grads = zl.tree_unflatten(treedef, [
+                p - t + grad_leaf(shapes, dev, ns.seed, r, step, i)
+                for i, (p, t) in enumerate(zip(zl.tree_leaves(cur),
+                                               zl.tree_leaves(target)))])
+            comm.Barrier()
+            sync()
+            t0 = time.perf_counter()
+            cur = opt.step(grads)
+            sync()
+            ts.append((time.perf_counter() - t0) * 1e3)
+            losses.append(ef_loss(cur, target))
+            del grads
+        got = counts.read()
+        opt.free()
+        return losses, ts, s, got
+
+    exact, t_exact, _, l_exact = run("")
+    report["exact"] = {"loss": exact, "ms": t_exact,
+                       "p50_ms": sorted(t_exact)[len(t_exact) // 2]}
+    launches["exact"] = l_exact
+    for wire in ns.error_feedback.split(","):
+        losses, ts, s, got = run(wire)
+        isz = H.wire_itemsize(wire)
+        want_bytes = ns.steps * sum(
+            e * isz for e, dt in zip(plan.elems, plan.dtypes)
+            if torch_dtype_wider(dt, isz))
+        case(f"error_feedback={wire}: every step's loss <= the exact "
+             f"step's + {EF_LOSS_SLACK}",
+             all(a <= b + EF_LOSS_SLACK for a, b in zip(losses, exact)),
+             loss=losses, exact=exact)
+        case(f"error_feedback={wire}: zero_ef_steps / zero_ef_bytes as "
+             "the plan derives",
+             s.read("zero_ef_steps") == ns.steps
+             and s.read("zero_ef_bytes") == want_bytes,
+             steps=s.read("zero_ef_steps"), bytes=s.read("zero_ef_bytes"),
+             want_bytes=want_bytes)
+        report[wire] = {"loss": losses, "ms": ts,
+                        "p50_ms": sorted(ts)[len(ts) // 2],
+                        "zero_ef_bytes": s.read("zero_ef_bytes")}
+        launches[wire] = got
+        if r == 0:
+            print(f"[zero_training n={n}] error_feedback={wire}: p50 step "
+                  f"{report[wire]['p50_ms']:.3f} ms, exact "
+                  f"{report['exact']['p50_ms']:.3f} ms; losses {losses} "
+                  f"vs exact {exact}", flush=True)
+    # per step and bucket: one 'linear' fold (K3), then the allgather's n
+    # K2 copies; no ring hop
+    want = {"ring_rs_hop": 0, "ring_ag_hop": ns.steps * len(plan.buckets) * n,
+            "linear_fold": ns.steps * len(plan.buckets)}
+    case("K1-K3 launches of each run as the plan derives",
+         all(v == want for v in launches.values()), got=launches,
+         want=want)
+    total = {k: sum(v[k] for v in launches.values()) for k in want}
+    if ns.out:
+        os.makedirs(ns.out, exist_ok=True)
+        with open(os.path.join(ns.out, f"rank{r}.json"), "w") as f:
+            json.dump({"rank": r, "size": n, "device": str(dev),
+                       "layers": ns.layers,
+                       "parameters": sum(p.numel()
+                                         for p in zl.tree_leaves(params)),
+                       "buckets": len(plan.buckets), "launches": total,
+                       "runs": launches, "expected": want,
+                       "error_feedback": report, "cases": cases,
+                       "required": ["ring_ag_hop", "linear_fold"],
+                       "coll_accelerator_staged":
+                           pvar.read("coll_accelerator_staged")}, f)
+    bad = [c for c in cases if not c["ok"]]
+    assert not bad, f"rank {r}: failed checks: {bad}"
+    mpi.Finalize()
+    return 0
+
+
+def torch_dtype_wider(name: str, wire_itemsize: int) -> bool:
+    """Whether ErrorFeedback quantises a bucket of dtype ``name``: a
+    float dtype wider than the wire."""
+    dt = zl.torch_dtype(name)
+    return dt.is_floating_point and dt.itemsize > wire_itemsize
+
 
 if __name__ == "__main__":
     raise SystemExit(main())

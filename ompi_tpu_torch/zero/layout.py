@@ -1,7 +1,7 @@
 """zero/layout — pad-and-shard bucket layout for sharded data parallel.
 
 Port of :mod:`ompi_tpu.zero.layout` (ZeroPlan, plan_for, ShardedState,
-layer_groups and the host bucket cycle).
+layer_groups, ErrorFeedback and the host bucket cycle).
 The ZeRO cycle (Rajbhandari et al., SC'20) is reduce_scatter(grads) ->
 local shard update -> all_gather(params), so every rank holds O(1/n)
 optimizer state. The layout is the fused allreduce's dtype-segregated
@@ -400,6 +400,90 @@ class ShardedState:
             for i, leaf in zip(idxs, split(fulls[b], self.metas, idxs)):
                 outs[i] = leaf
         return tree_unflatten(self.treedef, outs)
+
+
+class ErrorFeedback:
+    """Per-bucket compression-residual carry for ZeRO gradient cycles
+    (Seide et al. 2014 1-bit SGD; Lin et al. 2018 DGC): each step
+    transmits Q(g + e) and keeps e' = (g + e) - Q(g + e) locally, so the
+    quantisation error is re-injected next step instead of lost.
+    Quantisation happens at the source — elementwise, deterministic,
+    before the exact reduction — so it holds whichever transport (flat,
+    two-level, compressed DCN) carries the payload.
+
+    Layout-matched to the :class:`ZeroPlan` the zero collectives derive,
+    so the fp8 scale is per bucket and the residual is one unpadded flat
+    tensor (numpy array for numpy leaves) per compressible bucket.
+    Buckets whose dtype the wire cannot narrow (integers, dtypes no wider
+    than the wire) pass through untouched and carry no residual. The
+    quantiser is ``parallel.hierarchical.wire_quantize``: numpy leaves go
+    through torch on the CPU and come back as numpy of their dtype. A
+    bfloat16 bucket under an fp8 wire is quantised (the reference passes
+    it through: ml_dtypes' bfloat16 has numpy kind 'V', not 'f')."""
+
+    __slots__ = ("wire", "plan", "residuals", "_active")
+
+    def __init__(self, wire: str) -> None:
+        from ompi_tpu_torch.parallel import hierarchical as H
+
+        if H.wire_dtype(wire) is None:
+            raise errors.MPIError(
+                errors.ERR_ARG,
+                f"error_feedback={wire!r}: expected 'bf16', "
+                "'fp8_e4m3' or 'fp8_e5m2'")
+        self.wire = H.wire_degrade(wire)
+        self.plan: Optional[ZeroPlan] = None
+        self.residuals: List[object] = []
+        self._active: Tuple[bool, ...] = ()
+
+    def _bind(self, plan: ZeroPlan) -> None:
+        """(Re)bind to a bucket layout; a layout change resets the
+        carried residuals (they index a different packing)."""
+        from ompi_tpu_torch.parallel import hierarchical as H
+
+        self.plan = plan
+        wsz = H.wire_itemsize(self.wire)
+        active = []
+        for dt in plan.dtypes:
+            tdt = getattr(torch, dt, None)
+            active.append(isinstance(tdt, torch.dtype)
+                          and tdt.is_floating_point and wsz < tdt.itemsize)
+        self._active = tuple(active)
+        self.residuals = [None] * len(plan.buckets)
+
+    def apply(self, tree, n: int):
+        """Same-structure pytree with every compressible bucket replaced
+        by Q(bucket + residual), the new residual carried to the next
+        step. ``n`` is the comm size (the plan's pad modulus), so the
+        packing is element for element the one the zero collectives
+        move. Counts ``zero_ef_steps`` and the quantised buckets' wire
+        bytes in ``zero_ef_bytes``."""
+        from ompi_tpu_torch.parallel import hierarchical as H
+
+        leaves, treedef = tree_flatten(tree)
+        metas = _fuse_metas(leaves)
+        plan = ZeroPlan(metas, int(bucket_var.get()), int(n))
+        if self.plan is None or plan.buckets != self.plan.buckets \
+                or plan.dtypes != self.plan.dtypes:
+            self._bind(plan)
+        outs = list(leaves)
+        wsz = H.wire_itemsize(self.wire)
+        ef_bytes = 0
+        for b, idxs in enumerate(plan.buckets):
+            if not self._active[b]:
+                continue
+            flat = pack(leaves, idxs, 0)
+            r = self.residuals[b]
+            if r is not None:
+                flat = flat + r
+            q = H.wire_quantize(flat, self.wire)
+            self.residuals[b] = flat - q
+            for i, leaf in zip(idxs, split(q, metas, idxs)):
+                outs[i] = leaf
+            ef_bytes += plan.elems[b] * wsz
+        pvar.record("zero_ef_steps")
+        pvar.record("zero_ef_bytes", ef_bytes)
+        return tree_unflatten(treedef, outs)
 
 
 # ---------------------------------------------------------------------------

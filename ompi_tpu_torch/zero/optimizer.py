@@ -17,10 +17,7 @@ result is its bits. Numpy parameters run the host bucket cycle.
 Where the port differs from the reference: ``overlap=True`` Preadys the
 leaves in reverse flatten order, the order a backward pass produces
 them (the reference: flatten order; the results and the flush counts
-are the same). ``error_feedback`` raises ``MPIError(ERR_NOT_SUPPORTED)``
-rather than running something else: it needs
-``zero/layout.ErrorFeedback`` and its wire formats (ROADMAP queue 1
-item 6).
+are the same).
 """
 
 from __future__ import annotations
@@ -78,6 +75,11 @@ class ZeroOptimizer:
       ``Preduce_scatter_init`` request at construction; each step
       Preadys the gradient leaves (last leaf first) with their values
       and waits for the cycle's shards. :meth:`free` frees it.
+    - ``error_feedback`` (optional ``'bf16'`` / ``'fp8_e4m3'`` /
+      ``'fp8_e5m2'``, not with ``fused``): each step quantises the
+      gradients at the source through :class:`~ompi_tpu_torch.zero.
+      layout.ErrorFeedback` (per-bucket residual carried to the next
+      step) before the reduction.
     - ``frozen`` (optional pytree of bools matching ``params``): True
       marks a leaf that does not train. Its gradients are zeroed before
       the reduce-scatter (so it stays bitwise put inside a mixed bucket),
@@ -121,12 +123,6 @@ class ZeroOptimizer:
                 errors.ERR_ARG,
                 "ZeroOptimizer: frozen leaves require the unfused step "
                 "(the fused kernel updates whole buckets)")
-        if error_feedback is not None:
-            raise errors.MPIError(
-                errors.ERR_NOT_SUPPORTED,
-                "ZeroOptimizer: error_feedback needs "
-                "zero/layout.ErrorFeedback and the compressed wire "
-                "formats of the hierarchy slice (ROADMAP queue 1, item 6)")
         self._comm = comm
         self._stage = stage
         self._lr = float(lr)
@@ -134,6 +130,10 @@ class ZeroOptimizer:
         self._det = deterministic
         self._avg = bool(grad_average)
         self._fused = bool(fused)
+        # checked at construction (ERR_ARG on an unknown wire), bound to
+        # the gradients' own ZeroPlan at the first step
+        self._ef = _layout.ErrorFeedback(error_feedback) \
+            if error_feedback is not None else None
         # every rank holds the full initial params: the shard is a local
         # slice, no collective
         self._pshards = _layout.ShardedState.from_full(comm, params)
@@ -181,7 +181,14 @@ class ZeroOptimizer:
         # constants cast to the shard dtype, one rounded op at a time:
         # the op sequence of cuda_kernels.shard_update_plain, which the
         # fused path runs
-        g = self._grad_shards(self._mask_frozen(grads))
+        g = self._mask_frozen(grads)
+        if self._ef is not None:
+            # quantise at the source after the frozen mask (a frozen
+            # leaf's zeros stay zeros, its residual zero) and before the
+            # collective, so any transport reduces what the residual
+            # accounts for
+            g = self._ef.apply(g, self._comm.size)
+        g = self._grad_shards(g)
         if self._avg:
             inv = 1.0 / self._comm.size
             g = g.map(lambda s: s * shard_const(inv, s))

@@ -35,10 +35,14 @@ however the leaves are bucketed, so a stage-3 run under
 Under 'ring' the buckets' chunking differs from stage 2's, so the two
 agree within a few roundings.
 
-Where the port differs from the reference: ``error_feedback`` raises
-``MPIError(ERR_NOT_SUPPORTED)`` (ROADMAP queue 1 item 6), and the
-trace, prof and watchdog call sites wait with the port's telemetry
-(item 10); :func:`prefetch_info` keeps its record all the same.
+``error_feedback`` quantises each layer's gradients at the source with a
+per-layer carried residual (:class:`~ompi_tpu_torch.zero.layout.
+ErrorFeedback`) before the reduce-scatter, the stage-3 shape of the
+stage-1/2 option.
+
+Where the port differs from the reference: the trace, prof and watchdog
+call sites wait with the port's telemetry (ROADMAP item 10);
+:func:`prefetch_info` keeps its record all the same.
 coll/device's gathers step on the host inside ``start()``, so a
 prefetched gather is complete when the consumer arrives: the prefetch
 does not yet hide communication behind the caller's work (ROADMAP queue
@@ -146,18 +150,18 @@ class Zero3Optimizer:
                  grad_average: bool = True,
                  error_feedback: Optional[str] = None,
                  prefetch_depth: int = 1) -> None:
-        if error_feedback is not None:
-            raise errors.MPIError(
-                errors.ERR_NOT_SUPPORTED,
-                "Zero3Optimizer: error_feedback needs "
-                "zero/layout.ErrorFeedback and the compressed wire "
-                "formats of the hierarchy slice (ROADMAP queue 1, item 6)")
         self._comm = comm
         self._lr = float(lr)
         self._mu = float(momentum)
         self._det = deterministic
         self._avg = bool(grad_average)
         self.plan = Zero3Plan(params, comm.size)
+        # one residual carry per layer: stage 3 reduces a layer at a
+        # time, and each layer's leaves pack their own ZeroPlan
+        self._efs: Optional[List[_layout.ErrorFeedback]] = (
+            [_layout.ErrorFeedback(error_feedback)
+             for _ in range(self.plan.n_layers)]
+            if error_feedback is not None else None)
         leaves = _layout.tree_leaves(params)
         self._dev = isinstance(leaves[0], torch.Tensor)
         # every rank holds the full initial params: each layer's shard is
@@ -334,9 +338,12 @@ class Zero3Optimizer:
                 f"{self.plan.n_leaves}-leaf template")
         for g in reversed(range(self.plan.n_layers)):
             idxs = self.plan.groups[g][1]
+            layer_grads = [gleaves[i] for i in idxs]
+            if self._efs is not None:
+                layer_grads = self._efs[g].apply(layer_grads,
+                                                 self._comm.size)
             gs = self._comm.Reduce_scatter_multi(
-                [gleaves[i] for i in idxs], op_mod.SUM,
-                deterministic=self._det)
+                layer_grads, op_mod.SUM, deterministic=self._det)
             if self._avg:
                 inv = 1.0 / self._comm.size
                 gs = gs.map(lambda s: s * shard_const(inv, s))

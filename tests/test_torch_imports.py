@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``ompi_tpu_torch`` (nor
-``chip_smoke.py``) imports jax or the JAX package ``ompi_tpu``, and
-importing the port leaves jax out of ``sys.modules``."""
+``chip_smoke.py``) imports jax, ``ml_dtypes`` or the JAX package
+``ompi_tpu``, and importing the port leaves jax out of ``sys.modules``."""
 
 import ast
 import os
@@ -21,7 +21,8 @@ def _port_files():
 
 def _forbidden(mod: str) -> bool:
     top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "ompi_tpu")
+    # ml_dtypes: the chip machine has none; bf16 and fp8 go through torch
+    return top in ("jax", "jaxlib", "ompi_tpu", "ml_dtypes")
 
 
 def test_port_has_modules():
@@ -98,9 +99,13 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.examples.p2p_bandwidth, ompi_tpu_torch.part, "
             "ompi_tpu_torch.pml.part, ompi_tpu_torch.zero.zero3, "
             "ompi_tpu_torch.examples.partitioned_gradients, "
-            "ompi_tpu_torch.examples.zero3_params; "
+            "ompi_tpu_torch.examples.zero3_params, "
+            "ompi_tpu_torch.parallel.hierarchical, ompi_tpu_torch.coll.hier, "
+            "ompi_tpu_torch.coll.han, ompi_tpu_torch.monitoring.algo, "
+            "ompi_tpu_torch.examples.hier_collectives, "
+            "ompi_tpu_torch.examples.hier_dcn_compress; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'ompi_tpu')]; "
+            "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
     env = dict(os.environ, PYTHONPATH=ROOT)
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
@@ -116,6 +121,18 @@ def test_host_plane_modules_are_scanned():
                 "pml/ob1.py", "pml/accel_p2p.py", "pml/request.py",
                 "datatype/convertor.py", "smsc.py", "info.py", "attr.py",
                 "util/net.py", "core/progress.py", "core/native.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+def test_hierarchy_modules_are_scanned():
+    """The hierarchy layer's modules and its guards are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("parallel/hierarchical.py", "coll/hier.py", "coll/han.py",
+                "monitoring/algo.py", "monitoring/matrix.py",
+                "telemetry/flight.py", "trace/recorder.py",
+                "tune/observe.py", "examples/hier_collectives.py",
+                "examples/hier_dcn_compress.py",
+                "examples/kernel_counts.py"):
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 

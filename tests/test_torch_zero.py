@@ -152,6 +152,12 @@ for step in range(2):
 for i, leaf in enumerate(jax.tree.leaves(out)):
     save(f"frozen_p{{i}}", leaf)
 save("frozen_skipped", np.asarray(s.read("zero_ag_skipped")))
+opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                    deterministic="linear", error_feedback="bf16")
+for step in range(2):
+    out = opt.step(to_jax(make_grads(rank, step)))
+for i, leaf in enumerate(jax.tree.leaves(out)):
+    save(f"ef_p{{i}}", leaf)
 for name, xdt, wdt in {matmuls!r}:
     x, w = matmul_inputs(name, xdt, wdt, rank)
     out = comm.coll.allgather_matmul_dev(
@@ -268,9 +274,13 @@ assert s.read("coll_cuda_fallthrough") == 1
 st = zl.ShardedState.from_full(comm, params)
 assert comm.coll.zero3_gather_matmul_dev(comm, st, torch.ones(3, 2)) is None
 assert s.read("coll_cuda_fallthrough") == 2
-msg = expect_error(errors.ERR_NOT_SUPPORTED, lambda: ZeroOptimizer(
-    comm, params, error_feedback="bf16"))
-assert "ROADMAP" in msg, msg
+# error feedback: the 'linear' step with a bf16 wire, against the reference
+opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                    deterministic="linear", error_feedback="bf16")
+for step in range(2):
+    out = opt.step(to_torch(make_grads(rank, step)))
+for i, leaf in enumerate(zl.tree_leaves(out)):
+    save(f"ef_p{{i}}", leaf)
 for kw in ({{"overlap": True, "fused": True}}, {{"fused": True,
                                                 "frozen": FROZEN}}):
     expect_error(errors.ERR_ARG, lambda: ZeroOptimizer(comm, params, **kw))
@@ -478,13 +488,21 @@ def test_zero3_gather_matmul_against_reference(results):
 def test_error_paths(results):
     """int16 allgather_matmul_dev returns the composed allgather + plain
     product and counts coll_cuda_fallthrough (as the reference falls
-    through to coll/xla); error_feedback raises ERR_NOT_SUPPORTED naming
-    the ROADMAP item; overlap with fused raises ERR_ARG (the reference's
-    rule); numpy leaves take the host bucket cycle, whose shards equal
-    ShardedState.from_full of the sums; checked inside the port job."""
+    through to coll/xla); overlap with fused raises ERR_ARG (the
+    reference's rule); numpy leaves take the host bucket cycle, whose
+    shards equal ShardedState.from_full of the sums; checked inside the
+    port job. ``error_feedback='bf16'`` (which raised ERR_NOT_SUPPORTED
+    before the hierarchy slice) runs: two 'linear' steps with momentum,
+    every parameter bitwise the reference's."""
     n, out = results
     for r in range(n):
         assert (out / f"port_errors_r{r}.ok").exists()
+        i = 0
+        while (out / f"ref_ef_p{i}_r{r}.npy").exists():
+            ref, got = _pair(out, f"ef_p{i}", r)
+            assert_bits_equal(got, ref)
+            i += 1
+        assert i == 7, i
 
 
 # ---------------------------------------------------------------------------

@@ -279,6 +279,18 @@ if size == 2:
     errs += [eclass(lambda: ZeroOptimizer(comm, eparams, stage=3)),
              eclass(lambda: Zero3Plan({{}}, comm.size))]
     record(out, "z3_errors", errs)
+    o = Zero3Optimizer(comm, {{"e": jnp.ones((6, 4), jnp.float32),
+                              "l": [{{"w": jnp.ones((4, 4), jnp.float32)}}]}},
+                       lr=0.1, deterministic="linear", error_feedback="bf16")
+    s = pvar.session()
+    for step in range(2):
+        g = rand_grads(rank, step)
+        o.step({{"e": jnp.asarray(g["embed"][:6, :4]),
+                "l": [{{"w": jnp.asarray(g["layers"][0]["w"][:4, :4])}}]}})
+    for i, leaf in enumerate(jax.tree.leaves(o.gathered_params())):
+        save(f"z3_ef_{{i}}", leaf)
+    record(out, "z3_ef", s.read("zero_ef_steps"))
+    o.free()
 
     class _Gated:
         def __init__(self, inner):
@@ -527,12 +539,19 @@ if size == 2:
     errs += [eclass(lambda: ZeroOptimizer(comm, eparams, stage=3)),
              eclass(lambda: Zero3Plan({{}}, comm.size))]
     record(out, "z3_errors", errs)
-    msg = ""
-    try:
-        Zero3Optimizer(comm, eparams, error_feedback="bf16")
-    except errors.MPIError as e:
-        msg = f"{{e.error_class}} {{e}}"
-    record(out, "z3_ef", msg)
+    o = Zero3Optimizer(comm, {{"e": torch.ones(6, 4),
+                              "l": [{{"w": torch.ones(4, 4)}}]}},
+                       lr=0.1, deterministic="linear", error_feedback="bf16")
+    s = pvar.session()
+    for step in range(2):
+        g = rand_grads(rank, step)
+        o.step({{"e": torch.from_numpy(g["embed"][:6, :4].copy()),
+                "l": [{{"w": torch.from_numpy(
+                    g["layers"][0]["w"][:4, :4].copy())}}]}})
+    for i, leaf in enumerate(zl.tree_leaves(o.gathered_params())):
+        save(f"z3_ef_{{i}}", leaf)
+    record(out, "z3_ef", s.read("zero_ef_steps"))
+    o.free()
 
     class _Gated:
         def __init__(self, inner):
@@ -849,8 +868,10 @@ def test_zero3_matmul_fallthrough_without_cuda(out2):
 
 def test_zero3_erroneous_calls_raise_mpierror(out2):
     """Fetch out of range and a wrong leaf count raise ERR_COUNT,
-    stage=3 and an empty tree ERR_ARG; error_feedback raises
-    ERR_NOT_SUPPORTED naming its ROADMAP item."""
+    stage=3 and an empty tree ERR_ARG. ``error_feedback='bf16'`` (which
+    raised ERR_NOT_SUPPORTED before the hierarchy slice) runs: two
+    'linear' steps over two layers, one residual each (zero_ef_steps 4),
+    the gathered parameters bitwise the reference's."""
     from ompi_tpu_torch import errors
 
     for r in range(2):
@@ -858,9 +879,10 @@ def test_zero3_erroneous_calls_raise_mpierror(out2):
             _json(out2, "ref", r)["z3_errors"] == [
                 errors.ERR_COUNT, errors.ERR_COUNT, errors.ERR_ARG,
                 errors.ERR_ARG]
-        msg = _json(out2, "port", r)["z3_ef"]
-        assert msg.startswith(f"{errors.ERR_NOT_SUPPORTED} ") \
-            and "item 6" in msg, msg
+        assert _json(out2, "port", r)["z3_ef"] == \
+            _json(out2, "ref", r)["z3_ef"] == 4
+    for i in range(2):
+        _same_bits(out2, f"z3_ef_{i}")
 
 
 def test_refresh_falls_back_to_reinit_when_rebind_gated(out2):
