@@ -262,12 +262,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    most 1e-2 above the exact step's, ``zero_ef_*`` as the plan derives).
    Each part's K1-K3 launches must equal what the ranks derive from their
    schedules.
+11. the serving plane (see :func:`serve_phase`): two 4-rank jobs of
+   ``ompi_tpu_torch/examples/moe_serving.py --width full`` (bench.py's
+   MoE FFN, d_model 7168 and d_ff 28672, float32 experts drawn on the
+   card: 4 a rank, 26.3 GB on the card) under ``--mca device_plane on
+   --mca monitoring_level 1``: the flat job (16 experts, Zipf hotness 2.0,
+   seed 23, 32 tokens a rank a request, capacity factor 1.25, 2 warm-up
+   and 32 timed requests a policy) holds ``drop`` bitwise to
+   ``ops/moe.moe_ffn``, ``reroute``'s conservation on every request and
+   the merged report naming the hot expert; the ``dcn_overflow`` job,
+   also under ``--mca coll_hier_split 2x2`` (8 experts, the slices
+   replicas), holds one dispatch to a float64 oracle (max |out - oracle|
+   <= 1e-4 x max |oracle|) with nothing dropped, and half the overflow's
+   bytes as budget to its bound. Each policy's K2 launches must equal
+   what the ranks derive from the schedules; prints rank 0's p50, p95,
+   p99 and tokens/s per policy beside the HBM floor (every request
+   streams every expert), the serve pvars, the drop and reroute rates,
+   the plane's Alltoallv records and the peak memory per rank.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8 and 10 and the training path, K5 and K6's two kernels from the
+7, 8, 10 and 11 and the training path, K5 and K6's two kernels from the
 training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
 batches also from phase 9; K5b and the per-call row of K10 with 0 and a
@@ -1696,6 +1713,16 @@ HIER_MCA = ("--mca", "coll_hier", "on", "--mca", "coll_hier_split", "2x2",
 EF_WIRES = "bf16,fp8_e4m3"
 
 
+#: phase 11 (moe_serving.py): the jobs' mca, the widths' bytes of expert
+#: weights on the card (4 ranks x 4 experts x 2 x 7168 x 28672 float32)
+SERVE_MCA = ("--mca", "monitoring_level", "1")
+SERVE_JOBS = (("_serve", ["--width", "full", "--parts", "drop,reroute"],
+               SERVE_MCA),
+              ("_serve_dcn", ["--width", "full", "--parts", "dcn_overflow"],
+               SERVE_MCA + ("--mca", "coll_hier_split", "2x2")))
+SERVE_WEIGHT_BYTES = N_RANKS * 4 * 2 * 7168 * 28672 * 4
+
+
 def rank_docs(out: str, nranks: int) -> list:
     docs = []
     for r in range(nranks):
@@ -1795,6 +1822,64 @@ def hier_phase(card: str, root: str) -> dict:
           f"{[d['device_plane_arena_bytes'] for d in d1]}, part 2 "
           f"{[d['arena_bytes'] for d in d2]}; arena bytes per comm (rank 0) "
           f"{d1[0]['arena_bytes']}; launches (all ranks) {total}; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return total
+
+
+def serve_phase(card: str, root: str) -> dict:
+    """Phase 11: the serving plane at full width, two 4-rank jobs of
+    ``moe_serving.py`` under the device plane alone (coll/device's
+    Alltoalls, K2) and ``monitoring_level 1`` (:data:`SERVE_JOBS`).
+    Every rank's checks must hold (main_path), and each policy's K2
+    launches, summed over the ranks, must equal the derived count.
+    Prints rank 0's tail latencies and rates per policy beside the HBM
+    floor, the serve pvars, the plane's collective records, the oracle
+    and budget rows and every rank's peak memory; returns the launches."""
+    t0 = time.perf_counter()
+    total: dict = {}
+    floor_ms = SERVE_WEIGHT_BYTES / HBM_BYTES_PER_S * 1e3
+    for tag, args, mca in SERVE_JOBS:
+        got, _ = main_path("moe_serving.py", N_RANKS, args, card, root, None,
+                           mca, tag=tag)
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        docs = rank_docs(smoke_dir(root, "moe_serving.py", N_RANKS, None,
+                                   tag), N_RANKS)
+        for name, part in docs[0]["parts"].items():
+            res = part.get("summary")
+            if res is None:
+                continue
+            k2 = sum(d["parts"][name]["k2"]["got"] for d in docs)
+            want = sum(d["parts"][name]["k2"]["derived"] for d in docs)
+            if k2 != want or k2 <= 0:
+                fail(f"phase 11 {name}: K2 launches {k2}, derived {want}")
+            print(f"phase 11 {name} n={N_RANKS} d_model 7168 d_ff 28672 "
+                  f"(rank 0, {res['requests']} timed requests of 32 tokens):"
+                  f" p50 {res['p50_ms']:.3f} ms, p95 {res['p95_ms']:.3f} ms, "
+                  f"p99 {res['p99_ms']:.3f} ms, {res['tokens_per_s']:.1f} "
+                  f"tokens/s (HBM floor {floor_ms:.3f} ms a request: "
+                  f"{SERVE_WEIGHT_BYTES} B of experts at 3.35 TB/s); drop "
+                  f"rate {res['drop_rate']:.4f}, rerouted {res['rerouted']}, "
+                  f"DCN {res['dcn_tokens']} tokens {res['dcn_bytes']} B, hot "
+                  f"expert e{res['hot_expert']} ({res['hot_share']:.3f}); "
+                  f"serve pvars {part['pvars']}; K2 launches (all ranks) "
+                  f"{k2}, as derived [{card}]", flush=True)
+        for name, part in docs[0]["parts"].items():
+            if name.startswith("report"):
+                print(f"phase 11 {name}: {part['hot_line']} named; the "
+                      f"plane's collective records {part['coll_records']}; "
+                      f"per-level {part['hier_levels']} [{card}]", flush=True)
+        dcn = docs[0]["parts"].get("dcn_overflow")
+        if dcn is not None:
+            errs = [d["parts"]["dcn_overflow"]["oracle"] for d in docs]
+            print(f"phase 11 dcn_overflow oracle (float64, per rank): max "
+                  f"|out - oracle| {[e['max_abs_err'] for e in errs]} of max "
+                  f"|oracle| {[e['max_abs_oracle'] for e in errs]}; budget "
+                  f"(rank 0) {dcn['budget']} [{card}]", flush=True)
+        print(f"phase 11{tag} peak allocated per rank (GiB) "
+              f"{[round(d['peak_bytes'] / 2 ** 30, 3) for d in docs]} "
+              f"[{card}]", flush=True)
+    print(f"phase 11: launches (all ranks) {total}; "
           f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
     return total
 
@@ -2164,8 +2249,10 @@ def main() -> int:
     # the datatype job's K1-K3 launches join the collectives jobs'
     for k, v in datatype_phase(torch, card, root).items():
         coll[k] = coll.get(k, 0) + v
-    # and so do phase 10's
+    # and so do phase 10's and 11's
     for k, v in hier_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
+    for k, v in serve_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

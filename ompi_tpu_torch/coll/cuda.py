@@ -57,6 +57,8 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.monitoring import algo as _algo
+from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.monitoring.algo import log2_bucket
 from ompi_tpu_torch.runtime import device_plane, launcher, rte
 from ompi_tpu_torch.tune import observe as _tobs
@@ -208,13 +210,22 @@ def _select(kind: str, comm, sendbuf: torch.Tensor, det: Optional[str],
     return "ring"
 
 
-def _account_bytes(nbytes: int, algo: str) -> None:
+def _account_bytes(kind: str, comm, nbytes: int, dtype: str,
+                   algo: str) -> None:
+    """The launch's pvars and, with the monitoring plane on, its record
+    with the schedule's own per-peer split (coll/pallas.py:273-283)."""
     pvar.record("coll_cuda_launches")
     pvar.record(_BYTES_PVAR[algo], nbytes)
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        tm.coll(kind, comm, nbytes, dtype=dtype,
+                per_peer=_algo.pallas_per_peer(kind, algo, comm.rank,
+                                               comm.size, nbytes))
 
 
-def _account(sendbuf: torch.Tensor, algo: str) -> None:
-    _account_bytes(sendbuf.numel() * sendbuf.element_size(), algo)
+def _account(kind: str, comm, sendbuf: torch.Tensor, algo: str) -> None:
+    _account_bytes(kind, comm, sendbuf.numel() * sendbuf.element_size(),
+                   _dtype_name(sendbuf), algo)
 
 
 def _check_buf(kind: str, sendbuf) -> bool:
@@ -538,7 +549,7 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
     if m == 0:
         return sendbuf.clone()
     k = K.padded_chunk(m, n)
-    _account(sendbuf, algo)
+    _account("allreduce", comm, sendbuf, algo)
     out = torch.empty(n * k, dtype=sendbuf.dtype, device=sendbuf.device)
     ep = _arena(comm, "rs", n * k * sendbuf.element_size())
     ep.run(K.allreduce(ep, sendbuf.reshape(-1), opn.name, algo, out))
@@ -567,7 +578,7 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
                       dtype=sendbuf.dtype, device=sendbuf.device)
     if sendbuf.numel() == 0:
         return out
-    _account(sendbuf, algo)
+    _account("reduce_scatter_block", comm, sendbuf, algo)
     ep = _arena(comm, "rs", sendbuf.numel() * sendbuf.element_size())
     ep.run(K.reduce_scatter(ep, sendbuf.reshape(-1), opn.name, algo,
                             out.numel() // max(rows, 1), out.view(-1)))
@@ -584,7 +595,7 @@ def allgather_dev(comm, sendbuf):
                       device=sendbuf.device)
     if sendbuf.numel() == 0:
         return out
-    _account(sendbuf, algo)
+    _account("allgather", comm, sendbuf, algo)
     ep = _arena(comm, "ag", sendbuf.numel() * sendbuf.element_size())
     ep.run(K.allgather(ep, sendbuf.reshape(-1), algo, out.view(-1)))
     return out
@@ -625,7 +636,8 @@ def fused_rs_update_dev(comm, grads, pshards, mshards, *, lr: float,
         _check_buf("fused_rs_update", t)
     with_mom = mshards is not None
     algo = "linear" if det == "linear" else "ring"
-    _account_bytes(plan.nbytes, algo)
+    _account_bytes("reduce_scatter_multi", comm, plan.nbytes,
+                   plan.dtypes[0] if plan.dtypes else "", algo)
     new_p, new_m = [], []
     for b, idxs in enumerate(plan.buckets):
         flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
@@ -677,7 +689,7 @@ def allgather_matmul_dev(comm, x, w):
     x, w = x.to(dt).contiguous(), w.to(dt).contiguous()
     m, n = x.shape[0], comm.size
     out = torch.empty((n * m, w.shape[1]), dtype=dt, device=x.device)
-    _account(x, "ring")
+    _account("allgather", comm, x, "ring")
     pvar.record("coll_cuda_fused_launches")
     if x.numel() == 0:
         return out.zero_()

@@ -91,6 +91,21 @@ Where the port does something another way, and why:
   until the schedules wait on the device (ROADMAP queue 2 item 2). Every
   rank must reach the same flushes in the same order.
 
+The monitoring plane (``monitoring_level`` >= 1) meters the slots where
+coll/xla does (one ``TRAFFIC`` branch a call when it is off): each
+blocking call on the device path of a comm of two or more ranks records
+its op, payload and the reference's per-peer model (``TrafficMatrix.coll``),
+a Reduce or Gather below the rooted threshold as the Allreduce or
+Allgather it runs, Alltoallv with its actual splits (and, unless the
+internal ``_expert_tokens=False``, its scounts as the per-expert load),
+a partitioned bucket's flush in the ``part`` context. The nonblocking
+forms meter as their blocking slot; persistent starts, Scatter,
+Allgatherv / Gatherv and Exscan do not meter, as in the reference. The
+axis collectives of :mod:`ompi_tpu_torch.parallel` run the unmetered
+preps (``_allreduce_prep(...)()`` and the like): they are the reference's
+``lax`` collectives inside a compiled program, which the plane does not
+see either.
+
 A one-rank comm needs no device plane: every slot returns a new tensor
 (a clone; ``allgather_dev`` one with a leading axis of 1; ``exscan_dev``
 zeros) on the tensor's own device and touches no arena. The reference
@@ -120,6 +135,7 @@ from ompi_tpu_torch.accelerator import stream
 from ompi_tpu_torch.coll import cuda as _cuda
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import device_plane
 
@@ -361,6 +377,14 @@ def _ragged(comm, dtype, staged: int, pieces, spans, out) -> None:
         ep.run(K.ragged(ep, dtype, pieces, spans, out))
 
 
+def _meter(tm, kind: str, comm, t, op=None, **kw) -> None:
+    """Record one slot call on the traffic matrices, as coll/xla does:
+    a call on the device path of a comm of two or more ranks (a staged
+    call is coll/accelerator's)."""
+    if comm.size > 1 and not _stages(op, t):
+        tm.coll(kind, comm, t.nbytes, dtype=_dtype_name(t.dtype), **kw)
+
+
 def _launcher(fn):
     """A prepared call: each run counts in ``coll_device_launches``."""
     def launch():
@@ -505,6 +529,9 @@ def _allreduce_prep(comm, sendbuf, op=op_mod.SUM,
 
 def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
                   deterministic: Optional[str] = None):
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "allreduce", comm, sendbuf, op)
     return _allreduce_prep(comm, sendbuf, op, deterministic)()
 
 
@@ -534,6 +561,9 @@ def _reduce_scatter_block_prep(comm, sendbuf, op=op_mod.SUM,
 
 def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
                              deterministic: Optional[str] = None):
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "reduce_scatter_block", comm, sendbuf, op)
     return _reduce_scatter_block_prep(comm, sendbuf, op, deterministic)()
 
 
@@ -558,6 +588,9 @@ def _allgather_prep(comm, sendbuf):
 
 def allgather_dev(comm, sendbuf):
     """``(n, *shape)``, rank i's block at i."""
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "allgather", comm, sendbuf)
     return _allgather_prep(comm, sendbuf)()
 
 
@@ -587,6 +620,9 @@ def _bcast_prep(comm, buf, root: int = 0):
 def bcast_dev(comm, buf, root: int = 0):
     """The root's ``buf`` on every rank (the others' ``buf`` gives only
     the shape and dtype)."""
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "bcast", comm, buf, root=root)
     return _bcast_prep(comm, buf, root)()
 
 
@@ -620,6 +656,9 @@ def _alltoall_prep(comm, sendbuf):
 def alltoall_dev(comm, sendbuf):
     """Dim 0 splits into n blocks; block p of the result is block
     ``rank`` of rank p's input."""
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "alltoall", comm, sendbuf)
     return _alltoall_prep(comm, sendbuf)()
 
 
@@ -708,6 +747,9 @@ def reduce_dev(comm, sendbuf, op=op_mod.SUM, root: int = 0,
             or not _rooted(sendbuf.nbytes * n):
         out = allreduce_dev(comm, sendbuf, opn, det or "")
         return out if r == root else None
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "reduce", comm, sendbuf, opn, root=root)
     pvar.record("coll_device_launches")
     flat, dt = sendbuf.reshape(-1), sendbuf.dtype
     if opn.name == "MPI_SUM":
@@ -755,6 +797,9 @@ def gather_dev(comm, sendbuf, root: int = 0):
     if n == 1 or not _rooted(sendbuf.nbytes * n):
         out = allgather_dev(comm, sendbuf)
         return out if r == root else None
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "gather", comm, sendbuf, root=root)
     pvar.record("coll_device_launches")
     out = sendbuf.new_empty((n,) + tuple(sendbuf.shape)) if r == root \
         else None
@@ -873,6 +918,11 @@ def scatterv_dev(comm, sendbuf, counts, root: int = 0, like=None):
             errors.ERR_COUNT,
             f"scatterv: the root's {tuple(sendbuf.shape)} holds fewer than "
             f"the {total} rows of counts {counts}")
+    tm = _mon.TRAFFIC
+    if tm is not None and r == root:
+        _meter(tm, "scatterv", comm, sendbuf, root=root, counts=counts,
+               row_bytes=sendbuf.nbytes / sendbuf.shape[0]
+               if sendbuf.shape[0] else 0.0)
     pvar.record("coll_device_launches")
     out = torch.empty((counts[r],) + rest, dtype=dtype,
                       device=device_plane.device())
@@ -958,7 +1008,8 @@ def _a2av_meta(comm, scounts, rcounts):
     return [s for s, _ in every]
 
 
-def alltoallv_dev(comm, sendbuf, scounts, rcounts, max_count=None):
+def alltoallv_dev(comm, sendbuf, scounts, rcounts, max_count=None, *,
+                  _expert_tokens: bool = True):
     """MPI_Alltoallv (coll/xla.py:1062-1157): block p of the result is the
     ``scounts_p[rank]`` rows rank p sends this rank, packed in rank order
     (``rcounts[p]`` rows each). Nothing is padded: a reader pulls each
@@ -973,7 +1024,12 @@ def alltoallv_dev(comm, sendbuf, scounts, rcounts, max_count=None):
       ERR_COUNT when some ``rcounts_q[p]`` is not ``scounts_p[q]``. With
       no padding there is no blowup to bound: the reference's
       ``coll_xla_alltoallv_pad_factor`` and its fallback to host staging
-      have no counterpart."""
+      have no counterpart.
+
+    The monitoring plane records the actual splits (scounts[r] rows to
+    rank r) and, as the EP dispatch site, scounts as the per-expert load;
+    the internal ``_expert_tokens=False`` (coll/xla.py:1063) keeps a call
+    whose scounts index ranks, not experts, out of the expert load."""
     if _stages(None, sendbuf):
         return _stage("alltoallv_dev", comm, sendbuf, scounts, rcounts,
                       max_count)
@@ -1007,6 +1063,14 @@ def alltoallv_dev(comm, sendbuf, scounts, rcounts, max_count=None):
         staged = max(sum(s) for s in every) * row
         pieces = [(flat[:sum(scounts) * row], 0)]
         src = [sum(every[p][:r]) * row for p in range(n)]
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        tm.coll("alltoallv", comm, sendbuf.nbytes,
+                dtype=_dtype_name(sendbuf.dtype), counts=scounts,
+                row_bytes=sendbuf.nbytes / sendbuf.shape[0]
+                if sendbuf.shape[0] else 0.0)
+        if _expert_tokens:
+            tm.expert_tokens(scounts)
     pvar.record("coll_device_launches")
     out = sendbuf.new_empty((sum(rcounts),) + rest)
     _ragged(comm, sendbuf.dtype, staged, pieces,
@@ -1072,6 +1136,9 @@ def scan_dev(comm, sendbuf, op=op_mod.SUM,
              deterministic: Optional[str] = None):
     """MPI_Scan (coll/xla.py:1188-1211): the inclusive prefix over ranks
     0..rank."""
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter(tm, "scan", comm, sendbuf, op)
     return _prefix("scan", comm, sendbuf, op, deterministic, False)
 
 
@@ -1128,6 +1195,17 @@ def _allreduce_multi_prep(comm, bufs, op=op_mod.SUM,
     return _launcher(launch)
 
 
+def _meter_multi(tm, kind: str, comm, bufs, op) -> None:
+    """:func:`_meter` for a pytree: the leaves' bytes, the first leaf's
+    dtype (coll/xla.py:1385, :1808)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    leaves, _ = zl.tree_flatten(bufs)
+    if comm.size > 1 and leaves and not _stages(op, *leaves):
+        tm.coll(kind, comm, sum(t.nbytes for t in leaves),
+                dtype=_dtype_name(leaves[0].dtype))
+
+
 def allreduce_multi_dev(comm, bufs, op=op_mod.SUM,
                         deterministic: Optional[str] = None):
     """Fused allreduce over a pytree of device tensors (coll/xla.py:
@@ -1135,6 +1213,9 @@ def allreduce_multi_dev(comm, bufs, op=op_mod.SUM,
     bucket, split back into a new pytree. Under ``'linear'`` every
     element folds in rank order, so the result is bitwise the per-buffer
     loop's."""
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter_multi(tm, "allreduce_multi", comm, bufs, op)
     return _allreduce_multi_prep(comm, bufs, op, deterministic)()
 
 
@@ -1210,6 +1291,9 @@ def reduce_scatter_multi_dev(comm, bufs, op=op_mod.SUM,
     multiple of the comm size, one reduce-scatter per bucket, returning
     this rank's ShardedState. ``'linear'`` is bit-identical to the
     per-buffer allreduce fold."""
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        _meter_multi(tm, "reduce_scatter_multi", comm, bufs, op)
     return _reduce_scatter_multi_prep(comm, bufs, op, deterministic)()
 
 
@@ -1334,6 +1418,10 @@ def allgather_multi_dev(comm, state):
     if comm.size == 1:
         # n=1 shards ARE the full padded buckets
         return state.unpack(state.shards)
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        tm.coll("allgather_multi", comm, state.plan.nbytes,
+                dtype=state.plan.dtypes[0] if state.plan.dtypes else "")
     return _allgather_multi_prep(comm, state)()
 
 
@@ -1423,13 +1511,16 @@ def ibarrier_dev(comm):
         pvar.record("coll_device_launches")
         return DeviceRequest(None, torch.device("cpu"))
     token = torch.ones(1, dtype=torch.int32, device=device_plane.device())
-    return DeviceRequest(allreduce_dev(comm, token, op_mod.SUM, "linear"),
-                         token.device)
+    return DeviceRequest(
+        _allreduce_prep(comm, token, op_mod.SUM, "linear")(), token.device)
 
 
 def barrier_dev(comm) -> None:
     """Device barrier (coll/xla.py:926-942): :func:`ibarrier_dev`,
     waited."""
+    tm = _mon.TRAFFIC
+    if tm is not None and comm.size > 1:
+        tm.coll("barrier", comm, 0)
     ibarrier_dev(comm).wait()
 
 
@@ -1762,6 +1853,12 @@ class PartitionedAllreduceRequest(_BucketedPartitioned):
         flat = zl.pack(self._bound, self._buckets[b], 0)
         red = self._runs[b](flat) if self._runs[b] is not None \
             else flat.clone()
+        tm = _mon.TRAFFIC
+        if tm is not None:  # the bucket's allreduce, in the part context
+            idxs = self._buckets[b]
+            tm.coll("allreduce", self._comm,
+                    sum(self._metas[i][2] for i in idxs),
+                    dtype=self._metas[idxs[0]][1], ctx="part")
         pvar.record("coll_device_launches")
         pvar.record("part_bucket_flushes")
         if self._n_ready < self._n:
@@ -1810,6 +1907,12 @@ class PartitionedReduceScatterRequest(_BucketedPartitioned):
                        plan.padded[b] - plan.elems[b])
         shard = self._runs[b](flat) if self._runs[b] is not None \
             else flat.new_empty(0)
+        tm = _mon.TRAFFIC
+        if tm is not None:
+            idxs = self._buckets[b]
+            tm.coll("reduce_scatter", self._comm,
+                    sum(self._metas[i][2] for i in idxs),
+                    dtype=self._metas[idxs[0]][1], ctx="part")
         pvar.record("zero_rs_launches")
         if self._n_ready < self._n:
             pvar.record("zero_overlap_flushes")

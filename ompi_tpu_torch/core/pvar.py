@@ -121,6 +121,21 @@ WELL_KNOWN = (
     "zero_ef_steps", "zero_ef_bytes",
     # switchpoint-table files that did not load (tune/observe)
     "tune_table_errors",
+    # the monitoring plane (the reference's names): send-side messages and
+    # bytes, all contexts and per context, collective launches recorded,
+    # the link-imbalance gauge (level 2); beside them the dynamic
+    # families monitoring_tx_{msgs,bytes}_s<src>_d<dst>_<ctx>,
+    # monitoring_link_bytes_d<dim>_r<a>_r<b> and
+    # monitoring_expert_tokens_e<e>
+    "monitoring_msgs", "monitoring_bytes", "monitoring_p2p_msgs",
+    "monitoring_p2p_bytes", "monitoring_coll_msgs", "monitoring_coll_bytes",
+    "monitoring_osc_msgs", "monitoring_osc_bytes", "monitoring_part_msgs",
+    "monitoring_part_bytes", "monitoring_coll_launches",
+    "monitoring_link_imbalance_permille",
+    # serve/: timed requests, tokens dispatched, rerouted, and shipped
+    # over the DCN leg (tokens and bytes)
+    "serve_requests", "serve_tokens", "serve_rerouted_tokens",
+    "serve_dcn_overflow_tokens", "serve_dcn_overflow_bytes",
 )
 
 

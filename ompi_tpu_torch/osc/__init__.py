@@ -37,8 +37,9 @@ compiled-fence :class:`~ompi_tpu_torch.osc.device_epoch.DeviceEpochWindow`.
 Not in the port yet, refused with ``ERR_NOT_SUPPORTED`` naming its
 ROADMAP item: the error-handler and info planes of a window
 (``Set_errhandler``, ``Set_info``, the memory-kinds info; queue 1 item
-4f). The monitoring, trace and MPI_T epoch-event call sites wait with
-item 10.
+4f). Every service message counts on the monitoring plane (ctx
+``osc``, its arrays' bytes) in :meth:`Window._send`; the trace and MPI_T
+epoch-event call sites wait with item 10.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod, pml
 from ompi_tpu_torch.attr import AttrHost
 from ompi_tpu_torch.core import output, progress, pvar
+from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.pml.request import ANY_SOURCE, Request
 
 _out = output.stream("osc")
@@ -238,6 +240,13 @@ class Window(AttrHost):
         return events
 
     def _send(self, target: int, msg: tuple) -> None:
+        tm = _mon.TRAFFIC
+        if tm is not None:
+            # every service message (origin requests and the target's
+            # replies) funnels through here; payload = the arrays riding
+            # the message (osc/__init__.py:188-197)
+            tm.count("osc", _mon.world_rank(self.comm, target),
+                     sum(getattr(m, "nbytes", 0) for m in msg))
         pml.current().send_obj(self.comm, msg, target, _SERVICE_TAG)
 
     # ------------------------------------------------------------------

@@ -105,6 +105,8 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda as _coll_cuda
 from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.monitoring import algo as _algo
+from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.osc import (LOCK_EXCLUSIVE, Window, _numel,
                                 _tensor_bits, _wire_dtype, to_wire)
 from ompi_tpu_torch.osc import cuda_kernels as O
@@ -637,6 +639,15 @@ def fence_flush(comm, target: O.Target, fput, fget) -> None:
     gets = [(o, t, d, n, s)
             for o, (_, gd) in enumerate(all_desc)
             for t, d, n, s in gd]
+    tm = _mon.TRAFFIC
+    if tm is not None:
+        # the flush's wire bytes per peer: puts I originate, gets I serve
+        # (osc/pallas.py:613-626)
+        wire = [(o, t, n) for o, t, _d, n, _k, _s in puts] \
+            + [(t, o, n) for o, t, _d, n, _s in gets]
+        for peer, b in _algo.rma_per_peer(
+                comm.rank, wire, target.window.element_size()).items():
+            tm.count("osc", _mon.world_rank(comm, peer), int(b))
     if puts:
         _fence_puts(comm, target, fput, puts)
     if gets:

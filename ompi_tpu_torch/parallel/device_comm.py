@@ -195,8 +195,8 @@ def assemble(mesh, local: torch.Tensor, spec) -> np.ndarray:
     from ompi_tpu_torch.coll import device as cd
 
     spec = P() if spec is None else spec
-    g = compat.tensor_to_numpy(cd.allgather_dev(mesh.comm,
-                                                local.contiguous()))
+    g = compat.tensor_to_numpy(cd._allgather_prep(mesh.comm,
+                                                  local.contiguous())())
     shape = list(local.shape)
     for dim, entry in enumerate(spec):
         ax = _spec_axes(entry)

@@ -59,8 +59,8 @@ def ring_reduce_scatter(x, axis, fn: Callable = torch.add):
     op, xin = _builtin(fn, x)
     if op is not None:
         def fwd(a):
-            return cd.reduce_scatter_block_dev(comm, a.contiguous(), op,
-                                               "ring")
+            return cd._reduce_scatter_block_prep(comm, a.contiguous(), op,
+                                                 "ring")()
         bwd = (lambda g: C._ag(comm, g, 0, True)) \
             if op.name == "MPI_SUM" else None
         return C._apply(fwd, bwd, xin)
@@ -98,7 +98,7 @@ def ring_allreduce(x, axis, fn: Callable = torch.add):
     op, xin = _builtin(fn, x)
     if op is not None:
         def fwd(a):
-            return cd.allreduce_dev(comm, a.contiguous(), op, "ring")
+            return cd._allreduce_prep(comm, a.contiguous(), op, "ring")()
         bwd = fwd if op.name == "MPI_SUM" else None
         return C._apply(fwd, bwd, xin)
     shape = x.shape

@@ -5,7 +5,8 @@ pml.h:157-515; exactly one PML per job, ompi/instance/instance.c:535):
 :mod:`.ob1` over the btls, selected by ``runtime/state`` at MPI_Init and
 finalized at MPI_Finalize; :mod:`.request`; and
 :mod:`.accel_p2p`, device-tensor point-to-point through pipelined pinned
-staging.
+staging; and :mod:`.monitoring`, the interposition layer that wraps the
+selected PML (:func:`set_current`) for the monitoring plane.
 """
 
 from __future__ import annotations
@@ -34,6 +35,12 @@ def current():
 def instance() -> Optional[object]:
     """The selected PML, or None before selection (no side effects)."""
     return _pml
+
+
+def set_current(pml) -> None:
+    """Install an interposition PML (reference: pml/monitoring, pml/v)."""
+    global _pml
+    _pml = pml
 
 
 def finalize() -> None:

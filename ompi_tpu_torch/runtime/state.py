@@ -5,8 +5,10 @@ and the JAX package's ``ompi_tpu.runtime.state``. The instance brings
 up the rte, the accelerator, the device plane and the pml (ob1 over its
 btls; ompi_tpu/runtime/state.py:97-99), and the world model adds
 COMM_WORLD/COMM_SELF; finalize tears the pml down after the last fence
-(:266-268). The prof, ingest, monitoring, tune, trace, telemetry, skew
-and check planes attach in their own slices.
+(:266-268). The monitoring plane starts after the pml is selected,
+before any traffic flows (:106-116), and stops, with its Finalize-time
+dump, before the pml is torn down (:237-248). The prof, ingest, tune,
+trace, telemetry, skew and check planes attach in their own slices.
 """
 
 from __future__ import annotations
@@ -43,6 +45,13 @@ def init_instance() -> None:
     from ompi_tpu_torch import pml
 
     pml.select()
+    # the traffic-monitoring plane (monitoring_level, OMPI_TPU_MONITORING,
+    # the deprecated pml_monitoring): matrices and the pml interposition,
+    # before any traffic flows
+    from ompi_tpu_torch import monitoring
+
+    if monitoring.requested():
+        monitoring.start(rank=rte.rank, nranks=rte.size)
 
 
 def init():
@@ -89,14 +98,17 @@ def finalize() -> None:
                 c.free()
             rte.fence("finalize", timeout=30.0)
         finally:
-            from ompi_tpu_torch import pml
+            from ompi_tpu_torch import monitoring, pml
             from ompi_tpu_torch.runtime import device_plane
 
-            pml.finalize()
-            device_plane.shutdown()
-            _initialized = False
-            _world = None
-            _self_comm = None
+            try:  # the matrices' dump, before the pml dies
+                monitoring.stop()
+            finally:
+                pml.finalize()
+                device_plane.shutdown()
+                _initialized = False
+                _world = None
+                _self_comm = None
 
 
 def _atexit_finalize() -> None:

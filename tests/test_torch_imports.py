@@ -103,7 +103,12 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.parallel.hierarchical, ompi_tpu_torch.coll.hier, "
             "ompi_tpu_torch.coll.han, ompi_tpu_torch.monitoring.algo, "
             "ompi_tpu_torch.examples.hier_collectives, "
-            "ompi_tpu_torch.examples.hier_dcn_compress; "
+            "ompi_tpu_torch.examples.hier_dcn_compress, "
+            "ompi_tpu_torch.serve, ompi_tpu_torch.monitoring.merge, "
+            "ompi_tpu_torch.monitoring.report, "
+            "ompi_tpu_torch.monitoring.__main__, ompi_tpu_torch.topo, "
+            "ompi_tpu_torch.pml.monitoring, "
+            "ompi_tpu_torch.examples.moe_serving; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -133,6 +138,18 @@ def test_hierarchy_modules_are_scanned():
                 "tune/observe.py", "examples/hier_collectives.py",
                 "examples/hier_dcn_compress.py",
                 "examples/kernel_counts.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+def test_serving_and_monitoring_modules_are_scanned():
+    """The serving and monitoring planes' modules are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("serve/__init__.py", "serve/traffic.py", "serve/dispatch.py",
+                "serve/loop.py", "monitoring/__init__.py",
+                "monitoring/__main__.py", "monitoring/links.py",
+                "monitoring/merge.py", "monitoring/report.py",
+                "pml/monitoring.py", "topo/__init__.py",
+                "examples/moe_serving.py"):
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 
