@@ -279,6 +279,25 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    p99 and tokens/s per policy beside the HBM floor (every request
    streams every expert), the serve pvars, the drop and reroute rates,
    the plane's Alltoallv records and the peak memory per rank.
+12. the tools plane (see :func:`tools_phase`): one 4-rank job of
+   ``ompi_tpu_torch/examples/tools_plane.py`` under ``--mca device_plane
+   on --mca coll_cuda on --mca osc_cuda on --mca pml_v 1 --mca
+   pml_ob1_matching indexed --mca pml_accel_chunk_bytes 262144``, its
+   ``btl_endpoint_connected`` handle allocated before Init: the sm
+   wireup's event once per peer; a device ring of 1 MiB CUDA tensors
+   (float32, bfloat16) bitwise, with ``pml_message_matched`` and PERUSE
+   ``REQ_COMPLETE`` once per header and chunk, pml/v's log reassembled
+   equal to the tensors' bytes and ``resend`` into fresh CUDA tensors
+   bitwise; an MPI_T ``CvarHandle`` write of ``coll_cuda_bidir_min_bytes``
+   moving a 4 MiB Allreduce from ``coll_cuda_bidir_bytes`` to
+   ``coll_cuda_ring_bytes``, bitwise the same; a DeviceEpochWindow's
+   BAND emitting ``osc_device_fallback`` once; CudaWindow fence, lock
+   and PSCW epochs each emitting ``osc_epoch_transition``'s enter and
+   exit, against a plain recomputation, a host-assisted BAND emitting
+   ``osc_cuda_fallthrough``, and the K7-K10 launches (zeroed by the ranks
+   before the part, read after) equal to what the ranks derive; then the
+   ring's and the fence epoch's p50, with no handle and with a handle on
+   every event, in turns (9 samples each).
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
@@ -287,7 +306,8 @@ collectives job, coll/cuda's and coll/device's, the datatype job, phases
 7, 8, 10 and 11 and the training path, K5 and K6's two kernels from the
 training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
-batches also from phase 9; K5b and the per-call row of K10 with 0 and a
+batches also from phase 9, K7, the per-call K9 and the K8, K9 and K10
+batches also from phase 12; K5b and the per-call row of K10 with 0 and a
 note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -1884,6 +1904,50 @@ def serve_phase(card: str, root: str) -> dict:
     return total
 
 
+#: phase 12's job (tools_plane.py): pml/v, the indexed matching engine,
+#: device windows, and 1 MiB ring tensors cut into 4 chunks
+TOOLS_MCA = ("--mca", "osc_cuda", "on", "--mca", "pml_v", "1", "--mca",
+             "pml_ob1_matching", "indexed", "--mca",
+             "pml_accel_chunk_bytes", str(256 << 10))
+
+
+def tools_phase(card: str, root: str) -> dict:
+    """Phase 12: the tools plane on the card, one 4-rank job of
+    ``tools_plane.py`` (:data:`TOOLS_MCA`, coll/cuda on). Every rank's
+    checks must hold (main_path), and each rank's K7-K10 launches must
+    equal what it derived. Prints rank 0's ring and fence p50 with no
+    handle and with every handle, the ring's event counts and the job's
+    wall; returns the launches."""
+    t0 = time.perf_counter()
+    launches, doc = main_path("tools_plane.py", N_RANKS, [], card, root,
+                              "coll_cuda", TOOLS_MCA)
+    docs = rank_docs(smoke_dir(root, "tools_plane.py", N_RANKS), N_RANKS)
+    for r, d in enumerate(docs):
+        if d["launches"] != d["expected_launches"]:
+            fail(f"phase 12 rank {r}: K7-K10 launches {d['launches']}, "
+                 f"derived {d['expected_launches']}")
+    rep = doc["report"]
+    p50, times = rep["p50_ms"], rep["times_ms"]
+    for part, what in (("ring", f"device ring {rep['ring_bytes']} B float32 "
+                                "(Isend + Recv + wait)"),
+                       ("fence", "CudaWindow fence epoch (2**20 + 4096 "
+                                 "put, 4096 Get_epoch)")):
+        off, on = p50[part]["off"], p50[part]["on"]
+        print(f"phase 12 {what} n={N_RANKS} (rank 0 p50 of "
+              f"{len(times[part]['off'])} in turns): no handle {off:.3f} "
+              f"ms of {[round(v, 3) for v in times[part]['off']]}, every "
+              f"handle {on:.3f} ms of "
+              f"{[round(v, 3) for v in times[part]['on']]} "
+              f"({(on / off - 1) * 100:+.1f}%) [{card}]", flush=True)
+    print(f"phase 12: a site with no listener, ns a guard on rank 0's "
+          f"host: {rep['guard_ns']} [{card}]", flush=True)
+    print(f"phase 12: ring events per tensor {rep['ring_counts']}; "
+          f"{rep['event_types']} MPI_T event types; K7-K10 launches (all "
+          f"ranks) {launches}, as derived; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -2254,10 +2318,11 @@ def main() -> int:
         coll[k] = coll.get(k, 0) + v
     for k, v in serve_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
+    tools = tools_phase(card, root)
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = sum(p.get(r["name"], 0)
-                                for p in (coll, train, osc, am, de))
+                                for p in (coll, train, osc, am, de, tools))
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
     host_plane_phase(torch, card, root)

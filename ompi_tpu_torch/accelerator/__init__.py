@@ -17,6 +17,17 @@ host into such a buffer, returning a :class:`.stream.CopyEvent`) and
 :meth:`Accelerator.to_device` (host to device from one, returning an
 :class:`.stream.Event`). There is no synchronous device-to-host copy:
 staging goes through these alone.
+
+Selection is the registry's (``core/registry.py``, the ``accelerator``
+framework and cvar): ``cuda`` (priority 50) where torch sees a GPU, else
+``null`` (this base class, priority 1), as the reference's
+``framework.select_one()`` picks tpu over null (``__init__.py:210-217``).
+Where it differs: on the ``cuda`` platform (``device_plane_platform``,
+the default) a cuda component that fails to open raises
+``MPIError(ERR_INTERN)`` with its cause (the reference logs and skips
+it), and with the device plane requested and no usable GPU the cuda
+component fails to open; it never falls to ``null``. ``--mca accelerator
+^cuda`` selects ``null`` as asked.
 """
 
 from __future__ import annotations
@@ -26,16 +37,22 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ompi_tpu_torch import errors
 from ompi_tpu_torch.accelerator import stream
+from ompi_tpu_torch.core import registry
+
+framework = registry.framework("accelerator")
 
 
-class Accelerator:
+@framework.register
+class Accelerator(registry.Component):
     """The module interface, reduced to the port's entries; this base
     class serves CPU tensors. Its copies are numpy's: a torch copy of a
     CPU tensor past its grain size wakes the intra-op thread pool, which
     ranks sharing the cores oversubscribe."""
 
     NAME = "null"
+    PRIORITY = 1  # the fallthrough
 
     def check_addr(self, buf) -> bool:
         """True if buf is a device buffer (reference: check_addr)."""
@@ -104,13 +121,26 @@ def current() -> Accelerator:
     """The selected component (cuda when torch sees a GPU, else null)."""
     global _current
     if _current is None:
-        if torch.cuda.is_available():
-            from ompi_tpu_torch.accelerator.cuda import CudaAccelerator
+        from ompi_tpu_torch.accelerator import cuda  # noqa: F401 — registers
+        from ompi_tpu_torch.runtime import device_plane
 
-            _current = CudaAccelerator()
-        else:
-            _current = _host
+        framework.open_components()
+        exc = framework.failures.get("cuda")
+        if exc is not None and device_plane.platform() == "cuda":
+            raise errors.MPIError(
+                errors.ERR_INTERN,
+                f"accelerator: the cuda component failed to open "
+                f"({type(exc).__name__}: {exc}) on platform 'cuda' — pass "
+                "--mca device_plane_platform cpu to run on the CPU") \
+                from exc
+        _current = framework.select_one()
     return _current
+
+
+def reset_for_testing() -> None:
+    global _current
+    _current = None
+    framework.close_components()
 
 
 def for_device(device) -> Accelerator:

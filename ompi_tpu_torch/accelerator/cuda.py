@@ -19,11 +19,27 @@ from typing import Dict, Tuple
 import torch
 
 from ompi_tpu_torch import errors
-from ompi_tpu_torch.accelerator import Accelerator, ipc, stream
+from ompi_tpu_torch.accelerator import Accelerator, framework, ipc, stream
 
 
+@framework.register
 class CudaAccelerator(Accelerator):
     NAME = "cuda"
+    PRIORITY = 50  # above null when usable
+
+    def open(self) -> bool:
+        """Usable when torch sees a GPU. Without one it is unavailable,
+        unless the device plane is requested on the ``cuda`` platform:
+        then it fails to open, with the cause."""
+        from ompi_tpu_torch.runtime import device_plane
+
+        if not torch.cuda.is_available():
+            if device_plane.requested() and device_plane.platform() == "cuda":
+                raise RuntimeError("torch.cuda.is_available() is false (no "
+                                   "usable CUDA device)")
+            return False
+        torch.cuda.init()
+        return True
 
     def __init__(self) -> None:
         # device index -> (d2h stream, h2d stream)

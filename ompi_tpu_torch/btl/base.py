@@ -5,26 +5,26 @@ the module interface, and ompi/mca/bml/r2, which picks one BTL per peer
 by priority). The PML registers one receive callback
 (mca_bml_base_register AM callbacks, pml_ob1.c:478-527).
 
-Selection is a plain tuple of components (``COMPONENTS``, in priority
-order: self, sm, tcp) filtered by the ``btl`` cvar, an include list
-(``self,tcp``) or an exclude list (``^sm``) as in the reference's
-framework selection; ``core/registry.py`` is not ported.
+Selection is the registry's (``core/registry.py``): the components
+``self``, ``sm`` and ``tcp`` register with the ``btl`` framework, whose
+cvar of the same name includes (``self,tcp``) or excludes (``^sm``) them
+as in the reference; the Bml opens them highest priority first. Where it
+differs: a btl whose ``open()`` raises fails the Bml with
+``MPIError(ERR_INTERN)`` (the reference logs and skips it, while its
+peers may already have mapped rings to it).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional
 
-from ompi_tpu_torch.core import cvar, output, progress
+from ompi_tpu_torch import errors
+from ompi_tpu_torch.core import cvar, output, progress, registry
 from ompi_tpu_torch.runtime import rte
 
 _out = output.stream("btl")
 
-_select_var = cvar.register(
-    "btl", "", str,
-    help="Comma list of btl components to include (self, sm, tcp), or "
-         "to exclude when prefixed with ^ (reference: --mca btl)",
-    level=2)
+framework = registry.framework("btl")
 
 # the PML's AM callback: fn(data: bytes) — framing is PML-private
 _recv_cb: Optional[Callable[[bytes], None]] = None
@@ -40,7 +40,7 @@ def deliver(data: bytes) -> None:
         _recv_cb(data)
 
 
-class Btl:
+class Btl(registry.Component):
     """One transport: reliable, ordered delivery per directed pair."""
 
     NAME = "base"
@@ -76,38 +76,22 @@ class Btl:
         pass
 
 
-def selected(components) -> list:
-    """The component classes the ``btl`` cvar lets through, in the
-    tuple's order."""
-    entries = [e.strip() for e in _select_var.get().split(",") if e.strip()]
-    excludes = {e[1:] for e in entries if e.startswith("^")}
-    includes = {e for e in entries if not e.startswith("^")}
-    if includes and excludes:
-        raise ValueError("btl: cannot mix include and exclude entries "
-                         f"({_select_var.get()!r})")
-    names = {c.NAME for c in components}
-    unknown = (includes | excludes) - names
-    if unknown:
-        raise ValueError(f"btl: unknown component(s) {sorted(unknown)}; "
-                         f"known {sorted(names)}")
-    return [c for c in components
-            if (c.NAME in includes if includes else c.NAME not in excludes)]
-
-
 class Bml:
     """Endpoint table: the highest-priority reachable BTL per peer
     (btl/self for self, sm for same-host peers, tcp otherwise)."""
 
     def __init__(self) -> None:
-        from ompi_tpu_torch.btl import COMPONENTS
-
-        self.btls: List[Btl] = []
-        for cls in selected(COMPONENTS):
-            comp = cls()
-            if comp.open():
-                self.btls.append(comp)
-                _out.verbose(5, "opened btl %s", comp.NAME)
-        self.btls.sort(key=lambda b: -b.PRIORITY)
+        self.btls: List[Btl] = [c for c in framework.open_components()
+                                if isinstance(c, Btl)]
+        if framework.failures:
+            # a transport its peers may already count on (sm maps its
+            # rings across a fence): fail Init rather than skip it
+            name, exc = next(iter(framework.failures.items()))
+            framework.close_components()
+            raise errors.MPIError(
+                errors.ERR_INTERN,
+                f"rank {rte.rank}: btl {name} failed to open "
+                f"({type(exc).__name__}: {exc})") from exc
         self.endpoints: Dict[int, Btl] = {}
         for btl in self.btls:
             progress.register(btl.progress)
@@ -130,3 +114,4 @@ class Bml:
         for btl in self.btls:
             progress.unregister(btl.progress)
             btl.finalize()
+        framework.close_components()

@@ -14,6 +14,7 @@ from ompi_tpu_torch.btl import base
 from ompi_tpu_torch.runtime import rte
 
 
+@base.framework.register
 class SelfBtl(base.Btl):
     NAME = "self"
     PRIORITY = 100  # exclusively owns self-sends (reference exclusivity)

@@ -9,7 +9,8 @@ wraparound. Every rank creates its outbound rings at open and attaches
 its inbound ones after a fence. The ring files are named with the
 launcher's job-scoped prefix (``ompi_tpu_torch_<jobid>_sm_<src>to<dst>``
 under ``launcher.shm_dir()``), so the launcher's cleanup removes what a
-crashed rank leaves.
+crashed rank leaves. Each inbound ring attached emits the MPI_T event
+``btl_endpoint_connected`` (reference btl/sm.py:184-195).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from ompi_tpu_torch.btl import base
-from ompi_tpu_torch.core import cvar, native, pvar
+from ompi_tpu_torch.core import cvar, events as mpit_events, native, pvar
 from ompi_tpu_torch.runtime import launcher, rte
 
 _LEN = struct.Struct("<I")
@@ -136,6 +137,7 @@ class _Ring:
                 pass
 
 
+@base.framework.register
 class SmBtl(base.Btl):
     NAME = "sm"
     PRIORITY = 50  # above tcp for same-host peers
@@ -171,6 +173,9 @@ class SmBtl(base.Btl):
         for p in same_host:
             self._in[p] = _Ring(self._path(p, rte.rank), self.ring_size,
                                 create=False)
+            if mpit_events.active("btl_endpoint_connected"):
+                mpit_events.emit("btl_endpoint_connected", btl="sm",
+                                 peer=p, addr=self._path(p, rte.rank))
         return True
 
     def _path(self, src: int, dst: int) -> str:

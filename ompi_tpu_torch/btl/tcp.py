@@ -7,7 +7,9 @@ connection per directed pair (the sender connects), which sidesteps the
 simultaneous-connect problem and keeps per-direction order; the progress
 engine polls with ``selectors``. Every rank publishes all of its IPv4
 addresses (:mod:`ompi_tpu_torch.util.net`) and a sender dials the peer's
-best-scored one: loopback between ranks of one host.
+best-scored one: loopback between ranks of one host. Each connection
+made emits the MPI_T event ``btl_endpoint_connected`` (reference
+btl/tcp.py:91-96).
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from collections import deque
 from typing import Dict, Optional
 
 from ompi_tpu_torch.btl import base
-from ompi_tpu_torch.core import output, pvar
+from ompi_tpu_torch.core import events as mpit_events, output, pvar
 from ompi_tpu_torch.runtime import rte
 from ompi_tpu_torch.util import net
 
@@ -29,6 +31,7 @@ _LEN = struct.Struct("<I")
 _out = output.stream("btl_tcp")
 
 
+@base.framework.register
 class TcpBtl(base.Btl):
     NAME = "tcp"
     PRIORITY = 10  # below sm: the catch-all
@@ -71,6 +74,9 @@ class TcpBtl(base.Btl):
         self._send_socks[dst] = s
         self._send_q[dst] = deque()
         _out.verbose(5, "connected to rank %d at %s:%d", dst, host, port)
+        if mpit_events.active("btl_endpoint_connected"):
+            mpit_events.emit("btl_endpoint_connected", btl="tcp",
+                             peer=dst, addr=str((host, port)))
         return s
 
     def send(self, dst: int, data: bytes) -> None:

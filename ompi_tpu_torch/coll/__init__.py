@@ -29,6 +29,12 @@ priority<0), and ``ompi_tpu.coll``. The port's components:
 - ``sync`` (90, with ``coll_sync_barrier_before``): no slot of its own;
   its ``post_stack`` wraps the stacked host slots.
 
+The components register with the registry's ``coll`` framework
+(``core/registry.py``), whose cvar of the same name includes or
+excludes them (``--mca coll ^hier``); :func:`comm_select` ranks the
+opened ones per communicator, as ``ompi_tpu/coll/__init__.py:110-145``
+does.
+
 Collective traffic runs in the communicator's collective context with a
 per-comm tag sequence (:meth:`CollTable.next_tag`), so user p2p never
 interferes. A slot no component provides raises
@@ -50,15 +56,19 @@ from ompi_tpu_torch.coll.hier import CollHier
 from ompi_tpu_torch.coll.libnbc import CollLibnbc
 from ompi_tpu_torch.coll.sync import CollSync
 from ompi_tpu_torch.coll.tuned import CollTuned
-from ompi_tpu_torch.core import output
+from ompi_tpu_torch.core import output, registry
 
 _out = output.stream("coll_base")
+
+framework = registry.framework("coll")
 
 #: the components comm_select ranks: each has NAME, query(comm) -> priority
 #: (< 0 disqualifies) and slots(comm) -> {slot name: function}; one may
 #: have post_stack(comm, table), run once every component has stacked
-COMPONENTS = (CollBasic, CollLibnbc, CollTuned, CollHan, CollAccelerator,
-              CollDevice, CollCuda, CollHier, CollAdapt, CollSync)
+for _cls in (CollBasic, CollLibnbc, CollTuned, CollHan, CollAccelerator,
+             CollDevice, CollCuda, CollHier, CollAdapt, CollSync):
+    framework.register(_cls)
+del _cls
 
 #: the blocking and object host slots (coll.h's function-pointer members,
 #: ompi_tpu/coll/__init__.py:32-64), the ones coll/sync wraps beside the
@@ -107,7 +117,7 @@ def comm_select(comm) -> None:
     interposition, ompi_tpu/coll/__init__.py:137-143)."""
     table = CollTable()
     ranked = []
-    for comp in (cls() for cls in COMPONENTS):
+    for comp in framework.open_components():
         pri = comp.query(comm)
         if pri >= 0:
             ranked.append((pri, comp))

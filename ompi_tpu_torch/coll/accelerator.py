@@ -50,7 +50,7 @@ from ompi_tpu_torch import accelerator, errors, op as op_mod
 from ompi_tpu_torch.accelerator import stream
 from ompi_tpu_torch.coll import device as _device
 from ompi_tpu_torch.coll.basic import packed_displs
-from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.core import pvar, registry
 from ompi_tpu_torch.datatype import dtype_of
 from ompi_tpu_torch.pml import accel_p2p
 
@@ -495,7 +495,7 @@ _PERSISTENT = {
     "preduce_scatter_init_dev": preduce_scatter_init_dev}
 
 
-class CollAccelerator:
+class CollAccelerator(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "accelerator"

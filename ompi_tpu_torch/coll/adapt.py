@@ -22,7 +22,7 @@ import numpy as np
 
 from ompi_tpu_torch.coll import libnbc
 from ompi_tpu_torch.coll.basic import IN_PLACE, _tag
-from ompi_tpu_torch.core import cvar, progress, pvar
+from ompi_tpu_torch.core import cvar, progress, pvar, registry
 from ompi_tpu_torch.pml import request as rq
 
 _prio_var = cvar.register(
@@ -142,7 +142,7 @@ def ireduce_adapt(comm, sendbuf, recvbuf, count, dtype, op, root):
     return CompositeRequest(factories, _window_var.get())
 
 
-class CollAdapt:
+class CollAdapt(registry.Component):
     """The component comm_select ranks (opt-in)."""
 
     NAME = "adapt"

@@ -37,7 +37,7 @@ import numpy as np
 
 from ompi_tpu_torch import op as op_mod
 from ompi_tpu_torch import pml
-from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.core import pvar, registry
 
 IN_PLACE = "MPI_IN_PLACE"
 
@@ -389,7 +389,7 @@ def allreduce_obj(comm, obj, fn):
     return acc
 
 
-class CollBasic:
+class CollBasic(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "basic"

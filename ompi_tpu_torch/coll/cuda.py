@@ -56,7 +56,7 @@ import torch
 
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda_kernels as K
-from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.core import cvar, pvar, registry
 from ompi_tpu_torch.monitoring import algo as _algo
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.monitoring.algo import log2_bucket
@@ -748,7 +748,7 @@ def zero3_gather_matmul_dev(comm, state, rhs):
     return allgather_matmul_dev(comm, block, rhs)
 
 
-class CollCuda:
+class CollCuda(registry.Component):
     """The component coll's comm_select ranks."""
 
     NAME = "cuda"

@@ -134,7 +134,7 @@ from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.accelerator import stream
 from ompi_tpu_torch.coll import cuda as _cuda
 from ompi_tpu_torch.coll import cuda_kernels as K
-from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.core import cvar, pvar, registry
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import device_plane
@@ -2059,7 +2059,7 @@ _PERSISTENT = {**{name: _pinit(prep, name) for name, prep in (
     "preduce_scatter_init_dev": preduce_scatter_init_dev}
 
 
-class CollDevice:
+class CollDevice(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "device"

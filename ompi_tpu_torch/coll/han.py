@@ -22,7 +22,7 @@ import hashlib
 import numpy as np
 
 from ompi_tpu_torch.coll import basic
-from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.core import cvar, pvar, registry
 
 _IN_PLACE = basic.IN_PLACE
 
@@ -81,7 +81,7 @@ def _levels(comm) -> _Levels:
     return lv
 
 
-class CollHan:
+class CollHan(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "han"

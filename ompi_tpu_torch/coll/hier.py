@@ -73,7 +73,7 @@ from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda as _cuda
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.coll import device as _dev
-from ompi_tpu_torch.core import cvar, output, pvar
+from ompi_tpu_torch.core import cvar, output, pvar, registry
 from ompi_tpu_torch.monitoring import algo as _algo
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.parallel import collectives as C
@@ -755,7 +755,7 @@ allreduce_multi_init_dev = _pinit(_allreduce_multi_pprep,
                                   "allreduce_multi_init_dev")
 
 
-class CollHier:
+class CollHier(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "hier"

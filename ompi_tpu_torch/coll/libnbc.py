@@ -11,8 +11,10 @@ The ``*_init`` forms (MPI-4 persistent collectives) are
 :class:`PersistentCollRequest`: each ``start`` runs a new schedule over
 the bound buffers. An error inside a schedule completes its own request
 with that error, raised at its ``wait``; an argument error in the
-prologue raises at the call. Priority 20. The ``ineighbor_*`` forms
-(:452-482) come with ``topo/`` (ROADMAP queue 1 item 4f).
+prologue raises at the call. Priority 20. A finished schedule emits the
+MPI_T event ``coll_schedule_complete`` (its kind, the comm's cid and the
+rounds it ran; reference :87-92). The ``ineighbor_*`` forms (:452-482)
+come with ``topo/`` (ROADMAP queue 1 item 4f).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import numpy as np
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.coll import basic as B
 from ompi_tpu_torch.coll.basic import _irecv, _isend, _tag
-from ompi_tpu_torch.core import progress
+from ompi_tpu_torch.core import events as mpit_events, progress, registry
 from ompi_tpu_torch.pml import request as rq
 
 _active: List["NbcRequest"] = []
@@ -45,9 +47,16 @@ class NbcRequest(rq.Request):
         super().__init__()
         self._gen = gen
         self._round: Optional[List[rq.Request]] = None
+        self._rounds_run = 0
         self._exc: Optional[BaseException] = None
         self._in_init = True
         self._advancing = False
+        # the MPI_T event's fields, from the unstarted generator: the
+        # schedule's kind from its name, the comm from its arguments
+        self._kind = getattr(gen, "__name__", "?").replace("_sched_", "")
+        frame = getattr(gen, "gi_frame", None)
+        c = frame.f_locals.get("comm") if frame is not None else None
+        self._comm_cid = getattr(c, "cid", -1)
         global _registered
         if not _registered:
             progress.register(_nbc_progress)
@@ -73,11 +82,16 @@ class NbcRequest(rq.Request):
             while True:
                 self._round = self._gen.send(None)
                 events += 1
+                self._rounds_run += 1
                 if self._round and \
                         not all(r.completed for r in self._round):
                     return events
         except StopIteration:
             _active.remove(self)
+            if mpit_events.active("coll_schedule_complete"):
+                mpit_events.emit("coll_schedule_complete", kind=self._kind,
+                                 comm_cid=self._comm_cid,
+                                 rounds=self._rounds_run)
             self.complete()
             return events + 1
         except Exception as exc:
@@ -558,7 +572,7 @@ def reduce_scatter_block_init(comm, sendbuf, recvbuf, count, dtype,
                        recvbuf, count, dtype, op)
 
 
-class CollLibnbc:
+class CollLibnbc(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "libnbc"

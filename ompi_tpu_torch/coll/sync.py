@@ -12,7 +12,7 @@ component has stacked. Device slots (``*_dev``) are not wrapped.
 
 from __future__ import annotations
 
-from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.core import cvar, pvar, registry
 
 _before_var = cvar.register(
     "coll_sync_barrier_before", 0, int,
@@ -41,7 +41,7 @@ class _Wrapped:
         return self._inner(comm, *args, **kwargs)
 
 
-class CollSync:
+class CollSync(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "sync"

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 from ompi_tpu_torch.coll import base_algos as A
 from ompi_tpu_torch.coll import basic as B
-from ompi_tpu_torch.core import cvar
+from ompi_tpu_torch.core import cvar, registry
 
 _force_allreduce = cvar.register(
     "coll_tuned_allreduce_algorithm", "", str,
@@ -174,7 +174,7 @@ def reduce_scatter_block_tuned(comm, sendbuf, recvbuf, count, dtype, op):
                                         dtype, op)
 
 
-class CollTuned:
+class CollTuned(registry.Component):
     """The component comm_select ranks."""
 
     NAME = "tuned"

@@ -12,7 +12,9 @@ with like is the MCA configuration, the data and the parameters.
   and likewise ``coll_xla_{bucket_bytes, rooted_threshold_bytes, hier}``
   -> ``coll_device_*`` (same defaults; ``coll_device_hier`` groups by
   node where the reference groups by ``slice_index``), ``device_plane_platform`` tpu ->
-  cuda). Settings with no counterpart are dropped: the Pallas TPU
+  cuda, and the component names inside a framework's include / exclude
+  list: ``coll`` pallas -> cuda and xla -> device, ``accelerator`` tpu
+  -> cuda). Settings with no counterpart are dropped: the Pallas TPU
   transport's; ``coll_xla_alltoallv_pad_factor`` (coll/device's
   Alltoallv pads nothing, so there is no blowup for it to bound);
   ``coll_xla_scatter_meta_cache`` (coll/device always caches the
@@ -23,6 +25,9 @@ with like is the MCA configuration, the data and the parameters.
   ``coll_tuned_*`` (the forced algorithms and the switchpoints),
   ``coll_sync_*`` and ``coll_adapt_*`` cvars among them, which the port
   registers under the reference's names.
+- :func:`event_name` maps a reference MPI_T event type's name to the
+  port's (``osc_pallas_fallthrough`` -> ``osc_cuda_fallthrough``, the
+  event and its pvar).
 - :func:`tensor_from_numpy` / :func:`tensor_to_numpy` convert buffers,
   carrying bfloat16 through its uint16 bit pattern (numpy has no
   bfloat16 of its own); :func:`tree_from_numpy` / :func:`tree_to_numpy`
@@ -50,6 +55,11 @@ _DROPPED = frozenset(("coll_pallas_interpret", "coll_pallas_dma_max_bytes",
                       "coll_xla_alltoallv_pad_factor",
                       "coll_xla_scatter_meta_cache",
                       "coll_xla_a2av_meta_cache"))
+#: component names inside a framework's include / exclude list
+_COMPONENTS = {"coll": {"pallas": "cuda", "xla": "device"},
+               "accelerator": {"tpu": "cuda"}}
+#: reference MPI_T event types (and pvars) the port names its own way
+_EVENT_NAMES = {"osc_pallas_fallthrough": "osc_cuda_fallthrough"}
 #: coll/xla settings coll/device keeps under its own prefix
 _XLA_TO_DEVICE = frozenset(("deterministic", "bucket_bytes",
                             "rooted_threshold_bytes", "hier"))
@@ -69,8 +79,27 @@ def mca_from_reference(mca: Dict[str, str]) -> Dict[str, str]:
             key = "coll_device_" + key[len("coll_xla_"):]
         elif key == "device_plane_platform":
             val = {"tpu": "cuda"}.get(val, val)
+        elif key in _COMPONENTS:
+            val = _component_list(val, _COMPONENTS[key])
         out[key] = val
     return out
+
+
+def _component_list(spec: str, names: Dict[str, str]) -> str:
+    """A framework's include / exclude list with the reference's
+    component names mapped to the port's (``^`` kept)."""
+    out = []
+    for e in str(spec).split(","):
+        e = e.strip()
+        neg = e.startswith("^")
+        name = e[1:] if neg else e
+        out.append(("^" if neg else "") + names.get(name, name))
+    return ",".join(x for x in out if x.strip("^"))
+
+
+def event_name(name: str) -> str:
+    """The port's name of a reference MPI_T event type (or pvar)."""
+    return _EVENT_NAMES.get(name, name)
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:

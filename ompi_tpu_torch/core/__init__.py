@@ -1,1 +1,3 @@
-"""Core services of the port: cvars, pvars, output streams."""
+"""Core services of the port: cvars, pvars, output streams, the MPI_T
+events plane (:mod:`.events`), the framework registry (:mod:`.registry`)
+and the init / finalize hooks (:mod:`.hook`)."""

@@ -125,6 +125,9 @@ class _Registry:
             self._vars[name] = var
             return var
 
+    def lookup(self, name: str) -> Optional[Var]:
+        return self._vars.get(name)
+
     def get(self, name: str, default: Any = None) -> Any:
         var = self._vars.get(name)
         return var.get() if var is not None else default
@@ -135,9 +138,14 @@ class _Registry:
             raise KeyError(f"unknown cvar {name}")
         var.set(value, SOURCE_SET)
 
+    def all_vars(self) -> Dict[str, Var]:
+        return dict(self._vars)
+
 
 _registry = _Registry()
 
 register = _registry.register
+lookup = _registry.lookup
 get = _registry.get
 set = _registry.set
+all_vars = _registry.all_vars

@@ -1,7 +1,10 @@
-"""Verbosity streams — framework-scoped diagnostics.
+"""Verbosity streams and show_help — framework-scoped diagnostics.
 
 Reference: opal/util/output.c (per-framework opal_output streams with MCA
-verbosity cvars like ``coll_base_verbose``).
+verbosity cvars like ``coll_base_verbose``) and opal/util/show_help.c
+(templated user-facing error messages; ``ompi_tpu/core/output.py:71``).
+:func:`show_help` renders this module's topics through
+:mod:`ompi_tpu_torch.util.show_help`, once per topic in a process.
 """
 
 from __future__ import annotations
@@ -38,6 +41,11 @@ class Stream:
             ts = time.strftime("%H:%M:%S")
             sys.stderr.write(f"[{ts}:{pid}] {self.framework}: {msg}\n")
 
+    def error(self, msg: str, *args) -> None:
+        if args:
+            msg = msg % args
+        sys.stderr.write(f"[{os.getpid()}] {self.framework} ERROR: {msg}\n")
+
 
 def stream(framework: str) -> Stream:
     with _lock:
@@ -47,3 +55,27 @@ def stream(framework: str) -> Stream:
             _streams[framework] = st
         return st
 
+
+
+_HELP = {
+    "no-component": (
+        "No usable component found for framework '%s'.\n"
+        "Requested: %s. Available: %s.\n"
+        "Check the OMPI_TPU_%s environment variable."),
+}
+
+
+def show_help(topic: str, *args) -> str:
+    """Render a templated help message (reference: opal_show_help) and
+    print it to stderr the first time ``topic`` is shown in this
+    process; returns the text either way."""
+    from ompi_tpu_torch.util import show_help as _sh
+
+    tmpl = _HELP.get(topic)
+    if tmpl is None:
+        msg = f"unknown help topic {topic!r} (args: {args!r})"
+    else:
+        msg = tmpl % args if args else tmpl
+    _sh.add_topic("output", {topic: msg.replace("%", "%%")})
+    _sh.show("output", topic)
+    return _sh.render("output", topic)

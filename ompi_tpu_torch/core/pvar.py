@@ -136,6 +136,9 @@ WELL_KNOWN = (
     # over the DCN leg (tokens and bytes)
     "serve_requests", "serve_tokens", "serve_rerouted_tokens",
     "serve_dcn_overflow_tokens", "serve_dcn_overflow_bytes",
+    # pml/v (message logging, the reference's names): application sends
+    # logged by the sender, and messages re-sent from the log
+    "vprotocol_logged_sends", "vprotocol_resends",
 )
 
 
@@ -157,6 +160,14 @@ def read(name: str) -> int:
         if name in _counters:
             return _counters[name]
         return _watermarks.get(name, 0)
+
+
+def snapshot() -> Dict[str, int]:
+    """Every counter, and every watermark as ``<name>_hwm``."""
+    with _lock:
+        out = dict(_counters)
+        out.update({k + "_hwm": v for k, v in _watermarks.items()})
+        return out
 
 
 class session:

@@ -38,8 +38,9 @@ Not in the port yet, refused with ``ERR_NOT_SUPPORTED`` naming its
 ROADMAP item: the error-handler and info planes of a window
 (``Set_errhandler``, ``Set_info``, the memory-kinds info; queue 1 item
 4f). Every service message counts on the monitoring plane (ctx
-``osc``, its arrays' bytes) in :meth:`Window._send`; the trace and MPI_T
-epoch-event call sites wait with item 10.
+``osc``, its arrays' bytes) in :meth:`Window._send`; every epoch
+transition emits the MPI_T event ``osc_epoch_transition`` (reference
+``osc/__init__.py:578-687``); the trace call sites wait with item 10.
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ import torch
 
 from ompi_tpu_torch import errors, op as op_mod, pml
 from ompi_tpu_torch.attr import AttrHost
-from ompi_tpu_torch.core import output, progress, pvar
+from ompi_tpu_torch.core import (events as mpit_events, output, progress,
+                                 pvar)
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.pml.request import ANY_SOURCE, Request
 
@@ -615,23 +617,35 @@ class Window(AttrHost):
         return self._next_id
 
     # -- synchronization ------------------------------------------------
+    def _epoch_event(self, kind: str, phase: str, peer: int = -1) -> None:
+        """The MPI_T event at every epoch transition (the reference
+        instruments its whole API surface through SPC,
+        ompi_spc.h:46-153)."""
+        if mpit_events.active("osc_epoch_transition"):
+            mpit_events.emit("osc_epoch_transition", kind=kind,
+                             phase=phase, win=self.name, peer=peer)
+
     def Fence(self) -> None:
         """Active-target fence: flush all, then barrier."""
         pvar.record("osc_fence")
+        self._epoch_event("fence", "enter")
         self.Flush_all()
         self.comm.coll.barrier(self.comm)
+        self._epoch_event("fence", "exit")
 
     def Lock(self, target: int, lock_type: str = LOCK_EXCLUSIVE) -> None:
         """Self locks flow through the same message path: the service
         loop is the single serialization point."""
         self._send(target, ("lock_req", lock_type))
         progress.wait_until(lambda: target in self._granted)
+        self._epoch_event("lock", "enter", target)
 
     def Unlock(self, target: int) -> None:
         self._unlock_acked.discard(target)
         self._send(target, ("unlock_req",))
         progress.wait_until(lambda: target in self._unlock_acked)
         self._granted.discard(target)
+        self._epoch_event("lock", "exit", target)
 
     def Lock_all(self) -> None:
         for t in range(self.size):
@@ -671,6 +685,7 @@ class Window(AttrHost):
         for r in group_ranks:
             if r != self.rank:
                 self._send(r, ("post",))
+        self._epoch_event("pscw_exposure", "enter")
 
     def Start(self, group_ranks: List[int]) -> None:
         """Begin an access epoch to ``group_ranks`` (MPI_Win_start)."""
@@ -678,6 +693,7 @@ class Window(AttrHost):
         need = set(r for r in group_ranks if r != self.rank)
         progress.wait_until(lambda: need <= self._posted_from)
         self._posted_from -= need
+        self._epoch_event("pscw_access", "enter")
 
     def Complete(self) -> None:
         """End the access epoch: flush, notify the targets
@@ -687,6 +703,7 @@ class Window(AttrHost):
                 self.Flush(r)
                 self._send(r, ("complete",))
         self._access_group = None
+        self._epoch_event("pscw_access", "exit")
 
     def Wait(self) -> None:
         """End the exposure epoch (MPI_Win_wait)."""
@@ -695,6 +712,7 @@ class Window(AttrHost):
         progress.wait_until(lambda: need <= self._completes_from)
         self._exposure_group = None
         self._publish()
+        self._epoch_event("pscw_exposure", "exit")
 
     # -------------------------------------------------------------------
     def Free(self) -> None:

@@ -65,7 +65,10 @@ raise ``MPIError(ERR_RMA_SYNC)``; an operand whose dtype differs from the
 window's raises ``ERR_ARG``. A window the kernels cannot take (another
 dtype, a host buffer on some rank, dtypes that differ across ranks) is
 counted in ``osc_cuda_fallthrough`` at creation, and ``win_create``
-serves the host window.
+serves the host window. Each fallthrough also emits the MPI_T event
+``osc_cuda_fallthrough`` (the reference's ``osc_pallas_fallthrough``:
+``what``, ``reason``), and the Fence emits ``osc_epoch_transition``'s
+enter and exit as the host window's epochs do.
 
 Where the port differs from the reference:
 
@@ -104,7 +107,7 @@ import torch
 
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda as _coll_cuda
-from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.core import cvar, events as mpit_events, pvar
 from ompi_tpu_torch.monitoring import algo as _algo
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.osc import (LOCK_EXCLUSIVE, Window, _numel,
@@ -132,6 +135,21 @@ EXCHANGE_BYTES = 64 << 20
 
 #: the kernels' support matrix
 _SUPPORTED_DTYPES = frozenset((torch.float32, torch.bfloat16, torch.int32))
+
+FALLTHROUGH_EVENT = mpit_events.register_type(
+    "osc_cuda_fallthrough",
+    "an osc/cuda window or operation fell through to the host path "
+    "(unsupported dtype/shape/op)",
+    ("what", "reason"))
+
+
+def _fallthrough_note(what: str, reason: str) -> None:
+    """Count a fallthrough to the host path (``osc_cuda_fallthrough``)
+    and emit the MPI_T event of the same name (the reference's
+    ``osc_pallas_fallthrough``, osc/pallas.py:94-123)."""
+    pvar.record("osc_cuda_fallthrough")
+    if mpit_events.active("osc_cuda_fallthrough"):
+        mpit_events.emit("osc_cuda_fallthrough", what=what, reason=reason)
 
 
 def _dtype_name(dtype) -> str:
@@ -268,7 +286,7 @@ class CudaWindow(Window):
         name = _op_name(op)
         if self._acc_kind(op) in O.ELEMENTWISE or name == "MPI_NO_OP":
             return
-        pvar.record("osc_cuda_fallthrough")
+        _fallthrough_note(what.lower(), f"op {name!r} is not elementwise")
         if self._win.dtype == torch.bfloat16:
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
@@ -441,6 +459,7 @@ class CudaWindow(Window):
         barrier. The first Fence opens the epoch chain (nothing queued by
         definition)."""
         pvar.record("osc_cuda_fence")
+        self._epoch_event("fence", "enter")
         self.Flush_all()
         self._join()
         if self._fence_open:
@@ -449,6 +468,7 @@ class CudaWindow(Window):
         self._publish()
         self.comm.coll.barrier(self.comm)
         self._fence_open = True
+        self._epoch_event("fence", "exit")
 
     def Lock(self, target: int, lock_type: str = LOCK_EXCLUSIVE) -> None:
         self._join()
@@ -802,7 +822,12 @@ def maybe_window(comm, base, disp_unit: int = 1) -> Optional[CudaWindow]:
     dt = _dtype_name(base.dtype) if isinstance(base, torch.Tensor) else ""
     meta = comm.coll.allgather_obj(comm, (ok, dt))
     if not all(m[0] for m in meta) or len({m[1] for m in meta}) != 1:
-        pvar.record("osc_cuda_fallthrough")
+        dtypes = sorted({m[1] or "<host buffer>" for m in meta})
+        _fallthrough_note(
+            "win_create",
+            f"unsupported or rank-asymmetric window (dtypes {dtypes}; "
+            f"supported {sorted(map(_dtype_name, _SUPPORTED_DTYPES))}, "
+            "device tensors only)")
         return None
     return CudaWindow(comm, base, disp_unit)
 

@@ -47,10 +47,10 @@ Where the port differs from the reference:
   rank;
 - an op whose elements are not all inside the target's window raises
   ``ERR_ARG`` at the call, and a target outside the comm ``ERR_RANK`` (the
-  reference's slice clamps and its update fails at the fence);
-- the reference also emits the MPI_T event ``osc_device_fallback``; the
-  port has no events plane yet (ROADMAP queue 1 item 4e) and keeps the
-  pvar and the warning.
+  reference's slice clamps and its update fails at the fence).
+
+Each fallback also emits the MPI_T event ``osc_device_fallback`` with the
+reference's ``(op, reason)``.
 
 :class:`GetHandle` and :func:`_color` are shared with ``osc/cuda.py``.
 """
@@ -63,9 +63,15 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import errors
-from ompi_tpu_torch.core import output, pvar
+from ompi_tpu_torch.core import events as mpit_events, output, pvar
 
 _out = output.stream("osc_device")
+
+_FALLBACK_EVENT = mpit_events.register_type(
+    "osc_device_fallback",
+    "a device-epoch window routed an operation to the host path "
+    "(non-elementwise accumulate, passive target)",
+    ("op", "reason"))
 
 _warned: set = set()
 
@@ -75,13 +81,16 @@ _FUSABLE = ("replace", "sum", "min", "max", "prod")
 
 def _fallback(op: str, reason: str) -> None:
     """The device-epoch window cannot serve ``op``; the host window (or
-    CudaWindow) must. Counted every time, warned once per (op, reason)."""
+    CudaWindow) must. Counted every time, warned once per (op, reason),
+    and emitted as the MPI_T event ``osc_device_fallback``."""
     pvar.record("osc_device_fallbacks")
     key = (op, reason)
     if key not in _warned:
         _warned.add(key)
         _out.verbose(0, "WARNING: device-epoch window %s falls back to the "
                      "host path: %s", op, reason)
+    if mpit_events.active("osc_device_fallback"):
+        mpit_events.emit("osc_device_fallback", op=op, reason=reason)
 
 
 class GetHandle:

@@ -3,10 +3,13 @@
 The port's counterpart of ``ompi_tpu.pml`` (reference: ompi/mca/pml/,
 pml.h:157-515; exactly one PML per job, ompi/instance/instance.c:535):
 :mod:`.ob1` over the btls, selected by ``runtime/state`` at MPI_Init and
-finalized at MPI_Finalize; :mod:`.request`; and
+finalized at MPI_Finalize; :mod:`.request`;
 :mod:`.accel_p2p`, device-tensor point-to-point through pipelined pinned
-staging; and :mod:`.monitoring`, the interposition layer that wraps the
-selected PML (:func:`set_current`) for the monitoring plane.
+staging; ob1's tool attachments, :mod:`.peruse` (queue-event callbacks)
+and :mod:`.custommatch` (the indexed matching engine); and the
+interposition layers that wrap the selected PML (:func:`set_current`):
+:mod:`.vprotocol` (pml/v message logging) and :mod:`.monitoring` (the
+monitoring plane).
 """
 
 from __future__ import annotations

@@ -33,12 +33,18 @@ peer of another order sends, and both round windows to whole elements.
 Single copy turns itself off between peers of different order (a raw
 memory pull would skip the conversion).
 
-Left out of the port's ob1, each in ROADMAP: the peruse, MPI_T event,
-memchecker, trace and flight-recorder call sites (reference
-ob1.py:244-245, :260-267, :289-294, :326-332, :401-416, :484-506,
-:652-672, :792-795, :841-849; queue 1 item 10); the ULFM failure and
-revocation sweeps (``on_fault`` / ``on_revoke`` :904-969 and the failed
-sets behind ``_recv_src_failed`` :431-447; item 9).
+The matching queues come from :mod:`.custommatch` (``pml_ob1_matching``
+``list``: deques walked in arrival order; ``indexed``: bucketed by
+(src, tag) pattern, the same match order). The tools plane's sites are
+the reference's (ob1.py:484-506, :652-672, :792-795): the PERUSE queue
+events (:mod:`.peruse`) and the MPI_T events ``pml_message_matched`` and
+``pml_unexpected_queued``, each under one guard.
+
+Left out of the port's ob1, each in ROADMAP: the memchecker, trace and
+flight-recorder call sites (reference ob1.py:244-245, :260-267,
+:289-294, :326-332, :401-416, :841-849; queue 1 item 10); the ULFM
+failure and revocation sweeps (``on_fault`` / ``on_revoke`` :904-969 and
+the failed sets behind ``_recv_src_failed`` :431-447; item 9).
 """
 
 from __future__ import annotations
@@ -48,14 +54,16 @@ import os
 import pickle
 import struct
 from collections import deque
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.btl import base as btl_base
-from ompi_tpu_torch.core import arch, cvar, mpool, output, progress, pvar
+from ompi_tpu_torch.core import (arch, cvar, events, mpool, output,
+                                 progress, pvar)
 from ompi_tpu_torch.datatype import BYTE, Convertor, dtype_of
+from ompi_tpu_torch.pml import custommatch, peruse
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import rte
 
@@ -175,10 +183,11 @@ class Ob1:
 
     def __init__(self) -> None:
         self.bml = None
-        # matching state keyed by ctx: posted and unexpected queues,
-        # walked linearly in arrival order
-        self.posted: Dict[int, deque] = {}
-        self.unexpected: Dict[int, deque] = {}
+        # matching state keyed by ctx: posted and unexpected queues
+        # (pml/custommatch.make_posted / make_unexpected)
+        self.posted: Dict[int, Union[deque, custommatch.PostedIndex]] = {}
+        self.unexpected: Dict[
+            int, Union[deque, custommatch.UnexpectedIndex]] = {}
         # ordered delivery: per (ctx, peer) sequence numbers
         self.send_seq: Dict[Tuple[int, int], int] = {}
         self.recv_seq: Dict[Tuple[int, int], int] = {}
@@ -368,11 +377,14 @@ class Ob1:
 
     def _find_unexpected(self, ctx: int, want_src: int, want_tag: int,
                          take: bool):
-        """Oldest unexpected arrival matching the receive pattern,
-        (post, iprobe and improbe all come here)."""
+        """Oldest unexpected arrival matching the receive pattern, via
+        the selected matching engine (post, iprobe and improbe all come
+        here, so the engines cannot drift)."""
         q = self.unexpected.get(ctx)
         if q is None:
             return None
+        if isinstance(q, custommatch.UnexpectedIndex):
+            return q.find(want_src, want_tag, take)
         probe = RecvRequest(ctx, want_src, want_tag, None, 0, None, False)
         for cand in q:
             if self._hdr_matches(probe, cand.hdr):
@@ -386,12 +398,28 @@ class Ob1:
         ux = self._find_unexpected(req.ctx, req.want_src, req.want_tag,
                                    take=True)
         if ux is not None:
+            if peruse.active:
+                peruse.fire(peruse.MSG_REMOVE_FROM_UNEX_Q,
+                            ctx=req.ctx, src=ux.hdr[2], tag=ux.hdr[3],
+                            size=ux.hdr[5], msgid=ux.hdr[7])
+                peruse.fire(peruse.REQ_MATCH_UNEX, ctx=req.ctx,
+                            src=ux.hdr[2], tag=ux.hdr[3], size=ux.hdr[5],
+                            msgid=ux.hdr[7])
+            if events.active("pml_message_matched"):
+                events.emit("pml_message_matched", ctx=req.ctx,
+                            src=ux.hdr[2], tag=ux.hdr[3], size=ux.hdr[5],
+                            from_unexpected=True)
             self._match(req, ux.hdr, ux.payload, ux.src_world)
             return
+        # get-or-create (not setdefault: make_posted() reads a cvar and
+        # allocates, too much for every post)
         q = self.posted.get(req.ctx)
         if q is None:
-            q = self.posted[req.ctx] = deque()
+            q = self.posted[req.ctx] = custommatch.make_posted()
         q.append(req)
+        if peruse.active:
+            peruse.fire(peruse.REQ_INSERT_IN_POSTED_Q, ctx=req.ctx,
+                        src=req.want_src, tag=req.want_tag)
 
     @staticmethod
     def _hdr_matches(req: RecvRequest, hdr) -> bool:
@@ -505,24 +533,39 @@ class Ob1:
             self.recv_seq[key] = nxt + 1
 
     def _deliver_match(self, hdr, payload) -> None:
-        _, ctx, src, tag, _, _, _, _ = hdr
+        _, ctx, src, tag, _, size, _, msgid = hdr
         q = self.posted.get(ctx)
         if q is None:
-            q = self.posted[ctx] = deque()
-        req = None
-        for cand in q:
-            if self._hdr_matches(cand, hdr):
-                q.remove(cand)
-                req = cand
-                break
+            q = self.posted[ctx] = custommatch.make_posted()
+        if isinstance(q, custommatch.PostedIndex):
+            req = q.match_incoming(src, tag)  # four bucket heads
+        else:
+            req = None
+            for cand in q:
+                if self._hdr_matches(cand, hdr):
+                    q.remove(cand)
+                    req = cand
+                    break
         if req is not None:
+            if peruse.active:
+                peruse.fire(peruse.REQ_REMOVE_FROM_POSTED_Q, ctx=ctx,
+                            src=src, tag=tag, size=size, msgid=msgid)
+            if events.active("pml_message_matched"):
+                events.emit("pml_message_matched", ctx=ctx, src=src,
+                            tag=tag, size=size, from_unexpected=False)
             self._match(req, hdr, payload, self._src_world(ctx, src))
             return
         pvar.record("unexpected")
         uq = self.unexpected.get(ctx)
         if uq is None:
-            uq = self.unexpected[ctx] = deque()
+            uq = self.unexpected[ctx] = custommatch.make_unexpected()
         uq.append(_Unexpected(hdr, payload, self._src_world(ctx, src)))
+        if peruse.active:
+            peruse.fire(peruse.MSG_INSERT_IN_UNEX_Q, ctx=ctx, src=src,
+                        tag=tag, size=size, msgid=msgid)
+        if events.active("pml_unexpected_queued"):
+            events.emit("pml_unexpected_queued", ctx=ctx, src=src,
+                        tag=tag, size=size, depth=len(uq))
 
     @staticmethod
     def _src_world(ctx: int, src_commrank: int) -> int:
@@ -618,6 +661,10 @@ class Ob1:
         if req.is_obj and req.status.error == 0:
             req._obj = pickle.loads(bytes(memoryview(req.buf)[:req.total]))
         req.complete(req.status.error)  # releases pooled object scratch
+        if peruse.active:
+            peruse.fire(peruse.REQ_COMPLETE, ctx=req.ctx,
+                        src=req.status.source, tag=req.status.tag,
+                        size=req.status.count)
 
     # -- sender: ack and fragment streaming (reference:
     #    mca_pml_ob1_send_request_schedule, depth pml_ob1_component.c:207)

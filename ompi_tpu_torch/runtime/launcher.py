@@ -125,10 +125,16 @@ def _wait_all(procs: List[subprocess.Popen],
             if rc is None:
                 continue
             pending.discard(i)
-            if rc < 0:  # by signal: shell convention 128+signum
+            killed = rc < 0
+            if killed:  # by signal: shell convention 128+signum
                 rc = 128 - rc
             if rc != 0 and first_bad == 0:
                 first_bad = rc
+                if killed:
+                    from ompi_tpu_torch.util import show_help
+
+                    show_help.show("launcher", "rank-died", rank=i,
+                                   cause=f"signal {rc - 128}")
                 # a rank died abnormally: bring the job down
                 for j in pending:
                     procs[j].send_signal(signal.SIGTERM)

@@ -5,10 +5,15 @@ and the JAX package's ``ompi_tpu.runtime.state``. The instance brings
 up the rte, the accelerator, the device plane and the pml (ob1 over its
 btls; ompi_tpu/runtime/state.py:97-99), and the world model adds
 COMM_WORLD/COMM_SELF; finalize tears the pml down after the last fence
-(:266-268). The monitoring plane starts after the pml is selected,
-before any traffic flows (:106-116), and stops, with its Finalize-time
-dump, before the pml is torn down (:237-248). The prof, ingest, tune,
-trace, telemetry, skew and check planes attach in their own slices.
+(:266-268) and closes every framework's components
+(``core/registry.close_all``, :269). The message-logging layer
+(``pml/v``, ``--mca pml_v 1``) wraps the selected pml, and the monitoring
+plane wraps what is there then, before any traffic flows (:101-116); the
+monitoring plane stops, with its Finalize-time dump, before the pml is
+torn down (:237-248). The hooks (``core/hook``) run at the end of Init
+and at the start of Finalize (:297-302, :331-333). The prof, ingest,
+tune, trace, telemetry, skew and check planes attach in their own
+slices.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from __future__ import annotations
 import atexit
 import threading
 
-from ompi_tpu_torch.core import output
+from ompi_tpu_torch.core import hook, output, registry
 from ompi_tpu_torch.runtime import rte
 
 _lock = threading.RLock()
@@ -45,6 +50,12 @@ def init_instance() -> None:
     from ompi_tpu_torch import pml
 
     pml.select()
+    # interposition layers stack over the selected pml before any traffic
+    # flows: message logging first, then the monitoring plane over it
+    from ompi_tpu_torch.pml import vprotocol
+
+    if vprotocol._enable_var.get():
+        vprotocol.install()
     # the traffic-monitoring plane (monitoring_level, OMPI_TPU_MONITORING,
     # the deprecated pml_monitoring): matrices and the pml interposition,
     # before any traffic flows
@@ -66,6 +77,8 @@ def init():
         from ompi_tpu_torch.comm import build_world
 
         _world, _self_comm = build_world()
+        # init hooks last: the comms and transports are up
+        hook.run_init(_world)
         _initialized = True
         atexit.register(_atexit_finalize)
         return _world
@@ -93,6 +106,7 @@ def finalize() -> None:
             _finalized = True
             return
         _finalized = True
+        hook.run_finalize()
         try:
             for c in (_world, _self_comm):
                 c.free()
@@ -105,6 +119,7 @@ def finalize() -> None:
                 monitoring.stop()
             finally:
                 pml.finalize()
+                registry.close_all()
                 device_plane.shutdown()
                 _initialized = False
                 _world = None

@@ -7,16 +7,20 @@ observatory comes with ROADMAP item 10), so every hook pays one branch.
 readers call when a table file does not load: the reader then goes on
 with the built-in thresholds, as the reference's do.
 
-Where the port differs: the reference also emits the MPI_T event
-``tune_table_error`` when a tool listens; the port's event plane
-(``core/events.py``) belongs to ROADMAP item 4e, so nothing is emitted.
+It also emits the MPI_T event ``tune_table_error`` (``:49``,
+``:180-181``) when a tool listens.
 """
 
 from __future__ import annotations
 
-from ompi_tpu_torch.core import output, pvar
+from ompi_tpu_torch.core import events, output, pvar
 
 _out = output.stream("tune")
+
+TUNE_TABLE_ERROR = events.register_type(
+    "tune_table_error",
+    "a switchpoint-table cvar points at a malformed/unreadable file",
+    ("cvar", "path", "error"))
 
 #: the live observer (None: off). A live one has ``timed(component, op,
 #: provider, comm, nbytes, dtype, launcher, mesh=) -> launcher``.
@@ -27,7 +31,8 @@ _warned_tables: set = set()
 
 def table_error(var_name: str, path: str, exc: BaseException) -> None:
     """A switchpoint-table file failed to load: count it
-    (``tune_table_errors``, every attempt) and warn once per path."""
+    (``tune_table_errors``, every attempt), warn once per path, and emit
+    the ``tune_table_error`` MPI_T event for listening tools."""
     pvar.record("tune_table_errors")
     if path not in _warned_tables:
         _warned_tables.add(path)
@@ -35,3 +40,6 @@ def table_error(var_name: str, path: str, exc: BaseException) -> None:
                         "back to built-in thresholds; fix the path "
                         "or the JSON (tune_table_errors counts every "
                         "load attempt)", var_name, path, exc)
+    if events.active("tune_table_error"):
+        events.emit("tune_table_error", cvar=var_name, path=path,
+                    error=repr(exc))

@@ -108,7 +108,13 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.monitoring.report, "
             "ompi_tpu_torch.monitoring.__main__, ompi_tpu_torch.topo, "
             "ompi_tpu_torch.pml.monitoring, "
-            "ompi_tpu_torch.examples.moe_serving; "
+            "ompi_tpu_torch.examples.moe_serving, ompi_tpu_torch.mpit, "
+            "ompi_tpu_torch.core.events, ompi_tpu_torch.core.registry, "
+            "ompi_tpu_torch.core.hook, ompi_tpu_torch.util.show_help, "
+            "ompi_tpu_torch.pml.peruse, ompi_tpu_torch.pml.custommatch, "
+            "ompi_tpu_torch.pml.vprotocol, ompi_tpu_torch.tune.observe, "
+            "ompi_tpu_torch.osc.device_epoch, ompi_tpu_torch.accelerator.cuda, "
+            "ompi_tpu_torch.examples.tools_plane; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -151,6 +157,88 @@ def test_serving_and_monitoring_modules_are_scanned():
                 "pml/monitoring.py", "topo/__init__.py",
                 "examples/moe_serving.py"):
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+def test_tools_plane_modules_are_scanned():
+    """The tools plane's modules (events, MPI_T, registry, show_help,
+    hooks, ob1's attachments) and its examples are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("core/events.py", "mpit.py", "core/registry.py",
+                "util/show_help.py", "core/hook.py", "pml/peruse.py",
+                "pml/custommatch.py", "pml/vprotocol.py",
+                "examples/connectivity.py", "examples/library_caching.py",
+                "examples/tools_plane.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+#: module aliases the port's emitters call ``emit`` / ``fire`` through
+_EMITTERS = {"events": "emit", "mpit_events": "emit", "peruse": "fire"}
+
+
+def _guarded_sites(path):
+    """(call, guard) for every ``<events>.emit(...)`` and
+    ``peruse.fire(...)`` in a file: ``guard`` is the test of the nearest
+    enclosing ``if``, or None."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    parents = {}
+    for node in ast.walk(tree):
+        for child in ast.iter_child_nodes(node):
+            parents[child] = node
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Call)
+                and isinstance(node.func, ast.Attribute)
+                and isinstance(node.func.value, ast.Name)
+                and _EMITTERS.get(node.func.value.id) == node.func.attr):
+            continue
+        up = parents.get(node)
+        while up is not None and not isinstance(up, ast.If):
+            up = parents.get(up)
+        yield node, (up.test if up is not None else None)
+
+
+def _guards(test, alias):
+    """The event names (or True for ``peruse.active``) ``test`` checks
+    through ``alias``."""
+    out = set()
+    for n in ast.walk(test):
+        if isinstance(n, ast.Attribute) and n.attr == "active" \
+                and isinstance(n.value, ast.Name) and n.value.id == alias:
+            out.add(True)
+        if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) \
+                and n.func.attr == "active" \
+                and isinstance(n.func.value, ast.Name) \
+                and n.func.value.id == alias and n.args \
+                and isinstance(n.args[0], ast.Constant):
+            out.add(n.args[0].value)
+    return out
+
+
+def test_every_emitter_sits_under_its_guard():
+    """Every MPI_T ``emit`` and PERUSE ``fire`` of the port sits under one
+    ``if`` that tests the same event's ``active(name)`` (or
+    ``peruse.active``): a site with no listener costs one load and one
+    branch, and builds no payload."""
+    sites = {}
+    for path in _port_files():
+        if os.path.basename(path) in ("events.py", "peruse.py"):
+            continue  # the planes themselves define emit / fire
+        for call, test in _guarded_sites(path):
+            alias = call.func.value.id
+            where = (os.path.relpath(path, ROOT), call.lineno)
+            assert test is not None, where
+            guards = _guards(test, alias)
+            if alias == "peruse":
+                assert True in guards, where
+            else:
+                name = call.args[0].value
+                assert name in guards, (where, name, guards)
+            key = os.path.relpath(path, os.path.join(ROOT, "ompi_tpu_torch"))
+            sites[key] = sites.get(key, 0) + 1
+    assert sites == {"pml/ob1.py": 9, "btl/sm.py": 1, "btl/tcp.py": 1,
+                     "coll/libnbc.py": 1, "osc/__init__.py": 1,
+                     "osc/cuda.py": 1, "osc/device_epoch.py": 1,
+                     "tune/observe.py": 1}, sites
 
 
 def test_sm_ring_code_is_the_ports_own():
