@@ -299,6 +299,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ring's and the fence epoch's p50, with no handle and with a handle on
    every event, in turns (9 samples each).
 
+13. the sessions plane (see :func:`sessions_phase`): one 4-rank job of
+   ``ompi_tpu_torch/examples/sessions.py --device`` under ``--mca
+   device_plane on --mca coll_cuda on --mca osc_cuda on``, with no
+   COMM_WORLD (``Is_initialized()`` False throughout): ``Session_init``
+   with ``mpi_memory_alloc_kinds`` ``system,mpi,cuda,cuda:device,
+   cuda:managed,bogus`` granted as ``system,mpi,cuda,cuda:device``,
+   ``MPIX_Query_cuda_support()`` True, a comm from ``mpi://WORLD`` by
+   ``Comm_create_from_group``, device Allreduce(SUM) of 256 MiB float32
+   and 64 MiB bfloat16 under 'ring' (K1 + K2) and 'linear' (K3), each
+   bitwise its mode's plain fold, the float32 one timed in turns; a
+   device Bcast with root 99 recovered by a callback (ERR_ROOT once on
+   every rank) and the next Allreduce bitwise; a CudaWindow's Put and Rget
+   to target 99 recovered by a window callback, the fence epoch after
+   them bitwise against its numpy replay, and a Lock epoch's Put and Get;
+   the K1-K3 and K7-K10 launches equal to what each rank derives; the
+   reference's device fuzz schedule with nothing staged; Wtime / Wtick;
+   the session's finalize leaving no device plane and no arena file, and a
+   second session after it. Its Allreduce p50s print beside phase 3's
+   under COMM_WORLD (the 4-rank coll/cuda collectives job, same call).
+   Then a second job checks Abort: rank 2 calls ``mpi.Abort(comm, 7)``
+   after a device Allreduce; the job must exit 7 within 60 s and leave no
+   new ``ompi_tpu_torch_*`` file in /dev/shm.
+
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
@@ -307,7 +330,8 @@ collectives job, coll/cuda's and coll/device's, the datatype job, phases
 training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
 batches also from phase 9, K7, the per-call K9 and the K8, K9 and K10
-batches also from phase 12; K5b and the per-call row of K10 with 0 and a
+batches also from phase 12, K1-K3, K7 and the per-call K9 also from phase
+13; K5b and the per-call row of K10 with 0 and a
 note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
@@ -1948,6 +1972,78 @@ def tools_phase(card: str, root: str) -> dict:
     return launches
 
 
+#: phase 13's jobs (sessions.py): coll/cuda and osc/cuda on; the Abort
+#: job's rank, code and time limit
+SESSION_MCA = ("--mca", "osc_cuda", "on")
+ABORT_RANK, ABORT_CODE, ABORT_LIMIT = 2, 7, 60
+
+
+def sessions_phase(card: str, root: str, world_doc) -> dict:
+    """Phase 13: the sessions plane on the card. The session job's every
+    check must hold (main_path: Is_initialized stays False, the grant,
+    the query, the Allreduces bitwise, the recoveries, the fence replay,
+    the fuzz schedule, the finalize and the second session), and each
+    rank's K1-K3 and K7-K10 launches must equal what it derived. Prints
+    the session comm's 256 MiB float32 Allreduce p50 ('ring', 'linear',
+    timed in turns) beside COMM_WORLD's from ``world_doc`` (phase 3's
+    4-rank coll/cuda collectives job), the grant, the recoveries and the
+    launches; then runs the Abort job. Returns the launches."""
+    t0 = time.perf_counter()
+    launches, doc = main_path("sessions.py", N_RANKS, ["--device"], card,
+                              root, "coll_cuda", SESSION_MCA)
+    docs = rank_docs(smoke_dir(root, "sessions.py", N_RANKS), N_RANKS)
+    for r, d in enumerate(docs):
+        if d["launches"] != d["expected_launches"]:
+            fail(f"phase 13 rank {r}: launches {d['launches']}, derived "
+                 f"{d['expected_launches']}")
+    rep = doc["report"]
+    if rep["grant"] != "system,mpi,cuda,cuda:device" \
+            or rep["query_cuda_support"] is not True:
+        fail(f"phase 13: grant {rep['grant']!r}, MPIX_Query_cuda_support "
+             f"{rep['query_cuda_support']}")
+    world = {c["mode"]: c["p50_ms"] for c in world_doc["cases"]
+             if c.get("kind") == "Allreduce" and c.get("dtype") == "float32"
+             and c.get("bytes") == MAIN_BYTES}
+    a = rep["allreduce_f32"]
+    for mode in ("ring", "linear"):
+        print(f"phase 13 Allreduce float32 {a['bytes']} B {mode} n={N_RANKS}"
+              f" (rank 0 p50 of {len(a['times_ms'][mode])} in turns): "
+              f"session comm {a['p50_ms'][mode]:.3f} ms of "
+              f"{[round(v, 3) for v in a['times_ms'][mode]]}; COMM_WORLD "
+              f"(phase 3) {world.get(mode, float('nan')):.3f} ms "
+              f"[{card}]", flush=True)
+    print(f"phase 13: grant {rep['grant']}; MPIX_Query_cuda_support "
+          f"{rep['query_cuda_support']}; recoveries per rank: comm "
+          f"{[d['report']['comm_recoveries'] for d in docs]}, window "
+          f"{[d['report']['window_recoveries'] for d in docs]}; Wtick "
+          f"{rep['wtick']}; launches (all ranks) {launches}, as derived; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    from ompi_tpu_torch.runtime import launcher
+
+    shm = launcher.shm_dir()
+    before = set(os.listdir(shm))
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher", "-n",
+           str(N_RANKS), "--timeout", str(ABORT_LIMIT), "--mca",
+           "device_plane", "on", "--mca", "coll_cuda", "on",
+           os.path.join(root, "ompi_tpu_torch", "examples", "sessions.py"),
+           "--abort", f"{ABORT_RANK}:{ABORT_CODE}"]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=ABORT_LIMIT + 30)
+    wall = time.perf_counter() - t1
+    left = sorted(f for f in set(os.listdir(shm)) - before
+                  if f.startswith("ompi_tpu_torch_"))
+    if proc.returncode != ABORT_CODE or wall > ABORT_LIMIT or left:
+        sys.stderr.write(proc.stderr[-4000:])
+        fail(f"phase 13 Abort: exit {proc.returncode} (want {ABORT_CODE}) "
+             f"in {wall:.1f} s, files left {left}")
+    print(f"phase 13 Abort: rank {ABORT_RANK} of {N_RANKS} called "
+          f"mpi.Abort(comm, {ABORT_CODE}) after a device Allreduce; the job "
+          f"exited {proc.returncode} in {wall:.1f} s, no file left in "
+          f"{shm} [{card}]", flush=True)
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -2225,9 +2321,9 @@ def main() -> int:
                  f"{doc['provider']}")
         return doc
 
-    collectives(N_RANKS, ["--sizes", "1k,1m,64m,256m",
-                          "--kinds", "allreduce,rsag,ops",
-                          "--ops-bytes", str(OPS_BYTES)])
+    world_doc = collectives(N_RANKS, ["--sizes", "1k,1m,64m,256m",
+                                      "--kinds", "allreduce,rsag,ops",
+                                      "--ops-bytes", str(OPS_BYTES)])
     collectives(3, ["--sizes", "1k,1m,64m", "--kinds", "allreduce,rsag"])
     # coll/device alone (no coll_cuda): BASELINE's Bcast (config 2, 1 MiB
     # float32 on 8 ranks) and Alltoall (config 5, int32), the three
@@ -2319,10 +2415,14 @@ def main() -> int:
     for k, v in serve_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     tools = tools_phase(card, root)
+    # phase 13's K1-K3 join the collectives jobs'; its K7-K10 count apart
+    sessions = sessions_phase(card, root, world_doc)
+    for k in ("ring_rs_hop", "ring_ag_hop", "linear_fold"):
+        coll[k] = coll.get(k, 0) + sessions.pop(k, 0)
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
-            r["launches"] = sum(p.get(r["name"], 0)
-                                for p in (coll, train, osc, am, de, tools))
+            r["launches"] = sum(p.get(r["name"], 0) for p in
+                                (coll, train, osc, am, de, tools, sessions))
     print(f"K1-K3 launches over the collectives jobs (all ranks): "
           f"{ {k: coll[k] for k in sorted(coll)} } [{card}]", flush=True)
     host_plane_phase(torch, card, root)

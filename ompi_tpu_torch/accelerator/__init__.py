@@ -67,6 +67,25 @@ class Accelerator(registry.Component):
     def synchronize(self) -> None:
         pass
 
+    # -- memory kinds (info_memkind.c) ------------------------------------
+    def memkind_info(self) -> list:
+        """The memory kinds this component serves (reference: the memkind
+        info keys, ompi/info/info_memkind.*)."""
+        return [{"name": "host", "kind": "system"}]
+
+    def memkinds(self) -> list:
+        """The MPI-4.1 ``mpi_memory_alloc_kinds`` strings this component
+        contributes: its name as the kind and one ``name:region``
+        restrictor per device row of :meth:`memkind_info` (nothing for
+        this null component; ``cuda``, ``cuda:device`` for cuda)."""
+        out = []
+        for row in self.memkind_info():
+            if row.get("kind") == "device":
+                if self.NAME not in out:
+                    out.append(self.NAME)
+                out.append(f"{self.NAME}:{row['name']}")
+        return out
+
     # -- staging (reference: memcpy, memcpy_async) ------------------------
     def host_buffer(self, nbytes: int, device) -> torch.Tensor:
         """A uint8 host buffer that copies to and from ``device`` stage

@@ -57,6 +57,12 @@ class CudaAccelerator(Accelerator):
     def synchronize(self) -> None:
         torch.cuda.synchronize()
 
+    def memkind_info(self) -> list:
+        """Device memory (``cuda:device``, the MPI-4.1 side document's
+        restrictor) beside host memory."""
+        return [{"name": "device", "kind": "device"},
+                {"name": "host", "kind": "system"}]
+
     def _side(self, device) -> Tuple[torch.cuda.Stream, torch.cuda.Stream]:
         idx = torch.device(device).index
         idx = torch.cuda.current_device() if idx is None else idx

@@ -44,8 +44,6 @@ WIN_MODEL = 24
 
 #: the tag ceiling (tags are Python ints on the wire; advertise 2^31-1)
 MAX_TAG = (1 << 31) - 1
-#: MPI_ERR_LASTCODE: the port defines no error classes of its own
-ERR_LASTCODE = 92
 #: window models (MPI-3 §11.4): the active-message windows keep a
 #: separate public copy in the model's terms; "unified" would claim more
 WIN_SEPARATE = "separate"
@@ -90,8 +88,8 @@ def _predef(kid: int):
         return rte.hostname(), True
     if kid == IO:
         return True, True  # every rank can do IO
-    if kid == LASTUSEDCODE:
-        return ERR_LASTCODE, True
+    if kid == LASTUSEDCODE:  # live with the dynamic code space
+        return errors.last_used_code(), True
     return None, False
 
 

@@ -4,12 +4,15 @@ Reference: ompi/group/ (set algebra over process lists) and
 ompi/communicator/ (cid allocation, comm_cid.c:297-463; dup / split /
 create), and the JAX package's ``ompi_tpu.comm`` (:25-290). A
 communicator = (Group mapping comm rank -> world rank, cid, coll table,
-attributes, info). Point-to-point traffic uses the pml context cid*2,
+attributes, info, errhandler; the last two inherited by every comm built
+from it). Point-to-point traffic uses the pml context cid*2,
 collectives cid*2+1. Construction agrees on a fresh cid (allocated by
 ``rte.next_id``, the store's atomic counter) over the pml's collective
 context: rank 0 of the new communicator's parent allocates it and sends
 it to the others, as the reference's ``_agree_cid`` does. The ULFM
 methods (revoke, shrink, agree, ...) wait for ROADMAP queue 1 item 9.
+MPI-4's :func:`comm_create_from_group` needs no parent: the members agree
+on the cid through the store, keyed on (tag, group, epoch).
 """
 
 from __future__ import annotations
@@ -18,8 +21,8 @@ import hashlib
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
-from ompi_tpu_torch import attr as attr_mod
-from ompi_tpu_torch.info import Info, as_info
+from ompi_tpu_torch import attr as attr_mod, errors
+from ompi_tpu_torch.info import Info, apply_memkinds, as_info
 from ompi_tpu_torch.runtime import rte
 
 UNDEFINED = -32766
@@ -30,13 +33,16 @@ _TAG_GATHER, _TAG_SCATTER = -7, -8
 
 
 class Group:
-    """MPI_Group: an ordered set of world ranks."""
+    """MPI_Group: an ordered set of world ranks. A group from a session's
+    process set carries the session (``session``), and so does every
+    group derived from it."""
 
-    __slots__ = ("ranks", "_index")
+    __slots__ = ("ranks", "_index", "session")
 
-    def __init__(self, ranks: Sequence[int]) -> None:
+    def __init__(self, ranks: Sequence[int], session=None) -> None:
         self.ranks: Tuple[int, ...] = tuple(ranks)
         self._index = {r: i for i, r in enumerate(self.ranks)}
+        self.session = session
 
     @property
     def size(self) -> int:
@@ -53,20 +59,23 @@ class Group:
 
     def union(self, other: "Group") -> "Group":
         extra = [r for r in other.ranks if r not in self._index]
-        return Group(list(self.ranks) + extra)
+        return Group(list(self.ranks) + extra, self.session)
 
     def intersection(self, other: "Group") -> "Group":
-        return Group([r for r in self.ranks if r in other._index])
+        return Group([r for r in self.ranks if r in other._index],
+                     self.session)
 
     def difference(self, other: "Group") -> "Group":
-        return Group([r for r in self.ranks if r not in other._index])
+        return Group([r for r in self.ranks if r not in other._index],
+                     self.session)
 
     def incl(self, ranks: Sequence[int]) -> "Group":
-        return Group([self.ranks[r] for r in ranks])
+        return Group([self.ranks[r] for r in ranks], self.session)
 
     def excl(self, ranks: Sequence[int]) -> "Group":
         drop = set(ranks)
-        return Group([r for i, r in enumerate(self.ranks) if i not in drop])
+        return Group([r for i, r in enumerate(self.ranks) if i not in drop],
+                     self.session)
 
     def range_incl(self, ranges) -> "Group":
         out: List[int] = []
@@ -98,12 +107,14 @@ class Communicator(attr_mod.AttrHost):
     """Group + cid + per-comm collective table. The API methods (Send,
     Allreduce, ...) are attached by :mod:`ompi_tpu_torch.mpi`."""
 
-    def __init__(self, group: Group, cid: int) -> None:
+    def __init__(self, group: Group, cid: int,
+                 errhandler=errors.ERRORS_ARE_FATAL) -> None:
         self.group = group
         self.cid = cid
         self.name = f"comm#{cid}"
         self.attrs: Dict[int, object] = {}
         self.info = Info()
+        self.errhandler = errhandler
         self.coll = None  # installed by coll.comm_select
         with _comms_lock:
             _comms[cid] = self
@@ -144,8 +155,9 @@ class Communicator(attr_mod.AttrHost):
 
     def Set_info(self, info) -> None:
         """MPI_Comm_set_info (captured: later changes to ``info`` do not
-        leak in)."""
-        self.info = as_info(info)
+        leak in); a ``mpi_memory_alloc_kinds`` request is answered with
+        the granted subset (info_memkind.c)."""
+        self.info = apply_memkinds(as_info(info))
 
     def Get_info(self) -> Info:
         """MPI_Comm_get_info: a new Info with the hints set."""
@@ -153,8 +165,9 @@ class Communicator(attr_mod.AttrHost):
 
     # -- construction (collective) ----------------------------------------
     def _derive(self, group: Group, cid: int) -> "Communicator":
-        """A new communicator that inherits this one's info hints."""
-        c = Communicator(group, cid)
+        """A new communicator that inherits this one's info hints and
+        errhandler."""
+        c = Communicator(group, cid, self.errhandler)
         c.info = self.info.dup()
         return c
 
@@ -304,6 +317,30 @@ def alloc_cid() -> int:
     """A job-unique communicator id (the store's atomic counter); 0 and
     1 are COMM_WORLD and COMM_SELF."""
     return 1 + rte.next_id("cid")
+
+
+_cfg_epochs: Dict[str, int] = {}
+
+
+def comm_create_from_group(group: Group,
+                           tag: str) -> Optional[Communicator]:
+    """MPI_Comm_create_from_group (the MPI-4 sessions path): no parent
+    comm; the group's rank 0 allocates the cid and publishes it in the
+    store under (tag, group, epoch), the other members read it. Members
+    call in the same order per (tag, group), so a local epoch counter
+    keeps repeated calls apart. Non-members get None."""
+    if group.rank == UNDEFINED:
+        return None
+    base_key = f"cfg:{rte.jobid}:{tag}:{','.join(map(str, group.ranks))}"
+    epoch = _cfg_epochs.get(base_key, 0)
+    _cfg_epochs[base_key] = epoch + 1
+    key = f"{base_key}:{epoch}"
+    if group.rank == 0:
+        cid = alloc_cid()
+        rte.client().put(key, cid)
+    else:
+        cid = rte.client().get(key, wait=True)
+    return Communicator(Group(group.ranks), cid)
 
 
 def build_world() -> Tuple[Communicator, Communicator]:

@@ -27,7 +27,10 @@ with like is the MCA configuration, the data and the parameters.
   registers under the reference's names.
 - :func:`event_name` maps a reference MPI_T event type's name to the
   port's (``osc_pallas_fallthrough`` -> ``osc_cuda_fallthrough``, the
-  event and its pvar).
+  event and its pvar); :func:`ext_name` an MPI extension's
+  (``MPIX_Query_tpu_support`` -> ``MPIX_Query_cuda_support``) and
+  :func:`memkinds` a ``mpi_memory_alloc_kinds`` list's device kinds
+  (``tpu`` -> ``cuda``, ``tpu:hbm`` -> ``cuda:device``).
 - :func:`tensor_from_numpy` / :func:`tensor_to_numpy` convert buffers,
   carrying bfloat16 through its uint16 bit pattern (numpy has no
   bfloat16 of its own); :func:`tree_from_numpy` / :func:`tree_to_numpy`
@@ -60,6 +63,10 @@ _COMPONENTS = {"coll": {"pallas": "cuda", "xla": "device"},
                "accelerator": {"tpu": "cuda"}}
 #: reference MPI_T event types (and pvars) the port names its own way
 _EVENT_NAMES = {"osc_pallas_fallthrough": "osc_cuda_fallthrough"}
+#: reference MPI extensions the port names its own way
+_EXT_NAMES = {"MPIX_Query_tpu_support": "MPIX_Query_cuda_support"}
+#: the reference's device memory kinds and the port's
+_MEMKINDS = {"tpu": "cuda", "tpu:hbm": "cuda:device"}
 #: coll/xla settings coll/device keeps under its own prefix
 _XLA_TO_DEVICE = frozenset(("deterministic", "bucket_bytes",
                             "rooted_threshold_bytes", "hier"))
@@ -100,6 +107,18 @@ def _component_list(spec: str, names: Dict[str, str]) -> str:
 def event_name(name: str) -> str:
     """The port's name of a reference MPI_T event type (or pvar)."""
     return _EVENT_NAMES.get(name, name)
+
+
+def ext_name(name: str) -> str:
+    """The port's name of a reference MPIX_* extension."""
+    return _EXT_NAMES.get(name, name)
+
+
+def memkinds(spec: str) -> str:
+    """A reference ``mpi_memory_alloc_kinds`` list in the port's kind
+    names."""
+    return ",".join(_MEMKINDS.get(k.strip(), k.strip())
+                    for k in spec.split(",") if k.strip())
 
 
 def tensor_from_numpy(a: np.ndarray, device="cpu") -> torch.Tensor:

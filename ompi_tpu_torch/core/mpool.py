@@ -6,20 +6,19 @@ fragment pools, and opal/mca/rcache, the grdma registration cache) to
 the :class:`BufferPool` ob1 draws object-message scratch from
 (ob1.py:143, :699) and the :class:`Rcache` that holds the datatype
 engine's tiled span tables and device index vectors, keyed by
-:func:`buffer_key`. The reference invalidates a key through its
-memory-release plane (``core/memhooks``, not ported); here each keyed
-object carries one weakref finalizer that invalidates the key in every
-live cache, the same lifetime contract.
+:func:`buffer_key`. A key is invalidated through the memory-release
+plane (:mod:`ompi_tpu_torch.core.memhooks`): every cache subscribes at
+construction, and a keyed object's death drops its key from every cache
+(reference ``core/mpool.py:114-126``, ``:182-193``).
 """
 
 from __future__ import annotations
 
 import threading
-import weakref
 from collections import OrderedDict
-from typing import Any, Dict, List, Set, Tuple
+from typing import Any, Dict, List, Tuple
 
-from ompi_tpu_torch.core import cvar, pvar
+from ompi_tpu_torch.core import cvar, memhooks, pvar
 
 _max_cached = cvar.register(
     "mpool_max_cached_bytes", 32 << 20, int,
@@ -99,7 +98,9 @@ class Rcache:
         # reentrant: a death hook can fire from a garbage collection
         # triggered while this thread is inside insert or lookup
         self._lock = threading.RLock()
-        _caches.add(self)
+        # the grdma pattern: subscribe to the release plane, weakly (the
+        # hook must not keep a transient cache alive)
+        memhooks.register_release(self.invalidate, weak=True)
 
     def insert(self, key, value, nbytes: int) -> None:
         with self._lock:
@@ -128,32 +129,10 @@ class Rcache:
                 self._bytes -= hit[1]
 
 
-#: every live cache, which a keyed object's death invalidates
-_caches: "weakref.WeakSet[Rcache]" = weakref.WeakSet()
-_tracked: Set[int] = set()
-_track_lock = threading.Lock()
-
-
-def _release(key: int) -> None:
-    with _track_lock:
-        _tracked.discard(key)
-    for cache in list(_caches):
-        cache.invalidate(key)
-
 
 def buffer_key(obj, cache: Rcache):
-    """A cache key for ``obj``: its ``id()``, with one death hook per
-    object that drops the key from every cache. None for an object that
-    cannot carry a weak reference (callers then skip caching: a
+    """A cache key for ``obj``: its ``id()``, tracked on the release plane
+    (one death hook per object serves every cache). None for an object
+    that cannot carry a weak reference (callers then skip caching: a
     recycled id could alias a dead object's entry)."""
-    key = id(obj)
-    with _track_lock:
-        if key in _tracked:
-            return key
-    try:
-        weakref.finalize(obj, _release, key)
-    except TypeError:
-        return None
-    with _track_lock:
-        _tracked.add(key)
-    return key
+    return id(obj) if memhooks.track(obj) else None

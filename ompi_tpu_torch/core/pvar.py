@@ -105,8 +105,9 @@ WELL_KNOWN = (
     # monitoring plane's per-expert token counts
     "serve_dropped_tokens", "monitoring_expert_tokens",
     # core/mpool's registration cache (the datatype engine's span tables
-    # and device index vectors): hits and LRU evictions
-    "rcache_hits", "rcache_evictions",
+    # and device index vectors): hits and LRU evictions; core/memhooks:
+    # release notices fanned out to the caches
+    "rcache_hits", "rcache_evictions", "mem_hooks_released",
     # coll/hier (the two-level ICI x DCN schedules): launches, fused
     # bucket launches, calls handed one priority level down; per-level
     # send-side bytes (monitoring/algo's models: ICI, nominal DCN, and

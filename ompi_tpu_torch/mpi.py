@@ -67,6 +67,25 @@ requests, all or nothing.
 
 Barrier is the host barrier (coll/tuned's) over the pml, or with
 ``device=True`` the device plane's.
+
+Errors (ompi_tpu/mpi.py:1366-1431): every communicator carries an
+errhandler (``ERRORS_ARE_FATAL`` by default; ``Set_errhandler`` /
+``Get_errhandler``; dup, split, create and create_group inherit it). The
+capitalised buffer operations of :data:`_ERRHANDLED`, on host buffers and
+tensors alike, route an MPIError through it (:func:`_with_errhandler`); a
+request from Isend / Irecv dispatches through its comm at ``wait``.
+``Comm_create_errhandler`` / ``Win_create_errhandler`` make a callback
+handler; ``Add_error_class`` / ``_code`` / ``_string``, ``Error_class``
+and ``Error_string`` keep the user error space above ``ERR_LASTCODE``.
+
+The instance (ompi_tpu/mpi.py:1586-1679): ``Init`` / ``Finalize``, the
+MPI-4 ``Session_init`` (``Group_from_session_pset``,
+``Comm_create_from_group``; no COMM_WORLD), ``Is_initialized``,
+``Abort``, ``Request_get_status``, ``Wtime``, ``Wtick``,
+``Get_version``, ``Get_library_version``, ``Info_env`` and
+``MEMORY_ALLOC_KINDS``. The file errhandler and File itself come with
+ROADMAP queue 1 item 9, the dynamic-process and intercommunicator names
+with item 4f's second slice.
 """
 
 from __future__ import annotations
@@ -832,6 +851,68 @@ def _Reduce_scatter_block_init(self, sendbuf, recvbuf=None, op=op_mod.SUM,
         self, _parse_buf(sendbuf)[0], rarr, count, dt, _host_op(op))
 
 
+# ---------------------------------------------------------------------------
+# the errhandler plane (ompi_tpu/mpi.py:1366-1431)
+# ---------------------------------------------------------------------------
+
+def _Set_errhandler(self, eh) -> None:
+    """MPI_Comm_set_errhandler: a string mode (``ERRORS_RETURN``,
+    ``ERRORS_ARE_FATAL``) or an Errhandler (Comm_create_errhandler).
+    dup, split, create and create_group inherit it."""
+    self.errhandler = eh
+
+
+def _Get_errhandler(self):
+    return self.errhandler
+
+
+def _with_errhandler(fn):
+    """Route an MPIError escaping a binding through the comm's
+    errhandler (the reference's OMPI_ERRHANDLER_INVOKE at every binding's
+    error exit, e.g. allreduce.c). The string modes re-raise; a callback
+    that returns makes the call recover (it returns None); a callback
+    that raises propagates.
+
+    The same holds for host buffers and tensors. On the device plane a
+    recovery is safe only for an error that every rank detects before
+    its first hop (a root outside the comm, which raises ERR_ROOT on
+    every rank; an op the kernels do not take; a bad argument checked
+    at entry): every rank then recovers at the same call and the next
+    collective pairs up. An error that one rank meets after the
+    schedule has begun leaves its peers inside the schedule, so it
+    stays fatal, as in the reference."""
+    def wrapped(self, *a, **kw):
+        try:
+            return fn(self, *a, **kw)
+        except errors.MPIError as exc:
+            errors.dispatch(self, exc)  # raises unless a callback
+            return None                 # handled it
+    wrapped.__name__ = fn.__name__
+    wrapped.__doc__ = fn.__doc__
+    return wrapped
+
+
+#: the capitalised buffer operations whose errors route through the
+#: comm's errhandler (the OMPI_ERRHANDLER_INVOKE set). The I-forms
+#: surface errors at wait: Isend / Irecv stamp ``.comm`` on their
+#: requests and ``Request.wait`` dispatches on it.
+_ERRHANDLED = (
+    "Send", "Recv", "Ssend", "Rsend", "Bsend", "Sendrecv",
+    "Sendrecv_replace", "Mrecv", "Probe", "Barrier", "Bcast",
+    "Reduce", "Allreduce", "Gather", "Gatherv", "Scatter", "Scatterv",
+    "Allgather", "Allgatherv", "Alltoall", "Alltoallv",
+    "Reduce_scatter", "Reduce_scatter_block", "Scan", "Exscan",
+    "Allreduce_multi", "Reduce_scatter_multi", "Allgather_multi",
+)
+
+
+def _bind(name: str, fn) -> None:
+    """Attach an API function to Communicator, wrapped in the errhandler
+    dispatch where the reference's binding invokes it."""
+    setattr(Communicator, name,
+            _with_errhandler(fn) if name in _ERRHANDLED else fn)
+
+
 for _fn in (_Allreduce, _Reduce, _Reduce_scatter_block, _Reduce_scatter,
             _Allgather, _Allgatherv, _Bcast, _Alltoall, _Alltoallv, _Gather,
             _Gatherv, _Scatter, _Scatterv, _Scan, _Exscan, _Barrier,
@@ -845,7 +926,7 @@ for _fn in (_Allreduce, _Reduce, _Reduce_scatter_block, _Reduce_scatter,
             _Bcast_init, _Allreduce_init, _Reduce_init, _Gather_init,
             _Scatter_init, _Allgather_init, _Alltoall_init,
             _Reduce_scatter_block_init):
-    setattr(Communicator, _fn.__name__[1:], _fn)
+    _bind(_fn.__name__[1:], _fn)
 
 
 # ---------------------------------------------------------------------------
@@ -1020,10 +1101,13 @@ def _Isend(self, buf, dest: int, tag: int = 0) -> Request:
 
         arr, count, dt = d
         accel_p2p.check_tensor(arr, "Isend")
-        return accel_p2p.isend_dev(self, _dev_pack(arr, count, dt), dest,
-                                   tag)
-    arr, count, dt = _parse_buf(buf)
-    return pml.current().isend(self, arr, count, dt, dest, tag)
+        req = accel_p2p.isend_dev(self, _dev_pack(arr, count, dt), dest,
+                                  tag)
+    else:
+        arr, count, dt = _parse_buf(buf)
+        req = pml.current().isend(self, arr, count, dt, dest, tag)
+    req.comm = self  # the errhandler dispatch at wait (pml/request.py)
+    return req
 
 
 def _Ssend(self, buf, dest: int, tag: int = 0) -> None:
@@ -1146,11 +1230,15 @@ def _Irecv(self, buf, source: int = ANY_SOURCE,
         arr, count, dt = d
         accel_p2p.check_tensor(arr, "Irecv")
         if source == PROC_NULL:  # nothing arrives: arr stays as it is
-            return accel_p2p.irecv_dev(self, arr, source, tag)
-        like, tr = _dev_recv_plan(arr, count, dt)
-        return accel_p2p.irecv_dev(self, like, source, tag, transform=tr)
-    arr, count, dt = _parse_buf(buf)
-    return pml.current().irecv(self, arr, count, dt, source, tag)
+            req = accel_p2p.irecv_dev(self, arr, source, tag)
+        else:
+            like, tr = _dev_recv_plan(arr, count, dt)
+            req = accel_p2p.irecv_dev(self, like, source, tag, transform=tr)
+    else:
+        arr, count, dt = _parse_buf(buf)
+        req = pml.current().irecv(self, arr, count, dt, source, tag)
+    req.comm = self  # the errhandler dispatch at wait (pml/request.py)
+    return req
 
 
 def _Sendrecv(self, sendbuf, dest: int, recvbuf, source: int = ANY_SOURCE,
@@ -1445,8 +1533,9 @@ for _name, _fn in {
         "Pack_size": _Pack_size, "barrier": _barrier, "bcast": _bcast,
         "gather": _gather, "scatter": _scatter, "allgather": _allgather,
         "alltoall": _alltoall, "allreduce": _allreduce,
-        "reduce": _reduce}.items():
-    setattr(Communicator, _name, _fn)
+        "reduce": _reduce, "Set_errhandler": _Set_errhandler,
+        "Get_errhandler": _Get_errhandler}.items():
+    _bind(_name, _fn)
 
 
 # attribute caching (ompi/attribute/attribute.c; the predefined
@@ -1456,7 +1545,22 @@ from ompi_tpu_torch.attr import (  # noqa: E402,F401
     UNIVERSE_SIZE, WIN_BASE, WIN_CREATE_FLAVOR, WIN_DISP_UNIT, WIN_MODEL,
     WIN_SIZE, WTIME_IS_GLOBAL, dup_fn, null_copy_fn,
 )
-from ompi_tpu_torch.info import Info  # noqa: E402,F401
+from ompi_tpu_torch.info import (  # noqa: E402,F401
+    Info, MEMORY_ALLOC_KINDS, env_info as Info_env,
+)
+# the errhandler factories (ompi/errhandler/errhandler.h:401) and the
+# user error space (add_error_class.c, add_error_code.c,
+# add_error_string.c); File_create_errhandler comes with item 9's File
+from ompi_tpu_torch.errors import (  # noqa: E402,F401
+    ERRORS_ABORT, ERRORS_ARE_FATAL, ERRORS_RETURN, Errhandler,
+    add_error_class as Add_error_class,
+    add_error_code as Add_error_code,
+    add_error_string as Add_error_string,
+    create_errhandler as Comm_create_errhandler,
+    create_errhandler as Win_create_errhandler,
+    error_class as Error_class,
+    error_string as Error_string,
+)
 
 # MPI-4 partitioned point-to-point: Psend_init / Precv_init attach at
 # import (ompi/mca/part)
@@ -1505,16 +1609,24 @@ def Grequest_start(query_fn=None, free_fn=None, cancel_fn=None):
     return rq.GeneralizedRequest(query_fn, free_fn, cancel_fn)
 
 
+def Request_get_status(request) -> Tuple[bool, Status]:
+    """MPI_Request_get_status (ompi/mpi/c/request_get_status.c): (flag,
+    status). MPI_Test frees the handle, which the C binding exists to
+    avoid; test() here frees nothing, so this is test() with the status
+    beside it."""
+    return request.test(), request.retrieve_status()
+
+
 def Get_processor_name() -> str:
     from ompi_tpu_torch.runtime import rte
 
     return rte.hostname()
 
 
-def Init():
+def Init(thread_level: int = 0):
     from ompi_tpu_torch.runtime import state
 
-    return state.init()
+    return state.init(thread_level)
 
 
 def Finalize() -> None:
@@ -1523,6 +1635,71 @@ def Finalize() -> None:
 
     _flush_bsends()
     state.finalize()
+
+
+def Is_initialized() -> bool:
+    from ompi_tpu_torch.runtime import state
+
+    return state.is_initialized()
+
+
+def Session_init(info=None):
+    """MPI-4 MPI_Session_init: a handle on the instance with no world
+    model (reference: ompi/mpi/c/session_init.c over ompi/instance): query
+    process sets, derive groups, build comms with Comm_create_from_group
+    (see ``runtime.state.Session``)."""
+    from ompi_tpu_torch.runtime import state
+
+    return state.Session(info)
+
+
+def Group_from_session_pset(session, pset_name: str):
+    return session.group_from_pset(pset_name)
+
+
+def Comm_create_from_group(group, tag: str = "org.ompi_tpu.default"):
+    """MPI_Comm_create_from_group: collective over ``group``'s members,
+    no parent comm; a group derived from a session ties the comm to it
+    (Session.finalize frees it)."""
+    from ompi_tpu_torch.runtime import state
+
+    return state.comm_from_group(group, tag)
+
+
+def Abort(comm=None, errorcode: int = 1) -> None:
+    """MPI_Abort: the store broadcasts the abort, every rank blocked in a
+    store call exits with ``errorcode``, this rank exits with it, and the
+    launcher brings the rest of the job down (an errorcode of 0 exits
+    with 1: the job still comes down)."""
+    from ompi_tpu_torch.runtime import state
+
+    state.abort(errorcode,
+                f"MPI_Abort on {getattr(comm, 'name', 'the job')}")
+
+
+def Wtime() -> float:
+    import time
+
+    return time.perf_counter()
+
+
+def Wtick() -> float:
+    """MPI_Wtick: the resolution of Wtime."""
+    import time
+
+    return time.get_clock_info("perf_counter").resolution
+
+
+def Get_version():
+    """MPI_Get_version: the standard level the reference targets (3.1
+    with MPI-4's sessions, partitioned point-to-point and persistent
+    collectives)."""
+    return (3, 1)
+
+
+def Get_library_version() -> str:
+    return ("ompi_tpu_torch: the PyTorch/CUDA port of ompi_tpu "
+            "(Open MPI big-count fork parity build)")
 
 
 def __getattr__(name: str):

@@ -34,10 +34,14 @@ Detach), :class:`SharedWindow` (a /dev/shm segment a rank,
 ``win_create_device`` (re-exported from :mod:`.device_epoch`) serves the
 compiled-fence :class:`~ompi_tpu_torch.osc.device_epoch.DeviceEpochWindow`.
 
-Not in the port yet, refused with ``ERR_NOT_SUPPORTED`` naming its
-ROADMAP item: the error-handler and info planes of a window
-(``Set_errhandler``, ``Set_info``, the memory-kinds info; queue 1 item
-4f). Every service message counts on the monitoring plane (ctx
+Every window carries an errhandler (``ERRORS_ARE_FATAL`` by default,
+``Set_errhandler`` / ``Get_errhandler``) and an info (``Set_info`` /
+``Get_info`` and the creation's ``info``, whose ``mpi_memory_alloc_kinds``
+request is answered with the granted subset). A target rank outside the
+window is ``ERR_RANK`` through the errhandler (:meth:`Window._check_target`,
+called by every RMA op): a callback that returns makes the op a no-op that
+moves nothing, and a request-based op returns a completed request. Every
+service message counts on the monitoring plane (ctx
 ``osc``, its arrays' bytes) in :meth:`Window._send`; every epoch
 transition emits the MPI_T event ``osc_epoch_transition`` (reference
 ``osc/__init__.py:578-687``); the trace call sites wait with item 10.
@@ -53,6 +57,7 @@ import torch
 
 from ompi_tpu_torch import errors, op as op_mod, pml
 from ompi_tpu_torch.attr import AttrHost
+from ompi_tpu_torch.info import apply_memkinds, as_info
 from ompi_tpu_torch.core import (events as mpit_events, output, progress,
                                  pvar)
 from ompi_tpu_torch.monitoring import matrix as _mon
@@ -65,18 +70,9 @@ _SERVICE_TAG = -64  # on the window's private dup comm
 LOCK_EXCLUSIVE = "exclusive"
 LOCK_SHARED = "shared"
 
-#: the ROADMAP item the refusals name
-ERRHANDLER_ITEM = ("ROADMAP queue 1 item 4f (the error-handler and info "
-                   "planes)")
-
 #: ops that pick an operand and fold nothing (a bfloat16 operand moves
 #: as its bits)
 _PICK_OPS = ("MPI_REPLACE", "MPI_NO_OP")
-
-
-def _refuse(what: str, item: str) -> None:
-    raise errors.MPIError(errors.ERR_NOT_SUPPORTED,
-                          f"{what}: not in the port yet ({item})")
 
 
 def to_wire(t: torch.Tensor) -> np.ndarray:
@@ -145,9 +141,10 @@ class Window(AttrHost):
     traffic dirtied the mirror)."""
 
     def __init__(self, comm, base, disp_unit: int = 1, info=None) -> None:
-        if info is not None:
-            _refuse("window info (Win_create's info argument)",
-                    ERRHANDLER_ITEM)
+        # a mpi_memory_alloc_kinds request is answered with the granted
+        # subset (info_memkind.c)
+        self.info = apply_memkinds(as_info(info))
+        self.errhandler = errors.ERRORS_ARE_FATAL  # the reference default
         self.comm = comm.dup()  # private comm: tag isolation
         self._dev_like = None
         self._dev_cache = None
@@ -432,28 +429,39 @@ class Window(AttrHost):
         else:
             self._send(target, msg)
 
-    # -- the error-handler and info planes (item 4f) --------------------
+    # -- the errhandler and info planes ---------------------------------
     def Set_errhandler(self, eh) -> None:
-        _refuse("MPI_Win_set_errhandler", ERRHANDLER_ITEM)
+        """MPI_Win_set_errhandler: a string mode or an Errhandler
+        (Win_create_errhandler)."""
+        self.errhandler = eh
 
     def Get_errhandler(self):
-        _refuse("MPI_Win_get_errhandler", ERRHANDLER_ITEM)
+        return self.errhandler
 
     def Set_info(self, info) -> None:
-        _refuse("MPI_Win_set_info", ERRHANDLER_ITEM)
+        self.info = apply_memkinds(as_info(info))
 
     def Get_info(self):
-        _refuse("MPI_Win_get_info", ERRHANDLER_ITEM)
+        """MPI_Win_get_info: a new Info."""
+        return self.info.dup()
 
-    def _check_target(self, target: int) -> None:
-        """Raise ``MPIError(ERR_RANK)`` for a rank outside the window
-        (the reference routes it through the window's error handler,
-        which the port lacks: item 4f)."""
-        if not 0 <= target < self.size:
-            raise errors.MPIError(
-                errors.ERR_RANK,
-                f"RMA target rank {target} out of range for {self.name} "
-                f"(size {self.size})")
+    def _check_target(self, target: int) -> bool:
+        """Whether an op to ``target`` goes on: a rank outside the window
+        is ``RankError`` through the window's errhandler (the
+        OMPI_ERRHANDLER_INVOKE at every osc binding's error exit), which
+        raises, or returns False when a callback handled it (the op
+        recovers as a no-op)."""
+        if 0 <= target < self.size:
+            return True
+        return not errors.dispatch(self, errors.RankError(
+            f"RMA target rank {target} out of range for {self.name} "
+            f"(size {self.size})"))
+
+    def _completed(self) -> "_WinRequest":
+        """The request a recovered request-based op returns."""
+        req = _WinRequest(self)
+        req.complete()
+        return req
 
     @staticmethod
     def _stage_origin(buf) -> np.ndarray:
@@ -476,7 +484,8 @@ class Window(AttrHost):
 
     def Put(self, buf, target: int, disp: int = 0) -> None:
         pvar.record("osc_put")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         data = self._stage_origin(buf)
         self._count_op(target, ackable=True)
         self._local_or_send(target, ("put", disp, data))
@@ -485,7 +494,8 @@ class Window(AttrHost):
         """A numpy buf is filled in place (returns None); a tensor buf
         is filled in place and returned."""
         pvar.record("osc_get")
-        self._check_target(target)
+        if not self._check_target(target):
+            return None
         self._rget(buf, target, disp).wait()
         return buf if isinstance(buf, torch.Tensor) else None
 
@@ -511,6 +521,8 @@ class Window(AttrHost):
     def Rput(self, buf, target: int, disp: int = 0) -> Request:
         """The request completes when the put is applied at the target
         (remote ack), stronger than MPI's local-completion minimum."""
+        if not self._check_target(target):
+            return self._completed()
         self.Put(buf, target, disp)
         want = self._ackable_counts.get(target, 0)
         win = self
@@ -536,7 +548,8 @@ class Window(AttrHost):
         in buf's dtype units): the shmem_iput transport, one AM message
         whatever the element count."""
         pvar.record("osc_put")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         data = self._stage_origin(buf)
         self._count_op(target, ackable=True)
         self._local_or_send(target, ("puts", disp, int(stride), data))
@@ -546,7 +559,8 @@ class Window(AttrHost):
         """Fills buf with the target's elements at disp, disp+stride, ...
         (the shmem_iget transport)."""
         pvar.record("osc_get")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         req = self._request("get", buf)
         self._count_op(target)
         self._local_or_send(
@@ -568,13 +582,15 @@ class Window(AttrHost):
         return req
 
     def Rget(self, buf, target: int, disp: int = 0) -> Request:
-        self._check_target(target)
+        if not self._check_target(target):
+            return self._completed()
         return self._rget(buf, target, disp)
 
     def Accumulate(self, buf, target: int, disp: int = 0,
                    op: op_mod.Op = op_mod.SUM) -> None:
         pvar.record("osc_acc")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         self._check_fold(buf, op, "Accumulate")
         data = self._stage_origin(buf)
         self._count_op(target, ackable=True)
@@ -582,7 +598,8 @@ class Window(AttrHost):
 
     def Get_accumulate(self, origin, result, target: int, disp: int = 0,
                        op: op_mod.Op = op_mod.SUM) -> None:
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         self._check_fold(origin, op, "Get_accumulate")
         req = self._request("get_acc", result)
         data = self._stage_origin(origin)
@@ -593,7 +610,8 @@ class Window(AttrHost):
 
     def Fetch_and_op(self, value, result, target: int, disp: int = 0,
                      op: op_mod.Op = op_mod.SUM) -> None:
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         self._check_fold(value, op, "Fetch_and_op")
         req = self._request("fetch_op", result)
         v = self._stage_origin(value)
@@ -604,7 +622,8 @@ class Window(AttrHost):
 
     def Compare_and_swap(self, value, compare, result, target: int,
                          disp: int = 0) -> None:
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         req = self._request("cas", result)
         self._count_op(target)
         self._local_or_send(
@@ -851,15 +870,14 @@ def win_create(comm, base, disp_unit: int = 1, info=None) -> Window:
     device-resident :class:`~ompi_tpu_torch.osc.cuda.CudaWindow` serves a
     supported tensor on every rank's device; everything else, including
     every case its selection counts as a fallthrough, gets the host
-    :class:`Window`."""
+    :class:`Window`. ``info``'s memkind request is answered with the
+    granted subset (``Get_info``)."""
     from ompi_tpu_torch.osc import cuda as _cuda
 
-    if info is not None:
-        _refuse("window info (Win_create's info argument)", ERRHANDLER_ITEM)
-    win = _cuda.maybe_window(comm, base, disp_unit)
+    win = _cuda.maybe_window(comm, base, disp_unit, info=info)
     if win is not None:
         return win
-    return Window(comm, base, disp_unit)
+    return Window(comm, base, disp_unit, info=info)
 
 
 def win_allocate_shared(comm, nbytes: int,

@@ -80,8 +80,12 @@ Where the port differs from the reference:
   changing an origin buffer before the closing fence;
 - a ``GetHandle.array`` is a view of the exchange's fresh landing tensor,
   never of an arena region, which the next exchange reuses;
-- a target rank outside the window raises ``ERR_RANK`` at the call
-  (the reference queues it);
+- a target rank outside the window is ``ERR_RANK`` at the call, through
+  the window's errhandler, for every op and in every epoch (the
+  reference's fence Put queues it): a callback that returns makes the
+  op move nothing, ``Get_epoch`` return an empty handle and ``Rput`` /
+  ``Rget`` a completed request (their rank check comes before their
+  passive-target check);
 - a contiguous ``Put`` / ``Accumulate`` / ``Get_epoch`` / ``Get`` /
   ``Get_accumulate`` / ``Fetch_and_op`` (and a ``Put_strided`` of stride
   1, which the target applies as one) of more elements than the target's
@@ -171,7 +175,7 @@ class CudaWindow(Window):
     :func:`maybe_window`), or directly with :func:`win_create_cuda`."""
 
     def __init__(self, comm, base: torch.Tensor,
-                 disp_unit: int = 1) -> None:
+                 disp_unit: int = 1, info=None) -> None:
         self._shape = tuple(base.shape)
         self._win = base.detach().clone(
             memory_format=torch.contiguous_format).reshape(-1)
@@ -184,7 +188,7 @@ class CudaWindow(Window):
         # the stream every apply and read of this window runs on
         self._stream = torch.cuda.current_stream(self._win.device) \
             if self._win.is_cuda else None
-        super().__init__(comm, self._win, disp_unit)
+        super().__init__(comm, self._win, disp_unit, info=info)
         pvar.record("osc_cuda_windows")
 
     def _adopt(self, base):
@@ -314,7 +318,8 @@ class CudaWindow(Window):
     def Put(self, buf, target: int, disp: int = 0) -> None:
         pvar.record("osc_cuda_put")
         ep = self._epoch_for(target)
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         data = self._payload(buf, "Put")
         self._check_fits("Put", data.numel(), target)
         if ep == "fence":
@@ -330,7 +335,8 @@ class CudaWindow(Window):
         1 is a contiguous Put)."""
         pvar.record("osc_cuda_put")
         ep = self._epoch_for(target)
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         data = self._payload(buf, "Put")
         if stride == 1:
             self._check_fits("Put_strided", data.numel(), target)
@@ -346,7 +352,8 @@ class CudaWindow(Window):
         ep = self._epoch_for(target)
         kind = self._acc_kind(op)
         data = self._payload(buf, "Accumulate")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         self._check_fits("Accumulate", data.numel(), target)
         self._check_host_fold(op, "Accumulate")
         if ep == "fence" and kind in O.ELEMENTWISE:
@@ -368,7 +375,8 @@ class CudaWindow(Window):
             raise errors.MPIError(
                 errors.ERR_RMA_SYNC,
                 f"Get_epoch on {self.name} outside a fence epoch")
-        self._check_target(target)
+        if not self._check_target(target):
+            return GetHandle()  # recovered: nothing is fetched
         if stride == 1:
             self._check_fits("Get_epoch", int(nelems), target)
         h = GetHandle()
@@ -383,7 +391,8 @@ class CudaWindow(Window):
         returned. For fence-batched device gets use :meth:`Get_epoch`."""
         pvar.record("osc_cuda_get")
         self._epoch_for(target)
-        self._check_target(target)
+        if not self._check_target(target):
+            return None
         self._check_fits("Get", _numel(buf), target)
         pvar.record("osc_cuda_am_ops")
         # the internal transport, not the Rget override (which enforces
@@ -395,7 +404,8 @@ class CudaWindow(Window):
                     stride: int = 1) -> None:
         pvar.record("osc_cuda_get")
         self._epoch_for(target)
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         if stride == 1:
             self._check_fits("Get_strided", _numel(buf), target)
         pvar.record("osc_cuda_am_ops")
@@ -408,7 +418,8 @@ class CudaWindow(Window):
         slice, then the op applied by K7."""
         self._epoch_for(target)
         data = self._payload(origin, "Get_accumulate")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         self._check_fits("Get_accumulate", data.numel(), target)
         self._check_host_fold(op, "Get_accumulate")
         pvar.record("osc_cuda_am_ops")
@@ -418,7 +429,8 @@ class CudaWindow(Window):
                      op: op_mod.Op = op_mod.SUM) -> None:
         self._epoch_for(target)
         data = self._payload(value, "Fetch_and_op")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         self._check_fits("Fetch_and_op", data.numel(), target)
         self._check_host_fold(op, "Fetch_and_op")
         pvar.record("osc_cuda_am_ops")
@@ -429,12 +441,15 @@ class CudaWindow(Window):
         self._epoch_for(target)
         v = self._payload(value, "Compare_and_swap")
         c = self._payload(compare, "Compare_and_swap")
-        self._check_target(target)
+        if not self._check_target(target):
+            return
         pvar.record("osc_cuda_am_ops")
         Window.Compare_and_swap(self, to_wire(v), to_wire(c), result,
                                 target, disp)
 
     def Rput(self, buf, target: int, disp: int = 0):
+        if not self._check_target(target):
+            return self._completed()
         # request-based RMA is passive-target only (MPI-3.1 §11.3.5)
         if target not in self._granted:
             raise errors.MPIError(
@@ -444,6 +459,8 @@ class CudaWindow(Window):
         return super().Rput(buf, target, disp)
 
     def Rget(self, buf, target: int, disp: int = 0):
+        if not self._check_target(target):
+            return self._completed()
         if target not in self._granted:
             raise errors.MPIError(
                 errors.ERR_RMA_SYNC,
@@ -809,7 +826,8 @@ def _window_ok(base, disp_unit: int) -> bool:
         and disp_unit in (1, base.element_size()))
 
 
-def maybe_window(comm, base, disp_unit: int = 1) -> Optional[CudaWindow]:
+def maybe_window(comm, base, disp_unit: int = 1,
+                 info=None) -> Optional[CudaWindow]:
     """The creation-time selection ``osc.win_create`` calls (collective):
     None when the component is off; a :class:`CudaWindow` when every rank
     passes a supported tensor on its device-plane device (agreed by one
@@ -829,10 +847,11 @@ def maybe_window(comm, base, disp_unit: int = 1) -> Optional[CudaWindow]:
             f"supported {sorted(map(_dtype_name, _SUPPORTED_DTYPES))}, "
             "device tensors only)")
         return None
-    return CudaWindow(comm, base, disp_unit)
+    return CudaWindow(comm, base, disp_unit, info=info)
 
 
-def win_create_cuda(comm, base, disp_unit: int = 1) -> CudaWindow:
+def win_create_cuda(comm, base, disp_unit: int = 1,
+                    info=None) -> CudaWindow:
     """Create a device-resident window unconditionally (collective; every
     rank passes a supported tensor) — the explicit spelling when the
     cvar-gated :func:`maybe_window` selection is not wanted."""
@@ -843,4 +862,4 @@ def win_create_cuda(comm, base, disp_unit: int = 1) -> CudaWindow:
             "this rank's device-plane device and disp_unit 1 or its item "
             f"size (got {getattr(base, 'dtype', type(base).__name__)} on "
             f"{getattr(base, 'device', '-')}, disp_unit {disp_unit})")
-    return CudaWindow(comm, base, disp_unit)
+    return CudaWindow(comm, base, disp_unit, info=info)

@@ -46,8 +46,12 @@ Where the port differs from the reference:
   shapes and dtypes that differ across ranks raise ``ERR_ARG`` on every
   rank;
 - an op whose elements are not all inside the target's window raises
-  ``ERR_ARG`` at the call, and a target outside the comm ``ERR_RANK`` (the
-  reference's slice clamps and its update fails at the fence).
+  ``ERR_ARG`` at the call, and a target outside the comm is ``ERR_RANK``
+  through the window's errhandler (``ERRORS_ARE_FATAL`` by default,
+  ``Set_errhandler``): a callback that returns makes the op a no-op (a
+  recovered Get's handle holds an empty tensor after the fence). The
+  reference's window has no errhandler: its slice clamps and its update
+  fails at the fence.
 
 Each fallback also emits the MPI_T event ``osc_device_fallback`` with the
 reference's ``(op, reason)``.
@@ -201,6 +205,7 @@ class DeviceEpochWindow:
         self._gets: List[tuple] = []
         self._empty: List[GetHandle] = []
         self._in_epoch = False
+        self.errhandler = errors.ERRORS_ARE_FATAL
         self.comm.coll.barrier(self.comm)  # creation is collective
 
     @property
@@ -209,12 +214,23 @@ class DeviceEpochWindow:
         window (read it at epoch boundaries)."""
         return self._win.view(self._shape)
 
+    def Set_errhandler(self, eh) -> None:
+        self.errhandler = eh
+
+    def Get_errhandler(self):
+        return self.errhandler
+
+    def _check_target(self, what: str, target: int) -> bool:
+        """Whether an op to ``target`` goes on: a rank outside the comm is
+        ``RankError`` through the errhandler (False: a callback handled
+        it)."""
+        if 0 <= target < self.size:
+            return True
+        return not errors.dispatch(self, errors.RankError(
+            f"{what}: target {target} outside the window's {self.size} "
+            "ranks"))
+
     def _check(self, what: str, target: int, disp: int, n: int) -> None:
-        if not 0 <= target < self.size:
-            raise errors.MPIError(
-                errors.ERR_RANK,
-                f"{what}: target {target} outside the window's {self.size} "
-                "ranks")
         if disp < 0 or disp + n > self._win.numel():
             raise errors.MPIError(
                 errors.ERR_ARG,
@@ -227,6 +243,8 @@ class DeviceEpochWindow:
             else torch.from_numpy(np.ascontiguousarray(arr))
         a = a.detach().reshape(-1).to(self._win.dtype)
         target, disp = int(target), int(disp)
+        if not self._check_target(what, target):
+            return
         self._check(what, target, disp, a.numel())
         if a.numel():  # an empty payload moves nothing
             self._pending.append((target, disp, a, kind, 1))
@@ -260,8 +278,11 @@ class DeviceEpochWindow:
         handle's ``.array`` fills at the closing Fence."""
         pvar.record("osc_device_epoch_op")
         target, disp, nelems = int(target), int(disp), int(nelems)
-        self._check("Get", target, disp, nelems)
         h = GetHandle()
+        if not self._check_target("Get", target):
+            self._empty.append(h)
+            return h
+        self._check("Get", target, disp, nelems)
         if nelems:
             self._gets.append((h, target, disp, nelems, 1))
         else:

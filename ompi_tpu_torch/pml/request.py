@@ -137,14 +137,22 @@ class Request:
         return self.completed
 
     def wait(self, timeout: Optional[float] = None) -> Status:
-        """Spin progress until complete; a request that completed in
-        error raises its class here (nonblocking errors surface at
-        completion, as the reference's errhandler dispatch does with the
-        default ERRORS_ARE_FATAL-as-exception handler)."""
+        """Spin progress until complete. A request that completed in error
+        surfaces it here, through the errhandler of the comm the API
+        stamped on it (``.comm``; the reference invokes the request's
+        comm errhandler at completion): a callback that returns recovers,
+        and the Status comes back with its ``error`` field still set; the
+        string modes, or no comm, raise the class."""
         progress.wait_until(lambda: self.completed, timeout=timeout)
         if not self.completed:
             raise TimeoutError(f"request {self.id} did not complete")
         if self.status.error:
+            comm = getattr(self, "comm", None)
+            if isinstance(getattr(comm, "errhandler", None),
+                          errors.Errhandler):
+                errors.dispatch(comm, errors.make_mpi_error(
+                    self.status.error))
+                return self.status
             errors.raise_mpi_error(self.status.error)
         return self.status
 

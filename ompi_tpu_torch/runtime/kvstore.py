@@ -1,9 +1,9 @@
 """Rendezvous TCP key-value store — the PMIx server equivalent.
 
 Reference role: OpenPMIx server inside prterun/prted daemons. Supplies the
-modex (endpoint exchange), fences (PMIx_Fence) and ID allocation. The
-port's own copy, without abort and the fault-tolerance commands (they
-come with the slices that use them).
+modex (endpoint exchange), fences (PMIx_Fence), ID allocation and abort
+propagation. The port's own copy, without the fault-tolerance commands
+(they come with ROADMAP queue 1 item 9).
 
 Protocol: length-prefixed pickled tuples, thread-per-connection (the store
 is control plane only — no payload flows through it). SECURITY: pickle
@@ -14,6 +14,12 @@ Commands:
   ("fence", tag, nprocs, rank)   -> blocks until nprocs distinct ranks
                                     arrive -> ("ok",)
   ("inc", key, amount)           -> ("val", new_value)   # atomic counter
+  ("abort", rank, reason, code)  -> ("ok",)  # marks the job aborted
+  ("aborted?",)                  -> ("val", (reason, code) | None)
+
+Once the job is aborted, a blocked ``get`` or ``fence`` (and any later
+one) answers ``("aborted", (reason, code))``, and the client exits its
+process with the code (:meth:`Client._rpc`).
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ class Store:
         self._fences: Dict[str, list] = {}  # tag -> [arrived, released]
         self._counters: Dict[str, int] = {}
         self._cond = threading.Condition()
+        self._aborted = None  # (reason, exit code) once aborted
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -109,10 +116,12 @@ class Store:
         if op == "get":
             _, key, wait = msg
             with self._cond:
-                while wait and key not in self._data:
+                while wait and key not in self._data and not self._aborted:
                     self._cond.wait(timeout=1.0)
                 if key in self._data:
                     return ("val", self._data[key])
+                if self._aborted:
+                    return ("aborted", self._aborted)
                 return ("none",)
         if op == "fence":
             # tags must be unique per epoch (the rte client appends an
@@ -122,8 +131,10 @@ class Store:
                 entry = self._fences.setdefault(tag, [set(), 0])
                 entry[0].add(rank)
                 self._cond.notify_all()
-                while len(entry[0]) < nprocs:
+                while len(entry[0]) < nprocs and not self._aborted:
                     self._cond.wait(timeout=1.0)
+                if self._aborted:
+                    return ("aborted", self._aborted)
                 entry[1] += 1
                 if entry[1] >= nprocs:
                     self._fences.pop(tag, None)  # last releaser reclaims
@@ -133,6 +144,15 @@ class Store:
             with self._cond:
                 self._counters[key] = self._counters.get(key, 0) + amount
                 return ("val", self._counters[key])
+        if op == "abort":
+            _, rank, reason, code = msg
+            with self._cond:
+                self._aborted = (f"rank {rank}: {reason}", int(code))
+                self._cond.notify_all()
+            return ("ok",)
+        if op == "aborted?":
+            with self._cond:
+                return ("val", self._aborted)
         return ("err", f"unknown op {op!r}")
 
 
@@ -171,6 +191,10 @@ class Client:
                 reply = recv_msg(self._sock)
             finally:
                 self._sock.settimeout(None)
+        if reply[0] == "aborted":
+            # the job is going down: this rank exits with the abort's code
+            # (SystemExit unwinds try / finally, so daemons still reap)
+            raise SystemExit(reply[1][1] or 1)
         if reply[0] == "err":
             raise RuntimeError(reply[1])
         return reply
@@ -191,6 +215,17 @@ class Client:
     def inc(self, key: str, amount: int = 1) -> int:
         """Atomic store-side counter: returns the value after adding."""
         return self._rpc("inc", key, amount)[1]
+
+    def abort(self, rank: int, reason: str, code: int = 1) -> None:
+        """Mark the job aborted; best effort (the caller exits next)."""
+        try:
+            self._rpc("abort", rank, reason, int(code))
+        except (OSError, ConnectionError, EOFError):
+            pass
+
+    def aborted(self):
+        """(reason, code) once the job is aborted, else None."""
+        return self._rpc("aborted?")[1]
 
     def close(self) -> None:
         try:

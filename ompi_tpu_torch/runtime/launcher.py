@@ -14,7 +14,13 @@ on a one-card machine every rank shares ``cuda:0``.
 
 Exit code: 0 if every rank exits 0; otherwise the first nonzero rank code.
 On a rank crash the remaining ranks are terminated (mpirun behavior), and
-a ``--timeout`` that passes kills every rank and returns 124.
+a ``--timeout`` that passes kills every rank and returns 124. ``MPI_Abort``
+(``rte.abort``) is such a crash: the aborting rank exits with its code,
+ranks blocked in the store exit with the same code, the rest are
+terminated, and the job exits with the code. Whatever way the job ends,
+the launcher then removes the job's shared-memory files (btl/sm rings,
+the device arenas and their hop counters, the shmem heaps, IPC files:
+every ``ompi_tpu_torch_<jobid>_*`` under the shm dir).
 """
 
 from __future__ import annotations

@@ -114,3 +114,13 @@ def fence(tag: str = "", timeout: float | None = None) -> None:
     client().fence(f"fence:{jobid}:{tag}:{epoch}", size, rank,
                    timeout=timeout)
 
+
+
+def abort(reason: str, code: int = 1) -> None:
+    """Job abort: publish (reason, code) through the store, so peers
+    blocked in store calls exit with the code, then exit. A code of 0
+    exits with 1: the launcher brings the job down on a nonzero exit, so
+    MPI_Abort(comm, 0) must still end it."""
+    if _client is not None:
+        _client.abort(rank, reason, code or 1)
+    os._exit(code or 1)

@@ -1,18 +1,23 @@
-"""Instance state — the MPI init engine.
+"""Instance state — the MPI-4 session and init engine.
 
 Reference: ompi/instance/instance.c (ompi_mpi_instance_init_common:360)
-and the JAX package's ``ompi_tpu.runtime.state``. The instance brings
-up the rte, the accelerator, the device plane and the pml (ob1 over its
-btls; ompi_tpu/runtime/state.py:97-99), and the world model adds
-COMM_WORLD/COMM_SELF; finalize tears the pml down after the last fence
-(:266-268) and closes every framework's components
-(``core/registry.close_all``, :269). The message-logging layer
+and the JAX package's ``ompi_tpu.runtime.state``. The instance brings up
+the rte, the accelerator, the device plane and the pml (ob1 over its
+btls; ompi_tpu/runtime/state.py:97-99). The message-logging layer
 (``pml/v``, ``--mca pml_v 1``) wraps the selected pml, and the monitoring
-plane wraps what is there then, before any traffic flows (:101-116); the
-monitoring plane stops, with its Finalize-time dump, before the pml is
-torn down (:237-248). The hooks (``core/hook``) run at the end of Init
-and at the start of Finalize (:297-302, :331-333). The prof, ingest,
-tune, trace, telemetry, skew and check planes attach in their own
+plane wraps what is there then, before any traffic flows (:101-116).
+
+The instance is reference counted (:179-190, ompi_mpi_instance_retain /
+release): :func:`init` (the world model, COMM_WORLD and COMM_SELF) and
+each :class:`Session` acquire it; :func:`finalize` and
+``Session.finalize`` release it, and the last release tears it down:
+a last fence, then the monitoring plane (with its Finalize-time dump),
+the pml and its transports, every framework's components
+(``core/registry.close_all``) and the device plane. A later
+``Session_init`` brings a fresh instance up; a second Init still raises
+(MPI's once-only world model). The hooks (``core/hook``) run at the end
+of Init and at the start of Finalize (:297-302, :331-333). The prof,
+ingest, tune, trace, telemetry, skew and check planes attach in their own
 slices.
 """
 
@@ -27,60 +32,118 @@ from ompi_tpu_torch.runtime import rte
 _lock = threading.RLock()
 _initialized = False
 _finalized = False
+_instance_up = False
+_instance_users = 0
+_atexit_registered = False
 _world = None
 _self_comm = None
 _out = output.stream("runtime")
 
 
+def is_initialized() -> bool:
+    return _initialized
+
+
+def is_finalized() -> bool:
+    return _finalized
+
+
 def init_instance() -> None:
-    """rte, then the accelerator, then the device plane (collective
-    over the world; raises MPIError(ERR_INTERN) on every rank when any
-    rank cannot bring its device up), then the pml (collective: btl/sm
-    fences while it maps its rings)."""
-    rte.init()
-    _out.verbose(2, "rte up: rank %d/%d job %s",
-                 rte.rank, rte.size, rte.jobid)
-    from ompi_tpu_torch import accelerator
+    """Bring the instance up, once until its last release: rte, then the
+    accelerator, then the device plane (collective over the world; raises
+    MPIError(ERR_INTERN) on every rank when any rank cannot bring its
+    device up), then the pml (collective: btl/sm fences while it maps its
+    rings). Init and Session_init both come here, so a session-only
+    process binds its card exactly as Init does."""
+    global _instance_up, _atexit_registered
+    with _lock:
+        if _instance_up:
+            return
+        rte.init()
+        _out.verbose(2, "rte up: rank %d/%d job %s",
+                     rte.rank, rte.size, rte.jobid)
+        from ompi_tpu_torch import accelerator
 
-    accelerator.current()
-    from ompi_tpu_torch.runtime import device_plane
+        accelerator.current()
+        from ompi_tpu_torch.runtime import device_plane
 
-    if device_plane.requested():
-        device_plane.init_plane()
-    from ompi_tpu_torch import pml
+        if device_plane.requested():
+            device_plane.init_plane()
+        from ompi_tpu_torch import pml
 
-    pml.select()
-    # interposition layers stack over the selected pml before any traffic
-    # flows: message logging first, then the monitoring plane over it
-    from ompi_tpu_torch.pml import vprotocol
+        pml.select()
+        # interposition layers stack over the selected pml before any
+        # traffic flows: message logging first, then the monitoring plane
+        # over it
+        from ompi_tpu_torch.pml import vprotocol
 
-    if vprotocol._enable_var.get():
-        vprotocol.install()
-    # the traffic-monitoring plane (monitoring_level, OMPI_TPU_MONITORING,
-    # the deprecated pml_monitoring): matrices and the pml interposition,
-    # before any traffic flows
-    from ompi_tpu_torch import monitoring
+        if vprotocol._enable_var.get():
+            vprotocol.install()
+        # the traffic-monitoring plane (monitoring_level,
+        # OMPI_TPU_MONITORING, the deprecated pml_monitoring): matrices and
+        # the pml interposition, before any traffic flows
+        from ompi_tpu_torch import monitoring
 
-    if monitoring.requested():
-        monitoring.start(rank=rte.rank, nranks=rte.size)
+        if monitoring.requested():
+            monitoring.start(rank=rte.rank, nranks=rte.size)
+        _instance_up = True
+        if not _atexit_registered:
+            atexit.register(_atexit_finalize)
+            _atexit_registered = True
 
 
-def init():
-    """Bring up the world model; returns COMM_WORLD."""
+def _acquire() -> None:
+    """One more instance user (the world model, or a Session)."""
+    global _instance_users
+    with _lock:
+        init_instance()
+        _instance_users += 1
+
+
+def _release() -> None:
+    """One user fewer; the last one tears the instance down: a last fence
+    so no rank tears down while a peer still reads, then the monitoring
+    plane, the pml and its transports, the frameworks' components and the
+    device plane."""
+    global _instance_users, _instance_up
+    with _lock:
+        _instance_users = max(0, _instance_users - 1)
+        if _instance_users > 0 or not _instance_up:
+            return
+        _instance_up = False
+        try:
+            rte.fence("finalize", timeout=30.0)
+        finally:
+            from ompi_tpu_torch import monitoring, pml
+            from ompi_tpu_torch.runtime import device_plane
+
+            try:  # the matrices' dump, before the pml dies
+                monitoring.stop()
+            finally:
+                pml.finalize()
+                registry.close_all()
+                device_plane.shutdown()
+
+
+def init(thread_level: int = 0):
+    """Bring up the world model; returns COMM_WORLD. A consumer of the
+    instance (:func:`init_instance`), as ompi_mpi_init.c:359 is of
+    instance.c:822. ``thread_level`` is taken as the reference takes it:
+    the library is MPI_THREAD_MULTIPLE whatever is asked (MPI_INFO_ENV's
+    ``thread_level``)."""
     global _initialized, _world, _self_comm
     with _lock:
         if _finalized:
             raise RuntimeError("init after finalize (MPI semantics)")
         if _initialized:
             return _world
-        init_instance()
+        _acquire()
         from ompi_tpu_torch.comm import build_world
 
         _world, _self_comm = build_world()
         # init hooks last: the comms and transports are up
         hook.run_init(_world)
         _initialized = True
-        atexit.register(_atexit_finalize)
         return _world
 
 
@@ -97,38 +160,162 @@ def comm_self():
 
 
 def finalize() -> None:
-    """MPI_Finalize: release the comms' device arenas (collective),
-    then a last fence so no rank tears down while a peer still reads,
-    then the pml and its transports."""
+    """MPI_Finalize: release COMM_WORLD's and COMM_SELF's device arenas
+    (collective), then the world model's instance reference (an open
+    Session keeps the instance up)."""
     global _finalized, _initialized, _world, _self_comm
     with _lock:
         if _finalized or not _initialized:
             _finalized = True
             return
+        # the world model finalizes once, whatever sessions are open: a
+        # later Init raises even while a session keeps the instance up
         _finalized = True
         hook.run_finalize()
         try:
             for c in (_world, _self_comm):
                 c.free()
-            rte.fence("finalize", timeout=30.0)
         finally:
-            from ompi_tpu_torch import monitoring, pml
-            from ompi_tpu_torch.runtime import device_plane
-
-            try:  # the matrices' dump, before the pml dies
-                monitoring.stop()
-            finally:
-                pml.finalize()
-                registry.close_all()
-                device_plane.shutdown()
-                _initialized = False
-                _world = None
-                _self_comm = None
+            _initialized = False
+            _world = None
+            _self_comm = None
+            _release()
 
 
 def _atexit_finalize() -> None:
-    if _initialized and not _finalized:
-        try:
+    try:
+        for s in list(_open_sessions):  # in the order they were opened
+            s.finalize()
+        if _initialized and not _finalized:
             finalize()
-        except Exception:  # noqa: BLE001 — interpreter teardown
-            pass
+    except Exception:  # noqa: BLE001 — interpreter teardown
+        pass
+
+
+#: the open sessions, in the order they were opened (the same on every
+#: rank, so their collective finalizes pair up at exit)
+_open_sessions: list = []
+
+
+class Session:
+    """MPI-4 session (reference: ompi/instance/instance.c:360,822 and
+    ompi/mpi/c/session_init.c): a handle on the shared instance with no
+    world model. Process sets are queried by name and turned into groups,
+    and comms are built from groups with the store-brokered
+    ``comm_create_from_group``; COMM_WORLD is never built.
+
+    Process sets: ``mpi://WORLD``, ``mpi://SELF`` (mandatory in MPI-4) and
+    ``ompi_tpu://HOST`` (this node's ranks, the PMIx host pset analog).
+    The comms built from a session's groups are freed (collectively) by
+    :meth:`finalize`, before the instance reference goes, so the last
+    session's finalize leaves no device arena behind."""
+
+    PSET_WORLD = "mpi://WORLD"
+    PSET_SELF = "mpi://SELF"
+    PSET_HOST = "ompi_tpu://HOST"
+
+    def __init__(self, info=None) -> None:
+        from ompi_tpu_torch.info import apply_memkinds, as_info
+
+        _acquire()
+        # MPI_Session_init takes an Info; a mpi_memory_alloc_kinds request
+        # is answered with the granted subset (info_memkind.c)
+        self.info = apply_memkinds(as_info(info))
+        self._open = True
+        self._comms: list = []
+        _open_sessions.append(self)
+
+    def get_info(self):
+        """MPI_Session_get_info (a new Info)."""
+        return self.info.dup()
+
+    # -- process sets (MPI_Session_get_num_psets / get_nth_pset) ---------
+    def num_psets(self) -> int:
+        return len(self.psets())
+
+    def psets(self):
+        return [self.PSET_WORLD, self.PSET_SELF, self.PSET_HOST]
+
+    def get_nth_pset(self, n: int) -> str:
+        return self.psets()[n]
+
+    def pset_info(self, name: str) -> dict:
+        """MPI_Session_get_pset_info: ``mpi_size`` at least."""
+        return {"mpi_size": len(self.group_from_pset(name).ranks)}
+
+    def _check_open(self) -> None:
+        if not self._open:
+            raise RuntimeError("session finalized")
+
+    def group_from_pset(self, name: str):
+        """MPI_Group_from_session_pset: the group from the rte's view, no
+        communicator needed. The group (and every group derived from it)
+        remembers this session."""
+        self._check_open()
+        from ompi_tpu_torch.comm import Group
+
+        if name == self.PSET_WORLD:
+            ranks = rte.world_ranks()
+        elif name == self.PSET_SELF:
+            ranks = [rte.rank]
+        elif name == self.PSET_HOST:
+            ranks = _host_ranks()
+        else:
+            raise KeyError(f"unknown process set {name!r}")
+        return Group(ranks, session=self)
+
+    def comm_from_group(self, group, tag: str = "org.ompi_tpu.default"):
+        """MPI_Comm_create_from_group through the session."""
+        self._check_open()
+        from ompi_tpu_torch.comm import comm_create_from_group
+
+        c = comm_create_from_group(group, tag)
+        if c is not None:
+            self._comms.append(c)
+        return c
+
+    def finalize(self) -> None:
+        """MPI_Session_finalize: free this session's comms (in cid order,
+        collective over each), then drop its instance reference; the last
+        reference tears the instance down."""
+        if not self._open:
+            return
+        self._open = False
+        _open_sessions.remove(self)
+        comms, self._comms = self._comms, []
+        try:
+            for c in sorted(comms, key=lambda c: c.cid):
+                c.free()
+        finally:
+            _release()
+
+
+def comm_from_group(group, tag: str = "org.ompi_tpu.default"):
+    """MPI_Comm_create_from_group: through the group's session where it
+    has one (which then frees the comm at its finalize)."""
+    session = getattr(group, "session", None)
+    if session is not None:
+        return session.comm_from_group(group, tag)
+    from ompi_tpu_torch.comm import comm_create_from_group
+
+    return comm_create_from_group(group, tag)
+
+
+_host_ranks_cache = None
+
+
+def _host_ranks():
+    """The world ranks on this node (the host pset): one hostname exchange
+    through the store, kept for the process's life."""
+    global _host_ranks_cache
+    if _host_ranks_cache is None:
+        me = rte.hostname()
+        rte.modex_send("pset_host", me)
+        _host_ranks_cache = [w for w in rte.world_ranks()
+                             if rte.modex_recv("pset_host", w) == me]
+    return _host_ranks_cache
+
+
+def abort(code: int = 1, reason: str = "MPI_Abort") -> None:
+    """MPI_Abort through the runtime (``rte.abort``): never returns."""
+    rte.abort(reason, code)

@@ -14,6 +14,10 @@ from ompi_tpu.core import cvar as ref_cvar
 from ompi_tpu_torch import compat, errors
 from ompi_tpu_torch.coll import cuda as cc
 from ompi_tpu_torch.core import cvar
+from tests.test_torch_mpit import reference_only_state  # noqa: F401
+
+#: the reference's cvars these cases set go back as they were found
+pytestmark = pytest.mark.usefixtures("reference_only_state")
 
 COMM = SimpleNamespace(size=4)
 

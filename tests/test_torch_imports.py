@@ -114,7 +114,9 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.pml.peruse, ompi_tpu_torch.pml.custommatch, "
             "ompi_tpu_torch.pml.vprotocol, ompi_tpu_torch.tune.observe, "
             "ompi_tpu_torch.osc.device_epoch, ompi_tpu_torch.accelerator.cuda, "
-            "ompi_tpu_torch.examples.tools_plane; "
+            "ompi_tpu_torch.examples.tools_plane, ompi_tpu_torch.ext, "
+            "ompi_tpu_torch.core.memhooks, ompi_tpu_torch.runtime.state, "
+            "ompi_tpu_torch.examples.sessions; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -168,6 +170,16 @@ def test_tools_plane_modules_are_scanned():
                 "pml/custommatch.py", "pml/vprotocol.py",
                 "examples/connectivity.py", "examples/library_caching.py",
                 "examples/tools_plane.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+def test_instance_plane_modules_are_scanned():
+    """The error-handler, info and instance planes' modules (sessions,
+    memhooks, the extensions) and the sessions example are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("errors.py", "info.py", "runtime/state.py",
+                "runtime/kvstore.py", "runtime/rte.py", "core/memhooks.py",
+                "core/mpool.py", "ext/__init__.py", "examples/sessions.py"):
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 

@@ -19,14 +19,24 @@ Waiting for their slices, each in ROADMAP queue 1: the
 ``io_collective_complete`` half of ``test_osc_and_io_event_emitters`` and
 the ``parallel_io`` example (item 9), the ``tools/info`` half of
 ``test_event_coll_and_info_dump`` (item 10).
+
+The in-process cases call the reference too, whose registries are
+process-wide: :func:`reference_state` (autouse here, and imported by the
+other port test files that call the reference in process) puts both
+packages' back as each case found them, so a reference test that runs
+later in the same process (an xdist worker's next file) sees no port
+case's cvar, pvar, event handle, hook, framework or release hook.
 """
 
+import copy
+import importlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import textwrap
+import weakref
 
 import pytest
 
@@ -257,6 +267,135 @@ def _docs(jobs):
 
 
 # ---------------------------------------------------------------------------
+# the reference's process-wide state around each in-process case
+
+#: each package's module-level containers a case may change that are
+#: data, put back exactly: pvar counters, hooks, PERUSE subscribers, the
+#: user error space and the warn-once sets
+_DATA = {
+    "ompi_tpu": (
+        ("core.pvar", ("_counters", "_watermarks", "_timers")),
+        ("core.hook", ("_hooks",)), ("pml.peruse", ("_subs", "active")),
+        ("errors", ("_user_strings", "_user_codes", "_last_used")),
+        ("osc.pallas", ("_warned",)), ("osc.device_epoch", ("_warned",)),
+        ("tune.observe", ("_warned_tables",))),
+    "ompi_tpu_torch": (
+        ("core.pvar", ("_counters", "_watermarks")),
+        ("core.hook", ("_hooks",)), ("pml.peruse", ("_subs", "active")),
+        ("errors", ("_user_strings", "_user_codes", "_last_used")),
+        ("osc.device_epoch", ("_warned",))),
+}
+
+
+def _module_held(pkg: str) -> set:
+    """ids of what the loaded modules of ``pkg`` hold, as globals or one
+    level inside a global dict or object: a cvar, event type, framework
+    or component registered at import, which a case may have imported and
+    must keep."""
+    held = set()
+    for name, mod in list(sys.modules.items()):
+        if mod is None or not (name == pkg or name.startswith(pkg + ".")):
+            continue
+        for v in list(vars(mod).values()):
+            held.add(id(v))
+            if isinstance(v, dict):
+                held.update(id(x) for x in list(v.values()))
+            elif not isinstance(v, (type, type(sys))) \
+                    and hasattr(v, "__dict__"):
+                held.update(id(x) for x in list(vars(v).values()))
+    return held
+
+
+def _mods(pkg: str):
+    return [importlib.import_module(f"{pkg}.{m}") for m in
+            ("mpit", "core.cvar", "core.events", "core.memhooks",
+             "core.registry")]
+
+
+def _snapshot(pkg: str) -> dict:
+    mpit, cvar, events, memhooks, registry = _mods(pkg)
+    data = {}
+    for mod, names in _DATA[pkg]:
+        m = sys.modules.get(f"{pkg}.{mod}")
+        if m is not None:
+            data[m.__name__] = {n: copy.deepcopy(getattr(m, n))
+                                for n in names}
+    return {
+        "data": data,
+        "cvars": {n: (v, v._value, v._source)
+                  for n, v in cvar._registry._vars.items()},
+        "types": {n: (t, list(t.handles)) for n, t in events._types.items()},
+        "frameworks": {n: (fw, dict(fw._components))
+                       for n, fw in registry._frameworks.items()},
+        "memhooks": list(memhooks._hooks),
+    }
+
+
+def _restore(pkg: str, snap: dict) -> None:
+    mpit, cvar, events, memhooks, registry = _mods(pkg)
+    held = _module_held(pkg)
+    for mod, saved in snap["data"].items():
+        for n, v in saved.items():
+            setattr(sys.modules[mod], n, v)
+    for n, fw in list(registry._frameworks.items()):
+        old = snap["frameworks"].get(n)
+        if old is None:
+            if id(fw) not in held:
+                del registry._frameworks[n]
+            continue
+        for c, cls in list(fw._components.items()):
+            if c not in old[1] and id(cls) not in held:
+                del fw._components[c]
+    # cvars: a case's own registrations go, import-time ones (and a kept
+    # framework's include / exclude list) stay; every earlier var gets
+    # its value and source back
+    reg = cvar._registry._vars
+    for n, var in list(reg.items()):
+        old = snap["cvars"].get(n)
+        if old is None:
+            if id(var) not in held and n not in registry._frameworks:
+                del reg[n]
+        else:
+            reg[n] = old[0]
+            old[0]._value, old[0]._source = old[1], old[2]
+    mpit._cvar_order[:] = [n for n in mpit._cvar_order if n in reg]
+    mpit._cvar_seen.intersection_update(reg)
+    for n, t in list(events._types.items()):
+        old = snap["types"].get(n)
+        if old is None:
+            if id(t) not in held:
+                del events._types[n]
+                events._order.remove(t)
+        else:
+            t.handles[:] = old[1]
+    # a case's strong release hooks go; weak ones (caches) die on their own
+    memhooks._hooks[:] = [h for h in memhooks._hooks
+                          if h in snap["memhooks"]
+                          or isinstance(h, weakref.WeakMethod)]
+
+
+@pytest.fixture(autouse=True)
+def reference_state():
+    """Put both packages' process-wide registries back as the case found
+    them (cvars and their values, the MPI_T cvar order, pvars, event
+    handles, hooks, frameworks, release hooks, the user error space)."""
+    snaps = {pkg: _snapshot(pkg) for pkg in _DATA}
+    yield
+    for pkg, snap in snaps.items():
+        _restore(pkg, snap)
+
+
+@pytest.fixture
+def reference_only_state():
+    """The reference's registries alone put back (for files whose port
+    cases keep state from case to case: ``pytestmark =
+    pytest.mark.usefixtures("reference_only_state")``)."""
+    snap = _snapshot("ompi_tpu")
+    yield
+    _restore("ompi_tpu", snap)
+
+
+# ---------------------------------------------------------------------------
 # in process
 
 
@@ -284,6 +423,25 @@ def test_cvar_enumeration_and_handles():
     P_cvar.register("aaa_mpit_late_var", 1, int)
     assert P_mpit.cvar_index("mpit_test_var") == before
     assert P_mpit.cvar_index("aaa_mpit_late_var") == P_mpit.cvar_get_num() - 1
+
+
+def test_reference_cvar_case_passes_after_the_port_case():
+    """The guard: with the port's parity case first in one process, the
+    reference's own ``test_cvar_enumeration_and_handles`` still passes
+    (its ``assert 9 == 7`` failed when the port's case left
+    ``mpit_test_var`` at 9 in the reference's registry), and the
+    reference's registry holds no ``mpit_test_var`` after either."""
+    from ompi_tpu.core import cvar as R_cvar
+    from tests import test_mpit
+
+    snaps = {pkg: _snapshot(pkg) for pkg in _DATA}
+    test_cvar_enumeration_and_handles()
+    for pkg, snap in snaps.items():
+        _restore(pkg, snap)
+    assert R_cvar.lookup("mpit_test_var") is None
+    test_mpit.test_cvar_enumeration_and_handles()
+    _restore("ompi_tpu", snaps["ompi_tpu"])
+    assert R_cvar.lookup("mpit_test_var") is None
 
 
 def test_pvar_sessions_and_handles():

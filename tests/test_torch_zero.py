@@ -41,6 +41,7 @@ from ompi_tpu_torch.runtime import launcher as port_launcher
 from ompi_tpu_torch.zero import layout as zl
 from tests.harness import run_ranks
 from tests.test_torch_coll_cuda_kernels import assert_bits_equal
+from tests.test_torch_mpit import reference_only_state  # noqa: F401
 
 REF_MCA = {"device_plane": "on", "coll_pallas": "on",
            "coll_xla_bucket_bytes": "64"}
@@ -525,6 +526,7 @@ def test_tree_flatten_matches_jax_order():
     assert jax.tree.leaves(back) == leaves
 
 
+@pytest.mark.usefixtures("reference_only_state")
 @pytest.mark.parametrize("n", [2, 3, 4])
 def test_sharded_state_from_reference(n):
     """A reference ShardedState carried across equals the port's own
