@@ -321,12 +321,29 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    Then a second job checks Abort: rank 2 calls ``mpi.Abort(comm, 7)``
    after a device Allreduce; the job must exit 7 within 60 s and leave no
    new ``ompi_tpu_torch_*`` file in /dev/shm.
+14. the topology framework and the dynamic-process plane (see
+   :func:`halo_phase`): one 4-rank job of
+   ``ompi_tpu_torch/examples/neighbor_halo.py --device`` under coll/cuda
+   (coll/device serves the neighbourhood slots: one arena exchange, K2
+   landing each in-edge): tests/test_device_path.py's four device cases
+   bitwise against the host path with nothing staged; the halo of an 8192
+   x 8192 float32 tile a rank on a reordered 2 x 2 periodic cart, 20
+   timed Neighbor_alltoall steps of four depth-8 strips under
+   ``profile.timing`` (the count checked, the last step bitwise against
+   its numpy replay); a 64 MiB float32 Neighbor_allgather a rank beside
+   its HBM bound; the one exchange against the reference's 4 colour
+   rounds of permute_dev at 1 MiB and 64 MiB, bitwise, timed in turns;
+   64 MiB Allreduces on an Idup of the cart and a Cart_sub row, bitwise;
+   and two children spawned by Comm_spawn, each with its own device plane
+   and a bitwise 64 MiB Allreduce beside the parents' COMM_WORLD arenas,
+   then the bridge and merged Allreduces, exiting 0. Each rank's and each
+   child's K1-K3 launches per part must equal what it derived.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8, 10 and 11 and the training path, K5 and K6's two kernels from the
+7, 8, 10, 11, 13 and 14 and the training path, K5 and K6's two kernels from the
 training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
 batches also from phase 9, K7, the per-call K9 and the K8, K9 and K10
@@ -2044,6 +2061,87 @@ def sessions_phase(card: str, root: str, world_doc) -> dict:
     return launches
 
 
+#: phase 14 (neighbor_halo.py): the wide allgather's bytes a rank, and
+#: the bytes its HBM traffic moves over the card: each rank stages its
+#: block (read + write) and lands its 4 in-neighbours' (read + write)
+HALO_WIDE_BYTES = 64 << 20
+HALO_IN_EDGES = 4
+
+
+def halo_phase(card: str, root: str) -> dict:
+    """Phase 14: the topology framework on the card, one 4-rank job of
+    ``neighbor_halo.py --device`` under coll/cuda (coll/device serves the
+    neighbourhood slots). Every check of every rank must hold (main_path:
+    the four contract cases bitwise with nothing staged, the halo's last
+    step against its numpy replay and its profile count, the wide block,
+    the one exchange against the colour rounds, the Idup and Cart_sub
+    Allreduces, the spawned children), each rank's K1-K3 launches per
+    part must equal what it derived, and so must each child's. Prints the
+    halo step's p50, the wide allgather's p50 beside its bound, the one
+    exchange against the rounds in turns and the spawn; returns the
+    launches of the parents and the children."""
+    t0 = time.perf_counter()
+    launches, doc = main_path("neighbor_halo.py", N_RANKS, ["--device"],
+                              card, root, "coll_cuda")
+    docs = rank_docs(smoke_dir(root, "neighbor_halo.py", N_RANKS), N_RANKS)
+    for r, d in enumerate(docs):
+        if d["part_launches"] != d["expected_part_launches"] \
+                or d["launches"] != d["expected_launches"]:
+            fail(f"phase 14 rank {r}: launches per part "
+                 f"{d['part_launches']}, derived "
+                 f"{d['expected_part_launches']}")
+    rep = doc["report"]
+    kids = rep["spawn"]["children"]
+    if rep["spawn"]["codes"] != [0] * len(kids) or any(
+            k["launches"] != k["expected_launches"]
+            or not k["device"].startswith("cuda") for k in kids):
+        fail(f"phase 14 spawn: codes {rep['spawn']['codes']}, children "
+             f"{[(k['device'], k['launches']) for k in kids]}")
+    for k in kids:
+        for name, v in k["launches"].items():
+            launches[name] = launches.get(name, 0) + v
+    h, w, rr = rep["halo"], rep["wide"], rep["rounds"]
+    print(f"phase 14 contract cases (2 x 2 cart allgather, size-2 "
+          f"alltoall, open ring PROC_NULL rows, ragged dist graph) bitwise "
+          f"== the host path on every rank, provider coll/device, "
+          f"coll_accelerator_staged 0 [{card}]", flush=True)
+    print(f"phase 14 halo n={N_RANKS} {h['tile']} x {h['tile']} float32 a "
+          f"rank on Create_cart([2, 2], periods, reorder=True), strips of "
+          f"depth {h['depth']} ({h['sendbuf_bytes']} B sendbuf): step (pack, "
+          f"Neighbor_alltoall, unpack) p50 {h['step_p50_ms']:.4f} ms of "
+          f"{h['steps']} (rank 0) {[round(v, 4) for v in h['step_ms']]}; "
+          f"profile_Neighbor_alltoall_calls {h['profile_calls']}, "
+          f"{h['profile_ms_per_call']:.4f} ms a call; the last step bitwise "
+          f"== its numpy replay [{card}]", flush=True)
+    moved = N_RANKS * (1 + HALO_IN_EDGES) * 2 * HALO_WIDE_BYTES
+    bound = moved / HBM_BYTES_PER_S * 1e3
+    print(f"phase 14 Neighbor_allgather n={N_RANKS} {w['bytes']} B float32 "
+          f"a rank: p50 {w['p50_ms']:.4f} ms of {len(w['times_ms'])} (rank "
+          f"0) {[round(v, 4) for v in w['times_ms']]}; bound {bound:.4f} ms "
+          f"({moved} B of HBM traffic), {100 * bound / w['p50_ms']:.1f}% of "
+          f"it [{card}]", flush=True)
+    for label in ("small", "wide"):
+        c = rr[label]
+        print(f"phase 14 Neighbor_allgather {c['bytes']} B: one exchange "
+              f"p50 {c['one_p50_ms']:.4f} ms vs {rr['colours']} colour "
+              f"rounds of permute_dev ({rr['edges']} edges) p50 "
+              f"{c['rounds_p50_ms']:.4f} ms, in turns (rank 0: one "
+              f"{[round(v, 4) for v in c['one_ms']]}, rounds "
+              f"{[round(v, 4) for v in c['rounds_ms']]}), saved "
+              f"{c['rounds_p50_ms'] - c['one_p50_ms']:.4f} ms [{card}]",
+              flush=True)
+    print(f"phase 14 Idup'd cart Allreduce ('ring', 'linear') and Cart_sub "
+          f"row Allreduce ('ring') of 64 MiB float32 bitwise; spawn: "
+          f"{len(kids)} children on {kids[0]['device']} (world ranks "
+          f"{kids[0]['world'][3]}, plane leader {kids[0]['leader']}) each "
+          f"ran a bitwise 64 MiB device Allreduce beside the parents' "
+          f"arenas, the bridge and merged Allreduces, exit codes "
+          f"{rep['spawn']['codes']} ({rep['spawn']['seconds']:.1f} s); "
+          f"launches (parents and children) {launches}, as derived; "
+          f"{time.perf_counter() - t0:.1f} s wall [{card}]", flush=True)
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -2419,6 +2517,9 @@ def main() -> int:
     sessions = sessions_phase(card, root, world_doc)
     for k in ("ring_rs_hop", "ring_ag_hop", "linear_fold"):
         coll[k] = coll.get(k, 0) + sessions.pop(k, 0)
+    # and so do phase 14's, the spawned children's among them
+    for k, v in halo_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0
             r["launches"] = sum(p.get(r["name"], 0) for p in

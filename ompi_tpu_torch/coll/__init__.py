@@ -27,7 +27,18 @@ priority<0), and ``ompi_tpu.coll``. The port's components:
 - ``adapt`` (opt-in, ``coll_adapt_priority``): segmented ibcast /
   ireduce;
 - ``sync`` (90, with ``coll_sync_barrier_before``): no slot of its own;
-  its ``post_stack`` wraps the stacked host slots.
+  its ``post_stack`` wraps the stacked host slots;
+- ``inter`` (45, intercommunicators only): the group-vs-group
+  collectives. Only a component with ``INTER_OK`` stacks on an
+  intercommunicator (the gate is here, ompi_tpu/coll/__init__.py:115-120):
+  the intra algorithms assume one group.
+
+On a topology comm (``comm.topo``, attached by :mod:`ompi_tpu_torch.topo`,
+which re-runs :func:`comm_select`) coll/basic adds the host neighbourhood
+slots, coll/libnbc their ``ineighbor_*`` forms, coll/accelerator the
+staging ``neighbor_*_dev`` slots and coll/device its own
+(:mod:`ompi_tpu_torch.coll.device_neighbor`), which win where the device
+plane is up.
 
 The components register with the registry's ``coll`` framework
 (``core/registry.py``), whose cvar of the same name includes or
@@ -53,6 +64,7 @@ from ompi_tpu_torch.coll.cuda import CollCuda
 from ompi_tpu_torch.coll.device import CollDevice
 from ompi_tpu_torch.coll.han import CollHan
 from ompi_tpu_torch.coll.hier import CollHier
+from ompi_tpu_torch.coll.inter import CollInter
 from ompi_tpu_torch.coll.libnbc import CollLibnbc
 from ompi_tpu_torch.coll.sync import CollSync
 from ompi_tpu_torch.coll.tuned import CollTuned
@@ -66,7 +78,8 @@ framework = registry.framework("coll")
 #: (< 0 disqualifies) and slots(comm) -> {slot name: function}; one may
 #: have post_stack(comm, table), run once every component has stacked
 for _cls in (CollBasic, CollLibnbc, CollTuned, CollHan, CollAccelerator,
-             CollDevice, CollCuda, CollHier, CollAdapt, CollSync):
+             CollDevice, CollCuda, CollHier, CollAdapt, CollSync,
+             CollInter):
     framework.register(_cls)
 del _cls
 
@@ -106,8 +119,9 @@ class CollTable:
             raise errors.MPIError(
                 errors.ERR_NOT_SUPPORTED,
                 f"no coll component provides '{name}' on this "
-                "communicator (the neighbourhood collectives come with "
-                "topo/, ROADMAP queue 1 item 4f)") from None
+                "communicator (the neighbourhood slots exist on topology "
+                "comms only: Create_cart, Create_graph, "
+                "Create_dist_graph[_adjacent])") from None
 
 
 def comm_select(comm) -> None:
@@ -117,7 +131,10 @@ def comm_select(comm) -> None:
     interposition, ompi_tpu/coll/__init__.py:137-143)."""
     table = CollTable()
     ranked = []
+    is_inter = getattr(comm, "is_inter", False)
     for comp in framework.open_components():
+        if is_inter and not getattr(comp, "INTER_OK", False):
+            continue  # intra algorithms never stack on an intercomm
         pri = comp.query(comm)
         if pri >= 0:
             ranked.append((pri, comp))

@@ -32,7 +32,13 @@ Where the port differs from the reference:
 - A user op on a bfloat16 tensor raises ``MPIError(ERR_NOT_SUPPORTED)``
   (numpy has no bfloat16 to hand it); REPLACE and NO_OP, which pick an
   operand, move its bits.
-- The neighbourhood slots come with ``topo/`` (ROADMAP queue 1 item 4f).
+
+On a topology comm it adds the staging neighbourhood slots
+``neighbor_allgather_dev`` and ``neighbor_alltoall_dev``
+(coll/accelerator.py:314-342) under coll/xla_neighbor's contract (every
+rank passes a block of one shape; PROC_NULL rows are zeros): they serve
+only where the device plane is down, since coll/device installs its own
+on every topology comm the plane serves.
 
 ``pallreduce_init_dev`` and ``preduce_scatter_init_dev`` do the full
 partitioned bookkeeping (``Pready``, double-Pready and unready-wait
@@ -414,6 +420,40 @@ def exscan_dev(comm, sendbuf, op=op_mod.SUM, deterministic=None):
     return _stage_out(recv, sendbuf)
 
 
+def neighbor_allgather_dev(comm, sendbuf):
+    """``(n_in, *shape)``: row k is in-neighbour k's ``sendbuf`` (zeros
+    for a PROC_NULL row). Every rank passes a buffer of the same shape: a
+    receive-only rank's is a template only."""
+    pvar.record("coll_accelerator_staged")
+    host = _stage_in(sendbuf)
+    ins = comm.topo.in_neighbors(comm.rank)
+    recv = _host_like((len(ins),) + host.shape, sendbuf.dtype,
+                      sendbuf.device)
+    recv[...] = 0
+    comm.coll.neighbor_allgather(comm, host, recv, host.size, None)
+    return _stage_out(recv, sendbuf)
+
+
+def neighbor_alltoall_dev(comm, sendbuf):
+    """``sendbuf`` rows are per-out-neighbour blocks (row j to
+    out-neighbour j); the result's rows per-in-neighbour (PROC_NULL rows
+    zero). Zero-size blocks are a legal empty exchange."""
+    pvar.record("coll_accelerator_staged")
+    host = _stage_in(sendbuf)
+    ins = comm.topo.in_neighbors(comm.rank)
+    outs = comm.topo.out_neighbors(comm.rank)
+    if host.ndim < 1 or host.shape[0] != len(outs):
+        raise errors.MPIError(
+            errors.ERR_COUNT,
+            f"neighbor_alltoall: sendbuf dim 0 of shape {host.shape} != "
+            f"out-degree {len(outs)}")
+    recv = _host_like((len(ins),) + host.shape[1:], sendbuf.dtype,
+                      sendbuf.device)
+    recv[...] = 0
+    comm.coll.neighbor_alltoall(comm, host, recv, _row(host.shape), None)
+    return _stage_out(recv, sendbuf)
+
+
 def _device_of(obj) -> torch.device:
     """Where a staged request's event records: the first tensor of
     ``obj`` (a buffer, a pytree, a ShardedState's shards), else the
@@ -505,4 +545,7 @@ class CollAccelerator(registry.Component):
         return self.PRIORITY
 
     def slots(self, comm):
-        return {**_BLOCKING, **_NONBLOCKING, **_PERSISTENT}
+        nbr = {} if getattr(comm, "topo", None) is None else {
+            "neighbor_allgather_dev": neighbor_allgather_dev,
+            "neighbor_alltoall_dev": neighbor_alltoall_dev}
+        return {**_BLOCKING, **_NONBLOCKING, **_PERSISTENT, **nbr}

@@ -25,8 +25,18 @@ Buffers are numpy (or any object with the buffer protocol), moved as
 ``IN_PLACE`` as the send buffer takes the receive buffer's contents.
 Everything runs on the communicator's collective context, and each call
 takes the next tag of the comm's table, so every member must call a
-comm's collectives in the same order (MPI's rule). The neighbourhood
-slots (:425-559) come with ``topo/`` (ROADMAP queue 1 item 4f).
+comm's collectives in the same order (MPI's rule).
+
+On a topology comm (:mod:`ompi_tpu_torch.topo`) it adds the neighbourhood
+slots (:425-559): ``neighbor_allgather`` / ``_alltoall`` /
+``_allgatherv`` / ``_alltoallv``, one linear round of isends and irecvs
+over the topology's lists in MPI order (PROC_NULL edges skipped), and
+their ``*_reqs`` builders, which coll/libnbc's ``ineighbor_*`` forms run
+as one schedule round. A cart tags each edge by its slot and matches the
+conjugate slot (``slot ^ 1``: the (d, -1) in-edge is the peer's (d, +1)
+out-edge, which tells the two directions of a periodic dim of size 2
+apart); a graph or dist graph uses one tag, so duplicate edges match in
+posted order.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ import numpy as np
 from ompi_tpu_torch import op as op_mod
 from ompi_tpu_torch import pml
 from ompi_tpu_torch.core import pvar, registry
+from ompi_tpu_torch.pml.request import PROC_NULL
 
 IN_PLACE = "MPI_IN_PLACE"
 
@@ -389,6 +400,124 @@ def allreduce_obj(comm, obj, fn):
     return acc
 
 
+# -- the neighbourhood collectives (topology comms only) --------------------
+
+def _nbr_tags(comm, topo):
+    """(send tag, receive tag) of each edge slot: conjugate slot tags on a
+    cart, one tag on a graph or dist graph."""
+    base = _tag(comm)
+    if getattr(topo, "kind", None) == "cart":
+        return ((lambda slot: (base + 1 + slot) & 0x3FFFFFFF),
+                (lambda slot: (base + 1 + (slot ^ 1)) & 0x3FFFFFFF))
+    return (lambda slot: base), (lambda slot: base)
+
+
+def neighbor_allgather_reqs(comm, sendbuf, recvbuf, count, dtype):
+    """Post the allgather's isends and irecvs (one linear round) and
+    return them: the blocking form waits on them, the ``ineighbor`` form
+    runs them as a schedule round."""
+    pvar.record("neighbor_allgather")
+    topo = comm.topo
+    ins = topo.in_neighbors(comm.rank)
+    outs = topo.out_neighbors(comm.rank)
+    send_tag, recv_tag = _nbr_tags(comm, topo)
+    sb = np.asarray(sendbuf)
+    # zero-degree ranks are legal (receive-only / send-only dist graphs)
+    rb = np.asarray(recvbuf).reshape(len(ins), -1) if ins else None
+    rreqs = [_irecv(comm, rb[i], count, dtype, src, recv_tag(i))
+             for i, src in enumerate(ins) if src != PROC_NULL]
+    sreqs = [_isend(comm, sb, count, dtype, dst, send_tag(i))
+             for i, dst in enumerate(outs) if dst != PROC_NULL]
+    return rreqs + sreqs
+
+
+def neighbor_alltoall_reqs(comm, sendbuf, recvbuf, count, dtype):
+    """Block j of ``sendbuf`` to out-neighbour j, block i of ``recvbuf``
+    from in-neighbour i."""
+    pvar.record("neighbor_alltoall")
+    topo = comm.topo
+    ins = topo.in_neighbors(comm.rank)
+    outs = topo.out_neighbors(comm.rank)
+    send_tag, recv_tag = _nbr_tags(comm, topo)
+    sb = np.asarray(sendbuf).reshape(len(outs), -1) if outs else None
+    rb = np.asarray(recvbuf).reshape(len(ins), -1) if ins else None
+    rreqs = [_irecv(comm, rb[i], count, dtype, src, recv_tag(i))
+             for i, src in enumerate(ins) if src != PROC_NULL]
+    sreqs = [_isend(comm, sb[i], count, dtype, dst, send_tag(i))
+             for i, dst in enumerate(outs) if dst != PROC_NULL]
+    return rreqs + sreqs
+
+
+def neighbor_allgatherv_reqs(comm, sendbuf, recvbuf, count, dtype,
+                             rcounts, rdispls):
+    """The same ``count`` elements to every out-neighbour; in-neighbour
+    i's block at ``rdispls[i]``, ``rcounts[i]`` elements. A zero count
+    posts nothing on either side (both sides skip it alike)."""
+    pvar.record("neighbor_allgatherv")
+    topo = comm.topo
+    ins = topo.in_neighbors(comm.rank)
+    outs = topo.out_neighbors(comm.rank)
+    send_tag, recv_tag = _nbr_tags(comm, topo)
+    sb = np.asarray(sendbuf)
+    rb = np.asarray(recvbuf).reshape(-1)
+    rreqs = [_irecv(comm, rb[rdispls[i]:rdispls[i] + rcounts[i]],
+                    rcounts[i], dtype, src, recv_tag(i))
+             for i, src in enumerate(ins)
+             if src != PROC_NULL and rcounts[i]]
+    sreqs = [_isend(comm, sb, count, dtype, dst, send_tag(i))
+             for i, dst in enumerate(outs) if dst != PROC_NULL and count]
+    return rreqs + sreqs
+
+
+def neighbor_alltoallv_reqs(comm, sendbuf, recvbuf, dtype, scounts,
+                            sdispls, rcounts, rdispls):
+    """Per-out-neighbour send segments and per-in-neighbour receive
+    segments, each by count and displacement in elements."""
+    pvar.record("neighbor_alltoallv")
+    topo = comm.topo
+    ins = topo.in_neighbors(comm.rank)
+    outs = topo.out_neighbors(comm.rank)
+    send_tag, recv_tag = _nbr_tags(comm, topo)
+    sb = np.asarray(sendbuf).reshape(-1)
+    rb = np.asarray(recvbuf).reshape(-1)
+    rreqs = [_irecv(comm, rb[rdispls[i]:rdispls[i] + rcounts[i]],
+                    rcounts[i], dtype, src, recv_tag(i))
+             for i, src in enumerate(ins)
+             if src != PROC_NULL and rcounts[i]]
+    sreqs = [_isend(comm, sb[sdispls[i]:sdispls[i] + scounts[i]],
+                    scounts[i], dtype, dst, send_tag(i))
+             for i, dst in enumerate(outs)
+             if dst != PROC_NULL and scounts[i]]
+    return rreqs + sreqs
+
+
+def _wait_reqs(reqs) -> None:
+    for q in reqs:
+        q.wait()
+
+
+def neighbor_allgather_linear(comm, sendbuf, recvbuf, count, dtype):
+    _wait_reqs(neighbor_allgather_reqs(comm, sendbuf, recvbuf, count,
+                                       dtype))
+
+
+def neighbor_alltoall_linear(comm, sendbuf, recvbuf, count, dtype):
+    _wait_reqs(neighbor_alltoall_reqs(comm, sendbuf, recvbuf, count,
+                                      dtype))
+
+
+def neighbor_allgatherv_linear(comm, sendbuf, recvbuf, count, dtype,
+                               rcounts, rdispls):
+    _wait_reqs(neighbor_allgatherv_reqs(comm, sendbuf, recvbuf, count,
+                                        dtype, rcounts, rdispls))
+
+
+def neighbor_alltoallv_linear(comm, sendbuf, recvbuf, dtype, scounts,
+                              sdispls, rcounts, rdispls):
+    _wait_reqs(neighbor_alltoallv_reqs(comm, sendbuf, recvbuf, dtype,
+                                       scounts, sdispls, rcounts, rdispls))
+
+
 class CollBasic(registry.Component):
     """The component comm_select ranks."""
 
@@ -423,4 +552,10 @@ class CollBasic(registry.Component):
             "allgather_obj": allgather_obj,
             "alltoall_obj": alltoall_obj,
             "allreduce_obj": allreduce_obj,
+            # the neighbourhood slots: topology comms only
+            **({} if getattr(comm, "topo", None) is None else {
+                "neighbor_allgather": neighbor_allgather_linear,
+                "neighbor_alltoall": neighbor_alltoall_linear,
+                "neighbor_allgatherv": neighbor_allgatherv_linear,
+                "neighbor_alltoallv": neighbor_alltoallv_linear}),
         }

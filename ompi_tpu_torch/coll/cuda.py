@@ -312,10 +312,16 @@ def _map_file(path: str, nbytes: int, create: bool):
 class Arena(K.Ring):
     """One communicator's symmetric buffers for one size class, mapped
     on every member: this rank's staged input and slots, every peer's
-    through its peer mapping, and the hop counters."""
+    through its peer mapping, and the hop counters.
 
-    def __init__(self, cid: int, tag: str, rank: int, n: int,
+    Its files and store keys are named by the members' world ranks
+    (``world``, in comm-rank order), not their comm ranks: a spawned world's COMM_WORLD has
+    the same cid (0) as its parents', and world ranks are unique across
+    the worlds that share a job's store, so the two never meet."""
+
+    def __init__(self, cid: int, tag: str, rank: int, world,
                  in_bytes: int, slot_bytes: int, nslots: int = 4) -> None:
+        n = len(world)
         self._maps: List[mmap.mmap] = []
         self._peer_ptrs: List[int] = []
         self._own_ptr: Optional[int] = None
@@ -327,7 +333,7 @@ class Arena(K.Ring):
         total = in_bytes + nslots * slot_bytes
         base = os.path.join(launcher.shm_dir(),
                             f"{launcher.SHM_PREFIX}{rte.jobid}_c{cid}_"
-                            f"{tag}_r{rank}")
+                            f"{tag}_w{world[rank]}")
         flag_path = base + "_flags"
         self._paths.append(flag_path)
         self._maps.append(_map_file(flag_path, 8 * _FLAG_SLOTS, True))
@@ -350,10 +356,11 @@ class Arena(K.Ring):
             desc["path"] = base
             mine = torch.frombuffer(self._maps[-1], dtype=torch.uint8)
         key = f"arena:{rte.jobid}:{cid}:{tag}"
-        rte.client().put(f"{key}:{rank}", desc)
+        rte.client().put(f"{key}:w{world[rank]}", desc)
         bufs, flags = [], []
         for p in range(n):
-            d = desc if p == rank else rte.client().get(f"{key}:{p}")
+            d = desc if p == rank \
+                else rte.client().get(f"{key}:w{world[p]}")
             if p == rank:
                 buf = mine
                 fmap = self._maps[0]
@@ -511,8 +518,8 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
             in_bytes = cap
             slot_bytes = align(-(-cap // n))
         ep = arenas[key] = Arena(
-            comm.cid, f"{family}{cap}", comm.rank, n, in_bytes, slot_bytes,
-            nslots)
+            comm.cid, f"{family}{cap}", comm.rank, comm.group.ranks,
+            in_bytes, slot_bytes, nslots)
         pvar.record_hwm("device_plane_arena_bytes",
                         sum(a.nbytes for a in arenas.values()))
     return ep

@@ -19,6 +19,10 @@ below coll/cuda, no opt-in), with every fixed slot of its table
   (an internal slot with no MPI entry point, outside the comm's slot
   table): one arena exchange, each destination pulling its source's
   blocks with K2;
+- on a topology comm, ``neighbor_allgather_dev`` and
+  ``neighbor_alltoall_dev`` (:mod:`ompi_tpu_torch.coll.device_neighbor`,
+  coll/xla_neighbor's counterpart): one arena exchange, K2 landing each
+  in-edge's block;
 - ``allreduce_multi_dev`` (coll/xla.py:1241-1409): dtype-segregated flat
   buckets of ``coll_device_bucket_bytes``, one allreduce each;
 - the two-level mode (``coll_device_hier``, coll/xla's ``coll_xla_hier``):
@@ -2073,4 +2077,8 @@ class CollDevice(registry.Component):
         return self.PRIORITY
 
     def slots(self, comm):
-        return {**_BLOCKING, **_NONBLOCKING, **_PERSISTENT}
+        from ompi_tpu_torch.coll import device_neighbor
+
+        # the neighbourhood slots: topology comms only (coll/xla.py:2786)
+        return {**_BLOCKING, **_NONBLOCKING, **_PERSISTENT,
+                **device_neighbor.slots(comm)}

@@ -13,8 +13,9 @@ the bound buffers. An error inside a schedule completes its own request
 with that error, raised at its ``wait``; an argument error in the
 prologue raises at the call. Priority 20. A finished schedule emits the
 MPI_T event ``coll_schedule_complete`` (its kind, the comm's cid and the
-rounds it ran; reference :87-92). The ``ineighbor_*`` forms (:452-482)
-come with ``topo/`` (ROADMAP queue 1 item 4f).
+rounds it ran; reference :87-92). On a topology comm the
+``ineighbor_*`` forms (:449-482) are one schedule round over coll/basic's
+``neighbor_*_reqs`` sets, posted at the call.
 """
 
 from __future__ import annotations
@@ -572,6 +573,40 @@ def reduce_scatter_block_init(comm, sendbuf, recvbuf, count, dtype,
                        recvbuf, count, dtype, op)
 
 
+# -- the nonblocking neighbourhood collectives (ineighbor_allgather.c and
+# its family): one linear round, posted at the call
+
+def _sched_neighbor(comm, reqs):
+    yield reqs
+
+
+def ineighbor_allgather(comm, sendbuf, recvbuf, count, dtype):
+    return NbcRequest(_sched_neighbor(
+        comm, B.neighbor_allgather_reqs(comm, sendbuf, recvbuf, count,
+                                        dtype)))
+
+
+def ineighbor_alltoall(comm, sendbuf, recvbuf, count, dtype):
+    return NbcRequest(_sched_neighbor(
+        comm, B.neighbor_alltoall_reqs(comm, sendbuf, recvbuf, count,
+                                       dtype)))
+
+
+def ineighbor_allgatherv(comm, sendbuf, recvbuf, count, dtype, rcounts,
+                         rdispls):
+    return NbcRequest(_sched_neighbor(
+        comm, B.neighbor_allgatherv_reqs(comm, sendbuf, recvbuf, count,
+                                         dtype, rcounts, rdispls)))
+
+
+def ineighbor_alltoallv(comm, sendbuf, recvbuf, dtype, scounts, sdispls,
+                        rcounts, rdispls):
+    return NbcRequest(_sched_neighbor(
+        comm, B.neighbor_alltoallv_reqs(comm, sendbuf, recvbuf, dtype,
+                                        scounts, sdispls, rcounts,
+                                        rdispls)))
+
+
 class CollLibnbc(registry.Component):
     """The component comm_select ranks."""
 
@@ -609,4 +644,10 @@ class CollLibnbc(registry.Component):
             "allgather_init": allgather_init,
             "alltoall_init": alltoall_init,
             "reduce_scatter_block_init": reduce_scatter_block_init,
+            # the nonblocking neighbourhood forms: topology comms only
+            **({} if getattr(comm, "topo", None) is None else {
+                "ineighbor_allgather": ineighbor_allgather,
+                "ineighbor_alltoall": ineighbor_alltoall,
+                "ineighbor_allgatherv": ineighbor_allgatherv,
+                "ineighbor_alltoallv": ineighbor_alltoallv}),
         }

@@ -1,11 +1,14 @@
 """Groups and communicators.
 
 Reference: ompi/group/ (set algebra over process lists) and
-ompi/communicator/ (cid allocation, comm_cid.c:297-463; dup / split /
-create), and the JAX package's ``ompi_tpu.comm`` (:25-290). A
+ompi/communicator/ (cid allocation, comm_cid.c:297-463; dup / Idup /
+split / create), and the JAX package's ``ompi_tpu.comm`` (:25-290). A
 communicator = (Group mapping comm rank -> world rank, cid, coll table,
-attributes, info, errhandler; the last two inherited by every comm built
-from it). Point-to-point traffic uses the pml context cid*2,
+attributes, info, errhandler, topology; info and errhandler inherited by
+every comm built from it). ``topo`` is None until :mod:`ompi_tpu_torch.topo`
+attaches a cartesian, graph or distributed-graph topology
+(``Topo_test``); :mod:`ompi_tpu_torch.comm.intercomm` adds ``is_inter``,
+``remote_group`` and ``Intercomm_merge``. Point-to-point traffic uses the pml context cid*2,
 collectives cid*2+1. Construction agrees on a fresh cid (allocated by
 ``rte.next_id``, the store's atomic counter) over the pml's collective
 context: rank 0 of the new communicator's parent allocates it and sends
@@ -116,6 +119,7 @@ class Communicator(attr_mod.AttrHost):
         self.info = Info()
         self.errhandler = errhandler
         self.coll = None  # installed by coll.comm_select
+        self.topo = None  # a cart / graph / dist graph (topo/)
         with _comms_lock:
             _comms[cid] = self
         from ompi_tpu_torch.coll import comm_select
@@ -142,6 +146,15 @@ class Communicator(attr_mod.AttrHost):
 
     def comm_rank_of_world(self, world: int) -> int:
         return self.group._index.get(world, UNDEFINED)
+
+    def Topo_test(self) -> str:
+        """MPI_Topo_test: 'cart', 'graph', 'dist_graph' or 'undefined'
+        (ompi/mpi/c/topo_test.c)."""
+        return "undefined" if self.topo is None else self.topo.kind
+
+    def Is_inter(self) -> bool:
+        """MPI_Comm_test_inter."""
+        return bool(getattr(self, "is_inter", False))
 
     def Get_group(self) -> Group:
         """MPI_Comm_group: a new group over this comm's membership."""
@@ -171,13 +184,50 @@ class Communicator(attr_mod.AttrHost):
         c.info = self.info.dup()
         return c
 
-    def dup(self) -> "Communicator":
-        """MPI_Comm_dup: the same group under a fresh cid; attributes
-        propagate through their keyvals' copy callbacks."""
-        c = self._derive(Group(self.group.ranks), self._agree_cid())
+    def _materialize_dup(self, cid: int) -> "Communicator":
+        """The construction tail dup and Idup share: the same group under
+        ``cid``, info and errhandler inherited, attributes through their
+        keyvals' copy callbacks; coll stacks on it as on any comm."""
+        c = self._derive(Group(self.group.ranks), cid)
         if self.attrs:
             attr_mod.copy_attrs(self, c)
         return c
+
+    def dup(self) -> "Communicator":
+        """MPI_Comm_dup: the same group under a fresh cid."""
+        return self._materialize_dup(self._agree_cid())
+
+    def _sched_idup(self, out: dict):
+        """Idup's rounds: rank 0 allocates the cid and sends it over the
+        collective context on the comm's next collective tag; the
+        construction runs at completion."""
+        from ompi_tpu_torch import pml
+
+        p = pml.current()
+        tag = self.coll.next_tag()
+        if self.rank == 0:
+            cid = alloc_cid()
+            yield [p.isend_obj(self, cid, d, tag, collective=True)
+                   for d in range(1, self.size)]
+        else:
+            r = p.irecv_obj(self, 0, tag, collective=True)
+            yield [r]
+            if r.status.error:
+                errors.raise_mpi_error(r.status.error,
+                                       "idup: the cid did not arrive")
+            cid = r._obj
+        out["comm"] = self._materialize_dup(cid)
+
+    def Idup(self):
+        """MPI_Comm_idup (ompi/mpi/c/comm_idup.c): a nonblocking dup on
+        coll/libnbc's progress engine; the new communicator is
+        ``req.result["comm"]`` once the request completes."""
+        from ompi_tpu_torch.coll import libnbc
+
+        out: dict = {}
+        req = libnbc.NbcRequest(self._sched_idup(out))
+        req.result = out
+        return req
 
     def split(self, color: int, key: int = 0) -> Optional["Communicator"]:
         """MPI_Comm_split: rank 0 gathers every (color, key, world rank),
@@ -268,6 +318,7 @@ class Communicator(attr_mod.AttrHost):
         if levels is not None:
             levels.release()
         self.__dict__.pop("_han_colors", None)
+        self.__dict__.pop("_coll_device_nbr_adj", None)
         _coll_cuda.release(self)
         with _comms_lock:
             if _comms.get(self.cid) is self:

@@ -25,9 +25,10 @@ with like is the MCA configuration, the data and the parameters.
   ``coll_tuned_*`` (the forced algorithms and the switchpoints),
   ``coll_sync_*`` and ``coll_adapt_*`` cvars among them, which the port
   registers under the reference's names.
-- :func:`event_name` maps a reference MPI_T event type's name to the
-  port's (``osc_pallas_fallthrough`` -> ``osc_cuda_fallthrough``, the
-  event and its pvar); :func:`ext_name` an MPI extension's
+- :func:`event_name` maps a reference MPI_T event type's or pvar's name
+  to the port's (``osc_pallas_fallthrough`` -> ``osc_cuda_fallthrough``,
+  the event and its pvar; the pvar ``coll_xla_device`` ->
+  ``coll_device_launches``); :func:`ext_name` an MPI extension's
   (``MPIX_Query_tpu_support`` -> ``MPIX_Query_cuda_support``) and
   :func:`memkinds` a ``mpi_memory_alloc_kinds`` list's device kinds
   (``tpu`` -> ``cuda``, ``tpu:hbm`` -> ``cuda:device``).
@@ -62,7 +63,8 @@ _DROPPED = frozenset(("coll_pallas_interpret", "coll_pallas_dma_max_bytes",
 _COMPONENTS = {"coll": {"pallas": "cuda", "xla": "device"},
                "accelerator": {"tpu": "cuda"}}
 #: reference MPI_T event types (and pvars) the port names its own way
-_EVENT_NAMES = {"osc_pallas_fallthrough": "osc_cuda_fallthrough"}
+_EVENT_NAMES = {"osc_pallas_fallthrough": "osc_cuda_fallthrough",
+                "coll_xla_device": "coll_device_launches"}
 #: reference MPI extensions the port names its own way
 _EXT_NAMES = {"MPIX_Query_tpu_support": "MPIX_Query_cuda_support"}
 #: the reference's device memory kinds and the port's

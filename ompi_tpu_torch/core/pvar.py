@@ -140,7 +140,29 @@ WELL_KNOWN = (
     # pml/v (message logging, the reference's names): application sends
     # logged by the sender, and messages re-sent from the log
     "vprotocol_logged_sends", "vprotocol_resends",
+    # coll/basic's neighbourhood collectives (the reference's names):
+    # calls per form, blocking and nonblocking
+    "neighbor_allgather", "neighbor_alltoall", "neighbor_allgatherv",
+    "neighbor_alltoallv",
+    # coll/inter (the reference's names): intercommunicator barriers,
+    # bcasts (buffer and object), allreduces and allgathers
+    "inter_barrier", "inter_bcast", "inter_allreduce", "inter_allgather",
+    # dpm: processes started by Comm_spawn / Comm_spawn_multiple
+    "spawned_procs",
 )
+
+#: families of pvars named at run time: the monitoring plane's per-link,
+#: per-peer and per-expert families (see above), and ``profile.timing``'s
+#: ``profile_<op>_calls`` and ``profile_<op>_ns``, one pair per MPI call
+#: it saw
+WELL_KNOWN_PREFIXES = ("monitoring_tx_", "monitoring_link_bytes_",
+                       "monitoring_expert_tokens_e", "profile_")
+
+
+def is_well_known(name: str) -> bool:
+    """A name of :data:`WELL_KNOWN`, or of a family of
+    :data:`WELL_KNOWN_PREFIXES`."""
+    return name in WELL_KNOWN or name.startswith(WELL_KNOWN_PREFIXES)
 
 
 def record(name: str, value: int = 1) -> None:

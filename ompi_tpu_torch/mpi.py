@@ -84,8 +84,20 @@ MPI-4 ``Session_init`` (``Group_from_session_pset``,
 ``Abort``, ``Request_get_status``, ``Wtime``, ``Wtick``,
 ``Get_version``, ``Get_library_version``, ``Info_env`` and
 ``MEMORY_ALLOC_KINDS``. The file errhandler and File itself come with
-ROADMAP queue 1 item 9, the dynamic-process and intercommunicator names
-with item 4f's second slice.
+ROADMAP queue 1 item 9.
+
+Topologies (ompi_tpu/mpi.py:1490-1492): importing this module attaches
+:mod:`ompi_tpu_torch.topo`'s methods (Create_cart, Cart_sub, the graph
+constructors and queries, and the eight ``Neighbor_*`` /
+``Ineighbor_*`` entries). Intercommunicators and dynamic processes
+(:1494-1517): ``Intercomm_create``, ``Open_port``, ``Comm_accept``,
+``Comm_connect``, ``ROOT``, ``Intercommunicator``, ``Comm_spawn``,
+``Comm_spawn_multiple``, ``Comm_get_parent`` and ``Appnum``; the
+capitalised collectives of an intercommunicator run coll/inter's
+group-vs-group algorithms on host buffers, and its point-to-point ranks
+(and a non-ROOT root) index the remote group. :data:`_API` lists the
+names bound here, the ones :mod:`ompi_tpu_torch.profile` interposes by
+default.
 """
 
 from __future__ import annotations
@@ -99,6 +111,11 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod, pml
 from ompi_tpu_torch.coll.basic import IN_PLACE, packed_displs
 from ompi_tpu_torch.comm import Communicator, Group, UNDEFINED  # noqa: F401
+from ompi_tpu_torch.comm.intercomm import (  # noqa: F401
+    ROOT, Intercommunicator, comm_accept as Comm_accept,
+    comm_connect as Comm_connect, intercomm_create as Intercomm_create,
+    open_port as Open_port,
+)
 from ompi_tpu_torch.core import pvar
 from ompi_tpu_torch.coll.device import DeviceRequest
 from ompi_tpu_torch.datatype import Datatype, dtype_of
@@ -144,9 +161,16 @@ def _host_op(op) -> op_mod.Op:
 
 
 def _check_root(comm, root) -> None:
-    if not isinstance(root, numbers.Integral) or not 0 <= root < comm.size:
+    """A root in [0, size); on an intercommunicator ROOT, PROC_NULL or a
+    rank of the remote group."""
+    n = comm.size
+    if getattr(comm, "is_inter", False):
+        if root in (ROOT, PROC_NULL):
+            return
+        n = comm.remote_size
+    if not isinstance(root, numbers.Integral) or not 0 <= root < n:
         raise errors.MPIError(errors.ERR_ROOT,
-                              f"root {root!r} outside [0, {comm.size})")
+                              f"root {root!r} outside [0, {n})")
 
 
 def _require_recvbuf(recvbuf, what: str):
@@ -906,9 +930,15 @@ _ERRHANDLED = (
 )
 
 
+#: the API functions bound to Communicator, by name (the reference's
+#: ``_API`` table; :mod:`ompi_tpu_torch.profile` interposes on these)
+_API: dict = {}
+
+
 def _bind(name: str, fn) -> None:
     """Attach an API function to Communicator, wrapped in the errhandler
     dispatch where the reference's binding invokes it."""
+    _API[name] = fn
     setattr(Communicator, name,
             _with_errhandler(fn) if name in _ERRHANDLED else fn)
 
@@ -1028,9 +1058,12 @@ def _dev_recv_plan(arr, count, dt):
 
 
 def _check_rank(comm, rank: int) -> None:
+    """A peer rank of the comm (of the remote group on an
+    intercommunicator)."""
     if rank in (PROC_NULL, ANY_SOURCE):
         return
-    if not 0 <= rank < comm.size:
+    n = comm.remote_size if getattr(comm, "is_inter", False) else comm.size
+    if not 0 <= rank < n:
         raise errors.RankError(f"rank {rank} out of range for {comm}")
 
 
@@ -1565,6 +1598,17 @@ from ompi_tpu_torch.errors import (  # noqa: E402,F401
 # MPI-4 partitioned point-to-point: Psend_init / Precv_init attach at
 # import (ompi/mca/part)
 from ompi_tpu_torch import part as _part  # noqa: E402,F401
+
+# the topology API (Create_cart, Cart_sub, Neighbor_*) attaches its own
+# Communicator methods at import (ompi/mca/topo)
+from ompi_tpu_torch import topo as _topo  # noqa: E402,F401
+
+# dynamic processes (ompi/dpm: the PMIx_Spawn counterpart)
+from ompi_tpu_torch.dpm import (  # noqa: E402,F401
+    appnum as Appnum, comm_spawn as Comm_spawn,
+    comm_spawn_multiple as Comm_spawn_multiple,
+    get_parent as Comm_get_parent,
+)
 
 
 def Comm_create_keyval(copy_fn=None, delete_fn=None, extra_state=None):

@@ -573,7 +573,10 @@ class Ob1:
         if c is None:
             raise errors.MPIError(errors.ERR_COMM,
                                   f"message for unknown cid {ctx // 2}")
-        return c.group.ranks[src_commrank]
+        # on an intercommunicator a sender's rank is its local rank, which
+        # indexes this side's remote group
+        g = c.remote_group if getattr(c, "is_inter", False) else c.group
+        return g.ranks[src_commrank]
 
     def _match(self, req: RecvRequest, hdr, payload, src_world: int) -> None:
         typ, _, src, tag, _, size, flags, msgid = hdr

@@ -5,10 +5,17 @@ multi-controller jax and agrees on it through the modex, after which XLA
 collectives (and the Pallas kernels' remote DMAs) run over ICI. Here the
 plane picks this rank's device — ``cuda:(local_rank % device_count)``
 (all ranks share ``cuda:0`` on a one-card machine) — and agrees through
-the modex that every rank succeeded (as at
-ompi_tpu/runtime/device_plane.py:174-182, so no rank hangs). A failure
-raises ``MPIError(ERR_INTERN)`` on every rank: the plane is never
-disabled quietly.
+the modex that every rank of this world succeeded (as at
+ompi_tpu/runtime/device_plane.py:174-182, so no rank hangs), learning
+each rank's device (:func:`device_for_world_rank`). A failure raises
+``MPIError(ERR_INTERN)`` on every rank: the plane is never disabled
+quietly.
+
+A spawned world (:mod:`ompi_tpu_torch.dpm`) brings up a plane of its own
+under its own leader, its first world rank (``rte.world_offset``), as the
+reference's does (:137-141): the agreement's modex component carries the
+world's offset. The port has no coordinator to publish, so the leader
+only names the world; each rank still reads every peer's entry.
 
 The device collectives' peer-mapped arenas and their hop counters belong
 to the component that uses them (:mod:`ompi_tpu_torch.coll.cuda`), as
@@ -51,7 +58,9 @@ _platform = cvar.register(
     choices=["cuda", "cpu"], level=3)
 
 _lock = threading.Lock()
-_state: Optional[dict] = None  # {"device": torch.device, "platform": str}
+#: {"device": torch.device, "platform": str, "devices": {world rank:
+#: torch.device}}
+_state: Optional[dict] = None
 
 
 def requested() -> bool:
@@ -69,6 +78,19 @@ def device() -> torch.device:
 
 def platform() -> str:
     return _platform.get()
+
+
+def leader() -> int:
+    """The world rank that leads this world's plane: its first rank."""
+    return rte.world_offset
+
+
+def device_for_world_rank(world_rank: int) -> Optional[torch.device]:
+    """The device a rank of this world bound (None for a rank of another
+    world, or with the plane down)."""
+    if _state is None:
+        return None
+    return _state["devices"].get(world_rank)
 
 
 def _bring_up_local() -> torch.device:
@@ -95,10 +117,10 @@ def init_plane() -> None:
             dev = _bring_up_local()
         except Exception as exc:  # noqa: BLE001 — must reach agreement
             reason = f"{type(exc).__name__}: {exc}"
-        rte.modex_send("devplane", {"ok": dev is not None,
-                                    "reason": reason})
-        peers = {r: rte.modex_recv("devplane", r)
-                 for r in rte.world_ranks()}
+        key = f"devplane:{leader()}"
+        rte.modex_send(key, {"ok": dev is not None, "reason": reason,
+                             "device": None if dev is None else str(dev)})
+        peers = {r: rte.modex_recv(key, r) for r in rte.world_ranks()}
         bad = {r: p["reason"] for r, p in peers.items() if not p["ok"]}
         if bad:
             raise errors.MPIError(
@@ -108,7 +130,9 @@ def init_plane() -> None:
                 + "; ".join(f"rank {r}: {m}" for r, m in sorted(bad.items()))
                 + " — pass --mca device_plane_platform cpu to run on the "
                   "CPU")
-        _state = {"device": dev, "platform": platform()}
+        _state = {"device": dev, "platform": platform(),
+                  "devices": {r: torch.device(p["device"])
+                              for r, p in peers.items()}}
         _out.verbose(2, "device plane up: rank %d on %s", rte.rank, dev)
 
 

@@ -83,6 +83,14 @@ class Store:
         except OSError:
             pass
 
+    def seed_counter(self, key: str, value: int) -> None:
+        """Pre-claim counter space: the launcher seeds the spawn
+        watermark ``ww:<jobid>`` with its world size, so a spawned
+        world's block of world ranks never meets the launcher's."""
+        with self._cond:
+            if self._counters.get(key, 0) < value:
+                self._counters[key] = value
+
     def _accept_loop(self) -> None:
         while not self._stop:
             try:

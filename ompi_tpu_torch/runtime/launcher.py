@@ -73,6 +73,9 @@ def launch(argv: Sequence[str], nprocs: int,
     """Spawn nprocs ranks running ``argv``; returns the job exit code."""
     store = kvstore.Store().start()
     jobid = uuid.uuid4().hex[:12]
+    # world ranks [0, nprocs) are this job's: MPI_Comm_spawn takes fresh
+    # blocks above the watermark (ompi_tpu_torch.dpm)
+    store.seed_counter(f"ww:{jobid}", nprocs)
     argv = _wrap_py(list(argv))
     procs: List[subprocess.Popen] = []
     try:

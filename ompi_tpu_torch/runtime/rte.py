@@ -4,8 +4,15 @@ Reference: ompi/runtime/ompi_rte.c (PMIx_Init at :580, proc naming) and the
 modex macros OPAL_MODEX_SEND/RECV (opal/mca/pmix/pmix-internal.h:230-366).
 Environment contract with the launcher:
   OMPI_TPU_RANK, OMPI_TPU_SIZE, OMPI_TPU_STORE_ADDR (host:port),
-  OMPI_TPU_JOBID, OMPI_TPU_LOCAL_RANK, OMPI_TPU_LOCAL_SIZE
+  OMPI_TPU_JOBID, OMPI_TPU_LOCAL_RANK, OMPI_TPU_LOCAL_SIZE,
+  OMPI_TPU_WORLD_OFFSET (a spawned world's first world rank; 0 else)
 Singleton (no launcher): rank 0 of 1 with an in-process store.
+
+World ranks are unique across every world that shares a store: the
+launcher's ranks are ``[0, n)`` and each ``MPI_Comm_spawn`` takes a fresh
+block above the store's ``ww:<jobid>`` watermark (:mod:`ompi_tpu_torch.dpm`),
+so ``rank`` is a world rank, this world is ``world_ranks()`` and
+everything named by world rank (modex keys, sm rings, fences) stays apart.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ size: int = 1
 jobid: str = "singleton"
 local_rank: int = 0
 local_size: int = 1
+#: the first world rank of this world (0 for a launcher's ranks)
+world_offset: int = 0
 
 
 def is_launched() -> bool:
@@ -45,6 +54,7 @@ def hostname() -> str:
 def init() -> None:
     """Connect to the store (or start a singleton one)."""
     global _client, _local_store, rank, size, jobid, local_rank, local_size
+    global world_offset
     with _lock:
         if _client is not None:
             return
@@ -54,13 +64,17 @@ def init() -> None:
             jobid = os.environ.get("OMPI_TPU_JOBID", "job0")
             local_rank = int(os.environ.get("OMPI_TPU_LOCAL_RANK", rank))
             local_size = int(os.environ.get("OMPI_TPU_LOCAL_SIZE", size))
+            world_offset = int(os.environ.get("OMPI_TPU_WORLD_OFFSET", "0"))
             host, _, port = os.environ["OMPI_TPU_STORE_ADDR"].partition(":")
             _client = kvstore.Client((host, int(port)))
         else:
             rank, size, jobid = 0, 1, f"singleton{os.getpid()}"
             local_rank, local_size = 0, 1
+            world_offset = 0
             _local_store = kvstore.Store().start()
             _client = kvstore.Client(_local_store.addr)
+            # a singleton's spawns take world ranks from 1 up
+            _local_store.seed_counter(f"ww:{jobid}", 1)
         atexit.register(_shutdown)
 
 
@@ -99,22 +113,22 @@ def next_id(space: str) -> int:
 
 
 def world_ranks() -> range:
-    return range(size)
+    """The world ranks of this world (a spawned world's block)."""
+    return range(world_offset, world_offset + size)
 
 
 def fence(tag: str = "", timeout: float | None = None) -> None:
-    """World rendezvous (PMIx_Fence). A timeout (shutdown paths only)
-    raises socket.timeout."""
+    """This world's rendezvous (PMIx_Fence), its tag namespaced by the
+    world's offset so worlds sharing the store never meet in one. A
+    timeout (shutdown paths only) raises socket.timeout."""
     global _fence_epoch
     if size == 1:
         return
     with _lock:
         _fence_epoch += 1
         epoch = _fence_epoch
-    client().fence(f"fence:{jobid}:{tag}:{epoch}", size, rank,
-                   timeout=timeout)
-
-
+    client().fence(f"fence:{jobid}:{world_offset}:{tag}:{epoch}", size,
+                   rank, timeout=timeout)
 
 def abort(reason: str, code: int = 1) -> None:
     """Job abort: publish (reason, code) through the store, so peers

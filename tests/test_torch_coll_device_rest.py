@@ -911,19 +911,33 @@ def test_mca_maps_the_coll_xla_settings():
 
 def test_every_recorded_pvar_is_well_known():
     """Each pvar the port records (``pvar.record`` / ``record_hwm`` with a
-    literal name) is listed in its ``core/pvar.py`` WELL_KNOWN."""
+    literal name) is listed in its ``core/pvar.py`` WELL_KNOWN, and each
+    name it builds at run time (an f-string) opens with one of
+    WELL_KNOWN_PREFIXES (profile.timing's ``profile_<op>_*`` among them)
+    or with the listed names' common part."""
     import re
 
     from ompi_tpu_torch.core import pvar
 
     root = os.path.join(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))), "ompi_tpu_torch")
-    names = set()
+    names, dynamic = set(), set()
     for dirpath, _, files in os.walk(root):
         for f in files:
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f), encoding="utf-8") as fh:
-                    names |= set(re.findall(
-                        r"record(?:_hwm)?\(\s*\"([a-z0-9_]+)\"", fh.read()))
+                    text = fh.read()
+                names |= set(re.findall(
+                    r"record(?:_hwm)?\(\s*\"([a-z0-9_]+)\"", text))
+                dynamic |= set(re.findall(
+                    r"pvar\.record(?:_hwm)?\(\s*f\"([a-z0-9_]*)\{", text))
     assert {"coll_device_fused_bytes", "coll_device_launches"} <= names
     assert names <= set(pvar.WELL_KNOWN), names - set(pvar.WELL_KNOWN)
+    assert "profile_" in dynamic
+    # a family of its own, or a name built from listed parts
+    # (monitoring_{ctx}_msgs: the per-context names are listed)
+    assert all(p.startswith(pvar.WELL_KNOWN_PREFIXES)
+               or any(n.startswith(p) for n in pvar.WELL_KNOWN)
+               for p in dynamic), dynamic
+    assert pvar.is_well_known("profile_Neighbor_alltoall_calls")
+    assert not pvar.is_well_known("profiles")

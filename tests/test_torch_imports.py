@@ -116,7 +116,10 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.osc.device_epoch, ompi_tpu_torch.accelerator.cuda, "
             "ompi_tpu_torch.examples.tools_plane, ompi_tpu_torch.ext, "
             "ompi_tpu_torch.core.memhooks, ompi_tpu_torch.runtime.state, "
-            "ompi_tpu_torch.examples.sessions; "
+            "ompi_tpu_torch.examples.sessions, ompi_tpu_torch.topo.reorder, "
+            "ompi_tpu_torch.coll.device_neighbor, ompi_tpu_torch.coll.inter, "
+            "ompi_tpu_torch.comm.intercomm, ompi_tpu_torch.dpm, "
+            "ompi_tpu_torch.profile, ompi_tpu_torch.examples.neighbor_halo; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -180,6 +183,18 @@ def test_instance_plane_modules_are_scanned():
     for mod in ("errors.py", "info.py", "runtime/state.py",
                 "runtime/kvstore.py", "runtime/rte.py", "core/memhooks.py",
                 "core/mpool.py", "ext/__init__.py", "examples/sessions.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
+def test_topology_and_dynamic_process_modules_are_scanned():
+    """The topology framework's, the intercommunicators', the dynamic
+    processes' and the profiling interposer's modules, and the halo
+    example, are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("topo/__init__.py", "topo/reorder.py",
+                "coll/device_neighbor.py", "coll/inter.py",
+                "comm/intercomm.py", "dpm.py", "profile.py",
+                "examples/neighbor_halo.py"):
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 

@@ -376,8 +376,10 @@ def test_topo_dims_create_and_cart_match_reference():
             assert P_topo.dims_create(nn, nd) == R_topo.dims_create(nn, nd)
     assert P_topo.dims_create(12, 3, [0, 3, 0]) \
         == R_topo.dims_create(12, 3, [0, 3, 0])
-    with pytest.raises(ValueError):
+    # the reference's ValueError is the port's MPIError (ERR_DIMS)
+    with pytest.raises(errors.MPIError) as ei:
         P_topo.dims_create(10, 2, [3, 0])
+    assert ei.value.error_class == errors.ERR_DIMS
     for dims, periods in (((3, 4), (True, False)), ((2, 2, 2), (False,) * 3),
                           ((5,), (True,)), ((4, 3), (True, True))):
         a = P_topo.CartTopo(dims, periods)
