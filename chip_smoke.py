@@ -338,12 +338,36 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    and a bitwise 64 MiB Allreduce beside the parents' COMM_WORLD arenas,
    then the bridge and merged Allreduces, exiting 0. Each rank's and each
    child's K1-K3 launches per part must equal what it derived.
+15. the I/O plane (see :func:`ckpt_phase`): four 4-rank jobs under
+   ``--mca device_plane on --mca coll_cuda on``. F
+   (``ompi_tpu_torch/examples/ckpt_training.py --phase full``): ZeRO stage
+   2 'linear' with momentum at GPT-2 small's width (K3 a bucket, K2 four
+   a bucket, a step), 8 timed steps, an ``AsyncCheckpointer`` snapshot
+   begun after every odd step (the gathered parameters, this rank's shard
+   kept, and the momentum shards as parts; the D2H side stream into one
+   pinned buffer, digested on a background thread) and committed after
+   the next (``fcoll.two_phase_write``, fsync, one manifest rename); the
+   newest epoch's restore bitwise against the shards it was taken from,
+   on every rank; prints the steps with and without a snapshot in flight,
+   each rank's copy, drain, commit and restore times. C (``--phase
+   crash``): epochs 1 and 2 commit, ``ckpt_inject_kill_chunk 0`` kills
+   every rank in epoch 3's write: the job must exit non-zero, leave no
+   manifest 3 and no new ``ompi_tpu_torch_*`` file in the shm dir. R
+   (``--phase restore``): epoch 2 of C's directory, the optimizer rebuilt
+   on the card, steps 4-8: the final digest must equal F's. Every rank's
+   K2 / K3 launches of F, C and R as derived, nothing staged. P
+   (``ompi_tpu_torch/examples/parallel_io.py --device``): each rank's 4096
+   x 4096 float32 block of an 8192 x 8192 array written by one
+   ``Write_all`` through a darray view (256 MiB), the file equal to
+   numpy's row-major global array, the ordered records in rank order,
+   ``Read_all`` bitwise; prints the Write_all rate beside the D2H alone.
+   The checkpoint directories (under the smoke's own output) are removed.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8, 10, 11, 13 and 14 and the training path, K5 and K6's two kernels from the
+7, 8, 10, 11, 13, 14 and 15 and the training path, K5 and K6's two kernels from the
 training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
 batches also from phase 9, K7, the per-call K9 and the K8, K9 and K10
@@ -2142,6 +2166,169 @@ def halo_phase(card: str, root: str) -> dict:
     return launches
 
 
+#: phase 15 (ckpt_training.py, parallel_io.py): GPT-2 small's parameters,
+#: the pinned device-to-host rate of one card's link (p2p_bandwidth.py's
+#: staged copies),
+#: and the phase's wall budget
+CKPT_PARAMS = 124_439_808
+PINNED_GBPS = "25-28"
+CKPT_WALL = 60
+CKPT_LIMIT = 200  # seconds for the crash job (it dies mid-commit)
+
+
+def _rank_checks(name: str, docs) -> None:
+    for r, d in enumerate(docs):
+        bad = [c for c in d["cases"] if not c["ok"]]
+        if bad or d["launches"] != d["expected_launches"] \
+                or d["coll_accelerator_staged"] != 0 \
+                or not d["device"].startswith("cuda"):
+            fail(f"phase 15 {name} rank {r}: mismatches {bad}, launches "
+                 f"{d['launches']} (derived {d['expected_launches']}), "
+                 f"staged {d['coll_accelerator_staged']}, {d['device']}")
+
+
+def ckpt_phase(card: str, root: str) -> dict:
+    """Phase 15: the I/O plane on the card, four 4-rank jobs. F
+    (``ckpt_training.py --phase full``): 8 timed ZeRO stage-2 'linear'
+    steps at GPT-2 small's width, a snapshot begun after every odd step
+    and committed after the next; the newest epoch's restore bitwise on
+    every rank; prints the steps with and without a snapshot in flight
+    (p50 of 4 each), each rank's copy (device ms, GB/s beside the pinned
+    rate), drain and commit times, the restore time. C (``--phase
+    crash``): epochs 1 and 2 commit, every rank is killed after its first
+    chunk of epoch 3: the job must exit non-zero with no manifest 3 and
+    no new ``ompi_tpu_torch_*`` file in the shm dir. R (``--phase
+    restore``): epoch 2 of C's directory, trained to step 8: its digest
+    must equal F's. Every rank's K2 / K3 launches of F, C and R as
+    derived, nothing staged. P (``parallel_io.py --device``): an 8192 x
+    8192 float32 array written by one Write_all through a darray view,
+    the file against numpy's global array, the ordered records, the
+    Read_all bitwise; prints the Write_all rate beside the D2H. The
+    checkpoint directories are removed at the end. Returns F's, C's and
+    R's launches."""
+    from ompi_tpu_torch.runtime import launcher
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    got, doc = main_path("ckpt_training.py", N_RANKS, ["--phase", "full"],
+                         card, root, "coll_cuda", tag="_full")
+    add(got)
+    full_out = smoke_dir(root, "ckpt_training.py", N_RANKS, tag="_full")
+    docs = rank_docs(full_out, N_RANKS)
+    _rank_checks("F", docs)
+    rep = doc["report"]
+    if rep["parameters"] != CKPT_PARAMS:
+        fail(f"phase 15 F ran {rep['parameters']} parameters, not GPT-2 "
+             f"small's {CKPT_PARAMS}")
+    print(f"phase 15 F: ZeRO stage 2 'linear' n={N_RANKS}, "
+          f"{rep['parameters']} float32 parameters, {docs[0]['buckets']} "
+          f"buckets; step p50 "
+          f"(rank 0) with no snapshot in flight {rep['quiet_p50_ms']:.3f} "
+          f"ms {[round(v, 3) for v in rep['quiet_ms']]}, with one "
+          f"{rep['busy_p50_ms']:.3f} ms "
+          f"{[round(v, 3) for v in rep['busy_ms']]} [{card}]", flush=True)
+    for r, d in enumerate(docs):
+        e = d["report"]["epochs"]
+        print(f"phase 15 F rank {r}: ckpt_d2h_ns {d['report']['ckpt_d2h_ns']}"
+              f", ckpt_bytes {d['report']['ckpt_bytes']}, ckpt_write_ns "
+              f"{d['report']['ckpt_write_ns']} over {len(e)} epochs; per "
+              f"epoch: staged {e[0]['staged_bytes']} B, copy (device) ms "
+              f"{[round(x['copy_ms'], 3) for x in e]} = GB/s "
+              f"{[round(x['copy_gbps'], 2) for x in e]} (pinned D2H "
+              f"{PINNED_GBPS} GB/s a link), drain ms "
+              f"{[round(x['drain_ms'], 1) for x in e]}, commit ms "
+              f"{[round(x['commit_ms'], 1) for x in e]} (write "
+              f"{[round(x['write_ms'], 1) for x in e]}); restore "
+              f"{d['report']['restore_ms']:.1f} ms, bitwise [{card}]",
+              flush=True)
+    # C: killed in epoch 3's commit
+    crash_out = smoke_dir(root, "ckpt_training.py", N_RANKS, tag="_crash")
+    shutil.rmtree(crash_out, ignore_errors=True)
+    shm = launcher.shm_dir()
+    before = set(os.listdir(shm))
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher", "-n",
+           str(N_RANKS), "--timeout", str(CKPT_LIMIT), "--mca",
+           "device_plane", "on", "--mca", "coll_cuda", "on",
+           os.path.join(root, "ompi_tpu_torch", "examples",
+                        "ckpt_training.py"),
+           "--phase", "crash", "--out", crash_out]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=CKPT_LIMIT + 30)
+    wall = time.perf_counter() - t1
+    left = sorted(f for f in set(os.listdir(shm)) - before
+                  if f.startswith("ompi_tpu_torch_"))
+    ck = os.path.join(crash_out, "ckpt")
+    manifests = sorted(f for f in os.listdir(ck) if f.startswith("MANIFEST-"))
+    if proc.returncode == 0 or left \
+            or manifests != ["MANIFEST-1.json", "MANIFEST-2.json"]:
+        sys.stderr.write(proc.stderr[-4000:])
+        fail(f"phase 15 C: exit {proc.returncode}, manifests {manifests}, "
+             f"files left {left}")
+    docs = rank_docs(crash_out, N_RANKS)
+    _rank_checks("C", docs)
+    for d in docs:
+        add(d["launches"])
+    print(f"phase 15 C: every rank killed after its first chunk of epoch 3;"
+          f" the job exited {proc.returncode} in {wall:.1f} s, manifests "
+          f"{manifests}, no file left in {shm}; launches before the kill as"
+          f" derived [{card}]", flush=True)
+    # R: epoch 2 of C's directory, trained to the last step
+    got, rdoc = main_path("ckpt_training.py", N_RANKS,
+                          ["--phase", "restore", "--ckpt", ck], card, root,
+                          "coll_cuda", tag="_restore")
+    add(got)
+    _rank_checks("R", rank_docs(smoke_dir(root, "ckpt_training.py", N_RANKS,
+                                          tag="_restore"), N_RANKS))
+    rr = rdoc["report"]
+    if rr["resumed_from"] != 2 or rr["digest"] != rep["digest"]:
+        fail(f"phase 15 R: resumed from {rr['resumed_from']}, digest "
+             f"{rr['digest']} against F's {rep['digest']}")
+    print(f"phase 15 R: epoch {rr['resumed_from']} restored in "
+          f"{rr['restore_ms']:.1f} ms (rank 0), steps {rr['first_step']}..8 "
+          f"on a rebuilt optimizer; digest {rr['digest']} == F's, bitwise "
+          f"[{card}]", flush=True)
+    # P: the darray Write_all of an 8192 x 8192 float32 array
+    pio = smoke_dir(root, "parallel_io.py", N_RANKS, None)
+    shutil.rmtree(pio, ignore_errors=True)
+    os.makedirs(pio)
+    proc = subprocess.run(
+        [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher", "-n",
+         str(N_RANKS), "--timeout", str(LAUNCH_TIMEOUT), "--mca",
+         "device_plane", "on",
+         os.path.join(root, "ompi_tpu_torch", "examples", "parallel_io.py"),
+         "--device", "--out", pio, "--dir", pio],
+        cwd=root, capture_output=True, text=True, timeout=LAUNCH_TIMEOUT + 30)
+    for line in proc.stdout.splitlines():
+        print(f"{line} [{card}]", flush=True)
+    if proc.returncode != 0:
+        sys.stderr.write(proc.stderr[-4000:])
+        fail(f"phase 15 P: parallel_io.py --device exited {proc.returncode}")
+    pdocs = rank_docs(pio, N_RANKS)
+    for r, d in enumerate(pdocs):
+        if not all(c["ok"] for c in d["cases"]) \
+                or not d["device"].startswith("cuda"):
+            fail(f"phase 15 P rank {r}: {d['cases']} on {d['device']}")
+    print(f"phase 15 P: Write_all of {pdocs[0]['file_bytes']} B ms per rank "
+          f"{[round(d['write_all_ms'], 1) for d in pdocs]} (GB/s "
+          f"{[round(d['write_all_gbps'], 3) for d in pdocs]}), the block's "
+          f"D2H alone ms {[round(d['d2h_ms'], 2) for d in pdocs]}; the file "
+          f"== numpy's global array, records in rank order, Read_all "
+          f"bitwise [{card}]", flush=True)
+    for d in (os.path.join(full_out, "ckpt"), crash_out, pio):
+        shutil.rmtree(d, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 15: launches (F, C, R, all ranks) {launches}, as derived, "
+          f"nothing staged; {wall:.1f} s wall (budget {CKPT_WALL} s) "
+          f"[{card}]", flush=True)
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -2519,6 +2706,9 @@ def main() -> int:
         coll[k] = coll.get(k, 0) + sessions.pop(k, 0)
     # and so do phase 14's, the spawned children's among them
     for k, v in halo_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
+    # and so do phase 15's (the checkpointed training jobs)
+    for k, v in ckpt_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

@@ -110,6 +110,11 @@ class Accelerator(registry.Component):
         """Order the staging streams after the work queued so far on
         ``device``'s current stream (nothing to order on the CPU)."""
 
+    def d2h_stream(self, device):
+        """The stream :meth:`copy_async` copies from ``device`` on, for
+        timing events around a batch of copies (None on the CPU)."""
+        return None
+
     # -- IPC (reference: get / open ipc mem handles) -----------------------
     def ipc_export(self, buf):
         """A picklable handle that a same-host process opens with

@@ -72,6 +72,11 @@ class CudaAccelerator(Accelerator):
                                         torch.cuda.Stream(device=idx))
         return got
 
+    def d2h_stream(self, device):
+        if torch.device(device).type != "cuda":
+            return None
+        return self._side(device)[0]
+
     def begin_staging(self, device) -> None:
         if torch.device(device).type != "cuda":
             return

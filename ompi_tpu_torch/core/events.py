@@ -14,9 +14,9 @@ payload is built while no tool listens. Timestamps come from the
 source's clock (``time.monotonic_ns``, the MPI_T_source_get_timestamp
 analog), strictly ordered per process by a sequence number.
 
-The types registered here are the reference's less the two whose
-emitters wait for their slices (``ft_process_failure``,
-``io_collective_complete``); modules register theirs at import
+The types registered here are the reference's less the one whose
+emitter waits for its slice (``ft_process_failure``); modules register
+theirs at import
 (``osc/cuda.py``, ``osc/device_epoch.py``, ``tune/observe.py``).
 """
 
@@ -233,6 +233,11 @@ OSC_EPOCH = register_type(
     "a one-sided synchronization epoch opened or closed "
     "(fence/start/complete/post/wait/lock/unlock)",
     ("kind", "phase", "win", "peer"))
+IO_COLL_COMPLETE = register_type(
+    "io_collective_complete",
+    "a collective file operation finished its two-phase schedule "
+    "(fcoll plane)",
+    ("kind", "file", "nbytes"))
 BTL_CONNECTED = register_type(
     "btl_endpoint_connected",
     "a transport endpoint established its first connection to a peer "

@@ -149,6 +149,21 @@ WELL_KNOWN = (
     "inter_barrier", "inter_bcast", "inter_allreduce", "inter_allgather",
     # dpm: processes started by Comm_spawn / Comm_spawn_multiple
     "spawned_procs",
+    # io/ (the reference's names): files opened, bytes read and written
+    # through the fbtl path, fcoll aggregator writes retried after a
+    # short result
+    "file_open", "file_read_bytes", "file_write_bytes",
+    "fcoll_write_retries",
+    # io/async_ckpt (the reference's names): snapshots begun and
+    # committed, chunks and bytes staged, drain and write wall in ns,
+    # write retries and synchronous degrades, incremental chunks
+    # skipped, restores and their fallbacks, digest mismatches, injected
+    # failures
+    "ckpt_snapshots", "ckpt_commits", "ckpt_chunks", "ckpt_bytes",
+    "ckpt_d2h_ns", "ckpt_write_ns", "ckpt_write_retries",
+    "ckpt_fallback_sync", "ckpt_incremental_skipped",
+    "ckpt_restores", "ckpt_restore_fallbacks",
+    "ckpt_digest_mismatches", "ckpt_injected_failures",
 )
 
 #: families of pvars named at run time: the monitoring plane's per-link,

@@ -15,8 +15,8 @@ launcher job per package runs the same program (:data:`_PROG`) for the
 rest; the port's job also runs the errhandler on CPU tensors (the
 collectives and a DeviceEpochWindow) under ``--mca device_plane on --mca
 device_plane_platform cpu``.
-``test_file_errhandler_and_info`` waits for item 9's File (ROADMAP
-queue 1).
+``test_file_errhandler_and_info`` runs with the rest of the MPI-IO plane
+in ``tests/test_torch_io.py``.
 """
 
 import json

@@ -198,6 +198,16 @@ def test_topology_and_dynamic_process_modules_are_scanned():
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 
+def test_io_plane_modules_are_scanned():
+    """The I/O plane's modules and its two examples are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("io/__init__.py", "io/fileview.py", "io/fcoll.py",
+                "io/manifest.py", "io/checkpoint.py", "io/async_ckpt.py",
+                "examples/parallel_io.py", "examples/ckpt_training.py",
+                "examples/ckpt_profile.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
 #: module aliases the port's emitters call ``emit`` / ``fire`` through
 _EMITTERS = {"events": "emit", "mpit_events": "emit", "peruse": "fire"}
 
@@ -265,7 +275,7 @@ def test_every_emitter_sits_under_its_guard():
     assert sites == {"pml/ob1.py": 9, "btl/sm.py": 1, "btl/tcp.py": 1,
                      "coll/libnbc.py": 1, "osc/__init__.py": 1,
                      "osc/cuda.py": 1, "osc/device_epoch.py": 1,
-                     "tune/observe.py": 1}, sites
+                     "tune/observe.py": 1, "io/fcoll.py": 1}, sites
 
 
 def test_sm_ring_code_is_the_ports_own():

@@ -15,9 +15,7 @@ drops, libnbc's completion events and the host window's epoch events;
 the port's job also drives the device windows' emitters under the
 device plane on the CPU platform.
 
-Waiting for their slices, each in ROADMAP queue 1: the
-``io_collective_complete`` half of ``test_osc_and_io_event_emitters`` and
-the ``parallel_io`` example (item 9), the ``tools/info`` half of
+Waiting for its slice, in ROADMAP queue 1: the ``tools/info`` half of
 ``test_event_coll_and_info_dump`` (item 10).
 
 The in-process cases call the reference too, whose registries are
@@ -53,7 +51,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the reference's event types whose emitters wait for their slices
 WAITING = {"trace_span": 10, "telemetry_hang": 10,
-           "ft_process_failure": 9, "io_collective_complete": 9}
+           "ft_process_failure": 9}
 
 #: the 2-rank program; ``{pkg}`` is the package, ``{port}`` True in the
 #: port's job (which also drives the device windows' emitters)
@@ -184,6 +182,24 @@ else:
 win.Free()
 h.free()
 doc["epochs"] = seen
+
+# -- test_osc_and_io_event_emitters (the io half): the collective write
+# and read each emit their completion
+from {pkg} import io as io_mod
+hio = []
+h = events.handle_alloc("io_collective_complete",
+                        callback=lambda e: hio.append(
+                            [e.data["kind"], e.data["nbytes"],
+                             os.path.basename(e.data["file"])]))
+path = os.path.join({out!r}, "ev.mpiio")
+f = io_mod.File_open(comm, path, io_mod.MODE_CREATE | io_mod.MODE_RDWR)
+f.Write_at_all(0, np.arange(8, dtype=np.int32))
+back = np.zeros(8, np.int32)
+f.Read_at_all(0, back)
+f.Close()
+h.free()
+doc["io"] = hio
+doc["io_back"] = back.tolist()
 
 if PORT:  # the device windows' emitters (device plane, CPU platform)
     import torch
@@ -492,19 +508,23 @@ def test_categories_cover_frameworks():
 
 
 @pytest.mark.parametrize("example,n", [("connectivity", 3),
-                                       ("library_caching", 3)])
+                                       ("library_caching", 3),
+                                       ("parallel_io", 4)])
 def test_examples_run(example, n):
     """The port's host examples run, as the reference's do (hello and
     ring run in tests/test_torch_p2p.py, the shmem ones in
-    tests/test_torch_shmem.py; parallel_io waits for item 9)."""
+    tests/test_torch_shmem.py)."""
     r = subprocess.run(
         [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher", "-n",
          str(n), "--timeout", "90", "--mca", "device_plane_platform", "cpu",
-         os.path.join("ompi_tpu_torch", "examples", f"{example}.py"), "-v"],
+         os.path.join("ompi_tpu_torch", "examples", f"{example}.py"),
+         *([] if example == "parallel_io" else ["-v"])],
         cwd=ROOT, capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, (r.stdout, r.stderr)
     want = {"connectivity": f"Connectivity test on {n} processes PASSED.",
-            "library_caching": f"caching example OK on {n} ranks"}[example]
+            "library_caching": f"caching example OK on {n} ranks",
+            "parallel_io": f"parallel IO example OK: 8x8 darray + {n} "
+                           "ordered records"}[example]
     assert want in r.stdout, r.stdout
 
 
@@ -856,9 +876,13 @@ def test_event_coll_and_info_dump(jobs):
 def test_osc_and_io_event_emitters(jobs):
     """The sm wireup emits one event per peer (the handle allocated
     before Init); the host window emits enter / exit at every fence,
-    lock and PSCW epoch, as the reference's does
-    (``io_collective_complete`` waits for item 9)."""
+    lock and PSCW epoch, as the reference's does; a collective write and
+    read each emit ``io_collective_complete`` with its kind, bytes and
+    file."""
     for r, (dp, dr) in enumerate(_docs(jobs)):
+        assert dp["io"] == dr["io"] == [["write", 32, "ev.mpiio"],
+                                        ["read", 32, "ev.mpiio"]], dp["io"]
+        assert dp["io_back"] == dr["io_back"] == list(range(8))
         assert dp["wired"] == [["sm", 1 - r]] == dr["wired"]
         assert dp["epochs"] == dr["epochs"], (dp["epochs"], dr["epochs"])
         assert dp["epochs"].count(["fence", "enter", -1]) == 2
