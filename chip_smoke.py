@@ -361,13 +361,39 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    ``Write_all`` through a darray view (256 MiB), the file equal to
    numpy's row-major global array, the ordered records in rank order,
    ``Read_all`` bitwise; prints the Write_all rate beside the D2H alone.
-   The checkpoint directories (under the smoke's own output) are removed.
+   The checkpoint directories (under the smoke's own output) are removed,
+   C's after phase 16.
+16. the ingest and elastic planes (see :func:`ingest_elastic_phase`): two
+   4-rank jobs under ``--mca device_plane on --mca coll_cuda on``. A
+   (``ompi_tpu_torch/examples/streaming_ingest.py`` under ``--mca
+   ingest_enable 1``): epoch 2 of phase 15's crash run restored through
+   ``AsyncCheckpointer.restore_to_device``, every rank the whole GPT-2
+   small tree (497.8 MB) in 4 MiB units over 4 upload streams x depth 2
+   pinned slots into one device buffer, gated on the first leaf; the first
+   step gates on its first bucket's leaves while the tail uploads
+   (``ingest_early_starts`` >= 1 on every rank), the kernels' library
+   loads on the plane's compile lane; the plane up, every leaf on the
+   card, ``ingest_bytes`` the plan's; steps 4-8 with K2 16 x 37 and K3 4 x
+   37 a step over the ranks, the digest F's, bitwise; prints each rank's
+   upload wall, GB/s and gates' release times. B
+   (``ompi_tpu_torch/examples/elastic_training.py`` under ``--mca ft 1
+   --mca ingest_enable 1``, rank 2 SIGKILLed entering step 3; GPT-2
+   small's shapes cut to 1 layer, host-state ZeRO stage 2 'linear' with
+   ``async_checkpoint=True``): 16 MiB float32 device Allreduces ('linear',
+   K3) on a dup of COMM_WORLD, on the shrunken comm of 3 and on the comm
+   regrown by a ``spawn_replacement`` joiner admitted at step 5, each
+   bitwise the host linear fold; the dup freed with its dead member
+   (timed); the in-memory recovery bitwise the async checkpoint's replay
+   on the shrunken comm; the joiner at parameter parity before its first
+   step, its parameters through the ingest plane; the job exits 0, rank
+   2's signal death the only failure the store holds; prints the
+   recovery, free and join times and the host steps.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8, 10, 11, 13, 14 and 15 and the training path, K5 and K6's two kernels from the
+7, 8, 10, 11, 13, 14, 15 and 16 and the training path, K5 and K6's two kernels from the
 training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
 per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
 batches also from phase 9, K7, the per-call K9 and the K8, K9 and K10
@@ -2205,7 +2231,8 @@ def ckpt_phase(card: str, root: str) -> dict:
     the file against numpy's global array, the ordered records, the
     Read_all bitwise; prints the Write_all rate beside the D2H. The
     checkpoint directories are removed at the end. Returns F's, C's and
-    R's launches."""
+    R's launches, C's checkpoint directory (left for phase 16, which
+    removes it) and F's final digest."""
     from ompi_tpu_torch.runtime import launcher
 
     t0 = time.perf_counter()
@@ -2320,12 +2347,155 @@ def ckpt_phase(card: str, root: str) -> dict:
           f"D2H alone ms {[round(d['d2h_ms'], 2) for d in pdocs]}; the file "
           f"== numpy's global array, records in rank order, Read_all "
           f"bitwise [{card}]", flush=True)
-    for d in (os.path.join(full_out, "ckpt"), crash_out, pio):
+    for d in (os.path.join(full_out, "ckpt"), pio):
         shutil.rmtree(d, ignore_errors=True)
     wall = time.perf_counter() - t0
     print(f"phase 15: launches (F, C, R, all ranks) {launches}, as derived, "
           f"nothing staged; {wall:.1f} s wall (budget {CKPT_WALL} s) "
           f"[{card}]", flush=True)
+    return launches, ck, rep["digest"]
+
+
+#: phase 16: the gated restore's job (A) and the elastic job (B)
+INGEST_MCA = ("--mca", "ingest_enable", "1")
+KILL_RANK, KILL_STEP = 2, 3
+ELASTIC_MCA = ("--mca", "ft", "1", "--mca", "ingest_enable", "1",
+               "--mca", "elastic_inject_kill_step", str(KILL_STEP),
+               "--mca", "elastic_inject_rank", str(KILL_RANK))
+#: GPT-2 small's depth, cut only where a host ZeRO step is too slow for
+#: the phase's wall (PERF.md says which)
+ELASTIC_LAYERS = 1
+ELASTIC_STEPS = 5  # the join's step (the kill is at KILL_STEP)
+ELASTIC_LIMIT = 240  # seconds for the elastic job
+INGEST_WALL = 90
+
+
+def ingest_elastic_phase(card: str, root: str, ckpt: str,
+                         digest: str) -> dict:
+    """Phase 16: the ingest and elastic planes on the card, two 4-rank
+    jobs. A (``streaming_ingest.py`` under ``--mca ingest_enable 1``):
+    epoch 2 of phase 15's crash run restored through
+    ``restore_to_device`` (the whole GPT-2 small tree, 4 streams x depth
+    2 of 4 MiB units), the first step gated on its first bucket's leaves
+    while the tail uploads (``ingest_early_starts`` >= 1 on every rank),
+    the plane up, every leaf on the card, ``ingest_bytes`` the plan's,
+    steps 4-8 with their K2 / K3 launches as derived (16 x 37 and 4 x 37
+    a step over the ranks) and the final digest F's, bitwise; prints the
+    upload's wall, GB/s a rank and the gate's release time. B
+    (``elastic_training.py`` under ``--mca ft 1``, rank 2 killed at step
+    3): device Allreduces ('linear', K3) on the comms of 4, 3 and 4
+    ranks, each bitwise the host linear fold; the broken comm freed; the
+    in-memory recovery bitwise the async checkpoint's replay on the
+    shrunken comm; a ``spawn_replacement`` joiner at parameter parity
+    through the ingest plane; the job exits 0 with rank 2's signal death
+    the only failure. Removes ``ckpt`` at the end. Returns the launches of
+    both jobs, all ranks."""
+    t0 = time.perf_counter()
+    launches: dict = {}
+    got, doc = main_path("streaming_ingest.py", N_RANKS,
+                         ["--ckpt", ckpt, "--expect-digest", digest], card,
+                         root, "coll_cuda", extra_mca=INGEST_MCA)
+    docs = rank_docs(smoke_dir(root, "streaming_ingest.py", N_RANKS),
+                     N_RANKS)
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    rep = doc["report"]
+    steps = 8 - rep["first_step"] + 1
+    nb = doc["buckets"]
+    want = {"ring_rs_hop": 0, "ring_ag_hop": steps * nb * N_RANKS * N_RANKS,
+            "linear_fold": steps * nb * N_RANKS}
+    if got != want or rep["parameters"] != CKPT_PARAMS:
+        fail(f"phase 16 A: launches {got} (derived {want}), parameters "
+             f"{rep['parameters']}")
+    for r, d in enumerate(docs):
+        x = d["report"]
+        if x["early_starts"] < 1 or x["digest"] != digest \
+                or d["launches"] != d["expected_launches"]:
+            fail(f"phase 16 A rank {r}: {x}")
+        print(f"phase 16 A rank {r}: epoch {x['resumed_from']} "
+              f"({x['upload_units']} units, {x['upload_bytes']} B, "
+              f"{x['streams']} streams x depth {x['depth']} x "
+              f"{x['chunk_bytes']} B) uploaded in {x['upload_ms']:.1f} ms = "
+              f"{x['gbps']:.2f} GB/s; the first leaf's gate released at "
+              f"{x['gate_leaf0_ms']:.1f} ms, the first step's (the first "
+              f"bucket's leaves) at {x['gate_ms']:.1f} ms with "
+              f"{x['tail_units_at_gate']} units still in flight "
+              f"(ingest_early_starts {x['early_starts']}); "
+              f"restore_to_device {x['restore_to_device_ms']:.1f} ms; steps "
+              f"{x['first_step']}-8 ms {[round(v, 1) for v in x['step_ms']]}"
+              f" [{card}]", flush=True)
+    print(f"phase 16 A: digest {rep['digest']} == phase 15 F's, bitwise; "
+          f"K2 {got['ring_ag_hop']} = {steps} steps x {nb} buckets x "
+          f"{N_RANKS} x {N_RANKS}, K3 {got['linear_fold']} = {steps} x {nb} "
+          f"x {N_RANKS} [{card}]", flush=True)
+    shutil.rmtree(os.path.dirname(ckpt), ignore_errors=True)
+    # B: the elastic job
+    out = smoke_dir(root, "elastic_training.py", N_RANKS)
+    shutil.rmtree(out, ignore_errors=True)
+    cmd = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher", "-n",
+           str(N_RANKS), "--timeout", str(ELASTIC_LIMIT), "--mca",
+           "device_plane", "on", "--mca", "coll_cuda", "on", *ELASTIC_MCA,
+           os.path.join(root, "ompi_tpu_torch", "examples",
+                        "elastic_training.py"),
+           "--layers", str(ELASTIC_LAYERS), "--steps", str(ELASTIC_STEPS),
+           "--out", out]
+    t1 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                          timeout=ELASTIC_LIMIT + 30)
+    wall = time.perf_counter() - t1
+    for line in proc.stdout.splitlines():
+        print(f"{line} [{card}]", flush=True)
+    joiner = N_RANKS  # the first world rank above the launcher's
+    members = [w for w in range(N_RANKS + 1) if w != KILL_RANK]
+    names = sorted(f for f in os.listdir(out) if f.endswith(".json")) \
+        if os.path.isdir(out) else []
+    if proc.returncode != 0 \
+            or names != sorted(f"rank{w}.json" for w in members):
+        sys.stderr.write(proc.stderr[-6000:])
+        fail(f"phase 16 B: elastic_training.py exited {proc.returncode}, "
+             f"records {names}")
+    el: dict = {}
+    for w in members:
+        with open(os.path.join(out, f"rank{w}.json")) as f:
+            d = json.load(f)
+        bad = [c for c in d["cases"] if not c["ok"]]
+        k3 = 1 if w == joiner else 3
+        if bad or not d["device"].startswith("cuda") \
+                or d["launches"].get("linear_fold") != k3 \
+                or d["coll_accelerator_staged"] != 0 \
+                or not d["report"]["parity_checked"]:
+            fail(f"phase 16 B world rank {w}: mismatches {bad}, launches "
+                 f"{d['launches']} (K3 derived {k3}), staged "
+                 f"{d['coll_accelerator_staged']}, {d['device']}")
+        if w != joiner and d["report"]["failures"] \
+                != {str(KILL_RANK): "killed by signal 9"}:
+            fail(f"phase 16 B world rank {w}: failures "
+                 f"{d['report']['failures']}")
+        for k, v in d["launches"].items():
+            el[k] = el.get(k, 0) + v
+        x = d["report"]
+        what = (f"joined in {x['join_ms']:.1f} ms" if w == joiner else
+                f"{x['parameters']} parameters, recovery "
+                f"{x['recovery_ms']:.1f} ms, the broken comm freed in "
+                f"{x['free_ms']:.2f} ms")
+        print(f"phase 16 B world rank {w}: {what}; host ZeRO step ms "
+              f"{[round(v, 1) for v in x['host_step_ms']]} [{card}]",
+              flush=True)
+    # one K3 a member an Allreduce: the survivors' three, the joiner's one
+    # (the killed rank's first launch is in no record)
+    if el.get("linear_fold") != 3 * (N_RANKS - 1) + 1:
+        fail(f"phase 16 B: K3 launches {el} in the records, not one a "
+             "member per Allreduce over the comms of 4, 3 and 4 ranks")
+    for k, v in el.items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"phase 16 B: rank {KILL_RANK} killed at step {KILL_STEP}, the "
+          f"only signal death; device Allreduces on the comms of 4, 3 and 4"
+          f" ranks bitwise (K3 {el.get('linear_fold')}); recovery bitwise "
+          f"the checkpoint replay; the joiner at parity; exit 0 in "
+          f"{wall:.1f} s [{card}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 16: launches (A, B, all ranks) {launches}; {wall:.1f} s "
+          f"wall (budget {INGEST_WALL} s) [{card}]", flush=True)
     return launches
 
 
@@ -2707,8 +2877,12 @@ def main() -> int:
     # and so do phase 14's, the spawned children's among them
     for k, v in halo_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
-    # and so do phase 15's (the checkpointed training jobs)
-    for k, v in ckpt_phase(card, root).items():
+    # and so do phase 15's (the checkpointed training jobs) and phase 16's
+    # (the gated restore's steps and the elastic job's Allreduces)
+    ckpt_launches, ckpt, digest = ckpt_phase(card, root)
+    for k, v in ckpt_launches.items():
+        coll[k] = coll.get(k, 0) + v
+    for k, v in ingest_elastic_phase(card, root, ckpt, digest).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

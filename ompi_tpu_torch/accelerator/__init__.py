@@ -16,7 +16,11 @@ buffer, pinned for CUDA), :meth:`Accelerator.copy_async` (device to
 host into such a buffer, returning a :class:`.stream.CopyEvent`) and
 :meth:`Accelerator.to_device` (host to device from one, returning an
 :class:`.stream.Event`). There is no synchronous device-to-host copy:
-staging goes through these alone.
+staging goes through these alone. The streaming ingest plane's substrate
+(reference ``accelerator/tpu.py:238-275``): :meth:`Accelerator.h2d_streams`
+(a reused pool of upload streams), :meth:`Accelerator.put_chunk` (one
+asynchronous put of a staged chunk into a device slice, returning a
+:class:`.stream.Event`) and :meth:`Accelerator.close_h2d_streams`.
 
 Selection is the registry's (``core/registry.py``, the ``accelerator``
 framework and cvar): ``cuda`` (priority 50) where torch sees a GPU, else
@@ -114,6 +118,28 @@ class Accelerator(registry.Component):
         """The stream :meth:`copy_async` copies from ``device`` on, for
         timing events around a batch of copies (None on the CPU)."""
         return None
+
+    # -- the ingest plane's upload pool (reference tpu.py:238-275) --------
+    def h2d_streams(self, n: int, device=None) -> list:
+        """``n`` upload streams of ``device``, created at first use and
+        reused by every later call (the ingest ring's slot reuse relies on
+        each stream's FIFO order across uploads). On the CPU there is no
+        device queue: ``n`` Nones."""
+        return [None] * n
+
+    def close_h2d_streams(self) -> None:
+        """Drop the upload pool."""
+
+    def put_chunk(self, chunk: np.ndarray, dst: torch.Tensor,
+                  h2d=None) -> stream.Event:
+        """One put of the staged flat numpy view ``chunk`` into ``dst``
+        (a 1-D tensor of its dtype and length) on the upload stream
+        ``h2d``; the event completes when the staging memory may be
+        packed again. On the CPU it is numpy's copy, done on return: a
+        real copy, never an alias of the staging slot the ingest ring is
+        about to repack (reference ``ingest/engine.py:104-111``)."""
+        np.copyto(dst.numpy(), chunk)
+        return stream.Event(dst.device)
 
     # -- IPC (reference: get / open ipc mem handles) -----------------------
     def ipc_export(self, buf):

@@ -10,6 +10,13 @@ one for host-to-device copies, each ordered after the caller's current
 stream by :meth:`CudaAccelerator.begin_staging`. Host buffers are pinned
 (``pin_memory=True``); a pinned allocation that fails raises, and no
 copy falls back to pageable memory or to a synchronous copy.
+
+The ingest plane's upload pool (``tpu.py:238-275``): :meth:`h2d_streams`
+keeps ``n`` side streams per device for the process, and
+:meth:`put_chunk` copies a pinned staging view into its slice of the
+upload's device buffer on one of them (``copy_(non_blocking=True)``),
+then records an event there; the consumer waits on the event
+(``ingest/engine.py``).
 """
 
 from __future__ import annotations
@@ -45,6 +52,8 @@ class CudaAccelerator(Accelerator):
         # device index -> (d2h stream, h2d stream)
         self._streams: Dict[int, Tuple[torch.cuda.Stream,
                                        torch.cuda.Stream]] = {}
+        # device index -> the ingest plane's upload streams
+        self._h2d_pool: Dict[int, list] = {}
 
     def num_devices(self) -> int:
         return torch.cuda.device_count()
@@ -83,6 +92,33 @@ class CudaAccelerator(Accelerator):
         cur = torch.cuda.current_stream(device)
         for s in self._side(device):
             s.wait_stream(cur)
+
+    def h2d_streams(self, n: int, device=None) -> list:
+        dev = torch.device("cuda", torch.cuda.current_device()) \
+            if device is None else torch.device(device)
+        if dev.type != "cuda":
+            return super().h2d_streams(n, dev)
+        idx = torch.cuda.current_device() if dev.index is None else dev.index
+        pool = self._h2d_pool.setdefault(idx, [])
+        while len(pool) < n:
+            pool.append(torch.cuda.Stream(device=idx))
+        return pool[:n]
+
+    def close_h2d_streams(self) -> None:
+        for pool in self._h2d_pool.values():
+            for s in pool:
+                s.synchronize()
+        self._h2d_pool = {}
+
+    def put_chunk(self, chunk, dst: torch.Tensor,
+                  h2d=None) -> stream.Event:
+        if dst.device.type != "cuda":
+            return super().put_chunk(chunk, dst, h2d)
+        s = h2d if h2d is not None else torch.cuda.current_stream(dst.device)
+        with torch.cuda.device(dst.device), torch.cuda.stream(s):
+            # the source is a view of a pinned staging slot: an async DMA
+            dst.copy_(torch.from_numpy(chunk), non_blocking=True)
+        return stream.Event(dst.device).record(s)
 
     def host_buffer(self, nbytes: int, device) -> torch.Tensor:
         if torch.device(device).type != "cuda":

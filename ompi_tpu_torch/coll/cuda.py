@@ -40,6 +40,16 @@ contraction, as the reference composes coll/xla's allgather with it).
 ``fused_rs_update_dev`` and ``zero3_gather_matmul_dev`` return None for
 a case they do not take, as the reference's do: their caller then runs
 its unfused sequence.
+
+Failures (``--mca ft 1``): a rank that dies inside a schedule never
+moves its hop counters again, and the transport has no message to error
+out. While a member is late, :meth:`Arena._wait` runs the failure
+detector's sweep (no store RPC) and raises ``ProcFailedError`` naming
+the failed comm ranks as soon as one of the comm's members is in the
+pml's ``failed`` set, well before ``device_plane_timeout``.
+:func:`release` of a comm under FT rendezvous through the store's
+dead-tolerant ``ftgather`` instead of the comm's barrier, and leaves a
+dead exporter's mapping open until the process exits.
 """
 
 from __future__ import annotations
@@ -55,8 +65,10 @@ import numpy as np
 import torch
 
 from ompi_tpu_torch import errors, op as op_mod
+from ompi_tpu_torch import ft as _ft
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.core import cvar, pvar, registry
+from ompi_tpu_torch.ft import detector as _ft_detector
 from ompi_tpu_torch.monitoring import algo as _algo
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.monitoring.algo import log2_bucket
@@ -322,6 +334,7 @@ class Arena(K.Ring):
     def __init__(self, cid: int, tag: str, rank: int, world,
                  in_bytes: int, slot_bytes: int, nslots: int = 4) -> None:
         n = len(world)
+        self.world = list(world)
         self._maps: List[mmap.mmap] = []
         self._peer_ptrs: List[int] = []
         self._own_ptr: Optional[int] = None
@@ -453,11 +466,14 @@ class Arena(K.Ring):
             return
         t0 = time.monotonic()
         deadline = t0 + _timeout.get()
+        det = _ft_detector.get()
         spins = 0
         while f[i] < target:
             spins += 1
             if spins > 64:
                 time.sleep(0 if spins < 4096 else 1e-4)
+                if det is not None:
+                    self._check_failed(det)
             if time.monotonic() > deadline:
                 raise errors.MPIError(
                     errors.ERR_INTERN,
@@ -467,11 +483,31 @@ class Arena(K.Ring):
         pvar.record("device_plane_wait_ns",
                     int((time.monotonic() - t0) * 1e9))
 
+    def _check_failed(self, det) -> None:
+        """Apply the detector's news (its progress sweep, no store RPC)
+        and raise ProcFailedError if a member of this comm failed: the
+        failure ob1's sweep gives a receive."""
+        det._sweep()
+        failed = _ft.failed_world_ranks()
+        bad = [q for q, w in enumerate(self.world) if w in failed]
+        if bad:
+            raise errors.ProcFailedError(
+                ranks=tuple(bad),
+                msg=f"coll_cuda: comm rank {self.rank} waited on a "
+                    f"device schedule whose comm ranks {bad} failed")
+
     # -- teardown (collective: close peers, fence, then free own) --------
-    def close_peers(self) -> None:
+    def close_peers(self, dead=()) -> None:
+        """Close the peer mappings, but not those of the world ranks in
+        ``dead``: a dead exporter's mapping stays open until this process
+        exits (closing memory whose owner is gone is left to the driver's
+        process teardown, never to a call that could fail here)."""
         self.inputs = self.slotbufs = None
         self.flags = None
-        for ptr in self._peer_ptrs:
+        peers = [w for q, w in enumerate(self.world) if q != self.rank]
+        for w, ptr in zip(peers, self._peer_ptrs):
+            if w in dead:
+                continue
             K.check(K.lib().otc_ipc_close(ctypes.c_void_p(ptr)),
                     "cudaIpcCloseMemHandle")
         self._peer_ptrs = []
@@ -527,12 +563,26 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
 
 def release(comm) -> None:
     """Unmap a comm's arenas — collective: peers' mappings close before
-    any rank frees the memory behind them."""
+    any rank frees the memory behind them. Under ``ft`` the rendezvous is
+    the store's ``ftgather`` over the comm's world ranks, which releases
+    once every member has arrived or failed (the comm's own barrier would
+    wait on a dead member forever), and the mappings of the members the
+    store knows dead stay open."""
     arenas = comm.__dict__.pop("_coll_cuda_arenas", {})
-    for ep in arenas.values():
-        ep.close_peers()
-    if arenas:
+    if not arenas:
+        return
+    if _ft_detector.get() is None:
+        for ep in arenas.values():
+            ep.close_peers()
         comm.coll.barrier(comm)
+    else:
+        dead = set(_ft.faults()) | _ft.failed_world_ranks()
+        for ep in arenas.values():
+            ep.close_peers(dead)
+        rte.client().ftgather(
+            f"ftfree:{rte.jobid}:{comm.cid}:{comm.group.ranks[0]}",
+            rte.rank, True, comm.group.ranks,
+            hb_timeout=_ft._hb_timeout())
     for ep in arenas.values():
         ep.free_own()
 

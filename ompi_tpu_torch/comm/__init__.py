@@ -13,9 +13,11 @@ collectives cid*2+1. Construction agrees on a fresh cid (allocated by
 ``rte.next_id``, the store's atomic counter) over the pml's collective
 context: rank 0 of the new communicator's parent allocates it and sends
 it to the others, as the reference's ``_agree_cid`` does. The ULFM
-methods (revoke, shrink, agree, ...) wait for ROADMAP queue 1 item 9.
-MPI-4's :func:`comm_create_from_group` needs no parent: the members agree
-on the cid through the store, keyed on (tag, group, epoch).
+methods (``revoke``, ``shrink``, ``agree``, ``iagree``, ``get_failed``,
+``ack_failed``; reference :324-376) go through :mod:`ompi_tpu_torch.ft`;
+``check_failed`` is the collective-entry gate ``mpi`` calls. MPI-4's
+:func:`comm_create_from_group` needs no parent: the members agree on the
+cid through the store, keyed on (tag, group, epoch).
 """
 
 from __future__ import annotations
@@ -120,6 +122,7 @@ class Communicator(attr_mod.AttrHost):
         self.errhandler = errhandler
         self.coll = None  # installed by coll.comm_select
         self.topo = None  # a cart / graph / dist graph (topo/)
+        self.revoked = False  # MPIX_Comm_revoke (here or by a peer)
         with _comms_lock:
             _comms[cid] = self
         from ompi_tpu_torch.coll import comm_select
@@ -320,9 +323,67 @@ class Communicator(attr_mod.AttrHost):
         self.__dict__.pop("_han_colors", None)
         self.__dict__.pop("_coll_device_nbr_adj", None)
         _coll_cuda.release(self)
+        # the ULFM agreement / shrink epochs die with the comm
+        from ompi_tpu_torch.ft import release_comm as _ft_release
+
+        _ft_release(self.cid)
         with _comms_lock:
             if _comms.get(self.cid) is self:
                 del _comms[self.cid]
+
+    # -- ULFM (reference: ompi/communicator/ft) ---------------------------
+    def revoke(self) -> None:
+        """MPIX_Comm_revoke."""
+        from ompi_tpu_torch.ft import revoke as _revoke
+
+        _revoke(self)
+
+    def is_revoked(self) -> bool:
+        return self.revoked
+
+    def check_revoked(self) -> None:
+        if self.revoked:
+            raise errors.RevokedError()
+
+    def check_failed(self) -> None:
+        """The collective-entry FT gate (``ft.check_comm_failed``); p2p
+        paths do not call it: sends and receives among survivors stay
+        legal after a failure."""
+        from ompi_tpu_torch.ft import check_comm_failed
+
+        check_comm_failed(self)
+
+    def shrink(self) -> "Communicator":
+        """MPIX_Comm_shrink."""
+        from ompi_tpu_torch.ft import shrink as _shrink
+
+        return _shrink(self)
+
+    def iagree(self, flag: int):
+        """MPIX_Comm_iagree -> request; after wait, ``.result`` is blocking
+        agree's (value, failed) pair."""
+        from ompi_tpu_torch.ft import iagree as _iagree
+
+        return _iagree(self, flag)
+
+    def agree(self, flag: int):
+        """MPIX_Comm_agree -> (flag AND-combined over the survivors, failed
+        comm ranks)."""
+        from ompi_tpu_torch.ft import agree as _agree
+
+        return _agree(self, flag)
+
+    def get_failed(self):
+        """MPIX_Comm_get_failed -> sorted failed comm ranks."""
+        from ompi_tpu_torch.ft import get_failed as _get_failed
+
+        return _get_failed(self)
+
+    def ack_failed(self) -> int:
+        """MPIX_Comm_ack_failed -> the number of failures acknowledged."""
+        from ompi_tpu_torch.ft import ack_failed as _ack_failed
+
+        return _ack_failed(self)
 
     # -- the construction rounds over the pml ----------------------------
     def _gather_obj(self, obj):

@@ -228,6 +228,10 @@ COLL_COMPLETE = register_type(
     "coll_schedule_complete",
     "a nonblocking collective schedule finished (coll/libnbc)",
     ("kind", "comm_cid", "rounds"))
+FT_FAILURE = register_type(
+    "ft_process_failure",
+    "the failure detector declared a peer dead",
+    ("rank", "reason"))
 OSC_EPOCH = register_type(
     "osc_epoch_transition",
     "a one-sided synchronization epoch opened or closed "

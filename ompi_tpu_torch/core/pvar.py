@@ -164,6 +164,29 @@ WELL_KNOWN = (
     "ckpt_fallback_sync", "ckpt_incremental_skipped",
     "ckpt_restores", "ckpt_restore_fallbacks",
     "ckpt_digest_mismatches", "ckpt_injected_failures",
+    # ingest/ (the reference's names): uploads started, units and bytes
+    # landed, Parrived probes answered True, first steps released before
+    # the tail landed, gate wall in ns, units voided by a cancel or an
+    # error, compiles run start to end beside an upload, and the deepest
+    # per-stream queue of puts in flight
+    "ingest_uploads", "ingest_units", "ingest_bytes", "ingest_parrived",
+    "ingest_early_starts", "ingest_gate_ns", "ingest_cancelled",
+    "ingest_compile_overlaps", "ingest_inflight",
+    # ft/ (the reference's names): heartbeats sent, faults and
+    # revocations applied by the progress sweep, the eventful sweeps'
+    # wall in ns
+    "ft_heartbeats", "ft_faults_observed", "ft_revokes_applied",
+    "ft_sweep_ns",
+    # elastic/ (the reference's names): shrinks survived, joiners
+    # admitted, bytes allgathered for the in-memory re-shard, recovery
+    # wall in ns, checkpoint fallbacks taken, checkpoints written, and
+    # the injected kills and delays
+    "elastic_shrinks", "elastic_hot_joins", "elastic_reshard_bytes",
+    "elastic_recovery_ns", "elastic_fallback_restores",
+    "elastic_checkpoints", "elastic_injected_kills",
+    "elastic_injected_delays",
+    # the store client: connect attempts retried
+    "kvstore_connect_retries",
 )
 
 #: families of pvars named at run time: the monitoring plane's per-link,

@@ -194,9 +194,10 @@ def main(argv=None) -> int:
         for b, k in enumerate(mom.plan.shard_elems):
             flat = parts[f"momentum.{b:03d}"]
             shards.append(torch.as_tensor(flat[r * k:(r + 1) * k]).to(dev))
-        # the reference's from_checkpoint (elastic/, ROADMAP queue 1 item
-        # 9's second slice) has no counterpart yet: the state's momentum
-        # slot is rebuilt from the restored parts here
+        # elastic.ElasticContext.from_checkpoint rebuilds host-state
+        # contexts; this optimizer's state lives on the card, so its
+        # momentum slot is rebuilt from the restored parts here (the
+        # ingest-gated form of this restore is streaming_ingest.py)
         opt.state.slots["momentum"] = zl.ShardedState(
             mom.plan, mom.metas, mom.treedef, shards, mom.rank, mom.n)
         first = step_of_epoch(epoch) + 1

@@ -11,11 +11,10 @@ Built in:
   - cuda: ``MPIX_Query_cuda_support``, Open MPI's own name; the
     reference's ``MPIX_Query_tpu_support`` is its analog
     (``compat.ext_name`` maps one name to the other);
-  - shortfloat: the ``MPIX_FLOAT16`` and ``MPIX_BFLOAT16`` datatypes.
-
-The ftmpi names (``MPIX_Comm_revoke`` / ``shrink`` / ``agree`` /
-``iagree`` / ``get_failed`` / ``ack_failed``) wait for ``ft/`` (ROADMAP
-queue 1 item 9): asking for one raises AttributeError saying so.
+  - shortfloat: the ``MPIX_FLOAT16`` and ``MPIX_BFLOAT16`` datatypes;
+  - ftmpi (ULFM, reference ``ext/__init__.py:67-75``):
+    ``MPIX_Comm_revoke`` / ``shrink`` / ``agree`` / ``iagree`` /
+    ``get_failed`` / ``ack_failed``, bound to :mod:`ompi_tpu_torch.ft`.
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from typing import Dict
 
 REGISTRY: Dict[str, object] = {}
 
-#: the ULFM extension's names, registered once ``ft/`` is ported
+#: the ULFM extension's names
 FTMPI_NAMES = ("MPIX_Comm_revoke", "MPIX_Comm_shrink", "MPIX_Comm_agree",
                "MPIX_Comm_iagree", "MPIX_Comm_get_failed",
                "MPIX_Comm_ack_failed")
@@ -43,10 +42,6 @@ def available() -> list:
 def __getattr__(name: str):
     if name in REGISTRY:
         return REGISTRY[name]
-    if name in FTMPI_NAMES:
-        raise AttributeError(
-            f"{name}: the ftmpi extension waits for ft/ (ROADMAP queue 1 "
-            "item 9)")
     raise AttributeError(
         f"no MPI extension provides {name!r}; available: {available()}")
 
@@ -63,6 +58,20 @@ def _query_cuda_support() -> bool:
 
 
 register("MPIX_Query_cuda_support", _query_cuda_support)
+
+
+def _ftmpi() -> None:
+    from ompi_tpu_torch import ft
+
+    register("MPIX_Comm_revoke", ft.revoke)
+    register("MPIX_Comm_shrink", ft.shrink)
+    register("MPIX_Comm_agree", ft.agree)
+    register("MPIX_Comm_iagree", ft.iagree)
+    register("MPIX_Comm_get_failed", ft.get_failed)
+    register("MPIX_Comm_ack_failed", ft.ack_failed)
+
+
+_ftmpi()
 
 
 def _shortfloat() -> None:

@@ -44,9 +44,11 @@ reads only its own; the data files, the chunk records and the other
 header fields are the same); restored leaves are numpy arrays, and a
 bfloat16 leaf comes back as a CPU ``torch.bfloat16`` tensor; a
 :class:`Snapshot` also keeps its copy and drain times (``copy_ms``,
-``drain_ns``). Left for later slices: ``restore_to_device``'s ingest
-feed and the elastic plane's hooks (ROADMAP queue 1 item 9, its second
-slice), and the drain's ``prof`` ledger ``snapshot`` phase (item 10).
+``drain_ns``). :meth:`AsyncCheckpointer.restore_to_device` feeds the
+restored tree through the ingest plane, and the elastic plane drops a
+snapshot begun on a comm that a shrink or a hot join replaced
+(:meth:`Snapshot.abort`). Left for a later slice: the drain's ``prof``
+ledger ``snapshot`` phase (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -264,9 +266,9 @@ class Snapshot:
 
     def abort(self) -> None:
         """Discard: wait out the d2h thread (its writes go only to
-        this handle's buffers) and drop the payload. (The reference's
-        elastic plane calls it on a comm change; its hooks come with
-        ROADMAP queue 1 item 9's second slice.)"""
+        this handle's buffers) and drop the payload. The elastic plane
+        calls it when a shrink or a hot join replaces the comm the
+        snapshot would commit over (``elastic/context.py``)."""
         t = self._thread
         if t is not None:
             t.join()
@@ -938,9 +940,17 @@ class AsyncCheckpointer:
             f"{self.directory}: no restorable checkpoint epoch "
             f"(last failure: {last_exc})")
 
-    # restore_to_device (the reference's ingest-gated upload of the
-    # restored tree) comes with the ingest plane: ROADMAP queue 1 item
-    # 9, its second slice
+    def restore_to_device(self, engine=None
+                          ) -> Tuple[Any, int, Dict[str, Any]]:
+        """Restore, then feed the tree through the ingest plane: with an
+        engine up (``engine``, else the plane's) the returned tree is an
+        ``IngestRequest`` already gated on its first leaf, so the first
+        step starts before the tail lands; with none it is the host tree
+        (reference :823-833)."""
+        from ompi_tpu_torch.ingest import engine as _engine
+
+        tree, step, parts = self.restore()
+        return _engine.upload_for_restore(tree, engine=engine), step, parts
 
     def _materialize(self, doc: Dict[str, Any]
                      ) -> Tuple[Any, Dict[str, Any]]:

@@ -235,6 +235,8 @@ def _Allreduce(self, sendbuf, recvbuf=None, op=op_mod.SUM,
     bit-identical to the host linear fold. A ``(tensor, count,
     datatype)`` sendbuf reduces its packed form and scatters the result
     back into the tensor, which is returned."""
+    self.check_revoked()
+    self.check_failed()
     d = _parse_dev(sendbuf)
     if d is not None:
         arr, count, dt = d
@@ -257,6 +259,8 @@ def _Reduce(self, sendbuf, recvbuf=None, op=op_mod.SUM, root: int = 0,
             deterministic=None):
     """Tensors: the reduction on the root, None elsewhere (the root's
     recvbuf receives a copy). Host: the root's recvbuf is filled."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         return _deliver(self.coll.reduce_dev(
             self, sendbuf, op, root, deterministic=deterministic), recvbuf)
@@ -275,6 +279,7 @@ def _Reduce_scatter_block(self, sendbuf, recvbuf=None, op=op_mod.SUM,
                           deterministic=None):
     """Tensors: dim 0 of sendbuf divides by the comm size; returns this
     rank's (dim0/size, ...) block."""
+    self.check_revoked()
     if _is_dev(sendbuf):
         return _deliver(self.coll.reduce_scatter_block_dev(
             self, sendbuf, op, deterministic=deterministic), recvbuf)
@@ -288,6 +293,7 @@ def _Reduce_scatter_block(self, sendbuf, recvbuf=None, op=op_mod.SUM,
 def _Reduce_scatter(self, sendbuf, recvbuf, counts, op=op_mod.SUM,
                     deterministic=None):
     """Tensors: this rank's counts[rank] rows of the reduction."""
+    self.check_revoked()
     if _is_dev(sendbuf):
         return _deliver(self.coll.reduce_scatter_dev(
             self, sendbuf, counts, op, deterministic=deterministic),
@@ -301,6 +307,8 @@ def _Reduce_scatter(self, sendbuf, recvbuf, counts, op=op_mod.SUM,
 
 def _Allgather(self, sendbuf, recvbuf=None):
     """Tensors: returns (size, *sendbuf.shape), rank i's block at i."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         return _deliver(self.coll.allgather_dev(self, sendbuf), recvbuf)
     rarr = _parse_buf(_require_recvbuf(recvbuf, "Allgather"))[0]
@@ -314,6 +322,8 @@ def _Allgather(self, sendbuf, recvbuf=None):
 
 def _Allgatherv(self, sendbuf, recvbuf, counts, displs=None):
     """Tensors: returns the packed (sum(counts), *rest)."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         return _deliver(self.coll.allgatherv_dev(self, sendbuf, counts),
                         recvbuf)
@@ -334,6 +344,8 @@ def _Bcast(self, buf, root: int = 0):
     (MPI's in-place receive); a ``(tensor, count, datatype)`` buf moves
     its packed form and the other ranks scatter it into the tensor. A
     root outside [0, size) raises ERR_ROOT."""
+    self.check_revoked()
+    self.check_failed()
     d = _parse_dev(buf)
     if d is not None:
         arr, count, dt = d
@@ -354,6 +366,8 @@ def _Alltoall(self, sendbuf, recvbuf=None):
     """Tensors: dim 0 of sendbuf splits into size blocks; block p of the
     result is block ``rank`` of rank p's sendbuf (the MoE dispatch
     pattern)."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         return _deliver(self.coll.alltoall_dev(self, sendbuf), recvbuf)
     sarr = _parse_buf(sendbuf)[0]
@@ -368,6 +382,8 @@ def _Alltoallv(self, sendbuf, recvbuf, scounts, rcounts, sdispls=None,
     """Tensors: block p of the result is the rcounts[p] rows rank p sends
     this rank. ``max_count`` (e.g. a fixed MoE expert capacity) skips
     the count round."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         _packed_displs_or_raise(scounts, sdispls, "Alltoallv")
         return _deliver(self.coll.alltoallv_dev(
@@ -387,6 +403,8 @@ def _Alltoallv(self, sendbuf, recvbuf, scounts, rcounts, sdispls=None,
 def _Gather(self, sendbuf, recvbuf=None, root: int = 0):
     """Tensors: returns (size, *sendbuf.shape) on the root, None
     elsewhere."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         return _deliver(self.coll.gather_dev(self, sendbuf, root), recvbuf)
     _check_root(self, root)
@@ -400,6 +418,8 @@ def _Gatherv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0):
     """Tensors: returns the packed (sum(counts), *rest) on the root, None
     elsewhere (displs is a host-layout argument: the device result is
     packed)."""
+    self.check_revoked()
+    self.check_failed()
     if _is_dev(sendbuf):
         return _deliver(self.coll.gatherv_dev(self, sendbuf, counts, root),
                         recvbuf)
@@ -419,6 +439,8 @@ def _Scatter(self, sendbuf, recvbuf=None, root: int = 0,
     passes sendbuf None with ``device=True``; its recvbuf, when given,
     is the shape template (``like``, every rank or none) and receives
     the chunk."""
+    self.check_revoked()
+    self.check_failed()
     if device or _is_dev(sendbuf):
         return _deliver(self.coll.scatter_dev(self, sendbuf, root,
                                               like=recvbuf), recvbuf)
@@ -434,6 +456,8 @@ def _Scatterv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0,
     """Rank r gets counts[r] rows of the root's sendbuf. Tensors: the
     root's sendbuf is packed; a non-root as for Scatter (recvbuf is the
     template of the trailing dims and dtype)."""
+    self.check_revoked()
+    self.check_failed()
     if device or _is_dev(sendbuf):
         _packed_displs_or_raise(counts, displs, "Scatterv")
         return _deliver(self.coll.scatterv_dev(self, sendbuf, counts, root,
@@ -450,6 +474,7 @@ def _Scatterv(self, sendbuf, recvbuf, counts, displs=None, root: int = 0,
 
 def _Scan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
     """The inclusive prefix over ranks 0..rank, folded in rank order."""
+    self.check_revoked()
     if _is_dev(sendbuf):
         return _deliver(self.coll.scan_dev(self, sendbuf, op), recvbuf)
     rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Scan"))
@@ -461,6 +486,7 @@ def _Scan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
 def _Exscan(self, sendbuf, recvbuf=None, op=op_mod.SUM):
     """The exclusive prefix. Tensors: rank 0 gets zeros; host: rank 0's
     recvbuf is left as it was (MPI leaves it undefined)."""
+    self.check_revoked()
     if _is_dev(sendbuf):
         return _deliver(self.coll.exscan_dev(self, sendbuf, op), recvbuf)
     rarr, count, dt = _parse_buf(_require_recvbuf(recvbuf, "Exscan"))
@@ -473,6 +499,8 @@ def _Barrier(self, device: bool = False) -> None:
     """MPI_Barrier through the comm's table: the host barrier over the
     pml, or with ``device=True`` the device plane's
     (ompi_tpu/mpi.py:663-670)."""
+    self.check_revoked()
+    self.check_failed()
     if device:
         return self.coll.barrier_dev(self)
     self.coll.barrier(self)
@@ -499,6 +527,8 @@ def _Allreduce_multi(self, bufs, op=op_mod.SUM, deterministic=None):
     pytree ('linear' is bitwise the per-buffer loop). A pytree of numpy
     arrays runs one host allreduce per buffer and returns new arrays in
     the same structure."""
+    self.check_revoked()
+    self.check_failed()
     if _host_tree(bufs):
         from ompi_tpu_torch.zero import layout as zl
 
@@ -520,6 +550,8 @@ def _Allreduce_multi_init(self, bufs, op=op_mod.SUM):
     """Persistent Allreduce_multi of tensors: planned at init, each
     start() runs the buckets on the tensors' current contents; req.array
     holds each cycle's pytree."""
+    self.check_revoked()
+    self.check_failed()
     _device_tree_or_raise("Allreduce_multi_init", bufs)
     return self.coll.allreduce_multi_init_dev(self, bufs, op)
 
@@ -531,6 +563,8 @@ def _Pallreduce_init(self, bufs, op=op_mod.SUM, deterministic=None):
     allreduce runs the moment its last leaf is ready (the
     buckets and schedules of Allreduce_multi: 'linear' stays bitwise);
     wait() closes the cycle into req.array."""
+    self.check_revoked()
+    self.check_failed()
     _device_tree_or_raise("Pallreduce_init", bufs)
     return self.coll.pallreduce_init_dev(self, bufs, op,
                                          deterministic=deterministic)
@@ -543,6 +577,8 @@ def _Reduce_scatter_multi(self, bufs, op=op_mod.SUM, deterministic=None):
     rank's 1-D shard per bucket ('linear' stays bit-identical to the
     per-buffer allreduce fold). Numpy leaves run the host bucket cycle
     (one host allreduce per bucket, numpy shards)."""
+    self.check_revoked()
+    self.check_failed()
     if _host_tree(bufs):
         from ompi_tpu_torch.zero import layout as zl
 
@@ -556,6 +592,8 @@ def _Reduce_scatter_multi_init(self, bufs, op=op_mod.SUM,
     """Persistent Reduce_scatter_multi of tensors: planned and mapped at
     init, each start() reduce-scatters the buckets' current contents;
     req.array holds the cycle's ShardedState."""
+    self.check_revoked()
+    self.check_failed()
     _device_tree_or_raise("Reduce_scatter_multi_init", bufs)
     return self.coll.reduce_scatter_multi_init_dev(
         self, bufs, op, deterministic=deterministic)
@@ -565,6 +603,8 @@ def _Allgather_multi(self, state):
     """Rebuild the full pytree from a zero.ShardedState: one allgather
     per bucket, rank-order concat (= the pack order), pad dropped, leaf
     shapes restored. Numpy shards gather over the host object channel."""
+    self.check_revoked()
+    self.check_failed()
     if _host_tree(state):
         from ompi_tpu_torch.zero import layout as zl
 
@@ -578,6 +618,8 @@ def _Allgather_multi_init(self, state):
     pytree. ``req.rebind(new_state)`` swaps in a same-plan state's shards
     without a new plan (ZeRO stage 3's per-step refresh);
     ``req.discard()`` drops a finished cycle's result."""
+    self.check_revoked()
+    self.check_failed()
     _device_tree_or_raise("Allgather_multi_init", state)
     return self.coll.allgather_multi_init_dev(self, state)
 
@@ -589,6 +631,8 @@ def _Preduce_scatter_init(self, bufs, op=op_mod.SUM, deterministic=None):
     last leaf is ready (zero_overlap_flushes counts the buckets that beat
     the final Pready); wait() closes the cycle, req.array is the
     ShardedState (Reduce_scatter_multi's bits)."""
+    self.check_revoked()
+    self.check_failed()
     _device_tree_or_raise("Preduce_scatter_init", bufs)
     return self.coll.preduce_scatter_init_dev(
         self, bufs, op, deterministic=deterministic)
@@ -1077,18 +1121,21 @@ def _copy_status(st: Status, status: Optional[Status]) -> None:
 # -- the object (pickled) point-to-point --
 
 def _send(self, obj, dest: int, tag: int = 0) -> None:
+    self.check_revoked()
     _check_rank(self, dest)
     pvar.record("send")
     pml.current().send_obj(self, obj, dest, tag)
 
 
 def _isend(self, obj, dest: int, tag: int = 0) -> Request:
+    self.check_revoked()
     _check_rank(self, dest)
     return pml.current().isend_obj(self, obj, dest, tag)
 
 
 def _recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
           status: Optional[Status] = None):
+    self.check_revoked()
     req = pml.current().irecv_obj(self, source, tag)
     _copy_status(req.wait(), status)
     return req._obj
@@ -1096,6 +1143,7 @@ def _recv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG,
 
 def _irecv(self, source: int = ANY_SOURCE, tag: int = ANY_TAG) -> Request:
     """The object arrives in the request's ``_obj`` at completion."""
+    self.check_revoked()
     return pml.current().irecv_obj(self, source, tag)
 
 
@@ -1113,6 +1161,7 @@ def _sendrecv(self, obj, dest: int, source: int = ANY_SOURCE,
 def _Send(self, buf, dest: int, tag: int = 0) -> None:
     """A tensor goes through the pipelined staging of
     ``pml/accel_p2p``."""
+    self.check_revoked()
     _check_rank(self, dest)
     pvar.record("send")
     d = _parse_dev(buf)
@@ -1128,6 +1177,7 @@ def _Send(self, buf, dest: int, tag: int = 0) -> None:
 
 
 def _Isend(self, buf, dest: int, tag: int = 0) -> Request:
+    self.check_revoked()
     _check_rank(self, dest)
     d = _parse_dev(buf)
     if d is not None:
@@ -1146,6 +1196,7 @@ def _Isend(self, buf, dest: int, tag: int = 0) -> Request:
 
 def _Ssend(self, buf, dest: int, tag: int = 0) -> None:
     """Synchronous send: completes once the receiver has matched."""
+    self.check_revoked()
     arr, count, dt = _parse_buf(buf)
     pml.current().send(self, arr, count, dt, dest, tag, sync=True)
 
@@ -1243,6 +1294,7 @@ def _Recv(self, buf, source: int = ANY_SOURCE, tag: int = ANY_TAG,
     tensor is received in place through ``pml/accel_p2p`` and returned
     (the Status goes to ``status``); a ``(tensor, count, datatype)``
     receives its packed form and scatters it into the tensor."""
+    self.check_revoked()
     if _parse_dev(buf) is not None:
         req = _Irecv(self, buf, source, tag)
         _copy_status(req.wait(), status)
@@ -1257,6 +1309,7 @@ def _Irecv(self, buf, source: int = ANY_SOURCE,
            tag: int = ANY_TAG) -> Request:
     """For a tensor (or a tuple form's tensor), the request's ``.array``
     is that tensor once complete."""
+    self.check_revoked()
     d = _parse_dev(buf)
     if d is not None:
         from ompi_tpu_torch.pml import accel_p2p
@@ -1512,6 +1565,7 @@ def _barrier(self) -> None:
 
 
 def _bcast(self, obj=None, root: int = 0):
+    self.check_revoked()
     return self.coll.bcast_obj(self, obj, root)
 
 

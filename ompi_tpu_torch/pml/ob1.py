@@ -40,11 +40,15 @@ the reference's (ob1.py:484-506, :652-672, :792-795): the PERUSE queue
 events (:mod:`.peruse`) and the MPI_T events ``pml_message_matched`` and
 ``pml_unexpected_queued``, each under one guard.
 
-Left out of the port's ob1, each in ROADMAP: the memchecker, trace and
+The ULFM sweeps (reference :904-969, ompi/request/req_ft.c): the failure
+detector hands new deaths to :meth:`Ob1.on_fault` and revocations to
+:meth:`Ob1.on_revoke`, which error the requests they strand; the
+``failed`` and ``acked`` sets gate new sends and receives
+(``_recv_src_failed``, :431-447).
+
+Left out of the port's ob1, in ROADMAP: the memchecker, trace and
 flight-recorder call sites (reference ob1.py:244-245, :260-267,
-:289-294, :326-332, :401-416, :841-849; queue 1 item 10); the ULFM
-failure and revocation sweeps (``on_fault`` / ``on_revoke`` :904-969 and
-the failed sets behind ``_recv_src_failed`` :431-447; item 9).
+:289-294, :326-332, :401-416, :841-849; queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -201,6 +205,11 @@ class Ob1:
         # can finish creating a comm and send before we do)
         self.early_frames: Dict[int, list] = {}
         self._arch_cache: Dict[int, str] = {}
+        # ULFM: world ranks known failed (fed by ft.detector) and the
+        # failures the app acknowledged (MPIX_Comm_ack_failed), which no
+        # longer poison wildcard receives
+        self.failed: set = set()
+        self.acked: set = set()
 
     # -- lifecycle --------------------------------------------------------
     def enable(self) -> None:
@@ -258,6 +267,9 @@ class Ob1:
         if sync:
             flags |= FLAG_SYNC
         dst_world = comm.world_rank(dst)
+        if dst_world in self.failed:
+            req.complete(errors.ERR_PROC_FAILED)
+            return req
         if obj is NO_OBJ:
             # the wire is in my advertised order: swap whenever that is
             # not my native order (even towards a peer forced to the same
@@ -354,6 +366,10 @@ class Ob1:
             dtype = dtype_of(buf)
         req = RecvRequest(ctx, src, tag, buf, count, dtype, False)
         pvar.record("irecv")
+        err = self._recv_src_failed(comm, src)
+        if err:
+            req.complete(err)
+            return req
         self._post(req)
         return req
 
@@ -362,8 +378,30 @@ class Ob1:
         req = RecvRequest(self._ctx(comm, collective), src, tag, None, 0,
                           None, True)
         pvar.record("irecv")
+        err = self._recv_src_failed(comm, src)
+        if err:
+            req.complete(err)
+            return req
         self._post(req)
         return req
+
+    def _recv_src_failed(self, comm, src: int) -> int:
+        """The error class of a receive that cannot be posted: a named
+        receive from a failed sender can never match (PROC_FAILED); a
+        wildcard while the comm has unacknowledged failures fails PENDING
+        (ULFM's ANY_SOURCE rule)."""
+        if not self.failed:
+            return 0
+        g = comm.remote_group if getattr(comm, "is_inter", False) \
+            else comm.group
+        if src == rq.ANY_SOURCE:
+            unacked = self.failed - self.acked
+            if any(r in unacked for r in g.ranks):
+                return errors.ERR_PROC_FAILED_PENDING
+            return 0
+        if g.ranks[src] in self.failed:
+            return errors.ERR_PROC_FAILED
+        return 0
 
     def recv(self, comm, buf, count, dtype, src: int, tag: int,
              collective: bool = False) -> rq.Status:
@@ -753,3 +791,70 @@ class Ob1:
         if q is not None and req in q:
             q.remove(req)
         req._cancel()
+
+    # -- ULFM sweeps (reference: ompi/request/req_ft.c) --------------------
+    def on_fault(self, dead_world: set) -> int:
+        """Error every in-flight request that involves a failed rank
+        (called from the detector's progress sweep)."""
+        from ompi_tpu_torch import comm as comm_mod
+
+        self.failed |= dead_world
+        n = 0
+        # posted receives: named sources among the dead fail; wildcards
+        # fail PENDING once a member of the group is gone (the app may
+        # acknowledge and post again)
+        for ctx, q in list(self.posted.items()):
+            c = comm_mod.lookup_cid(ctx // 2)
+            if c is None:
+                continue
+            g = c.remote_group if getattr(c, "is_inter", False) \
+                else c.group
+            if not any(r in dead_world for r in g.ranks):
+                continue
+            for req in list(q):
+                if req.want_src == rq.ANY_SOURCE:
+                    q.remove(req)
+                    req.complete(errors.ERR_PROC_FAILED_PENDING)
+                    n += 1
+                elif g.ranks[req.want_src] in dead_world:
+                    q.remove(req)
+                    req.complete(errors.ERR_PROC_FAILED)
+                    n += 1
+        # matched rendezvous receives streaming from a dead sender
+        for recv_id, req in list(self.active_recv.items()):
+            if req.src_world in dead_world:
+                del self.active_recv[recv_id]
+                req.complete(errors.ERR_PROC_FAILED)
+                n += 1
+        # sends waiting for an ACK, or streaming, towards a dead receiver
+        for table in (self.pending_ack, self.streaming):
+            for msgid, req in list(table.items()):
+                if req.dst_world in dead_world:
+                    del table[msgid]
+                    if not req.completed:
+                        req.complete(errors.ERR_PROC_FAILED)
+                        n += 1
+        return n
+
+    def on_revoke(self, cid: int) -> int:
+        """Error every in-flight request on a revoked comm (reference:
+        comm_ft_revoke.c drains the match queues)."""
+        n = 0
+        for ctx in (cid * 2, cid * 2 + 1):
+            q = self.posted.get(ctx)
+            for req in list(q or ()):
+                q.remove(req)
+                req.complete(errors.ERR_REVOKED)
+                n += 1
+            for recv_id, req in list(self.active_recv.items()):
+                if req.ctx == ctx:
+                    del self.active_recv[recv_id]
+                    req.complete(errors.ERR_REVOKED)
+                    n += 1
+            for table in (self.pending_ack, self.streaming):
+                for msgid, req in list(table.items()):
+                    if req.ctx == ctx and not req.completed:
+                        del table[msgid]
+                        req.complete(errors.ERR_REVOKED)
+                        n += 1
+        return n

@@ -1,9 +1,9 @@
 """Rendezvous TCP key-value store — the PMIx server equivalent.
 
 Reference role: OpenPMIx server inside prterun/prted daemons. Supplies the
-modex (endpoint exchange), fences (PMIx_Fence), ID allocation and abort
-propagation. The port's own copy, without the fault-tolerance commands
-(they come with ROADMAP queue 1 item 9).
+modex (endpoint exchange), fences (PMIx_Fence), ID allocation, abort
+propagation and the fault-tolerance commands of the ULFM plane. The
+port's own copy of ``ompi_tpu.runtime.kvstore``.
 
 Protocol: length-prefixed pickled tuples, thread-per-connection (the store
 is control plane only — no payload flows through it). SECURITY: pickle
@@ -11,11 +11,28 @@ framing means the store trusts its peers; it binds loopback.
 Commands:
   ("put", key, value)            -> ("ok",)
   ("get", key, wait: bool)       -> ("val", value) | ("none",)
-  ("fence", tag, nprocs, rank)   -> blocks until nprocs distinct ranks
-                                    arrive -> ("ok",)
+  ("fence", tag, nprocs, rank, base)
+      -> blocks until nprocs distinct ranks arrive -> ("ok",); base is the
+      first world rank of the fencing world, and a dead rank of
+      [base, base+nprocs) that never arrived releases the fence, which
+      then answers ("okdead", {rank: reason})
   ("inc", key, amount)           -> ("val", new_value)   # atomic counter
   ("abort", rank, reason, code)  -> ("ok",)  # marks the job aborted
   ("aborted?",)                  -> ("val", (reason, code) | None)
+
+Fault tolerance (the PRRTE-daemon side of ULFM: the store is the daemon):
+  ("hb", rank)                   -> ("ok",)   # heartbeat timestamp
+  ("dead", rank, reason)         -> ("ok",)   # declare a rank failed
+  ("faults?", hb_timeout|None)   -> ("val", {rank: reason})
+  ("ftgather", tag, rank, value, ranks, hb_timeout)
+      -> ("val", (contribs: {rank: value}, dead: {rank: reason}))
+      releases once every rank of ``ranks`` has contributed or failed; the
+      result is frozen once, so every caller of a tag sees the same
+      contribution / failure split (the guarantee of the reference's ERA
+      agreement, coll/ftagree).
+The dead set only grows (once failed, always failed); a rank whose last
+heartbeat is older than ``hb_timeout`` is promoted into it. The
+reference's telemetry payload on ``hb`` comes with ROADMAP queue 1 item 10.
 
 Once the job is aborted, a blocked ``get`` or ``fence`` (and any later
 one) answers ``("aborted", (reason, code))``, and the client exits its
@@ -64,6 +81,12 @@ class Store:
         self._counters: Dict[str, int] = {}
         self._cond = threading.Condition()
         self._aborted = None  # (reason, exit code) once aborted
+        # fault state: declared-dead ranks (monotonic, per ULFM) and the
+        # last heartbeat times
+        self._dead: Dict[int, str] = {}
+        self._hb: Dict[int, float] = {}
+        # tag -> {"contribs": {rank: val}, "result": frozen | None, "left"}
+        self._gathers: Dict[str, dict] = {}
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
         self._sock.bind((host, port))
@@ -134,18 +157,31 @@ class Store:
         if op == "fence":
             # tags must be unique per epoch (the rte client appends an
             # epoch counter, mirroring PMIx fence instance uniqueness)
-            _, tag, nprocs, rank = msg
+            _, tag, nprocs, rank, base = msg
             with self._cond:
                 entry = self._fences.setdefault(tag, [set(), 0])
                 entry[0].add(rank)
                 self._cond.notify_all()
-                while len(entry[0]) < nprocs and not self._aborted:
+
+                def dead_absent():
+                    # dead ranks release the fence (a PMIx fence over
+                    # failed procs errors, never hangs); only this
+                    # world's block counts, and a rank that arrived and
+                    # then died is not counted twice
+                    return sum(1 for r in self._dead
+                               if base <= r < base + nprocs
+                               and r not in entry[0])
+
+                while (len(entry[0]) + dead_absent() < nprocs
+                       and not self._aborted):
                     self._cond.wait(timeout=1.0)
                 if self._aborted:
                     return ("aborted", self._aborted)
                 entry[1] += 1
-                if entry[1] >= nprocs:
+                if entry[1] >= nprocs - dead_absent():
                     self._fences.pop(tag, None)  # last releaser reclaims
+                if len(entry[0]) < nprocs:
+                    return ("okdead", dict(self._dead))
                 return ("ok",)
         if op == "inc":
             _, key, amount = msg
@@ -161,7 +197,73 @@ class Store:
         if op == "aborted?":
             with self._cond:
                 return ("val", self._aborted)
+        if op == "hb":
+            with self._cond:
+                self._hb[msg[1]] = time.monotonic()
+            return ("ok",)
+        if op == "dead":
+            _, rank, reason = msg
+            self.mark_dead(rank, reason)
+            return ("ok",)
+        if op == "faults?":
+            with self._cond:
+                self._promote_stale(msg[1])
+                return ("val", dict(self._dead))
+        if op == "ftgather":
+            _, tag, rank, value, ranks, hb_timeout = msg
+            return self._ftgather(tag, rank, value, ranks, hb_timeout)
         return ("err", f"unknown op {op!r}")
+
+    # -- fault tolerance --------------------------------------------------
+    def mark_dead(self, rank: int, reason: str) -> None:
+        """Declare a rank failed (the launcher's waitpid, or a peer)."""
+        with self._cond:
+            if rank not in self._dead:
+                self._dead[rank] = reason
+                self._cond.notify_all()
+
+    def _promote_stale(self, hb_timeout: Optional[float]) -> None:
+        """Move heartbeat-stale ranks into the dead set (caller holds the
+        condition). Only ranks that ever sent a heartbeat can go stale."""
+        if not hb_timeout:
+            return
+        now = time.monotonic()
+        for rank, last in self._hb.items():
+            if rank not in self._dead and now - last > hb_timeout:
+                self._dead[rank] = f"heartbeat stale >{hb_timeout}s"
+                self._cond.notify_all()
+
+    def _ftgather(self, tag: str, rank: int, value: Any, ranks,
+                  hb_timeout: Optional[float]) -> Tuple:
+        with self._cond:
+            entry = self._gathers.setdefault(
+                tag, {"contribs": {}, "result": None, "left": 0})
+            if entry["result"] is None:
+                entry["contribs"][rank] = value
+            entry["left"] += 1
+            self._cond.notify_all()
+            while entry["result"] is None and not self._aborted:
+                self._promote_stale(hb_timeout)
+                missing = [r for r in ranks if r not in entry["contribs"]
+                           and r not in self._dead]
+                if not missing:
+                    entry["result"] = (dict(entry["contribs"]),
+                                       {r: self._dead[r] for r in ranks
+                                        if r in self._dead})
+                    self._cond.notify_all()
+                    break
+                self._cond.wait(timeout=0.1)
+            if self._aborted:
+                return ("aborted", self._aborted)
+            result = entry["result"]
+            entry["left"] -= 1
+            # reclaimed once every live contributor has its copy of the
+            # frozen result
+            if entry["left"] <= 0 and all(
+                    r in entry["contribs"] or r in self._dead
+                    for r in ranks):
+                self._gathers.pop(tag, None)
+            return ("val", result)
 
 
 class Client:
@@ -186,6 +288,9 @@ class Client:
                         f"kvstore: store {addr[0]}:{addr[1]} unreachable "
                         f"after {attempts} connect attempts: {exc}"
                     ) from exc
+                from ompi_tpu_torch.core import pvar
+
+                pvar.record("kvstore_connect_retries")
                 time.sleep(delay)
                 delay *= 2
         self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
@@ -214,11 +319,20 @@ class Client:
         reply = self._rpc("get", key, wait)
         return reply[1] if reply[0] == "val" else None
 
-    def fence(self, tag: str, nprocs: int, rank: int,
+    def fence(self, tag: str, nprocs: int, rank: int, base: int = 0,
               timeout: Optional[float] = None) -> None:
         """Blocks until nprocs distinct ranks arrive; a timeout raises
-        socket.timeout (shutdown paths that must not hang)."""
-        self._rpc("fence", tag, nprocs, rank, timeout=timeout)
+        socket.timeout (shutdown paths that must not hang). ``base`` is
+        the fencing world's first world rank; when failed ranks of that
+        world released the fence, raises ProcFailedError."""
+        reply = self._rpc("fence", tag, nprocs, rank, base,
+                          timeout=timeout)
+        if reply[0] == "okdead":
+            from ompi_tpu_torch import errors
+
+            raise errors.ProcFailedError(
+                ranks=tuple(reply[1]),
+                msg=f"fence {tag!r} released by failures: {reply[1]}")
 
     def inc(self, key: str, amount: int = 1) -> int:
         """Atomic store-side counter: returns the value after adding."""
@@ -234,6 +348,24 @@ class Client:
     def aborted(self):
         """(reason, code) once the job is aborted, else None."""
         return self._rpc("aborted?")[1]
+
+    # -- fault tolerance --------------------------------------------------
+    def heartbeat(self, rank: int) -> None:
+        self._rpc("hb", rank)
+
+    def mark_dead(self, rank: int, reason: str) -> None:
+        self._rpc("dead", rank, reason)
+
+    def faults(self, hb_timeout: Optional[float] = None) -> Dict[int, str]:
+        """Failed ranks: launcher-declared and heartbeat-stale."""
+        return self._rpc("faults?", hb_timeout)[1]
+
+    def ftgather(self, tag: str, rank: int, value: Any, ranks,
+                 hb_timeout: Optional[float] = None) -> Tuple:
+        """The FT rendezvous: (contribs, dead), the same for every caller
+        of ``tag`` (see the module docstring)."""
+        return self._rpc("ftgather", tag, rank, value, tuple(ranks),
+                         hb_timeout)[1]
 
     def close(self) -> None:
         try:

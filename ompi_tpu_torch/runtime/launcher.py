@@ -21,6 +21,13 @@ terminated, and the job exits with the code. Whatever way the job ends,
 the launcher then removes the job's shared-memory files (btl/sm rings,
 the device arenas and their hop counters, the shmem heaps, IPC files:
 every ``ompi_tpu_torch_<jobid>_*`` under the shm dir).
+
+FT mode (``--mca ft 1``, the ULFM model, reference ``launcher.py:200-210,
+:538-590``): a rank killed by a signal is declared failed in the store
+and the job goes on (runtime-level detection is the launcher daemon's
+job, docs/features/ulfm.rst:260-262); a rank that exits nonzero still
+fails the job, and so does a job whose every rank was killed (nothing
+survived).
 """
 
 from __future__ import annotations
@@ -77,12 +84,13 @@ def launch(argv: Sequence[str], nprocs: int,
     # blocks above the watermark (ompi_tpu_torch.dpm)
     store.seed_counter(f"ww:{jobid}", nprocs)
     argv = _wrap_py(list(argv))
+    ft = str((mca or {}).get("ft", "0")).lower() not in ("0", "false", "")
     procs: List[subprocess.Popen] = []
     try:
         for r in range(nprocs):
             procs.append(subprocess.Popen(
                 argv, env=build_env(r, nprocs, store.addr, jobid, mca)))
-        return _wait_all(procs, timeout)
+        return _wait_all(procs, timeout, store=store if ft else None)
     finally:
         reap(procs)
         cleanup_shm(jobid)
@@ -124,10 +132,15 @@ def reap(procs: Sequence[subprocess.Popen], grace: float = 5.0) -> None:
 
 
 def _wait_all(procs: List[subprocess.Popen],
-              timeout: Optional[float]) -> int:
+              timeout: Optional[float], store=None) -> int:
+    """The job's exit code. ``store`` (a :class:`kvstore.Store`) turns on
+    FT mode: a rank killed by a signal is marked dead there and the
+    survivors keep running."""
     deadline = None if timeout is None else time.monotonic() + timeout
     pending = set(range(len(procs)))
     first_bad = 0
+    clean_exits = 0
+    last_killed_rc = 0
     while pending:
         for i in list(pending):
             rc = procs[i].poll()
@@ -137,6 +150,12 @@ def _wait_all(procs: List[subprocess.Popen],
             killed = rc < 0
             if killed:  # by signal: shell convention 128+signum
                 rc = 128 - rc
+            if rc == 0:
+                clean_exits += 1
+            if killed and store is not None:
+                store.mark_dead(i, f"killed by signal {rc - 128}")
+                last_killed_rc = rc
+                continue  # ULFM: the survivors keep running
             if rc != 0 and first_bad == 0:
                 first_bad = rc
                 if killed:
@@ -153,6 +172,9 @@ def _wait_all(procs: List[subprocess.Popen],
                 for j in pending:
                     procs[j].kill()
                 return 124
+    if first_bad == 0 and clean_exits == 0 and last_killed_rc:
+        # FT mode with every rank killed: nothing survived the faults
+        return last_killed_rc
     return first_bad
 
 

@@ -120,7 +120,8 @@ def world_ranks() -> range:
 def fence(tag: str = "", timeout: float | None = None) -> None:
     """This world's rendezvous (PMIx_Fence), its tag namespaced by the
     world's offset so worlds sharing the store never meet in one. A
-    timeout (shutdown paths only) raises socket.timeout."""
+    timeout (shutdown paths only) raises socket.timeout; a fence that
+    failed ranks of this world released raises ProcFailedError."""
     global _fence_epoch
     if size == 1:
         return
@@ -128,7 +129,8 @@ def fence(tag: str = "", timeout: float | None = None) -> None:
         _fence_epoch += 1
         epoch = _fence_epoch
     client().fence(f"fence:{jobid}:{world_offset}:{tag}:{epoch}", size,
-                   rank, timeout=timeout)
+                   rank, base=world_offset, timeout=timeout)
+
 
 def abort(reason: str, code: int = 1) -> None:
     """Job abort: publish (reason, code) through the store, so peers

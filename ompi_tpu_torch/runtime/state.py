@@ -16,9 +16,15 @@ the pml and its transports, every framework's components
 (``core/registry.close_all``) and the device plane. A later
 ``Session_init`` brings a fresh instance up; a second Init still raises
 (MPI's once-only world model). The hooks (``core/hook``) run at the end
-of Init and at the start of Finalize (:297-302, :331-333). The prof,
-ingest, tune, trace, telemetry, skew and check planes attach in their own
-slices.
+of Init and at the start of Finalize (:297-302, :331-333). The streaming
+ingest plane (``ingest_enable`` / ``OMPI_TPU_INGEST``) comes up right
+after the accelerator (:77-87) and goes down before the pml (:257-263);
+the ULFM failure detector (``--mca ft 1``) starts once COMM_WORLD exists
+(:293-296) and stops at Finalize after the world's comms are freed
+(:334-346). Under ``ft`` the last fence is released by the failed ranks
+of the world (the store's dead-release) and a ProcFailedError it raises
+is taken as the fence's answer. The prof, tune, trace, telemetry, skew
+and check planes attach in their own slices (ROADMAP queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import atexit
 import threading
 
+from ompi_tpu_torch import errors
 from ompi_tpu_torch.core import hook, output, registry
 from ompi_tpu_torch.runtime import rte
 
@@ -65,6 +72,15 @@ def init_instance() -> None:
         from ompi_tpu_torch import accelerator
 
         accelerator.current()
+        # the streaming ingest plane: after accelerator selection, so its
+        # upload streams and staging ring bind to the selected component
+        from ompi_tpu_torch import ingest
+
+        if ingest.requested():
+            try:
+                ingest.start(rank=rte.rank)
+            except Exception as exc:  # noqa: BLE001 — ingest never sinks init
+                _out.verbose(0, "ingest enable failed: %r", exc)
         from ompi_tpu_torch.runtime import device_plane
 
         if device_plane.requested():
@@ -113,16 +129,23 @@ def _release() -> None:
         _instance_up = False
         try:
             rte.fence("finalize", timeout=30.0)
+        except errors.ProcFailedError:
+            pass  # failed ranks of the world released the fence (ft)
         finally:
-            from ompi_tpu_torch import monitoring, pml
+            from ompi_tpu_torch import ingest, monitoring, pml
             from ompi_tpu_torch.runtime import device_plane
 
             try:  # the matrices' dump, before the pml dies
                 monitoring.stop()
             finally:
-                pml.finalize()
-                registry.close_all()
-                device_plane.shutdown()
+                try:
+                    # cancels a tail upload, joins the upload threads,
+                    # drops the pinned staging ring
+                    ingest.stop()
+                finally:
+                    pml.finalize()
+                    registry.close_all()
+                    device_plane.shutdown()
 
 
 def init(thread_level: int = 0):
@@ -141,6 +164,12 @@ def init(thread_level: int = 0):
         from ompi_tpu_torch.comm import build_world
 
         _world, _self_comm = build_world()
+        # the ULFM detector (--mca ft 1), once comms exist for its
+        # progress callback to resolve
+        from ompi_tpu_torch.ft import detector as _ft_detector
+
+        if _ft_detector.enabled() and rte.size > 1:
+            _ft_detector.start()
         # init hooks last: the comms and transports are up
         hook.run_init(_world)
         _initialized = True
@@ -172,10 +201,13 @@ def finalize() -> None:
         # later Init raises even while a session keeps the instance up
         _finalized = True
         hook.run_finalize()
+        from ompi_tpu_torch.ft import detector as _ft_detector
+
         try:
             for c in (_world, _self_comm):
                 c.free()
         finally:
+            _ft_detector.stop()
             _initialized = False
             _world = None
             _self_comm = None

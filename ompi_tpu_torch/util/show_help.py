@@ -55,12 +55,27 @@ def reset_for_testing() -> None:
         _seen.clear()
 
 
-# the runtime plane's topic (the reference's "ft" topic comes with the
-# failure detector, ROADMAP queue 1 item 9)
+# the runtime plane's topic
 add_topic("launcher", {
     "rank-died": (
-        "A rank exited abnormally, so the launcher is terminating the\n"
-        "whole job (mpirun behavior).\n"
+        "A rank exited abnormally and fault tolerance is not enabled,\n"
+        "so the launcher is terminating the whole job (mpirun behavior).\n"
         "  rank:   %(rank)s\n"
-        "  cause:  %(cause)s"),
+        "  cause:  %(cause)s\n"
+        "Enable ULFM-style survival with: --mca ft 1"),
+})
+
+# the failure detector's topic (the reference's show_help.py:74-86)
+add_topic("ft", {
+    "detector-dead": (
+        "ULFM failure detector on rank %(rank)s stopped after repeated\n"
+        "store RPC failures (%(error)s). This rank can no longer\n"
+        "observe failures or revocations, and peers may soon declare\n"
+        "it stale-dead. If the job is not shutting down, the\n"
+        "rendezvous store is unhealthy."),
+    "failure-detected": (
+        "ULFM failure detector: rank(s) %(ranks)s declared failed\n"
+        "(%(why)s). Surviving ranks keep running; use\n"
+        "comm.shrink()/comm.agree() to recover, comm.revoke() to\n"
+        "interrupt peers still blocked on the failed rank(s)."),
 })

@@ -13,21 +13,20 @@ field, the treedef apart (each package pickles its own: the port's
 read). Restores must give back the same leaves, bitwise, and the same
 epoch.
 
-In this process: the one-rank cases. Launcher jobs, one per package:
-the 4-rank sharded checkpoint and the 2-rank publish and retry-vote
-cases (the reference's as pooled bodies); and the port's own example,
-``ompi_tpu_torch/examples/ckpt_training.py --tiny`` on the CPU platform,
-through its three phases: a full run, a run killed mid-write of epoch 3
-(no manifest 3, no arena file left), and a resume from epoch 2 that
-reaches the full run's digest.
+In this process: the one-rank cases, ``restore_to_device``'s
+ingest-gated upload among them. Launcher jobs, one per package: the
+4-rank sharded checkpoint and the 2-rank publish and retry-vote cases
+(the reference's as pooled bodies); the port's 2-rank elastic job (an
+``ElasticContext(async_checkpoint=True)`` round trip, then a hot join
+that must drop the snapshot begun on the old comm); and the port's own
+example, ``ompi_tpu_torch/examples/ckpt_training.py --tiny`` on the CPU
+platform, through its three phases: a full run, a run killed mid-write
+of epoch 3 (no manifest 3, no arena file left), and a resume from epoch
+2 that reaches the full run's digest.
 
-Waiting for their slices (ROADMAP queue 1):
-``test_restore_feeds_ingest_gated_upload``,
-``test_elastic_async_checkpoint_roundtrip`` and
-``test_hot_join_aborts_pending_async_snapshot`` (item 9's second slice:
-ingest and elastic), ``test_overlap_pvar_proves_snapshot_rides_train``
-and ``test_hang_dump_names_in_flight_snapshot`` (item 10: prof and
-telemetry).
+Waiting for ROADMAP queue 1 item 10 (prof and telemetry):
+``test_overlap_pvar_proves_snapshot_rides_train`` and
+``test_hang_dump_names_in_flight_snapshot``.
 """
 
 import json
@@ -45,6 +44,8 @@ import torch
 
 from ompi_tpu_torch.runtime import launcher as port_launcher
 from tests.harness import run_ranks
+from tests.test_torch_ingest import (  # noqa: F401 — autouse
+    port_accelerator_state)
 from tests.test_torch_mpit import reference_state  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -523,6 +524,34 @@ def test_clean_buckets_skip_d2h(tmp_path):
     assert _Pair.same_files(pair) == [1, 2]
 
 
+def test_restore_feeds_ingest_gated_upload(tmp_path):
+    """restore_to_device hands the restored tree to the ingest plane: the
+    first step gates on its first leaf while the rest streams; the
+    uploaded tree equals the saved one and the reference's upload,
+    bitwise."""
+    from ompi_tpu.ingest import engine as R_ie
+    from ompi_tpu_torch.ingest import engine as P_ie
+
+    tree = _tree(41, nleaves=4)
+    got = {}
+    for s, ie in (("ref", R_ie), ("port", P_ie)):
+        ck = _mods(s)[3].AsyncCheckpointer(str(tmp_path / s))
+        ck.save(tree if s == "ref" else _tensors(tree), 9)
+        eng = ie.IngestEngine(chunk_bytes=4096)
+        try:
+            req, step, _ = ck.restore_to_device(engine=eng)
+            assert step == 9 and isinstance(req, ie.IngestRequest)
+            assert req.Parrived(0)
+            got[s] = _same_tree(s, req.wait().tree(), tree)
+        finally:
+            eng.close()
+        # with no engine up the restore is the host tree
+        host, step, _ = ck.restore_to_device()
+        assert step == 9
+        _same_tree(s, host, tree)
+    assert got["ref"] == got["port"]
+
+
 def test_sharded_state_versions_bump_on_map():
     """zero-plane dirty tracking: map() bumps every bucket's version
     counter; a fresh pack starts at zero (both packages)."""
@@ -723,3 +752,132 @@ def test_ckpt_training_example_crash_and_resume(tmp_path, monkeypatch):
     assert docs["restore"][0]["report"]["resumed_from"] == 2
     assert docs["restore"][0]["report"]["digest"] \
         == docs["full"][0]["report"]["digest"]
+
+
+# ---------------------------------------------------------------------------
+# the elastic plane's checkpoints: one 2-rank job (its joiner re-runs the
+# program and takes the joiner branch first)
+
+_ELASTIC = '''
+import hashlib, json, os, shutil, sys
+import numpy as np
+from ompi_tpu_torch import elastic, mpi
+from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.io import manifest
+from ompi_tpu_torch.runtime import rte
+from ompi_tpu_torch.zero import layout as zl
+OUT = {out!r}
+comm = mpi.Init()
+
+
+def dump(doc):
+    with open(os.path.join(OUT, f"w{{rte.rank}}.json"), "w") as fh:
+        json.dump(doc, fh)
+
+
+def grad_join(p, step, c):
+    return {{k: np.full_like(a, 0.125 * (step + 1)) for k, a in p.items()}}
+
+
+if elastic.is_joiner():
+    ctx, target = elastic.hot_join()
+    ctx.run(grad_join, target)
+    ctx.comm.Barrier()
+    dump({{"joiner": True, "size": ctx.comm.size}})
+    mpi.Finalize()
+    sys.exit(0)
+rank = comm.rank
+doc = {{}}
+
+# -- test_elastic_async_checkpoint_roundtrip
+d = os.path.join(OUT, "roundtrip")
+params = {{"w": np.arange(12, dtype=np.float32).reshape(3, 4) / 7.0,
+          "b": np.linspace(-1.0, 1.0, 5).astype(np.float32)}}
+
+
+def grad_fn(p, step, c):
+    return {{k: 0.01 * a + np.full_like(a, 0.125 * (step + 1))
+            for k, a in p.items()}}
+
+
+ctx = elastic.ElasticContext(comm, params, lr=0.125, momentum=0.5,
+                             checkpoint_dir=d, checkpoint_every=2,
+                             async_checkpoint=True)
+out = ctx.run(grad_fn, 5)
+doc["commits"] = pvar.snapshot().get("ckpt_commits", 0)
+ref = elastic.ElasticContext.from_checkpoint(
+    comm, d, lr=0.125, momentum=0.5, async_checkpoint=True)
+doc["ref"] = [ref.restored_from, ref.step_done]
+ref_out = ref.run(grad_fn, 5)
+doc["params_equal"] = all(
+    a.tobytes() == b.tobytes()
+    for a, b in zip(zl.tree_leaves(out), zl.tree_leaves(ref_out)))
+doc["momentum_equal"] = all(
+    np.asarray(a).tobytes() == np.asarray(b).tobytes()
+    for name, st in ctx.opt.state.slots.items()
+    for a, b in zip(st.shards, ref.opt.state.slots[name].shards))
+comm.Barrier()
+
+# -- test_hot_join_aborts_pending_async_snapshot
+d = os.path.join(OUT, "join")
+params = {{"w": np.arange(12, dtype=np.float32) / 5.0}}
+ctx = elastic.ElasticContext(comm, params, lr=0.125, momentum=0.5,
+                             checkpoint_dir=d, checkpoint_every=2,
+                             async_checkpoint=True)
+proc = None
+if rank == 0:
+    proc = elastic.spawn_replacement(script=os.path.abspath(__file__),
+                                     mca={{"ft": "1"}})
+# a snapshot begins at the step-1 boundary (2 ranks), the join lands at
+# step 3, and the boundaries at 3 and 5 run on the grown comm
+ctx.run(grad_join, 6, join_at=3)
+ctx.comm.Barrier()
+steps = manifest.scan(d)
+doc["join"] = [ctx.comm.size, ctx.joins, bool(steps),
+               int(manifest.load(d, steps[0])["nranks"]) if steps else 0]
+if proc is not None:
+    doc["joiner_rc"] = proc.wait(timeout=60)
+dump(doc)
+mpi.Finalize()
+'''
+
+
+@pytest.fixture(scope="module")
+def elastic_two(tmp_path_factory):
+    """The 2-rank elastic job's records, by world rank (2: the joiner)."""
+    out = tmp_path_factory.mktemp("ckpt_elastic")
+    with tempfile.NamedTemporaryFile("w", suffix=".py",
+                                     delete=False) as fh:
+        fh.write(_ELASTIC.format(out=str(out)))
+        path = fh.name
+    try:
+        assert port_launcher.launch(
+            [sys.executable, path], 2,
+            mca={"device_plane_platform": "cpu", "ft": "1"},
+            timeout=180) == 0
+    finally:
+        os.unlink(path)
+    return {int(p.stem[1:]): json.loads(p.read_text())
+            for p in out.glob("w*.json")}
+
+
+def test_elastic_async_checkpoint_roundtrip(elastic_two):
+    """ElasticContext(async_checkpoint=True): the boundary snapshots ride
+    the async plane, and from_checkpoint restores parameters and
+    optimizer slot shards that replay to the run's, bitwise."""
+    for w in (0, 1):
+        d = elastic_two[w]
+        assert d["commits"] >= 1
+        assert d["ref"][0] == "checkpoint" and d["ref"][1] >= 2
+        assert d["params_equal"] and d["momentum_equal"]
+
+
+def test_hot_join_aborts_pending_async_snapshot(elastic_two):
+    """A snapshot begun at a boundary before the join is bound to the old
+    comm: the regrow drops it, and the newest committed epoch is one the
+    grown comm of 3 wrote."""
+    assert sorted(elastic_two) == [0, 1, 2]
+    assert elastic_two[2] == {"joiner": True, "size": 3}
+    for w in (0, 1):
+        assert elastic_two[w]["join"] == [3, 1, True, 3]
+    assert elastic_two[0]["joiner_rc"] == 0

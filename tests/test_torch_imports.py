@@ -119,7 +119,14 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.examples.sessions, ompi_tpu_torch.topo.reorder, "
             "ompi_tpu_torch.coll.device_neighbor, ompi_tpu_torch.coll.inter, "
             "ompi_tpu_torch.comm.intercomm, ompi_tpu_torch.dpm, "
-            "ompi_tpu_torch.profile, ompi_tpu_torch.examples.neighbor_halo; "
+            "ompi_tpu_torch.profile, ompi_tpu_torch.examples.neighbor_halo, "
+            "ompi_tpu_torch.ft, ompi_tpu_torch.ft.detector, "
+            "ompi_tpu_torch.elastic, ompi_tpu_torch.elastic.context, "
+            "ompi_tpu_torch.elastic.reshard, ompi_tpu_torch.elastic.inject, "
+            "ompi_tpu_torch.ingest, ompi_tpu_torch.ingest.engine, "
+            "ompi_tpu_torch.ingest.plan, "
+            "ompi_tpu_torch.examples.streaming_ingest, "
+            "ompi_tpu_torch.examples.elastic_training; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -208,6 +215,19 @@ def test_io_plane_modules_are_scanned():
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 
+def test_ft_elastic_ingest_modules_are_scanned():
+    """The ULFM, elastic and ingest planes' modules and their two
+    examples are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("ft/__init__.py", "ft/detector.py", "elastic/__init__.py",
+                "elastic/context.py", "elastic/reshard.py",
+                "elastic/inject.py", "ingest/__init__.py",
+                "ingest/engine.py", "ingest/plan.py",
+                "examples/streaming_ingest.py",
+                "examples/elastic_training.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
 #: module aliases the port's emitters call ``emit`` / ``fire`` through
 _EMITTERS = {"events": "emit", "mpit_events": "emit", "peruse": "fire"}
 
@@ -275,7 +295,8 @@ def test_every_emitter_sits_under_its_guard():
     assert sites == {"pml/ob1.py": 9, "btl/sm.py": 1, "btl/tcp.py": 1,
                      "coll/libnbc.py": 1, "osc/__init__.py": 1,
                      "osc/cuda.py": 1, "osc/device_epoch.py": 1,
-                     "tune/observe.py": 1, "io/fcoll.py": 1}, sites
+                     "tune/observe.py": 1, "io/fcoll.py": 1,
+                     "ft/detector.py": 1}, sites
 
 
 def test_sm_ring_code_is_the_ports_own():

@@ -50,8 +50,7 @@ from tests.harness import run_ranks
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: the reference's event types whose emitters wait for their slices
-WAITING = {"trace_span": 10, "telemetry_hang": 10,
-           "ft_process_failure": 9}
+WAITING = {"trace_span": 10, "telemetry_hang": 10}
 
 #: the 2-rank program; ``{pkg}`` is the package, ``{port}`` True in the
 #: port's job (which also drives the device windows' emitters)
@@ -582,12 +581,27 @@ def test_event_types_match_reference():
         assert p["desc"] == info["desc"].replace("osc/pallas", "osc/cuda")
 
 
+def _ft_sweep(detector_mod):
+    """One sweep of a detector whose observer saw world rank 3 die (the
+    detector's shell, no thread and no store connection)."""
+    det = detector_mod.Detector.__new__(detector_mod.Detector)
+    det.dead = {3: "killed by signal 9"}
+    det.revoked_cids = set()
+    det._applied_dead = set()
+    det._applied_revokes = set()
+    det._apply_faults = lambda dead: 0
+    det._sweep()
+
+
 def test_new_emitters_carry_reference_fields():
-    """``osc_device_fallback``, ``osc_cuda_fallthrough`` and
-    ``tune_table_error``: the same call of each package's emitter gives
+    """``osc_device_fallback``, ``osc_cuda_fallthrough``,
+    ``tune_table_error`` and the failure detector's
+    ``ft_process_failure``: the same call of each package's emitter gives
     the same event payload (the port's fallthrough named through
     ``compat``); with no handle nothing is delivered."""
     from ompi_tpu.core import events as R_events
+    from ompi_tpu.ft import detector as R_det
+    from ompi_tpu_torch.ft import detector as P_det
     from ompi_tpu.osc import device_epoch as R_de
     from ompi_tpu.osc import pallas as R_pallas
     from ompi_tpu.tune import observe as R_obs
@@ -607,6 +621,7 @@ def test_new_emitters_carry_reference_fields():
         ("tune_table_error",
          lambda m: m.table_error("coll_switchpoints", "/no/such.json", exc),
          R_obs, P_obs),
+        ("ft_process_failure", _ft_sweep, R_det, P_det),
     ]
     for name, call, R_mod, P_mod in calls:
         out = {}

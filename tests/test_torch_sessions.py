@@ -3,7 +3,8 @@ instance, MPI-4 sessions, ``Comm_create_from_group``; ``MPI_Abort`` over
 ``runtime/kvstore.py``, ``rte.py`` and the launcher; ``ext/``) against the
 JAX package's: the counterparts of ``tests/test_sessions.py``'s cases,
 ``tests/test_ext.py``'s ``test_registry_and_query`` and
-``tests/test_ft.py``'s ``test_mpi_abort_kills_job``.
+``test_ftmpi_extension_binds_ft`` and ``tests/test_ft.py``'s
+``test_mpi_abort_kills_job``.
 
 In this process: the extension registry, ``Request_get_status``,
 ``Wtime``, ``Wtick``, ``Get_version`` and ``Get_library_version``. One
@@ -17,8 +18,7 @@ reference count at every step. The port's 4-rank job first runs
 ``ompi_tpu_torch/examples/sessions.py --device --tiny`` (its device
 checks on CPU tensors, under the device plane on the CPU platform). The
 Abort jobs are the port's alone. ``test_session_host_pset_multihost``
-waits for item 4d's multi-host launcher, and the ``ftmpi`` extension for
-item 9's ``ft/`` (ROADMAP queue 1).
+waits for item 4d's multi-host launcher (ROADMAP queue 1).
 """
 
 import json
@@ -194,24 +194,35 @@ def docs(request, tmp_path_factory):
 
 def test_registry_and_query():
     """tests/test_ext.py's case: the registry's names (the reference's
-    through ``compat.ext_name``; the ftmpi ones wait for item 9 and say
-    so), the cuda query a bool, the short-float datatypes real 2-byte
-    types, an unknown name an AttributeError."""
+    through ``compat.ext_name``), the cuda query a bool, the short-float
+    datatypes real 2-byte types, an unknown name an AttributeError."""
     from ompi_tpu import ext as R_ext
     from ompi_tpu_torch import ext
 
     names = ext.available()
     assert "MPIX_Query_cuda_support" in names and "MPIX_BFLOAT16" in names
     for name in R_ext.available():
-        mine = compat.ext_name(name)
-        assert mine in names or mine in ext.FTMPI_NAMES, name
+        assert compat.ext_name(name) in names, name
     assert isinstance(ext.MPIX_Query_cuda_support(), bool)
     assert ext.MPIX_FLOAT16.size == R_ext.MPIX_FLOAT16.size == 2
     assert ext.MPIX_BFLOAT16.size == R_ext.MPIX_BFLOAT16.size == 2
     with pytest.raises(AttributeError):
         ext.MPIX_No_such_extension
-    with pytest.raises(AttributeError, match="item 9"):
-        ext.MPIX_Comm_agree
+
+
+def test_ftmpi_extension_binds_ft():
+    """tests/test_ext.py's case: the ULFM extension's names are the ft
+    plane's functions, in both packages."""
+    from ompi_tpu import ext as R_ext, ft as R_ft
+    from ompi_tpu_torch import ext, ft
+
+    for name, fn in (("revoke", "revoke"), ("shrink", "shrink"),
+                     ("agree", "agree"), ("iagree", "iagree"),
+                     ("get_failed", "get_failed"),
+                     ("ack_failed", "ack_failed")):
+        assert getattr(ext, f"MPIX_Comm_{name}") is getattr(ft, fn)
+        assert getattr(R_ext, f"MPIX_Comm_{name}") is getattr(R_ft, fn)
+    assert set(ext.FTMPI_NAMES) <= set(ext.available())
 
 
 def test_request_get_status_wtime_version():

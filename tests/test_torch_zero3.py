@@ -10,8 +10,8 @@ One job per package and comm size n (2, 3 and 4): the reference through
 job runs stage 3 against stage 1 in 'linear' and stage 3 against stage 2
 in 'ring' over the same parameters and seeded gradients; the 2-rank job
 also runs the other cases of ``tests/test_zero3.py`` (bar the elastic
-refusal, which waits for ``elastic/``) and ``tests/test_zero.py``'s host
-bucket cycle. The fused product dups the comm with ``coll_pallas``
+refusal, which ``tests/test_torch_elastic.py`` holds) and
+``tests/test_zero.py``'s host bucket cycle. The fused product dups the comm with ``coll_pallas``
 (the port: ``coll_cuda``) on, over CPU tensors, as
 ``tests/test_torch_zero.py`` maps it.
 
