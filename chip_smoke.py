@@ -388,18 +388,40 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    step, its parameters through the ingest plane; the job exits 0, rank
    2's signal death the only failure the store holds; prints the
    recovery, free and join times and the host steps.
+17. the observability planes (see :func:`observability_phase`): two jobs
+   of ``ompi_tpu_torch/examples/observability.py`` under coll/cuda. A (4
+   ranks, ``--mca trace_enable 1 --mca telemetry_enable 1 --mca
+   prof_enable 1 --mca telemetry_port -1``): the device Allreduce (SUM,
+   float32) at 1 MiB and 64 MiB, 'linear' and 'ring', and one
+   ``Allreduce_multi`` step of ``fused_gradients.py``, timed in turns
+   with the planes live and switched off: bitwise equal on and off and
+   against each mode's fold, the live turns' ``launch`` spans equal to
+   ``coll_cuda_launches`` / ``coll_device_launches``, the K1-K3 launches
+   as derived; the four ranks' Chrome traces merged by ``python -m
+   ompi_tpu_torch.trace merge`` (four pids, ``api`` and ``coll_cuda``,
+   monotone timestamps per tid) and attributed to the ``staging`` and
+   ``train`` phases by ``python -m ompi_tpu_torch.prof report``; prints
+   rank 0's p50 on and off, a disabled guard's ns, the sampler's scraped
+   page and the xfer lane's GB/s. B (2 ranks, ``telemetry_hang_timeout
+   2``): rank 1 sleeps 3.5 s before a device Allreduce; rank 0's
+   watchdog dumps the hang naming rank 1 and fires ``telemetry_hang``;
+   the job exits 0. The phase fails past 60 s of wall. C runs inside phase
+   11's drop job (``moe_serving.py --parts drop,reroute,monitoring``):
+   the monitoring plane at levels 0, 1 and 2 in turns on the drop
+   policy's decode, each level's p50 beside level 0's, the outputs
+   bitwise at every level.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8, 10, 11, 13, 14, 15 and 16 and the training path, K5 and K6's two kernels from the
-training path, K7 and the K8, K9 and K10 batches from the 4-rank one-sided paths, K7 and the
-per-call rows of K8 and K9 also from phase 6, K7 and the K8, K9 and K10
-batches also from phase 9, K7, the per-call K9 and the K8, K9 and K10
-batches also from phase 12, K1-K3, K7 and the per-call K9 also from phase
-13; K5b and the per-call row of K10 with 0 and a
-note), the card line, and, last,
+7, 8, 10, 11, 13, 14, 15, 16 and 17 and the training path, K5 and K6's
+two kernels from the training path, K7 and the K8, K9 and K10 batches
+from the 4-rank one-sided paths, K7 and the per-call rows of K8 and K9
+also from phase 6, K7 and the K8, K9 and K10 batches also from phase 9,
+K7, the per-call K9 and the K8, K9 and K10 batches also from phase 12,
+K1-K3, K7 and the per-call K9 also from phase 13; K5b and the per-call
+row of K10 with 0 and a note), the card line, and, last,
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -1827,8 +1849,8 @@ EF_WIRES = "bf16,fp8_e4m3"
 #: phase 11 (moe_serving.py): the jobs' mca, the widths' bytes of expert
 #: weights on the card (4 ranks x 4 experts x 2 x 7168 x 28672 float32)
 SERVE_MCA = ("--mca", "monitoring_level", "1")
-SERVE_JOBS = (("_serve", ["--width", "full", "--parts", "drop,reroute"],
-               SERVE_MCA),
+SERVE_JOBS = (("_serve", ["--width", "full", "--parts",
+                          "drop,reroute,monitoring"], SERVE_MCA),
               ("_serve_dcn", ["--width", "full", "--parts", "dcn_overflow"],
                SERVE_MCA + ("--mca", "coll_hier_split", "2x2")))
 SERVE_WEIGHT_BYTES = N_RANKS * 4 * 2 * 7168 * 28672 * 4
@@ -1980,6 +2002,30 @@ def serve_phase(card: str, root: str) -> dict:
                 print(f"phase 11 {name}: {part['hot_line']} named; the "
                       f"plane's collective records {part['coll_records']}; "
                       f"per-level {part['hier_levels']} [{card}]", flush=True)
+        mon = docs[0]["parts"].get("monitoring")
+        if mon is not None:  # phase 17 C: the monitoring plane's cost
+            k2 = sum(d["parts"]["monitoring"]["k2"]["got"] for d in docs)
+            want = sum(d["parts"]["monitoring"]["k2"]["derived"]
+                       for d in docs)
+            if k2 != want:
+                fail(f"phase 11 monitoring: K2 launches {k2}, derived "
+                     f"{want}")
+            lv = mon["levels"]
+            base = lv["0"]["p50_ms"]
+
+            def q(ms):
+                ms = sorted(ms)
+                return " / ".join(f"{ms[i * len(ms) // 4]:.3f}"
+                                  for i in (1, 2, 3))
+            print(f"phase 17 C (in phase 11's drop job) the monitoring "
+                  f"plane on the drop decode n={N_RANKS} (rank 0, "
+                  f"{len(lv['0']['ms'])} requests a level in turns; p25 / "
+                  f"p50 / p75 ms): "
+                  + ", ".join(f"level {k} {q(v['ms'])} "
+                              f"({(v['p50_ms'] / base - 1) * 100:+.1f}%)"
+                              for k, v in sorted(lv.items()))
+                  + f"; outputs bitwise at every level; K2 {k2} as "
+                  f"derived [{card}]", flush=True)
         dcn = docs[0]["parts"].get("dcn_overflow")
         if dcn is not None:
             errs = [d["parts"]["dcn_overflow"]["oracle"] for d in docs]
@@ -2499,6 +2545,100 @@ def ingest_elastic_phase(card: str, root: str, ckpt: str,
     return launches
 
 
+#: phase 17's jobs (observability.py): A with the three planes on (and
+#: the sampler's HTTP endpoint), B with a 2 s hang timeout
+OBS_MCA = ("--mca", "trace_enable", "1", "--mca", "telemetry_enable", "1",
+           "--mca", "prof_enable", "1", "--mca", "telemetry_port", "-1")
+OBS_STALL_MCA = ("--mca", "trace_enable", "1", "--mca", "telemetry_enable",
+                 "1", "--mca", "telemetry_hang_timeout", "2", "--mca",
+                 "telemetry_watchdog_period", "0.25")
+OBS_STALL_RANKS = 2
+OBS_WALL = 60  # seconds the phase may take, both jobs and the CLIs
+
+
+def observability_phase(card: str, root: str) -> dict:
+    """Phase 17: the trace, telemetry and prof planes on the card, two
+    launcher jobs of ``observability.py`` under coll/cuda. A (4 ranks,
+    :data:`OBS_MCA`): the device Allreduce (SUM, float32) at 1 MiB and 64
+    MiB under 'linear' and 'ring' and one ``Allreduce_multi`` step of
+    ``fused_gradients.py``, in turns with the planes live and switched
+    off: bitwise equal on and off and against each mode's fold, the live
+    turns' ``launch`` spans equal to the launch pvars' deltas, each rank's
+    K1-K3 launches as derived; the ranks' Chrome traces merged by ``python
+    -m ompi_tpu_torch.trace merge`` into one timeline of four pids with
+    ``api`` and ``coll_cuda``, monotone per tid, and attributed to phases
+    by ``python -m ompi_tpu_torch.prof report``. B (2 ranks,
+    :data:`OBS_STALL_MCA`): rank 1 sleeps 3.5 s before a device
+    Allreduce; rank 0's watchdog dumps the hang naming rank 1 and fires
+    ``telemetry_hang``, and the job exits 0. Prints rank 0's p50 on and
+    off per case, a guard's ns with the planes off, the sampler's scraped
+    page, the xfer lane's GB/s and the phases' wall; fails past
+    :data:`OBS_WALL` s. Returns both jobs' launches, all ranks."""
+    from ompi_tpu_torch.examples.observability import check_traces
+
+    t0 = time.perf_counter()
+    launches: dict = {}
+    got, doc = main_path("observability.py", N_RANKS, [], card, root,
+                         "coll_cuda", OBS_MCA, tag="_a")
+    out = smoke_dir(root, "observability.py", N_RANKS, "coll_cuda", "_a")
+    for r, d in enumerate(rank_docs(out, N_RANKS)):
+        if d["launches"] != d["expected_launches"]:
+            fail(f"phase 17 A rank {r}: K1-K3 launches {d['launches']}, "
+                 f"derived {d['expected_launches']}")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    try:
+        tr = check_traces(out, N_RANKS)
+    except AssertionError as exc:
+        fail(f"phase 17 A: the merged trace or the prof report: {exc}")
+    rep = doc["report"]
+    for name, q in rep["quartiles_ms"].items():
+        on, off = q["on"], q["off"]
+        n_on = len(rep["times_ms"][name]["on"])
+        print(f"phase 17 A {name} n={N_RANKS} (rank 0, {n_on} calls each "
+              f"way in turns; p25 / p50 / p75 ms): planes on "
+              f"{' / '.join(f'{v:.4f}' for v in on)}, off "
+              f"{' / '.join(f'{v:.4f}' for v in off)} (p50 "
+              f"{(on[1] / off[1] - 1) * 100:+.1f}%) [{card}]", flush=True)
+    print(f"phase 17 A: a disabled site's guard, ns on rank 0's host "
+          f"{ {k: round(v, 1) for k, v in rep['guard_ns'].items()} }; "
+          f"live turns' launch spans {rep['launch_spans']} = the launch "
+          f"pvars' deltas [{card}]", flush=True)
+    print(f"phase 17 A: the sampler's page (rank 0, scraped over HTTP): "
+          f"{rep['page_lines']} lines, {rep['page_families']} families; "
+          f"{rep['page_head']} [{card}]", flush=True)
+    for d, c in sorted(tr["transfers"].items()):
+        print(f"phase 17 A xfer lane {d}: {c['bytes']} B in {c['spans']} "
+              f"spans (4 ranks), avg {c['avg_gbps']} GB/s, peak "
+              f"{c['peak_gbps']} GB/s [{card}]", flush=True)
+    print(f"phase 17 A: merged {tr['events']} events, pids {tr['pids']}, "
+          f"subsystems {tr['cats']}; prof report phases (worst rank, s) "
+          f"{tr['phases']} of {tr['wall_s']} s traced [{card}]", flush=True)
+    outb = smoke_dir(root, "observability.py", OBS_STALL_RANKS, "coll_cuda",
+                     "_b")
+    got, docb = main_path("observability.py", OBS_STALL_RANKS,
+                          ["--stall", "1"], card, root, "coll_cuda",
+                          OBS_STALL_MCA + ("--mca", "telemetry_dump_dir",
+                                           outb), tag="_b")
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    b = docb["report"]
+    if b["named"] != [[1]] or b["events"] != 1:
+        fail(f"phase 17 B: dumps naming {b['named']}, {b['events']} "
+             "telemetry_hang events (want one dump naming rank 1)")
+    print(f"phase 17 B n={OBS_STALL_RANKS}: rank 1 slept {b['stall_s']} s "
+          f"before a device Allreduce; rank 0 waited {b['waited_s']:.2f} s, "
+          f"its watchdog dumped {[os.path.basename(p) for p in b['dumps']]}"
+          f" naming {b['named'][0]}, telemetry_hang fired; exit 0 "
+          f"[{card}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 17: launches (A, B, all ranks) {launches}; {wall:.1f} s "
+          f"wall (budget {OBS_WALL} s) [{card}]", flush=True)
+    if wall > OBS_WALL:
+        fail(f"phase 17 took {wall:.1f} s, past its {OBS_WALL} s budget")
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -2883,6 +3023,9 @@ def main() -> int:
     for k, v in ckpt_launches.items():
         coll[k] = coll.get(k, 0) + v
     for k, v in ingest_elastic_phase(card, root, ckpt, digest).items():
+        coll[k] = coll.get(k, 0) + v
+    # and so do phase 17's (the observability jobs)
+    for k, v in observability_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

@@ -26,6 +26,16 @@ Selection is the registry's (``core/registry.py``, the ``accelerator``
 framework and cvar): ``cuda`` (priority 50) where torch sees a GPU, else
 ``null`` (this base class, priority 1), as the reference's
 ``framework.select_one()`` picks tpu over null (``__init__.py:210-217``).
+
+The prof plane's transfer sites (reference ``accelerator/tpu.py:110-225``):
+:meth:`Accelerator.copy_async` is a ``d2h`` and :meth:`Accelerator.to_device`
+an ``h2d`` :meth:`~ompi_tpu_torch.prof.ledger.Profiler.xfer` (bytes,
+time, histogram, span on the ``xfer`` lane), :meth:`Accelerator.put_chunk`
+an ``h2d_chunk`` span (``xfer_chunk``: the ingest plane accounts the
+bytes of its units itself). Each reads ``ledger.PROFILER`` once and
+branches; the CPU copies are done on return, and the cuda component
+synchronises the copy's stream before the closing timestamp while the
+profiler is on, and only then.
 Where it differs: on the ``cuda`` platform (``device_plane_platform``,
 the default) a cuda component that fails to open raises
 ``MPIError(ERR_INTERN)`` with its cause (the reference logs and skips
@@ -36,6 +46,7 @@ component fails to open; it never falls to ``null``. ``--mca accelerator
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -44,8 +55,12 @@ import torch
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.accelerator import stream
 from ompi_tpu_torch.core import registry
+from ompi_tpu_torch.prof import ledger as _prof
 
 framework = registry.framework("accelerator")
+
+#: put_chunk's ordinal on the xfer lane (profiled puts only)
+_put_seq = itertools.count()
 
 
 @framework.register
@@ -101,13 +116,21 @@ class Accelerator(registry.Component):
         """Copy the uint8 tensor ``src`` into ``host[:src.numel()]``;
         the event's ``wait()`` returns the host bytes as numpy."""
         n = src.numel()
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
         np.copyto(host[:n].numpy(), src.detach().numpy())
+        if prof is not None:
+            prof.xfer("d2h", n, t0, _prof.now(), site="copy_async")
         return stream.CopyEvent(src.device, host, n)
 
     def to_device(self, host: torch.Tensor,
                   dst: torch.Tensor) -> stream.Event:
         """Copy ``host[:dst.numel()]`` into the uint8 tensor ``dst``."""
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
         np.copyto(dst.detach().numpy(), host[:dst.numel()].numpy())
+        if prof is not None:
+            prof.xfer("h2d", dst.numel(), t0, _prof.now(), site="to_device")
         return stream.Event(dst.device)
 
     def begin_staging(self, device) -> None:
@@ -138,7 +161,12 @@ class Accelerator(registry.Component):
         packed again. On the CPU it is numpy's copy, done on return: a
         real copy, never an alias of the staging slot the ingest ring is
         about to repack (reference ``ingest/engine.py:104-111``)."""
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
         np.copyto(dst.numpy(), chunk)
+        if prof is not None:
+            prof.xfer_chunk("h2d", chunk.nbytes, t0, _prof.now(),
+                            chunk=next(_put_seq), site="put_chunk")
         return stream.Event(dst.device)
 
     # -- IPC (reference: get / open ipc mem handles) -----------------------

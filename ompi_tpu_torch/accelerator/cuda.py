@@ -17,6 +17,14 @@ keeps ``n`` side streams per device for the process, and
 upload's device buffer on one of them (``copy_(non_blocking=True)``),
 then records an event there; the consumer waits on the event
 (``ingest/engine.py``).
+
+With the prof ledger on (and only then) each copy (``to_device``,
+``copy_async``, ``put_chunk``, ``ipc_import``; reference
+``tpu.py:110-225``, ``:377-384``) synchronises its stream before the
+closing timestamp, so the ``xfer`` span and the
+bandwidth it reports are the copy's, as the reference calls
+``block_until_ready`` (``tpu.py:179-199``); with it off a copy stays
+asynchronous and the site pays one attribute load and one branch.
 """
 
 from __future__ import annotations
@@ -26,7 +34,9 @@ from typing import Dict, Tuple
 import torch
 
 from ompi_tpu_torch import errors
-from ompi_tpu_torch.accelerator import Accelerator, framework, ipc, stream
+from ompi_tpu_torch.accelerator import (Accelerator, _put_seq, framework,
+                                        ipc, stream)
+from ompi_tpu_torch.prof import ledger as _prof
 
 
 @framework.register
@@ -115,10 +125,17 @@ class CudaAccelerator(Accelerator):
         if dst.device.type != "cuda":
             return super().put_chunk(chunk, dst, h2d)
         s = h2d if h2d is not None else torch.cuda.current_stream(dst.device)
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
         with torch.cuda.device(dst.device), torch.cuda.stream(s):
             # the source is a view of a pinned staging slot: an async DMA
             dst.copy_(torch.from_numpy(chunk), non_blocking=True)
-        return stream.Event(dst.device).record(s)
+        ev = stream.Event(dst.device).record(s)
+        if prof is not None:
+            ev.wait()
+            prof.xfer_chunk("h2d", chunk.nbytes, t0, _prof.now(),
+                            chunk=next(_put_seq), site="put_chunk")
+        return ev
 
     def host_buffer(self, nbytes: int, device) -> torch.Tensor:
         if torch.device(device).type != "cuda":
@@ -137,22 +154,36 @@ class CudaAccelerator(Accelerator):
             return super().copy_async(src, host)
         d2h, _ = self._side(src.device)
         n = src.numel()
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
         with torch.cuda.stream(d2h):
             host[:n].copy_(src, non_blocking=True)
         # the caching allocator must not hand src's memory out again
         # before the side stream has read it
         src.record_stream(d2h)
-        return stream.CopyEvent(src.device, host, n).record(d2h)
+        ev = stream.CopyEvent(src.device, host, n).record(d2h)
+        if prof is not None:
+            d2h.synchronize()
+            prof.xfer("d2h", n, t0, _prof.now(), site="copy_async",
+                      stream="d2h")
+        return ev
 
     def to_device(self, host: torch.Tensor,
                   dst: torch.Tensor) -> stream.Event:
         if dst.device.type != "cuda":
             return super().to_device(host, dst)
         _, h2d = self._side(dst.device)
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
         with torch.cuda.stream(h2d):
             dst.copy_(host[:dst.numel()], non_blocking=True)
         dst.record_stream(h2d)
-        return stream.Event(dst.device).record(h2d)
+        ev = stream.Event(dst.device).record(h2d)
+        if prof is not None:
+            h2d.synchronize()
+            prof.xfer("h2d", dst.numel(), t0, _prof.now(),
+                      site="to_device", stream="h2d")
+        return ev
 
     def ipc_import(self, handle, device=None):
         """An exported tensor lands on ``device`` (this process's current
@@ -163,4 +194,11 @@ class CudaAccelerator(Accelerator):
             if device is None else torch.device(device)
         if not handle.tensor or dev.type != "cuda":
             return super().ipc_import(handle)
-        return ipc.import_tensor(handle, dev)
+        prof = _prof.PROFILER
+        t0 = _prof.now() if prof is not None else 0
+        out = ipc.import_tensor(handle, dev)
+        if prof is not None:
+            torch.cuda.synchronize(dev)
+            prof.xfer("h2d", out.numel() * out.element_size(), t0,
+                      _prof.now(), site="ipc_import")
+        return out

@@ -12,6 +12,10 @@ as in the reference; the Bml opens them highest priority first. Where it
 differs: a btl whose ``open()`` raises fails the Bml with
 ``MPIError(ERR_INTERN)`` (the reference logs and skips it, while its
 peers may already have mapped rings to it).
+
+:meth:`Bml.send` is the pml's framed-message exit point, so with the
+trace recorder up a ``send`` span in ``btl`` covers every wire handoff
+(reference ``btl/base.py:91-102``).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import Callable, Dict, List, Optional
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.core import cvar, output, progress, registry
 from ompi_tpu_torch.runtime import rte
+from ompi_tpu_torch.trace import recorder as _trace
 
 _out = output.stream("btl")
 
@@ -108,7 +113,15 @@ class Bml:
         return ep
 
     def send(self, peer: int, data: bytes) -> None:
-        self.endpoint(peer).send(peer, data)
+        ep = self.endpoint(peer)
+        rec = _trace.RECORDER
+        if rec is None:
+            ep.send(peer, data)
+            return
+        t0 = _trace.now()
+        ep.send(peer, data)
+        rec.record("send", "btl", t0, _trace.now(),
+                   {"peer": peer, "nbytes": len(data), "btl": ep.NAME})
 
     def finalize(self) -> None:
         for btl in self.btls:

@@ -50,6 +50,16 @@ pml's ``failed`` set, well before ``device_plane_timeout``.
 :func:`release` of a comm under FT rendezvous through the store's
 dead-tolerant ``ftgather`` instead of the comm's barrier, and leaves a
 dead exporter's mapping open until the process exits.
+
+Observability (coll/pallas.py:250-270, :320-440, :636-654): each slot's
+launch runs under a ``launch`` span in ``coll_cuda`` naming the
+algorithm (host time: the kernels run asynchronously) and, at the four
+slots the reference instruments, a flight-recorder entry; one span per
+``coll_cuda_launches``. The arena cache is the port's counterpart of
+coll/xla's plan and compile caches: a new arena is a ``plan_build`` span
+in ``coll_device`` and counts ``prof_compile_{misses,ns}``, a reused one
+is a ``plan_cache_hit`` marker and counts ``prof_compile_hits``
+(:func:`_arena`).
 """
 
 from __future__ import annotations
@@ -72,7 +82,10 @@ from ompi_tpu_torch.ft import detector as _ft_detector
 from ompi_tpu_torch.monitoring import algo as _algo
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.monitoring.algo import log2_bucket
+from ompi_tpu_torch.prof import ledger as _prof
 from ompi_tpu_torch.runtime import device_plane, launcher, rte
+from ompi_tpu_torch.telemetry import flight as _flight
+from ompi_tpu_torch.trace import recorder as _trace
 from ompi_tpu_torch.tune import observe as _tobs
 
 _enable_var = cvar.register(
@@ -233,6 +246,32 @@ def _account_bytes(kind: str, comm, nbytes: int, dtype: str,
         tm.coll(kind, comm, nbytes, dtype=dtype,
                 per_peer=_algo.pallas_per_peer(kind, algo, comm.rank,
                                                comm.size, nbytes))
+
+
+def _launch(run, op: str, algo: str):
+    """Run one slot's launch under the ``coll_cuda`` trace span naming
+    the algorithm (coll/pallas.py:250-270 ``_launch``)."""
+    rec = _trace.RECORDER
+    if rec is None:
+        return run()
+    t0 = _trace.now()
+    out = run()
+    rec.record("launch", "coll_cuda", t0, _trace.now(),
+               {"op": op, "algorithm": algo})
+    return out
+
+
+def _flown(name: str, comm, nbytes: int, run, op: str, algo: str):
+    """:func:`_launch` inside a flight-recorder entry (the four slots
+    coll/pallas.py instruments: :328, :373, :431, :646)."""
+    fl = _flight.FLIGHT
+    if fl is None:
+        return _launch(run, op, algo)
+    tok = fl.enter(name, getattr(comm, "cid", -1), nbytes)
+    try:
+        return _launch(run, op, algo)
+    finally:
+        fl.exit(tok)
 
 
 def _account(kind: str, comm, sendbuf: torch.Tensor, algo: str) -> None:
@@ -542,22 +581,41 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
     cap = _pow2(nbytes)
     key = (family, cap)
     ep = arenas.get(key)
-    if ep is None:
-        n, nslots = comm.size, 4
-        if family == "ag":  # the whole block travels; nothing is staged
-            in_bytes, slot_bytes = ALIGN, cap
-        elif family == "pull":  # staged input only (coll/device's pulls)
-            in_bytes, slot_bytes, nslots = cap, 0, 0
-        elif family in ("osc", "perm"):  # an exchange's payloads per parity
-            in_bytes, slot_bytes, nslots = 0, cap, 2
-        else:  # staged input + one chunk per slot
-            in_bytes = cap
-            slot_bytes = align(-(-cap // n))
-        ep = arenas[key] = Arena(
-            comm.cid, f"{family}{cap}", comm.rank, comm.group.ranks,
-            in_bytes, slot_bytes, nslots)
-        pvar.record_hwm("device_plane_arena_bytes",
-                        sum(a.nbytes for a in arenas.values()))
+    if ep is not None:
+        if _prof.PROFILER is not None:
+            pvar.record("prof_compile_hits")
+        rec = _trace.RECORDER
+        if rec is not None:
+            rec.instant("plan_cache_hit", "coll_device",
+                        {"key": f"{family}{cap}"})
+        return ep
+    # a new size class: planned and mapped once (collective), the port's
+    # counterpart of a compile — timed always, two clock reads against
+    # an IPC mapping round
+    t0 = _trace.now()
+    n, nslots = comm.size, 4
+    if family == "ag":  # the whole block travels; nothing is staged
+        in_bytes, slot_bytes = ALIGN, cap
+    elif family == "pull":  # staged input only (coll/device's pulls)
+        in_bytes, slot_bytes, nslots = cap, 0, 0
+    elif family in ("osc", "perm"):  # an exchange's payloads per parity
+        in_bytes, slot_bytes, nslots = 0, cap, 2
+    else:  # staged input + one chunk per slot
+        in_bytes = cap
+        slot_bytes = align(-(-cap // n))
+    ep = arenas[key] = Arena(
+        comm.cid, f"{family}{cap}", comm.rank, comm.group.ranks,
+        in_bytes, slot_bytes, nslots)
+    t1 = _trace.now()
+    if _prof.PROFILER is not None:
+        pvar.record("prof_compile_misses")
+        pvar.record("prof_compile_ns", t1 - t0)
+    rec = _trace.RECORDER
+    if rec is not None:
+        rec.record("plan_build", "coll_device", t0, t1,
+                   {"cache": "miss", "key": f"{family}{cap}"})
+    pvar.record_hwm("device_plane_arena_bytes",
+                    sum(a.nbytes for a in arenas.values()))
     return ep
 
 
@@ -607,10 +665,14 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
         return sendbuf.clone()
     k = K.padded_chunk(m, n)
     _account("allreduce", comm, sendbuf, algo)
-    out = torch.empty(n * k, dtype=sendbuf.dtype, device=sendbuf.device)
-    ep = _arena(comm, "rs", n * k * sendbuf.element_size())
-    ep.run(K.allreduce(ep, sendbuf.reshape(-1), opn.name, algo, out))
-    return out[:m].view(sendbuf.shape)
+
+    def run():
+        out = torch.empty(n * k, dtype=sendbuf.dtype, device=sendbuf.device)
+        ep = _arena(comm, "rs", n * k * sendbuf.element_size())
+        ep.run(K.allreduce(ep, sendbuf.reshape(-1), opn.name, algo, out))
+        return out[:m].view(sendbuf.shape)
+    return _flown("allreduce_dev", comm, sendbuf.nbytes, run, "allreduce",
+                  algo)
 
 
 def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
@@ -636,10 +698,14 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
     if sendbuf.numel() == 0:
         return out
     _account("reduce_scatter_block", comm, sendbuf, algo)
-    ep = _arena(comm, "rs", sendbuf.numel() * sendbuf.element_size())
-    ep.run(K.reduce_scatter(ep, sendbuf.reshape(-1), opn.name, algo,
-                            out.numel() // max(rows, 1), out.view(-1)))
-    return out
+
+    def run():
+        ep = _arena(comm, "rs", sendbuf.numel() * sendbuf.element_size())
+        ep.run(K.reduce_scatter(ep, sendbuf.reshape(-1), opn.name, algo,
+                                out.numel() // max(rows, 1), out.view(-1)))
+        return out
+    return _flown("reduce_scatter_block_dev", comm, sendbuf.nbytes, run,
+                  "reduce_scatter_block", algo)
 
 
 def allgather_dev(comm, sendbuf):
@@ -653,9 +719,13 @@ def allgather_dev(comm, sendbuf):
     if sendbuf.numel() == 0:
         return out
     _account("allgather", comm, sendbuf, algo)
-    ep = _arena(comm, "ag", sendbuf.numel() * sendbuf.element_size())
-    ep.run(K.allgather(ep, sendbuf.reshape(-1), algo, out.view(-1)))
-    return out
+
+    def run():
+        ep = _arena(comm, "ag", sendbuf.numel() * sendbuf.element_size())
+        ep.run(K.allgather(ep, sendbuf.reshape(-1), algo, out.view(-1)))
+        return out
+    return _flown("allgather_dev", comm, sendbuf.nbytes, run, "allgather",
+                  algo)
 
 
 # ---------------------------------------------------------------------------
@@ -695,6 +765,16 @@ def fused_rs_update_dev(comm, grads, pshards, mshards, *, lr: float,
     algo = "linear" if det == "linear" else "ring"
     _account_bytes("reduce_scatter_multi", comm, plan.nbytes,
                    plan.dtypes[0] if plan.dtypes else "", algo)
+    return _launch(lambda: _fused_rs_update(
+        comm, leaves, pshards, mshards, lr, mu, avg, det, with_mom),
+        "fused_rs_update", det or "ring")
+
+
+def _fused_rs_update(comm, leaves, pshards, mshards, lr, mu, avg, det,
+                     with_mom):
+    from ompi_tpu_torch.zero import layout as zl
+
+    plan = pshards.plan
     new_p, new_m = [], []
     for b, idxs in enumerate(plan.buckets):
         flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
@@ -748,11 +828,15 @@ def allgather_matmul_dev(comm, x, w):
     out = torch.empty((n * m, w.shape[1]), dtype=dt, device=x.device)
     _account("allgather", comm, x, "ring")
     pvar.record("coll_cuda_fused_launches")
-    if x.numel() == 0:
-        return out.zero_()
-    ep = _arena(comm, "ag", x.numel() * x.element_size())
-    ep.run(K.allgather_matmul(ep, x, w, out))
-    return out
+
+    def run():
+        if x.numel() == 0:
+            return out.zero_()
+        ep = _arena(comm, "ag", x.numel() * x.element_size())
+        ep.run(K.allgather_matmul(ep, x, w, out))
+        return out
+    return _flown("allgather_matmul_dev", comm, x.nbytes, run,
+                  "allgather_matmul", "ring")
 
 
 def _gather_matmul(comm, x, w):

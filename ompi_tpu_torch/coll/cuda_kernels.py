@@ -76,6 +76,10 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 
 import torch
 
+from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.prof import ledger as _prof
+from ompi_tpu_torch.trace import recorder as _trace
+
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int32: 2}
 OP_CODES = {"MPI_SUM": 0, "MPI_PROD": 1, "MPI_MIN": 2, "MPI_MAX": 3}
 
@@ -168,11 +172,31 @@ def build(src: str = _SRC, verbose: bool = False) -> str:
 _lib = None
 
 
+def load(src: str = _SRC, subsys: str = "coll_cuda"):
+    """``ctypes.CDLL`` of the library built from ``src`` (``nvcc`` at its
+    first use in the build directory). The port's counterpart of a
+    compile (``prof/__init__.py``): timed always, it counts
+    ``prof_compile_misses`` and ``prof_compile_ns`` with the prof ledger
+    on, and leaves a ``compile`` span in ``subsys`` with the recorder on
+    (coll/xla.py:281-301)."""
+    t0 = _trace.now()
+    L = ctypes.CDLL(build(src))
+    t1 = _trace.now()
+    if _prof.PROFILER is not None:
+        pvar.record("prof_compile_misses")
+        pvar.record("prof_compile_ns", t1 - t0)
+    rec = _trace.RECORDER
+    if rec is not None:
+        rec.record("compile", subsys, t0, t1,
+                   {"cache": "miss", "key": os.path.basename(src)})
+    return L
+
+
 def lib():
     """The loaded kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(build())
+        L = load()
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         L.otc_rs_hop.argtypes = [i, i, p, p, p, p, i64, p]
         L.otc_ag_hop.argtypes = [p, p, p, i64, p]
@@ -213,7 +237,7 @@ def gemm_lib():
     """The loaded K6 library (built on first use)."""
     global _gemm_lib
     if _gemm_lib is None:
-        L = ctypes.CDLL(build(GEMM_SRC))
+        L = load(GEMM_SRC)
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         L.otc_wgmma_matmul.argtypes = [p, p, p, i64, i64, i64, i, p]
         L.otc_simt_matmul.argtypes = [i, p, p, p, p, i64, i64, i64, i64, i,

@@ -142,6 +142,8 @@ from ompi_tpu_torch.core import cvar, pvar, registry
 from ompi_tpu_torch.monitoring import matrix as _mon
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import device_plane
+from ompi_tpu_torch.telemetry import flight as _flight
+from ompi_tpu_torch.trace import recorder as _trace
 
 _default_det = cvar.register(
     "coll_device_deterministic", "", str,
@@ -389,12 +391,26 @@ def _meter(tm, kind: str, comm, t, op=None, **kw) -> None:
         tm.coll(kind, comm, t.nbytes, dtype=_dtype_name(t.dtype), **kw)
 
 
+def _launch(fn, *args):
+    """Run one launch: the one place that counts
+    ``coll_device_launches`` (coll/xla.py:343-356 ``_Ctx.launch``). With
+    the trace recorder up a ``launch`` span in ``coll_device`` covers the
+    call; the kernels it queues run asynchronously, so on the card the
+    span is the host's dispatch and schedule steps, as the reference's
+    is PJRT's dispatch."""
+    pvar.record("coll_device_launches")
+    rec = _trace.RECORDER
+    if rec is None:
+        return fn(*args)
+    t0 = _trace.now()
+    out = fn(*args)
+    rec.record("launch", "coll_device", t0, _trace.now())
+    return out
+
+
 def _launcher(fn):
-    """A prepared call: each run counts in ``coll_device_launches``."""
-    def launch():
-        pvar.record("coll_device_launches")
-        return fn()
-    return launch
+    """A prepared call: each run is one :func:`_launch`."""
+    return lambda: _launch(fn)
 
 
 def _check_root(kind: str, comm, root) -> None:
@@ -536,7 +552,16 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "allreduce", comm, sendbuf, op)
-    return _allreduce_prep(comm, sendbuf, op, deterministic)()
+    launcher = _allreduce_prep(comm, sendbuf, op, deterministic)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("allreduce_dev", getattr(comm, "cid", -1),
+                   getattr(sendbuf, "nbytes", 0))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def _reduce_scatter_block_prep(comm, sendbuf, op=op_mod.SUM,
@@ -568,7 +593,17 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "reduce_scatter_block", comm, sendbuf, op)
-    return _reduce_scatter_block_prep(comm, sendbuf, op, deterministic)()
+    launcher = _reduce_scatter_block_prep(comm, sendbuf, op,
+                                          deterministic)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("reduce_scatter_block_dev", getattr(comm, "cid", -1),
+                   getattr(sendbuf, "nbytes", 0))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def _allgather_prep(comm, sendbuf):
@@ -595,7 +630,16 @@ def allgather_dev(comm, sendbuf):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "allgather", comm, sendbuf)
-    return _allgather_prep(comm, sendbuf)()
+    launcher = _allgather_prep(comm, sendbuf)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("allgather_dev", getattr(comm, "cid", -1),
+                   getattr(sendbuf, "nbytes", 0))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def _bcast_prep(comm, buf, root: int = 0):
@@ -627,7 +671,16 @@ def bcast_dev(comm, buf, root: int = 0):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "bcast", comm, buf, root=root)
-    return _bcast_prep(comm, buf, root)()
+    launcher = _bcast_prep(comm, buf, root)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("bcast_dev", getattr(comm, "cid", -1),
+                   getattr(buf, "nbytes", 0))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def _alltoall_prep(comm, sendbuf):
@@ -663,7 +716,16 @@ def alltoall_dev(comm, sendbuf):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "alltoall", comm, sendbuf)
-    return _alltoall_prep(comm, sendbuf)()
+    launcher = _alltoall_prep(comm, sendbuf)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("alltoall_dev", getattr(comm, "cid", -1),
+                   getattr(sendbuf, "nbytes", 0))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def permute_dev(comm, blocks, perm):
@@ -690,7 +752,11 @@ def permute_dev(comm, blocks, perm):
             errors.ERR_ARG,
             f"permute: perm {pairs} is not a partial permutation of "
             f"range({n})")
-    pvar.record("coll_device_launches")
+    return _launch(_permute, comm, ts, pairs, single, blocks)
+
+
+def _permute(comm, ts, pairs, single, blocks):
+    n, r = comm.size, comm.rank
     src = next((s for s, d in pairs if d == r), None)
     outs = [torch.zeros_like(t) if src is None else torch.empty_like(t)
             for t in ts]
@@ -739,7 +805,6 @@ def reduce_dev(comm, sendbuf, op=op_mod.SUM, root: int = 0,
     ``(its partial, the sender's)`` with one K1 (the kernels' dtypes and
     ops) or the fold. A non-root allocates O(bytes) either way
     (``_last_rooted_plan``)."""
-    global _last_rooted_plan
     if _stages(op, sendbuf):
         return _stage("reduce_dev", comm, sendbuf, op, root, deterministic)
     det = _det_ok(deterministic)
@@ -754,37 +819,41 @@ def reduce_dev(comm, sendbuf, op=op_mod.SUM, root: int = 0,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "reduce", comm, sendbuf, opn, root=root)
-    pvar.record("coll_device_launches")
-    flat, dt = sendbuf.reshape(-1), sendbuf.dtype
-    if opn.name == "MPI_SUM":
-        k = K.padded_chunk(m, n)
-        chunk = _reduce_scatter_run(comm, m, dt, opn, None)(flat)
-        out = chunk.new_empty(n * k) if r == root else None
-        ep = _cuda._arena(comm, "pull", chunk.nbytes)
-        ep.run(K.gather_to_root(ep, chunk, root, out))
-        _last_rooted_plan = {"kind": "reduce_scatter_to_root", "rounds": 1,
-                             "round_out_elems": k,
-                             "alloc_elems": k + (n * k if r == root else 0)}
-        return out[:m].view(sendbuf.shape) if r == root else None
-    take = _kernels_take(dt, opn)
 
-    def combine(cur, got, dst):
-        if take:
-            K.ring_rs_hop(cur, got, dst, opn.name)
-        else:
-            dst.copy_(_fold([cur, got], opn, dt))
+    def run():
+        global _last_rooted_plan
+        flat, dt = sendbuf.reshape(-1), sendbuf.dtype
+        if opn.name == "MPI_SUM":
+            k = K.padded_chunk(m, n)
+            chunk = _reduce_scatter_run(comm, m, dt, opn, None)(flat)
+            out = chunk.new_empty(n * k) if r == root else None
+            ep = _cuda._arena(comm, "pull", chunk.nbytes)
+            ep.run(K.gather_to_root(ep, chunk, root, out))
+            _last_rooted_plan = {
+                "kind": "reduce_scatter_to_root", "rounds": 1,
+                "round_out_elems": k,
+                "alloc_elems": k + (n * k if r == root else 0)}
+            return out[:m].view(sendbuf.shape) if r == root else None
+        take = _kernels_take(dt, opn)
 
-    rounds = K.binomial_rounds(n, root)
-    recv = sum(d == r for pairs in rounds for _, d in pairs)
-    out = flat.new_empty(m) if r == root else None
-    ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
-    ep.run(K.binomial_reduce(ep, flat, combine, root, out))
-    _last_rooted_plan = {
-        "kind": "reduce_binomial", "rounds": len(rounds),
-        "round_out_elems": m,
-        "alloc_elems": m * (1 + min(recv - 1, 2) if r == root
-                            else min(recv, 2))}
-    return out.view(sendbuf.shape) if r == root else None
+        def combine(cur, got, dst):
+            if take:
+                K.ring_rs_hop(cur, got, dst, opn.name)
+            else:
+                dst.copy_(_fold([cur, got], opn, dt))
+
+        rounds = K.binomial_rounds(n, root)
+        recv = sum(d == r for pairs in rounds for _, d in pairs)
+        out = flat.new_empty(m) if r == root else None
+        ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
+        ep.run(K.binomial_reduce(ep, flat, combine, root, out))
+        _last_rooted_plan = {
+            "kind": "reduce_binomial", "rounds": len(rounds),
+            "round_out_elems": m,
+            "alloc_elems": m * (1 + min(recv - 1, 2) if r == root
+                                else min(recv, 2))}
+        return out.view(sendbuf.shape) if r == root else None
+    return _launch(run)
 
 
 def gather_dev(comm, sendbuf, root: int = 0):
@@ -792,7 +861,6 @@ def gather_dev(comm, sendbuf, root: int = 0):
     elsewhere. Below the rooted threshold it is the allgather; above it
     every rank stages and the root alone pulls (K2), so a non-root
     allocates nothing."""
-    global _last_rooted_plan
     if _stages(None, sendbuf):
         return _stage("gather_dev", comm, sendbuf, root)
     _check_buf("gather", comm, sendbuf)
@@ -804,17 +872,20 @@ def gather_dev(comm, sendbuf, root: int = 0):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "gather", comm, sendbuf, root=root)
-    pvar.record("coll_device_launches")
-    out = sendbuf.new_empty((n,) + tuple(sendbuf.shape)) if r == root \
-        else None
-    if sendbuf.numel():
-        ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
-        ep.run(K.gather_to_root(ep, sendbuf.reshape(-1), root,
-                                out.view(-1) if out is not None else None))
-    _last_rooted_plan = {"kind": "gather_rooted", "rounds": 1,
-                         "round_out_elems": sendbuf.numel(),
-                         "alloc_elems": out.numel() if r == root else 0}
-    return out
+
+    def run():
+        global _last_rooted_plan
+        out = sendbuf.new_empty((n,) + tuple(sendbuf.shape)) if r == root \
+            else None
+        if sendbuf.numel():
+            ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
+            ep.run(K.gather_to_root(ep, sendbuf.reshape(-1), root,
+                                    out.view(-1) if out is not None else None))
+        _last_rooted_plan = {"kind": "gather_rooted", "rounds": 1,
+                             "round_out_elems": sendbuf.numel(),
+                             "alloc_elems": out.numel() if r == root else 0}
+        return out
+    return _launch(run)
 
 
 def _scatter_meta(comm, key, root: int, root_meta):
@@ -887,15 +958,17 @@ def scatter_dev(comm, sendbuf, root: int = 0, like=None):
             errors.ERR_COUNT,
             f"scatter: dim 0 of shape {shape} is not divisible by the comm "
             f"size {n}")
-    pvar.record("coll_device_launches")
-    out = torch.empty((shape[0] // n,) + shape[1:], dtype=dtype,
-                      device=device_plane.device())
-    if out.numel():
-        ep = _cuda._arena(comm, "pull", n * out.nbytes)
-        ep.run(K.scatter_from_root(
-            ep, sendbuf.reshape(-1) if comm.rank == root else None, root,
-            out.view(-1)))
-    return out
+
+    def run():
+        out = torch.empty((shape[0] // n,) + shape[1:], dtype=dtype,
+                          device=device_plane.device())
+        if out.numel():
+            ep = _cuda._arena(comm, "pull", n * out.nbytes)
+            ep.run(K.scatter_from_root(
+                ep, sendbuf.reshape(-1) if comm.rank == root else None, root,
+                out.view(-1)))
+        return out
+    return _launch(run)
 
 
 def scatterv_dev(comm, sendbuf, counts, root: int = 0, like=None):
@@ -927,14 +1000,16 @@ def scatterv_dev(comm, sendbuf, counts, root: int = 0, like=None):
         _meter(tm, "scatterv", comm, sendbuf, root=root, counts=counts,
                row_bytes=sendbuf.nbytes / sendbuf.shape[0]
                if sendbuf.shape[0] else 0.0)
-    pvar.record("coll_device_launches")
-    out = torch.empty((counts[r],) + rest, dtype=dtype,
-                      device=device_plane.device())
-    pieces = [(sendbuf[:total].reshape(-1), 0)] if r == root else []
-    _ragged(comm, dtype, total * row, pieces,
-            [(root, _offsets(counts)[r] * row, counts[r] * row, 0)],
-            out.view(-1))
-    return out
+
+    def run():
+        out = torch.empty((counts[r],) + rest, dtype=dtype,
+                          device=device_plane.device())
+        pieces = [(sendbuf[:total].reshape(-1), 0)] if r == root else []
+        _ragged(comm, dtype, total * row, pieces,
+                [(root, _offsets(counts)[r] * row, counts[r] * row, 0)],
+                out.view(-1))
+        return out
+    return _launch(run)
 
 
 def _v_block(kind: str, comm, sendbuf, counts):
@@ -961,14 +1036,16 @@ def allgatherv_dev(comm, sendbuf, counts):
         _check_buf("allgatherv", comm, sendbuf)
         return sendbuf.clone()
     counts, rest, row = _v_block("allgatherv", comm, sendbuf, counts)
-    pvar.record("coll_device_launches")
-    out = sendbuf.new_empty((sum(counts),) + rest)
-    offs = _offsets(counts)
-    _ragged(comm, sendbuf.dtype, max(counts) * row,
-            [(sendbuf.reshape(-1), 0)],
-            [(p, 0, c * row, o * row) for p, (c, o) in
-             enumerate(zip(counts, offs))], out.view(-1))
-    return out
+
+    def run():
+        out = sendbuf.new_empty((sum(counts),) + rest)
+        offs = _offsets(counts)
+        _ragged(comm, sendbuf.dtype, max(counts) * row,
+                [(sendbuf.reshape(-1), 0)],
+                [(p, 0, c * row, o * row) for p, (c, o) in
+                 enumerate(zip(counts, offs))], out.view(-1))
+        return out
+    return _launch(run)
 
 
 def gatherv_dev(comm, sendbuf, counts, root: int = 0):
@@ -983,15 +1060,17 @@ def gatherv_dev(comm, sendbuf, counts, root: int = 0):
         _check_buf("gatherv", comm, sendbuf)
         return sendbuf.clone()
     counts, rest, row = _v_block("gatherv", comm, sendbuf, counts)
-    pvar.record("coll_device_launches")
-    r = comm.rank
-    out = sendbuf.new_empty((sum(counts),) + rest) if r == root else None
-    spans = [(p, 0, c * row, o * row) for p, (c, o) in
-             enumerate(zip(counts, _offsets(counts)))] if r == root else []
-    _ragged(comm, sendbuf.dtype, max(counts) * row,
-            [(sendbuf.reshape(-1), 0)], spans,
-            out.view(-1) if out is not None else None)
-    return out
+
+    def run():
+        r = comm.rank
+        out = sendbuf.new_empty((sum(counts),) + rest) if r == root else None
+        spans = [(p, 0, c * row, o * row) for p, (c, o) in
+                 enumerate(zip(counts, _offsets(counts)))] if r == root else []
+        _ragged(comm, sendbuf.dtype, max(counts) * row,
+                [(sendbuf.reshape(-1), 0)], spans,
+                out.view(-1) if out is not None else None)
+        return out
+    return _launch(run)
 
 
 def _a2av_meta(comm, scounts, rcounts):
@@ -1075,12 +1154,14 @@ def alltoallv_dev(comm, sendbuf, scounts, rcounts, max_count=None, *,
                 if sendbuf.shape[0] else 0.0)
         if _expert_tokens:
             tm.expert_tokens(scounts)
-    pvar.record("coll_device_launches")
-    out = sendbuf.new_empty((sum(rcounts),) + rest)
-    _ragged(comm, sendbuf.dtype, staged, pieces,
-            [(p, src[p], c * row, o * row) for p, (c, o) in
-             enumerate(zip(rcounts, _offsets(rcounts)))], out.view(-1))
-    return out
+
+    def run():
+        out = sendbuf.new_empty((sum(rcounts),) + rest)
+        _ragged(comm, sendbuf.dtype, staged, pieces,
+                [(p, src[p], c * row, o * row) for p, (c, o) in
+                 enumerate(zip(rcounts, _offsets(rcounts)))], out.view(-1))
+        return out
+    return _launch(run)
 
 
 def reduce_scatter_dev(comm, sendbuf, counts, op=op_mod.SUM,
@@ -1116,24 +1197,26 @@ def _prefix(kind: str, comm, sendbuf, op, deterministic, exclusive: bool):
     _det_ok(deterministic)
     _check_buf(kind, comm, sendbuf)
     opn = _opn(kind, op, sendbuf.dtype)
-    pvar.record("coll_device_launches")
-    n, r, m = comm.size, comm.rank, sendbuf.numel()
-    rows = r if exclusive else r + 1
-    if n == 1 or m == 0:
-        return torch.zeros_like(sendbuf) if exclusive else sendbuf.clone()
-    flat, dt = sendbuf.reshape(-1), sendbuf.dtype
-    if _kernels_take(dt, opn):
-        out = flat.new_empty(m)
-        ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
-        ep.run(K.prefix(ep, flat, opn.name, rows, out))
-    else:
-        g = flat.new_empty(rows * m)
-        _ragged(comm, dt, m, [(flat, 0)],
-                [(p, 0, m, p * m) for p in range(rows)], g)
-        out = _fold(list(g.view(rows, m)), opn, dt) if rows > 1 else g
-    if rows == 0:
-        out = torch.zeros_like(flat)
-    return out.view(sendbuf.shape)
+
+    def run():
+        n, r, m = comm.size, comm.rank, sendbuf.numel()
+        rows = r if exclusive else r + 1
+        if n == 1 or m == 0:
+            return torch.zeros_like(sendbuf) if exclusive else sendbuf.clone()
+        flat, dt = sendbuf.reshape(-1), sendbuf.dtype
+        if _kernels_take(dt, opn):
+            out = flat.new_empty(m)
+            ep = _cuda._arena(comm, "pull", sendbuf.nbytes)
+            ep.run(K.prefix(ep, flat, opn.name, rows, out))
+        else:
+            g = flat.new_empty(rows * m)
+            _ragged(comm, dt, m, [(flat, 0)],
+                    [(p, 0, m, p * m) for p in range(rows)], g)
+            out = _fold(list(g.view(rows, m)), opn, dt) if rows > 1 else g
+        if rows == 0:
+            out = torch.zeros_like(flat)
+        return out.view(sendbuf.shape)
+    return _launch(run)
 
 
 def scan_dev(comm, sendbuf, op=op_mod.SUM,
@@ -1199,6 +1282,14 @@ def _allreduce_multi_prep(comm, bufs, op=op_mod.SUM,
     return _launcher(launch)
 
 
+def _tree_nbytes(bufs) -> int:
+    """The bytes of a pytree's tensor leaves (a flight-recorder entry's
+    size)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    return sum(getattr(t, "nbytes", 0) for t in zl.tree_leaves(bufs))
+
+
 def _meter_multi(tm, kind: str, comm, bufs, op) -> None:
     """:func:`_meter` for a pytree: the leaves' bytes, the first leaf's
     dtype (coll/xla.py:1385, :1808)."""
@@ -1220,7 +1311,16 @@ def allreduce_multi_dev(comm, bufs, op=op_mod.SUM,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter_multi(tm, "allreduce_multi", comm, bufs, op)
-    return _allreduce_multi_prep(comm, bufs, op, deterministic)()
+    launcher = _allreduce_multi_prep(comm, bufs, op, deterministic)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("allreduce_multi_dev", getattr(comm, "cid", -1),
+                   _tree_nbytes(bufs))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 # ---------------------------------------------------------------------------
@@ -1298,7 +1398,16 @@ def reduce_scatter_multi_dev(comm, bufs, op=op_mod.SUM,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter_multi(tm, "reduce_scatter_multi", comm, bufs, op)
-    return _reduce_scatter_multi_prep(comm, bufs, op, deterministic)()
+    launcher = _reduce_scatter_multi_prep(comm, bufs, op, deterministic)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("reduce_scatter_multi_dev", getattr(comm, "cid", -1),
+                   _tree_nbytes(bufs))
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def _zero_state_check(comm, state) -> None:
@@ -1426,7 +1535,16 @@ def allgather_multi_dev(comm, state):
     if tm is not None:
         tm.coll("allgather_multi", comm, state.plan.nbytes,
                 dtype=state.plan.dtypes[0] if state.plan.dtypes else "")
-    return _allgather_multi_prep(comm, state)()
+    launcher = _allgather_multi_prep(comm, state)
+    fl = _flight.FLIGHT
+    if fl is None:
+        return launcher()
+    tok = fl.enter("allgather_multi_dev", getattr(comm, "cid", -1),
+                   state.plan.nbytes)
+    try:
+        return launcher()
+    finally:
+        fl.exit(tok)
 
 
 def allgather_multi_bucket_dev(comm, state, b: int):
@@ -1512,8 +1630,7 @@ def ibarrier_dev(comm):
     before every member entered (and which counts the call in
     ``coll_device_launches``)."""
     if comm.size == 1:
-        pvar.record("coll_device_launches")
-        return DeviceRequest(None, torch.device("cpu"))
+        return _launch(DeviceRequest, None, torch.device("cpu"))
     token = torch.ones(1, dtype=torch.int32, device=device_plane.device())
     return DeviceRequest(
         _allreduce_prep(comm, token, op_mod.SUM, "linear")(), token.device)
@@ -1525,7 +1642,15 @@ def barrier_dev(comm) -> None:
     tm = _mon.TRAFFIC
     if tm is not None and comm.size > 1:
         tm.coll("barrier", comm, 0)
-    ibarrier_dev(comm).wait()
+    fl = _flight.FLIGHT
+    if fl is None:
+        ibarrier_dev(comm).wait()
+        return
+    tok = fl.enter("barrier_dev", getattr(comm, "cid", -1), 0)
+    try:
+        ibarrier_dev(comm).wait()
+    finally:
+        fl.exit(tok)
 
 
 class PersistentDeviceRequest:
@@ -1780,10 +1905,16 @@ class _BucketedPartitioned(_PartitionedBase):
         self._leaf_bucket = {i: b for b, idxs in enumerate(self._buckets)
                              for i in idxs}
         self._event: Optional[stream.Event] = None
+        self._fl_tok: Optional[int] = None
 
     def _open(self) -> None:
         self._pending = [len(idxs) for idxs in self._buckets]
         self._results = [None] * len(self._buckets)
+        # the cycle is one flight-recorder entry, start to wait
+        # (coll/xla.py:2077-2079, :2190-2196)
+        fl = _flight.FLIGHT
+        self._fl_tok = None if fl is None else fl.enter(
+            self._CYCLE, getattr(self._comm, "cid", -1), self.nbytes)
 
     def _rebind(self, idx: int, value) -> None:
         from ompi_tpu_torch.zero import layout as zl
@@ -1804,10 +1935,13 @@ class _BucketedPartitioned(_PartitionedBase):
         self._bound[idx] = value
 
     def _arrived(self, idx: int) -> None:
+        rec = _trace.RECORDER
+        if rec is not None:
+            rec.instant("pready", self._SUBSYS, {"partition": idx})
         b = self._leaf_bucket[idx]
         self._pending[b] -= 1
         if self._pending[b] == 0:
-            self._results[b] = self._flush(b)
+            self._results[b] = self._flush(b, idx)
             self._event = stream.Event(self._devices[idx]).record()
 
     @property
@@ -1821,7 +1955,13 @@ class _BucketedPartitioned(_PartitionedBase):
     def _finalize(self):
         if self._event is not None:
             self._event.wait()
-        return self._collect()
+        out = self._collect()
+        tok, self._fl_tok = self._fl_tok, None
+        if tok is not None:
+            fl = _flight.FLIGHT
+            if fl is not None:
+                fl.exit(tok)
+        return out
 
     def free(self) -> None:
         super().free()
@@ -1838,6 +1978,7 @@ class PartitionedAllreduceRequest(_BucketedPartitioned):
     pending; ``.array`` is the reduced pytree."""
 
     _NAME = "Pallreduce"
+    _SUBSYS, _CYCLE = "part", "pallreduce_cycle"
 
     def __init__(self, comm, leaves, treedef, opn, det) -> None:
         from ompi_tpu_torch.zero import layout as zl
@@ -1851,21 +1992,38 @@ class PartitionedAllreduceRequest(_BucketedPartitioned):
             self._runs.append(_allreduce_run(
                 comm, m, leaves[idxs[0]].dtype, opn, det) if m else None)
 
-    def _flush(self, b: int):
+    def _run_bucket(self, b: int):
         from ompi_tpu_torch.zero import layout as zl
 
         flat = zl.pack(self._bound, self._buckets[b], 0)
-        red = self._runs[b](flat) if self._runs[b] is not None \
+        return self._runs[b](flat) if self._runs[b] is not None \
             else flat.clone()
+
+    def _flush(self, b: int, trigger: int):
+        idxs = self._buckets[b]
+        overlap = self._n_ready < self._n
+        rec = _trace.RECORDER
+        if rec is None:
+            red = _launch(self._run_bucket, b)
+        else:
+            # the flush span names the Pready that released the bucket
+            # and whether later partitions were still pending
+            # (coll/xla.py:2119-2141)
+            t0 = _trace.now()
+            red = _launch(self._run_bucket, b)
+            t1 = _trace.now()
+            nb = sum(self._metas[i][2] for i in idxs)
+            rec.record("part_bucket_flush", "part", t0, t1,
+                       {"bucket": b, "trigger_partition": trigger,
+                        "overlap": overlap, "nbytes": nb})
+            _trace.hist("part_bucket_flush", nb, t1 - t0)
         tm = _mon.TRAFFIC
         if tm is not None:  # the bucket's allreduce, in the part context
-            idxs = self._buckets[b]
             tm.coll("allreduce", self._comm,
                     sum(self._metas[i][2] for i in idxs),
                     dtype=self._metas[idxs[0]][1], ctx="part")
-        pvar.record("coll_device_launches")
         pvar.record("part_bucket_flushes")
-        if self._n_ready < self._n:
+        if overlap:
             pvar.record("part_overlap_flushes")
         return red
 
@@ -1892,6 +2050,7 @@ class PartitionedReduceScatterRequest(_BucketedPartitioned):
 
     _NAME = "Preduce_scatter"
     _VALUE_ERROR = errors.ERR_COUNT
+    _SUBSYS, _CYCLE = "zero", "preduce_scatter_cycle"
 
     def __init__(self, comm, leaves, treedef, opn, det) -> None:
         from ompi_tpu_torch.zero import layout as zl
@@ -1903,22 +2062,37 @@ class PartitionedReduceScatterRequest(_BucketedPartitioned):
         self.nbytes = plan.nbytes
         self._runs = _zero_rs_runs(comm, leaves, plan, opn, det)
 
-    def _flush(self, b: int):
+    def _run_bucket(self, b: int):
         from ompi_tpu_torch.zero import layout as zl
 
         plan = self._plan
         flat = zl.pack(self._bound, self._buckets[b],
                        plan.padded[b] - plan.elems[b])
-        shard = self._runs[b](flat) if self._runs[b] is not None \
+        return self._runs[b](flat) if self._runs[b] is not None \
             else flat.new_empty(0)
+
+    def _flush(self, b: int, trigger: int):
+        idxs = self._buckets[b]
+        overlap = self._n_ready < self._n
+        rec = _trace.RECORDER
+        if rec is None:
+            shard = self._run_bucket(b)
+        else:  # coll/xla.py:2459-2477
+            t0 = _trace.now()
+            shard = self._run_bucket(b)
+            t1 = _trace.now()
+            nb = sum(self._metas[i][2] for i in idxs)
+            rec.record("zero_bucket_flush", "zero", t0, t1,
+                       {"bucket": b, "trigger_partition": trigger,
+                        "overlap": overlap, "nbytes": nb})
+            _trace.hist("zero_bucket_flush", nb, t1 - t0)
         tm = _mon.TRAFFIC
         if tm is not None:
-            idxs = self._buckets[b]
             tm.coll("reduce_scatter", self._comm,
                     sum(self._metas[i][2] for i in idxs),
                     dtype=self._metas[idxs[0]][1], ctx="part")
         pvar.record("zero_rs_launches")
-        if self._n_ready < self._n:
+        if overlap:
             pvar.record("zero_overlap_flushes")
         return shard
 

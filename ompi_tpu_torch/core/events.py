@@ -172,10 +172,11 @@ class EventHandle:
             self._dropping = False
 
 
-def emit(name: str, **data) -> None:
+def emit(name: str, /, **data) -> None:
     """Raise an event instance to every handle on ``name``. Emitters
     guard with ``if events.active(name):`` so the payload is never
-    built on the silent path."""
+    built on the silent path. ``name`` is positional only, so a payload
+    may have a ``name`` field of its own (``trace_span``'s)."""
     t = _types.get(name)
     if t is None or not t.handles:
         return

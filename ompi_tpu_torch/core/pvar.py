@@ -187,14 +187,40 @@ WELL_KNOWN = (
     "elastic_injected_delays",
     # the store client: connect attempts retried
     "kvstore_connect_retries",
+    # trace/ (the reference's names): spans lost to ring-buffer
+    # overflow; the per-(op, size-bin) log2 latency histograms are the
+    # trace_hist_ family below
+    "trace_dropped",
+    # telemetry/ (the reference's names): flight-recorder entries and
+    # their in-flight depth watermark, sampler ticks and their cost,
+    # watchdog sweeps and hang verdicts dumped
+    "telemetry_flight_ops", "telemetry_inflight", "telemetry_samples",
+    "telemetry_sample_ns", "telemetry_watchdog_sweeps", "telemetry_hangs",
+    # prof/ (the reference's names): the canonical phases' wall (any
+    # other phase is the prof_phase_ family below), cross-thread phase
+    # overlap, host<->device bytes, time and peak bandwidth (MB/s
+    # watermark) per direction, and the compile counterparts (see
+    # prof/__init__.py) and the persistent cache's, which stay 0
+    "prof_phase_staging_ns", "prof_phase_compile_ns",
+    "prof_phase_train_ns", "prof_phase_teardown_ns",
+    "prof_phase_snapshot_ns", "prof_phase_prefetch_ns",
+    "prof_phase_overlap_ns",
+    "prof_xfer_h2d_bytes", "prof_xfer_h2d_ns",
+    "prof_xfer_d2h_bytes", "prof_xfer_d2h_ns",
+    "prof_xfer_h2d_bw_mbps", "prof_xfer_d2h_bw_mbps",
+    "prof_compile_hits", "prof_compile_misses", "prof_compile_ns",
+    "prof_compile_cache_hits", "prof_compile_cache_misses",
 )
 
 #: families of pvars named at run time: the monitoring plane's per-link,
-#: per-peer and per-expert families (see above), and ``profile.timing``'s
+#: per-peer and per-expert families (see above), ``profile.timing``'s
 #: ``profile_<op>_calls`` and ``profile_<op>_ns``, one pair per MPI call
-#: it saw
+#: it saw, the trace plane's histogram bins
+#: ``trace_hist_<op>_sz<s>_lat<l>`` and the phase ledger's
+#: ``prof_phase_<name>_ns`` for every phase name
 WELL_KNOWN_PREFIXES = ("monitoring_tx_", "monitoring_link_bytes_",
-                       "monitoring_expert_tokens_e", "profile_")
+                       "monitoring_expert_tokens_e", "profile_",
+                       "trace_hist_", "prof_phase_")
 
 
 def is_well_known(name: str) -> bool:
@@ -250,3 +276,11 @@ class session:
                     self._base_counters.get(name, 0)
             return max(0, _watermarks.get(name, 0) -
                        self._base_hwm.get(name, 0))
+
+    def snapshot(self) -> Dict[str, int]:
+        """Every pvar as :func:`snapshot` names it, less its value at
+        session start (the trace plane decodes its histograms from it)."""
+        cur = globals()["snapshot"]()
+        base = dict(self._base_counters)
+        base.update({k + "_hwm": v for k, v in self._base_hwm.items()})
+        return {k: v - base.get(k, 0) for k, v in cur.items()}

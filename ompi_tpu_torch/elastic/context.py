@@ -30,9 +30,13 @@ by p2p and go through the ingest plane when it is up (:func:`_stream_in`).
 
 State snapshots are host numpy (:func:`_host_tree`), as in the reference
 (``context.py:97-104``), so the optimizer here runs the host bucket
-cycle. Where the port differs: the recovery's ``prof`` ledger phase and
-its trace spans come with ROADMAP queue 1 item 10, and so does the
-watchdog that reads :func:`recovery_info`.
+cycle. A recovery (shrink or regrow) runs in the prof ledger's
+``recovery`` phase; the trace marks a failure (``elastic_failure``), a
+shrink's recovery (``elastic_recovery`` span) and a hot join
+(``elastic_hot_join``) in the ``elastic`` lane (reference
+``context.py:329-365``, ``:643-697``); the telemetry watchdog reads
+:func:`recovery_info` and reports a collective stuck through a recovery
+as a recovery, not a hang.
 """
 
 from __future__ import annotations
@@ -47,7 +51,9 @@ import numpy as np
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.core import cvar, pvar
 from ompi_tpu_torch.elastic import inject, reshard as _reshard
+from ompi_tpu_torch.prof import ledger as _ledger
 from ompi_tpu_torch.runtime import rte
+from ompi_tpu_torch.trace import recorder as _trace
 from ompi_tpu_torch.zero import layout as _layout
 from ompi_tpu_torch.zero.optimizer import ZeroOptimizer
 
@@ -330,30 +336,43 @@ class ElasticContext:
                        "step": self.step_done + 1,
                        "failed_comm_ranks": failed,
                        "phase": "revoke"})
+        rec = _trace.RECORDER
+        if rec is not None:
+            rec.instant("elastic_failure", "elastic",
+                        {"failed_comm_ranks": failed,
+                         "step": self.step_done + 1})
         try:
-            old_comm = self._comm
-            # revoke wakes peers parked in collectives that would
-            # otherwise never see the failure (idempotent)
-            old_comm.revoke()
-            _recovery_phase("shrink")
-            new = old_comm.shrink()
-            _recovery_phase("agree")
-            resume = self._decide_resume(new)
-            _recovery_phase("reshard")
-            params_full, slots_full, resume, origin = \
-                self._collect_state(new, resume)
-            _recovery_phase("rebuild")
-            self._rebuild(new, params_full, slots_full, resume)
-            if self._owns_comm:
-                old_comm.free()
-            self._owns_comm = True
+            with _ledger.phase("recovery"):
+                old_comm = self._comm
+                # revoke wakes peers parked in collectives that would
+                # otherwise never see the failure (idempotent)
+                old_comm.revoke()
+                _recovery_phase("shrink")
+                new = old_comm.shrink()
+                _recovery_phase("agree")
+                resume = self._decide_resume(new)
+                _recovery_phase("reshard")
+                params_full, slots_full, resume, origin = \
+                    self._collect_state(new, resume)
+                _recovery_phase("rebuild")
+                self._rebuild(new, params_full, slots_full, resume)
+                if self._owns_comm:
+                    old_comm.free()
+                self._owns_comm = True
         finally:
             _set_recovery(None)
         self.shrinks += 1
         self.last_resume = self.step_done
         self.restored_from = origin
+        dur = time.perf_counter_ns() - t0
         pvar.record("elastic_shrinks")
-        pvar.record("elastic_recovery_ns", time.perf_counter_ns() - t0)
+        pvar.record("elastic_recovery_ns", dur)
+        rec = _trace.RECORDER
+        if rec is not None:
+            t1 = _trace.now()
+            rec.record("elastic_recovery", "elastic", t1 - dur, t1,
+                       {"resume": self.step_done,
+                        "survivors": self._comm.size, "origin": origin})
 
     def _decide_resume(self, new) -> int:
         """min of the survivors' completed steps, certified unanimous
@@ -627,50 +646,56 @@ class ElasticContext:
                        "joiners": list(dec["joiners"]),
                        "phase": "admit"})
         try:
-            if self._comm.rank == 0:
-                for wr in dec["joiners"]:
-                    client.put(
-                        f"elastic:admit:{rte.jobid}:{wr}",
-                        {"members": members, "seq": dec["seq"],
-                         "step": self.step_done,
-                         "target": int(num_steps),
-                         "opt": dict(self._opt_kw),
-                         "checkpoint_dir": self._ckpt_dir,
-                         # boundary checkpoints (and join polls) are
-                         # collective: the joiner runs them in lockstep
-                         # with the survivors
-                         "checkpoint_every": self._ckpt_every,
-                         "async_checkpoint": self._async_ckpt,
-                         "poll_joins": self._poll_joins})
-            old_comm = self._comm
-            old_rank = old_comm.rank
-            _recovery_phase("regrow_comm")
-            new = comm_mod.comm_create_from_group(
-                comm_mod.Group(members),
-                tag=f"elastic:regrow:{dec['seq']}")
-            _recovery_phase("transfer")
-            # members are sorted by world rank and the joiners' come from
-            # the ww: watermark (above every original rank), so the new
-            # root is always a survivor
-            if new.rank == 0:
-                for wr in dec["joiners"]:
-                    new.send(snap["params"], dest=members.index(wr),
-                             tag=_XFER_TAG)
-            got = new.allgather({"rank": old_rank,
-                                 "chunks": snap["slots"]})
-            _recovery_phase("reshard")
-            slots_full = _regrow_slots(got,
-                                       self.opt._pshards.plan.elems)
-            self._rebuild(new, snap["params"], slots_full,
-                          self.step_done)
-            if self._owns_comm:
-                old_comm.free()
-            self._owns_comm = True
+            with _ledger.phase("recovery"):
+                if self._comm.rank == 0:
+                    for wr in dec["joiners"]:
+                        client.put(
+                            f"elastic:admit:{rte.jobid}:{wr}",
+                            {"members": members, "seq": dec["seq"],
+                             "step": self.step_done,
+                             "target": int(num_steps),
+                             "opt": dict(self._opt_kw),
+                             "checkpoint_dir": self._ckpt_dir,
+                             # boundary checkpoints (and join polls) are
+                             # collective: the joiner runs them in lockstep
+                             # with the survivors
+                             "checkpoint_every": self._ckpt_every,
+                             "async_checkpoint": self._async_ckpt,
+                             "poll_joins": self._poll_joins})
+                old_comm = self._comm
+                old_rank = old_comm.rank
+                _recovery_phase("regrow_comm")
+                new = comm_mod.comm_create_from_group(
+                    comm_mod.Group(members),
+                    tag=f"elastic:regrow:{dec['seq']}")
+                _recovery_phase("transfer")
+                # members are sorted by world rank and the joiners' come from
+                # the ww: watermark (above every original rank), so the new
+                # root is always a survivor
+                if new.rank == 0:
+                    for wr in dec["joiners"]:
+                        new.send(snap["params"], dest=members.index(wr),
+                                 tag=_XFER_TAG)
+                got = new.allgather({"rank": old_rank,
+                                     "chunks": snap["slots"]})
+                _recovery_phase("reshard")
+                slots_full = _regrow_slots(got,
+                                           self.opt._pshards.plan.elems)
+                self._rebuild(new, snap["params"], slots_full,
+                              self.step_done)
+                if self._owns_comm:
+                    old_comm.free()
+                self._owns_comm = True
         finally:
             _set_recovery(None)
         self.joins += len(dec["joiners"])
         pvar.record("elastic_hot_joins", len(dec["joiners"]))
         pvar.record("elastic_recovery_ns", time.perf_counter_ns() - t0)
+        rec = _trace.RECORDER
+        if rec is not None:
+            rec.instant("elastic_hot_join", "elastic",
+                        {"joiners": list(dec["joiners"]),
+                         "step": self.step_done, "size": self._comm.size})
 
 
 class ElasticStep:

@@ -15,6 +15,12 @@ policy. Parts (``--parts``):
   loop must find the traffic's hot expert; then every rank's monitoring
   snapshot is gathered and rank 0 renders the merged report, whose
   ``[serve]`` section must name the hot expert;
+- ``monitoring`` (with ``drop``): the monitoring plane's cost on the
+  drop policy's decode: levels 0 (the guard alone), 1 (matrices) and 2
+  (links) in turns, :data:`MON_REQUESTS` timed requests a level a turn,
+  the plane switched by ``matrix.disable()`` / ``matrix.enable()`` and
+  the job's own plane put back after; one request's output bitwise equal
+  at every level, and the K2 launches as derived;
 - ``dcn_overflow`` (its own job, under ``--mca coll_hier_split 2x2``):
   the slices are expert replicas (8 experts, 4 a rank, ranks r and r + 2
   holding the same ones); one dispatch with an unbounded budget must
@@ -74,6 +80,8 @@ E_LOCAL, T = 4, 32
 HOTNESS, SEED = 2.0, 23
 CAPACITY_FACTOR = 1.25
 WARMUP, REQUESTS = 2, 32
+#: the monitoring part: levels, turns, timed requests a level a turn
+MON_LEVELS, MON_TURNS, MON_REQUESTS = (0, 1, 2), 4, 8
 N_ICI = 2  # dcn_overflow's grid: 2 slices of 2 ranks
 SERVE_PVARS = ("serve_requests", "serve_tokens", "serve_dropped_tokens",
                "serve_rerouted_tokens", "serve_dcn_overflow_tokens",
@@ -242,6 +250,50 @@ def report_part(comm, traffic, policy: str) -> Part:
     return part
 
 
+def monitoring_part(comm, traffic, w1, w2, counts) -> Part:
+    """The monitoring plane's cost on the drop policy's decode, levels
+    in turns (ABC, CBA, ...); the job's own plane is put back after."""
+    part = Part("monitoring")
+    r, n = comm.rank, comm.size
+    disp = Counted(Dispatcher(comm, traffic.wg, w1, w2, policy="drop",
+                              capacity_factor=CAPACITY_FACTOR), n)
+    _ids, x = traffic.request(T)
+    own = mon_matrix.TRAFFIC
+    lat = {lvl: [] for lvl in MON_LEVELS}
+    first = {}
+    before = counts.read()["ring_ag_hop"]
+    try:
+        for turn in range(MON_TURNS):
+            for lvl in (MON_LEVELS if turn % 2 == 0
+                        else MON_LEVELS[::-1]):
+                mon_matrix.disable()
+                if lvl:
+                    mon_matrix.enable(rank=r, level=lvl, nranks=n)
+                out, _info = disp(x)
+                first.setdefault(lvl, out.view(torch.int32).clone())
+                part.check(f"level {lvl}: the output bitwise level 0's",
+                           torch.equal(out.view(torch.int32),
+                                       first.get(0, first[lvl])))
+                run_decode(disp, traffic, n_requests=MON_REQUESTS,
+                           tokens_per_request=T, warmup=0,
+                           on_request=lambda i, info, dt, lvl=lvl:
+                           lat[lvl].append(dt / 1e6))
+    finally:
+        # the job's own plane (level 1) back for its report and dump
+        mon_matrix.disable()
+        mon_matrix.TRAFFIC = own
+    got = counts.read()["ring_ag_hop"] - before
+    part.check("K2 launches as derived", got == disp.derived, got=got,
+               derived=disp.derived)
+
+    def p50(v):
+        return sorted(v)[len(v) // 2]
+    part.doc.update(levels={str(lvl): {"p50_ms": p50(v), "ms": v}
+                            for lvl, v in lat.items()},
+                    k2={"got": got, "derived": disp.derived})
+    return part
+
+
 def dcn_part(comm, width, dev, counts) -> Part:
     part = Part("dcn_overflow")
     d, _f = WIDTHS[width]
@@ -311,16 +363,17 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--width", choices=sorted(WIDTHS), default="tiny")
     ap.add_argument("--parts", default="drop,reroute",
-                    help="comma-separated: drop, reroute (one job), or "
-                         "dcn_overflow (its own job, under --mca "
+                    help="comma-separated: drop, reroute, monitoring (one "
+                         "job), or dcn_overflow (its own job, under --mca "
                          "coll_hier_split 2x2)")
     ap.add_argument("--out", default="")
     ns = ap.parse_args(argv)
     parts = [p for p in ns.parts.split(",") if p]
-    if not set(parts) <= {"drop", "reroute", "dcn_overflow"} or (
+    if not set(parts) <= {"drop", "reroute", "monitoring",
+                          "dcn_overflow"} or (
             "dcn_overflow" in parts and len(parts) > 1):
-        raise SystemExit(f"--parts {ns.parts!r}: drop and reroute run "
-                         "together, dcn_overflow alone")
+        raise SystemExit(f"--parts {ns.parts!r}: drop, reroute and "
+                         "monitoring run together, dcn_overflow alone")
     comm = mpi.Init()
     r, n = comm.rank, comm.size
     if n != 4:
@@ -344,6 +397,8 @@ def main(argv=None) -> int:
         if "reroute" in parts:
             done.append(reroute_part(comm, traffic, w1, w2, counts))
             done.append(report_part(comm, traffic, "reroute"))
+        if "monitoring" in parts:
+            done.append(monitoring_part(comm, traffic, w1, w2, counts))
     peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
     cases = [c for p in done for c in p.cases]
     if r == 0:

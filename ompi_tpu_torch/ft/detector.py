@@ -16,10 +16,12 @@ pml (``on_revoke``). Revocation rides the same poll: ``revoke`` bumps a
 job-wide epoch counter, and observers re-read the per-comm revoke keys
 only when it moves.
 
-Where the port differs from the reference: the heartbeat carries no
-telemetry payload (the flight recorder comes with ROADMAP queue 1 item
-10), and the eventful sweep's wall is timed by hand (``ft_sweep_ns``;
-the port's pvars have no timer).
+The heartbeat carries the telemetry plane's payload while the flight
+recorder is up (``flight.hb_payload``: the latest entered and completed
+collective seq), which the watchdog diffs across ranks; otherwise it
+stays the 2-tuple. Where the port differs from the reference: the
+eventful sweep's wall is timed by hand (``ft_sweep_ns``; the port's
+pvars have no timer).
 """
 
 from __future__ import annotations
@@ -109,10 +111,12 @@ class Detector:
 
     # -- emitter / observer thread -----------------------------------------
     def _run(self) -> None:
+        from ompi_tpu_torch.telemetry import flight as _flight
+
         failures = 0
         while not self._stop.wait(self.period):
             try:
-                self._client.heartbeat(rte.rank)
+                self._client.heartbeat(rte.rank, _flight.hb_payload())
                 pvar.record("ft_heartbeats")
                 self.dead = self._client.faults(self.hb_timeout)
                 epoch = self._client.inc(f"ft:rev_epoch:{rte.jobid}", 0)

@@ -45,8 +45,13 @@ The module global ``INGEST`` is the plane's one-branch guard, brought up
 by ``runtime.state.init_instance`` when ``ingest_enable`` /
 ``OMPI_TPU_INGEST`` asks for it and torn down (uploads cancelled, threads
 joined, staging dropped) at the instance's release. The prof ledger's
-``staging`` and ``compile`` phases and its ``xfer`` spans come with
-ROADMAP queue 1 item 10.
+sites are the reference's (``engine.py:194-205``, ``:366-370``,
+``:475-511``): each upload stream drains in the ``staging`` phase, a
+compile-lane job runs in the ``compile`` phase (their overlap is
+``prof_phase_overlap_ns``), every landed unit is one ``h2d``
+:meth:`~ompi_tpu_torch.prof.ledger.Profiler.xfer` from its put to its
+retirement (the put itself is the accelerator's span-only
+``h2d_chunk``), and ``ingest_gate_ns`` is read on the ledger's clock.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from ompi_tpu_torch import errors
 from ompi_tpu_torch.core import cvar, output, pvar
 from ompi_tpu_torch.ingest.plan import IngestPlan
 from ompi_tpu_torch.part import partial as _partial
+from ompi_tpu_torch.prof import ledger as _prof
 
 _out = output.stream("ingest")
 
@@ -273,7 +279,7 @@ class IngestRequest(_partial.PartialAvailability):
         of them when ``keys`` is None), and order the caller's current
         stream after their copies. When it releases while the tail still
         uploads, the step starts early: ``ingest_early_starts``."""
-        t0 = time.monotonic_ns()
+        t0 = _prof.now()
         units = self.plan.units if keys is None \
             else self.plan.units_for(keys)
         for u in units:
@@ -285,7 +291,7 @@ class IngestRequest(_partial.PartialAvailability):
             if self._chunks[u.idx] is None and u.nbytes:
                 self._raise()
         self._hand_over(units)
-        pvar.record("ingest_gate_ns", time.monotonic_ns() - t0)
+        pvar.record("ingest_gate_ns", _prof.now() - t0)
         if not self._all_done.is_set():
             pvar.record("ingest_early_starts")
         return self
@@ -467,7 +473,8 @@ class IngestEngine:
 
         def job():
             live_before = bool(self._live_uploads())
-            out = fn(*args, **kwargs)
+            with _prof.phase("compile"):
+                out = fn(*args, **kwargs)
             if live_before and self._live_uploads():
                 # the compile ran start to end with an upload in flight
                 pvar.record("ingest_compile_overlaps")
@@ -561,13 +568,18 @@ class IngestEngine:
             put = self._put or default_put
             dev = req.device
             flat = req._flat
-            #: (unit, put, ring slot), in submission order
+            #: (unit, put, ring slot, put time), in submission order
             inflight: collections.deque = collections.deque()
 
             def retire(entry) -> None:
-                u, up, _slot = entry
+                u, up, _slot, t0 = entry
                 _settle(up)
-                req._resolve(u.idx, chunk=up, t_ns=time.monotonic_ns())
+                t1 = _prof.now()
+                prof = _prof.PROFILER
+                if prof is not None:
+                    prof.xfer("h2d", u.nbytes, t0, t1, site="ingest",
+                              stream=s, chunk=u.idx)
+                req._resolve(u.idx, chunk=up, t_ns=t1)
                 pvar.record("ingest_units")
                 pvar.record("ingest_bytes", u.nbytes)
 
@@ -592,7 +604,8 @@ class IngestEngine:
                         dst = flat[a:a + u.nbytes].view(tdt)
                     else:
                         dst = torch.empty(0, dtype=tdt, device=dev)
-                    inflight.append((u, put(view, dst, h2d), slot))
+                    t0 = _prof.now()
+                    inflight.append((u, put(view, dst, h2d), slot, t0))
                     if len(inflight) > req.inflight_hwm:
                         req.inflight_hwm = len(inflight)
                     pvar.record_hwm("ingest_inflight", len(inflight))
@@ -600,17 +613,18 @@ class IngestEngine:
                     retire(inflight.popleft())
 
             try:
-                if dev.type == "cuda":
-                    with torch.cuda.device(dev):
+                with _prof.phase("staging"):
+                    if dev.type == "cuda":
+                        with torch.cuda.device(dev):
+                            loop()
+                    else:
                         loop()
-                else:
-                    loop()
             except BaseException as exc:  # noqa: BLE001 — raised at wait
                 req._fail(exc)
                 _out.verbose(1, "ingest stream %d failed: %r", s, exc)
                 # the puts still in flight read the ring: let them land
                 # before the slots can be packed again
-                for _u, up, _slot in inflight:
+                for _u, up, _slot, _t0 in inflight:
                     try:
                         _settle(up)
                     except BaseException:  # noqa: BLE001

@@ -47,8 +47,9 @@ bfloat16 leaf comes back as a CPU ``torch.bfloat16`` tensor; a
 ``drain_ns``). :meth:`AsyncCheckpointer.restore_to_device` feeds the
 restored tree through the ingest plane, and the elastic plane drops a
 snapshot begun on a comm that a shrink or a hot join replaced
-(:meth:`Snapshot.abort`). Left for a later slice: the drain's ``prof``
-ledger ``snapshot`` phase (ROADMAP queue 1 item 10).
+(:meth:`Snapshot.abort`). The drain runs in the prof ledger's
+``snapshot`` phase (reference ``async_ckpt.py:348``), and the telemetry
+watchdog's hang dump names a snapshot in flight (:func:`snapshot_info`).
 """
 
 from __future__ import annotations
@@ -67,6 +68,7 @@ from ompi_tpu_torch import errors
 from ompi_tpu_torch.core import cvar, pvar
 from ompi_tpu_torch.io import manifest as _manifest
 from ompi_tpu_torch.io.checkpoint import dtype_name, from_bytes, itemsize
+from ompi_tpu_torch.prof import ledger as _ledger
 from ompi_tpu_torch.runtime import rte
 
 _ALIGN = 64
@@ -429,59 +431,61 @@ class AsyncCheckpointer:
         pvar.record("ckpt_snapshots")
 
         def drain() -> None:
-            # the reference runs the drain under prof's ledger phase
-            # "snapshot" (its overlap measure): prof comes with ROADMAP
-            # queue 1 item 10
+            # the drain runs in the prof ledger's "snapshot" phase: its
+            # overlap with the caller's "train" is the plane's measure
+            # (prof_phase_overlap_ns)
             try:
-                _inject("d2h")
-                t0 = time.perf_counter_ns()
-                buf = staging.view
-                timing = None
-                if acc is not None:
-                    torch.cuda.set_device(device)
-                    side = acc.d2h_stream(device)
-                    timing = (torch.cuda.Event(enable_timing=True),
-                              torch.cuda.Event(enable_timing=True))
-                    timing[0].record(side)
-                # every copy queued first, then each chunk digested as
-                # its last copy lands
-                last = []
-                for ci, pieces in jobs:
-                    pos, ev = offs[ci], None
-                    for p in pieces:
-                        src = _bytes_of(p)
-                        k = int(src.shape[0])
-                        if _is_cuda(p):
-                            ev = acc.copy_async(
-                                src, staging.tensor[pos:pos + k])
-                        elif isinstance(src, torch.Tensor):
-                            np.copyto(buf[pos:pos + k], src.numpy())
-                        else:
-                            np.copyto(buf[pos:pos + k], src)
-                        pos += k
-                    end = offs[ci] + int(chunks[ci]["nbytes"])
-                    if pos < end:  # the pad tail of the bucket
-                        buf[pos:end] = 0
-                    last.append(ev)
-                if timing is not None:
-                    timing[1].record(acc.d2h_stream(device))
-                done = 0
-                for (ci, _), ev in zip(jobs, last):
-                    if ev is not None:
-                        ev.wait()
-                    data = buf[offs[ci]:offs[ci] + int(chunks[ci]["nbytes"])]
-                    payload[ci] = data
-                    chunks[ci]["sha256"] = _manifest.digest(data)
-                    done += 1
-                    _info_update(chunks_done=done)
-                if timing is not None:
-                    timing[1].synchronize()
-                    snap.copy_ms = timing[0].elapsed_time(timing[1])
-                snap.drain_ns = time.perf_counter_ns() - t0
-                pvar.record("ckpt_d2h_ns", snap.drain_ns)
-                pvar.record("ckpt_bytes",
-                            sum(c["nbytes"] for c in chunks))
-                pvar.record("ckpt_chunks", len(chunks))
+                with _ledger.phase("snapshot"):
+                    _inject("d2h")
+                    t0 = time.perf_counter_ns()
+                    buf = staging.view
+                    timing = None
+                    if acc is not None:
+                        torch.cuda.set_device(device)
+                        side = acc.d2h_stream(device)
+                        timing = (torch.cuda.Event(enable_timing=True),
+                                  torch.cuda.Event(enable_timing=True))
+                        timing[0].record(side)
+                    # every copy queued first, then each chunk digested as
+                    # its last copy lands
+                    last = []
+                    for ci, pieces in jobs:
+                        pos, ev = offs[ci], None
+                        for p in pieces:
+                            src = _bytes_of(p)
+                            k = int(src.shape[0])
+                            if _is_cuda(p):
+                                ev = acc.copy_async(
+                                    src, staging.tensor[pos:pos + k])
+                            elif isinstance(src, torch.Tensor):
+                                np.copyto(buf[pos:pos + k], src.numpy())
+                            else:
+                                np.copyto(buf[pos:pos + k], src)
+                            pos += k
+                        end = offs[ci] + int(chunks[ci]["nbytes"])
+                        if pos < end:  # the pad tail of the bucket
+                            buf[pos:end] = 0
+                        last.append(ev)
+                    if timing is not None:
+                        timing[1].record(acc.d2h_stream(device))
+                    done = 0
+                    for (ci, _), ev in zip(jobs, last):
+                        if ev is not None:
+                            ev.wait()
+                        data = buf[offs[ci]:offs[ci]
+                                   + int(chunks[ci]["nbytes"])]
+                        payload[ci] = data
+                        chunks[ci]["sha256"] = _manifest.digest(data)
+                        done += 1
+                        _info_update(chunks_done=done)
+                    if timing is not None:
+                        timing[1].synchronize()
+                        snap.copy_ms = timing[0].elapsed_time(timing[1])
+                    snap.drain_ns = time.perf_counter_ns() - t0
+                    pvar.record("ckpt_d2h_ns", snap.drain_ns)
+                    pvar.record("ckpt_bytes",
+                                sum(c["nbytes"] for c in chunks))
+                    pvar.record("ckpt_chunks", len(chunks))
             except BaseException as exc:  # noqa: BLE001 - surfaced by wait_d2h
                 snap.error = exc
             finally:

@@ -44,7 +44,9 @@ moves nothing, and a request-based op returns a completed request. Every
 service message counts on the monitoring plane (ctx
 ``osc``, its arrays' bytes) in :meth:`Window._send`; every epoch
 transition emits the MPI_T event ``osc_epoch_transition`` (reference
-``osc/__init__.py:578-687``); the trace call sites wait with item 10.
+``osc/__init__.py:578-687``). A device window's synchronisation calls are
+flight-recorder entries and trace ``epoch`` spans (``osc/cuda.py``, the
+reference's osc/pallas.py:127-140, :367-455).
 """
 
 from __future__ import annotations

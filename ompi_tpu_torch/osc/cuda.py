@@ -119,6 +119,8 @@ from ompi_tpu_torch.osc import (LOCK_EXCLUSIVE, Window, _numel,
 from ompi_tpu_torch.osc import cuda_kernels as O
 from ompi_tpu_torch.osc.device_epoch import GetHandle, _color
 from ompi_tpu_torch.runtime import device_plane
+from ompi_tpu_torch.telemetry import flight as _flight
+from ompi_tpu_torch.trace import recorder as _trace
 
 _enable_var = cvar.register(
     "osc_cuda", "off", str,
@@ -164,6 +166,22 @@ def _op_name(op) -> str:
     return str(getattr(op, "name", op))
 
 
+def _flight_slot(op: str, cid: int, nbytes: int = 0):
+    """A flight-recorder entry for one synchronisation call
+    (osc/pallas.py:127-140), or None while the recorder is off; pair
+    with :func:`_flight_exit`. The op names the window and the peers, so
+    a hang dump attributes a stuck epoch by itself."""
+    fl = _flight.FLIGHT
+    if fl is None:
+        return None
+    return (fl, fl.enter(op, cid, nbytes))
+
+
+def _flight_exit(tok) -> None:
+    if tok is not None:
+        tok[0].exit(tok[1])
+
+
 class CudaWindow(Window):
     """Device-resident MPI window: the authoritative buffer is a flat
     tensor on the rank's device (``.array`` views it in ``base``'s
@@ -184,6 +202,8 @@ class CudaWindow(Window):
         # kind, stride), gets (handle, target, disp, nelems, stride)
         self._fput: List[Tuple] = []
         self._fget: List[Tuple] = []
+        # passive-target epoch starts per target (the trace's epoch spans)
+        self._lock_t0: Dict[int, int] = {}
         self._target = O.Target(self._win)  # the launch record, checked once
         # the stream every apply and read of this window runs on
         self._stream = torch.cuda.current_stream(self._win.device) \
@@ -477,19 +497,35 @@ class CudaWindow(Window):
         definition)."""
         pvar.record("osc_cuda_fence")
         self._epoch_event("fence", "enter")
-        self.Flush_all()
-        self._join()
-        if self._fence_open:
-            with self._on_stream():
-                self._flush_fence()
-        self._publish()
-        self.comm.coll.barrier(self.comm)
+        tok = _flight_slot(f"osc_cuda_fence win={self.name}",
+                           getattr(self.comm, "cid", -1))
+        rec = _trace.RECORDER
+        t0 = _trace.now() if rec is not None else 0
+        try:
+            self.Flush_all()
+            self._join()
+            if self._fence_open:
+                with self._on_stream():
+                    self._flush_fence()
+            self._publish()
+            self.comm.coll.barrier(self.comm)
+        finally:
+            _flight_exit(tok)
+        if rec is not None:
+            rec.record("epoch", "osc_cuda", t0, _trace.now(),
+                       {"op": "fence", "win": self.name})
         self._fence_open = True
         self._epoch_event("fence", "exit")
 
     def Lock(self, target: int, lock_type: str = LOCK_EXCLUSIVE) -> None:
         self._join()
-        super().Lock(target, lock_type)
+        tok = _flight_slot(f"osc_cuda_lock win={self.name} peer={target}",
+                           getattr(self.comm, "cid", -1))
+        try:
+            super().Lock(target, lock_type)
+        finally:
+            _flight_exit(tok)
+        self._lock_t0[target] = _trace.now()
 
     def Unlock(self, target: int) -> None:
         if target not in self._granted:
@@ -497,7 +533,18 @@ class CudaWindow(Window):
                 errors.ERR_RMA_SYNC,
                 f"Unlock on {self.name}: rank {target} is not locked by this "
                 "origin")
-        super().Unlock(target)
+        tok = _flight_slot(f"osc_cuda_unlock win={self.name} peer={target}",
+                           getattr(self.comm, "cid", -1))
+        try:
+            super().Unlock(target)
+        finally:
+            _flight_exit(tok)
+        t0 = self._lock_t0.pop(target, None)
+        rec = _trace.RECORDER
+        if rec is not None:
+            t1 = _trace.now()
+            rec.record("epoch", "osc_cuda", t1 if t0 is None else t0, t1,
+                       {"op": "passive", "win": self.name, "peer": target})
 
     def Post(self, group_ranks: List[int]) -> None:
         self._join()
@@ -505,14 +552,37 @@ class CudaWindow(Window):
 
     def Start(self, group_ranks: List[int]) -> None:
         self._join()
-        super().Start(group_ranks)
+        tok = _flight_slot(
+            f"osc_cuda_start win={self.name} peer={list(group_ranks)}",
+            getattr(self.comm, "cid", -1))
+        try:
+            super().Start(group_ranks)
+        finally:
+            _flight_exit(tok)
 
     def Complete(self) -> None:
         if self._access_group is None:
             raise errors.MPIError(
                 errors.ERR_RMA_SYNC,
                 f"Complete on {self.name} without a matching Start")
-        super().Complete()
+        tok = _flight_slot(
+            f"osc_cuda_complete win={self.name} "
+            f"peer={list(self._access_group)}",
+            getattr(self.comm, "cid", -1))
+        try:
+            super().Complete()
+        finally:
+            _flight_exit(tok)
+
+    def Wait(self) -> None:
+        tok = _flight_slot(
+            f"osc_cuda_wait win={self.name} "
+            f"peer={list(self._exposure_group or [])}",
+            getattr(self.comm, "cid", -1))
+        try:
+            super().Wait()
+        finally:
+            _flight_exit(tok)
 
     def Free(self) -> None:
         if self._fput or self._fget:

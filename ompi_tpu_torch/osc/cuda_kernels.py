@@ -112,7 +112,7 @@ def lib():
     """The loaded RMA kernel library (built on first use)."""
     global _lib
     if _lib is None:
-        L = ctypes.CDLL(build())
+        L = K.load(_SRC, "osc_cuda")
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         L.orm_apply.argtypes = [i, i, p, i64, p, i64, i64, p]
         L.orm_apply_strided_batch.argtypes = [i, p, p, i, p]

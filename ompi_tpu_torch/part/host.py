@@ -31,8 +31,12 @@ Where the port differs from the reference:
   device array, so its partitions would not alias the caller's buffer.
 - A partition index outside ``[0, partitions)`` given to ``Pready``
   raises ``MPIError(ERR_ARG)`` (the reference indexes a list with it).
-- The trace and flight-recorder call sites wait with the port's
-  telemetry (ROADMAP queue 1 item 10), as ob1's do.
+
+The trace and flight-recorder sites are the reference's (:114, :155,
+:175, :224, :237): an epoch is one flight-recorder entry from start to
+completion (``psend_epoch`` / ``precv_epoch``), a Pready's send is a
+``psend_pready`` span and a receive epoch's posting a ``precv_start``
+span in ``part``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,8 @@ from ompi_tpu_torch import errors, pml
 from ompi_tpu_torch.core import progress, pvar
 from ompi_tpu_torch.part import partial as _partial
 from ompi_tpu_torch.pml import request as rq
+from ompi_tpu_torch.telemetry import flight as _flight
+from ompi_tpu_torch.trace import recorder as _trace
 
 _PART_BASE = -(1 << 24)  # below any other framework-internal tag
 MAX_PARTITIONS = 4096
@@ -105,6 +111,7 @@ class _PartitionedBase(rq.Request):
         self._chunks = np.split(flat, partitions)  # views
         self._reqs: List[Optional[rq.Request]] = []
         self._started = False  # ever started (the Parrived precondition)
+        self._fl_tok: Optional[int] = None  # the epoch's flight entry
         self.completed = True  # inactive until start()
 
     @property
@@ -113,6 +120,11 @@ class _PartitionedBase(rq.Request):
         progress, so it evaluates the epoch."""
         if not self._done:
             self._done = self._epoch_done()
+            if self._done and self._fl_tok is not None:
+                tok, self._fl_tok = self._fl_tok, None
+                fl = _flight.FLIGHT
+                if fl is not None:
+                    fl.exit(tok)
         return self._done
 
     @completed.setter
@@ -160,6 +172,11 @@ class PartitionedSendRequest(_PartitionedBase):
         self._started = True
         self.completed = False
         pvar.record("part_send_start")
+        fl = _flight.FLIGHT
+        if fl is not None:
+            self._fl_tok = fl.enter(
+                "psend_epoch", getattr(self.comm, "cid", -1),
+                sum(int(c.nbytes) for c in self._chunks))
 
     def Pready(self, idx: int) -> None:
         if self.completed:
@@ -180,9 +197,19 @@ class PartitionedSendRequest(_PartitionedBase):
         self._ready[idx] = True
         pvar.record("part_pready")
         chunk = self._chunks[idx]
+        rec = _trace.RECORDER
+        if rec is None:
+            self._reqs[idx] = pml.current().isend(
+                self.comm, chunk, chunk.size, None, self.peer,
+                _part_tag(self.tag, self._ep, idx))
+            return
+        t0 = _trace.now()
         self._reqs[idx] = pml.current().isend(
             self.comm, chunk, chunk.size, None, self.peer,
             _part_tag(self.tag, self._ep, idx))
+        rec.record("psend_pready", "part", t0, _trace.now(),
+                   {"partition": idx, "peer": self.peer,
+                    "tag": self.tag, "nbytes": int(chunk.nbytes)})
 
     def Pready_range(self, lo: int, hi: int) -> None:
         for i in range(lo, hi + 1):
@@ -208,13 +235,24 @@ class PartitionedRecvRequest(_PartitionedBase,
         self._check_start()
         ep = _epoch(self.comm, self.peer, self.tag, "recv")
         p = pml.current()
+        rec = _trace.RECORDER
+        t0 = _trace.now() if rec is not None else 0
         self._reqs = [
             p.irecv(self.comm, self._chunks[i], self._chunks[i].size, None,
                     self.peer, _part_tag(self.tag, ep, i))
             for i in range(self.partitions)]
+        if rec is not None:
+            rec.record("precv_start", "part", t0, _trace.now(),
+                       {"partitions": self.partitions,
+                        "peer": self.peer, "tag": self.tag})
         self._started = True
         self.completed = False
         pvar.record("part_recv_start")
+        fl = _flight.FLIGHT
+        if fl is not None:
+            self._fl_tok = fl.enter(
+                "precv_epoch", getattr(self.comm, "cid", -1),
+                sum(int(c.nbytes) for c in self._chunks))
 
     def _partial_started(self) -> bool:
         return self._started

@@ -46,9 +46,13 @@ detector hands new deaths to :meth:`Ob1.on_fault` and revocations to
 ``failed`` and ``acked`` sets gate new sends and receives
 (``_recv_src_failed``, :431-447).
 
-Left out of the port's ob1, in ROADMAP: the memchecker, trace and
-flight-recorder call sites (reference ob1.py:244-245, :260-267,
-:289-294, :326-332, :401-416, :841-849; queue 1 item 10).
+The trace and flight-recorder sites are the reference's (ob1.py:244-245,
+:289-294, :326-332, :414-416, :841-849): an ``isend`` span in ``pml``
+(pack, protocol choice and the first handoff to the btl), an
+``irecv_post`` marker, a ``send`` span in ``btl`` per rendezvous
+fragment, and on a collective context the last pml seq that moved,
+dump-only detail of the flight recorder. Left out, in ROADMAP: the
+memchecker's sites (:260-267, :401-413; item 10c).
 """
 
 from __future__ import annotations
@@ -70,6 +74,8 @@ from ompi_tpu_torch.datatype import BYTE, Convertor, dtype_of
 from ompi_tpu_torch.pml import custommatch, peruse
 from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import rte
+from ompi_tpu_torch.telemetry import flight as _flight
+from ompi_tpu_torch.trace import recorder as _trace
 
 HDR_MATCH = 1
 HDR_RNDV = 2
@@ -250,6 +256,8 @@ class Ob1:
     def isend(self, comm, buf, count, dtype, dst: int, tag: int,
               sync: bool = False, obj=NO_OBJ,
               collective: bool = False) -> SendRequest:
+        rec = _trace.RECORDER
+        t_send = _trace.now() if rec is not None else 0
         req = SendRequest()
         if dst == rq.PROC_NULL:
             req.complete()
@@ -280,6 +288,12 @@ class Ob1:
             if self._peer_arch(dst_world) != mine or mine != arch.native():
                 conv.set_hetero(swap=mine != arch.native())
         seq = self._next_seq(ctx, dst)
+        fl = _flight.FLIGHT
+        if fl is not None and collective:
+            # dump-only detail: the last pml seq that moved on each
+            # collective context (staged collectives progressing vs
+            # wedged)
+            fl.mark_pml(ctx, seq)
         size = conv.packed_size
         msgid = next(_msg_ids)
         req.conv = conv
@@ -294,22 +308,35 @@ class Ob1:
             pvar.record("eager")
             if sync:
                 self.pending_ack[msgid] = req
-            ep.send(dst_world, hdr + conv.pack())
+            self.bml.send(dst_world, hdr + conv.pack())
             if not sync:
                 req.complete()
-            return req
+        else:
+            self._rndv_start(req, ep, comm.rank, dst_world, ctx, tag, seq,
+                             size, flags, msgid)
+        if rec is not None:
+            # pack, protocol choice and the first handoff to the btl (a
+            # rendezvous streams on under progress after this returns)
+            rec.record("isend", "pml", t_send, _trace.now(),
+                       {"dst": dst_world, "tag": tag, "size": size,
+                        "path": "eager" if size <= ep.eager_limit
+                        else "rndv"})
+        return req
+
+    def _rndv_start(self, req, ep, src_rank: int, dst_world: int, ctx: int,
+                    tag: int, seq: int, size: int, flags: int,
+                    msgid: int) -> None:
         sc = self._expose_single_copy(req, ep, dst_world)
         if sc is not None:
-            hdr = _MATCH.pack(HDR_RNDV_SC, ctx, comm.rank, tag, seq, size,
+            hdr = _MATCH.pack(HDR_RNDV_SC, ctx, src_rank, tag, seq, size,
                               flags, msgid) + sc
             pvar.record("rndv_sc")
         else:
-            hdr = _MATCH.pack(HDR_RNDV, ctx, comm.rank, tag, seq, size,
+            hdr = _MATCH.pack(HDR_RNDV, ctx, src_rank, tag, seq, size,
                               flags, msgid)
             pvar.record("rndv")
         self.pending_ack[msgid] = req
-        ep.send(dst_world, hdr)
-        return req
+        self.bml.send(dst_world, hdr)
 
     def _expose_single_copy(self, req: SendRequest, ep,
                             dst_world: int) -> Optional[bytes]:
@@ -371,6 +398,9 @@ class Ob1:
             req.complete(err)
             return req
         self._post(req)
+        rec = _trace.RECORDER
+        if rec is not None:
+            rec.instant("irecv_post", "pml", {"src": src, "tag": tag})
         return req
 
     def irecv_obj(self, comm, src: int, tag: int,
@@ -743,8 +773,16 @@ class Ob1:
                 offset = conv.position
                 data = conv.pack(max_bytes=ep.max_send)
                 pvar.record("rndv_frag")
-                ep.send(req.dst_world,
-                        _FRAG.pack(HDR_FRAG, req.recv_id, offset) + data)
+                frame = _FRAG.pack(HDR_FRAG, req.recv_id, offset) + data
+                rec = _trace.RECORDER
+                if rec is None:
+                    ep.send(req.dst_world, frame)
+                else:
+                    t0 = _trace.now()
+                    ep.send(req.dst_world, frame)
+                    rec.record("send", "btl", t0, _trace.now(),
+                               {"peer": req.dst_world,
+                                "nbytes": len(frame), "btl": ep.NAME})
         finally:
             req.pumping = False
         if conv.done and not req.completed:

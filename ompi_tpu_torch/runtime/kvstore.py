@@ -21,7 +21,10 @@ Commands:
   ("aborted?",)                  -> ("val", (reason, code) | None)
 
 Fault tolerance (the PRRTE-daemon side of ULFM: the store is the daemon):
-  ("hb", rank)                   -> ("ok",)   # heartbeat timestamp
+  ("hb", rank[, payload])        -> ("ok",)   # heartbeat timestamp; the
+      optional payload (the telemetry plane's latest collective seq) is
+      kept per rank and read back with ("telem?",)
+  ("telem?",)                    -> ("val", {rank: payload})
   ("dead", rank, reason)         -> ("ok",)   # declare a rank failed
   ("faults?", hb_timeout|None)   -> ("val", {rank: reason})
   ("ftgather", tag, rank, value, ranks, hb_timeout)
@@ -31,8 +34,7 @@ Fault tolerance (the PRRTE-daemon side of ULFM: the store is the daemon):
       contribution / failure split (the guarantee of the reference's ERA
       agreement, coll/ftagree).
 The dead set only grows (once failed, always failed); a rank whose last
-heartbeat is older than ``hb_timeout`` is promoted into it. The
-reference's telemetry payload on ``hb`` comes with ROADMAP queue 1 item 10.
+heartbeat is older than ``hb_timeout`` is promoted into it.
 
 Once the job is aborted, a blocked ``get`` or ``fence`` (and any later
 one) answers ``("aborted", (reason, code))``, and the client exits its
@@ -85,6 +87,8 @@ class Store:
         # last heartbeat times
         self._dead: Dict[int, str] = {}
         self._hb: Dict[int, float] = {}
+        # the latest heartbeat payload per rank (telemetry seq payloads)
+        self._telem: Dict[int, Any] = {}
         # tag -> {"contribs": {rank: val}, "result": frozen | None, "left"}
         self._gathers: Dict[str, dict] = {}
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -198,9 +202,15 @@ class Store:
             with self._cond:
                 return ("val", self._aborted)
         if op == "hb":
+            payload = msg[2] if len(msg) > 2 else None
             with self._cond:
                 self._hb[msg[1]] = time.monotonic()
+                if payload is not None:
+                    self._telem[msg[1]] = payload
             return ("ok",)
+        if op == "telem?":
+            with self._cond:
+                return ("val", dict(self._telem))
         if op == "dead":
             _, rank, reason = msg
             self.mark_dead(rank, reason)
@@ -350,8 +360,19 @@ class Client:
         return self._rpc("aborted?")[1]
 
     # -- fault tolerance --------------------------------------------------
-    def heartbeat(self, rank: int) -> None:
-        self._rpc("hb", rank)
+    def heartbeat(self, rank: int, payload: Any = None) -> None:
+        """Heartbeat, optionally carrying a telemetry payload (the rank's
+        latest collective seq); without one the message stays the
+        2-tuple."""
+        if payload is None:
+            self._rpc("hb", rank)
+        else:
+            self._rpc("hb", rank, payload)
+
+    def telemetry(self) -> Dict[int, Any]:
+        """The latest heartbeat payload per rank (the watchdog's seq
+        diff)."""
+        return self._rpc("telem?")[1]
 
     def mark_dead(self, rank: int, reason: str) -> None:
         self._rpc("dead", rank, reason)

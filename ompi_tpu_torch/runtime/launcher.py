@@ -28,6 +28,12 @@ and the job goes on (runtime-level detection is the launcher daemon's
 job, docs/features/ulfm.rst:260-262); a rank that exits nonzero still
 fails the job, and so does a job whose every rank was killed (nothing
 survived).
+
+When the job profiles (``--mca prof_enable 1`` or ``OMPI_TPU_PROF``) the
+launcher enables its own phase ledger too (reference ``launcher.py:46-59``)
+and attributes its wall to ``spawn`` and ``wait`` (:275-292). The
+multi-host launch's ledger (:379) comes with that launch (ROADMAP item
+4d).
 """
 
 from __future__ import annotations
@@ -74,6 +80,21 @@ def build_env(rank: int, size: int, store_addr, jobid: str,
     return env
 
 
+def _prof_ledger(mca: Optional[Dict[str, str]]):
+    """The launcher's phase ledger: enabled here when the job profiles,
+    so spawn and wait wall are attributed as the ranks attribute theirs.
+    Returns the ledger module either way (``phase()`` is the shared
+    no-op while it is off)."""
+    from ompi_tpu_torch.prof import ledger
+
+    if ledger.PROFILER is None and (
+            ledger.requested()
+            or str((mca or {}).get("prof_enable", "0")).strip().lower()
+            not in ("0", "false", "no", "off", "")):
+        ledger.enable()
+    return ledger
+
+
 def launch(argv: Sequence[str], nprocs: int,
            mca: Optional[Dict[str, str]] = None,
            timeout: Optional[float] = None) -> int:
@@ -85,12 +106,16 @@ def launch(argv: Sequence[str], nprocs: int,
     store.seed_counter(f"ww:{jobid}", nprocs)
     argv = _wrap_py(list(argv))
     ft = str((mca or {}).get("ft", "0")).lower() not in ("0", "false", "")
+    ledger = _prof_ledger(mca)
     procs: List[subprocess.Popen] = []
     try:
-        for r in range(nprocs):
-            procs.append(subprocess.Popen(
-                argv, env=build_env(r, nprocs, store.addr, jobid, mca)))
-        return _wait_all(procs, timeout, store=store if ft else None)
+        with ledger.phase("spawn"):
+            for r in range(nprocs):
+                procs.append(subprocess.Popen(
+                    argv, env=build_env(r, nprocs, store.addr, jobid,
+                                        mca)))
+        with ledger.phase("wait"):
+            return _wait_all(procs, timeout, store=store if ft else None)
     finally:
         reap(procs)
         cleanup_shm(jobid)

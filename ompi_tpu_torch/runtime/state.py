@@ -23,8 +23,19 @@ the ULFM failure detector (``--mca ft 1``) starts once COMM_WORLD exists
 (:293-296) and stops at Finalize after the world's comms are freed
 (:334-346). Under ``ft`` the last fence is released by the failed ranks
 of the world (the store's dead-release) and a ProcFailedError it raises
-is taken as the fence's answer. The prof, tune, trace, telemetry, skew
-and check planes attach in their own slices (ROADMAP queue 1 item 10).
+is taken as the fence's answer.
+
+The observability planes come up where the reference's do: the prof
+ledger (``prof_enable`` / ``OMPI_TPU_PROF``) before the accelerator, so
+the first upload is attributed (:60-65); the trace recorder
+(``trace_enable`` / ``OMPI_TPU_TRACE``) after the interposition layers,
+with its clock synced through the store (:135-140); the telemetry plane
+(``telemetry_enable`` / ``OMPI_TPU_TELEMETRY``) after it, so a hang dump
+can flush the span ring (:156). The teardown runs in the ledger's
+``teardown`` phase and stops telemetry's threads first, before the
+monitoring plane and the transports (:200-202, :221). None of them may
+sink init: a failure is logged and init goes on. The tune, skew and
+check planes attach in their own slices (ROADMAP items 10b, 10c).
 """
 
 from __future__ import annotations
@@ -69,6 +80,12 @@ def init_instance() -> None:
         rte.init()
         _out.verbose(2, "rte up: rank %d/%d job %s",
                      rte.rank, rte.size, rte.jobid)
+        # the attribution ledger before the accelerator and the device
+        # plane, so their first uploads and kernel loads are attributed
+        from ompi_tpu_torch import prof
+
+        if prof.requested():
+            prof.enable(rank=rte.rank)
         from ompi_tpu_torch import accelerator
 
         accelerator.current()
@@ -102,6 +119,26 @@ def init_instance() -> None:
 
         if monitoring.requested():
             monitoring.start(rank=rte.rank, nranks=rte.size)
+        # the span recorder before any traffic flows, its clock synced
+        # through the store (collective: the knob is job-uniform) so the
+        # ranks' timelines share rank 0's timebase
+        from ompi_tpu_torch.trace import recorder as _trace_rec
+
+        if _trace_rec.requested():
+            try:
+                _trace_rec.enable(rank=rte.rank)
+                _trace_rec.sync_clock()
+            except Exception as exc:  # noqa: BLE001 — never sinks init
+                _out.verbose(0, "trace enable failed: %r", exc)
+        # flight recorder, sampler and watchdog, after tracing so a hang
+        # dump can flush the span ring
+        from ompi_tpu_torch import telemetry
+
+        if telemetry.requested():
+            try:
+                telemetry.start(rank=rte.rank)
+            except Exception as exc:  # noqa: BLE001 — never sinks init
+                _out.verbose(0, "telemetry enable failed: %r", exc)
         _instance_up = True
         if not _atexit_registered:
             atexit.register(_atexit_finalize)
@@ -127,25 +164,41 @@ def _release() -> None:
         if _instance_users > 0 or not _instance_up:
             return
         _instance_up = False
-        try:
-            rte.fence("finalize", timeout=30.0)
-        except errors.ProcFailedError:
-            pass  # failed ranks of the world released the fence (ft)
-        finally:
-            from ompi_tpu_torch import ingest, monitoring, pml
-            from ompi_tpu_torch.runtime import device_plane
+        from ompi_tpu_torch.prof import ledger
 
-            try:  # the matrices' dump, before the pml dies
-                monitoring.stop()
+        with ledger.phase("teardown"):
+            _teardown()
+
+
+def _teardown() -> None:
+    """The last release's work: the fence, then telemetry's threads
+    (a watchdog sweeping or a sampler publishing against a store the
+    teardown is about to close would log spurious failures), the
+    monitoring plane (its dump), ingest, the pml, the components and
+    the device plane."""
+    try:
+        rte.fence("finalize", timeout=30.0)
+    except errors.ProcFailedError:
+        pass  # failed ranks of the world released the fence (ft)
+    finally:
+        from ompi_tpu_torch import ingest, monitoring, pml, telemetry
+        from ompi_tpu_torch.runtime import device_plane
+
+        try:
+            telemetry.stop()
+        except Exception:  # noqa: BLE001 — a dead store must not stop this
+            pass
+        try:  # the matrices' dump, before the pml dies
+            monitoring.stop()
+        finally:
+            try:
+                # cancels a tail upload, joins the upload threads,
+                # drops the pinned staging ring
+                ingest.stop()
             finally:
-                try:
-                    # cancels a tail upload, joins the upload threads,
-                    # drops the pinned staging ring
-                    ingest.stop()
-                finally:
-                    pml.finalize()
-                    registry.close_all()
-                    device_plane.shutdown()
+                pml.finalize()
+                registry.close_all()
+                device_plane.shutdown()
 
 
 def init(thread_level: int = 0):

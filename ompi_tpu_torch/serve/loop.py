@@ -8,8 +8,9 @@ counterpart of ``block_until_ready``), and the percentile summary
 (p50 / p95 / p99) is reported next to throughput. Every timed request
 feeds ``serve_requests`` on the pvar plane and, with the monitoring plane
 on, its latency into the ``[serve]`` table's log2 histogram; per-dispatch
-token accounting is the Dispatcher's. The reference's ``serve_decode``
-trace histogram waits for the trace plane (ROADMAP item 10).
+token accounting is the Dispatcher's. With the trace recorder up each
+timed request also lands in the ``serve_decode`` log2 latency histogram
+(``trace_hist_serve_decode_*``, reference ``loop.py:67-69``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from ompi_tpu_torch.core import pvar
 from ompi_tpu_torch.monitoring import matrix as _mon
+from ompi_tpu_torch.trace import recorder as _trace
 
 
 def _percentile(sorted_ns, q: float) -> float:
@@ -67,6 +69,9 @@ def run_decode(dispatcher, traffic, *, n_requests: int = 32,
             agg[k] += int(info.get(k, 0))
         c = np.asarray(info["counts"], dtype=np.int64)
         counts = c if counts is None else counts + c
+        rec = _trace.RECORDER
+        if rec is not None:
+            _trace.hist("serve_decode", x.nbytes, dt)
         tm = _mon.TRAFFIC
         if tm is not None:
             tm.serve_event(info["policy"], requests=1, lat_ns=dt)

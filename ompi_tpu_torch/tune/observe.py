@@ -2,7 +2,7 @@
 (``ompi_tpu/tune/observe.py:144``, ``:169-182``).
 
 :data:`OBSERVER` is the reference's process-wide guard: None (the
-observatory comes with ROADMAP item 10), so every hook pays one branch.
+observatory comes with ROADMAP item 10b), so every hook pays one branch.
 :func:`table_error` is what coll/cuda's and coll/hier's switchpoint
 readers call when a table file does not load: the reader then goes on
 with the built-in thresholds, as the reference's do.

@@ -40,11 +40,15 @@ per-layer carried residual (:class:`~ompi_tpu_torch.zero.layout.
 ErrorFeedback`) before the reduce-scatter, the stage-3 shape of the
 stage-1/2 option.
 
-Where the port differs from the reference: the trace, prof and watchdog
-call sites wait with the port's telemetry (ROADMAP item 10);
-:func:`prefetch_info` keeps its record all the same.
-coll/device's gathers step on the host inside ``start()``, so a
-prefetched gather is complete when the consumer arrives: the prefetch
+The observability sites are the reference's (zero3.py:248-250,
+:296-311): a started gather is a ``prefetch_start`` marker in the
+``prefetch`` lane; a blocked wait runs in the prof ledger's
+``prefetch`` phase and is a ``prefetch_wait`` span; the telemetry
+watchdog's hang dump names the last blocked wait (:func:`prefetch_info`).
+
+Where the port differs from the reference: coll/device's gathers step
+on the host inside ``start()``, so a prefetched gather is complete when
+the consumer arrives: the prefetch
 does not yet hide communication behind the caller's work (ROADMAP queue
 2 item 2).
 """
@@ -52,7 +56,6 @@ does not yet hide communication behind the caller's work (ROADMAP queue
 from __future__ import annotations
 
 import contextlib
-import time
 from typing import Dict, List, Optional
 
 import torch
@@ -60,6 +63,8 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.core import pvar
 from ompi_tpu_torch.part.overlap import LayerPrefetcher
+from ompi_tpu_torch.prof import ledger as _prof
+from ompi_tpu_torch.trace import recorder as _trace
 from ompi_tpu_torch.zero import layout as _layout
 from ompi_tpu_torch.zero.optimizer import shard_const
 
@@ -216,6 +221,10 @@ class Zero3Optimizer:
             return
         self._reqs[g].start()
         self._started.add(g)
+        rec = _trace.RECORDER
+        if rec is not None:
+            rec.instant("prefetch_start", "prefetch",
+                        {"layer": self.plan.name_of(g), "pos": g})
 
     def start_pass(self, reverse: bool = False) -> None:
         """Open a pass: drop what a previous pass left and start the
@@ -257,13 +266,19 @@ class Zero3Optimizer:
             self._started.add(g)
         req = self._reqs[g]
         if not req.completed:
-            # the prefetch lost the race to the consumer
-            t0 = time.perf_counter_ns()
-            req.wait()
-            late = time.perf_counter_ns() - t0
+            # the prefetch lost the race to the consumer: a long stall
+            # reads as a late prefetch of layer g, not as a hang
+            t0 = _trace.now()
+            with _prof.phase("prefetch"):
+                req.wait()
+            late = _trace.now() - t0
             pvar.record("zero_prefetch_late_ns", late)
             _PREFETCH_INFO = {"layer": self.plan.name_of(g), "pos": g,
                               "step": self._step_no, "late_ns": late}
+            rec = _trace.RECORDER
+            if rec is not None:
+                rec.record("prefetch_wait", "prefetch", t0, _trace.now(),
+                           {"layer": self.plan.name_of(g), "pos": g})
         else:
             req.wait()
         self._gathered[g] = _layout.tree_leaves(req.array)

@@ -24,9 +24,11 @@ platform, through its three phases: a full run, a run killed mid-write
 of epoch 3 (no manifest 3, no arena file left), and a resume from epoch
 2 that reaches the full run's digest.
 
-Waiting for ROADMAP queue 1 item 10 (prof and telemetry):
-``test_overlap_pvar_proves_snapshot_rides_train`` and
-``test_hang_dump_names_in_flight_snapshot``.
+With the prof and telemetry planes (ROADMAP item 10a):
+``test_overlap_pvar_proves_snapshot_rides_train`` (the drain's
+``snapshot`` phase overlaps the caller's ``train``) and
+``test_hang_dump_names_in_flight_snapshot`` (a hang dump taken mid
+snapshot names it), both packages.
 """
 
 import json
@@ -397,6 +399,70 @@ def test_overlapped_begin_commit_and_snapshot_info(tmp_path, monkeypatch):
         _same_tree(s, got, tree)
     assert _Pair.same_files(type("P", (), {"dirs": {
         s: str(tmp_path / s) for s in SIDES}})()) == [3]
+
+
+def test_overlap_pvar_proves_snapshot_rides_train(tmp_path):
+    """``prof_phase_overlap_ns`` > 0 when the drain thread (the
+    ``snapshot`` phase) runs beside a ``train`` phase on the main
+    thread, both packages (the port's leaves CPU tensors)."""
+    import time
+
+    from ompi_tpu.prof import ledger as R_led
+    from ompi_tpu_torch.prof import ledger as P_led
+
+    tree = _tree(31, nleaves=8, elems=200000)
+    for s, led in (("ref", R_led), ("port", P_led)):
+        A, pvar = _mods(s)[3], _mods(s)[1]
+        led.enable()
+        try:
+            sess = pvar.session()
+            ck = A.AsyncCheckpointer(str(tmp_path / s), chunk_bytes=1 << 14)
+            with led.phase("train"):
+                # begun inside the open phase: the snapshot phase starts
+                # after train opens, so the overlap is positive however
+                # fast the drain runs
+                snap = ck.begin(tree if s == "ref" else _tensors(tree), 1)
+                deadline = time.monotonic() + 10.0
+                while not snap.d2h_done() \
+                        and time.monotonic() < deadline:
+                    time.sleep(0.002)
+                time.sleep(0.01)
+            ck.commit(snap)
+            assert sess.read("prof_phase_overlap_ns") > 0, s
+            assert sess.read("prof_phase_snapshot_ns") > 0, s
+        finally:
+            led.disable()
+
+
+def test_hang_dump_names_in_flight_snapshot(tmp_path):
+    """A watchdog dump taken while a snapshot is in flight carries its
+    ``ckpt_snapshot`` record: busy checkpointing, not an anonymous hang
+    (both packages)."""
+    from ompi_tpu.telemetry import flight as R_fl
+    from ompi_tpu.telemetry.watchdog import Watchdog as R_Wd
+    from ompi_tpu_torch.telemetry import flight as P_fl
+    from ompi_tpu_torch.telemetry.watchdog import Watchdog as P_Wd
+
+    for s, fl_mod, wd_cls in (("ref", R_fl, R_Wd), ("port", P_fl, P_Wd)):
+        A = _mods(s)[3]
+        fl_mod.disable()
+        A._set_info({"step": 12, "phase": "d2h", "since": 0.0,
+                     "chunks_done": 3, "chunks_total": 9})
+        try:
+            fl = fl_mod.FlightRecorder(rank=0)
+            fl.enter("allreduce_dev", comm_cid=0, nbytes=64)
+            wd = wd_cls(rank=0, world=[0], client=None, flight_rec=fl,
+                        dead_fn=lambda: {}, period=10, timeout=0.0,
+                        action="dump", dump_dir=str(tmp_path / s))
+            v = wd.sweep()
+            assert v is not None, s
+            doc = json.load(open(wd._dumped[(v["seq"], "hang")]))
+            assert doc["ckpt_snapshot"]["step"] == 12, s
+            assert doc["ckpt_snapshot"]["phase"] == "d2h"
+            assert doc["ckpt_snapshot"]["chunks_done"] == 3
+        finally:
+            A._set_info(None)
+            fl_mod.disable()
 
 
 def _flip_first_chunk(directory, manifest, step, how):

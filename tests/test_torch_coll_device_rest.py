@@ -927,8 +927,10 @@ def test_every_recorded_pvar_is_well_known():
             if f.endswith(".py"):
                 with open(os.path.join(dirpath, f), encoding="utf-8") as fh:
                     text = fh.read()
+                # pvar records only: a trace recorder's ``rec.record``
+                # takes a span name, not a pvar
                 names |= set(re.findall(
-                    r"record(?:_hwm)?\(\s*\"([a-z0-9_]+)\"", text))
+                    r"pvar\.record(?:_hwm)?\(\s*\"([a-z0-9_]+)\"", text))
                 dynamic |= set(re.findall(
                     r"pvar\.record(?:_hwm)?\(\s*f\"([a-z0-9_]*)\{", text))
     assert {"coll_device_fused_bytes", "coll_device_launches"} <= names

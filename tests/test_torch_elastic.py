@@ -19,8 +19,8 @@ Allreduce on the CPU arenas over the comms of 4, 3 and 4 ranks, bitwise,
 the broken comm freed, the async checkpoint replay, the joiner through
 the ingest plane).
 
-Waiting for ROADMAP queue 1 item 10 (the telemetry watchdog):
-``test_watchdog_reports_recovery_instead_of_hang``.
+With the telemetry watchdog (ROADMAP item 10a):
+``test_watchdog_reports_recovery_instead_of_hang``, both packages.
 """
 
 import json
@@ -549,6 +549,48 @@ def test_store_ftgather_freezes_one_split():
         c.close()
     finally:
         store.stop()
+
+
+def test_watchdog_reports_recovery_instead_of_hang(tmp_path):
+    """A collective stuck through an elastic recovery is named as the
+    recovery (its own dump, no hang pvar, no abort); the recovery ending
+    while the op is still stuck escalates to a hang with its own dump
+    (both packages)."""
+    from ompi_tpu.core import pvar as R_pvar
+    from ompi_tpu.telemetry import flight as R_fl
+    from ompi_tpu.telemetry import watchdog as R_wd
+    from ompi_tpu_torch.core import pvar as P_pvar
+    from ompi_tpu_torch.telemetry import flight as P_fl
+    from ompi_tpu_torch.telemetry import watchdog as P_wd
+
+    for side, fl_mod, wd_mod, pv in (("ref", R_fl, R_wd, R_pvar),
+                                     ("port", P_fl, P_wd, P_pvar)):
+        fl = fl_mod.FlightRecorder()
+        fl.enter("allgather_obj", comm_cid=5, nbytes=64)
+        rec = {"kind": "shrink", "phase": "reshard", "step": 4,
+               "failed_comm_ranks": [2]}
+        box = {"rec": rec}
+        wd = wd_mod.Watchdog(
+            rank=0, jobid="je", world=[0, 1], client=None, flight_rec=fl,
+            dead_fn=lambda: {}, recovery_fn=lambda box=box: box["rec"],
+            period=3600, timeout=0.0,
+            action="abort",  # must not fire for a recovery verdict
+            dump_dir=str(tmp_path / side))
+        before = pv.snapshot().get("telemetry_hangs", 0)
+        v = wd.sweep()
+        assert v["kind"] == "recovery", side
+        assert v["stragglers"] == [] and v["recovery"]["phase"] == "reshard"
+        path = wd._dumped[(1, "recovery")]
+        assert "ompi_tpu_recovery_rank0" in path
+        doc = json.load(open(path))
+        assert doc["verdict"]["recovery"]["kind"] == "shrink"
+        assert pv.snapshot().get("telemetry_hangs", 0) == before
+        wd.sweep()
+        assert list(wd._dumped) == [(1, "recovery")]
+        box["rec"] = None
+        wd.action = "dump"
+        v2 = wd.sweep()
+        assert "kind" not in v2 and (1, "hang") in wd._dumped, side
 
 
 def test_elastic_pvars_are_well_known():

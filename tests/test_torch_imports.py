@@ -126,7 +126,14 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.ingest, ompi_tpu_torch.ingest.engine, "
             "ompi_tpu_torch.ingest.plan, "
             "ompi_tpu_torch.examples.streaming_ingest, "
-            "ompi_tpu_torch.examples.elastic_training; "
+            "ompi_tpu_torch.examples.elastic_training, "
+            "ompi_tpu_torch.trace, ompi_tpu_torch.trace.__main__, "
+            "ompi_tpu_torch.telemetry, ompi_tpu_torch.telemetry.sampler, "
+            "ompi_tpu_torch.telemetry.watchdog, "
+            "ompi_tpu_torch.telemetry.openmetrics, ompi_tpu_torch.prof, "
+            "ompi_tpu_torch.prof.__main__, ompi_tpu_torch.skew.record, "
+            "ompi_tpu_torch.examples.fused_gradients, "
+            "ompi_tpu_torch.examples.observability; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -228,6 +235,30 @@ def test_ft_elastic_ingest_modules_are_scanned():
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 
+def test_observability_modules_are_scanned():
+    """The trace, telemetry and prof planes' modules, the skew guard and
+    the two examples are in the scan; the skew module holds only its
+    guard."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("trace/__init__.py", "trace/recorder.py", "trace/export.py",
+                "trace/merge.py", "trace/__main__.py",
+                "telemetry/__init__.py", "telemetry/clock.py",
+                "telemetry/flight.py", "telemetry/openmetrics.py",
+                "telemetry/sampler.py", "telemetry/watchdog.py",
+                "prof/__init__.py", "prof/ledger.py", "prof/__main__.py",
+                "skew/__init__.py", "skew/record.py",
+                "examples/fused_gradients.py", "examples/observability.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+    with open(os.path.join(ROOT, "ompi_tpu_torch", "skew", "record.py"),
+              encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    body = [n for n in tree.body if not (isinstance(n, ast.Expr)
+                                         and isinstance(n.value,
+                                                        ast.Constant))]
+    assert [type(n).__name__ for n in body] == ["ImportFrom", "Assign"]
+    assert body[1].targets[0].id == "SKEW"
+
+
 #: module aliases the port's emitters call ``emit`` / ``fire`` through
 _EMITTERS = {"events": "emit", "mpit_events": "emit", "peruse": "fire"}
 
@@ -296,7 +327,8 @@ def test_every_emitter_sits_under_its_guard():
                      "coll/libnbc.py": 1, "osc/__init__.py": 1,
                      "osc/cuda.py": 1, "osc/device_epoch.py": 1,
                      "tune/observe.py": 1, "io/fcoll.py": 1,
-                     "ft/detector.py": 1}, sites
+                     "ft/detector.py": 1, "trace/recorder.py": 1,
+                     "telemetry/watchdog.py": 1}, sites
 
 
 def test_sm_ring_code_is_the_ports_own():

@@ -18,8 +18,8 @@ on the CPU platform, which restores epoch 2 of a ``ckpt_training.py``
 crash run through ``restore_to_device`` and must reach the full run's
 digest.
 
-Waiting for ROADMAP queue 1 item 10 (the prof ledger and its report):
-``test_ledger_cross_thread_overlap``,
+The prof ledger's overlap accounting and its report (ROADMAP item 10a),
+both packages: ``test_ledger_cross_thread_overlap``,
 ``test_ledger_same_phase_threads_do_not_overlap`` and
 ``test_report_phase_overlap_sweep_and_render``.
 """
@@ -481,6 +481,129 @@ def test_chunked_d2h_chunk_count_bounded(monkeypatch):
         assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
         assert all((b - a) % 4 == 0 for a, b in spans)
         assert len(spans) == -(-nbytes // step)
+
+
+# -- prof overlap accounting (both packages) ---------------------------------
+
+
+def _ledgers():
+    from ompi_tpu.prof import ledger as R_led
+    from ompi_tpu.core import pvar as R_pvar
+    from ompi_tpu_torch.prof import ledger as P_led
+
+    return (("ref", R_led, R_pvar), ("port", P_led, pvar))
+
+
+def test_ledger_cross_thread_overlap():
+    """A staging phase on a worker thread and a compile phase on the
+    main thread overlap by ~20 ms: ``prof_phase_overlap_ns`` and
+    ``overlap_seconds`` agree."""
+    for side, led, pv in _ledgers():
+        led.enable(rank=0)
+        try:
+            s = pv.session()
+            t0 = threading.Event()
+
+            def worker(led=led, t0=t0):
+                with led.phase("staging"):
+                    t0.set()
+                    time.sleep(0.04)
+
+            t = threading.Thread(target=worker)
+            t.start()
+            t0.wait(5)
+            with led.phase("compile"):
+                time.sleep(0.02)
+            t.join()
+            ns = s.read("prof_phase_overlap_ns")
+            assert 10_000_000 < ns < 60_000_000, (side, ns)
+            assert abs(led.overlap_seconds() - ns / 1e9) < 1e-9, side
+        finally:
+            led.disable()
+
+
+def test_ledger_same_phase_threads_do_not_overlap():
+    """Two threads in the same phase are parallelism within it, not
+    phase overlap."""
+    for side, led, pv in _ledgers():
+        led.enable(rank=0)
+        try:
+            s = pv.session()
+
+            def worker(led=led):
+                with led.phase("staging"):
+                    time.sleep(0.02)
+
+            ts = [threading.Thread(target=worker) for _ in range(2)]
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+            assert s.read("prof_phase_overlap_ns") == 0, side
+        finally:
+            led.disable()
+
+
+def test_report_phase_overlap_sweep_and_render():
+    """The report's per-rank sweep of concurrent distinct phases, the
+    same from both packages' CLIs."""
+    from ompi_tpu.prof import __main__ as R_cli
+    from ompi_tpu_torch.prof import __main__ as P_cli
+
+    def mk(pid, name, ts, dur):
+        return {"ph": "X", "cat": "prof", "pid": pid, "tid": 0,
+                "name": name, "ts": ts, "dur": dur}
+    doc = {"traceEvents": [
+        # rank 0: staging [0, 100ms), compile [40ms, 90ms) -> 50ms
+        mk(0, "staging", 0.0, 100e3), mk(0, "compile", 40e3, 50e3),
+        # rank 1: disjoint phases -> 0 overlap
+        mk(1, "staging", 0.0, 30e3), mk(1, "compile", 30e3, 30e3)]}
+    rep = P_cli.attribution(doc)
+    assert rep == R_cli.attribution(doc)
+    ov = rep["phase_overlap"]
+    assert ov["max_s"] == pytest.approx(0.05)
+    assert ov["per_rank_s"]["0"] == pytest.approx(0.05)
+    assert ov["per_rank_s"]["1"] == 0.0
+    assert ov["mean_s"] == pytest.approx(0.025)
+    assert "phase overlap" in P_cli._render(rep)
+    assert P_cli._render(rep) == R_cli._render(rep)
+
+
+def test_ingest_phases_and_transfers_under_the_ledger():
+    """With the ledger on, an upload's streams drain in ``staging``, a
+    compile-lane job runs in ``compile``, and every landed unit is one
+    h2d transfer (bytes exact; the put itself only a chunk span)."""
+    from ompi_tpu_torch.prof import ledger as P_led
+    from ompi_tpu_torch.trace import recorder as P_rec
+
+    P_led.enable(rank=0)
+    rec = P_rec.enable(rank=0, api_spans=False)
+    try:
+        s = pvar.session()
+        tree = {"a": np.arange(50000, dtype=np.float32),
+                "b": np.ones(3000, dtype=np.int32)}
+        eng = ie.IngestEngine(streams=2, chunk_bytes=1 << 14, depth=2)
+        try:
+            req = eng.upload(tree, device=torch.device("cpu"))
+            job = eng.overlap_compile(lambda: 7)
+            req.wait()
+            assert job.wait(10) == 7
+        finally:
+            eng.close()
+        nbytes = 50000 * 4 + 3000 * 4
+        assert s.read("prof_xfer_h2d_bytes") == nbytes
+        assert s.read("ingest_bytes") == nbytes
+        phases = P_led.PROFILER.phase_counts()
+        assert phases.get("staging", 0) >= 1 and phases["compile"] == 1
+        ingest = [sp for sp in rec.spans()
+                  if sp.subsys == "xfer" and sp.name == "h2d"]
+        assert len(ingest) == req.n_units
+        assert all(sp.args["site"] == "ingest" for sp in ingest)
+        assert sum(1 for sp in rec.spans() if sp.name == "h2d_chunk") \
+            == req.n_units
+    finally:
+        P_rec.disable()
+        P_led.disable()
 
 
 # -- the plane's lifecycle ---------------------------------------------------------------

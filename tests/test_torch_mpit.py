@@ -16,7 +16,7 @@ the port's job also drives the device windows' emitters under the
 device plane on the CPU platform.
 
 Waiting for its slice, in ROADMAP queue 1: the ``tools/info`` half of
-``test_event_coll_and_info_dump`` (item 10).
+``test_event_coll_and_info_dump`` (item 10c).
 
 The in-process cases call the reference too, whose registries are
 process-wide: :func:`reference_state` (autouse here, and imported by the
@@ -49,8 +49,9 @@ from tests.harness import run_ranks
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-#: the reference's event types whose emitters wait for their slices
-WAITING = {"trace_span": 10, "telemetry_hang": 10}
+#: the reference's event types whose emitters wait for their slices (none
+#: since the trace and telemetry planes, ROADMAP item 10a)
+WAITING: dict = {}
 
 #: the 2-rank program; ``{pkg}`` is the package, ``{port}`` True in the
 #: port's job (which also drives the device windows' emitters)
@@ -551,7 +552,8 @@ def test_event_enumeration_and_sources():
 def test_event_types_match_reference():
     """Every event type the reference registers has the port's
     counterpart (its name through ``compat.event_name``) with the same
-    fields and description, less the four whose emitters wait."""
+    fields and description, less any whose emitters wait
+    (:data:`WAITING`)."""
     import ompi_tpu.osc.device_epoch  # noqa: F401 — register their types
     import ompi_tpu.osc.pallas  # noqa: F401
     import ompi_tpu.telemetry.watchdog  # noqa: F401
@@ -559,6 +561,8 @@ def test_event_types_match_reference():
     import ompi_tpu.tune.observe  # noqa: F401
     import ompi_tpu_torch.osc.cuda  # noqa: F401
     import ompi_tpu_torch.osc.device_epoch  # noqa: F401
+    import ompi_tpu_torch.telemetry.watchdog  # noqa: F401
+    import ompi_tpu_torch.trace.recorder  # noqa: F401
     import ompi_tpu_torch.tune.observe  # noqa: F401
     from ompi_tpu.core import events as R_events
 
@@ -881,7 +885,7 @@ def test_event_buffered_read_and_forced_drops(jobs):
 
 def test_event_coll_and_info_dump(jobs):
     """libnbc's Ibarrier emits its completion with its kind, rounds and
-    comm (the tools/info half waits for item 10)."""
+    comm (the tools/info half waits for item 10c)."""
     for dp, dr in _docs(jobs):
         assert dp["coll"] == dr["coll"]
         assert dp["coll"] and all(k == "barrier" and n >= 1 and same
