@@ -410,12 +410,37 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    the monitoring plane at levels 0, 1 and 2 in turns on the drop
    policy's decode, each level's p50 beside level 0's, the outputs
    bitwise at every level.
+18. the launcher's multi-host, MPMD and binding forms and the tune, skew
+   and tools planes (see :func:`multihost_phase`). A: ``--host
+   nodeA:2:127.0.0.2,nodeB:2:127.0.0.3 --launch-agent local --bind-to
+   core`` on the one card with ``tune_observe``, ``tune_dump``,
+   ``skew_level 2``, ``skew_dump`` and ``coll_device_hier 2``:
+   ``multihost.py --device``, a 256 MiB float32 SUM Allreduce on 4 ranks,
+   8 calls a mode in turns under coll/cuda 'linear' (K3) and 'ring' (K1 +
+   K2) and coll/device's 2 x 2 grid (K1 + K2), rank 3 200 ms late before
+   every other call; bitwise the fold each mode fixes, each host's
+   shared split of 2, each rank's affinity its core set, the K1-K3
+   launches as derived; prints rank 0's p50 per mode. B: ``python -m
+   ompi_tpu_torch.tune report --tables`` over A's dumps (a cuda-vs-device
+   crossover), then a single-host 4-rank ``tune_observe.py --table`` job
+   with ``coll_cuda_switchpoints`` at the H100 table it wrote
+   (``tune_table_errors`` 0, the named algorithm ran every call,
+   bitwise), then the report of that job's dumps ``--db`` A's merged
+   document (its regression verdicts). C: ``python -m
+   ompi_tpu_torch.skew report`` over A's dumps names rank 3, its lateness
+   put down to compute, with the merge's error bar. D: an appfile, app 0
+   (1 rank) and app 1 (3 ranks) of ``mpmd.py --device --msgq`` in one
+   world on the card: MPI_APPNUM right on each rank, a device Allreduce
+   across the apps bitwise, rank 1's SIGUSR1 dump showing its posted
+   receive; ``python -m ompi_tpu_torch.tools.info --json`` lists
+   coll/cuda, coll/device and osc_cuda. D's job and the C / D CLIs run
+   beside B's read-back job. The phase fails past 60 s.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8, 10, 11, 13, 14, 15, 16 and 17 and the training path, K5 and K6's
+7, 8, 10, 11, 13, 14, 15, 16, 17 and 18 and the training path, K5 and K6's
 two kernels from the training path, K7 and the K8, K9 and K10 batches
 from the 4-rank one-sided paths, K7 and the per-call rows of K8 and K9
 also from phase 6, K7 and the K8, K9 and K10 batches also from phase 9,
@@ -2639,6 +2664,224 @@ def observability_phase(card: str, root: str) -> dict:
     return launches
 
 
+#: phase 18 A's fake hosts: 2 ranks each, each its own loopback address
+MH_HOSTS = "nodeA:2:127.0.0.2,nodeB:2:127.0.0.3"
+MH_WALL = 60  # seconds phase 18 may take, its four parts
+MH_TIMEOUT = 150  # seconds per launcher job of phase 18
+#: the skew CLI's persistent-straggler bar in phase 18 C: rank 3 is last
+#: into the delayed calls' 20 groups of the job's 46 (43%) by construction
+MH_PCT = "40"
+
+
+def _start(cmd, root: str, log: str):
+    """Start one command of phase 18, its output to ``log``.out / .err
+    (files: a pipe nobody reads yet would stall a chatty command)."""
+    out, err = open(log + ".out", "w"), open(log + ".err", "w")
+    return subprocess.Popen(cmd, cwd=root, stdout=out, stderr=err,
+                            text=True), log, out, err
+
+
+def _finish(job, what: str, timeout: float = MH_TIMEOUT):
+    """Wait for a command :func:`_start` started; fails the smoke on a
+    nonzero exit or past ``timeout``. Returns (stdout, stderr)."""
+    proc, log, out, err = job
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        rc = 124
+    out.close()
+    err.close()
+    with open(log + ".out") as f:
+        stdout = f.read()
+    with open(log + ".err") as f:
+        stderr = f.read()
+    if rc != 0:
+        sys.stdout.write(stdout[-4000:])
+        sys.stderr.write(stderr[-6000:])
+        fail(f"phase 18 {what} exited {rc}")
+    return stdout, stderr
+
+
+def _mh_cases(part: str, docs) -> None:
+    for r, d in enumerate(docs):
+        bad = [c for c in d["cases"] if not c["ok"]]
+        if bad:
+            fail(f"phase 18 {part} rank {r}: mismatches {bad}")
+
+
+def multihost_phase(card: str, root: str) -> dict:
+    """Phase 18: the launcher's multi-host, MPMD and binding forms and
+    the tune, skew and tools planes on the card (parts A-D, see the
+    module docstring); the CLIs run beside the jobs that do not need
+    their output. Returns A's and B's K1-K3 launches, all ranks."""
+    t0 = time.perf_counter()
+    base = os.path.join(root, "build", "ompi_tpu_torch", "smoke_multihost")
+    shutil.rmtree(base, ignore_errors=True)
+    dumps, out_a = os.path.join(base, "dumps"), os.path.join(base, "a")
+    os.makedirs(dumps)
+    launcher = [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
+                "--timeout", str(MH_TIMEOUT - 30)]
+    ex = os.path.join(root, "ompi_tpu_torch", "examples")
+    launches: dict = {}
+
+    def run(cmd, what):
+        return _finish(_start(cmd, root, os.path.join(base, what)), what)
+
+    # -- A: two fake hosts, full width
+    stdout, _ = run(launcher + [
+        "--host", MH_HOSTS, "--launch-agent", "local", "--bind-to", "core",
+        "--mca", "device_plane", "on", "--mca", "coll_cuda", "on",
+        "--mca", "coll_device_hier", "2", "--mca", "tune_observe", "1",
+        "--mca", "tune_dump", os.path.join(dumps, "tune_r{rank}.json"),
+        "--mca", "tune_db_dir", dumps, "--mca", "skew_level", "2",
+        "--mca", "skew_dump", os.path.join(dumps, "skew_r{rank}.json"),
+        os.path.join(ex, "multihost.py"), "--device", "--out", out_a], "A")
+    for line in stdout.splitlines():
+        print(f"phase 18 A: {line} [{card}]", flush=True)
+    docs = rank_docs(out_a, N_RANKS)
+    _mh_cases("A", docs)
+    for r, d in enumerate(docs):
+        want_host = "nodeA" if r < 2 else "nodeB"
+        if d["host"] != want_host or d["local_size"] != 2:
+            fail(f"phase 18 A rank {r}: host {d['host']}, local size "
+                 f"{d['local_size']}")
+        if not d["bind_cpus"] or set(d["affinity"]) != {
+                int(c) for c in d["bind_cpus"].split(",")}:
+            fail(f"phase 18 A rank {r}: affinity {d['affinity']}, bound "
+                 f"set {d['bind_cpus']!r}")
+        if not d["device"].startswith("cuda") \
+                or d["coll_accelerator_staged"] != 0:
+            fail(f"phase 18 A rank {r}: on {d['device']}, "
+                 f"{d['coll_accelerator_staged']} calls staged")
+        if d["launches"] != d["expected_launches"]:
+            fail(f"phase 18 A rank {r}: K1-K3 launches {d['launches']}, "
+                 f"derived {d['expected_launches']}")
+        for k, v in d["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    d0 = docs[0]
+    t_a = time.perf_counter() - t0
+    print(f"phase 18 A n={N_RANKS} on 2 fake hosts, {d0['bytes']} B float32 "
+          f"SUM, rank 0's p50 ms over the undelayed / delayed calls: "
+          + ", ".join(f"{m} {d0['p50_ms'][m]:.3f} / "
+                      f"{d0['late_p50_ms'][m]:.3f}" for m in d0["p50_ms"])
+          + f"; affinities {[d['affinity'] for d in docs]}; K1-K3 "
+          f"{launches} as derived; {t_a:.1f} s [{card}]", flush=True)
+
+    # -- B: the tune tooling and the table it writes
+    tables = os.path.join(base, "h100")
+    merged = os.path.join(base, "tune_merged.json")
+    stdout, _ = run([sys.executable, "-m", "ompi_tpu_torch.tune", "report",
+                     "--tables", tables, "--json", merged]
+                    + [os.path.join(dumps, f"tune_r{r}.json")
+                       for r in range(N_RANKS)], "B_report")
+    for line in stdout.splitlines():
+        print(f"phase 18 B: {line} [{card}]", flush=True)
+    if "[cuda-vs-device]" not in stdout:
+        fail("phase 18 B: the report names no cuda-vs-device crossover")
+    with open(tables + "_cuda.json") as f:
+        table = json.load(f)
+    print(f"phase 18 B: the H100 candidate table {tables}_cuda.json: "
+          f"{json.dumps(table)} [{card}]", flush=True)
+    out_b, dumps_b = os.path.join(base, "b"), os.path.join(base, "dumps_b")
+    os.makedirs(dumps_b)
+    job_b = _start(launcher + [
+        "-n", str(N_RANKS), "--mca", "device_plane", "on",
+        "--mca", "coll_cuda", "on", "--mca", "coll_cuda_switchpoints",
+        tables + "_cuda.json", "--mca", "tune_observe", "1",
+        "--mca", "tune_dump", os.path.join(dumps_b, "tune_r{rank}.json"),
+        os.path.join(ex, "tune_observe.py"), "--table",
+        tables + "_cuda.json", "--bytes", "256m", "--out", out_b], root,
+        os.path.join(base, "B_job"))
+    # D's MPMD job, C's CLI and D's tools.info beside B's job
+    appfile = os.path.join(base, "appfile")
+    prog = os.path.join(ex, "mpmd.py")
+    flags = "--no-spawn --device --apps 1,3 --msgq"
+    with open(appfile, "w") as f:
+        f.write(f"-n 1 {prog} driver {flags}\n-n 3 {prog} worker {flags}\n")
+    job_d = _start(launcher + ["--mca", "device_plane", "on", "--mca",
+                               "mpir_dump_on_signal", "on", "--app",
+                               appfile], root, os.path.join(base, "D"))
+    ana = os.path.join(base, "skew_analysis.json")
+    job_c = _start([sys.executable, "-m", "ompi_tpu_torch.skew", "report",
+                    "--pct", MH_PCT, "--json", ana]
+                   + [os.path.join(dumps, f"skew_r{r}.json")
+                      for r in range(N_RANKS)], root,
+                   os.path.join(base, "C"))
+    job_info = _start([sys.executable, "-m", "ompi_tpu_torch.tools.info",
+                       "--json", "--level", "9"], root,
+                      os.path.join(base, "D_info"))
+    stdout, _ = _finish(job_b, "B read-back")
+    for line in stdout.splitlines():
+        print(f"phase 18 B: {line} [{card}]", flush=True)
+    docs_b = rank_docs(out_b, N_RANKS)
+    _mh_cases("B", docs_b)
+    for d in docs_b:
+        for k, v in d["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    print(f"phase 18 B: the table names {docs_b[0]['named']!r}, which ran "
+          f"every call ({docs_b[0]['ran']}), tune_table_errors 0, bitwise; "
+          f"rank 0's p50 {docs_b[0]['p50_ms']:.3f} ms (D's job and the "
+          f"CLIs beside it) [{card}]", flush=True)
+
+    # -- C: the skew CLI over A's dumps
+    stdout, _ = _finish(job_c, "C")
+    with open(ana) as f:
+        a = json.load(f)
+    named = {v["rank"]: v for v in a["stragglers"]}
+    wait = {int(r): w for r, w in a["exposed_wait_ns"].items()}
+    if named.get(3, {}).get("cause") != "compute" \
+            or min(wait, key=wait.get) != 3:
+        sys.stdout.write(stdout[-4000:])
+        fail(f"phase 18 C: the straggler verdicts {a['stragglers']}, exposed "
+             f"wait {wait} (want rank 3 named, its lateness compute, and "
+             "the least wait)")
+    verdict = [line for line in stdout.splitlines()
+               if line.startswith("PERSISTENT STRAGGLER: rank 3 ")]
+    print(f"phase 18 C: {verdict[0]} (bar {MH_PCT}%); merge's error bar "
+          f"±{a['clock_err_ns'] / 1e3:.1f} us; exposed wait by rank (ms) "
+          f"{ {r: round(w / 1e6, 1) for r, w in a['exposed_wait_ns'].items()} }"
+          f" [{card}]", flush=True)
+
+    # -- B's regression verdicts; D: MPMD on the card, the msgq dump and
+    # tools.info's listing
+    job_reg = _start([sys.executable, "-m", "ompi_tpu_torch.tune", "report",
+                      "--db", merged]
+                     + [os.path.join(dumps_b, f"tune_r{r}.json")
+                        for r in range(N_RANKS)], root,
+                     os.path.join(base, "B_regressions"))
+    stdout, _ = _finish(job_reg, "B regressions")
+    verdicts = stdout[stdout.index("-- regression verdicts"):]
+    for line in verdicts.strip().splitlines():
+        print(f"phase 18 B (B's dumps --db A's merged document): {line} "
+              f"[{card}]", flush=True)
+    stdout, stderr = _finish(job_d, "D")
+    if "posted receives (1):" not in stderr \
+            or "src 0 tag 77" not in stderr:
+        sys.stderr.write(stderr[-4000:])
+        fail("phase 18 D: rank 1's SIGUSR1 dump shows no posted receive")
+    apps = sorted(line for line in stdout.splitlines() if "appnum=" in line)
+    print(f"phase 18 D: {apps}; rank 1's dump: "
+          + "; ".join(line.strip() for line in stderr.splitlines()
+                      if "posted" in line or "tag 77" in line)
+          + f" [{card}]", flush=True)
+    stdout, _ = _finish(job_info, "D info")
+    info = json.loads(stdout)
+    if not {"cuda", "device"} <= set(info["frameworks"]["coll"]) \
+            or "osc_cuda" not in info["cvars"]:
+        fail(f"phase 18 D: tools.info lists {info['frameworks']}")
+    print(f"phase 18 D: tools.info frameworks {info['frameworks']}, "
+          f"{len(info['cvars'])} cvars (osc_cuda among them), "
+          f"{len(info['events'])} event types [{card}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 18: launches (A, B, all ranks) {launches}; {wall:.1f} s "
+          f"wall (A {t_a:.1f} s; budget {MH_WALL} s) [{card}]", flush=True)
+    if wall > MH_WALL:
+        fail(f"phase 18 took {wall:.1f} s, past its {MH_WALL} s budget")
+    return launches
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -3026,6 +3269,9 @@ def main() -> int:
         coll[k] = coll.get(k, 0) + v
     # and so do phase 17's (the observability jobs)
     for k, v in observability_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
+    # and phase 18's (the two fake hosts' job and the table's read-back)
+    for k, v in multihost_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

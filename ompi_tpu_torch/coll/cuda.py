@@ -248,9 +248,16 @@ def _account_bytes(kind: str, comm, nbytes: int, dtype: str,
                                                comm.size, nbytes))
 
 
-def _launch(run, op: str, algo: str):
+def _launch(run, op: str, algo: str, comm, buf, nbytes=None):
     """Run one slot's launch under the ``coll_cuda`` trace span naming
-    the algorithm (coll/pallas.py:250-270 ``_launch``)."""
+    the algorithm and, with the observatory up, a tune sample under
+    provider ``cuda`` (coll/pallas.py:250-270 ``_launch``; ``nbytes``
+    overrides ``buf.nbytes`` for multi-buffer ops)."""
+    obs = _tobs.OBSERVER
+    if obs is not None:
+        run = obs.timed("cuda", op, algo, comm,
+                        int(buf.nbytes if nbytes is None else nbytes),
+                        _dtype_name(buf), run)
     rec = _trace.RECORDER
     if rec is None:
         return run()
@@ -261,15 +268,15 @@ def _launch(run, op: str, algo: str):
     return out
 
 
-def _flown(name: str, comm, nbytes: int, run, op: str, algo: str):
+def _flown(name: str, comm, buf, run, op: str, algo: str):
     """:func:`_launch` inside a flight-recorder entry (the four slots
     coll/pallas.py instruments: :328, :373, :431, :646)."""
     fl = _flight.FLIGHT
     if fl is None:
-        return _launch(run, op, algo)
-    tok = fl.enter(name, getattr(comm, "cid", -1), nbytes)
+        return _launch(run, op, algo, comm, buf)
+    tok = fl.enter(name, getattr(comm, "cid", -1), buf.nbytes)
     try:
-        return _launch(run, op, algo)
+        return _launch(run, op, algo, comm, buf)
     finally:
         fl.exit(tok)
 
@@ -671,7 +678,7 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
         ep = _arena(comm, "rs", n * k * sendbuf.element_size())
         ep.run(K.allreduce(ep, sendbuf.reshape(-1), opn.name, algo, out))
         return out[:m].view(sendbuf.shape)
-    return _flown("allreduce_dev", comm, sendbuf.nbytes, run, "allreduce",
+    return _flown("allreduce_dev", comm, sendbuf, run, "allreduce",
                   algo)
 
 
@@ -704,7 +711,7 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
         ep.run(K.reduce_scatter(ep, sendbuf.reshape(-1), opn.name, algo,
                                 out.numel() // max(rows, 1), out.view(-1)))
         return out
-    return _flown("reduce_scatter_block_dev", comm, sendbuf.nbytes, run,
+    return _flown("reduce_scatter_block_dev", comm, sendbuf, run,
                   "reduce_scatter_block", algo)
 
 
@@ -724,7 +731,7 @@ def allgather_dev(comm, sendbuf):
         ep = _arena(comm, "ag", sendbuf.numel() * sendbuf.element_size())
         ep.run(K.allgather(ep, sendbuf.reshape(-1), algo, out.view(-1)))
         return out
-    return _flown("allgather_dev", comm, sendbuf.nbytes, run, "allgather",
+    return _flown("allgather_dev", comm, sendbuf, run, "allgather",
                   algo)
 
 
@@ -767,7 +774,8 @@ def fused_rs_update_dev(comm, grads, pshards, mshards, *, lr: float,
                    plan.dtypes[0] if plan.dtypes else "", algo)
     return _launch(lambda: _fused_rs_update(
         comm, leaves, pshards, mshards, lr, mu, avg, det, with_mom),
-        "fused_rs_update", det or "ring")
+        "fused_rs_update", det or "ring", comm, leaves[0],
+        nbytes=plan.nbytes)
 
 
 def _fused_rs_update(comm, leaves, pshards, mshards, lr, mu, avg, det,
@@ -835,7 +843,7 @@ def allgather_matmul_dev(comm, x, w):
         ep = _arena(comm, "ag", x.numel() * x.element_size())
         ep.run(K.allgather_matmul(ep, x, w, out))
         return out
-    return _flown("allgather_matmul_dev", comm, x.nbytes, run,
+    return _flown("allgather_matmul_dev", comm, x, run,
                   "allgather_matmul", "ring")
 
 

@@ -144,6 +144,7 @@ from ompi_tpu_torch.pml import request as rq
 from ompi_tpu_torch.runtime import device_plane
 from ompi_tpu_torch.telemetry import flight as _flight
 from ompi_tpu_torch.trace import recorder as _trace
+from ompi_tpu_torch.tune import observe as _tobs
 
 _default_det = cvar.register(
     "coll_device_deterministic", "", str,
@@ -413,6 +414,26 @@ def _launcher(fn):
     return lambda: _launch(fn)
 
 
+def _observed(launcher, op: str, comm, buf, opn=None,
+              deterministic: Optional[str] = None, nbytes=None):
+    """The tune plane's hook on a slot's prepared launcher
+    (coll/xla.py:156-167 ``_observed``): with the observatory up, time
+    this dispatch under provider ``device`` — the backend that served
+    after coll/cuda's and coll/hier's fallthrough; a call that stages
+    through the host, or a one-rank call, is coll/accelerator's or no
+    one's. One attribute load and one branch when off."""
+    obs = _tobs.OBSERVER
+    if obs is None:
+        return launcher
+    if comm.size == 1 or _stages(opn, buf):
+        return launcher
+    det = deterministic if deterministic is not None \
+        else _default_det.get()
+    return obs.timed("device", op, det or "auto", comm,
+                     int(buf.nbytes if nbytes is None else nbytes),
+                     _dtype_name(buf.dtype), launcher)
+
+
 def _check_root(kind: str, comm, root) -> None:
     if not isinstance(root, int) or not 0 <= root < comm.size:
         raise errors.MPIError(
@@ -552,7 +573,8 @@ def allreduce_dev(comm, sendbuf, op=op_mod.SUM,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "allreduce", comm, sendbuf, op)
-    launcher = _allreduce_prep(comm, sendbuf, op, deterministic)
+    launcher = _observed(_allreduce_prep(comm, sendbuf, op, deterministic),
+                         "allreduce", comm, sendbuf, op, deterministic)
     fl = _flight.FLIGHT
     if fl is None:
         return launcher()
@@ -593,8 +615,9 @@ def reduce_scatter_block_dev(comm, sendbuf, op=op_mod.SUM,
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "reduce_scatter_block", comm, sendbuf, op)
-    launcher = _reduce_scatter_block_prep(comm, sendbuf, op,
-                                          deterministic)
+    launcher = _observed(
+        _reduce_scatter_block_prep(comm, sendbuf, op, deterministic),
+        "reduce_scatter_block", comm, sendbuf, op, deterministic)
     fl = _flight.FLIGHT
     if fl is None:
         return launcher()
@@ -630,7 +653,8 @@ def allgather_dev(comm, sendbuf):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "allgather", comm, sendbuf)
-    launcher = _allgather_prep(comm, sendbuf)
+    launcher = _observed(_allgather_prep(comm, sendbuf), "allgather", comm,
+                         sendbuf)
     fl = _flight.FLIGHT
     if fl is None:
         return launcher()
@@ -671,7 +695,7 @@ def bcast_dev(comm, buf, root: int = 0):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "bcast", comm, buf, root=root)
-    launcher = _bcast_prep(comm, buf, root)
+    launcher = _observed(_bcast_prep(comm, buf, root), "bcast", comm, buf)
     fl = _flight.FLIGHT
     if fl is None:
         return launcher()
@@ -716,7 +740,8 @@ def alltoall_dev(comm, sendbuf):
     tm = _mon.TRAFFIC
     if tm is not None:
         _meter(tm, "alltoall", comm, sendbuf)
-    launcher = _alltoall_prep(comm, sendbuf)
+    launcher = _observed(_alltoall_prep(comm, sendbuf), "alltoall", comm,
+                         sendbuf)
     fl = _flight.FLIGHT
     if fl is None:
         return launcher()
@@ -1312,6 +1337,15 @@ def allreduce_multi_dev(comm, bufs, op=op_mod.SUM,
     if tm is not None:
         _meter_multi(tm, "allreduce_multi", comm, bufs, op)
     launcher = _allreduce_multi_prep(comm, bufs, op, deterministic)
+    obs = _tobs.OBSERVER
+    if obs is not None:
+        from ompi_tpu_torch.zero import layout as zl
+
+        leaves = zl.tree_leaves(bufs)
+        if leaves:
+            launcher = _observed(launcher, "allreduce_multi", comm,
+                                 leaves[0], op, deterministic,
+                                 nbytes=_tree_nbytes(bufs))
     fl = _flight.FLIGHT
     if fl is None:
         return launcher()

@@ -120,8 +120,18 @@ WELL_KNOWN = (
     # zero/layout.ErrorFeedback: quantise-at-source applications and the
     # wire bytes of the buckets they quantised
     "zero_ef_steps", "zero_ef_bytes",
-    # switchpoint-table files that did not load (tune/observe)
-    "tune_table_errors",
+    # the tune observatory: samples taken, samples past tune_max_keys,
+    # switchpoint-table files that did not load, regression verdicts, and
+    # the PerfDB's loads, saves and unreadable files (beside them the
+    # dynamic family tune_obs_<op>_<provider>)
+    "tune_samples", "tune_dropped", "tune_table_errors",
+    "tune_regressions", "tune_db_loads", "tune_db_saves", "tune_db_errors",
+    # the skew plane: ring records, overwrites and depth watermark; this
+    # rank's exposed wait, the worst arrival skew, persistent stragglers
+    # named, the live lag watermark (beside them skew_op_wait_ns_<op>)
+    "skew_records", "skew_dropped", "skew_ring_depth",
+    "skew_exposed_wait_ns", "skew_arrival_skew_ns", "skew_stragglers",
+    "skew_live_lag_ns",
     # the monitoring plane (the reference's names): send-side messages and
     # bytes, all contexts and per context, collective launches recorded,
     # the link-imbalance gauge (level 2); beside them the dynamic
@@ -220,7 +230,8 @@ WELL_KNOWN = (
 #: ``prof_phase_<name>_ns`` for every phase name
 WELL_KNOWN_PREFIXES = ("monitoring_tx_", "monitoring_link_bytes_",
                        "monitoring_expert_tokens_e", "profile_",
-                       "trace_hist_", "prof_phase_")
+                       "trace_hist_", "prof_phase_", "tune_obs_",
+                       "skew_op_wait_ns_")
 
 
 def is_well_known(name: str) -> bool:

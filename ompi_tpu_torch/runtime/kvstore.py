@@ -110,6 +110,12 @@ class Store:
         except OSError:
             pass
 
+    def counter_value(self, key: str) -> int:
+        """In-process read of an atomic counter (the head launcher's
+        job-wide tally of its daemons' FT clean exits)."""
+        with self._cond:
+            return self._counters.get(key, 0)
+
     def seed_counter(self, key: str, value: int) -> None:
         """Pre-claim counter space: the launcher seeds the spawn
         watermark ``ww:<jobid>`` with its world size, so a spawned
@@ -328,6 +334,18 @@ class Client:
     def get(self, key: str, wait: bool = True) -> Any:
         reply = self._rpc("get", key, wait)
         return reply[1] if reply[0] == "val" else None
+
+    def get_within(self, key: str, timeout: float) -> Any:
+        """A value, polled until ``timeout`` seconds have passed (the
+        blocking get has no deadline); raises TimeoutError."""
+        deadline = time.monotonic() + timeout
+        raw = self.get(key, wait=False)
+        while raw is None:
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{key} not published within {timeout} s")
+            time.sleep(0.01)
+            raw = self.get(key, wait=False)
+        return raw
 
     def fence(self, tag: str, nprocs: int, rank: int, base: int = 0,
               timeout: Optional[float] = None) -> None:

@@ -5,7 +5,11 @@ modex macros OPAL_MODEX_SEND/RECV (opal/mca/pmix/pmix-internal.h:230-366).
 Environment contract with the launcher:
   OMPI_TPU_RANK, OMPI_TPU_SIZE, OMPI_TPU_STORE_ADDR (host:port),
   OMPI_TPU_JOBID, OMPI_TPU_LOCAL_RANK, OMPI_TPU_LOCAL_SIZE,
-  OMPI_TPU_WORLD_OFFSET (a spawned world's first world rank; 0 else)
+  OMPI_TPU_WORLD_OFFSET (a spawned world's first world rank; 0 else),
+  OMPI_TPU_HOSTNAME (a daemon's host name), OMPI_TPU_BIND_ADDR (the
+  address its btl/tcp binds), OMPI_TPU_BIND_CPUS (the ``--bind-to`` CPU
+  set, applied here with ``sched_setaffinity``; a bind that fails is a
+  hint and never fails init)
 Singleton (no launcher): rank 0 of 1 with an in-process store.
 
 World ranks are unique across every world that shares a store: the
@@ -76,6 +80,14 @@ def init() -> None:
             # a singleton's spawns take world ranks from 1 up
             _local_store.seed_counter(f"ww:{jobid}", 1)
         atexit.register(_shutdown)
+        # the CPU set the launcher assigned (--bind-to core|socket|numa),
+        # applied rank-side as PRRTE daemons bind their children
+        cpus = os.environ.get("OMPI_TPU_BIND_CPUS")
+        if cpus:
+            try:
+                os.sched_setaffinity(0, {int(c) for c in cpus.split(",")})
+            except (AttributeError, OSError, ValueError):
+                pass  # binding is a hint; never fail init over it
 
 
 def _shutdown() -> None:

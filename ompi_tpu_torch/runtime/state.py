@@ -33,9 +33,14 @@ with its clock synced through the store (:135-140); the telemetry plane
 (``telemetry_enable`` / ``OMPI_TPU_TELEMETRY``) after it, so a hang dump
 can flush the span ring (:156). The teardown runs in the ledger's
 ``teardown`` phase and stops telemetry's threads first, before the
-monitoring plane and the transports (:200-202, :221). None of them may
-sink init: a failure is logged and init goes on. The tune, skew and
-check planes attach in their own slices (ROADMAP items 10b, 10c).
+monitoring plane and the transports (:200-202, :221). The tune
+observatory (``tune_observe`` / ``OMPI_TPU_TUNE``) comes up after the
+monitoring plane, with the SIGUSR1 message-queue dump
+(``mpir_dump_on_signal``) beside it (:117-129); the skew plane
+(``skew_level`` / ``OMPI_TPU_SKEW``) after telemetry (:155-160); at
+teardown both stop after telemetry, skew first, while the store is up
+(:220-237). None of them may sink init: a failure is logged and init
+goes on. The check plane attaches in its own slice (ROADMAP item 10c).
 """
 
 from __future__ import annotations
@@ -119,6 +124,21 @@ def init_instance() -> None:
 
         if monitoring.requested():
             monitoring.start(rank=rte.rank, nranks=rte.size)
+        # the collective performance observatory (tune_observe,
+        # OMPI_TPU_TUNE): the PerfDB baseline loaded and the OBSERVER
+        # guard raised before any collective dispatches
+        from ompi_tpu_torch import tune
+
+        if tune.requested():
+            try:
+                tune.start(rank=rte.rank, nranks=rte.size)
+            except Exception as exc:  # noqa: BLE001 — never sinks init
+                _out.verbose(0, "tune enable failed: %r", exc)
+        # the debugger hook: SIGUSR1 dumps the match queues (MPIR analog,
+        # mpir_dump_on_signal)
+        from ompi_tpu_torch.tools import msgq
+
+        msgq.install_signal_dump()
         # the span recorder before any traffic flows, its clock synced
         # through the store (collective: the knob is job-uniform) so the
         # ranks' timelines share rank 0's timebase
@@ -139,6 +159,17 @@ def init_instance() -> None:
                 telemetry.start(rank=rte.rank)
             except Exception as exc:  # noqa: BLE001 — never sinks init
                 _out.verbose(0, "telemetry enable failed: %r", exc)
+        # the skew plane (skew_level, OMPI_TPU_SKEW): the completed-
+        # collective ring and its store clock sync ride the flight
+        # recorder's entry / exit, so after telemetry (start() enables
+        # the flight recorder itself when telemetry is off)
+        from ompi_tpu_torch import skew
+
+        if skew.requested():
+            try:
+                skew.start(rank=rte.rank, nranks=rte.size)
+            except Exception as exc:  # noqa: BLE001 — never sinks init
+                _out.verbose(0, "skew enable failed: %r", exc)
         _instance_up = True
         if not _atexit_registered:
             atexit.register(_atexit_finalize)
@@ -181,13 +212,23 @@ def _teardown() -> None:
     except errors.ProcFailedError:
         pass  # failed ranks of the world released the fence (ft)
     finally:
-        from ompi_tpu_torch import ingest, monitoring, pml, telemetry
+        from ompi_tpu_torch import (ingest, monitoring, pml, skew, telemetry,
+                                    tune)
         from ompi_tpu_torch.runtime import device_plane
 
         try:
             telemetry.stop()
         except Exception:  # noqa: BLE001 — a dead store must not stop this
             pass
+        # the skew rings merge while the store is up, after telemetry
+        # (the flight recorder is down, so the ring has settled); then
+        # the observatory's cross-rank merge and rank 0's PerfDB fold
+        # (after the watchdog's last sweep, which may read its verdicts)
+        for plane in (skew, tune):
+            try:
+                plane.stop()
+            except Exception:  # noqa: BLE001 — teardown goes on
+                pass
         try:  # the matrices' dump, before the pml dies
             monitoring.stop()
         finally:

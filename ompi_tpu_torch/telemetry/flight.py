@@ -93,8 +93,7 @@ class FlightRecorder:
             if token > self.last_completed:
                 self.last_completed = token
         if entry is not None:
-            # exit side of the skew plane (its guard only until ROADMAP
-            # item 10b): one attribute load + one
+            # exit side of the skew plane: one attribute load + one
             # branch while skew is off — the completed collective's
             # (seq, op, cid, nbytes, t_enter, t_exit) feeds the
             # bounded per-rank ring only when SKEW is up

@@ -26,10 +26,12 @@ downtime rather than a hang: the verdict carries
 ``kind="recovery"`` with the recovery phase, the dump lands under
 ``ompi_tpu_recovery_*`` — and no hang pvar, event, or abort fires.
 
-Left out until their planes are ported: the dump's ``check_mismatch``
-(the check-plane sanitizer, ROADMAP item 10c), ``tune_regressions`` and
-``skew`` keys and the sweep's level-2 live skew view (the tune
-observatory and the skew plane, item 10b).
+The dump also carries the tune observatory's run-over-run regression
+verdicts (``tune_regressions``) and the skew plane's context (``skew``),
+and at skew level 2 each sweep compares the heartbeat payloads'
+last-arrival stamps to name the slow rank before it hangs. Left out
+until its plane is ported: the dump's ``check_mismatch`` (the
+check-plane sanitizer, ROADMAP item 10c).
 """
 
 from __future__ import annotations
@@ -41,6 +43,7 @@ import time
 from typing import Any, Dict, Optional
 
 from ompi_tpu_torch.core import cvar, events, output, pvar
+from ompi_tpu_torch.skew import record as _skew_record
 from ompi_tpu_torch.telemetry import flight
 
 _out = output.stream("telemetry")
@@ -164,6 +167,18 @@ class Watchdog:
             return None
         if self._client is not None:
             self._client.heartbeat(self.rank, fl.hb_dict())
+        sk = _skew_record.SKEW
+        if sk is not None and sk.level >= 2 \
+                and self._client is not None:
+            # level-2 live skew: the heartbeat payloads' last-arrival
+            # stamps name the SLOW rank while the job still makes
+            # progress — before (or instead of) a hang verdict
+            try:
+                sk.observe_live(self._client.telemetry(), self.rank,
+                                fl.last_arrival_ns, fl.last_entered)
+            except Exception:  # noqa: BLE001 — diagnosis must never
+                # become the failure
+                pass
         oldest = fl.oldest()
         if oldest is None:
             self.verdict = None  # everything completed: healthy
@@ -327,6 +342,21 @@ class Watchdog:
             hot = tm.hotspot()
             if hot:
                 doc["traffic_hotspot"] = hot
+        # a hang that follows a 10x collective slowdown is likelier a
+        # degraded link than a lost peer: the observatory's run-over-run
+        # regression verdicts name the slow keys
+        from ompi_tpu_torch import tune as _tune
+
+        regs = _tune.regression_info()
+        if regs is not None:
+            doc["tune_regressions"] = regs
+        # a hang on a rank the live skew view already saw falling behind
+        # says so next to the verdict (skew level 2)
+        from ompi_tpu_torch import skew as _skew
+
+        sk_info = _skew.skew_info()
+        if sk_info is not None:
+            doc["skew"] = sk_info
         from ompi_tpu_torch.trace import recorder as _trace
 
         rec = _trace.RECORDER

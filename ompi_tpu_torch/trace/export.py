@@ -18,8 +18,9 @@ stack correctly.
 The export also embeds the pvar-plane log2 latency histograms
 (``metadata.hist``) so a trace file is self-contained for
 ``python -m ompi_tpu_torch.trace report``. The skew lane reads the
-skew plane's guard (``skew/record.py``), which stays None until that
-plane is ported (ROADMAP item 10b), so the lane is empty.
+skew plane's ring (``skew/record.py``): one span per completed
+collective, split into wait and transfer once the Finalize merge has
+resolved the group's last arrival; it is empty while the plane is off.
 """
 
 from __future__ import annotations

@@ -88,3 +88,10 @@ def pick_peer_address(published: List[str],
         raise ValueError("peer published no addresses")
     hints = list(mine or [None])
     return max(published, key=lambda a: max(score(a, h) for h in hints))
+
+
+def best_address(peer_hint: Optional[str] = None) -> str:
+    """The address this host should publish (or bind a launcher's store
+    on) for peers to dial: the best-scored of its interfaces."""
+    return max(interfaces(),
+               key=lambda i: score(i.address, peer_hint)).address

@@ -29,6 +29,8 @@ from ompi_tpu.accelerator.null import NullAccelerator
 from ompi_tpu_torch import accelerator, compat
 from ompi_tpu_torch.accelerator import ipc
 from ompi_tpu_torch.runtime import launcher
+from tests.test_torch_ingest import (  # noqa: F401 — autouse
+    port_accelerator_state)
 
 #: (kind, numpy dtype, shape): numpy arrays and CPU tensors
 BUFFERS = [("numpy", "int64", (10, 10)), ("numpy", "float32", (3, 5, 7)),

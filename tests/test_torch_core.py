@@ -4,7 +4,8 @@ progress, pvars, the kvstore, the launcher; its two registry cases are in
 ``tests/test_torch_mpit.py``), ``tests/test_native.py``'s 4 (the sm ring's
 wraparound, full / cap, torture, and the span gather, which the port's
 datatype engine does in numpy) and ``tests/test_memhooks_topology.py``'s
-two memhooks cases (its topology half waits for item 4d).
+two memhooks cases (its topology half is in
+``tests/test_torch_topology.py``, beside the launcher's ``--bind-to``).
 
 Every case runs the same steps on both packages in this process and holds
 their answers equal. ``reference_state`` (from ``tests/test_torch_mpit``)

@@ -133,7 +133,17 @@ def test_importing_the_port_loads_no_jax():
             "ompi_tpu_torch.telemetry.openmetrics, ompi_tpu_torch.prof, "
             "ompi_tpu_torch.prof.__main__, ompi_tpu_torch.skew.record, "
             "ompi_tpu_torch.examples.fused_gradients, "
-            "ompi_tpu_torch.examples.observability; "
+            "ompi_tpu_torch.examples.observability, "
+            "ompi_tpu_torch.util.topology, ompi_tpu_torch.runtime.launcher, "
+            "ompi_tpu_torch.tune, ompi_tpu_torch.tune.perfdb, "
+            "ompi_tpu_torch.tune.report, ompi_tpu_torch.tune.__main__, "
+            "ompi_tpu_torch.skew, ompi_tpu_torch.skew.decompose, "
+            "ompi_tpu_torch.skew.merge, ompi_tpu_torch.skew.report, "
+            "ompi_tpu_torch.skew.__main__, ompi_tpu_torch.tools, "
+            "ompi_tpu_torch.tools.info, ompi_tpu_torch.tools.msgq, "
+            "ompi_tpu_torch.examples.multihost, "
+            "ompi_tpu_torch.examples.mpmd, "
+            "ompi_tpu_torch.examples.tune_observe; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'ompi_tpu', 'ml_dtypes')]; "
             "assert not bad, bad; print('clean')")
@@ -236,9 +246,9 @@ def test_ft_elastic_ingest_modules_are_scanned():
 
 
 def test_observability_modules_are_scanned():
-    """The trace, telemetry and prof planes' modules, the skew guard and
-    the two examples are in the scan; the skew module holds only its
-    guard."""
+    """The trace, telemetry and prof planes' modules, the skew recorder
+    and the two examples are in the scan; the skew module holds its guard
+    and the recorder behind it."""
     rel = {os.path.relpath(p, ROOT) for p in _port_files()}
     for mod in ("trace/__init__.py", "trace/recorder.py", "trace/export.py",
                 "trace/merge.py", "trace/__main__.py",
@@ -252,11 +262,26 @@ def test_observability_modules_are_scanned():
     with open(os.path.join(ROOT, "ompi_tpu_torch", "skew", "record.py"),
               encoding="utf-8") as f:
         tree = ast.parse(f.read())
-    body = [n for n in tree.body if not (isinstance(n, ast.Expr)
-                                         and isinstance(n.value,
-                                                        ast.Constant))]
-    assert [type(n).__name__ for n in body] == ["ImportFrom", "Assign"]
-    assert body[1].targets[0].id == "SKEW"
+    guards = [n for n in tree.body if isinstance(n, ast.AnnAssign)
+              and n.target.id == "SKEW"]
+    assert len(guards) == 1 and guards[0].value.value is None
+    assert {n.name for n in tree.body if isinstance(n, ast.ClassDef)} \
+        == {"SkewRecorder"}
+
+
+def test_launcher_tune_skew_tools_modules_are_scanned():
+    """Item 4d's launcher forms and topology, and item 10b's tune, skew
+    and tools planes with their four examples, are in the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("util/topology.py", "runtime/launcher.py",
+                "tune/__init__.py", "tune/observe.py", "tune/perfdb.py",
+                "tune/report.py", "tune/__main__.py", "skew/__init__.py",
+                "skew/record.py", "skew/decompose.py", "skew/merge.py",
+                "skew/report.py", "skew/__main__.py", "tools/__init__.py",
+                "tools/info.py", "tools/msgq.py", "examples/multihost.py",
+                "examples/mpmd.py", "examples/tune_observe.py",
+                "examples/skew_straggler.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 
 #: module aliases the port's emitters call ``emit`` / ``fire`` through

@@ -11,7 +11,8 @@ cases of ``tests/test_monitoring.py:67-128`` and
 children report their results over the intercommunicator). The
 reference's 4- and 3-rank programs run as pooled bodies, its 2-rank one
 in a job of its own (a spawn). ``test_tpurun_mpmd_colon_and_appfile``
-waits for item 4d's MPMD launcher.
+runs ``tests/test_spawn.py``'s MPMD case on the port's launcher (the
+colon syntax and an ``--app`` file).
 
 The port's 2-rank job runs under the device plane on the CPU platform,
 which the children inherit: before the first spawn each parent runs a
@@ -555,3 +556,39 @@ def test_spawned_child_init_raises_without_the_card(tmp_path):
         store.stop()
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == [str(errors.ERR_INTERN), "5", "[5]"]
+
+
+_MPMD = textwrap.dedent('''
+    import sys
+    import numpy as np
+    from ompi_tpu_torch import dpm, mpi
+    comm = mpi.Init()
+    role = sys.argv[1]
+    tot = np.zeros(1, np.int64)
+    comm.Allreduce(np.array([1], np.int64), tot)
+    assert tot[0] == comm.size == 3
+    apps = comm.allgather((dpm.appnum(), role))
+    assert sorted(set(apps)) == [(0, "one"), (1, "two")], apps
+    assert comm.Get_attr(mpi.APPNUM) == dpm.appnum()
+    mpi.Finalize()
+''')
+
+
+def test_tpurun_mpmd_colon_and_appfile(tmp_path):
+    """tests/test_spawn.py's case on the port's launcher: a two-binary
+    MPMD job wires one world across app contexts, through the colon
+    syntax and through an ``--app`` file."""
+    prog = tmp_path / "mpmd.py"
+    prog.write_text(_MPMD)
+    appfile = tmp_path / "appfile"
+    appfile.write_text(f"# two contexts, one world\n"
+                       f"-n 1 {prog} one\n"
+                       f"-n 2 {prog} two\n")
+    for args in (["-n", "1", str(prog), "one", ":", "-n", "2", str(prog),
+                  "two"],
+                 ["--app", str(appfile)]):
+        r = subprocess.run(
+            [sys.executable, "-m", "ompi_tpu_torch.runtime.launcher",
+             "--timeout", "120", "--mca", "device_plane_platform", "cpu"]
+            + args, cwd=ROOT, capture_output=True, text=True, timeout=150)
+        assert r.returncode == 0, (r.stdout, r.stderr)

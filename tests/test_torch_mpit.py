@@ -15,8 +15,8 @@ drops, libnbc's completion events and the host window's epoch events;
 the port's job also drives the device windows' emitters under the
 device plane on the CPU platform.
 
-Waiting for its slice, in ROADMAP queue 1: the ``tools/info`` half of
-``test_event_coll_and_info_dump`` (item 10c).
+The ``tools/info`` half of ``test_event_coll_and_info_dump`` is
+``tests/test_torch_tools.py``'s ``test_info_lists_event_types``.
 
 The in-process cases call the reference too, whose registries are
 process-wide: :func:`reference_state` (autouse here, and imported by the
@@ -885,7 +885,8 @@ def test_event_buffered_read_and_forced_drops(jobs):
 
 def test_event_coll_and_info_dump(jobs):
     """libnbc's Ibarrier emits its completion with its kind, rounds and
-    comm (the tools/info half waits for item 10c)."""
+    comm (the tools/info half is
+    ``tests/test_torch_tools.py::test_info_lists_event_types``)."""
     for dp, dr in _docs(jobs):
         assert dp["coll"] == dr["coll"]
         assert dp["coll"] and all(k == "barrier" and n >= 1 and same

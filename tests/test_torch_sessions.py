@@ -18,7 +18,8 @@ reference count at every step. The port's 4-rank job first runs
 ``ompi_tpu_torch/examples/sessions.py --device --tiny`` (its device
 checks on CPU tensors, under the device plane on the CPU platform). The
 Abort jobs are the port's alone. ``test_session_host_pset_multihost``
-waits for item 4d's multi-host launcher (ROADMAP queue 1).
+runs the reference's case on two fake hosts of the port's multi-host
+launcher (``--host`` with the ``local`` agent).
 """
 
 import json
@@ -34,6 +35,8 @@ import pytest
 from ompi_tpu_torch import compat, errors
 from ompi_tpu_torch.runtime import launcher as port_launcher
 from tests.harness import run_ranks
+from tests.test_torch_ingest import (  # noqa: F401 — autouse
+    port_accelerator_state)
 from tests.test_torch_mpit import reference_state  # noqa: F401 — autouse
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -411,3 +414,35 @@ def test_abort_code_zero_still_fails_and_store_propagates():
                           env=dict(os.environ, PYTHONPATH=ROOT),
                           capture_output=True, timeout=60)
     assert proc.returncode == 1
+
+
+_HOST_PSET = textwrap.dedent('''
+    import numpy as np
+    from ompi_tpu_torch import mpi
+    from ompi_tpu_torch.runtime import rte
+    rte.init()
+    rank = rte.rank
+    s = mpi.Session_init()
+    hg = s.group_from_pset("ompi_tpu://HOST")
+    assert hg.size == 2, hg.ranks
+    assert rank in hg.ranks
+    assert sorted(hg.ranks) == ([0, 1] if rank < 2 else [2, 3]), hg.ranks
+    c = s.comm_from_group(hg, "test.sessions.host")
+    out = np.zeros(1, np.int64)
+    c.Allreduce(np.array([1], np.int64), out)
+    assert out[0] == 2
+    s.finalize()
+''')
+
+
+def test_session_host_pset_multihost(tmp_path):
+    """``ompi_tpu://HOST`` resolves to this node's ranks (the PMIx host
+    pset analog), across two fake hosts of the port's multi-host launch
+    (tests/test_sessions.py's case)."""
+    prog = tmp_path / "host_pset.py"
+    prog.write_text(_HOST_PSET)
+    rc = port_launcher.launch_hosts(
+        [str(prog)], [port_launcher.HostSpec("fakeA", 2, "127.0.0.2"),
+                      port_launcher.HostSpec("fakeB", 2, "127.0.0.3")],
+        mca={"device_plane_platform": "cpu"}, timeout=120, agent="local")
+    assert rc == 0, rc

@@ -630,9 +630,10 @@ def test_observability_example_tiny(tmp_path):
 # the guard scan
 
 
-_GUARDS = ("RECORDER", "FLIGHT", "PROFILER")
+_GUARDS = ("RECORDER", "FLIGHT", "PROFILER", "OBSERVER", "SKEW")
 #: the modules that define the guards
-_DEFINERS = {"trace/recorder.py", "telemetry/flight.py", "prof/ledger.py"}
+_DEFINERS = {"trace/recorder.py", "telemetry/flight.py", "prof/ledger.py",
+             "tune/observe.py", "skew/record.py"}
 
 
 def _compares_name(test, name: str) -> bool:
@@ -690,11 +691,14 @@ def guard_sites(path):
 
 
 def test_guard_sites_are_one_branch():
-    """Every RECORDER / FLIGHT / PROFILER site of the port (the examples
-    are users, not sites) is one attribute load and one branch: the load
-    is the operand of an ``is [not] None`` test, or it is assigned to a
-    local and the next statement branches on that local. The main path's
-    modules read the guards."""
+    """Every RECORDER / FLIGHT / PROFILER / OBSERVER / SKEW site of the
+    port (the examples are users, not sites) is one attribute load and
+    one branch: the load is the operand of an ``is [not] None`` test, or
+    it is assigned to a local and the next statement branches on that
+    local. The main path's modules read the guards: the tune plane's
+    OBSERVER in coll/cuda's, coll/device's and coll/hier's launch
+    funnels, the skew plane's SKEW at the flight recorder's exit, the
+    trace export's skew lane and the watchdog's live view."""
     per_file = {}
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ompi_tpu_torch")):
         if os.path.basename(dirpath) == "examples":
@@ -715,6 +719,26 @@ def test_guard_sites_are_one_branch():
                 "coll/cuda_kernels.py", "coll/hier.py"):
         assert per_file.get(mod, 0) >= 1, (mod, per_file)
     assert sum(per_file.values()) >= 60, per_file
+    observer, skew = {}, {}
+    for dirpath, _, names in os.walk(os.path.join(ROOT, "ompi_tpu_torch")):
+        if os.path.basename(dirpath) == "examples":
+            continue
+        for name in names:
+            if name.endswith(".py"):
+                path = os.path.join(dirpath, name)
+                rel = os.path.relpath(path, os.path.join(ROOT,
+                                                         "ompi_tpu_torch"))
+                with open(path, encoding="utf-8") as f:
+                    text = f.read()
+                for table, attr in ((observer, ".OBSERVER"),
+                                    (skew, ".SKEW")):
+                    if attr in text:
+                        table[rel] = text.count(attr)
+    for mod in ("coll/cuda.py", "coll/device.py", "coll/hier.py"):
+        assert observer.get(mod, 0) >= 1, (mod, observer)
+    for mod in ("telemetry/flight.py", "trace/export.py",
+                "telemetry/watchdog.py"):
+        assert skew.get(mod, 0) >= 1, (mod, skew)
 
 
 def test_guard_scan_catches_a_second_load(tmp_path):
