@@ -435,15 +435,32 @@ Phases (any failure exits non-zero; nothing is caught and passed over):
    receive; ``python -m ompi_tpu_torch.tools.info --json`` lists
    coll/cuda, coll/device and osc_cuda. D's job and the C / D CLIs run
    beside B's read-back job. The phase fails past 60 s.
+19. the correctness plane (see :func:`correctness_phase`): one 4-rank job
+   of ``ompi_tpu_torch/examples/correctness.py --device`` under coll/cuda
+   with the sanitizer at ``check_level 2`` from Init and the telemetry
+   plane's watchdog armed (``telemetry_hang_timeout 600``, a dump dir).
+   A: the device Allreduce (SUM, float32) at 1 KiB, 1 MiB and 256 MiB
+   under 'linear' (K3) and 'ring' (K1 + K2) at sanitizer levels 0, 1 and
+   2 in turns (``sanitizer.disable`` / ``enable`` in the job; 3 rounds of
+   11 calls), every result bitwise its mode's fold; the ZeRO stage-2
+   'linear' step at GPT-2 small's width at levels 0 and 2, parameters
+   and momentum bitwise. B: ``comm.Allreduce(torch.ones(rank + 1,
+   device=dev))`` at level 2 raises the named MPIError on every rank,
+   the matched Allreduce after it is bitwise, no hang dump. C: under
+   ``memchecker on`` a send from a pending host receive buffer raises
+   MemcheckError and one from a CUDA tensor does not; a ``Send_init``
+   never freed is one leak (``check_leaks``) at Finalize on every rank.
+   K1-K3 as derived. Prints rank 0's p50 per (size, mode, level), the
+   ZeRO steps and level 1's ns a call; the phase fails past 45 s.
 
 Output: one line per measurement with the card's name and power limit
 (the examples' cases with their p50 and bus bandwidth among them),
 then ``{"kernels": [...]}`` (K1-K3 launches summed over every
 collectives job, coll/cuda's and coll/device's, the datatype job, phases
-7, 8, 10, 11, 13, 14, 15, 16, 17 and 18 and the training path, K5 and K6's
-two kernels from the training path, K7 and the K8, K9 and K10 batches
-from the 4-rank one-sided paths, K7 and the per-call rows of K8 and K9
-also from phase 6, K7 and the K8, K9 and K10 batches also from phase 9,
+7, 8, 10, 11, 13, 14, 15, 16, 17, 18 and 19 and the training path, K5
+and K6's two kernels from the training path, K7 and the K8, K9 and K10
+batches from the 4-rank one-sided paths, K7 and the per-call rows of K8
+and K9 also from phase 6, K7 and the K8, K9 and K10 batches also from phase 9,
 K7, the per-call K9 and the K8, K9 and K10 batches also from phase 12,
 K1-K3, K7 and the per-call K9 also from phase 13; K5b and the per-call
 row of K10 with 0 and a note), the card line, and, last,
@@ -2882,6 +2899,89 @@ def multihost_phase(card: str, root: str) -> dict:
     return launches
 
 
+#: phase 19's job: the sanitizer at level 2 from Init, the telemetry
+#: plane's watchdog armed with a hang timeout far past the job
+#: (scripts/check_smoke.sh's settings)
+CHECK_MCA = ("--mca", "check_level", "2", "--mca", "telemetry_enable", "1",
+             "--mca", "telemetry_hang_timeout", "600")
+CHECK_WALL = 45  # seconds phase 19 may take
+
+
+def correctness_phase(card: str, root: str) -> dict:
+    """Phase 19: the check plane on the card, one 4-rank job of
+    ``ompi_tpu_torch/examples/correctness.py --device`` under coll/cuda
+    and :data:`CHECK_MCA`. A: the device Allreduce (SUM, float32) at 1
+    KiB, 1 MiB and 256 MiB under 'linear' and 'ring' at sanitizer levels
+    0, 1 and 2 in turns (3 rounds of 11 calls), every result bitwise its
+    mode's fold; the ZeRO stage-2 'linear' step at GPT-2 small's width at
+    levels 0 and 2 (two steps each, in turns), parameters and momentum
+    bitwise; level 1's argument check per call on the host. B: a
+    rank-dependent count on a CUDA tensor at level 2 raises the named
+    MPIError on every rank, the matched Allreduce after it is bitwise,
+    and no hang dump is written. C: a send from a pending host receive
+    buffer raises MemcheckError, one from a CUDA tensor does not; a
+    ``Send_init`` never freed is one leak at Finalize on every rank. Each
+    rank's K1-K3 launches of A and B as derived. Prints rank 0's p50 per
+    (size, mode, level), the steps, the check's ns; fails past
+    :data:`CHECK_WALL` s. Returns the launches, all ranks."""
+    t0 = time.perf_counter()
+    dumps = os.path.join(root, "build", "ompi_tpu_torch", "smoke_check_dumps")
+    shutil.rmtree(dumps, ignore_errors=True)
+    os.makedirs(dumps)
+    got, doc = main_path("correctness.py", N_RANKS, ["--device"], card, root,
+                         "coll_cuda", CHECK_MCA + ("--mca",
+                                                   "telemetry_dump_dir",
+                                                   dumps))
+    docs = rank_docs(smoke_dir(root, "correctness.py", N_RANKS), N_RANKS)
+    for r, d in enumerate(docs):
+        if d["launches"] != d["expected_launches"]:
+            fail(f"phase 19 rank {r}: K1-K3 launches {d['launches']}, "
+                 f"derived {d['expected_launches']}")
+        if d["report"]["leaks"] != 1:
+            fail(f"phase 19 C rank {r}: {d['report']['leaks']} leaks at "
+                 "Finalize, not the one Send_init")
+        want = 1 if r % 2 == 0 else 0
+        if d["report"]["memchecker_violations"] != want:
+            fail(f"phase 19 C rank {r}: "
+                 f"{d['report']['memchecker_violations']} memchecker "
+                 f"violations, not {want}")
+    if os.listdir(dumps):
+        fail(f"phase 19 B: the watchdog dumped {os.listdir(dumps)}")
+    rep = doc["report"]
+    for nb in rep["sizes"]:
+        for mode in ("linear", "ring"):
+            p = [rep["p50_ms"][f"{nb}_{mode}_l{lv}"] for lv in (0, 1, 2)]
+            lo, hi = rep["spread_ms"][f"{nb}_{mode}_l0"]
+            print(f"phase 19 A Allreduce {nb} B {mode} n={N_RANKS} (rank 0 "
+                  f"p50 ms of 33 calls a level, in turns): level 0 "
+                  f"{p[0]:.4f} (min {lo:.4f}, max {hi:.4f}), level 1 "
+                  f"{p[1]:.4f} ({p[1] - p[0]:+.4f}), level 2 {p[2]:.4f} "
+                  f"({p[2] - p[0]:+.4f}) [{card}]", flush=True)
+    z = rep["zero_step_ms"]
+    print(f"phase 19 A ZeRO stage-2 'linear' step, GPT-2 small "
+          f"({rep['zero_parameters']} parameters, {rep['zero_buckets']} "
+          f"buckets), rank 0 ms, steps in turns: level 0 "
+          f"{[round(v, 3) for v in z['l0']]}, level 2 "
+          f"{[round(v, 3) for v in z['l2']]}; parameters and momentum "
+          f"bitwise [{card}]", flush=True)
+    print(f"phase 19 A: level 1's argument check "
+          f"{rep['precall_l1_ns'] / 1e3:.2f} us a call on rank 0's host "
+          f"[{card}]", flush=True)
+    print(f"phase 19 B: every rank raised at the call, rank 0's: "
+          f"{rep['mismatch']!r}; the matched Allreduce bitwise; no hang "
+          f"dump [{card}]", flush=True)
+    print(f"phase 19 C: memchecker violations per rank "
+          f"{[d['report']['memchecker_violations'] for d in docs]} (the "
+          f"host buffers'; the CUDA tensors' none), leaks at Finalize "
+          f"{[d['report']['leaks'] for d in docs]} [{card}]", flush=True)
+    wall = time.perf_counter() - t0
+    print(f"phase 19: launches (all ranks) {got}; {wall:.1f} s wall "
+          f"(budget {CHECK_WALL} s) [{card}]", flush=True)
+    if wall > CHECK_WALL:
+        fail(f"phase 19 took {wall:.1f} s, past its {CHECK_WALL} s budget")
+    return got
+
+
 #: the ring example's lines on 4 ranks (examples/ring_c.c's countdown)
 RING_TEXT = (["Process 0 sending 10 to 1, tag 201 (4 processes in ring)",
               "Process 0 sent to 1"]
@@ -3272,6 +3372,9 @@ def main() -> int:
         coll[k] = coll.get(k, 0) + v
     # and phase 18's (the two fake hosts' job and the table's read-back)
     for k, v in multihost_phase(card, root).items():
+        coll[k] = coll.get(k, 0) + v
+    # and phase 19's (the correctness plane's job)
+    for k, v in correctness_phase(card, root).items():
         coll[k] = coll.get(k, 0) + v
     for r in rows:
         if "note" not in r:  # a kernel no path runs keeps 0

@@ -62,6 +62,13 @@ is about to overwrite (the two-sided handshake of the reference's
 :func:`permute` (coll/device's ``permute_dev``) is no generator: it gives
 the stage and land steps of one ``Arena.exchange``, whose handshake
 waits for the exchange's actual partners only.
+
+A wrapper's argument checks raise ``ValueError``: a contract between the
+wrappers and their callers inside the port (coll/cuda, coll/device,
+osc/cuda), which check what a user passes at the API and raise
+``MPIError`` there; the tests hold these checks as ``ValueError``. Each
+such ``raise`` carries ``# check: disable=bare-public-raise; wrapper
+contract`` for the check plane's lint.
 """
 
 from __future__ import annotations
@@ -285,7 +292,8 @@ def combine(op: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return torch.mul(a, b)
     if op in ("MPI_MIN", "MPI_MAX"):
         return _minmax(a, b, op == "MPI_MIN")
-    raise ValueError(f"unsupported op {op!r}")
+    raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+        f"unsupported op {op!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -304,20 +312,26 @@ def _check_tensors(what: str, tensors: Sequence[torch.Tensor],
     kind = tensors[0].device.type
     for t in tensors:
         if t.device.type != kind:
-            raise ValueError(f"{what}: tensors on {tensors[0].device} and "
-                             f"{t.device}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: tensors on {tensors[0].device} and "
+                f"{t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{what}: non-contiguous operand")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: non-contiguous operand")
         if t.numel() != numel:
-            raise ValueError(f"{what}: operand of {t.numel()} elements, "
-                             f"expected {numel}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: operand of {t.numel()} elements, "
+                f"expected {numel}")
         if t.dtype != tensors[0].dtype:
-            raise ValueError(f"{what}: mixed dtypes {tensors[0].dtype} "
-                             f"and {t.dtype}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: mixed dtypes {tensors[0].dtype} "
+                f"and {t.dtype}")
     if tensors[0].dtype not in DTYPE_CODES:
-        raise ValueError(f"{what}: unsupported dtype {tensors[0].dtype}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: unsupported dtype {tensors[0].dtype}")
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {tensors[0].device}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: unsupported device {tensors[0].device}")
     return kind
 
 
@@ -361,18 +375,23 @@ def _check_copy(what: str, tensors: Sequence[torch.Tensor]) -> str:
     kind, nbytes = tensors[0].device.type, tensors[0].nbytes
     for t in tensors:
         if t.device.type != kind:
-            raise ValueError(f"{what}: tensors on {tensors[0].device} and "
-                             f"{t.device}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: tensors on {tensors[0].device} and "
+                f"{t.device}")
         if not t.is_contiguous():
-            raise ValueError(f"{what}: non-contiguous operand")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: non-contiguous operand")
         if t.dtype != tensors[0].dtype:
-            raise ValueError(f"{what}: mixed dtypes {tensors[0].dtype} "
-                             f"and {t.dtype}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: mixed dtypes {tensors[0].dtype} "
+                f"and {t.dtype}")
         if t.nbytes != nbytes:
-            raise ValueError(f"{what}: operand of {t.nbytes} bytes, "
-                             f"expected {nbytes}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: operand of {t.nbytes} bytes, "
+                f"expected {nbytes}")
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {tensors[0].device}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: unsupported device {tensors[0].device}")
     return kind
 
 
@@ -411,8 +430,9 @@ def linear_fold(srcs: Sequence[torch.Tensor], dst: torch.Tensor,
         linear_fold_plain(srcs, dst, op)
         return
     if len(srcs) > MAX_PEERS:
-        raise ValueError(f"linear_fold: {len(srcs)} sources, at most "
-                         f"{MAX_PEERS}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"linear_fold: {len(srcs)} sources, at most "
+            f"{MAX_PEERS}")
     L = lib()
     ptrs = (ctypes.c_void_p * len(srcs))(*[s.data_ptr() for s in srcs])
     check(L.otc_linear_fold(
@@ -469,16 +489,19 @@ def _check_update(what: str, ins: List[torch.Tensor], p, v, p_out, v_out,
     """The update kernels' (K5, K5b) argument checks; returns the device
     type. ``ins`` are the operands the update's gradient comes from."""
     if (v is None) != (v_out is None) or (v is not None and mu is None):
-        raise ValueError(f"{what}: v, v_out and mu go together")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: v, v_out and mu go together")
     ins = ins + [p] + ([v] if v is not None else [])
     outs = [p_out] + ([v_out] if v_out is not None else [])
     kind = _check_tensors(what, ins + outs, p.numel())
     for c in (lr, mu, inv):
         if c is not None and (c.dim() != 0 or c.dtype != p.dtype):
-            raise ValueError(f"{what}: constants must be 0-d tensors of "
-                             f"{p.dtype}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: constants must be 0-d tensors of "
+                f"{p.dtype}")
     if {o.data_ptr() for o in outs} & {t.data_ptr() for t in ins}:
-        raise ValueError(f"{what}: an output is also an input")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: an output is also an input")
     return kind
 
 
@@ -545,8 +568,9 @@ def linear_fold_update(srcs: Sequence[torch.Tensor], p: torch.Tensor,
         linear_fold_update_plain(srcs, p, v, p_out, v_out, lr, mu, inv, op)
         return
     if len(srcs) > MAX_PEERS:
-        raise ValueError(f"linear_fold_update: {len(srcs)} sources, at most "
-                         f"{MAX_PEERS}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"linear_fold_update: {len(srcs)} sources, at most "
+            f"{MAX_PEERS}")
     L = lib()
     ptrs = (ctypes.c_void_p * len(srcs))(*[t.data_ptr() for t in srcs])
     check(L.otc_linear_fold_update(
@@ -565,7 +589,8 @@ def _matmul_i32_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     every partial sum stays below 2**53 for d < 2**20, recombined in
     int64."""
     if x.shape[1] >= 1 << 20:
-        raise ValueError("block_matmul: int32 depth of 2**20 or more")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            "block_matmul: int32 depth of 2**20 or more")
 
     def halves(t):
         u = t.long() & 0xFFFFFFFF
@@ -649,25 +674,30 @@ def block_matmul(x: torch.Tensor, w: torch.Tensor,
     body ``_matmul_body`` :112)."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] \
             or tuple(out.shape) != (x.shape[0], w.shape[1]):
-        raise ValueError(f"block_matmul: shapes {tuple(x.shape)} @ "
-                         f"{tuple(w.shape)} -> {tuple(out.shape)}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"block_matmul: shapes {tuple(x.shape)} @ "
+            f"{tuple(w.shape)} -> {tuple(out.shape)}")
     dt = torch.promote_types(x.dtype, w.dtype)
     if out.dtype != dt or dt not in DTYPE_CODES:
-        raise ValueError(f"block_matmul: {x.dtype} @ {w.dtype} -> "
-                         f"{out.dtype} (expected {dt}, one of float32, "
-                         "bfloat16, int32)")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"block_matmul: {x.dtype} @ {w.dtype} -> "
+            f"{out.dtype} (expected {dt}, one of float32, "
+            "bfloat16, int32)")
     kind = out.device.type
     for t in (x, w, out):
         if t.device.type != kind:
-            raise ValueError(f"block_matmul: tensors on {out.device} and "
-                             f"{t.device}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"block_matmul: tensors on {out.device} and "
+                f"{t.device}")
         if not t.is_contiguous():
-            raise ValueError("block_matmul: non-contiguous operand")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                "block_matmul: non-contiguous operand")
     if kind == "cpu":
         block_matmul_plain(x, w, out)
         return
     if kind != "cuda":
-        raise ValueError(f"block_matmul: unsupported device {out.device}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"block_matmul: unsupported device {out.device}")
     if out.numel() == 0:
         return
     if x.dtype != dt:

@@ -330,6 +330,8 @@ class Communicator(attr_mod.AttrHost):
         with _comms_lock:
             if _comms.get(self.cid) is self:
                 del _comms[self.cid]
+        # the check-plane sanitizer flags any later call on this comm
+        self._freed = True
 
     # -- ULFM (reference: ompi/communicator/ft) ---------------------------
     def revoke(self) -> None:

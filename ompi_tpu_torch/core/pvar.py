@@ -197,6 +197,14 @@ WELL_KNOWN = (
     "elastic_injected_delays",
     # the store client: connect attempts retried
     "kvstore_connect_retries",
+    # check/ (the reference's names): the runtime sanitizer's argument
+    # and signature violations raised, requests reported leaked at
+    # Finalize, level-2 fingerprint exchanges and the memchecker's
+    # violations; the lint engine's files linted, files served from its
+    # cache and CFG paths enumerated
+    "check_violations", "check_leaks", "check_sig_exchanges",
+    "memchecker_violations",
+    "check_lint_files", "check_lint_cached_files", "check_lint_cfg_paths",
     # trace/ (the reference's names): spans lost to ring-buffer
     # overflow; the per-(op, size-bin) log2 latency histograms are the
     # trace_hist_ family below

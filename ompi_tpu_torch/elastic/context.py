@@ -603,7 +603,7 @@ class ElasticContext:
         # other ranks sit in the bcast below: fatal by design (the
         # errhandler aborts, or the ft plane revokes), the contract of
         # any collective that errs on one rank
-        if self._comm.rank == 0:
+        if self._comm.rank == 0:  # check: disable=collective-order-divergence; fatal by design
             cur = int(client.inc(key, 0))
             if block:
                 deadline = time.monotonic() + self._join_timeout

@@ -364,7 +364,9 @@ def run_rest(comm, ns, kinds, dev, prof, record, check) -> None:
         for dtype, op in ((f32, "MPI_SUM"), (i32, "MPI_MAX")):
             numel = _elems(_sizes(ns.scan_bytes)[0], dtype)
             xs = inputs(ns.seed + 16, numel, dtype)
-            for name, fn, rows in (
+            # the rank picks the rows a fold covers, not the turns: every
+            # rank runs both
+            for name, fn, rows in (  # check: disable=collective-order-divergence; fixed turns
                     ("Scan", comm.Scan, r + 1), ("Exscan", comm.Exscan, r)):
                 t = timed(comm, lambda: fn(xs[r], op=op_mod.BUILTIN[op]),
                           ns.iters, dev, prof)
@@ -836,7 +838,9 @@ def main(argv=None) -> int:
         def wait(req):
             req.wait()
             return req.array
-        for kind, fn in (
+        # m holds this rank's count, not the number of turns: every rank
+        # runs them all
+        for kind, fn in (  # check: disable=collective-order-divergence; fixed turns
                 ("Allreduce", lambda: one.Allreduce(x)),
                 ("Reduce_scatter_block",
                  lambda: one.Reduce_scatter_block(x)),

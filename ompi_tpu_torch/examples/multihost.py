@@ -190,6 +190,7 @@ def main(argv=None) -> int:
     report: dict = {"rank": rank, "host": node, "local_size": local.size,
                     "bind_cpus": os.environ.get("OMPI_TPU_BIND_CPUS", ""),
                     "affinity": sorted(os.sched_getaffinity(0))}
+    local.free()
     cpus = report["bind_cpus"]
     cases.append({"name": "affinity is the bound set", "ok": not cpus or (
         set(report["affinity"]) == {int(c) for c in cpus.split(",")})})

@@ -166,6 +166,7 @@ def child_job(ns, comm, parent) -> int:
     tot = np.zeros(1, np.int64)
     merged.Allreduce(np.array([merged.rank], np.int64), tot)
     doc["merged"] = [merged.size, merged.rank, int(tot[0])]
+    merged.free()
     docs = comm.gather(doc, root=0)
     if r == 0:
         parent.send(docs, dest=0, tag=14)
@@ -418,6 +419,7 @@ def device_job(ns) -> int:
     case("bridge Allreduce, merged comm",
          int(out[0]) == sum(range(1, m + 1)) and merged.size == n + m
          and merged.rank == r and int(tot[0]) == sum(range(n + m)))
+    merged.free()
     if r == 0:
         kids = inter.recv(source=0, tag=14)
         codes = dpm.wait_children(timeout=ns.child_timeout)

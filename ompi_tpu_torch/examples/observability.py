@@ -271,10 +271,13 @@ def part_a(comm, ns, dev, cases, report) -> dict:
                 if live:
                     for k, v in LAUNCH_PVARS.items():
                         pvar_n[k] += pvar.read(v) - before[k]
-                    for sp in recorder.RECORDER.spans():
-                        if sp.name == "launch" and sp.subsys in spans_n \
-                                and sp.t0 >= t_start:
-                            spans_n[sp.subsys] += 1
+                    rec = recorder.RECORDER  # on in a live turn
+                    if rec is not None:
+                        for sp in rec.spans():
+                            if sp.name == "launch" \
+                                    and sp.subsys in spans_n \
+                                    and sp.t0 >= t_start:
+                                spans_n[sp.subsys] += 1
         set_planes(True, r, keep)
     launched = counts.read()
     calls = 1 + 2 * ns.reps

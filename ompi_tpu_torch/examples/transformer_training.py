@@ -247,7 +247,8 @@ def job(ns, w) -> int:
     s = pvar.session()
     total: dict = {}
     for part in PARTS:
-        for k, v in run_part(part, w, dev, world, doc, ns.out).items():
+        got = run_part(part, w, dev, world, doc, ns.out)
+        for k, v in got.items():
             total[k] = total.get(k, 0) + v
     doc["launches"] = total
     doc["required"] = sorted({k for ks in REQUIRED.values() for k in ks})

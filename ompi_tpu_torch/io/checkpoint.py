@@ -193,7 +193,8 @@ def restore(path: str, comm=None,
         for (off, nbytes), (shape, name) in zip(layout, header["specs"]):
             data = blob[off:off + nbytes]
             if len(data) != nbytes:
-                raise ValueError(f"leaf bytes {len(data)}/{nbytes}")
+                raise ValueError(  # check: disable=bare-public-raise; -> ERR_FILE
+                    f"leaf bytes {len(data)}/{nbytes}")
             if comm is not None and axis is not None:
                 rows = np.array_split(np.arange(shape[axis]), comm.size)
                 mine = rows[comm.rank]

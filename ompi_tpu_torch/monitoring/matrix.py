@@ -11,7 +11,7 @@ repo's one-branch guard discipline:
 
 so a disabled plane costs exactly one attribute load + one branch
 (the same contract FLIGHT / RECORDER / SANITIZER keep, enforced by
-the reference's ``unguarded-observability`` lint rule).
+the check plane's ``unguarded-observability`` lint rule).
 
 Counting is SEND-side only, per the reference ``common/monitoring``
 design: each rank records what *it* transmits, and the cross-rank

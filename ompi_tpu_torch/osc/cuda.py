@@ -321,7 +321,8 @@ class CudaWindow(Window):
         z = np.zeros(1, _wire_dtype(self._win))
         try:
             if fn is None:
-                raise TypeError(f"{name} is not a predefined op")
+                raise TypeError(  # check: disable=bare-public-raise; -> ERR_OP
+                    f"{name} is not a predefined op")
             fn(z, z)
         except TypeError as exc:
             raise errors.MPIError(

@@ -51,6 +51,13 @@ creation (pointer, element count, dtype code, fill bits, device), whose
 ``apply`` / ``read`` take only descriptors: the launch path reads the raw
 stream handle (``torch._C._cuda_getCurrentRawStream``) and passes a
 packed table, so a call costs a few ctypes arguments.
+
+A wrapper's argument checks raise ``ValueError``: a contract between the
+wrappers and their callers inside the port (coll/cuda, coll/device,
+osc/cuda), which check what a user passes at the API and raise
+``MPIError`` there; the tests hold these checks as ``ValueError``. Each
+such ``raise`` carries ``# check: disable=bare-public-raise; wrapper
+contract`` for the check plane's lint.
 """
 
 from __future__ import annotations
@@ -151,23 +158,29 @@ def _check(what: str, window: torch.Tensor, other: torch.Tensor,
            kind: Optional[str] = None) -> str:
     """Operand checks; returns the device type."""
     if other.dtype != window.dtype:
-        raise ValueError(f"{what}: mixed dtypes {window.dtype} and "
-                         f"{other.dtype}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: mixed dtypes {window.dtype} and "
+            f"{other.dtype}")
     if window.dtype not in K.DTYPE_CODES:
-        raise ValueError(f"{what}: unsupported dtype {window.dtype}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: unsupported dtype {window.dtype}")
     if window.dim() != 1 or other.dim() != 1 or not (
             window.is_contiguous() and other.is_contiguous()):
-        raise ValueError(f"{what}: operands must be 1-D and contiguous")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: operands must be 1-D and contiguous")
     if kind is not None and kind not in KINDS:
-        raise ValueError(f"{what}: unsupported kind {kind!r}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: unsupported kind {kind!r}")
     if window.is_cuda:
         if not other.is_cuda:
-            raise ValueError(f"{what}: tensors on {window.device} and "
-                             f"{other.device}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"{what}: tensors on {window.device} and "
+                f"{other.device}")
         return "cuda"
     if window.device.type != "cpu" or other.device.type != "cpu":
-        raise ValueError(f"{what}: tensors on {window.device} and "
-                         f"{other.device} (cpu or cuda only)")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: tensors on {window.device} and "
+            f"{other.device} (cpu or cuda only)")
     return "cpu"
 
 
@@ -293,8 +306,9 @@ def plan_apply(size: int, rows, cap: int = TABLE_CAP) -> List[Tuple]:
         op = KINDS[kind]
         if stride == 1:
             if k > size:
-                raise ValueError(f"apply: payload of {k} elements into a "
-                                 f"window of {size}")
+                raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                    f"apply: payload of {k} elements into a "
+                    f"window of {size}")
             if k == 0:
                 continue
             d = clamp_start(size, k, disp)
@@ -311,8 +325,9 @@ def plan_apply(size: int, rows, cap: int = TABLE_CAP) -> List[Tuple]:
             off += i0
             s = stride if n > 1 else 1
             if s > _I32_MAX or n > _I32_MAX:
-                raise ValueError(f"apply: stride {stride} x {n} elements "
-                                 "exceeds the kernel's 32-bit fields")
+                raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                    f"apply: stride {stride} x {n} elements "
+                    "exceeds the kernel's 32-bit fields")
         run.append((b, off, d, n, s, op))
         spans.append((d, d + (n - 1) * s, s))
     flush()
@@ -329,13 +344,15 @@ def plan_read(size: int, rows, cap: int = TABLE_CAP) -> List[list]:
             continue
         if stride == 1:
             if k > size:
-                raise ValueError(f"read: {k} elements from a window of "
-                                 f"{size}")
+                raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                    f"read: {k} elements from a window of "
+                    f"{size}")
             tab.append((clamp_start(size, k, disp), 1, off, k))
         else:
             if k > _I32_MAX:
-                raise ValueError(f"read: {k} elements exceed the kernel's "
-                                 "32-bit count")
+                raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                    f"read: {k} elements exceed the kernel's "
+                    "32-bit count")
             tab.append((int(disp), int(stride), off, k))
     return [tab[c:c + cap] for c in range(0, len(tab), cap)]
 
@@ -361,8 +378,9 @@ def rma_apply(window: torch.Tensor, payload: torch.Tensor, disp: int,
     Bound: bytes, 2k elements for put/replace and 3k for the folds."""
     kind_dev = _check("rma_apply", window, payload, kind)
     if payload.numel() > window.numel():
-        raise ValueError(f"rma_apply: payload of {payload.numel()} elements "
-                         f"into a window of {window.numel()}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"rma_apply: payload of {payload.numel()} elements "
+            f"into a window of {window.numel()}")
     if kind_dev == "cpu":
         rma_apply_plain(window, payload, disp, kind)
         return
@@ -424,8 +442,9 @@ def rma_apply_strided(window: torch.Tensor, payload: torch.Tensor,
     d, n, i0 = span
     s = stride if n > 1 else 1
     if s > _I32_MAX or n > _I32_MAX:
-        raise ValueError(f"rma_apply_strided: stride {stride} x {n} elements "
-                         "exceeds the kernel's 32-bit fields")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"rma_apply_strided: stride {stride} x {n} elements "
+            "exceeds the kernel's 32-bit fields")
     _check_rc(lib().orm_apply_strided_batch(
         K.DTYPE_CODES[window.dtype], window.data_ptr(), _ONE_APPLY.pack(
             payload.data_ptr() + i0 * payload.element_size(), d, n, s,
@@ -492,16 +511,18 @@ def rma_read(window: torch.Tensor, disp: int, stride: int,
     kind_dev = _check("rma_read", window, out)
     k = out.numel()
     if stride == 1 and k > window.numel():
-        raise ValueError(f"rma_read: {k} elements from a window "
-                         f"of {window.numel()}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"rma_read: {k} elements from a window "
+            f"of {window.numel()}")
     if kind_dev == "cpu":
         rma_read_plain(window, disp, stride, out)
         return out
     if k == 0:
         return out
     if k > _I32_MAX:
-        raise ValueError(f"rma_read: {k} elements exceed the kernel's "
-                         "32-bit count")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"rma_read: {k} elements exceed the kernel's "
+            "32-bit count")
     d = clamp_start(window.numel(), k, disp) if stride == 1 else int(disp)
     dt = window.dtype
     _check_rc(lib().orm_read_batch(
@@ -535,8 +556,9 @@ def rma_read_batch(window: torch.Tensor, descs,
     ranges = sorted((off, off + k) for _d, _s, k, off in descs if k > 0)
     if any(a < 0 or b > out.numel() for a, b in ranges) or any(
             ranges[i][1] > ranges[i + 1][0] for i in range(len(ranges) - 1)):
-        raise ValueError("rma_read_batch: output ranges overlap or leave "
-                         f"out's {out.numel()} elements")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            "rma_read_batch: output ranges overlap or leave "
+            f"out's {out.numel()} elements")
     target.read(descs, out)
     return out
 
@@ -561,16 +583,18 @@ def _check_land(what: str, src: Optional[torch.Tensor],
     cuda = out.is_cuda
     if out.dtype not in K.DTYPE_CODES or out.dim() != 1 \
             or not out.is_contiguous() or not (cuda or out.is_cpu):
-        raise ValueError(f"{what}: out must be a 1-D contiguous float32, "
-                         "bfloat16 or int32 tensor")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: out must be a 1-D contiguous float32, "
+            "bfloat16 or int32 tensor")
     # src may lie on a peer's card: only the device type must match
     if src is not None and (
             src.dtype != out.dtype or src.numel() != out.numel()
             or not (src.is_cuda if cuda else src.is_cpu)
             or not src.is_contiguous()):
-        raise ValueError(f"{what}: source {tuple(src.shape)} {src.dtype} on "
-                         f"{src.device} does not match out "
-                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+        raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+            f"{what}: source {tuple(src.shape)} {src.dtype} on "
+            f"{src.device} does not match out "
+            f"{tuple(out.shape)} {out.dtype} on {out.device}")
     return cuda
 
 
@@ -619,9 +643,10 @@ def copy_tables(pairs, cap: int = COPY_CAP) -> List[Tuple[bytes, int]]:
     for src, out in pairs:  # one pass: the checks and the spans
         _check_land("rma_permute_recv_batch", src, out)
         if out.dtype != dt or out.get_device() != dev:
-            raise ValueError(f"rma_permute_recv_batch: outputs {dt} on "
-                             f"{pairs[0][1].device} and {out.dtype} on "
-                             f"{out.device}")
+            raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                f"rma_permute_recv_batch: outputs {dt} on "
+                f"{pairs[0][1].device} and {out.dtype} on "
+                f"{out.device}")
         flat += (0 if src is None else src.data_ptr(), out.data_ptr(),
                  out.numel())
     tables = []
@@ -705,8 +730,9 @@ class Target:
         would: on the card through :func:`plan_apply`'s launches."""
         if not self.cuda:
             if any(s == 1 and k > self.size for _b, _o, k, _d, s, _k in rows):
-                raise ValueError(f"apply: a payload larger than the window "
-                                 f"of {self.size}")
+                raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                    f"apply: a payload larger than the window "
+                    f"of {self.size}")
             rma_apply_strided_batch_plain(self.window, [
                 (bases[b][off:off + k], disp, stride, kind)
                 for b, off, k, disp, stride, kind in rows])
@@ -736,8 +762,9 @@ class Target:
         on the card one launch per :func:`plan_read` table."""
         if not self.cuda:
             if any(s == 1 and k > self.size for _d, s, k, _o in rows):
-                raise ValueError(f"read: more elements than the window's "
-                                 f"{self.size}")
+                raise ValueError(  # check: disable=bare-public-raise; wrapper contract
+                    f"read: more elements than the window's "
+                    f"{self.size}")
             rma_read_batch_plain(self.window, rows, out)
             return
         L, op = lib(), out.data_ptr()

@@ -51,8 +51,10 @@ The trace and flight-recorder sites are the reference's (ob1.py:244-245,
 (pack, protocol choice and the first handoff to the btl), an
 ``irecv_post`` marker, a ``send`` span in ``btl`` per rendezvous
 fragment, and on a collective context the last pml seq that moved,
-dump-only detail of the flight recorder. Left out, in ROADMAP: the
-memchecker's sites (:260-267, :401-413; item 10c).
+dump-only detail of the flight recorder. The memchecker's sites are the
+reference's too (:260-267, :401-413): a send checks that the bytes it
+packs are defined, and a receive's bytes are undefined from its post to
+its completion (``check/memchecker``; host buffers only).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ import numpy as np
 
 from ompi_tpu_torch import errors
 from ompi_tpu_torch.btl import base as btl_base
+from ompi_tpu_torch.check import memchecker
 from ompi_tpu_torch.core import (arch, cvar, events, mpool, output,
                                  progress, pvar)
 from ompi_tpu_torch.datatype import BYTE, Convertor, dtype_of
@@ -272,6 +275,12 @@ class Ob1:
             if dtype is None:
                 dtype = dtype_of(buf)
             conv = Convertor(buf, dtype, count)
+            if memchecker.enabled() and count:
+                # the MEMCHECKER annotation of every send entry: flag a
+                # send of undefined bytes, bounded to the count x extent
+                # span packed (a zero-count send reads nothing, and
+                # nbytes 0 would mean the whole buffer)
+                memchecker.check_defined(buf, "send", count * dtype.extent)
         if sync:
             flags |= FLAG_SYNC
         dst_world = comm.world_rank(dst)
@@ -393,6 +402,13 @@ class Ob1:
             dtype = dtype_of(buf)
         req = RecvRequest(ctx, src, tag, buf, count, dtype, False)
         pvar.record("irecv")
+        if buf is not None and memchecker.enabled() and count:
+            # undefined until completion; a second receive racing into the
+            # same bytes is flagged. Only the count x extent bytes the
+            # receive can write are shadowed (the tail of a larger array
+            # is not), and a zero-count receive writes nothing
+            span = count * dtype.extent if dtype is not None else 0
+            memchecker.mark_undefined(req.id, buf, span)
         err = self._recv_src_failed(comm, src)
         if err:
             req.complete(err)

@@ -17,6 +17,7 @@ import itertools
 from typing import Any, List, Optional, Sequence
 
 from ompi_tpu_torch import errors
+from ompi_tpu_torch.check import memchecker
 from ompi_tpu_torch.core import progress
 
 ANY_SOURCE = -1
@@ -130,6 +131,9 @@ class Request:
     def complete(self, error: int = 0) -> None:
         self.status.error = error
         self.completed = True
+        # memchecker: a completed receive's bytes become defined (no-op
+        # unless shadow intervals exist; the reference's request.py:140-142)
+        memchecker.mark_defined(self.id)
 
     def test(self) -> bool:
         if not self.completed:

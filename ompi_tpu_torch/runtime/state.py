@@ -39,8 +39,12 @@ monitoring plane, with the SIGUSR1 message-queue dump
 (``mpir_dump_on_signal``) beside it (:117-129); the skew plane
 (``skew_level`` / ``OMPI_TPU_SKEW``) after telemetry (:155-160); at
 teardown both stop after telemetry, skew first, while the store is up
-(:220-237). None of them may sink init: a failure is logged and init
-goes on. The check plane attaches in its own slice (ROADMAP item 10c).
+(:220-237). The check plane (``check_level`` / ``OMPI_TPU_CHECK``: the
+runtime sanitizer) comes up last, after every plane that wraps methods,
+so it validates a call before the pml and coll layers see it (:164-175);
+at teardown it stops after the monitoring plane, before ingest and the
+transports (:248-256); its leak report has run from the Finalize hook by
+then. None of them may sink init: a failure is logged and init goes on.
 """
 
 from __future__ import annotations
@@ -170,6 +174,17 @@ def init_instance() -> None:
                 skew.start(rank=rte.rank, nranks=rte.size)
             except Exception as exc:  # noqa: BLE001 — never sinks init
                 _out.verbose(0, "skew enable failed: %r", exc)
+        # the check plane (check_level, OMPI_TPU_CHECK): the sanitizer
+        # interposes on the API table, so it comes up last, after every
+        # plane that wraps methods, and validates a call before the pml
+        # and coll layers see it
+        from ompi_tpu_torch import check
+
+        if check.requested():
+            try:
+                check.start(rank=rte.rank)
+            except Exception as exc:  # noqa: BLE001 — never sinks init
+                _out.verbose(0, "check enable failed: %r", exc)
         _instance_up = True
         if not _atexit_registered:
             atexit.register(_atexit_finalize)
@@ -212,8 +227,8 @@ def _teardown() -> None:
     except errors.ProcFailedError:
         pass  # failed ranks of the world released the fence (ft)
     finally:
-        from ompi_tpu_torch import (ingest, monitoring, pml, skew, telemetry,
-                                    tune)
+        from ompi_tpu_torch import (check, ingest, monitoring, pml, skew,
+                                    telemetry, tune)
         from ompi_tpu_torch.runtime import device_plane
 
         try:
@@ -232,6 +247,12 @@ def _teardown() -> None:
         try:  # the matrices' dump, before the pml dies
             monitoring.stop()
         finally:
+            # the sanitizer (its leak report ran from the Finalize hook),
+            # before the transports die
+            try:
+                check.stop()
+            except Exception:  # noqa: BLE001 — teardown goes on
+                pass
             try:
                 # cancels a tail upload, joins the upload threads,
                 # drops the pinned staging ring

@@ -29,9 +29,9 @@ downtime rather than a hang: the verdict carries
 The dump also carries the tune observatory's run-over-run regression
 verdicts (``tune_regressions``) and the skew plane's context (``skew``),
 and at skew level 2 each sweep compares the heartbeat payloads'
-last-arrival stamps to name the slow rank before it hangs. Left out
-until its plane is ported: the dump's ``check_mismatch`` (the
-check-plane sanitizer, ROADMAP item 10c).
+last-arrival stamps to name the slow rank before it hangs, and the
+check-plane sanitizer's last collective signature mismatch
+(``check_mismatch``, the reference's :309-316).
 """
 
 from __future__ import annotations
@@ -315,6 +315,14 @@ class Watchdog:
             "inflight": fl.snapshot(),
             "pvars": pvar.snapshot(),
         }
+        # a collective signature mismatch the check-plane sanitizer
+        # observed is the likeliest root cause of this hang — put it
+        # next to the verdict (optional key, same dump schema)
+        from ompi_tpu_torch.check import sanitizer as _check_san
+
+        san = _check_san.SANITIZER
+        if san is not None and san.last_mismatch is not None:
+            doc["check_mismatch"] = san.last_mismatch
         # an async snapshot in flight is expected d2h/commit work, not
         # a hang — name it (step, phase, chunk progress) so a dump
         # taken mid-snapshot reads as "busy checkpointing", and the

@@ -284,6 +284,24 @@ def test_launcher_tune_skew_tools_modules_are_scanned():
         assert os.path.join("ompi_tpu_torch", mod) in rel, mod
 
 
+def test_check_plane_modules_are_scanned():
+    """Item 10c's check plane (the sanitizer, the memchecker and its core
+    re-export, the lint engine, its rules and CLI) and its example are in
+    the scan."""
+    rel = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for mod in ("check/__init__.py", "check/__main__.py",
+                "check/memchecker.py", "check/sanitizer.py",
+                "core/memchecker.py", "check/lint/__init__.py",
+                "check/lint/model.py", "check/lint/cfg.py",
+                "check/lint/dataflow.py", "check/lint/callgraph.py",
+                "check/lint/sarif.py", "check/lint/rules/__init__.py",
+                "check/lint/rules/collective.py",
+                "check/lint/rules/requests.py", "check/lint/rules/osc.py",
+                "check/lint/rules/conventions.py",
+                "examples/correctness.py"):
+        assert os.path.join("ompi_tpu_torch", mod) in rel, mod
+
+
 #: module aliases the port's emitters call ``emit`` / ``fire`` through
 _EMITTERS = {"events": "emit", "mpit_events": "emit", "peruse": "fire"}
 

@@ -630,10 +630,11 @@ def test_observability_example_tiny(tmp_path):
 # the guard scan
 
 
-_GUARDS = ("RECORDER", "FLIGHT", "PROFILER", "OBSERVER", "SKEW")
+_GUARDS = ("RECORDER", "FLIGHT", "PROFILER", "OBSERVER", "SKEW",
+           "SANITIZER")
 #: the modules that define the guards
 _DEFINERS = {"trace/recorder.py", "telemetry/flight.py", "prof/ledger.py",
-             "tune/observe.py", "skew/record.py"}
+             "tune/observe.py", "skew/record.py", "check/sanitizer.py"}
 
 
 def _compares_name(test, name: str) -> bool:
@@ -691,14 +692,16 @@ def guard_sites(path):
 
 
 def test_guard_sites_are_one_branch():
-    """Every RECORDER / FLIGHT / PROFILER / OBSERVER / SKEW site of the
-    port (the examples are users, not sites) is one attribute load and
-    one branch: the load is the operand of an ``is [not] None`` test, or
-    it is assigned to a local and the next statement branches on that
-    local. The main path's modules read the guards: the tune plane's
+    """Every RECORDER / FLIGHT / PROFILER / OBSERVER / SKEW / SANITIZER
+    site of the port (the examples are users, not sites) is one attribute
+    load and one branch: the load is the operand of an ``is [not] None``
+    test, or it is assigned to a local and the next statement branches on
+    that local. The main path's modules read the guards: the tune plane's
     OBSERVER in coll/cuda's, coll/device's and coll/hier's launch
     funnels, the skew plane's SKEW at the flight recorder's exit, the
-    trace export's skew lane and the watchdog's live view."""
+    trace export's skew lane and the watchdog's live view, and the check
+    plane's SANITIZER in the watchdog's dump and ``check.get_sanitizer``
+    (the sanitizer's own API hook reads its module global, a name)."""
     per_file = {}
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ompi_tpu_torch")):
         if os.path.basename(dirpath) == "examples":
@@ -719,7 +722,7 @@ def test_guard_sites_are_one_branch():
                 "coll/cuda_kernels.py", "coll/hier.py"):
         assert per_file.get(mod, 0) >= 1, (mod, per_file)
     assert sum(per_file.values()) >= 60, per_file
-    observer, skew = {}, {}
+    observer, skew, sanitizer = {}, {}, {}
     for dirpath, _, names in os.walk(os.path.join(ROOT, "ompi_tpu_torch")):
         if os.path.basename(dirpath) == "examples":
             continue
@@ -731,7 +734,8 @@ def test_guard_sites_are_one_branch():
                 with open(path, encoding="utf-8") as f:
                     text = f.read()
                 for table, attr in ((observer, ".OBSERVER"),
-                                    (skew, ".SKEW")):
+                                    (skew, ".SKEW"),
+                                    (sanitizer, ".SANITIZER")):
                     if attr in text:
                         table[rel] = text.count(attr)
     for mod in ("coll/cuda.py", "coll/device.py", "coll/hier.py"):
@@ -739,6 +743,8 @@ def test_guard_sites_are_one_branch():
     for mod in ("telemetry/flight.py", "trace/export.py",
                 "telemetry/watchdog.py"):
         assert skew.get(mod, 0) >= 1, (mod, skew)
+    for mod in ("telemetry/watchdog.py", "check/__init__.py"):
+        assert sanitizer.get(mod, 0) >= 1, (mod, sanitizer)
 
 
 def test_guard_scan_catches_a_second_load(tmp_path):
