@@ -55,11 +55,20 @@ Observability (coll/pallas.py:250-270, :320-440, :636-654): each slot's
 launch runs under a ``launch`` span in ``coll_cuda`` naming the
 algorithm (host time: the kernels run asynchronously) and, at the four
 slots the reference instruments, a flight-recorder entry; one span per
-``coll_cuda_launches``. The arena cache is the port's counterpart of
-coll/xla's plan and compile caches: a new arena is a ``plan_build`` span
-in ``coll_device`` and counts ``prof_compile_{misses,ns}``, a reused one
-is a ``plan_cache_hit`` marker and counts ``prof_compile_hits``
-(:func:`_arena`).
+``coll_cuda_launches``; each bucket of ``fused_rs_update_dev`` is one
+launch of coll/device's funnel (a ``launch`` span in ``coll_device``,
+``op`` ``fused_rs_update``, and one ``coll_device_launches``), as each
+of the reference's buckets is one ``ctx.launch`` (coll/pallas.py:573).
+The arena cache is the port's counterpart of coll/xla's plan and
+compile caches: a new arena is a ``plan_build`` span in ``coll_device``
+and counts ``prof_compile_{misses,ns}``, a reused one counts
+``prof_compile_hits`` (:func:`_arena`; the reference's
+``plan_cache_hit`` marker has no counterpart: ROADMAP queue 3's stated
+differences). Each host step of the transport (:meth:`Arena.run`,
+:meth:`Arena.exchange`) is a ``sync`` span in ``transport`` (the stream
+synchronise: the host blocked on this rank's own launches) and a
+``wait`` span (the counter publish and the spin on the partners), both
+naming the arena's tag as ``op``.
 """
 
 from __future__ import annotations
@@ -380,6 +389,7 @@ class Arena(K.Ring):
     def __init__(self, cid: int, tag: str, rank: int, world,
                  in_bytes: int, slot_bytes: int, nslots: int = 4) -> None:
         n = len(world)
+        self.tag = tag
         self.world = list(world)
         self._maps: List[mmap.mmap] = []
         self._peer_ptrs: List[int] = []
@@ -453,22 +463,36 @@ class Arena(K.Ring):
     def run(self, steps) -> None:
         """Drive one schedule (a cuda_kernels generator): after every
         step, make it visible to the peers and wait for the ranks the
-        next step depends on."""
-        mine = self.flags[self.rank]
+        next step depends on. While the recorder is up each host step is
+        a ``sync`` and a ``wait`` span (:class:`_HostSteps`)."""
+        rec = _trace.RECORDER
+        if rec is None:
+            for dirs in steps:
+                self._sync()
+                self._publish(dirs)
+            return
+        hs = _HostSteps(rec, self)
         for dirs in steps:
-            self._sync()
-            self.advance(dirs)
-            for d in dirs:
-                mine[_FLAG_IDX[d]] = self.linear if d == K.ALL \
-                    else self.hops[d]
-            for d in dirs:
-                if d == K.ALL:
-                    for p in range(self.n):
-                        self._wait(p, d, self.linear)
-                else:
-                    for p in {(self.rank - d) % self.n,
-                              (self.rank + d) % self.n}:
-                        self._wait(p, d, self.hops[d])
+            hs.sync()
+            self._publish(dirs)
+            hs.end()
+
+    def _publish(self, dirs) -> None:
+        """Advance and publish this rank's counters for one step's
+        directions, then wait for the partners to reach them."""
+        mine = self.flags[self.rank]
+        self.advance(dirs)
+        for d in dirs:
+            mine[_FLAG_IDX[d]] = self.linear if d == K.ALL \
+                else self.hops[d]
+        for d in dirs:
+            if d == K.ALL:
+                for p in range(self.n):
+                    self._wait(p, d, self.linear)
+            else:
+                for p in {(self.rank - d) % self.n,
+                          (self.rank + d) % self.n}:
+                    self._wait(p, d, self.hops[d])
 
     def exchange(self, stage, readers, land, sources) -> None:
         """One exchange of a one-sided fence (osc/cuda's transport: a run
@@ -484,21 +508,37 @@ class Arena(K.Ring):
         source -> that rank's region, read through the peer mapping),
         synchronises and publishes "landed". Every member runs every
         exchange in the same order (the exchanges are derived from the same
-        allgathered descriptors), so the counters and parities agree."""
+        allgathered descriptors), so the counters and parities agree.
+
+        While the recorder is up the exchange opens with a ``wait`` span
+        (the waits before its first launch), and each synchronise is a
+        ``sync`` span followed by a ``wait`` span up to the next launch or
+        the exchange's end."""
+        rec = _trace.RECORDER
+        if rec is None:
+            self._exchange(stage, readers, land, sources, self._sync)
+            return
+        hs = _HostSteps(rec, self)
+        hs.t = _trace.now()
+        self._exchange(hs.before(stage), readers, hs.before(land), sources,
+                       hs.sync)
+        hs.end()
+
+    def _exchange(self, stage, readers, land, sources, sync) -> None:
         t, par = self.exchanges, self.exchanges % 2
         mine = self.flags[self.rank]
         if readers:
             for reader, when in self._readers[par]:
                 self._wait(reader, "landed", when + 1)
             stage(self.slot(self.rank, 1, par))
-            self._sync()
+            sync()
             self._readers[par] = [(r, t) for r in readers]
         mine[_FLAG_IDX["staged"]] = t + 1
         if sources:
             for src in sources:
                 self._wait(src, "staged", t + 1)
             land({src: self.slot(src, 1, par) for src in sources})
-            self._sync()
+            sync()
         mine[_FLAG_IDX["landed"]] = t + 1
         self.exchanges = t + 1
 
@@ -577,6 +617,43 @@ class Arena(K.Ring):
         self._paths = []
 
 
+class _HostSteps:
+    """The ``transport`` spans of one traced schedule or exchange: each
+    stream synchronise is a ``sync`` span, and the time from its end to
+    the next launch (the counter publish and the spins on the partners,
+    whether or not one spun) a ``wait`` span; both carry the arena's tag
+    as ``op`` (``rs4294967296``, ``pull1073741824``: the family and the
+    size class). Built only while the recorder is up."""
+
+    __slots__ = ("rec", "arena", "args", "t")
+
+    def __init__(self, rec, arena: Arena) -> None:
+        self.rec = rec
+        self.arena = arena
+        self.args = {"op": arena.tag}
+        self.t = None  # the open wait span's start
+
+    def sync(self) -> None:
+        self.end()
+        t0 = _trace.now()
+        self.arena._sync()
+        self.t = _trace.now()
+        self.rec.record("sync", "transport", t0, self.t, self.args)
+
+    def end(self) -> None:
+        if self.t is not None:
+            self.rec.record("wait", "transport", self.t, _trace.now(),
+                            self.args)
+            self.t = None
+
+    def before(self, launch):
+        """``launch`` with the open wait span closed when it starts."""
+        def run(*args):
+            self.end()
+            return launch(*args)
+        return run
+
+
 def _pow2(nbytes: int) -> int:
     return 1 << max(12, (max(int(nbytes), 1) - 1).bit_length())
 
@@ -591,10 +668,6 @@ def _arena(comm, family: str, nbytes: int) -> Arena:
     if ep is not None:
         if _prof.PROFILER is not None:
             pvar.record("prof_compile_hits")
-        rec = _trace.RECORDER
-        if rec is not None:
-            rec.instant("plan_cache_hit", "coll_device",
-                        {"key": f"{family}{cap}"})
         return ep
     # a new size class: planned and mapped once (collective), the port's
     # counterpart of a compile — timed always, two clock reads against
@@ -780,28 +853,15 @@ def fused_rs_update_dev(comm, grads, pshards, mshards, *, lr: float,
 
 def _fused_rs_update(comm, leaves, pshards, mshards, lr, mu, avg, det,
                      with_mom):
+    from ompi_tpu_torch.coll import device
     from ompi_tpu_torch.zero import layout as zl
 
     plan = pshards.plan
     new_p, new_m = [], []
     for b, idxs in enumerate(plan.buckets):
-        flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
-        dt = flat.dtype
-        lr_c, mu_c = K.shard_const(lr, dt), K.shard_const(mu, dt)
-        inv = K.shard_const(1.0 / comm.size, dt) if avg else None
-        p0 = pshards.shards[b]
-        v0 = mshards.shards[b] if with_mom else None
-        ep = _arena(comm, "rs", flat.numel() * flat.element_size())
-        if det == "linear":
-            g = torch.empty_like(p0)
-            ep.run(K.reduce_scatter(ep, flat, "MPI_SUM", "linear", 1, g))
-            pn, vn = K.shard_update_plain(g, p0, v0, lr_c, mu_c, inv)
-        else:
-            pn = torch.empty_like(p0)
-            vn = torch.empty_like(v0) if with_mom else None
-            ep.run(K.reduce_scatter_update(
-                ep, flat, p0, v0, lr_c, mu_c if with_mom else None, inv,
-                pn, vn))
+        pn, vn = device._launch(_fused_bucket, comm, leaves, pshards,
+                                mshards, b, idxs, lr, mu, avg, det,
+                                with_mom, op="fused_rs_update")
         pvar.record("coll_cuda_fused_launches")
         new_p.append(pn)
         new_m.append(vn)
@@ -810,6 +870,34 @@ def _fused_rs_update(comm, leaves, pshards, mshards, lr, mu, avg, det,
     ms = zl.ShardedState(plan, pshards.metas, pshards.treedef, new_m,
                          comm.rank, comm.size) if with_mom else None
     return ps, ms
+
+
+def _fused_bucket(comm, leaves, pshards, mshards, b, idxs, lr, mu, avg,
+                  det, with_mom):
+    """One bucket of the fused slot (one launch of coll/device's funnel,
+    as coll/pallas.py:573's ``ctx.launch``): the pack, the arena, the
+    ring whose last hop updates the shard (K5), or under 'linear' the
+    rank-order fold (K3) and the eager update. Returns the new parameter
+    and momentum shards (the momentum None without it)."""
+    from ompi_tpu_torch.zero import layout as zl
+
+    plan = pshards.plan
+    flat = zl.pack(leaves, idxs, plan.padded[b] - plan.elems[b])
+    dt = flat.dtype
+    lr_c, mu_c = K.shard_const(lr, dt), K.shard_const(mu, dt)
+    inv = K.shard_const(1.0 / comm.size, dt) if avg else None
+    p0 = pshards.shards[b]
+    v0 = mshards.shards[b] if with_mom else None
+    ep = _arena(comm, "rs", flat.numel() * flat.element_size())
+    if det == "linear":
+        g = torch.empty_like(p0)
+        ep.run(K.reduce_scatter(ep, flat, "MPI_SUM", "linear", 1, g))
+        return K.shard_update_plain(g, p0, v0, lr_c, mu_c, inv)
+    pn = torch.empty_like(p0)
+    vn = torch.empty_like(v0) if with_mom else None
+    ep.run(K.reduce_scatter_update(
+        ep, flat, p0, v0, lr_c, mu_c if with_mom else None, inv, pn, vn))
+    return pn, vn
 
 
 def allgather_matmul_dev(comm, x, w):

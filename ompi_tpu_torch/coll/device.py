@@ -392,20 +392,23 @@ def _meter(tm, kind: str, comm, t, op=None, **kw) -> None:
         tm.coll(kind, comm, t.nbytes, dtype=_dtype_name(t.dtype), **kw)
 
 
-def _launch(fn, *args):
+def _launch(fn, *args, op: Optional[str] = None):
     """Run one launch: the one place that counts
     ``coll_device_launches`` (coll/xla.py:343-356 ``_Ctx.launch``). With
     the trace recorder up a ``launch`` span in ``coll_device`` covers the
     call; the kernels it queues run asynchronously, so on the card the
     span is the host's dispatch and schedule steps, as the reference's
-    is PJRT's dispatch."""
+    is PJRT's dispatch. ``op`` names the launch in the span's args (the
+    ZeRO buckets: ``allgather_multi``, coll/cuda's ``fused_rs_update``),
+    which the reference's span does not carry."""
     pvar.record("coll_device_launches")
     rec = _trace.RECORDER
     if rec is None:
         return fn(*args)
     t0 = _trace.now()
     out = fn(*args)
-    rec.record("launch", "coll_device", t0, _trace.now())
+    rec.record("launch", "coll_device", t0, _trace.now(),
+               None if op is None else {"op": op})
     return out
 
 
@@ -1477,16 +1480,27 @@ def _zero_state_check(comm, state) -> None:
                 "must preserve shape and dtype)")
 
 
-def _gather_bucket(comm, state, b: int):
+def _gather(ep, shard, padded: int, metas, idxs):
+    """One bucket's allgather (one :func:`_launch`, as each of coll/xla's
+    buckets is one ``ctx.launch``, coll/xla.py:1894): every rank's shard
+    into the padded bucket through the pull arena ``ep`` (None for an
+    empty shard), split into the bucket's leaves."""
     from ompi_tpu_torch.zero import layout as zl
 
+    full = shard.new_empty(padded)
+    if ep is not None:
+        ep.run(K.gather(ep, shard, full))
+    return zl.split(full, metas, idxs)
+
+
+def _gather_bucket(comm, state, b: int):
     shard = state.shards[b]
     _check_leaf("allgather_multi", comm, shard)
-    full = shard.new_empty(state.plan.padded[b])
     ep = _cuda._arena(comm, "pull", shard.nbytes)
-    ep.run(K.gather(ep, shard, full))
+    leaves = _launch(_gather, ep, shard, state.plan.padded[b], state.metas,
+                     state.plan.buckets[b], op="allgather_multi")
     pvar.record("zero_ag_launches")
-    return zl.split(full, state.metas, state.plan.buckets[b])
+    return leaves
 
 
 def _allgather_multi_prep(comm, state):
@@ -1520,10 +1534,9 @@ def _allgather_multi_prep(comm, state):
                 "fresh state first")
         outs = [None] * n_leaves
         for b, idxs in enumerate(plan.buckets):
-            full = bound[b].new_empty(plan.padded[b])
-            if eps[b] is not None:
-                eps[b].run(K.gather(eps[b], bound[b], full))
-            for i, leaf in zip(idxs, zl.split(full, state.metas, idxs)):
+            for i, leaf in zip(idxs, _launch(
+                    _gather, eps[b], bound[b], plan.padded[b], state.metas,
+                    idxs, op="allgather_multi")):
                 outs[i] = leaf
             pvar.record("zero_ag_launches")
         pvar.record("zero_fused_bytes", plan.nbytes)

@@ -66,20 +66,24 @@ def tree_flatten(tree) -> Tuple[list, TreeDef]:
     """(leaves, treedef) in jax's order: dict keys sorted, lists and
     tuples in order, None an empty node; anything else is a leaf."""
     leaves: list = []
-
-    def walk(t):
-        if isinstance(t, dict):
-            keys = tuple(sorted(t))
-            return ("dict", keys, tuple(walk(t[k]) for k in keys))
-        if type(t) in (list, tuple):
-            return (type(t).__name__, None, tuple(walk(c) for c in t))
-        if t is None:
-            return ("none", None, ())
-        leaves.append(t)
-        return _LEAF
-
-    spec = walk(tree)
+    spec = _spec(tree, leaves)
     return leaves, TreeDef(spec, len(leaves))
+
+
+def _spec(t, leaves: list):
+    """The structure of ``t``, its leaves appended to ``leaves``. The
+    walkers here recurse through module-level functions, never a nested
+    closure that names itself: such a closure is a reference cycle that
+    would hold the leaves until Python's cyclic collector runs."""
+    if isinstance(t, dict):
+        keys = tuple(sorted(t))
+        return ("dict", keys, tuple(_spec(t[k], leaves) for k in keys))
+    if type(t) in (list, tuple):
+        return (type(t).__name__, None, tuple(_spec(c, leaves) for c in t))
+    if t is None:
+        return ("none", None, ())
+    leaves.append(t)
+    return _LEAF
 
 
 def tree_unflatten(treedef: TreeDef, leaves: Sequence):
@@ -90,20 +94,21 @@ def tree_unflatten(treedef: TreeDef, leaves: Sequence):
             errors.ERR_COUNT,
             f"tree_unflatten: {len(leaves)} leaves for a "
             f"{treedef.num_leaves}-leaf tree")
-    it = iter(leaves)
+    return _build(treedef.spec, iter(leaves))
 
-    def build(s):
-        if s == _LEAF:
-            return next(it)
-        kind, keys, kids = s
-        if kind == "dict":
-            return {k: build(c) for k, c in zip(keys, kids)}
-        if kind == "none":
-            return None
-        vals = [build(c) for c in kids]
-        return vals if kind == "list" else tuple(vals)
 
-    return build(treedef.spec)
+def _build(s, it):
+    """The tree of spec ``s`` over the leaves the iterator ``it`` yields
+    (see :func:`_spec`)."""
+    if s == _LEAF:
+        return next(it)
+    kind, keys, kids = s
+    if kind == "dict":
+        return {k: _build(c, it) for k, c in zip(keys, kids)}
+    if kind == "none":
+        return None
+    vals = [_build(c, it) for c in kids]
+    return vals if kind == "list" else tuple(vals)
 
 
 def tree_leaves(tree) -> list:
@@ -115,19 +120,19 @@ def tree_flatten_with_path(tree) -> list:
     ``("key", k)`` (a dict key) and ``("seq", i)`` (a list or tuple
     index) entries, jax's ``DictKey`` and ``SequenceKey``."""
     out: list = []
-
-    def walk(t, path):
-        if isinstance(t, dict):
-            for k in sorted(t):
-                walk(t[k], path + (("key", k),))
-        elif type(t) in (list, tuple):
-            for i, c in enumerate(t):
-                walk(c, path + (("seq", i),))
-        elif t is not None:
-            out.append((path, t))
-
-    walk(tree, ())
+    _paths(tree, (), out)
     return out
+
+
+def _paths(t, path, out: list) -> None:
+    if isinstance(t, dict):
+        for k in sorted(t):
+            _paths(t[k], path + (("key", k),), out)
+    elif type(t) in (list, tuple):
+        for i, c in enumerate(t):
+            _paths(c, path + (("seq", i),), out)
+    elif t is not None:
+        out.append((path, t))
 
 
 def keystr(path) -> str:

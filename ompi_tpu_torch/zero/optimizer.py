@@ -30,6 +30,7 @@ import torch
 from ompi_tpu_torch import errors, op as op_mod
 from ompi_tpu_torch.coll import cuda_kernels as K
 from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.trace import recorder as _trace
 from ompi_tpu_torch.zero import layout as _layout
 
 
@@ -165,7 +166,18 @@ class ZeroOptimizer:
 
     def step(self, grads):
         """reduce-scatter -> shard update -> allgather; returns the new
-        replicated parameter pytree."""
+        replicated parameter pytree. While the trace recorder is up the
+        whole step is a ``step`` span in ``zero`` (host time), fused or
+        not."""
+        rec = _trace.RECORDER
+        if rec is None:
+            return self._step(grads)
+        t0 = _trace.now()
+        out = self._step(grads)
+        rec.record("step", "zero", t0, _trace.now())
+        return out
+
+    def _step(self, grads):
         mom = self.state.slots.get("momentum")
         if self._fused and "fused_rs_update_dev" in self._comm.coll.fns:
             fused = self._comm.coll.fused_rs_update_dev(

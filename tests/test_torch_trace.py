@@ -719,7 +719,7 @@ def test_guard_sites_are_one_branch():
                 "accelerator/__init__.py", "pml/ob1.py", "btl/base.py",
                 "part/host.py", "osc/cuda.py", "zero/zero3.py",
                 "serve/loop.py", "ingest/engine.py", "elastic/context.py",
-                "coll/cuda_kernels.py", "coll/hier.py"):
+                "coll/cuda_kernels.py", "coll/hier.py", "zero/optimizer.py"):
         assert per_file.get(mod, 0) >= 1, (mod, per_file)
     assert sum(per_file.values()) >= 60, per_file
     observer, skew, sanitizer = {}, {}, {}

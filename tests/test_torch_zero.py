@@ -22,6 +22,14 @@ whose fused epilogue may contract a multiply-add; 2e-2 for the bfloat16
 leaf); the port's own fused default bitwise equal to its unfused
 ``'ring'`` step; allgather_matmul |err| <= tol * (|x| @ |w|) with tol
 1e-5 float32, 2e-2 bfloat16, int32 exact.
+
+One more port job, on 4 ranks, runs the fused ring and the fused
+'linear' step under the span recorder over the same multi-bucket plan:
+each bucket one ``coll_device`` launch inside the optimizer's ``zero``
+step span, each host step one ``transport`` sync / wait pair inside a
+launch, the persistent allgather counting one launch a bucket, and no
+span dropped at a traced benchmark run's length. In this process the
+pytree walkers free their leaves without the cyclic collector.
 """
 
 import json
@@ -330,6 +338,164 @@ def results(request, tmp_path_factory):
         assert rc == 0, f"port job exited {rc}"
         _jobs[n] = out
     return n, _jobs[n]
+
+
+#: the traced 4-rank job: ZeRO-2 steps of the fused ring and of the
+#: fused 'linear' over the multi-bucket plan, under the span recorder
+_TRACED_PROG = """
+import json
+import numpy as np
+from ompi_tpu_torch import compat, mpi
+from ompi_tpu_torch.core import pvar
+from ompi_tpu_torch.trace import recorder
+from ompi_tpu_torch.zero import ZeroOptimizer, layout as zl
+comm = mpi.Init()
+rank, size = comm.rank, comm.size
+{inputs}
+params = compat.tree_from_numpy(make_params())
+doc = {{"buckets": len(zl.plan_for(zl.tree_leaves(params), size).buckets),
+        "capacity": recorder.Recorder().capacity}}
+for mode, det in (("ring", None), ("linear", "linear")):
+    opt = ZeroOptimizer(comm, params, lr=0.1, momentum=0.9,
+                        deterministic=det, fused=True)
+    opt.step(compat.tree_from_numpy(make_grads(rank, 0)))  # arenas mapped
+    rec = recorder.enable(rank=rank)
+    rec.clear()
+    s = pvar.session()
+    for step in range({steps}):
+        opt.step(compat.tree_from_numpy(make_grads(rank, step)))
+    recorder.disable()
+    doc[mode] = {{
+        "spans": [[sp.name, sp.subsys, sp.t0, sp.t1,
+                   (sp.args or {{}}).get("op")] for sp in rec.spans()],
+        "launches": s.read("coll_device_launches"),
+        "dropped": s.read("trace_dropped")}}
+# the persistent form (stage 3's): one launch a bucket at each start
+s = pvar.session()
+req = comm.Allgather_multi_init(opt.state.params)
+for _ in range(2):
+    req.start()
+    req.wait()
+req.free()
+doc["persistent"] = s.read("coll_device_launches")
+with open({out!r} + f"/traced_r{{rank}}.json", "w") as fh:
+    json.dump(doc, fh)
+mpi.Finalize()
+"""
+#: ZeRO steps the traced job records a mode
+TRACED_STEPS = 2
+#: the steps of a traced run of a one-card cell the recorder holds (the
+#: last four fifths of a 10 s window at about 14 ms a step)
+TRACED_RUN_STEPS = 550
+
+
+@pytest.fixture(scope="module")
+def traced(tmp_path_factory):
+    """Every rank's record of the traced 4-rank job."""
+    out = tmp_path_factory.mktemp("zero_traced")
+    rc = _port_job(_TRACED_PROG.format(inputs=_INPUTS, out=str(out),
+                                       steps=TRACED_STEPS), 4, PORT_MCA)
+    assert rc == 0, f"port job exited {rc}"
+    return [json.loads((out / f"traced_r{r}.json").read_text())
+            for r in range(4)]
+
+
+def _inside(span, spans) -> bool:
+    return any(o[2] <= span[2] and span[3] <= o[3] for o in spans)
+
+
+@pytest.mark.parametrize("mode", ["ring", "linear"])
+def test_transport_spans_pair_up_inside_the_launches(traced, mode):
+    """Each host step of a schedule is one ``sync`` and one ``wait`` span
+    in ``transport`` (the wait begins where the sync ends), naming the
+    arena, and every one lies inside a ``coll_device`` launch: a bucket's
+    ring is n host steps (its staging and n - 1 hops), 'linear''s fold
+    two, the allgather's pull two."""
+    for r, doc in enumerate(traced):
+        spans = doc[mode]["spans"]
+        tr = sorted((s for s in spans if s[1] == "transport"),
+                    key=lambda s: s[2])
+        launches = [s for s in spans if s[0] == "launch"
+                    and s[1] == "coll_device"]
+        per_bucket = (4 if mode == "ring" else 2) + 2
+        assert len(tr) == 2 * per_bucket * doc["buckets"] * TRACED_STEPS
+        for sync, wait in zip(tr[::2], tr[1::2]):
+            assert (sync[0], wait[0]) == ("sync", "wait"), (r, sync, wait)
+            assert wait[2] == sync[3] and sync[4] == wait[4]
+            assert sync[4].startswith(("rs", "pull")), sync
+        assert all(_inside(s, launches) for s in tr), r
+
+
+@pytest.mark.parametrize("mode", ["ring", "linear"])
+def test_each_bucket_is_one_launch_inside_the_zero_step(traced, mode):
+    """The fused slot's buckets and the allgather's buckets each run as
+    one launch of coll/device's funnel (``launch`` spans in
+    ``coll_device`` naming the slot, one ``coll_device_launches`` each,
+    as each of the reference's buckets is one ``coll_xla_launches``),
+    inside the optimizer's ``step`` span in ``zero``; the fused slot
+    stays one ``coll_cuda`` launch a step."""
+    for doc in traced:
+        spans, b = doc[mode]["spans"], doc["buckets"]
+        steps = [s for s in spans if (s[0], s[1]) == ("step", "zero")]
+        launches = [s for s in spans if s[0] == "launch"
+                    and s[1] == "coll_device"]
+        assert len(steps) == TRACED_STEPS
+        assert sorted(s[4] for s in launches) == \
+            ["allgather_multi"] * (b * TRACED_STEPS) \
+            + ["fused_rs_update"] * (b * TRACED_STEPS)
+        assert doc[mode]["launches"] == len(launches)
+        assert all(_inside(s, steps) for s in launches)
+        cuda = [s for s in spans if s[0] == "launch" and s[1] == "coll_cuda"]
+        assert len(cuda) == TRACED_STEPS and all(
+            _inside(s, cuda) for s in launches
+            if s[4] == "fused_rs_update")
+        assert not [s for s in spans if s[0] == "plan_cache_hit"]
+
+
+def test_persistent_allgather_counts_each_bucket_once(traced):
+    """Each start of the persistent allgather (ZeRO stage 3's request)
+    launches every bucket once through the funnel, and nothing more."""
+    for doc in traced:
+        assert doc["persistent"] == 2 * doc["buckets"]
+
+
+def test_a_traced_run_drops_no_span(traced):
+    """A step's spans times the steps of a one-card cell's traced run
+    fit the recorder's ring (``trace_buffer_spans``), so the benchmark's
+    readers see every span: nothing was dropped here either."""
+    for doc in traced:
+        for mode in ("ring", "linear"):
+            assert doc[mode]["dropped"] == 0
+            per_step = len(doc[mode]["spans"]) / TRACED_STEPS + 1
+            assert per_step * TRACED_RUN_STEPS < doc["capacity"], per_step
+
+
+def test_tree_unflatten_frees_its_leaves_without_the_collector():
+    """The pytree walkers hold no reference cycle: with the cyclic
+    collector off, the leaves of a ``tree_unflatten`` result (dict, list,
+    tuple and None nodes) and of a ``tree_flatten`` input die as soon as
+    the last reference goes."""
+    import gc
+    import weakref
+
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        leaves = [torch.ones(3), torch.ones(2), torch.ones(4),
+                  torch.ones(1)]
+        refs = [weakref.ref(x) for x in leaves]
+        tree = {"b": [leaves[0], None, (leaves[1], {"a": leaves[2]})],
+                "a": leaves[3]}
+        flat, treedef = zl.tree_flatten(tree)
+        out = zl.tree_unflatten(treedef, flat)
+        assert zl.tree_leaves(out) == flat
+        paths = zl.tree_flatten_with_path(out)
+        assert [p for p, _ in paths][0] == (("key", "a"),)
+        del leaves, tree, flat, out, paths
+        assert [r() for r in refs] == [None] * 4
+    finally:
+        if was:
+            gc.enable()
 
 
 def _pair(out, name, r):
