@@ -907,6 +907,17 @@ def _pull_steps(ep: Ring, pieces, copies) -> Iterator[Tuple]:
     yield (ALL,)  # every rank has read every input: safe to restage
 
 
+def _rotated(ep: Ring) -> List[int]:
+    """The sources of a pull in the order this rank reads them: position
+    s reads rank (rank + s) mod n, the own block first. At every
+    position the n ranks then read n distinct sources, so each source's
+    outgoing link (NVLink across cards) serves one reader at a time,
+    where an order shared by every rank would split one source's link
+    among all of them. The blocks land at disjoint places, so the order
+    does not change the output."""
+    return [(ep.rank + s) % ep.n for s in range(ep.n)]
+
+
 def bcast(ep: Ring, flat: torch.Tensor, root: int,
           out: torch.Tensor) -> Iterator[Tuple]:
     """Broadcast of the root's 1-D ``flat`` into every rank's ``out``: the
@@ -922,22 +933,24 @@ def alltoall(ep: Ring, flat: torch.Tensor,
              out: torch.Tensor) -> Iterator[Tuple]:
     """All-to-all of the 1-D ``flat`` (n blocks): block p of ``out`` is
     block ``rank`` of rank p's input (n K2 copies), as ``lax.all_to_all``
-    with split and concat on dim 0."""
+    with split and concat on dim 0. The copies run in
+    :func:`_rotated` order, so no two ranks read one source at once."""
     n, r = ep.n, ep.rank
     b = flat.numel() // n
     return _pull_steps(ep, [(flat, 0)], [
         (_view(ep.inputs[p], flat.dtype, r * b, b), out[p * b:(p + 1) * b])
-        for p in range(n)])
+        for p in _rotated(ep)])
 
 
 def gather(ep: Ring, flat: torch.Tensor,
            out: torch.Tensor) -> Iterator[Tuple]:
     """Gather of every rank's 1-D ``flat`` (m elements) into ``out`` (n*m,
-    rank p's block at p*m): n K2 copies, as ``lax.all_gather``."""
+    rank p's block at p*m): n K2 copies, as ``lax.all_gather``, in
+    :func:`_rotated` order, so no two ranks read one source at once."""
     m = flat.numel()
     return _pull_steps(ep, [(flat, 0)], [
         (_view(ep.inputs[p], flat.dtype, 0, m), out[p * m:(p + 1) * m])
-        for p in range(ep.n)])
+        for p in _rotated(ep)])
 
 
 def ragged(ep: Ring, dtype, pieces, spans,
